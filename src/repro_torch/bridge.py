@@ -1,0 +1,61 @@
+"""Parameters across the two packages, through numpy.
+
+:func:`params_from_numpy` turns the reference's parameter tree — nested
+dicts of arrays as ``repro.models.lm.init`` builds them, handed over as
+numpy arrays — into the port's :class:`repro_torch.models.lm.LM`, and
+:func:`params_to_numpy` goes back. This is how both packages compute on
+the same weights in the tests.
+
+bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
+own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` refuses), so a bfloat16 leaf goes in through
+an int16 view and comes back as a ``uint16`` array of the same bits —
+``arr.view(ml_dtypes.bfloat16)`` restores the reference's dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.lm import LM
+
+
+def _leaf_to_torch(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    return _leaf_to_torch(tree, device)
+
+
+def params_from_numpy(tree: dict, device="cuda", *,
+                      cfg: Optional[ModelConfig] = None) -> LM:
+    """The reference's parameter tree (numpy leaves) as the port's module
+    on ``device``; every leaf is copied, never shared with the array.
+    ``cfg`` is only needed to call the module itself."""
+    return LM(cfg, _tree_to_torch(tree, torch.device(device)))
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().copy()
+
+
+def params_to_numpy(module: LM) -> dict:
+    """The port's parameters as the reference's nested dict of numpy
+    arrays (bfloat16 leaves as their ``uint16`` bit patterns)."""
+    return _tree_to_numpy(module.to_dict())

@@ -1,0 +1,115 @@
+"""Plain PyTorch versions of the hand-written kernels (port of the oracles
+in ``repro/kernels/ref.py``).
+
+Each function computes what its CUDA kernel computes, op for op, with
+ordinary tensor code. They are what a kernel wrapper in
+:mod:`repro_torch.kernels.ops` runs for a tensor on the CPU, and the
+oracle the kernels are held against on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``). Layouts are the reference's at every
+argument, so the CPU tests feed both packages the same numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+INV_QMAX = 0.007874015718698502   #: float32(1 / 127), exactly
+
+
+def _gather_pages(pages, table, scales=None):
+    """pages [Hkv, NB, bs, D] through ``table`` (any int shape) ->
+    float32 [Hkv, *table.shape, bs, D], dequantized when ``scales``."""
+    idx = table.long()
+    out = pages[:, idx].float()
+    if scales is not None:
+        out = out * scales[:, idx]
+    return out
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                               *, scale: Optional[float] = None,
+                               k_scales=None, v_scales=None):
+    """q: [B, Hq, D]; k_pages/v_pages: [Hkv, NB, bs, D]; block_tables:
+    [B, T] int32; ctx_lens: [B] int32. Gathers each lane's logical KV
+    view through its table, dequantizes when scales are given, masks
+    positions >= ctx_len and runs softmax attention in float32. Lanes
+    with ``ctx_lens == 0`` return zeros. Positions past ``ctx_len`` are
+    zeroed before the value product, so a dead slot pointing at a
+    poisoned null block cannot leak NaN into a live lane — the kernel
+    never loads such a block at all. Returns [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    hkv, _, bs, _ = k_pages.shape
+    g = hq // hkv
+    t = block_tables.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    k = _gather_pages(k_pages, block_tables, k_scales)  # [Hkv, B, T, bs, D]
+    v = _gather_pages(v_pages, block_tables, v_scales)
+    k = k.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    v = v.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    kp = torch.arange(t * bs, device=q.device)
+    mask = kp[None, :] < ctx_lens.long()[:, None]            # [B, T*bs]
+    v = torch.where(mask[:, None, :, None], v, 0.0)
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k) * scale
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v)
+    o = torch.where((ctx_lens > 0)[:, None, None, None], o, 0.0)
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, block_table,
+                                q_offset: int, ctx_len: int, *,
+                                scale: Optional[float] = None,
+                                k_scales=None, v_scales=None):
+    """q: [Hq, C, D] (row ``c`` at absolute position ``q_offset + c``);
+    k_pages/v_pages: [Hkv, NB, bs, D] pools already holding the chunk's
+    own K/V; block_table: [T] int32. Causal mask from absolute positions
+    (``kp <= q_offset + c`` and ``kp < ctx_len``); rows past ``chunk_len
+    = ctx_len - q_offset`` are padding and come back finite but
+    meaningless. Returns [Hq, C, D] in q's dtype."""
+    hq, c, d = q.shape
+    hkv, _, bs, _ = k_pages.shape
+    g = hq // hkv
+    t = block_table.shape[0]
+    scale = scale if scale is not None else d ** -0.5
+    k = _gather_pages(k_pages, block_table, k_scales).reshape(hkv, t * bs, d)
+    v = _gather_pages(v_pages, block_table, v_scales).reshape(hkv, t * bs, d)
+    kp = torch.arange(t * bs, device=q.device)
+    v = torch.where((kp < ctx_len)[None, :, None], v, 0.0)
+    qg = q.reshape(hkv, g, c, d).float()
+    s = torch.einsum("hgcd,hkd->hgck", qg, k) * scale
+    qp = q_offset + torch.arange(c, device=q.device)
+    mask = (kp[None, :] <= qp[:, None]) & (kp[None, :] < ctx_len)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("hgck,hkd->hgcd", p, v)
+    return o.reshape(hq, c, d).to(q.dtype)
+
+
+def quantize_int8_ref(x, bits):
+    """Rowwise-absmax int8 stochastic quantization. x: [M, 128] float;
+    bits: [M, 128] torch.uint32 raw random words. Returns (q int8
+    [M, 128], scale float32 [M, 1]); all-zero rows emit scale 0 / q 0.
+    The scale is ``absmax * float32(1/127)`` — the reference's compiled
+    arithmetic, where XLA folds the division by the constant 127 into a
+    multiplication — the bits go to float32 through int64 (round to
+    nearest, as the reference's uint32 -> float32 conversion), and
+    ``x / scale`` is a correctly rounded division: the codes match the
+    kernel and the reference bitwise."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=1, keepdim=True)
+    safe = torch.where(absmax > 0.0,
+                       absmax * torch.full_like(absmax, INV_QMAX),
+                       torch.ones_like(absmax))
+    u = bits.to(torch.int64).to(torch.float32) * (2.0 ** -32)
+    q = torch.clamp(torch.floor(xf / safe + u), -127.0, 127.0).to(torch.int8)
+    scale = torch.where(absmax > 0.0, safe, torch.zeros_like(absmax))
+    return q, scale
+
+
+def dequantize_int8_ref(q, scale, *, dtype=torch.float32):
+    """Inverse of :func:`quantize_int8_ref`: ``q * scale``."""
+    return (q.float() * scale).to(dtype)

@@ -1,0 +1,123 @@
+"""The hand-written kernels against their plain versions on the card.
+
+Marked ``cuda``: without a CUDA device every test skips. On a machine
+with one (no JAX needed — this file imports only the port):
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 attention 1e-5 (both sides compute in float32, in
+different orders); bfloat16 attention 2e-2 (one bfloat16 rounding of the
+output); the quantizer bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged(rng, dev, dtype, hkv, bs, d, ctx_list):
+    need = [-(-c // bs) for c in ctx_list]
+    nb = 2 + sum(need)
+    tables = np.zeros((len(ctx_list), max(need) + 1), np.int32)
+    phys, i = rng.permutation(np.arange(1, nb)), 0
+    for lane, n in enumerate(need):
+        tables[lane, :n] = phys[i:i + n]
+        i += n
+    shape = (hkv, nb, bs, d)
+    if dtype == torch.int8:
+        k = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        v = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        ks = torch.tensor(rng.uniform(1e-3, 2e-2, shape[:3] + (1,)),
+                          dtype=torch.float32)
+        vs = torch.tensor(rng.uniform(1e-3, 2e-2, shape[:3] + (1,)),
+                          dtype=torch.float32)
+        ks[:, 0] = vs[:, 0] = float("nan")      # poisoned null block
+        pools = (k, v, ks, vs)
+    else:
+        k = torch.tensor(rng.standard_normal(shape), dtype=dtype)
+        v = torch.tensor(rng.standard_normal(shape), dtype=dtype)
+        k[:, 0] = v[:, 0] = float("nan")
+        pools = (k, v, None, None)
+    return (torch.tensor(tables, device=dev),
+            *[None if t is None else t.to(dev) for t in pools])
+
+
+CASES = [(torch.float32, torch.float32, 1e-5),
+         (torch.bfloat16, torch.bfloat16, 2e-2),
+         (torch.float32, torch.int8, 1e-5),
+         (torch.bfloat16, torch.int8, 2e-2)]
+IDS = ["f32", "bf16", "f32-int8", "bf16-int8"]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,atol", CASES, ids=IDS)
+@pytest.mark.parametrize("hq,hkv,d,bs", [(16, 8, 64, 16), (4, 4, 32, 8)],
+                         ids=["flad-gqa2", "mha"])
+def test_paged_decode_kernel(dev, q_dtype, kv_dtype, atol, hq, hkv, d, bs):
+    rng = np.random.default_rng(0)
+    ctx_list = [0, 1, bs, 3 * bs + 5, 0, 200]
+    tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, hkv, bs, d, ctx_list)
+    q = torch.tensor(rng.standard_normal((len(ctx_list), hq, d)),
+                     dtype=q_dtype, device=dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    n = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, k, v, tables, ctx, k_scales=ks,
+                                     v_scales=vs)
+    want = ref.paged_decode_attention_ref(q, k, v, tables, ctx, k_scales=ks,
+                                          v_scales=vs)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == n + 1
+    assert torch.isfinite(got).all() and not got[ctx == 0].any()
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,atol", CASES, ids=IDS)
+@pytest.mark.parametrize("q_offset,chunk_len", [(0, 16), (48, 16), (96, 5)],
+                         ids=["first", "middle", "partial-last"])
+def test_paged_prefill_kernel(dev, q_dtype, kv_dtype, atol, q_offset,
+                              chunk_len):
+    rng = np.random.default_rng(1)
+    hq, hkv, d, bs, c = 16, 8, 64, 16, 16
+    tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, hkv, bs, d, [101])
+    q = torch.tensor(rng.standard_normal((hq, c, d)), dtype=q_dtype,
+                     device=dev)
+    args = (q, k, v, tables[0], q_offset, q_offset + chunk_len)
+    got = ops.paged_prefill_attention(*args, k_scales=ks, v_scales=vs)
+    want = ref.paged_prefill_attention_ref(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got[:, :chunk_len].float() - want[:, :chunk_len].float()).abs()
+    assert float(err.max()) <= atol
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["random", "pinned"])
+def test_quantize_kernel_bitwise(dev, pinned):
+    rng = np.random.default_rng(2)
+    m = 1000
+    x = torch.tensor(rng.standard_normal((m, ops.LANES))
+                     * rng.uniform(1e-3, 1e3, (m, 1)), dtype=torch.float32)
+    x[3] = 0.0
+    x[5, 64:] = 0.0
+    if pinned:
+        bits = np.full((m, ops.LANES), 1 << 31, np.uint32)
+    else:
+        bits = rng.integers(0, 2 ** 32, (m, ops.LANES),
+                            dtype=np.uint64).astype(np.uint32)
+    x = x.to(dev)
+    bits = torch.from_numpy(bits.view(np.int32)).to(dev).view(torch.uint32)
+    q, s = ops.quantize_int8(x, bits)
+    qr, sr = ref.quantize_int8_ref(x, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert float(s[3]) == 0.0 and not q[3].any()
