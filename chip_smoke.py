@@ -48,8 +48,8 @@ ATOL_BF16 = 2e-2               # attention output, bf16, vs float32 plain
 # logits of the whole 16-layer path, paged (kernels) vs contiguous (plain
 # attention), teacher-forced: float32 differs only in summation order;
 # bf16 also rounds the attention output at different points
-ORACLE_ATOL_F32 = 2e-3
-ORACLE_ATOL_BF16 = 0.5
+ORACLE_ATOL_F32 = 1e-4
+ORACLE_ATOL_BF16 = 0.25
 TRACE = dict(fleet="nano*2,agx*2", num_requests=12, max_prompt=96, seed=0)
 LIBRARY_NOTE = ("no single PyTorch call computes paged attention through "
                 "a block table or this stochastic int8 quantizer")
@@ -73,6 +73,38 @@ def time_ms(fn, iters=200, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, match=None, iters=50):
+    """Mean device time per call of ``fn`` from torch.profiler's CUDA
+    trace: the summed durations of the kernels whose name contains
+    ``match`` (every kernel when None), divided by ``iters``. None when
+    the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if match is None or match in evt.key:
+            total += (getattr(evt, "device_time_total", 0)
+                      or getattr(evt, "cuda_time_total", 0))
+    return total / iters / 1e3 if total > 0 else None
+
+
+def timings(kernel_fn, plain_fn, match):
+    """(kernel device ms, plain device ms, kernel ms per call on the host
+    clock incl. the wrapper) — device times from the profiler, falling
+    back to CUDA events over back-to-back calls when it saw nothing."""
+    call = time_ms(kernel_fn)
+    k = device_ms(kernel_fn, match)
+    p = device_ms(plain_fn, None, iters=20)
+    return (k if k is not None else call,
+            p if p is not None else time_ms(plain_fn, iters=50), call)
 
 
 def bound(nbytes, flops, flops_rate):
@@ -143,12 +175,14 @@ def kernel_checks(torch, cfg, dev):
         err = float((got.float() - want.float()).abs().max())
         check(err <= ATOL_BF16, f"decode {name}: max err {err} > {ATOL_BF16}")
         errs.append(err)
-        times[name] = (time_ms(lambda: ops.paged_decode_attention(*args, **kw)),
-                       time_ms(lambda: ref.paged_decode_attention_ref(*args, **kw),
-                               iters=50))
+        times[name] = timings(
+            lambda: ops.paged_decode_attention(*args, **kw),
+            lambda: ref.paged_decode_attention_ref(*args, **kw),
+            "paged_decode_kernel")
         print(f"[kernel] paged_decode_attention {name} pools: max|err| "
-              f"{err:.3e} (atol {ATOL_BF16}), kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms")
+              f"{err:.3e} (atol {ATOL_BF16}); device: kernel "
+              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms; "
+              f"host clock per call {times[name][2]:.5f} ms")
     # main path: bf16 pools
     nbytes = (2 * q.numel() * 2 + 2 * rows * hkv * d * 2
               + tables.numel() * 4 + ctx.numel() * 4)
@@ -157,8 +191,8 @@ def kernel_checks(torch, cfg, dev):
         source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/flash_attention.py:304",
         max_abs_err=max(errs), ms=times["bf16"][0], plain_ms=times["bf16"][1],
-        bound_ms=b_ms, bound_by=b_by, int8_ms=times["int8"][0],
-        int8_plain_ms=times["int8"][1])
+        call_ms=times["bf16"][2], bound_ms=b_ms, bound_by=b_by,
+        int8_ms=times["int8"][0], int8_plain_ms=times["int8"][1])
 
     # ---- paged prefill: first, middle and partial last chunk
     ctx_max = max(o + c for o, c in PREFILL_CHUNKS)
@@ -183,13 +217,15 @@ def kernel_checks(torch, cfg, dev):
                   f"prefill {name} @{off}: max err {err} > {ATOL_BF16}")
             errs.append(err)
         # time the partial last chunk, the longest context
-        times[name] = (time_ms(lambda: ops.paged_prefill_attention(*args, **kw)),
-                       time_ms(lambda: ref.paged_prefill_attention_ref(*args, **kw),
-                               iters=50))
+        times[name] = timings(
+            lambda: ops.paged_prefill_attention(*args, **kw),
+            lambda: ref.paged_prefill_attention_ref(*args, **kw),
+            "paged_prefill_kernel")
         print(f"[kernel] paged_prefill_attention {name} pools: max|err| "
-              f"{max(errs):.3e} (atol {ATOL_BF16}), kernel "
-              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-              f"(chunk at {off}, {clen} rows)")
+              f"{max(errs):.3e} (atol {ATOL_BF16}); device: kernel "
+              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms; "
+              f"host clock per call {times[name][2]:.5f} ms (chunk at "
+              f"{off}, {clen} rows)")
     off, clen = PREFILL_CHUNKS[-1]
     ctx_len = off + clen
     nbytes = (2 * hq * CHUNK * d * 2 + 2 * ctx_len * hkv * d * 2
@@ -200,8 +236,8 @@ def kernel_checks(torch, cfg, dev):
         source="src/repro_torch/kernels/csrc/paged_prefill.cu",
         replaces="src/repro/kernels/flash_attention.py:442",
         max_abs_err=max(errs), ms=times["bf16"][0], plain_ms=times["bf16"][1],
-        bound_ms=b_ms, bound_by=b_by, int8_ms=times["int8"][0],
-        int8_plain_ms=times["int8"][1])
+        call_ms=times["bf16"][2], bound_ms=b_ms, bound_by=b_by,
+        int8_ms=times["int8"][0], int8_plain_ms=times["int8"][1])
 
     # ---- quantize: bitwise, random and pinned bits, an all-zero row
     m = hkv * CHUNK                 # rows of one layer's chunk K (or V)
@@ -224,16 +260,18 @@ def kernel_checks(torch, cfg, dev):
               f"scales")
         check(float(sk[5]) == 0.0 and not bool(qk[5].any()),
               "quantize: zero row must give scale 0 and q 0")
-    ms = time_ms(lambda: ops.quantize_int8(x, pinned))
-    plain = time_ms(lambda: ref.quantize_int8_ref(x, pinned), iters=50)
+    ms, plain, call = timings(lambda: ops.quantize_int8(x, pinned),
+                              lambda: ref.quantize_int8_ref(x, pinned),
+                              "quantize_int8_kernel")
     print(f"[kernel] quantize_int8: bitwise equal (random and pinned bits, "
-          f"zero row), kernel {ms:.4f} ms, plain {plain:.4f} ms ({m} rows)")
+          f"zero row); device: kernel {ms:.5f} ms, plain {plain:.5f} ms; "
+          f"host clock per call {call:.5f} ms ({m} rows)")
     nbytes = m * ops.LANES * (4 + 4 + 1) + m * 4
     b_ms, b_by = bound(nbytes, 4 * m * ops.LANES, F32_FLOPS_PER_S)
     out["quantize_int8"] = dict(
         source="src/repro_torch/kernels/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:70", max_abs_err=0.0,
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        ms=ms, plain_ms=plain, call_ms=call, bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -277,6 +315,51 @@ def serve_main_path(torch, cfg, params, dev):
     for name, n in totals.items():
         check(n > 0, f"{name} was never launched on the main path")
     return totals, reports
+
+
+def profile_decode(torch, cfg, params, dev, steps=10):
+    """Warm decode steps with all lanes live: wall time per step on the
+    host clock, and the device's busy time per step from torch.profiler
+    (the summed kernel, copy and fill durations on the one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import (ContinuousScheduler, PagedCacheSpec,
+                                   PagedEngine, generate_fleet_requests)
+    spec = PagedCacheSpec.for_requests(SLOTS, 96 + 110, block_size=BLOCK)
+    eng = PagedEngine(cfg, spec, max_context=128, slots=SLOTS, device=dev)
+    sched = ContinuousScheduler(eng, params, prefill="chunked",
+                                prefill_chunk=CHUNK)
+    for r in generate_fleet_requests(
+            TRACE["fleet"], num_requests=SLOTS, max_prompt=96, seed=1,
+            short_new=(100, 110), long_new=(100, 110),
+            vocab_size=cfg.vocab_size):
+        sched.submit(r)
+    while not (sched.num_active == SLOTS and sched.prefill_done.all()):
+        sched.step()
+
+    def run():
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                   e.count // steps, e.key[:60])
+                  for e in prof.key_averages())[::-1]
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"[profile] warm decode step, {SLOTS} live lanes: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (idle "
+          f"{100 * (1 - busy / wall):.1f}%), {launches} device ops/step, "
+          f"{SLOTS / wall * 1e3:.0f} tok/s")
+    for t, n, key in rows[:6]:
+        print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    return wall, busy
 
 
 def contiguous_oracle(torch, cfg, params, dev, streams, prompts):
@@ -375,6 +458,7 @@ def main():
           f"{cfg.d_model}, {n_params / 1e6:.1f} M params in {cfg.param_dtype}"
           f" ({time.perf_counter() - t0:.1f} s to init)")
     launches, reports = serve_main_path(torch, cfg, params, dev)
+    profile_decode(torch, cfg, params, dev)
 
     # 5. paged path vs contiguous oracle, teacher-forced on served streams
     seqs = reports["fp32"]["sequences"]
@@ -412,8 +496,8 @@ def main():
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None,
-                     **{x: k[x] for x in ("int8_ms", "int8_plain_ms")
-                        if x in k}})
+                     **{x: k[x] for x in ("call_ms", "int8_ms",
+                                          "int8_plain_ms") if x in k}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

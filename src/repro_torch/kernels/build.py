@@ -96,6 +96,9 @@ def build_all() -> Dict[str, dict]:
 def load(stem: str) -> ctypes._CFuncPtr:
     """The bound C entry point of kernel library ``stem``, building the
     libraries first if needed."""
+    fn = _entries.get(stem)
+    if fn is not None:
+        return fn
     with _lock:
         fn = _entries.get(stem)
         if fn is None:
