@@ -1,21 +1,31 @@
 // Shared device code of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): one CTA attends a handful of query rows through one
-// lane's block table with the online-softmax recurrence, everything in
-// float32.
+// paged_prefill.cu): one CTA attends up to kMaxRows query rows of one KV
+// head through one lane's block table, with the online-softmax recurrence
+// in float32.
 //
 // What bounds it on an H100: the bytes of K/V read. A decode step reads
 // every live K/V row of every lane once (2*ctx*D elements per lane and KV
 // head) and does 4*g*D flops per row, far below the card's ~295 flop/byte
-// ridge, so the kernel can at best run at memory speed. The design keeps
-// that byte count minimal: the CTA walks only the table slots below
-// ceil(ctx/bs) (dead slots are never loaded, which also keeps a poisoned
-// null block out of the accumulator), each K/V block is read from device
-// memory once per CTA and shared by all the CTA's query rows (the g query
-// heads of a GQA group in decode, a tile of group-major chunk rows in
-// prefill), int8 pools are dequantized in shared memory so they move a
-// quarter of float32's bytes, and the running (m, l, acc) never leave the
-// SM. The loops are plain scalar code: wgmma, TMA and a split of long
-// contexts over several CTAs are later work.
+// ridge, so the kernel can at best run at memory speed; at serving sizes
+// (a few MB per call) launch and latency dominate instead.
+//
+// What the design does about it:
+//   * only keys below ctx are ever loaded: table slots past ceil(ctx/bs)
+//     are never read, which also keeps a poisoned null block out of the
+//     accumulator;
+//   * the CTA's warps split the live keys into 32-key tiles and walk them
+//     with no barrier: lane j of a warp owns key j of its tile, loads that
+//     key's row with 16-byte loads and dots it with every query row of the
+//     CTA (the g heads of a GQA group in decode, a tile of group-major
+//     chunk rows in prefill), so each K row is read once per CTA and
+//     shared by all its query rows;
+//   * softmax statistics are warp shuffles; the value product walks the
+//     tile's keys with each lane holding D/32 output columns, broadcasting
+//     the probabilities by shuffle, so V rows are read coalesced;
+//   * int8 pools are dequantized in registers (a quarter of float32's
+//     bytes); (m, l, acc) stay in registers and the warps' partial
+//     results are merged once, through shared memory, at the end.
+// wgmma, TMA and splitting a long context over several CTAs are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,8 +35,10 @@
 namespace paged {
 
 constexpr float kNegInf = -1e30f;   // mask value of the reference kernels
-constexpr int kThreads = 128;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxRows = 8;         // query rows per CTA
+constexpr unsigned kFull = 0xffffffffu;
 
 // dtype codes shared with kernels/ops.py
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
@@ -50,127 +62,175 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Shared-memory floats for R query rows of width D over bs-token blocks.
-inline size_t smem_bytes(int R, int D, int bs) {
-  const size_t floats = (size_t)R * D * 2        // Qs, Acc
-                        + (size_t)bs * (D + 1)   // Ks (padded: no bank clash)
-                        + (size_t)bs * D         // Vs
-                        + (size_t)R * bs         // scores, then probabilities
-                        + (size_t)R * 3;         // m, l, corr
-  return floats * sizeof(float);
+// One 16-byte load of a K row as floats: 4 float32, 8 bf16 or 16 int8.
+template <typename T>
+struct Chunk {
+  static constexpr int N = 16 / sizeof(T);
+};
+__device__ __forceinline__ void load_chunk(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load_chunk(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(b[i]);
 }
 
-// Attend R query rows (q and out: R rows of stride D) of KV head h through
-// `table`, walking its first nblk slots. Every row sees kp < ctx; with
-// `causal`, row r also needs kp <= q_offset + (r0 + r) % C.
-template <typename QT, typename KT>
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Attend R <= kMaxRows query rows (q, out: R contiguous rows of D = 32*EPL
+// elements) of KV head h through `table`, over keys kp < nkeys (nkeys <=
+// ctx). Every row sees kp < ctx; with `causal`, row r also needs
+// kp <= q_offset + (r0 + r) % C. Launched with kThreads threads.
+template <int EPL, typename QT, typename KT>
 __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
-                            int R, int D, const KT* __restrict__ kpool,
+                            int R, const KT* __restrict__ kpool,
                             const KT* __restrict__ vpool,
                             const float* __restrict__ kscale,
                             const float* __restrict__ vscale,
                             const int* __restrict__ table, int NB, int bs,
-                            int h, int ctx, int nblk, bool causal,
-                            int q_offset, int C, int r0, float scale,
-                            float* smem) {
-  float* Qs = smem;
-  float* Acc = Qs + R * D;
-  float* Ks = Acc + R * D;
-  float* Vs = Ks + bs * (D + 1);
-  float* S = Vs + bs * D;
-  float* M = S + R * bs;
-  float* L = M + R;
-  float* Corr = L + R;
-  const int tid = threadIdx.x, nt = blockDim.x;
+                            int h, int nkeys, bool causal, int q_offset,
+                            int C, int r0, float scale) {
+  constexpr int D = 32 * EPL;
+  constexpr int N = Chunk<KT>::N;
+  __shared__ float Qs[kMaxRows * D];
+  __shared__ float Accw[kWarps][kMaxRows * D];
+  __shared__ float Mw[kWarps][kMaxRows], Lw[kWarps][kMaxRows];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int e = tid; e < R * D; e += nt) {
-    Qs[e] = to_float(q[e]);
-    Acc[e] = 0.f;
-  }
-  for (int r = tid; r < R; r += nt) {
-    M[r] = kNegInf;
-    L[r] = 0.f;
+  for (int e = tid; e < kMaxRows * D; e += kThreads)
+    Qs[e] = e < R * D ? to_float(q[e]) : 0.f;
+  int qpos[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) qpos[r] = q_offset + (r0 + r) % C;
+  float m[kMaxRows], l[kMaxRows], acc[kMaxRows][EPL];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
   __syncthreads();
 
-  for (int i = 0; i < nblk; ++i) {
-    const int phys = table[i];
-    const size_t row0 = ((size_t)h * NB + phys) * bs;   // block's first row
-    const int live = min(bs, ctx - i * bs);             // rows below ctx
-    // 1. K/V block -> shared memory as float32; rows at or past ctx are
-    //    zeros, so stale data there can never reach the accumulator.
-    for (int e = tid; e < bs * D; e += nt) {
-      const int j = e / D, d = e - j * D;
-      float kv = 0.f, vv = 0.f;
-      if (j < live) {
-        kv = to_float(kpool[row0 * D + e]);
-        vv = to_float(vpool[row0 * D + e]);
-        if (kscale != nullptr) {
-          kv *= kscale[row0 + j];
-          vv *= vscale[row0 + j];
+  const int tiles = (nkeys + 31) / 32;
+  for (int t = warp; t < tiles; t += kWarps) {
+    // scores: lane j owns key kp = 32 t + j
+    const int kp = t * 32 + lane;
+    const bool live = kp < nkeys;
+    size_t row = 0;   // pool row of this lane's key
+    float s[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) s[r] = 0.f;
+    if (live) {
+      row = ((size_t)h * NB + table[kp / bs]) * bs + kp % bs;
+      const KT* krow = kpool + row * D;
+#pragma unroll 2
+      for (int c = 0; c < D; c += N) {
+        float kc[N];
+        load_chunk(krow + c, kc);
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < R) {
+#pragma unroll
+            for (int i = 0; i < N; ++i)
+              s[r] = fmaf(Qs[r * D + c + i], kc[i], s[r]);
+          }
         }
       }
-      Ks[j * (D + 1) + d] = kv;
-      Vs[e] = vv;
+      const float ks = kscale != nullptr ? kscale[row] : 1.f;
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) s[r] = s[r] * ks * scale;
     }
-    __syncthreads();
-    // 2. masked scores s = (q . k) * scale
-    for (int p = tid; p < R * bs; p += nt) {
-      const int r = p / bs, j = p - r * bs;
-      bool valid = j < live;
-      if (causal) valid = valid && i * bs + j <= q_offset + (r0 + r) % C;
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = Qs + r * D;
-        const float* kr = Ks + j * (D + 1);
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        s = acc * scale;
+    // online softmax over the tile, per query row (warp-uniform stats)
+    float p[kMaxRows];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      if (r < R) {
+        const bool valid = live && (!causal || kp <= qpos[r]);
+        const float m_new = fmaxf(m[r], warp_max(valid ? s[r] : kNegInf));
+        p[r] = valid ? expf(s[r] - m_new) : 0.f;
+        const float corr = expf(m[r] - m_new);
+        l[r] = l[r] * corr + warp_sum(p[r]);
+        m[r] = m_new;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
+      } else {
+        p[r] = 0.f;
       }
-      S[p] = s;
     }
-    __syncthreads();
-    // 3. per-row online-softmax statistics; scores become probabilities
-    for (int r = tid; r < R; r += nt) {
-      float* Sr = S + r * bs;
-      float mx = kNegInf;
-      for (int j = 0; j < bs; ++j) mx = fmaxf(mx, Sr[j]);
-      const float m_prev = M[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = 0; j < bs; ++j) {
-        const float pj = expf(Sr[j] - m_new);
-        Sr[j] = pj;
-        sum += pj;
+    // acc += p @ v: walk the tile's live keys; this lane's D/32 columns
+    const int nv = min(32, nkeys - t * 32);
+#pragma unroll 4
+    for (int j = 0; j < nv; ++j) {
+      const size_t rj = __shfl_sync(kFull, (unsigned long long)row, j);
+      const KT* vrow = vpool + rj * D + lane * EPL;
+      const float vsc = vscale != nullptr ? vscale[rj] : 1.f;
+      float vv[EPL];
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) vv[e] = to_float(vrow[e]) * vsc;
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        const float pj = __shfl_sync(kFull, p[r], j);
+        if (r < R) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pj, vv[e], acc[r][e]);
+        }
       }
-      const float corr = expf(m_prev - m_new);
-      L[r] = L[r] * corr + sum;
-      M[r] = m_new;
-      Corr[r] = corr;
     }
-    __syncthreads();
-    // 4. acc = acc * corr + p @ v
-    for (int e = tid; e < R * D; e += nt) {
-      const int r = e / D, d = e - r * D;
-      const float* Pr = S + r * bs;
-      float a = Acc[e] * Corr[r];
-      for (int j = 0; j < bs; ++j) a = fmaf(Pr[j], Vs[j * D + d], a);
-      Acc[e] = a;
-    }
-    __syncthreads();
   }
-  // ctx 0: acc and l are both 0, and 0 / 1e-30 writes exact zeros
-  for (int e = tid; e < R * D; e += nt)
-    out[e] = from_float<QT>(Acc[e] / fmaxf(L[e / D], 1e-30f));
-}
 
-// Raise the dynamic shared-memory cap of `kernel` when `bytes` needs it.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  // merge the warps' partial (m, l, acc)
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    if (lane == 0) {
+      Mw[warp][r] = m[r];
+      Lw[warp][r] = l[r];
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) Accw[warp][r * D + lane * EPL + e] = acc[r][e];
+  }
+  __syncthreads();
+  for (int e = tid; e < R * D; e += kThreads) {
+    const int r = e / D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Mw[w][r]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(Mw[w][r] - mx);
+      lsum += Lw[w][r] * f;
+      a += Accw[w][e] * f;
+    }
+    // ctx 0: l and acc are 0, and 0 / 1e-30 writes exact zeros
+    out[e] = from_float<QT>(a / fmaxf(lsum, 1e-30f));
+  }
 }
 
 }  // namespace paged

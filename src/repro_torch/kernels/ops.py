@@ -25,8 +25,8 @@ from repro_torch.kernels import ref
 
 LANES = 128          #: fixed lane width of the quantization row layout
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_SMEM = 232448   #: dynamic shared memory one H100 block may use
-_PREFILL_ROWS_PER_TILE = 8   #: kRowsPerTile in csrc/paged_prefill.cu
+HEAD_DIMS = (32, 64, 128)   #: head widths the attention kernels take
+MAX_GROUP = 8                #: kMaxRows: GQA group size a decode CTA serves
 
 
 def _on_card(*tensors) -> bool:
@@ -52,6 +52,12 @@ def _contiguous(**tensors) -> None:
         _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
+def _aligned(**tensors) -> None:
+    """The kernels read pool rows with 16-byte loads."""
+    for name, t in tensors.items():
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -65,11 +71,6 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
-def _smem_bytes(rows: int, d: int, bs: int) -> int:
-    """Mirror of paged::smem_bytes in csrc/paged_attention.cuh."""
-    return 4 * (rows * d * 2 + bs * (d + 1) + bs * d + rows * bs + rows * 3)
-
-
 def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"q must be float32 or bfloat16, got {q.dtype}")
@@ -79,6 +80,7 @@ def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
     hkv, _, bs, d = k_pages.shape
     _require(q.numel() > 0, "empty query")
     _require(q.shape[-1] == d, f"head_dim {q.shape[-1]} != pool's {d}")
+    _require(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     quantized = k_scales is not None
     _require(quantized == (v_scales is not None),
              "pass both k_scales and v_scales, or neither")
@@ -115,14 +117,15 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     _require(ctx_lens.dtype == torch.int32 and tuple(ctx_lens.shape) == (b,),
              "ctx_lens must be [B] int32")
     _contiguous(block_tables=block_tables, ctx_lens=ctx_lens)
-    _require(_smem_bytes(hq // hkv, d, bs) <= _MAX_SMEM,
-             "GQA group x head_dim x block_size too large for one block")
+    _require(hq // hkv <= MAX_GROUP,
+             f"GQA group {hq // hkv} > {MAX_GROUP} query heads per KV head")
     scale = float(scale) if scale is not None else d ** -0.5
     scales = () if k_scales is None else (k_scales, v_scales)
     if not _on_card(q, k_pages, v_pages, block_tables, ctx_lens, *scales):
         return ref.paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, ctx_lens, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
+    _aligned(k_pages=k_pages, v_pages=v_pages)
     out = torch.empty_like(q)
     err = build.load("paged_decode")(
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
@@ -154,14 +157,13 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
     _require(0 <= q_offset < ctx_len <= q_offset + c,
              f"need 0 <= q_offset {q_offset} < ctx_len {ctx_len} <= "
              f"q_offset + C")
-    _require(_smem_bytes(_PREFILL_ROWS_PER_TILE, d, bs) <= _MAX_SMEM,
-             "head_dim x block_size too large for one block")
     scale = float(scale) if scale is not None else d ** -0.5
     scales = () if k_scales is None else (k_scales, v_scales)
     if not _on_card(q, k_pages, v_pages, block_table, *scales):
         return ref.paged_prefill_attention_ref(
             q, k_pages, v_pages, block_table, q_offset, ctx_len, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
+    _aligned(k_pages=k_pages, v_pages=v_pages)
     out = torch.empty_like(q)
     err = build.load("paged_prefill")(
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
@@ -186,8 +188,7 @@ def quantize_int8(x, bits):
     _contiguous(x=x, bits=bits)
     if not _on_card(x, bits):
         return ref.quantize_int8_ref(x, bits)
-    _require(x.data_ptr() % 16 == 0 and bits.data_ptr() % 16 == 0,
-             "x and bits must be 16-byte aligned")
+    _aligned(x=x, bits=bits)
     m = x.shape[0]
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
