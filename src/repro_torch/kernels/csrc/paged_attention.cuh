@@ -19,9 +19,11 @@
 //     CTA (the g heads of a GQA group in decode, a tile of group-major
 //     chunk rows in prefill), so each K row is read once per CTA and
 //     shared by all its query rows;
+//   * lane j also copies its key's V row into the warp's shared-memory
+//     staging area, so K and V loads of a tile are in flight together;
 //   * softmax statistics are warp shuffles; the value product walks the
-//     tile's keys with each lane holding D/32 output columns, broadcasting
-//     the probabilities by shuffle, so V rows are read coalesced;
+//     staged V rows with each lane holding D/32 output columns,
+//     broadcasting the probabilities by shuffle;
 //   * int8 pools are dequantized in registers (a quarter of float32's
 //     bytes); (m, l, acc) stay in registers and the warps' partial
 //     results are merged once, through shared memory, at the end.
@@ -103,10 +105,37 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Dynamic shared memory of attend_rows<EPL, KT>: the query rows, each
+// warp's staging of its tile's V rows (row stride padded by 16 bytes so
+// lanes writing different rows hit different banks) and V scales — reused
+// for the warps' partial accumulators at the end — and the warps' (m, l).
+template <int EPL, typename KT>
+struct Smem {
+  static constexpr int D = 32 * EPL;
+  static constexpr int kVStride = D * (int)sizeof(KT) + 16;   // bytes
+  static constexpr size_t kQ = sizeof(float) * kMaxRows * D;
+  static constexpr size_t kStage =
+      (size_t)kWarps * 32 * (kVStride + sizeof(float));
+  static constexpr size_t kAcc = sizeof(float) * kWarps * kMaxRows * D;
+  static constexpr size_t kUnion = kStage > kAcc ? kStage : kAcc;
+  static constexpr size_t kStats = sizeof(float) * 2 * kWarps * kMaxRows;
+  static constexpr size_t kBytes = kQ + kUnion + kStats;
+};
+
+// Raise the dynamic shared-memory cap of `kernel` when `bytes` needs it.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 // Attend R <= kMaxRows query rows (q, out: R contiguous rows of D = 32*EPL
 // elements) of KV head h through `table`, over keys kp < nkeys (nkeys <=
 // ctx). Every row sees kp < ctx; with `causal`, row r also needs
-// kp <= q_offset + (r0 + r) % C. Launched with kThreads threads.
+// kp <= q_offset + (r0 + r) % C. Launched with kThreads threads and
+// Smem<EPL, KT>::kBytes of dynamic shared memory.
 template <int EPL, typename QT, typename KT>
 __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
                             int R, const KT* __restrict__ kpool,
@@ -116,12 +145,19 @@ __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
                             const int* __restrict__ table, int NB, int bs,
                             int h, int nkeys, bool causal, int q_offset,
                             int C, int r0, float scale) {
-  constexpr int D = 32 * EPL;
+  using S = Smem<EPL, KT>;
+  constexpr int D = S::D;
   constexpr int N = Chunk<KT>::N;
-  __shared__ float Qs[kMaxRows * D];
-  __shared__ float Accw[kWarps][kMaxRows * D];
-  __shared__ float Mw[kWarps][kMaxRows], Lw[kWarps][kMaxRows];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  unsigned char* stage = smem + S::kQ;             // [warp][32][kVStride]
+  float* Vsc = reinterpret_cast<float*>(stage + kWarps * 32 * S::kVStride);
+  float* Accw = reinterpret_cast<float*>(stage);   // after the key loop
+  float* Mw = reinterpret_cast<float*>(smem + S::kQ + S::kUnion);
+  float* Lw = Mw + kWarps * kMaxRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned char* my_stage = stage + warp * 32 * S::kVStride;
+  float* my_vsc = Vsc + warp * 32;
 
   for (int e = tid; e < kMaxRows * D; e += kThreads)
     Qs[e] = e < R * D ? to_float(q[e]) : 0.f;
@@ -140,16 +176,22 @@ __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
 
   const int tiles = (nkeys + 31) / 32;
   for (int t = warp; t < tiles; t += kWarps) {
-    // scores: lane j owns key kp = 32 t + j
+    // lane j owns key kp = 32 t + j: its K row is dotted with every query
+    // row, its V row is staged for the value product below
     const int kp = t * 32 + lane;
     const bool live = kp < nkeys;
-    size_t row = 0;   // pool row of this lane's key
     float s[kMaxRows];
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) s[r] = 0.f;
+    __syncwarp();   // the previous tile's staged V rows are consumed
     if (live) {
-      row = ((size_t)h * NB + table[kp / bs]) * bs + kp % bs;
+      const size_t row = ((size_t)h * NB + table[kp / bs]) * bs + kp % bs;
       const KT* krow = kpool + row * D;
+      const uint4* vrow = reinterpret_cast<const uint4*>(vpool + row * D);
+      uint4* vdst = reinterpret_cast<uint4*>(my_stage + lane * S::kVStride);
+#pragma unroll
+      for (int c = 0; c < D * (int)sizeof(KT) / 16; ++c) vdst[c] = vrow[c];
+      my_vsc[lane] = vscale != nullptr ? vscale[row] : 1.f;
 #pragma unroll 2
       for (int c = 0; c < D; c += N) {
         float kc[N];
@@ -171,6 +213,7 @@ __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
     float p[kMaxRows];
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
+      p[r] = 0.f;
       if (r < R) {
         const bool valid = live && (!causal || kp <= qpos[r]);
         const float m_new = fmaxf(m[r], warp_max(valid ? s[r] : kNegInf));
@@ -180,24 +223,23 @@ __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
         m[r] = m_new;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
-      } else {
-        p[r] = 0.f;
       }
     }
-    // acc += p @ v: walk the tile's live keys; this lane's D/32 columns
+    __syncwarp();   // staged V rows visible to the whole warp
+    // acc += p @ v over the tile's live keys; this lane's D/32 columns
     const int nv = min(32, nkeys - t * 32);
 #pragma unroll 4
     for (int j = 0; j < nv; ++j) {
-      const size_t rj = __shfl_sync(kFull, (unsigned long long)row, j);
-      const KT* vrow = vpool + rj * D + lane * EPL;
-      const float vsc = vscale != nullptr ? vscale[rj] : 1.f;
+      const KT* vj = reinterpret_cast<const KT*>(my_stage + j * S::kVStride)
+                     + lane * EPL;
+      const float vsc = my_vsc[j];
       float vv[EPL];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) vv[e] = to_float(vrow[e]) * vsc;
+      for (int e = 0; e < EPL; ++e) vv[e] = to_float(vj[e]) * vsc;
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
-        const float pj = __shfl_sync(kFull, p[r], j);
         if (r < R) {
+          const float pj = __shfl_sync(kFull, p[r], j);
 #pragma unroll
           for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pj, vv[e], acc[r][e]);
         }
@@ -205,28 +247,30 @@ __device__ void attend_rows(const QT* __restrict__ q, QT* __restrict__ out,
     }
   }
 
-  // merge the warps' partial (m, l, acc)
+  // merge the warps' partial (m, l, acc); Accw reuses the staging area
+  __syncthreads();
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     if (lane == 0) {
-      Mw[warp][r] = m[r];
-      Lw[warp][r] = l[r];
+      Mw[warp * kMaxRows + r] = m[r];
+      Lw[warp * kMaxRows + r] = l[r];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) Accw[warp][r * D + lane * EPL + e] = acc[r][e];
+    for (int e = 0; e < EPL; ++e)
+      Accw[(warp * kMaxRows + r) * D + lane * EPL + e] = acc[r][e];
   }
   __syncthreads();
   for (int e = tid; e < R * D; e += kThreads) {
     const int r = e / D;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Mw[w][r]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Mw[w * kMaxRows + r]);
     float lsum = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(Mw[w][r] - mx);
-      lsum += Lw[w][r] * f;
-      a += Accw[w][e] * f;
+      const float f = expf(Mw[w * kMaxRows + r] - mx);
+      lsum += Lw[w * kMaxRows + r] * f;
+      a += Accw[w * kMaxRows * D + e] * f;
     }
     // ctx 0: l and acc are 0, and 0 / 1e-30 writes exact zeros
     out[e] = from_float<QT>(a / fmaxf(lsum, 1e-30f));

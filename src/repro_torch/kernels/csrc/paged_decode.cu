@@ -30,8 +30,11 @@ static int launch(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* tables,
                   const int* ctx, void* out, int B, int Hq, int Hkv, int NB,
                   int bs, int T, float scale, cudaStream_t stream) {
-  paged_decode_kernel<EPL, QT, KT>
-      <<<dim3(Hkv, B), paged::kThreads, 0, stream>>>(
+  const size_t smem = paged::Smem<EPL, KT>::kBytes;
+  auto kernel = paged_decode_kernel<EPL, QT, KT>;
+  const cudaError_t err = paged::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(Hkv, B), paged::kThreads, smem, stream>>>(
           (const QT*)q, (QT*)out, (const KT*)k, (const KT*)v, ks, vs, tables,
           ctx, Hq, Hkv, NB, bs, T, scale);
   return (int)cudaGetLastError();

@@ -39,8 +39,11 @@ static int launch(const void* q, const void* k, const void* v,
                   void* out, int Hq, int Hkv, int NB, int bs, int T, int C,
                   int q_offset, int ctx, float scale, cudaStream_t stream) {
   const int tiles = ((Hq / Hkv) * C + paged::kMaxRows - 1) / paged::kMaxRows;
-  paged_prefill_kernel<EPL, QT, KT>
-      <<<dim3(Hkv, tiles), paged::kThreads, 0, stream>>>(
+  const size_t smem = paged::Smem<EPL, KT>::kBytes;
+  auto kernel = paged_prefill_kernel<EPL, QT, KT>;
+  const cudaError_t err = paged::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(Hkv, tiles), paged::kThreads, smem, stream>>>(
           (const QT*)q, (QT*)out, (const KT*)k, (const KT*)v, ks, vs, table,
           Hq, Hkv, NB, bs, T, C, q_offset, ctx, scale);
   return (int)cudaGetLastError();

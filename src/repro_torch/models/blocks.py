@@ -40,19 +40,29 @@ def rms_norm(p, x, eps: float = 1e-6):
 
 
 # ----------------------------------------------------------------- rope ----
-def rope(x, positions, theta: float):
-    """Rotary embedding. x: [B, H, S, D]; positions: [B, S] or [S]."""
-    d = x.shape[-1]
+def rope_tables(positions, d: int, theta: float):
+    """(sin, cos) [B, 1, S, d/2] float32 of the rotary angles at
+    ``positions`` ([B, S] or [S]); one pair serves every layer."""
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+                                    device=positions.device) / half)
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[:, None, :, None].float() * freqs   # [B,1,S,half]
-    sin, cos = torch.sin(angles), torch.cos(angles)
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x, sin, cos):
+    """Rotate x [B, H, S, D] by tables from :func:`rope_tables`."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: [B, H, S, D]; positions: [B, S] or [S]."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 # ------------------------------------------------------------ attention ----
@@ -108,9 +118,10 @@ def dense_mha(q, k, v, *, scale: float, q_pos, kv_pos, causal: bool,
     return o.reshape(b, nq, sq, d)
 
 
-def qkv(p, x, cfg: ModelConfig, positions):
-    """Projections, head split, optional head norms and rope: x [B, S, d]
-    -> q [B, Hq, S, D], k/v [B, Hkv, S, D] (the paged engine shares it)."""
+def qkv(p, x, cfg: ModelConfig, rot):
+    """Projections, head split, optional head norms and rope by the
+    ``rot = rope_tables(...)`` pair: x [B, S, d] -> q [B, Hq, S, D], k/v
+    [B, Hkv, S, D] (the paged engine shares it)."""
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
@@ -121,22 +132,24 @@ def qkv(p, x, cfg: ModelConfig, positions):
     if "q_norm" in p:
         q = _head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = _head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
-def attention(p, x, cfg: ModelConfig, *, positions, cache=None):
+def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None):
     """Causal self-attention, with or without a contiguous KV cache.
 
     With ``cache`` the new K/V rows are written into it in place (see
     :func:`update_kv_cache`) and attention runs over the whole cache. The
     cache-free branch is what the reference sends to its flash-attention
     kernel; on the card it raises until that kernel is ported, and on the
-    CPU it runs :func:`dense_mha`, the kernel's plain version. Returns
+    CPU it runs :func:`dense_mha`, the kernel's plain version. ``rot``
+    passes precomputed :func:`rope_tables` for ``positions``. Returns
     (output, cache)."""
     b, s, _ = x.shape
     nq, hd = cfg.num_heads, cfg.hd
-    q, k, v = qkv(p, x, cfg, positions)
+    if rot is None:
+        rot = rope_tables(positions, hd, cfg.rope_theta)
+    q, k, v = qkv(p, x, cfg, rot)
     q_pos = positions if positions.dim() == 1 else positions[0]
     if cache is not None:
         k, v, kv_pos, cache = update_kv_cache(cache, k, v, positions)

@@ -99,9 +99,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     return LM(cfg, tree)
 
 
-def apply_block(p, x, cfg: ModelConfig, *, positions, cache=None):
+def apply_block(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None):
     a, cache = B.attention(p["attn"], B.rms_norm(p["ln1"], x, cfg.norm_eps),
-                           cfg, positions=positions, cache=cache)
+                           cfg, positions=positions, cache=cache, rot=rot)
     x = x + a
     h = B.rms_norm(p["ln2"], x, cfg.norm_eps)
     return x + B.mlp(p["ffn"], h), cache
@@ -128,11 +128,12 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+    rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
     blocks = params["blocks"]
     for l in range(cfg.num_layers):
         lc = None if caches is None else {k: c[l] for k, c in caches.items()}
         x, _ = apply_block(layer(blocks, l), x, cfg, positions=positions,
-                           cache=lc)
+                           cache=lc, rot=rot)
     x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]

@@ -71,14 +71,25 @@ class PagedEngine:
         self.max_context = int(max_context)
         self.slots = int(slots)
         self.device = torch.device(device)
+        self._views = (None, None, None, None)   # params, layers, pools, ..
 
     # ---- pools --------------------------------------------------------
     def init_pools(self) -> Dict:
         return KC.init_pools(self.cfg, self.spec, self.device)
 
-    @staticmethod
-    def _layer_pools(pools: Dict, l: int) -> Dict:
-        return {k: p[l] for k, p in pools.items()}
+    def _layer_views(self, params, pools):
+        """Per-layer views of the stacked params and pools, rebuilt only
+        when a different params or pools object comes in (the host cost
+        of slicing 16 layers every step is not small)."""
+        p0, lp, q0, lq = self._views
+        if p0 is not params:
+            p0, lp = params, [lm.layer(params["blocks"], l)
+                              for l in range(self.cfg.num_layers)]
+        if q0 is not pools:
+            q0, lq = pools, [{k: t[l] for k, t in pools.items()}
+                             for l in range(self.cfg.num_layers)]
+        self._views = (p0, lp, q0, lq)
+        return lp, lq
 
     # ---- prefill ------------------------------------------------------
     @torch.no_grad()
@@ -100,12 +111,12 @@ class PagedEngine:
                                 _to_device(table_row, self.device))
 
     # ---- shared layer body -------------------------------------------
-    def _layer(self, lp, lpools, x, positions, phys, off, attend):
+    def _layer(self, lp, lpools, x, rot, phys, off, attend):
         """One block: qkv + rope, K/V append into the pools, paged
         attention through ``attend(q, lpools)``, wo, FFN."""
         cfg = self.cfg
         h = B.rms_norm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = B.qkv(lp["attn"], h, cfg, positions)
+        q, k, v = B.qkv(lp["attn"], h, cfg, rot)
         # rows [Hkv, N, D] in the order of phys/off (lane- or chunk-major)
         n_kv = cfg.num_kv_heads
         k_rows = k.transpose(0, 1).reshape(n_kv, -1, cfg.hd)
@@ -141,8 +152,9 @@ class PagedEngine:
         positions = pos[None]                              # [1, C]
         blk = (pos // spec.block_size).long().clamp(max=t - 1)
         live = torch.arange(c, device=dev) < chunk_len
-        phys = torch.where(live, table[blk], 0)            # [C]
-        off = pos % spec.block_size
+        phys = torch.where(live, table[blk], 0).long()     # [C]
+        off = (pos % spec.block_size).long()
+        rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
         def attend(q, lp):
             o = kops.paged_prefill_attention(
@@ -151,10 +163,8 @@ class PagedEngine:
                 k_scales=lp.get("k_scale"), v_scales=lp.get("v_scale"))
             return o.transpose(0, 1).reshape(1, c, nq * hd)   # [1, C, Hq*D]
 
-        blocks = params["blocks"]
-        for l in range(cfg.num_layers):
-            x = self._layer(lm.layer(blocks, l), self._layer_pools(pools, l),
-                            x, positions, phys, off, attend)
+        for lp, lpools in zip(*self._layer_views(params, pools)):
+            x = self._layer(lp, lpools, x, rot, phys, off, attend)
         h = B.rms_norm(params["ln_f"], x[:, chunk_len - 1], cfg.norm_eps)
         return lm.logits_of(params, cfg, h), pools
 
@@ -186,9 +196,10 @@ class PagedEngine:
         positions = ctx_lens[:, None]                      # [slots, 1]
         blk = (ctx_lens // spec.block_size).long().clamp(
             max=tables.shape[1] - 1)[:, None]
-        phys = tables.gather(1, blk)[:, 0]                 # [slots]
-        off = ctx_lens % spec.block_size
+        phys = tables.gather(1, blk)[:, 0].long()          # [slots]
+        off = (ctx_lens % spec.block_size).long()
         seen = ctx_lens + 1
+        rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
         def attend(q, lp):
             o = kops.paged_decode_attention(
@@ -196,10 +207,8 @@ class PagedEngine:
                 k_scales=lp.get("k_scale"), v_scales=lp.get("v_scale"))
             return o.reshape(slots, 1, nq * hd)
 
-        blocks = params["blocks"]
-        for l in range(cfg.num_layers):
-            x = self._layer(lm.layer(blocks, l), self._layer_pools(pools, l),
-                            x, positions, phys, off, attend)
+        for lp, lpools in zip(*self._layer_views(params, pools)):
+            x = self._layer(lp, lpools, x, rot, phys, off, attend)
         x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return lm.logits_of(params, cfg, x)[:, 0], pools
 
