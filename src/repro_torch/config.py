@@ -74,22 +74,3 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
-
-    def param_count(self) -> int:
-        """Parameters of the dense/MoE decoder (the families ported so
-        far); the reference's count also covers the other families."""
-        d, hd = self.d_model, self.hd
-        nq, nkv = self.num_heads, self.num_kv_heads
-        attn = d * nq * hd + 2 * d * nkv * hd + nq * hd * d + 2 * d
-        if self.qkv_bias:
-            attn += (nq + 2 * nkv) * hd
-        if self.qk_norm:
-            attn += 2 * hd
-        if self.moe.num_experts:
-            e = self.moe.num_experts
-            ffn = d * e + e * 3 * d * self.moe.d_expert
-        else:
-            ffn = 3 * d * self.d_ff
-        emb = self.vocab_size * d
-        out = 0 if self.tie_embeddings else self.vocab_size * d
-        return self.num_layers * (attn + ffn) + emb + out + d

@@ -71,7 +71,8 @@ class PagedEngine:
         self.max_context = int(max_context)
         self.slots = int(slots)
         self.device = torch.device(device)
-        self._views = (None, None, None, None)   # params, layers, pools, ..
+        # (params, their layer views, pools, their layer views)
+        self._views = (None, None, None, None)
 
     # ---- pools --------------------------------------------------------
     def init_pools(self) -> Dict:
@@ -79,8 +80,10 @@ class PagedEngine:
 
     def _layer_views(self, params, pools):
         """Per-layer views of the stacked params and pools, rebuilt only
-        when a different params or pools object comes in (the host cost
-        of slicing 16 layers every step is not small)."""
+        when a different params or pools object comes in: the host, not the
+        card, bounds a decode step, and re-slicing every layer on every
+        step was part of that cost. Pool tensors are written in place and
+        never replaced, so a cached view stays valid as long as its dict."""
         p0, lp, q0, lq = self._views
         if p0 is not params:
             p0, lp = params, [lm.layer(params["blocks"], l)

@@ -39,7 +39,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,18 +60,11 @@ class ServeRequest:
     max_new_tokens: int
     arrival_s: float = 0.0
     deadline_s: float = math.inf
-    #: stable correlation id (defaults to ``rid``), kept for the
-    #: reference's traces
-    trace_id: Optional[int] = None
     # filled by the scheduler:
     tokens: List[int] = dataclasses.field(default_factory=list)
     t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
-
-    def __post_init__(self):
-        if self.trace_id is None:
-            self.trace_id = self.rid
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -162,7 +155,6 @@ class ContinuousScheduler:
         self.prefills_run = 0            # monolithic full prefills
         self.prefill_chunks_run = 0
         self.total_new_tokens = 0
-        self.fresh_blocks_allocated = 0
         # per-step cost stats for the loadgen's sim clock
         self.last_stats: Dict[str, int] = {}
         # requests stamped (first token / done) during the current step;
@@ -253,7 +245,6 @@ class ContinuousScheduler:
                     self.allocator.release(undo)
                 break
             self.waiting.popleft()
-            self.fresh_blocks_allocated += fresh_need
             if cow_src is not None:
                 # Whole prompt was cached: clone the last shared block so
                 # the final-token recompute writes a private copy.
@@ -400,17 +391,3 @@ class ContinuousScheduler:
             m.gauge("serve_prefix_misses",
                     "prefix-cache misses (cumulative)"
                     ).set(self.prefix.misses)
-
-    def run_to_completion(self, requests: Sequence[ServeRequest],
-                          max_steps: int = 100_000) -> List[ServeRequest]:
-        """Convenience driver: submit everything at t=0 and step until
-        drained (the loadgen drives arrivals through real event time)."""
-        for r in requests:
-            self.submit(r)
-        steps = 0
-        while not self.idle:
-            self.step(float(steps))
-            steps += 1
-            if steps > max_steps:
-                raise RuntimeError("scheduler failed to drain")
-        return self.finished

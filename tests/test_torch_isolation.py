@@ -3,6 +3,7 @@
 points run on the card unless the caller asks for the CPU."""
 import ast
 import inspect
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +56,7 @@ def test_importing_the_port_loads_neither():
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

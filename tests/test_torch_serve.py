@@ -104,7 +104,7 @@ def test_lm_forward_matches_reference(setup):
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 9)
                                              ).astype(np.int32)
     want, _, _ = jlm.forward(jp, jcfg, jnp.asarray(toks))
-    got, _, _ = tlm.forward(tp, cfg, torch.from_numpy(toks))
+    got, _, _ = tp(torch.from_numpy(toks))      # the module runs forward
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     cache = tlm.init_cache(cfg, 2, 12, device="cpu")
     _, cache, _ = tlm.forward(tp, cfg, torch.from_numpy(toks[:, :8]),
@@ -166,6 +166,8 @@ def test_quantize_rows_matches_reference():
     tq, ts = KC.quantize_rows(torch.from_numpy(x))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(KC.dequantize_rows(tq, ts).numpy(),
+                                  np.asarray(JKC.dequantize_rows(jq, js)))
 
 
 # --------------------------------------------------------------- loadgen ----
