@@ -7,20 +7,31 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the hand-written kernels from src/repro_torch/kernels/csrc
-     with nvcc for sm_90a, and prints the build time;
-  3. holds each kernel against its plain PyTorch version on the card at
-     flad-adllm's serving shapes (8 lanes, block size 16, chunk 16,
-     contexts up to 300 tokens) and times both with CUDA events;
+  2. builds the eight hand-written kernels from src/repro_torch/kernels/csrc
+     with nvcc for sm_90a, all at once, and prints the build time;
+  3. holds each kernel against its plain PyTorch version on the card and
+     times both, and the PyTorch library call where one computes the same
+     function: the serving kernels at flad-adllm's serving shapes (8
+     lanes, block size 16, chunk 16, contexts up to 300 tokens), the
+     flash-attention forward and its three backward kernels at the
+     training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 and float32
+     with ragged, offset and windowed cases, and dequantize on one
+     ffn.wi leaf's rows;
   4. serves flad-adllm at full width and depth (bf16, random weights from
-     a seed) through the continuous scheduler with chunked prefill, once
-     with the model-dtype KV cache and once with the int8 cache, and
-     checks that the kernels' launch counters moved as the path requires;
-  5. holds the paged path against the contiguous-cache forward
-     (plain attention), teacher-forced, and measures the int8 cache's
-     greedy disagreement;
-  6. prints one JSON line describing every ported kernel;
-  7. prints {"ok": true, "device": {...}} as its last line.
+     a seed) through the continuous scheduler with chunked prefill, with
+     the model-dtype KV cache and with the int8 cache, checking the
+     kernels' launch counts; profiles a decode step; and holds the paged
+     path against the contiguous-cache forward (plain attention);
+  5. trains flad-adllm at full width and depth through the training
+     launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
+     steps each, 4 x 1024 tokens a step, int8 uplinks; checks the exact
+     launch counts, finite losses, moved params and the wire metrics
+     against the topology's formulas;
+  6. runs one float32 local train step through the kernels and through
+     plain attention and compares the loss, the grads and the updated
+     params; profiles one bf16 local step;
+  7. prints one JSON line describing every ported kernel, the card's
+     name and power limit, and {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -53,6 +64,31 @@ ORACLE_ATOL_BF16 = 0.25
 TRACE = dict(fleet="nano*2,agx*2", num_requests=12, max_prompt=96, seed=0)
 LIBRARY_NOTE = ("no single PyTorch call computes paged attention through "
                 "a block table or this stochastic int8 quantizer")
+# the training slice: flash attention at the local step's shape
+B, HQ, HKV, S, D = 4, 16, 8, 1024, 64
+FLASH_CASES = [("causal", S, S, {}), ("ragged", 1000, 1000, {}),
+               ("offset", 768, S, {"q_offset": 256}),
+               ("window", S, S, {"window": 256})]
+# kernel vs plain: float32 differs only in summation order; bf16 outputs
+# are each one bf16 rounding of a float32 value, so two of them may be a
+# bf16 ulp apart at the largest magnitude (2^-7 of it)
+FLASH_ATOL_F32 = 1e-5          # o, lse, delta
+FLASH_GRAD_ATOL_F32 = 2e-5     # dq, dk, dv (sums over up to 2048 rows)
+BF16_ULP = 2.0 ** -7
+TOPOLOGY, ROUNDS, CLIENTS, LOCAL_STEPS = "2@nano*2,agx*2", 2, 4, 2
+TRAIN_ARGV = ["--arch", "flad-adllm", "--full", "--strategy", "hier_fl",
+              "--topology", TOPOLOGY, "--codec", "int8", "--local-steps",
+              str(LOCAL_STEPS), "--steps", str(ROUNDS), "--shape",
+              f"{S}x{B}", "--device", "cuda"]
+NANO_BPS, AGX_BPS = 0.125e9, 0.25e9        # sched/costmodel.py presets
+BACKHAUL_BPS, BACKHAUL_S = 1.25e9, 0.01    # comm/topology.py defaults
+# float32 local step, kernels vs plain attention: the loss and the grads
+# differ only in summation order; Adam's first step g / (|g| + eps)
+# amplifies that where a grad is of order eps, so the updated params are
+# held to 1e-5 on all but 0.01% of the elements
+STEP_LOSS_ATOL = 1e-4
+STEP_GRAD_RTOL = 1e-4          # of each leaf's largest grad
+STEP_PARAM_ATOL, STEP_PARAM_SHARE = 1e-5, 0.9999
 
 
 def check(cond, msg):
@@ -275,12 +311,416 @@ def kernel_checks(torch, cfg, dev):
     return out
 
 
+# ------------------------------------------------------- training kernels
+def _pairs(sq, skv, causal=True, window=None, q_offset=0):
+    """Visible (query, key) pairs of one head: the work the data needs."""
+    total = 0
+    for r in range(sq):
+        qp = q_offset + r
+        hi = min(skv, qp + 1) if causal else skv
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _flash_inputs(torch, dev, dtype, sq, skv, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (rand(B, HQ, sq, D), rand(B, HKV, skv, D), rand(B, HKV, skv, D),
+            rand(B, HQ, sq, D))
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def flash_checks(torch, dev):
+    """The flash forward and the three backward kernels against their
+    plain versions (bf16 and float32; causal, ragged, offset, window), the
+    backward bitwise equal across two runs; timings at the causal
+    training shape. Returns the kernels' JSON rows (bf16, the main path's
+    dtype, with float32 times beside)."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    errs = {k: 0.0 for k in ("fwd", "pre", "dkv", "dq")}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for case, sq, skv, kw in FLASH_CASES:
+            q, k, v, do = _flash_inputs(torch, dev, dtype, sq, skv, 4)
+            o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                               **kw)
+            delta = ops.flash_attention_bwd_preprocess(o, do)
+            rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
+            bkw = dict(scale=D ** -0.5, **kw)
+            dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw)
+            dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                       delta, **bkw)
+            rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                 **bkw)
+            again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(again,
+                                                        (dq, dk, dv))),
+                  f"flash backward {name} {case}: two runs differ")
+            pairs = [("o", o, ro), ("lse", lse, rlse),
+                     ("delta", delta, rdelta), ("dk", dk, rdk),
+                     ("dv", dv, rdv), ("dq", dq, rdq)]
+            for label, got, want in pairs:
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {name} {case} {label}: non-finite")
+                err = _err(got, want)
+                if dtype == torch.float32:
+                    tol = (FLASH_GRAD_ATOL_F32 if label in ("dk", "dv", "dq")
+                           else FLASH_ATOL_F32)
+                elif label in ("lse", "delta"):      # float32 outputs
+                    tol = FLASH_ATOL_F32 * max(1.0, float(want.abs().max()))
+                else:
+                    tol = BF16_ULP * float(want.float().abs().max())
+                check(err <= tol, f"flash {name} {case} {label}: max err "
+                      f"{err:.3e} > {tol:.3e}")
+                if dtype == torch.bfloat16:
+                    key = {"o": "fwd", "lse": "fwd", "delta": "pre",
+                           "dk": "dkv", "dv": "dkv", "dq": "dq"}[label]
+                    errs[key] = max(errs[key], err)
+            print(f"[kernel] flash {name} {case} (Sq {sq}, Skv {skv}): "
+                  + ", ".join(f"{lab} {_err(a, b):.2e}"
+                              for lab, a, b in pairs)
+                  + "; backward bitwise repeatable")
+            del o, lse, ro, rlse, rdk, rdv, rdq, again
+
+    rows, f32_ms = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _flash_inputs(torch, dev, dtype, S, S, 5)
+        o, lse = ops.flash_attention(q, k, v, return_lse=True)
+        delta = ops.flash_attention_bwd_preprocess(o, do)
+        sc = D ** -0.5
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), None, iters=20)
+        lib_bwd = device_ms(lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), do, retain_graph=True), None, iters=20)
+        runs = {
+            "flash_attention": (
+                lambda: ops.flash_attention(q, k, v, return_lse=True),
+                lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
+                "flash_fwd_kernel", lib_fwd),
+            "flash_attention_bwd_preprocess": (
+                lambda: ops.flash_attention_bwd_preprocess(o, do),
+                lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
+                "flash_bwd_preprocess_kernel", lib_bwd),
+            "flash_attention_bwd_dkv": (
+                lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                        delta, scale=sc),
+                "flash_bwd_dkv_kernel", lib_bwd),
+            "flash_attention_bwd_dq": (
+                lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse,
+                                                       delta, scale=sc),
+                "flash_bwd_dq_kernel", lib_bwd),
+        }
+        esz = 2 if dtype == torch.bfloat16 else 4
+        rate = BF16_FLOPS_PER_S if esz == 2 else F32_FLOPS_PER_S
+        nq, nkv, stat = B * HQ * S * D, B * HKV * S * D, B * HQ * S
+        pairs = B * HQ * _pairs(S, S)
+        work = {   # bytes each input read once and output written once
+            "flash_attention": ((2 * nq + 2 * nkv) * esz + 4 * stat,
+                                4 * D * pairs),
+            "flash_attention_bwd_preprocess": (2 * nq * esz + 4 * stat,
+                                               2 * nq),
+            "flash_attention_bwd_dkv": ((2 * nq + 4 * nkv) * esz
+                                        + 8 * stat, 8 * D * pairs),
+            "flash_attention_bwd_dq": ((3 * nq + 2 * nkv) * esz + 8 * stat,
+                                       6 * D * pairs),
+        }
+        for name, (kfn, pfn, match, lib) in runs.items():
+            ms, plain, call = timings(kfn, pfn, match)
+            b_ms, b_by = bound(*work[name], rate)
+            print(f"[kernel] {name} {'bf16' if esz == 2 else 'f32'} causal "
+                  f"B{B} Hq{HQ} Hkv{HKV} S{S} D{D}: device: kernel "
+                  f"{ms:.5f} ms, plain {plain:.5f} ms, library "
+                  f"{lib if lib is None else round(lib, 5)} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by}); host clock per call "
+                  f"{call:.5f} ms")
+            if esz == 4:
+                f32_ms[name] = (ms, plain, lib, b_ms)
+                continue
+            key = {"flash_attention": "fwd",
+                   "flash_attention_bwd_preprocess": "pre",
+                   "flash_attention_bwd_dkv": "dkv",
+                   "flash_attention_bwd_dq": "dq"}[name]
+            rows[name] = dict(
+                source=f"src/repro_torch/kernels/csrc/"
+                       f"{match.replace('_kernel', '')}.cu",
+                replaces="src/repro/kernels/flash_attention.py:" + {
+                    "fwd": "161", "pre": "579", "dkv": "599",
+                    "dq": "639"}[key],
+                max_abs_err=errs[key], ms=ms, plain_ms=plain, call_ms=call,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library_call=("F.scaled_dot_product_attention(causal, "
+                              "enable_gqa) forward" if key == "fwd" else
+                              "its whole backward (all three kernels' "
+                              "work)"),
+                f32_ms=f32_ms[name][0], f32_plain_ms=f32_ms[name][1],
+                f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3])
+        del q, k, v, do, o, lse, delta, ql, kl, vl, lo
+    return rows
+
+
+def dequant_check(torch, cfg, dev):
+    """Dequantize bitwise on one ffn.wi leaf's rows (the codec's decode)."""
+    from repro_torch.kernels import ops, ref
+    m = cfg.num_layers * cfg.d_model * cfg.d_ff // ops.LANES
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randint(-127, 128, (m, ops.LANES), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((m, 1), generator=g, device=dev) * 1e-3
+    scale[::97] = 0.0
+    got = ops.dequantize_int8(q, scale)
+    want = ref.dequantize_int8_ref(q, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "dequantize differs from the plain version")
+    ms, plain, call = timings(lambda: ops.dequantize_int8(q, scale),
+                              lambda: ref.dequantize_int8_ref(q, scale),
+                              "dequantize_int8_kernel")
+    lib = device_ms(lambda: q * scale, None, iters=20)
+    b_ms, b_by = bound(m * ops.LANES * (1 + 4) + m * 4, m * ops.LANES,
+                       F32_FLOPS_PER_S)
+    print(f"[kernel] dequantize_int8: bitwise equal ({m} rows, one ffn.wi "
+          f"leaf); device: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+          f"library (q * scale) {lib} ms; bound {b_ms:.5f} ms ({b_by}); "
+          f"host clock per call {call:.5f} ms")
+    return dict(source="src/repro_torch/kernels/csrc/dequantize.cu",
+                replaces="src/repro/kernels/quantize.py:99", max_abs_err=0.0,
+                ms=ms, plain_ms=plain, call_ms=call, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, library_call="q * scale")
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in flatten (sorted-key) order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += _leaf_names(tree[k], f"{prefix}{k}.")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+def _leaf_sizes(torch, cfg):
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    return [t.numel() for t in leaves(lm.abstract_params(cfg))]
+
+
+def train_main_path(torch, cfg, dev):
+    """Two hier_fl rounds at full width through the launcher; checks the
+    launch counts, losses, moved params and wire metrics."""
+    import math
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sizes = _leaf_sizes(torch, cfg)
+    steps = ROUNDS * CLIENTS * LOCAL_STEPS * cfg.num_layers
+    codec = ROUNDS * CLIENTS * len(sizes)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=steps, flash_attention_bwd_preprocess=steps,
+                flash_attention_bwd_dkv=steps, flash_attention_bwd_dq=steps,
+                quantize_int8=codec, dequantize_int8=codec)
+    check(counts == want, f"training launches {counts} != {want}")
+    hist = out["history"]
+    check(len(hist) == ROUNDS, "one history entry per round")
+    for h in hist:
+        check(bool(np.isfinite(h["per_client/loss"]).all()),
+              f"non-finite loss in round {h['round']}")
+    # the topology's formulas, computed here from the leaf sizes
+    per_client = sum(n + 4 * -(-n // 128) for n in sizes)
+    arrivals = [per_client / NANO_BPS + per_client / BACKHAUL_BPS
+                + BACKHAUL_S,
+                per_client / AGX_BPS + per_client / BACKHAUL_BPS
+                + BACKHAUL_S]
+    for h in hist:
+        check(h["comm_bytes_up"] == CLIENTS * per_client,
+              f"comm_bytes_up {h['comm_bytes_up']} != "
+              f"{CLIENTS * per_client}")
+        check(h["comm_bytes_backhaul"] == 2 * per_client,
+              f"comm_bytes_backhaul {h['comm_bytes_backhaul']}")
+        check(math.isclose(h["sim_round_s"], max(arrivals), rel_tol=1e-12),
+              f"sim_round_s {h['sim_round_s']} != {max(arrivals)}")
+    # every weight matrix moves; the bf16 norm scales stay at 1.0, since
+    # each step's update (at most lr = 1e-3) is under half a bf16 ulp there
+    with torch.no_grad():
+        merged = leaves(out["session"].merged_params())
+        init = leaves(lm.init(cfg, seed=0, device=dev).to_dict())
+        moved = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(merged, init)]
+        check(all(bool(torch.isfinite(t).all()) for t in merged),
+              "non-finite global params")
+    names = _leaf_names(out["session"].merged_params())
+    check(all(m > 0 for m, n in zip(moved, names) if not n.endswith("scale")),
+          f"a weight matrix did not move: {dict(zip(names, moved))}")
+    tokens = ROUNDS * CLIENTS * LOCAL_STEPS * B * S
+    print(f"[train] hier_fl {ROUNDS} rounds x {CLIENTS} clients x "
+          f"{LOCAL_STEPS} local steps at {S}x{B}, int8 uplinks: wall "
+          f"{wall:.1f} s incl. set-up ({tokens / wall:.0f} tokens/s); "
+          f"losses by round "
+          + ", ".join(f"{np.mean(h['per_client/loss']):.4f}" for h in hist)
+          + f"; peak device memory {peak:.1f} GiB; wire per round: up "
+          f"{per_client * CLIENTS} B, backhaul {2 * per_client} B, "
+          f"sim {max(arrivals):.4f} s; largest change per leaf "
+          + ", ".join(f"{m:.2e}" for m in moved) + f"; launches {counts}")
+    del out, merged, init
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def _plain_flash_ad(ref):
+    """Plain attention with autograd, in place of the flash kernels."""
+    def flash_attention_ad(q, k, v, scale=None, causal=True, window=None,
+                           q_offset=0, *, block_q=128, block_k=128):
+        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                       window=window, q_offset=q_offset)
+    return flash_attention_ad
+
+
+def step_vs_plain(torch, cfg, dev):
+    """One float32 local train step at full width, through the kernels and
+    through plain attention: loss, grads and updated params."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.steps import make_train_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import Adam
+    from repro_torch.tree import flatten, leaves, unflatten
+    c32 = cfg.replace(param_dtype="float32")
+    params = lm.init(c32, seed=1, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    shape = ShapeConfig("cli", S, B, "train")
+    opt = Adam(lr=1e-3)
+    flat, spec = flatten(params)
+
+    def run():
+        live = [p.detach().requires_grad_() for p in flat]
+        loss, _ = build_model(c32).loss(unflatten(spec, live), batch,
+                                        remat=False)
+        grads = torch.autograd.grad(loss, live)
+        new, _, m = make_train_step(c32, shape, opt, remat=False)(
+            params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, leaves(new), float(m["loss"])
+
+    kernel = run()
+    saved = ops.flash_attention_ad
+    ops.flash_attention_ad = _plain_flash_ad(ref)
+    try:
+        plain = run()
+    finally:
+        ops.flash_attention_ad = saved
+    dloss = abs(kernel[0] - plain[0])
+    check(dloss <= STEP_LOSS_ATOL, f"f32 step loss differs by {dloss}")
+    grad_rel = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(kernel[1], plain[1]))
+    check(grad_rel <= STEP_GRAD_RTOL, f"f32 step grads differ: {grad_rel}")
+    within = total = 0
+    worst = 0.0
+    for a, b in zip(kernel[2], plain[2]):
+        d = (a - b).abs()
+        within += int((d <= STEP_PARAM_ATOL).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    share = within / total
+    check(share >= STEP_PARAM_SHARE,
+          f"f32 step: only {share:.6f} of updated params within "
+          f"{STEP_PARAM_ATOL}")
+    print(f"[step] float32 local step, kernels vs plain attention: loss "
+          f"{kernel[0]:.6f} vs {plain[0]:.6f} (|diff| {dloss:.2e}, atol "
+          f"{STEP_LOSS_ATOL}); grads max |diff| / leaf max {grad_rel:.2e} "
+          f"(rtol {STEP_GRAD_RTOL}); updated params within "
+          f"{STEP_PARAM_ATOL}: {within} of {total} ({share:.7f}), max "
+          f"|diff| {worst:.2e}")
+    del kernel, plain, params, flat
+    torch.cuda.empty_cache()
+    return dloss, grad_rel, share
+
+
+def profile_local_step(torch, cfg, dev, steps=3):
+    """A bf16 local train step at full width (one client, 4 x 1024
+    tokens): wall time, tokens/s, device busy share, top device ops and
+    peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import Adam
+    params = lm.init(cfg, seed=2, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    opt = Adam(lr=1e-3)
+    step = make_train_step(cfg, ShapeConfig("cli", S, B, "train"), opt,
+                           remat=False)
+    state = [params, opt.init(params)]
+
+    def run(n):
+        for _ in range(n):
+            state[0], state[1], _ = step(state[0], state[1], batch)
+        torch.cuda.synchronize()
+
+    run(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                   e.count // steps, e.key[:70])
+                  for e in prof.key_averages())[::-1]
+    busy = sum(r[0] for r in rows)
+    ops_per_step = sum(r[1] for r in rows)
+    print(f"[profile] bf16 local train step, {B}x{S} tokens: wall "
+          f"{wall:.3f} ms, {B * S / wall * 1e3:.0f} tokens/s, device busy "
+          f"{busy:.3f} ms (idle {100 * max(0.0, 1 - busy / wall):.1f}%), "
+          f"{ops_per_step} device ops/step, peak memory {peak:.2f} GiB")
+    for t, n, key in rows[:8]:
+        print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    del state, params
+    torch.cuda.empty_cache()
+    return wall, busy, peak
+
+
 # --------------------------------------------------------------- main path
 def serve_main_path(torch, cfg, params, dev):
     """Serve a fleet trace with both cache modes; returns launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.serve import serve_continuous
-    totals = {name: 0 for name in ops.launch_counts()}
+    totals = dict.fromkeys(ops.launch_counts(), 0)
     reports = {}
     for cache in ("fp32", "int8"):
         ops.reset_launch_counts()
@@ -296,13 +736,14 @@ def serve_main_path(torch, cfg, params, dev):
         check(all(0 <= tok < cfg.vocab_size
                   for s in rep["sequences"].values() for tok in s),
               f"{cache}: token id out of range")
-        want = {
+        want = dict.fromkeys(counts, 0)
+        want.update({
             "paged_decode_attention": passes * L * rep["decode_steps"],
             "paged_prefill_attention": passes * L * rep["prefill_chunks"],
             "quantize_int8": (passes * 2 * L * (rep["decode_steps"]
                                                 + rep["prefill_chunks"])
                               if cache == "int8" else 0),
-        }
+        })
         check(counts == want, f"{cache}: launches {counts} != {want}")
         for name in totals:
             totals[name] += counts[name]
@@ -312,8 +753,9 @@ def serve_main_path(torch, cfg, params, dev):
               f"{rep['warm_tokens_per_s']:.1f} tok/s (cold "
               f"{rep['tokens_per_s']:.1f}); launches {counts}")
         reports[cache] = rep
-    for name, n in totals.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "quantize_int8"):
+        check(totals[name] > 0, f"{name} was never launched serving")
     return totals, reports
 
 
@@ -448,6 +890,8 @@ def main():
     # 3. kernels against their plain versions
     cfg = get_config("flad-adllm")
     kernels = kernel_checks(torch, cfg, dev)
+    kernels.update(flash_checks(torch, dev))
+    kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
 
     # 4. the main path: serve flad-adllm at full width and depth
     t0 = time.perf_counter()
@@ -460,7 +904,7 @@ def main():
     launches, reports = serve_main_path(torch, cfg, params, dev)
     profile_decode(torch, cfg, params, dev)
 
-    # 5. paged path vs contiguous oracle, teacher-forced on served streams
+    # 4b. paged path vs contiguous oracle, teacher-forced on served streams
     seqs = reports["fp32"]["sequences"]
     trace = generate_fleet_requests(
         TRACE["fleet"], num_requests=TRACE["num_requests"],
@@ -487,17 +931,33 @@ def main():
           f"disagreement {fid['disagreement']:.4f} over {fid['positions']} "
           f"positions, max logit drift {fid['max_logit_drift']:.3e}")
 
-    # 6. one line per ported kernel
-    print(f"[kernels] library_ms is null: {LIBRARY_NOTE}")
+    # 5. the training path: two hier_fl rounds at full width
+    del params
+    torch.cuda.empty_cache()
+    train_launches, _ = train_main_path(torch, cfg, dev)
+
+    # 6. float32 step through kernels vs plain attention; a step's profile
+    step_vs_plain(torch, cfg, dev)
+    profile_local_step(torch, cfg, dev)
+
+    # 7. one line per ported kernel
+    print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
+        by_path = {"serve": launches[name], "train": train_launches[name]}
+        check(sum(by_path.values()) > 0, f"{name} was never launched")
         rows.append({"name": name, "route": "cuda", "source": k["source"],
-                     "replaces": k["replaces"], "launches": launches[name],
+                     "replaces": k["replaces"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None,
-                     **{x: k[x] for x in ("call_ms", "int8_ms",
-                                          "int8_plain_ms") if x in k}})
+                     "bound_by": k["bound_by"],
+                     "library_ms": k.get("library_ms"),
+                     **{x: v for x, v in k.items() if x not in (
+                         "source", "replaces", "max_abs_err", "ms",
+                         "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

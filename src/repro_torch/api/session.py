@@ -1,0 +1,156 @@
+"""``Session`` — the port's way to stand up FLAD training (port of
+``repro/api/session.py``).
+
+A Session composes a model config (``arch``; the CPU-smoke reduced
+variant unless ``full=True``), an input shape, a registered round
+:class:`~repro_torch.api.strategies.Strategy` and
+:class:`~repro_torch.train.loop.LoopHooks`, on one ``device`` (default
+``"cuda"``; the reference's device mesh has no counterpart on one card)::
+
+    from repro_torch.api import Session
+    out = Session("flad-adllm", strategy="hier_fl", codec="int8",
+                  shape="1024x4", full=True).run(2)
+
+Tracing (``trace=``) and profiling (``profile=``) come with the
+observability slice and raise; serving runs through
+:func:`repro_torch.serve.serve_continuous`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.api.strategies import Strategy, get_strategy
+from repro_torch.config import INPUT_SHAPES, ModelConfig, ShapeConfig
+
+
+def load_config(arch: str, *, full: bool = False) -> ModelConfig:
+    """An arch name's ModelConfig — the reduced variant by default,
+    the published scale with ``full=True``."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    return cfg if full else reduced(cfg)
+
+
+def resolve_shape(shape: Union[ShapeConfig, str, None], *,
+                  kind: str = "train") -> Optional[ShapeConfig]:
+    """Accept a ShapeConfig, a named shape, 'SEQxBATCH', or None."""
+    if shape is None or isinstance(shape, ShapeConfig):
+        return shape
+    if shape in INPUT_SHAPES:
+        return INPUT_SHAPES[shape]
+    s, b = (int(x) for x in shape.lower().split("x"))
+    return ShapeConfig("cli", s, b, kind)
+
+
+class Session:
+    """One FLAD workload: config x shape x strategy x hooks on a device."""
+
+    def __init__(self, arch: Optional[str] = None, *,
+                 cfg: Optional[ModelConfig] = None, full: bool = False,
+                 shape: Union[ShapeConfig, str, None] = None,
+                 strategy: Union[str, Strategy] = "hier_fl",
+                 learning_rate: float = 1e-3, seed: int = 0, hooks=None,
+                 device="cuda", **strategy_options):
+        if cfg is None:
+            cfg = load_config(arch or "flad-adllm", full=full)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.seed = seed
+        self.hooks = hooks
+        if isinstance(strategy, Strategy):
+            if strategy_options:
+                raise ValueError(
+                    f"strategy options {sorted(strategy_options)} are "
+                    f"ignored when passing a Strategy instance; set them "
+                    f"on the instance or pass the strategy by name")
+            self.strategy = strategy
+        else:
+            self.strategy = get_strategy(strategy,
+                                         learning_rate=learning_rate,
+                                         **strategy_options)
+        if self.strategy.loop != "round":
+            raise NotImplementedError(
+                f"{self.strategy.name!r} runs a {self.strategy.loop!r} "
+                f"loop; the port drives round strategies only")
+        #: default shape: 128-token sequences, 2 per client step
+        self.shape = resolve_shape(shape) or ShapeConfig("session", 128, 2,
+                                                         "train")
+        self._built: Optional[Tuple[Callable, Any]] = None
+        self.state: Optional[Tuple[Any, Any]] = None
+        self.history: list = []
+
+    def build(self, *, init: bool = True
+              ) -> Tuple[Callable, Optional[Tuple[Any, Any]]]:
+        """(step_fn, state): the strategy's round function and its state
+        on this session's device. Cached; ``init=False`` skips the state
+        (the caller supplies its own)."""
+        if self._built is None:
+            step = self.strategy.make_step(self.cfg, self.shape, self.device)
+            self._built = (step, None)
+        if init and self._built[1] is None:
+            state = self.strategy.init(self.cfg, self.shape, self.device,
+                                       self.seed)
+            self._built = (self._built[0], state)
+            self.state = state
+        return self._built
+
+    def merged_params(self, state=None):
+        """Flat model params view of the current (or given) state."""
+        state = state if state is not None else self.state
+        if state is None:
+            raise RuntimeError("no state yet; call build()/run() first")
+        return self.strategy.merge_params(state, self.cfg)
+
+    def default_batches(self, salt: int = 1) -> Iterator:
+        """Endless synthetic round batches from a generator seeded with
+        ``seed + salt`` on the session's device."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed + salt)
+        while True:
+            yield self.strategy.default_batch(self.cfg, self.shape, gen)
+
+    def run(self, steps: int, *, state=None, batches=None, hooks=None,
+            trace=None, metrics=None, profile=None) -> Dict:
+        """Run ``steps`` FL rounds and return the loop output.
+
+        ``state``: (client_params, client_opt) to start from instead of
+        the strategy's init; ``batches``: a ``fn(round_idx) -> round
+        batch`` or an iterable of round batches (default: synthetic);
+        ``metrics``: a :class:`repro_torch.obs.MetricsRegistry` or a path
+        that collects every logged round's scalar metrics
+        (``out["metrics_path"]`` when a path)."""
+        from repro_torch.obs import MetricsRegistry
+        from repro_torch.train.loop import LoopHooks, fl_loop
+        for name, arg in (("trace", trace), ("profile", profile)):
+            if arg is not None:
+                raise NotImplementedError(
+                    f"Session.run({name}=...) comes with the observability "
+                    f"slice of the port")
+        if isinstance(metrics, str):
+            registry, metrics_path = MetricsRegistry(), metrics
+        else:
+            registry, metrics_path = metrics, None
+        step, init_state = self.build(init=state is None)
+        if state is not None:
+            init_state = state
+        hooks = hooks or self.hooks or LoopHooks(log_every=1)
+        if registry is not None and hooks.metrics is None:
+            hooks = dataclasses.replace(hooks, metrics=registry)
+        if batches is None:
+            it = self.default_batches()
+            round_fn = lambda r: next(it)                # noqa: E731
+        elif callable(batches):
+            round_fn = batches
+        else:
+            round_fn = lambda r, _it=iter(batches): next(_it)  # noqa: E731
+        params, opt = init_state
+        out = fl_loop(step, params, opt, round_fn, rounds=steps, hooks=hooks)
+        self.state = (out["client_params"], out["client_opt"])
+        self._built = (step, self.state)
+        self.history.extend(out["history"])
+        if metrics_path is not None:
+            out["metrics_path"] = registry.save(metrics_path)
+        return out

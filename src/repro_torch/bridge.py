@@ -3,8 +3,12 @@
 :func:`params_from_numpy` turns the reference's parameter tree — nested
 dicts of arrays as ``repro.models.lm.init`` builds them, handed over as
 numpy arrays — into the port's :class:`repro_torch.models.lm.LM`, and
-:func:`params_to_numpy` goes back. This is how both packages compute on
-the same weights in the tests.
+:func:`params_to_numpy` goes back. :func:`tree_from_numpy` and
+:func:`tree_to_numpy` do the same for any nested dict, client-stacked
+[C, ...] trees included, and :func:`fl_state_from_numpy` turns an FL
+strategy's state — client-stacked params and Adam state — into the
+port's. This is how both packages compute on the same weights in the
+tests.
 
 bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
 own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.train.optimizer import AdamState
 
 
 def _leaf_to_torch(arr, device) -> torch.Tensor:
@@ -32,10 +37,22 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _tree_to_torch(tree, device):
+def tree_from_numpy(tree, device="cuda"):
+    """A nested dict of numpy arrays (any leading axes) as torch tensors
+    on ``device``; every leaf is copied."""
     if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
-    return _leaf_to_torch(tree, device)
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf_to_torch(tree, torch.device(device))
+
+
+def fl_state_from_numpy(client_params: dict, step, m: dict, v: dict,
+                        device="cuda"):
+    """An FL round strategy's state from the reference's, as numpy:
+    client-stacked params and the stacked ``AdamState(step [C], m, v)``
+    -> (client_params, AdamState) of torch tensors on ``device``."""
+    return (tree_from_numpy(client_params, device),
+            AdamState(_leaf_to_torch(step, torch.device(device)),
+                      tree_from_numpy(m, device), tree_from_numpy(v, device)))
 
 
 def params_from_numpy(tree: dict, device="cuda", *,
@@ -43,12 +60,14 @@ def params_from_numpy(tree: dict, device="cuda", *,
     """The reference's parameter tree (numpy leaves) as the port's module
     on ``device``; every leaf is copied, never shared with the array.
     ``cfg`` is only needed to call the module itself."""
-    return LM(cfg, _tree_to_torch(tree, torch.device(device)))
+    return LM(cfg, tree_from_numpy(tree, device))
 
 
-def _tree_to_numpy(tree):
+def tree_to_numpy(tree):
+    """A nested dict of tensors as numpy arrays (bfloat16 leaves as their
+    ``uint16`` bit patterns)."""
     if isinstance(tree, dict):
-        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -58,4 +77,4 @@ def _tree_to_numpy(tree):
 def params_to_numpy(module: LM) -> dict:
     """The port's parameters as the reference's nested dict of numpy
     arrays (bfloat16 leaves as their ``uint16`` bit patterns)."""
-    return _tree_to_numpy(module.to_dict())
+    return tree_to_numpy(module.to_dict())

@@ -1,4 +1,4 @@
-"""Model configuration dataclasses (port of ``repro.config``).
+"""Model and input-shape configuration (port of ``repro.config``).
 
 Mirrors the reference's :class:`ModelConfig` field for field so a config
 reads the same in both packages; ``dtype`` is a torch dtype here.
@@ -74,3 +74,26 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: sliding window used when a full-attention architecture runs long_500k
+LONG_CONTEXT_WINDOW = 8192

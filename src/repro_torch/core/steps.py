@@ -1,0 +1,44 @@
+"""Step builders (port of ``repro/core/steps.py``): ``make_train_step``,
+loss + grad + optimizer update at train shapes."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.configs.common import effective_window
+from repro_torch.models.registry import build_model
+from repro_torch.train.optimizer import Adam
+from repro_torch.tree import flatten, unflatten
+
+
+def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
+                    optimizer: Optional[Adam] = None, *, remat: bool = True,
+                    grad_accum: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics). ``params`` is a nested dict of tensors; the step leaves it
+    unchanged and returns new ones. ``remat`` recomputes each block's
+    activations in the backward pass (the reference's ``jax.checkpoint``
+    per block), which runs its attention forward a second time."""
+    if grad_accum > 1:
+        raise NotImplementedError(
+            "gradient accumulation (grad_accum > 1) is not ported yet")
+    model = build_model(cfg)
+    opt = optimizer or Adam()
+    window = effective_window(cfg, shape)
+
+    def train_step(params, opt_state, batch):
+        flat, spec = flatten(params)
+        live = [p.detach().requires_grad_(True) for p in flat]
+        with torch.enable_grad():
+            loss, metrics = model.loss(unflatten(spec, live), batch,
+                                       window=window, remat=remat)
+            grads = torch.autograd.grad(loss, live)
+        params, opt_state = opt.update(
+            unflatten(spec, list(grads)), opt_state,
+            unflatten(spec, [p.detach() for p in flat]))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, loss=loss.detach())
+
+    return train_step

@@ -201,7 +201,247 @@ def quantize_int8(x, bits):
     return q, scale
 
 
-KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8)
+def dequantize_int8(q, scale, *, dtype=torch.float32):
+    """Inverse of :func:`quantize_int8`: ``q * scale`` for q [M, 128] int8
+    and scale [M, 1] float32, as ``dtype`` (float32 or bfloat16) [M, 128].
+    Bitwise equal to :func:`repro_torch.kernels.ref.dequantize_int8_ref`."""
+    _require(q.dim() == 2 and q.shape[1] == LANES,
+             f"dequantize rows must be [M, {LANES}], got {tuple(q.shape)}")
+    _require(q.dtype == torch.int8, f"q must be int8, got {q.dtype}")
+    _require(scale.dtype == torch.float32
+             and tuple(scale.shape) == (q.shape[0], 1),
+             "scale must be float32 [M, 1]")
+    _require(dtype in (torch.float32, torch.bfloat16),
+             f"dtype must be float32 or bfloat16, got {dtype}")
+    _contiguous(q=q, scale=scale)
+    if not _on_card(q, scale):
+        return ref.dequantize_int8_ref(q, scale, dtype=dtype)
+    _aligned(q=q)
+    x = torch.empty(q.shape, dtype=dtype, device=q.device)
+    if q.shape[0] == 0:
+        return x
+    err = build.load("dequantize")(_DTYPE_CODES[dtype], _ptr(q), _ptr(scale),
+                                   _ptr(x), q.shape[0], _stream(q))
+    _raise_on(err, "dequantize_int8")
+    dequantize_int8.launches += 1
+    return x
+
+
+# --------------------------------------------------------- flash attention
+MAX_THREADS = 1024            #: threads a CTA may have
+MAX_SMEM = 227 * 1024         #: shared memory a CTA may opt into
+
+
+def _check_qkv(q, k, v):
+    """Shapes, dtypes and layout of a flash-attention call; returns
+    (B, Hq, Sq, D, Hkv, Skv)."""
+    _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+             "q must be [B, Hq, Sq, D] and k/v matching [B, Hkv, Skv, D]")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _require(k.shape[0] == b and k.shape[3] == d,
+             f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    _require(hq % hkv == 0, f"Hq {hq} is not a multiple of Hkv {hkv}")
+    _require(sq > 0 and skv > 0, "empty query or key sequence")
+    _require(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    _require(q.dtype == k.dtype == v.dtype,
+             f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    _contiguous(q=q, k=k, v=v)
+    return b, hq, sq, d, hkv, skv
+
+
+def _attn_args(*, scale, window, q_offset, block_q, block_k, sq, skv,
+               d):
+    """Normalized (scale, window, q_offset) and the kernels' tiles
+    (BQ, BK): the requested blocks, clamped to the sequence like the
+    reference's ``_block_and_pad`` and rounded up to whole warps."""
+    scale = float(scale) if scale is not None else d ** -0.5
+    if window is not None:
+        window = operator.index(window)
+        _require(window >= 1, f"window must be >= 1, got {window}")
+    q_offset = operator.index(q_offset)
+    _require(block_q >= 1 and block_k >= 1, "block sizes must be >= 1")
+    bq = -(-min(block_q, sq) // 32) * 32
+    bk = -(-min(block_k, skv) // 32) * 32
+    tpr = d // 32                     # threads per row (flash_attention.cuh)
+    _require(bq * tpr <= MAX_THREADS and bk * tpr <= MAX_THREADS,
+             f"tiles {bq}x{bk} need more than {MAX_THREADS} threads at "
+             f"head_dim {d}")
+    _require(2 * max(bq, bk) * (d + 1) * 4 <= MAX_SMEM,
+             f"tiles {bq}x{bk} exceed {MAX_SMEM} bytes of shared memory")
+    return scale, window, q_offset, bq, bk
+
+
+def _card_dtype(t) -> int:
+    _require(t.dtype in (torch.float32, torch.bfloat16),
+             f"the flash kernels take float32 or bfloat16, not {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, block_q: int = 128,
+                    block_k: int = 128, return_lse: bool = False):
+    """Blocked GQA attention. q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D]
+    (float32 or bfloat16, contiguous); query row r at absolute position
+    ``q_offset + r``; causal and ``window`` masks as the reference's.
+    Returns o [B, Hq, Sq, D] in q's dtype (and the float32 row logsumexp
+    [B, Hq, Sq] with ``return_lse``). ``block_q``/``block_k`` set the
+    kernel's query and KV tiles."""
+    b, hq, sq, d, hkv, skv = _check_qkv(q, k, v)
+    scale, window, q_offset, bq, bk = _attn_args(
+        scale=scale, window=window, q_offset=q_offset, block_q=block_q,
+        block_k=block_k, sq=sq, skv=skv, d=d)
+    if not _on_card(q, k, v):
+        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                       window=window, q_offset=q_offset,
+                                       return_lse=return_lse)
+    code = _card_dtype(q)
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    err = build.load("flash_fwd")(
+        code, _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv, sq,
+        skv, d, bq, bk, scale, int(causal), window or 0, q_offset,
+        _stream(q))
+    _raise_on(err, "flash_attention")
+    flash_attention.launches += 1
+    return (o, lse) if return_lse else o
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    b, hq, sq, d, hkv, skv = _check_qkv(q, k, v)
+    _require(do.shape == q.shape and do.dtype == q.dtype,
+             "do must match q in shape and dtype")
+    stats = ref._acc(q)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _require(tuple(t.shape) == (b, hq, sq) and t.dtype == stats,
+                 f"{name} must be {stats} [B, Hq, Sq]")
+    _contiguous(do=do, lse=lse, delta=delta)
+    return b, hq, sq, d, hkv, skv
+
+
+def flash_attention_bwd_preprocess(o, do):
+    """delta = rowsum(dO * O) in float32: o, do [B, Hq, Sq, D] ->
+    [B, Hq, Sq]."""
+    _require(o.dim() == 4 and do.shape == o.shape and do.dtype == o.dtype,
+             "o and do must be matching [B, Hq, Sq, D]")
+    _require(o.shape[-1] in HEAD_DIMS,
+             f"head_dim {o.shape[-1]} not in {HEAD_DIMS}")
+    _contiguous(o=o, do=do)
+    if not _on_card(o, do):
+        return ref.flash_attention_bwd_preprocess_ref(o, do)
+    code = _card_dtype(o)
+    delta = torch.empty(o.shape[:3], dtype=torch.float32, device=o.device)
+    err = build.load("flash_bwd_preprocess")(
+        code, _ptr(o), _ptr(do), _ptr(delta), o.numel() // o.shape[-1],
+        o.shape[-1], _stream(o))
+    _raise_on(err, "flash_attention_bwd_preprocess")
+    flash_attention_bwd_preprocess.launches += 1
+    return delta
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale=None,
+                            causal: bool = True,
+                            window: Optional[int] = None, q_offset: int = 0,
+                            block_q: int = 128, block_k: int = 128):
+    """(dK, dV) [B, Hkv, Skv, D] in k's dtype from the forward's q, k, v,
+    its lse, the cotangent ``do`` and ``delta``; each KV head sums its
+    query group. Deterministic: no atomics."""
+    b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
+    scale, window, q_offset, bq, bk = _attn_args(
+        scale=scale, window=window, q_offset=q_offset, block_q=block_q,
+        block_k=block_k, sq=sq, skv=skv, d=d)
+    if not _on_card(q, k, v, do, lse, delta):
+        return ref.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, scale=scale, causal=causal,
+            window=window, q_offset=q_offset)
+    code = _card_dtype(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = build.load("flash_bwd_dkv")(
+        code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, d, bq, bk, scale,
+        int(causal), window or 0, q_offset, _stream(q))
+    _raise_on(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
+                           causal: bool = True, window: Optional[int] = None,
+                           q_offset: int = 0, block_q: int = 128,
+                           block_k: int = 128):
+    """dQ [B, Hq, Sq, D] in q's dtype from the same inputs as
+    :func:`flash_attention_bwd_dkv`."""
+    b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
+    scale, window, q_offset, bq, bk = _attn_args(
+        scale=scale, window=window, q_offset=q_offset, block_q=block_q,
+        block_k=block_k, sq=sq, skv=skv, d=d)
+    if not _on_card(q, k, v, do, lse, delta):
+        return ref.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, scale=scale, causal=causal,
+            window=window, q_offset=q_offset)
+    code = _card_dtype(q)
+    dq = torch.empty_like(q)
+    err = build.load("flash_bwd_dq")(
+        code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dq), b, hq, hkv, sq, skv, d, bq, bk, scale, int(causal),
+        window or 0, q_offset, _stream(q))
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0, block_q: int = 128,
+                        block_k: int = 128):
+    """Gradients (dq, dk, dv) from the saved ``(q, k, v, o, lse)`` and the
+    output cotangent ``do``: the preprocess, dK/dV and dQ kernels in turn
+    (the reference's ``flash_attention_bwd``)."""
+    delta = flash_attention_bwd_preprocess(o, do)
+    kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
+              block_q=block_q, block_k=block_k)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttentionAD(torch.autograd.Function):
+    """Kernel forward saving ``(q, k, v, o, lse)``; kernel backward (the
+    reference's ``_fa_ad`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, q_offset, block_q,
+                block_k):
+        opts = dict(scale=scale, causal=causal, window=window,
+                    q_offset=q_offset, block_q=block_q, block_k=block_k)
+        o, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_ad(q, k, v, scale=None, causal=True, window=None,
+                       q_offset=0, *, block_q=128, block_k=128):
+    """Differentiable flash attention: the forward kernel, and the three
+    backward kernels in the backward pass (the reference's
+    ``flash_attention_ad``)."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttentionAD.apply(q, k, v, scale, bool(causal), window,
+                                   q_offset, int(block_q), int(block_k))
+
+
+KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
+           dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
+           flash_attention_bwd_dkv, flash_attention_bwd_dq)
 for _fn in KERNELS:
     _fn.launches = 0
 

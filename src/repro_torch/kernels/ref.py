@@ -111,5 +111,113 @@ def quantize_int8_ref(x, bits):
 
 
 def dequantize_int8_ref(q, scale, *, dtype=torch.float32):
-    """Inverse of :func:`quantize_int8_ref`: ``q * scale``."""
+    """Inverse of :func:`quantize_int8_ref`: ``q * scale`` — one float32
+    multiply by the scale tensor (never by a Python scalar, which torch
+    may turn into something else on CUDA), bitwise equal to the kernel."""
     return (q.float() * scale).to(dtype)
+
+
+# --------------------------------------------------------- flash attention
+def _acc(t) -> torch.dtype:
+    """The float type the flash kernels compute in: float32, or float64
+    for float64 inputs (the plain route's gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool,
+                   window: Optional[int], q_offset: int, device):
+    """[Sq, Skv] validity from absolute positions: query row r sits at
+    ``q_offset + r`` (the reference's ``_mask_block``)."""
+    qp = q_offset + torch.arange(sq, device=device)
+    kp = torch.arange(skv, device=device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window is not None:
+        mask &= kp[None, :] > qp[:, None] - window
+    return mask
+
+
+def _grouped(x, hkv: int):
+    """[B, Hq, S, D] -> [B, Hkv, G, S, D] (query head h = kv head * G + g)."""
+    b, hq = x.shape[:2]
+    return x.reshape(b, hkv, hq // hkv, *x.shape[2:])
+
+
+def flash_attention_ref(q, k, v, *, scale: Optional[float] = None,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0, return_lse: bool = False):
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D]. GQA attention with masks
+    from absolute positions, q, k and v read as float32 and both products
+    in float32 — the Pallas kernel's precision, not ``dense_mha``'s (which
+    casts p to v's dtype). Masked pairs get p = 0 exactly, so a row that
+    sees no key returns 0 (the kernels skip such pairs too). Returns o in
+    q's dtype and, with ``return_lse``, the float32 row logsumexp
+    [B, Hq, Sq]."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    acc = _acc(q)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", _grouped(q, hkv).to(acc),
+                     k.to(acc)) * scale
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc)) / l
+    o = o.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m + torch.log(l)).reshape(b, hq, sq)
+
+
+def flash_attention_bwd_preprocess_ref(o, do):
+    """delta = rowsum(dO * O) in float32: [B, Hq, Sq, D] -> [B, Hq, Sq]."""
+    acc = _acc(o)
+    return (o.to(acc) * do.to(acc)).sum(dim=-1)
+
+
+def _bwd_scores(q, k, v, do, lse, delta, *, scale, causal, window,
+                q_offset):
+    """The recomputed p = exp(s - lse) and dS = p * (dO.v - delta) * scale
+    in the grouped layout [B, Hkv, G, Sq, Skv], masked pairs 0."""
+    hkv = k.shape[1]
+    sq, skv = q.shape[2], k.shape[2]
+    acc = _acc(q)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", _grouped(q, hkv).to(acc),
+                     k.to(acc)) * scale
+    p = torch.where(mask, torch.exp(s - _grouped(lse, hkv)[..., None]), 0.0)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", _grouped(do, hkv).to(acc),
+                      v.to(acc))
+    ds = p * (dp - _grouped(delta, hkv)[..., None]) * scale
+    return p, ds
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, *, scale: float,
+                                causal: bool = True,
+                                window: Optional[int] = None,
+                                q_offset: int = 0):
+    """(dK, dV) [B, Hkv, Skv, D], summed over each KV head's query group,
+    accumulated in float32 and returned in k's (v's) dtype."""
+    p, ds = _bwd_scores(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                        window=window, q_offset=q_offset)
+    hkv = k.shape[1]
+    acc = _acc(q)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, _grouped(do, hkv).to(acc))
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, _grouped(q, hkv).to(acc))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *, scale: float,
+                               causal: bool = True,
+                               window: Optional[int] = None,
+                               q_offset: int = 0):
+    """dQ [B, Hq, Sq, D] = dS @ K, accumulated in float32, in q's dtype."""
+    _, ds = _bwd_scores(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                        window=window, q_offset=q_offset)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(_acc(q)))
+    return dq.reshape(q.shape).to(q.dtype)

@@ -1,0 +1,63 @@
+"""Training launcher of the port — a thin CLI over
+:class:`repro_torch.api.Session` for the ``hier_fl`` strategy.
+
+The reference's flags for ``hier_fl``, plus ``--device`` (default
+``cuda``). Other strategies, edge backups, checkpoints and tracing come
+with later slices of the port.
+
+  python -m repro_torch.launch.train --arch flad-adllm --full \\
+      --strategy hier_fl --topology 2@nano*2,agx*2 --codec int8 \\
+      --local-steps 2 --steps 2 --shape 1024x4
+"""
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="flad-adllm")
+    ap.add_argument("--shape", default=None, help="named shape or 'SEQxBATCH'")
+    ap.add_argument("--strategy", default="hier_fl", choices=["hier_fl"])
+    ap.add_argument("--steps", type=int, default=50, help="FL rounds")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="local steps per FL round")
+    ap.add_argument("--topology", default="2@nano*2,agx*2",
+                    help="vehicle->edge->cloud topology 'E@FLEET', e.g. "
+                         "'2@nano*2,agx*2' = 2 edge pods over that fleet")
+    ap.add_argument("--codec", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="uplink codec (update compression)")
+    ap.add_argument("--async-decay", type=float, default=None,
+                    help="staleness decay per missed round deadline "
+                         "(enables the predicted-staleness merge)")
+    ap.add_argument("--full", action="store_true",
+                    help="use the full published config")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write a metrics-registry snapshot (JSON) to PATH")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda runs the kernels; cpu their "
+                         "plain versions)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from repro_torch.api import LoopHooks, Session
+    session = Session(
+        args.arch, full=args.full, shape=args.shape, strategy=args.strategy,
+        learning_rate=args.lr, seed=args.seed, device=args.device,
+        hooks=LoopHooks(log_every=1), local_steps=args.local_steps,
+        topology=args.topology, codec=args.codec,
+        async_decay=args.async_decay)
+    out = session.run(args.steps, metrics=args.metrics)
+    last = out["history"][-1]
+    print(f"[train] done: {last}")
+    if args.metrics:
+        print(f"[train] metrics snapshot written to {out['metrics_path']}")
+    out["session"] = session
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -18,11 +18,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
 
 def _normal(gen, shape, std, dtype, device):
+    if device.type == "meta":        # shapes only (lm.abstract_params)
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * std).to(dtype)
 
@@ -135,33 +138,65 @@ def qkv(p, x, cfg: ModelConfig, rot):
     return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
-def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None):
+def _contiguous_positions(positions) -> bool:
+    """True iff ``positions`` ([S] or batch-uniform [B, S]) are
+    non-negative and consecutive — row i at ``positions[0] + i``, the
+    layout the flash kernels' absolute-position masks assume. Reads the
+    values on the host (a device sync for a CUDA tensor)."""
+    p = positions.detach().cpu()
+    row = p if p.dim() == 1 else p[0]
+    if p.dim() == 2 and not bool((p == row[None]).all()):
+        return False
+    if row.numel() == 0 or int(row[0]) < 0:
+        return False
+    return row.numel() == 1 or bool((row[1:] - row[:-1] == 1).all())
+
+
+def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
+              window: Optional[int] = None,
+              positions_contiguous: Optional[bool] = None):
     """Causal self-attention, with or without a contiguous KV cache.
 
     With ``cache`` the new K/V rows are written into it in place (see
-    :func:`update_kv_cache`) and attention runs over the whole cache. The
-    cache-free branch is what the reference sends to its flash-attention
-    kernel; on the card it raises until that kernel is ported, and on the
-    CPU it runs :func:`dense_mha`, the kernel's plain version. ``rot``
-    passes precomputed :func:`rope_tables` for ``positions``. Returns
-    (output, cache)."""
+    :func:`update_kv_cache`) and :func:`dense_mha` runs over the whole
+    cache. Without one — training and whole-prompt forwards — the
+    reference's gate applies: contiguous positions and a head_dim the
+    kernels take go through :func:`repro_torch.kernels.ops
+    .flash_attention_ad` (``q_offset = Skv - S``, tiles from the config's
+    ``attn_block_q/k``), which runs the kernels on the card and their
+    plain versions on the CPU. Anything else takes :func:`dense_mha` on
+    the CPU and raises on the card.
+    ``positions_contiguous`` vouches for the layout (None checks the
+    values); ``rot`` passes precomputed :func:`rope_tables` for
+    ``positions``. Returns (output, cache)."""
     b, s, _ = x.shape
     nq, hd = cfg.num_heads, cfg.hd
+    scale = hd ** -0.5
     if rot is None:
         rot = rope_tables(positions, hd, cfg.rope_theta)
     q, k, v = qkv(p, x, cfg, rot)
     q_pos = positions if positions.dim() == 1 else positions[0]
     if cache is not None:
         k, v, kv_pos, cache = update_kv_cache(cache, k, v, positions)
-    elif x.device.type != "cpu":
-        raise NotImplementedError(
-            "cache-free attention runs the flash-attention kernel, which "
-            "the flash-attention (training) slice of the port brings to "
-            "the card; pass a contiguous cache or use the paged engine")
+        o = dense_mha(q, k, v, scale=scale, q_pos=q_pos, kv_pos=kv_pos,
+                      causal=True, window=window)
     else:
-        kv_pos = q_pos
-    o = dense_mha(q, k, v, scale=hd ** -0.5, q_pos=q_pos, kv_pos=kv_pos,
-                  causal=True, window=None)
+        if positions_contiguous is None:
+            positions_contiguous = _contiguous_positions(positions)
+        if positions_contiguous and hd in ops.HEAD_DIMS:
+            o = ops.flash_attention_ad(
+                q.contiguous(), k.contiguous(), v.contiguous(), scale, True,
+                window, k.shape[2] - s, block_q=cfg.attn_block_q,
+                block_k=cfg.attn_block_k)
+        elif x.device.type == "cpu":
+            o = dense_mha(q, k, v, scale=scale, q_pos=q_pos, kv_pos=q_pos,
+                          causal=True, window=window)
+        else:
+            raise NotImplementedError(
+                f"cache-free attention on {x.device} runs the flash "
+                f"kernels, which need contiguous positions and a head_dim "
+                f"in {ops.HEAD_DIMS} (head_dim {hd}, contiguous "
+                f"{positions_contiguous})")
     o = o.transpose(1, 2).reshape(b, s, nq * hd)
     return (o @ p["wo"]).to(x.dtype), cache
 

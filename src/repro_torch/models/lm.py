@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
@@ -19,8 +20,8 @@ from repro_torch.models import blocks as B
 
 class ParamTree(nn.Module):
     """An ``nn.Module`` over a nested dict of tensors: sub-dicts become
-    child modules, tensors frozen parameters. ``p["name"]`` and ``"name"
-    in p`` read it like the reference's dict pytrees."""
+    child modules, tensors trainable parameters. ``p["name"]`` and
+    ``"name" in p`` read it like the reference's dict pytrees."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -28,8 +29,7 @@ class ParamTree(nn.Module):
             if isinstance(value, dict):
                 self.add_module(name, ParamTree(value))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value))
 
     def __getitem__(self, name: str):
         if name in self._modules:
@@ -79,8 +79,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     streams differ, so cross-package tests bridge one tree instead)."""
     _check_family(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     lead = (cfg.num_layers,)
     tree = {
         "embed": B.init_embedding(gen, cfg.vocab_size, cfg.d_model,
@@ -99,9 +101,19 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     return LM(cfg, tree)
 
 
-def apply_block(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None):
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes and dtypes, on the ``meta`` device (no
+    memory), as the reference's ``abstract_params``."""
+    return init(cfg, device="meta").to_dict()
+
+
+def apply_block(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
+                window: Optional[int] = None,
+                positions_contiguous: Optional[bool] = None):
     a, cache = B.attention(p["attn"], B.rms_norm(p["ln1"], x, cfg.norm_eps),
-                           cfg, positions=positions, cache=cache, rot=rot)
+                           cfg, positions=positions, cache=cache, rot=rot,
+                           window=window,
+                           positions_contiguous=positions_contiguous)
     x = x + a
     h = B.rms_norm(p["ln2"], x, cfg.norm_eps)
     return x + B.mlp(p["ffn"], h), cache
@@ -115,25 +127,39 @@ def logits_of(params, cfg: ModelConfig, h):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
-            caches: Optional[dict] = None,
-            logits_slice: Optional[int] = None, hidden_only: bool = False):
+            caches: Optional[dict] = None, window: Optional[int] = None,
+            remat: bool = False, logits_slice: Optional[int] = None,
+            hidden_only: bool = False):
     """tokens: [B, S] int. Returns (logits [B, S, V] float32 — or the
     final-norm hidden states with ``hidden_only`` — , caches, aux).
 
     ``caches`` is a layer-stacked contiguous cache from :func:`init_cache`;
-    it is updated in place and returned. ``aux`` is the (zero) MoE
-    auxiliary loss, kept for the reference's return signature."""
+    it is updated in place and returned. Without one, attention runs the
+    flash-attention kernels (:func:`repro_torch.models.blocks.attention`).
+    ``window`` is the sliding attention window (None: full causal).
+    ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``, the reference's per-block
+    ``jax.checkpoint``); it needs ``caches=None``.
+    ``aux`` is the (zero) MoE auxiliary loss, kept for the reference's
+    return signature. ``params`` may be the module or its nested dict."""
     _check_family(cfg)
     x = B.embed(params["embed"], tokens)
+    contiguous = None
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        contiguous = True
     rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
     blocks = params["blocks"]
     for l in range(cfg.num_layers):
         lc = None if caches is None else {k: c[l] for k, c in caches.items()}
-        x, _ = apply_block(layer(blocks, l), x, cfg, positions=positions,
-                           cache=lc, rot=rot)
+        kw = dict(positions=positions, rot=rot, window=window,
+                  positions_contiguous=contiguous)
+        if remat and lc is None and torch.is_grad_enabled():
+            x, _ = checkpoint(apply_block, layer(blocks, l), x, cfg,
+                              use_reentrant=False, **kw)
+        else:
+            x, _ = apply_block(layer(blocks, l), x, cfg, cache=lc, **kw)
     x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]

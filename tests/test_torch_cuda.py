@@ -6,8 +6,11 @@ with one (no JAX needed — this file imports only the port):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 attention 1e-5 (both sides compute in float32, in
-different orders); bfloat16 attention 2e-2 (one bfloat16 rounding of the
-output); the quantizer bitwise.
+different orders; 2e-5 for flash gradients, sums over many rows);
+bfloat16 paged attention 2e-2 (one bfloat16 rounding of the output);
+bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
+it); the quantizer and dequantizer bitwise; the flash backward bitwise
+equal across runs (no atomics).
 """
 import numpy as np
 import pytest
@@ -121,3 +124,97 @@ def test_quantize_kernel_bitwise(dev, pinned):
     torch.cuda.synchronize()
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert float(s[3]) == 0.0 and not q[3].any()
+
+
+FLASH_CASES = {"causal": (128, 128, {}), "ragged": (100, 100, {}),
+               "offset": (96, 160, {"q_offset": 64}),
+               "window": (128, 128, {"window": 40}),
+               "full": (64, 80, {"causal": False})}
+
+
+def _flash(dev, dtype, sq, skv, seed=0, b=2, hq=4, hkv=2, d=64):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (rand(b, hq, sq, d), rand(b, hkv, skv, d), rand(b, hkv, skv, d),
+            rand(b, hq, sq, d))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(dev, dtype, case):
+    sq, skv, kw = FLASH_CASES[case]
+    q, k, v, do = _flash(dev, dtype, sq, skv)
+    before = ops.launch_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    after = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_preprocess",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    sc = q.shape[-1] ** -0.5
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=sc, **kw)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale=sc,
+                                         **kw)
+    rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
+    torch.cuda.synchronize()
+    for label, got, want in (("o", o, ro), ("lse", lse, rlse),
+                             ("delta", delta, rdelta), ("dk", dk, rdk),
+                             ("dv", dv, rdv), ("dq", dq, rdq)):
+        assert torch.isfinite(got).all(), label
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            tol = 2e-5 if label in ("dk", "dv", "dq") else 1e-5
+        elif label in ("lse", "delta"):
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+        else:
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+        assert err <= tol, (label, err, tol)
+
+
+def test_flash_backward_is_bitwise_repeatable(dev):
+    q, k, v, do = _flash(dev, torch.bfloat16, 200, 200, seed=1)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    second = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_autograd_runs_the_kernels(dev):
+    q, k, v, do = _flash(dev, torch.float32, 64, 64, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = ops.launch_counts()
+    o = ops.flash_attention_ad(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_bwd_dkv"]
+            == before["flash_attention_bwd_dkv"] + 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v),
+                               (q, k, v), do)
+    for a, b in zip(grads, want):
+        assert float((a - b).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dequantize_kernel_bitwise(dev, dtype):
+    rng = np.random.default_rng(3)
+    m = 1000
+    q = torch.tensor(rng.integers(-127, 128, (m, ops.LANES)),
+                     dtype=torch.int8).to(dev)
+    scale = torch.tensor(rng.uniform(1e-6, 1e3, (m, 1)),
+                         dtype=torch.float32).to(dev)
+    scale[7] = 0.0
+    got = ops.dequantize_int8(q, scale, dtype=dtype)
+    want = ref.dequantize_int8_ref(q, scale, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

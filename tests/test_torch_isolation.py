@@ -52,7 +52,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_neither():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.bridge, repro_torch.kernels.build; "
+            "repro_torch.bridge, repro_torch.kernels.build, "
+            "repro_torch.api, repro_torch.launch.train, repro_torch.comm, "
+            "repro_torch.core.steps, repro_torch.core.fedavg, "
+            "repro_torch.train.loop, repro_torch.models.registry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -74,3 +77,16 @@ def test_entry_points_default_to_the_card():
             fn.__qualname__
     args = build_parser().parse_args([])
     assert args.device == "cuda" and args.scheduler == "continuous"
+
+
+def test_training_entry_points_default_to_the_card():
+    from repro_torch.api import Session
+    from repro_torch.comm.codecs import GeneratorBits
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models import lm
+    for fn in (Session.__init__, lm.init, GeneratorBits.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+    args = build_parser().parse_args([])
+    assert args.device == "cuda" and args.strategy == "hier_fl"
+    assert args.arch == "flad-adllm"
