@@ -83,12 +83,16 @@ TRAIN_ARGV = ["--arch", "flad-adllm", "--full", "--strategy", "hier_fl",
 NANO_BPS, AGX_BPS = 0.125e9, 0.25e9        # sched/costmodel.py presets
 BACKHAUL_BPS, BACKHAUL_S = 1.25e9, 0.01    # comm/topology.py defaults
 # float32 local step, kernels vs plain attention: the loss and the grads
-# differ only in summation order; Adam's first step g / (|g| + eps)
-# amplifies that where a grad is of order eps, so the updated params are
-# held to 1e-5 on all but 0.01% of the elements
+# differ only in summation order; Adam's first step lr * g / (|g| + eps)
+# turns that into a visible difference where a grad is nonzero and below
+# 10 * eps (a sign can flip there), so those near-eps params are counted
+# and held only to 2 * lr, the most two such steps can differ by; all
+# others to 1e-5
 STEP_LOSS_ATOL = 1e-4
 STEP_GRAD_RTOL = 1e-4          # of each leaf's largest grad
-STEP_PARAM_ATOL, STEP_PARAM_SHARE = 1e-5, 0.9999
+STEP_PARAM_ATOL = 1e-5
+NEAR_EPS = 1e-7
+L2_FLUSH_BYTES = 256 * 2 ** 20  # five times the H100's 50 MB L2
 
 
 def check(cond, msg):
@@ -111,31 +115,71 @@ def time_ms(fn, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match=None, iters=50):
-    """Mean device time per call of ``fn`` from torch.profiler's CUDA
-    trace: the summed durations of the kernels whose name contains
-    ``match`` (every kernel when None), divided by ``iters``. None when
-    the profiler recorded no device time."""
+_FLUSH = {}
+
+
+def flush_l2():
+    """Overwrite a float64 buffer five times the size of the L2, so that
+    the next call reads its inputs from HBM as the main path does (it
+    calls each kernel once on freshly written tensors)."""
+    import torch
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.float64,
+                                    device="cuda")
+    _FLUSH["buf"].fill_(1.0)
+
+
+def _device_totals(prof):
+    """{kernel name: summed device time in us} of a profile."""
+    out = {}
+    for evt in prof.key_averages():
+        t = (getattr(evt, "device_time_total", 0)
+             or getattr(evt, "cuda_time_total", 0))
+        if t > 0:
+            out[evt.key] = t
+    return out
+
+
+def _flush_keys():
+    """Names of the device kernels that flush_l2 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if "keys" not in _FLUSH:
+        flush_l2()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_l2()
+            torch.cuda.synchronize()
+        _FLUSH["keys"] = set(_device_totals(prof))
+    return _FLUSH["keys"]
+
+
+def device_ms(fn, match=None, iters=50):
+    """Mean device time per call of ``fn`` with a cold L2, from
+    torch.profiler's CUDA trace: each call follows flush_l2, whose kernel
+    is left out of the sum. Sums the durations of the kernels whose name
+    contains ``match`` (every kernel when None), divided by ``iters``.
+    None when the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    skip = _flush_keys()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            flush_l2()
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if match is None or match in evt.key:
-            total += (getattr(evt, "device_time_total", 0)
-                      or getattr(evt, "cuda_time_total", 0))
+    total = sum(t for key, t in _device_totals(prof).items()
+                if key not in skip and (match is None or match in key))
     return total / iters / 1e3 if total > 0 else None
 
 
 def timings(kernel_fn, plain_fn, match):
     """(kernel device ms, plain device ms, kernel ms per call on the host
-    clock incl. the wrapper) — device times from the profiler, falling
-    back to CUDA events over back-to-back calls when it saw nothing."""
+    clock incl. the wrapper) — device times from the profiler with a cold
+    L2, falling back to CUDA events over back-to-back calls (warm L2) when
+    it saw nothing."""
     call = time_ms(kernel_fn)
     k = device_ms(kernel_fn, match)
     p = device_ms(plain_fn, None, iters=20)
@@ -626,10 +670,11 @@ def step_vs_plain(torch, cfg, dev):
         loss, _ = build_model(c32).loss(unflatten(spec, live), batch,
                                         remat=False)
         grads = torch.autograd.grad(loss, live)
-        new, _, m = make_train_step(c32, shape, opt, remat=False)(
+        new, st, m = make_train_step(c32, shape, opt, remat=False)(
             params, opt.init(params), batch)
         torch.cuda.synchronize()
-        return float(loss.detach()), grads, leaves(new), float(m["loss"])
+        return (float(loss.detach()), grads, leaves(new), float(m["loss"]),
+                leaves(st.v))
 
     kernel = run()
     saved = ops.flash_attention_ad
@@ -644,26 +689,35 @@ def step_vs_plain(torch, cfg, dev):
                    / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(kernel[1], plain[1]))
     check(grad_rel <= STEP_GRAD_RTOL, f"f32 step grads differ: {grad_rel}")
-    within = total = 0
-    worst = 0.0
-    for a, b in zip(kernel[2], plain[2]):
+    near = near_apart = total = 0
+    worst = worst_near = 0.0
+    for a, b, va, vb in zip(kernel[2], plain[2], kernel[4], plain[4]):
         d = (a - b).abs()
-        within += int((d <= STEP_PARAM_ATOL).sum())
+        # Adam's first-step denominator |g| (= sqrt(v_hat)), either run's
+        den = torch.minimum(*(torch.where(
+            v > 0, torch.sqrt(v / (1 - opt.b2)), torch.inf) for v in (va, vb)))
+        flag = den < NEAR_EPS
+        near += int(flag.sum())
+        near_apart += int((flag & (d > STEP_PARAM_ATOL)).sum())
         total += d.numel()
-        worst = max(worst, float(d.max()))
-    share = within / total
-    check(share >= STEP_PARAM_SHARE,
-          f"f32 step: only {share:.6f} of updated params within "
+        worst = max(worst, float(torch.where(flag, 0.0, d).max()))
+        worst_near = max(worst_near, float(d.max()))
+    check(worst <= STEP_PARAM_ATOL,
+          f"f32 step: updated params differ by {worst:.3e} > "
           f"{STEP_PARAM_ATOL}")
+    check(worst_near <= 2 * opt.lr,
+          f"f32 step: near-eps params differ by {worst_near:.3e}")
     print(f"[step] float32 local step, kernels vs plain attention: loss "
           f"{kernel[0]:.6f} vs {plain[0]:.6f} (|diff| {dloss:.2e}, atol "
           f"{STEP_LOSS_ATOL}); grads max |diff| / leaf max {grad_rel:.2e} "
-          f"(rtol {STEP_GRAD_RTOL}); updated params within "
-          f"{STEP_PARAM_ATOL}: {within} of {total} ({share:.7f}), max "
-          f"|diff| {worst:.2e}")
+          f"(rtol {STEP_GRAD_RTOL}); updated params max |diff| {worst:.2e} "
+          f"(atol {STEP_PARAM_ATOL}) on all but the {near} of {total} "
+          f"near-eps params (0 < |g| < {NEAR_EPS}); {near_apart} of those "
+          f"over {STEP_PARAM_ATOL}, max {worst_near:.2e} (atol "
+          f"{2 * opt.lr})")
     del kernel, plain, params, flat
     torch.cuda.empty_cache()
-    return dloss, grad_rel, share
+    return dloss, grad_rel, worst, near
 
 
 def profile_local_step(torch, cfg, dev, steps=3):
@@ -946,6 +1000,9 @@ def main():
     for name, k in kernels.items():
         by_path = {"serve": launches[name], "train": train_launches[name]}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
+        if k["ms"] < k["bound_ms"]:
+            print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "
+                  f"{k['bound_ms']:.5f} ms: some input came from the L2")
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),

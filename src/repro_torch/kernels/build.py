@@ -38,7 +38,7 @@ SIGNATURES = {
     "paged_prefill": ("paged_prefill_attention",
                       [_I, _I] + [_P] * 7 + [_I] * 9 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
-    "dequantize": ("dequantize_int8", [_I] + [_P] * 3 + [_I, _P]),
+    "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",
                   [_I] + [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_preprocess": ("flash_attention_bwd_preprocess",

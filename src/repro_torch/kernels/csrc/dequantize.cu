@@ -7,62 +7,40 @@
 // so it is bitwise equal to the reference and to the plain version.
 //
 // What bounds it on an H100: bytes. Per element it reads 1 byte and writes
-// 4 (float32) or 2 (bf16) for one multiply.
+// 4 for one multiply.
 //
 // What the design does about it: one warp per row, as quantize.cu; each
 // lane loads its 4 codes as one 32-bit word and the row's scale once, and
-// stores its 4 results with one 16-byte (float32) or 8-byte (bf16) store.
-#include <cuda_bf16.h>
+// stores its 4 results with one 16-byte store.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr int kLanes = 128;
 constexpr int kRowsPerBlock = 8;   // one warp per row
 
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 w;
-  w.x = *reinterpret_cast<uint32_t*>(&lo);
-  w.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = w;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     dequantize_int8_kernel(const int8_t* __restrict__ q,
                            const float* __restrict__ scale,
-                           T* __restrict__ x, int M) {
+                           float* __restrict__ x, int M) {
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;   // uniform across the warp
   const size_t base = (size_t)row * kLanes + lane * 4;
   const char4 c = *reinterpret_cast<const char4*>(q + base);
   const float s = scale[row];
-  const float out[4] = {__fmul_rn(__int2float_rn(c.x), s),
-                        __fmul_rn(__int2float_rn(c.y), s),
-                        __fmul_rn(__int2float_rn(c.z), s),
-                        __fmul_rn(__int2float_rn(c.w), s)};
-  store4(x + base, out);
+  *reinterpret_cast<float4*>(x + base) =
+      make_float4(__fmul_rn(__int2float_rn(c.x), s),
+                  __fmul_rn(__int2float_rn(c.y), s),
+                  __fmul_rn(__int2float_rn(c.z), s),
+                  __fmul_rn(__int2float_rn(c.w), s));
 }
 
-// q: [M, 128] int8; scale: [M, 1] float32; x: [M, 128] of `dtype`
-// (0 float32, 1 bf16). All 16-byte aligned. Returns cudaGetLastError().
-extern "C" int dequantize_int8(int dtype, const int8_t* q, const float* scale,
-                               void* x, int M, void* stream) {
+// q: [M, 128] int8; scale: [M, 1] float32; x: [M, 128] float32. All
+// 16-byte aligned. Returns cudaGetLastError().
+extern "C" int dequantize_int8(const int8_t* q, const float* scale, float* x,
+                               int M, void* stream) {
   const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    dequantize_int8_kernel<float><<<blocks, kRowsPerBlock * 32, 0, st>>>(
-        q, scale, (float*)x, M);
-  else if (dtype == 1)
-    dequantize_int8_kernel<__nv_bfloat16>
-        <<<blocks, kRowsPerBlock * 32, 0, st>>>(q, scale,
-                                                (__nv_bfloat16*)x, M);
-  else
-    return (int)cudaErrorInvalidValue;
+  dequantize_int8_kernel<<<blocks, kRowsPerBlock * 32, 0,
+                           (cudaStream_t)stream>>>(q, scale, x, M);
   return (int)cudaGetLastError();
 }

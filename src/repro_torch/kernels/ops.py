@@ -201,9 +201,9 @@ def quantize_int8(x, bits):
     return q, scale
 
 
-def dequantize_int8(q, scale, *, dtype=torch.float32):
+def dequantize_int8(q, scale):
     """Inverse of :func:`quantize_int8`: ``q * scale`` for q [M, 128] int8
-    and scale [M, 1] float32, as ``dtype`` (float32 or bfloat16) [M, 128].
+    and scale [M, 1] float32, as float32 [M, 128].
     Bitwise equal to :func:`repro_torch.kernels.ref.dequantize_int8_ref`."""
     _require(q.dim() == 2 and q.shape[1] == LANES,
              f"dequantize rows must be [M, {LANES}], got {tuple(q.shape)}")
@@ -211,17 +211,15 @@ def dequantize_int8(q, scale, *, dtype=torch.float32):
     _require(scale.dtype == torch.float32
              and tuple(scale.shape) == (q.shape[0], 1),
              "scale must be float32 [M, 1]")
-    _require(dtype in (torch.float32, torch.bfloat16),
-             f"dtype must be float32 or bfloat16, got {dtype}")
     _contiguous(q=q, scale=scale)
     if not _on_card(q, scale):
-        return ref.dequantize_int8_ref(q, scale, dtype=dtype)
+        return ref.dequantize_int8_ref(q, scale)
     _aligned(q=q)
-    x = torch.empty(q.shape, dtype=dtype, device=q.device)
+    x = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.shape[0] == 0:
         return x
-    err = build.load("dequantize")(_DTYPE_CODES[dtype], _ptr(q), _ptr(scale),
-                                   _ptr(x), q.shape[0], _stream(q))
+    err = build.load("dequantize")(_ptr(q), _ptr(scale), _ptr(x),
+                                   q.shape[0], _stream(q))
     _raise_on(err, "dequantize_int8")
     dequantize_int8.launches += 1
     return x

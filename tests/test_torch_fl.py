@@ -6,16 +6,17 @@ and a two-round ``hier_fl`` run through ``Session.run`` at
 ``reduced(flad_adllm)`` in float32 with the lossless codec, started from
 the reference Session's own initial state and fed the same batches.
 
-Tolerance of the two-round run: the wire metrics are equal exactly and
-the per-client losses within 1e-5. The global params are within 2e-5 on
-all but a handful of elements. Adam's first step is u = g / (|g| + eps),
-so where a grad is of order eps (1e-8) a last-bit difference in it moves
-the update by up to lr times a visible fraction. The reference disagrees
-with itself the same way: on these inputs its XLA and Pallas attention
-paths leave 3 of the 426624 global params more than 2e-5 apart (at most
-2.7e-5); the port and the reference's XLA path leave 5 (at most 7.0e-5).
-So the test holds 99.99% of the elements to 2e-5 and all of them to 1e-4
-(a tenth of the learning rate).
+Tolerance of the two-round run: the wire metrics are equal exactly, the
+per-client losses within 1e-5 and the global params within 2e-5, except
+where Adam's eps amplifies a grad. Adam's step is m_hat / (sqrt(v_hat) +
+eps): where some update meets a nonzero sqrt(v_hat) below 10 * eps, a
+last-bit difference in a grad moves the param by up to lr times a visible
+fraction. Those near-eps elements (264 of 426624 on these inputs; the
+port and the reference differ by at most 7.0e-5 there, by at most 1.9e-6
+everywhere else) are held to 1e-4, a tenth of the learning rate, and may
+be at most 0.1% of the params. The reference disagrees with itself the
+same way: its XLA and Pallas attention paths leave 3 global params more
+than 2e-5 apart (at most 2.7e-5).
 """
 import jax
 import jax.numpy as jnp
@@ -33,10 +34,59 @@ from repro_torch.api import (LoopHooks, Session, available_strategies,
 from repro_torch.comm import codecs, hierarchy
 from repro_torch.comm.topology import parse_topology
 from repro_torch.core.fedavg import fedavg
+from repro_torch.train.optimizer import Adam
 from repro_torch.tree import leaves
 
 TOPO = "2@nano*2,agx*2"
 C = 4
+NEAR_EPS = 1e-7       # 10 * Adam's eps: the grads it amplifies
+NEAR_EPS_ATOL = 1e-4  # a tenth of the learning rate
+
+
+def adam_denominators(v, b2, step):
+    """Adam's sqrt(v_hat) per element of each leaf of ``v``, with +inf
+    where v is 0 (a grad that was exactly 0 moves nothing)."""
+    bc2 = 1.0 - b2 ** step
+    return [torch.where(x > 0, torch.sqrt(x / bc2), torch.inf)
+            for x in leaves(v)]
+
+
+def record_adam_denominators(monkeypatch):
+    """Patch the port's Adam to keep, per element, the smallest nonzero
+    sqrt(v_hat) that any update met (over clients, steps and rounds).
+    Returns the list it keeps the leaf minima in, in flatten order."""
+    low = []
+    update = Adam.update
+
+    def recording(self, grads, state, params):
+        new, st = update(self, grads, state, params)
+        den = adam_denominators(st.v, self.b2, float(st.step))
+        low[:] = den if not low else [torch.minimum(a, b)
+                                      for a, b in zip(low, den)]
+        return new, st
+
+    monkeypatch.setattr(Adam, "update", recording)
+    return low
+
+
+def assert_params_close(want, got, low, atol):
+    """Every element of the ``got`` leaves within ``atol`` (a number, or
+    one array per leaf) of ``want``, except the near-eps ones (``low`` <
+    NEAR_EPS), which are held to NEAR_EPS_ATOL and may be at most 0.1% of
+    the elements. Returns (near-eps count, element count)."""
+    if np.isscalar(atol):
+        atol = [atol] * len(low)
+    near = total = 0
+    for w, g, lo, tol in zip(want, got, low, atol):
+        d = np.abs(g.detach().numpy() - np.asarray(w))
+        flag = lo.numpy() < NEAR_EPS
+        assert d.max() <= NEAR_EPS_ATOL, d.max()
+        bad = (d > tol) & ~flag
+        assert not bad.any(), (int(bad.sum()), float(d[bad].max()))
+        near += int(flag.sum())
+        total += d.size
+    assert near <= 1e-3 * total, (near, total)
+    return near, total
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -232,7 +282,7 @@ def test_identity_codec_round_is_flat_fedavg():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
-def test_hier_fl_none_codec_matches_reference():
+def test_hier_fl_none_codec_matches_reference(monkeypatch):
     rng = np.random.default_rng(7)
     batches = [{k: rng.integers(0, 512, (C, 2, 2, 64)).astype(np.int32)
                 for k in ("tokens", "labels")} for _ in range(2)]
@@ -244,6 +294,7 @@ def test_hier_fl_none_codec_matches_reference():
                                        np_(jo.m), np_(jo.v), "cpu")
     jout = js.run(2, batches=batches, hooks=_quiet(JHooks))
 
+    low = record_adam_denominators(monkeypatch)
     ts = Session("flad-adllm", strategy="hier_fl", shape="64x2",
                  topology=TOPO, codec="none", local_steps=2, device="cpu")
     tout = ts.run(2, state=state,
@@ -255,11 +306,6 @@ def test_hier_fl_none_codec_matches_reference():
             assert th[k] == jh[k], k
         np.testing.assert_allclose(th["per_client/loss"],
                                    jh["per_client/loss"], atol=1e-5)
-    within = total = 0
-    for w, g in zip(jax.tree.leaves(js.merged_params()),
-                    leaves(ts.merged_params())):
-        d = np.abs(g.numpy() - np.asarray(w))
-        assert d.max() <= 1e-4
-        within += int((d <= 2e-5).sum())
-        total += d.size
-    assert within >= 0.9999 * total, (within, total)
+    near, total = assert_params_close(jax.tree.leaves(js.merged_params()),
+                                      leaves(ts.merged_params()), low, 2e-5)
+    print(f"near-eps params held to {NEAR_EPS_ATOL}: {near} of {total}")

@@ -8,12 +8,12 @@ What is held:
   * round 1's int8 codes: at least 99.9% equal. Each package quantizes
     its own local-training deltas, and a last-bit difference in a delta
     can flip a stochastic rounding;
-  * the global params after two rounds: within two quantization steps
-    (2 * the row's scale, the largest over rounds and clients) on 99.99%
-    of the elements, and within 1e-4 (a tenth of the learning rate) on
-    all. The exceptions are the elements where Adam's first step,
-    g / (|g| + eps), meets a grad of order eps; see test_torch_fl.py for
-    the reference's own disagreement there.
+  * the global params after two rounds: every element within two
+    quantization steps (2 * the row's scale, the largest over rounds and
+    clients), except the elements where Adam's eps amplifies a grad
+    (some update met a nonzero sqrt(v_hat) below 10 * eps), which are
+    held to 1e-4 (a tenth of the learning rate) and may be at most 0.1%
+    of the params; see test_torch_fl.py.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +30,7 @@ from repro_torch import bridge
 from repro_torch.api import LoopHooks, Session
 from repro_torch.kernels import ops
 from repro_torch.tree import leaves
+from test_torch_fl import assert_params_close, record_adam_denominators
 
 TOPO = "2@nano*2,agx*2"
 C, ROUNDS = 4, 2
@@ -102,6 +103,7 @@ def test_hier_fl_int8_matches_reference(monkeypatch):
         return q, s
 
     monkeypatch.setattr(ops, "quantize_int8", recording)
+    low = record_adam_denominators(monkeypatch)
     ts = Session("flad-adllm", strategy="hier_fl", shape="64x2",
                  topology=TOPO, codec="int8", local_steps=2, device="cpu",
                  codec_bits=codec_bits)
@@ -126,15 +128,12 @@ def test_hier_fl_int8_matches_reference(monkeypatch):
     assert same >= 0.999 * total, (same, total)
 
     # the global params: two quantization steps of each element's row
-    within = count = 0
-    for i, (w, g) in enumerate(zip(jax.tree.leaves(js.merged_params()),
-                                   leaves(ts.merged_params()))):
-        scale = np.max(np.stack([
-            np.repeat(calls[(r * n + i) * C + c][3].numpy(), ops.LANES, 1
-                      ).reshape(-1)[:sizes[i]]
-            for r in range(ROUNDS) for c in range(C)]), 0).reshape(w.shape)
-        d = np.abs(g.numpy() - np.asarray(w))
-        assert d.max() <= 1e-4
-        within += int((d <= 2 * scale).sum())
-        count += d.size
-    assert within >= 0.9999 * count, (within, count)
+    want = jax.tree.leaves(js.merged_params())
+    steps = [2 * np.max(np.stack([
+        np.repeat(calls[(r * n + i) * C + c][3].numpy(), ops.LANES, 1
+                  ).reshape(-1)[:sizes[i]]
+        for r in range(ROUNDS) for c in range(C)]), 0).reshape(w.shape)
+        for i, w in enumerate(want)]
+    near, total = assert_params_close(want, leaves(ts.merged_params()),
+                                      low, steps)
+    print(f"near-eps params held to 1e-4: {near} of {total}")
