@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the eight hand-written kernels from src/repro_torch/kernels/csrc
+  2. builds the nine hand-written kernels from src/repro_torch/kernels/csrc
      with nvcc for sm_90a, all at once, and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
@@ -15,8 +15,12 @@ In order, it
      lanes, block size 16, chunk 16, contexts up to 300 tokens), the
      flash-attention forward and its three backward kernels at the
      training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 and float32
-     with ragged, offset and windowed cases, and dequantize on one
-     ffn.wi leaf's rows;
+     with ragged, offset and windowed cases and the distillation path's
+     1032 rows, dequantize on one ffn.wi leaf's rows, and the fused LoRA
+     matmul at the distillation path's shapes (M 4128; (K, N) of wq/wo,
+     wk/wv and ffn.wo; r 4; forward and the backward's transposed dx;
+     bf16 and float32) with ragged and rank-16 cases and its autograd
+     wrapper's dx, da and db;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -30,7 +34,17 @@ In order, it
   6. runs one float32 local train step through the kernels and through
      plain attention and compares the loss, the grads and the updated
      params; profiles one bf16 local step;
-  7. prints one JSON line describing every ported kernel, the card's
+  7. runs federated distillation of flad-adllm's AD-LLM view at full
+     width and depth through the training launcher: 2 warmup steps of
+     the whole model, then two distill_fl rounds of 4 rank-4 LoRA
+     students, 2 local steps each, 4 x (1024 + 8 prefix) tokens a step,
+     int8 factor uplinks; checks the exact launch counts, finite losses,
+     the base bitwise unchanged, moved factors and the wire metrics over
+     the factor tree;
+  8. runs one float32 distill local step through the kernels and through
+     the plain versions and compares the loss, the factor grads and the
+     updated factors; profiles one bf16 distill local step;
+  9. prints one JSON line describing every ported kernel, the card's
      name and power limit, and {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -68,7 +82,8 @@ LIBRARY_NOTE = ("no single PyTorch call computes paged attention through "
 B, HQ, HKV, S, D = 4, 16, 8, 1024, 64
 FLASH_CASES = [("causal", S, S, {}), ("ragged", 1000, 1000, {}),
                ("offset", 768, S, {"q_offset": 256}),
-               ("window", S, S, {"window": 256})]
+               ("window", S, S, {"window": 256}),
+               ("distill", S + 8, S + 8, {})]   # 8 prefix feature tokens
 # kernel vs plain: float32 differs only in summation order; bf16 outputs
 # are each one bf16 rounding of a float32 value, so two of them may be a
 # bf16 ulp apart at the largest magnitude (2^-7 of it)
@@ -92,6 +107,21 @@ STEP_LOSS_ATOL = 1e-4
 STEP_GRAD_RTOL = 1e-4          # of each leaf's largest grad
 STEP_PARAM_ATOL = 1e-5
 NEAR_EPS = 1e-7
+# the distillation slice: flad-adllm's AD-LLM view (8 prefix feature
+# tokens of width 32, 6 waypoints), rank-4 LoRA on attn.{wq,wk,wv,wo} and
+# ffn.wo, 2 warmup steps of the whole model before it freezes
+PREFIX, FEATURES, WAYPOINTS, RANK, WARMUP = 8, 32, 6, 4, 2
+LORA_M = B * (S + PREFIX)      # rows of an adapted projection's input
+LORA_SHAPES = [("wq/attn.wo", 1024, 1024), ("wk/wv", 1024, 512),
+               ("ffn.wo", 4096, 1024)]
+LORA_RTOL_F32 = 1e-5           # of the output's largest magnitude
+DISTILL_ARGV = ["--arch", "flad-adllm", "--full", "--strategy", "distill_fl",
+                "--topology", TOPOLOGY, "--codec", "int8", "--local-steps",
+                str(LOCAL_STEPS), "--steps", str(ROUNDS), "--shape",
+                f"{S}x{B}", "--lora-rank", str(RANK), "--distill-warmup",
+                str(WARMUP), "--device", "cuda"]
+FACTOR_LEAVES = 10             # A and B of attn.{wk,wo,wq,wv} and ffn.wo
+DISTILL_LOSS_ATOL = 1e-5
 L2_FLUSH_BYTES = 256 * 2 ** 20  # five times the H100's 50 MB L2
 
 
@@ -549,6 +579,141 @@ def dequant_check(torch, cfg, dev):
                 bound_by=b_by, library_ms=lib, library_call="q * scale")
 
 
+# ----------------------------------------------------------- LoRA matmul
+def _lora_inputs(torch, dev, dtype, m, k, n, r, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(shape, std):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    return (rand((m, k), 1.0), rand((k, n), k ** -0.5),
+            rand((k, r), k ** -0.5), rand((r, n), 0.1))
+
+
+def _lora_work(m, k, n, r, esz):
+    """(bytes, flops) of one call: each input read once, y written once."""
+    return ((m * k + k * n + k * r + r * n + m * n) * esz,
+            2 * m * k * n + 2 * m * k * r + 2 * m * r * n)
+
+
+def _lora_tol(torch, dtype, want):
+    peak = float(want.float().abs().max())
+    return (LORA_RTOL_F32 if dtype == torch.float32 else BF16_ULP) * peak
+
+
+def lora_checks(torch, dev):
+    """The fused LoRA kernel against its plain version on the card: the
+    distill path's three (K, N) shapes at M = 4 x 1032, r = 4, forward and
+    the backward's transposed dx layout, bf16 and float32, timed with a
+    cold L2 beside the plain version and cuBLAS's three-GEMM composition;
+    a ragged and a rank-16 case; and the autograd wrapper's dx, da and db
+    against autograd through the plain version. Returns the kernel's JSON
+    row (ffn.wo's bf16 forward as the headline, every shape under
+    ``shapes``, one layer's five forward and five dx calls summed under
+    ``layer_*``)."""
+    from repro_torch.kernels import ops, ref
+    scale = 2.0                      # alpha / rank = 2 * 4 / 4 on the path
+    max_err = 0.0
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        match = "lora_mma_kernel" if name == "bf16" else "lora_f32_kernel"
+        esz = 2 if name == "bf16" else 4
+        rate = BF16_FLOPS_PER_S if name == "bf16" else F32_FLOPS_PER_S
+        for label, k, n in LORA_SHAPES:
+            x, w, a, b = _lora_inputs(torch, dev, dtype, LORA_M, k, n, RANK,
+                                      11)
+            g = _lora_inputs(torch, dev, dtype, LORA_M, n, 1, 1, 12)[0]
+            for layout, args, dims in (
+                    ("forward", (x, w, a, b), (k, n)),
+                    ("dx", (g, w.T, b.T, a.T), (n, k))):
+                got = ops.lora_matmul(*args, scale=scale)
+                want = ref.lora_matmul_ref(*args, scale=scale)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"lora {name} {label} {layout}: non-finite")
+                err, tol = _err(got, want), _lora_tol(torch, dtype, want)
+                check(err <= tol, f"lora {name} {label} {layout}: max err "
+                      f"{err:.3e} > {tol:.3e}")
+                if name == "bf16":
+                    max_err = max(max_err, err)
+                xx, ww, aa, bb = args
+                ms, plain, call = timings(
+                    lambda: ops.lora_matmul(*args, scale=scale),
+                    lambda: ref.lora_matmul_ref(*args, scale=scale), match)
+                lib = device_ms(lambda: xx @ ww + scale * ((xx @ aa) @ bb),
+                                None, iters=20)
+                b_ms, b_by = bound(*_lora_work(LORA_M, *dims, RANK, esz),
+                                   rate)
+                shapes.append(dict(dtype=name, shape=label, layout=layout,
+                                   m=LORA_M, k=dims[0], n=dims[1], r=RANK,
+                                   max_abs_err=err, ms=ms, plain_ms=plain,
+                                   library_ms=lib, bound_ms=b_ms,
+                                   bound_by=b_by, call_ms=call))
+                print(f"[kernel] lora_matmul {name} {label} {layout} "
+                      f"(M {LORA_M}, K {dims[0]}, N {dims[1]}, r {RANK}): "
+                      f"max|err| {err:.3e} (atol {tol:.3e}); device: kernel "
+                      f"{ms:.5f} ms, plain {plain:.5f} ms, cuBLAS "
+                      f"x@w + s*((x@a)@b) (three GEMMs) {lib} ms; bound "
+                      f"{b_ms:.5f} ms ({b_by}); host clock per call "
+                      f"{call:.5f} ms")
+            del x, w, a, b, g
+        # ragged edges and the largest rank, checked only
+        for label, (m, k, n, r) in (("ragged", (1000, 96, 132, 8)),
+                                    ("rank 16", (LORA_M, 1024, 1024, 16))):
+            x, w, a, b = _lora_inputs(torch, dev, dtype, m, k, n, r, 13)
+            g = _lora_inputs(torch, dev, dtype, m, n, 1, 1, 14)[0]
+            for layout, args in (("forward", (x, w, a, b)),
+                                 ("dx", (g, w.T, b.T, a.T))):
+                got = ops.lora_matmul(*args, scale=scale)
+                want = ref.lora_matmul_ref(*args, scale=scale)
+                torch.cuda.synchronize()
+                err, tol = _err(got, want), _lora_tol(torch, dtype, want)
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"lora {name} {label} {layout}: max err {err:.3e} > "
+                      f"{tol:.3e}")
+                print(f"[kernel] lora_matmul {name} {label} {layout} "
+                      f"(M {m}, K {k}, N {n}, r {r}): max|err| {err:.3e} "
+                      f"(atol {tol:.3e})")
+    # the autograd wrapper: dx through the kernel, da and db in float32
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, a, b = _lora_inputs(torch, dev, dtype, LORA_M, 4096, 1024,
+                                  RANK, 15)
+        g = _lora_inputs(torch, dev, dtype, LORA_M, 1024, 1, 1, 16)[0]
+        grads = []
+        for fn in (ops.lora_matmul_ad,
+                   lambda *t, scale: ref.lora_matmul_ref(*t, scale=scale)):
+            leaves = [t.detach().clone().requires_grad_() for t in (x, a, b)]
+            y = fn(leaves[0], w, leaves[1], leaves[2], scale=scale)
+            grads.append(torch.autograd.grad(y, leaves, g))
+        for label, got, want in zip(("dx", "da", "db"), *grads):
+            err, tol = _err(got, want), _lora_tol(torch, dtype, want)
+            check(err <= tol, f"lora_matmul_ad {dtype} {label}: max err "
+                  f"{err:.3e} > {tol:.3e}")
+            print(f"[kernel] lora_matmul_ad {dtype} ffn.wo {label}: max|err| "
+                  f"{err:.3e} (atol {tol:.3e})")
+        del x, w, a, b, g, grads
+    head = next(r for r in shapes if r["dtype"] == "bf16"
+                and r["shape"] == "ffn.wo" and r["layout"] == "forward")
+    per_layer = {"wq/attn.wo": 2, "wk/wv": 2, "ffn.wo": 1}
+    layer = {key: sum(per_layer[r["shape"]] * r[key] for r in shapes
+                      if r["dtype"] == "bf16")
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[kernel] lora_matmul bf16, one layer's 5 forward + 5 dx calls: "
+          f"kernel {layer['ms']:.5f} ms, plain {layer['plain_ms']:.5f} ms, "
+          f"cuBLAS composition {layer['library_ms']:.5f} ms, bound "
+          f"{layer['bound_ms']:.5f} ms")
+    return dict(source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+                replaces="src/repro/kernels/lora_matmul.py:57",
+                max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
+                call_ms=head["call_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                library_call="x @ w + s * ((x @ a) @ b): a composition of "
+                             "three cuBLAS GEMMs, no single PyTorch call",
+                headline="bf16 ffn.wo forward, M 4128, K 4096, N 1024, r 4",
+                **{f"layer_{k}": v for k, v in layer.items()}, shapes=shapes)
+
+
 def _leaf_names(tree, prefix=""):
     """Leaf paths in flatten (sorted-key) order."""
     out = []
@@ -634,6 +799,283 @@ def train_main_path(torch, cfg, dev):
     del out, merged, init
     torch.cuda.empty_cache()
     return counts, peak
+
+
+def _factor_sizes(torch, cfg):
+    """Per-client element counts of the factor leaves, flatten order."""
+    from repro_torch.distill.celladapt import adllm_config, init_adllm
+    from repro_torch.distill.lora import LoRAConfig, init_lora
+    from repro_torch.tree import leaves
+    acfg = adllm_config(cfg, feature_dim=FEATURES, feature_tokens=PREFIX,
+                        num_waypoints=WAYPOINTS)
+    tree = init_lora(init_adllm(acfg, device="meta"),
+                     LoRAConfig(rank=RANK, alpha=2.0 * RANK))
+    return [t.numel() for t in leaves(tree)]
+
+
+def distill_main_path(torch, cfg, dev):
+    """Two distill_fl rounds at full width through the launcher; checks
+    the exact launch counts, finite losses, the base bitwise unchanged,
+    every factor B moved and the wire metrics over the factor tree."""
+    import math
+    from repro_torch.api.strategies import DistillFLStrategy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import flatten, leaves, tree_map
+    snap = {}
+    init = DistillFLStrategy.init
+
+    def recording_init(self, *args, **kw):
+        state = init(self, *args, **kw)
+        snap["base"] = tree_map(lambda t: t.clone(), state[0]["base"])
+        return state
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    DistillFLStrategy.init = recording_init
+    try:
+        t0 = time.perf_counter()
+        out = launch.main(DISTILL_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DistillFLStrategy.init = init
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_layers
+    steps = ROUNDS * CLIENTS * LOCAL_STEPS
+    want = dict.fromkeys(counts, 0)
+    # warmup: forward + backward of the whole model; a local step: the
+    # teacher and the student forward, the student's backward; the
+    # student's 5 adapted projections a layer launch the LoRA kernel
+    # forward and for dx, except layer 0's wq/wk/wv, whose input (the
+    # frozen embeddings) needs no grad
+    bwd = WARMUP * L + steps * L
+    want.update(flash_attention=WARMUP * L + 2 * steps * L,
+                flash_attention_bwd_preprocess=bwd,
+                flash_attention_bwd_dkv=bwd, flash_attention_bwd_dq=bwd,
+                quantize_int8=ROUNDS * CLIENTS * FACTOR_LEAVES,
+                dequantize_int8=ROUNDS * CLIENTS * FACTOR_LEAVES,
+                lora_matmul=steps * (5 * L + 5 * L - 3))
+    check(counts == want, f"distill launches {counts} != {want}")
+    hist = out["history"]
+    check(len(hist) == ROUNDS, "one history entry per round")
+    for h in hist:
+        for key in ("loss", "task_l1", "kd_l1", "kd_kl"):
+            check(bool(np.isfinite(h[f"per_client/{key}"]).all()),
+                  f"non-finite {key} in round {h['round']}")
+    session = out["session"]
+    base, factors = session.state[0]["base"], session.state[0]["factors"]
+    same = [torch.equal(a, b) for a, b in zip(leaves(snap["base"]),
+                                              leaves(base))]
+    check(all(same), "the frozen base changed during the rounds")
+    flat, spec = flatten(factors)
+    names = _leaf_names(factors)
+    check(len(flat) == FACTOR_LEAVES, f"factor leaves {names}")
+    b_moved = {n: float(t.abs().max()) for n, t in zip(names, flat)
+               if n.endswith(".B")}
+    check(all(v > 0 for v in b_moved.values()),
+          f"a factor B did not move: {b_moved}")
+    check(all(bool(torch.isfinite(t).all()) for t in flat),
+          "non-finite factors")
+    sizes = _factor_sizes(torch, cfg)
+    per_client = sum(n + 4 * -(-n // 128) for n in sizes)
+    arrivals = [per_client / NANO_BPS + per_client / BACKHAUL_BPS
+                + BACKHAUL_S,
+                per_client / AGX_BPS + per_client / BACKHAUL_BPS
+                + BACKHAUL_S]
+    for h in hist:
+        check(h["comm_bytes_up"] == CLIENTS * per_client,
+              f"comm_bytes_up {h['comm_bytes_up']} != "
+              f"{CLIENTS * per_client}")
+        check(h["comm_bytes_backhaul"] == 2 * per_client,
+              f"comm_bytes_backhaul {h['comm_bytes_backhaul']}")
+        check(math.isclose(h["sim_round_s"], max(arrivals), rel_tol=1e-12),
+              f"sim_round_s {h['sim_round_s']} != {max(arrivals)}")
+    tokens = steps * B * (S + PREFIX)
+    warm = session.strategy.warmup_history
+    print(f"[distill] distill_fl {ROUNDS} rounds x {CLIENTS} clients x "
+          f"{LOCAL_STEPS} local steps at {S}x{B} (+{PREFIX} prefix "
+          f"tokens), rank {RANK}, int8 uplinks, {WARMUP} warmup steps: "
+          f"wall {wall:.1f} s incl. set-up and warmup ({tokens / wall:.0f} "
+          f"student tokens/s); warmup losses "
+          + ", ".join(f"{x:.4f}" for x in warm) + "; by round (mean over "
+          "clients) " + "; ".join(
+              f"loss {np.mean(h['per_client/loss']):.4f} task_l1 "
+              f"{np.mean(h['per_client/task_l1']):.4f} kd_l1 "
+              f"{np.mean(h['per_client/kd_l1']):.4f} kd_kl "
+              f"{np.mean(h['per_client/kd_kl']):.3e}" for h in hist)
+          + f"; base bitwise unchanged; max|B| per leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in b_moved.items())
+          + f"; peak device memory {peak:.1f} GiB; wire per round: up "
+          f"{per_client * CLIENTS} B, backhaul {2 * per_client} B, sim "
+          f"{max(arrivals):.6f} s; launches {counts}")
+    del out, session, base, factors, flat, snap
+    torch.cuda.empty_cache()
+    return counts, wall, peak
+
+
+def _distill_setup(torch, cfg, dev, dtype, seed):
+    """Full-width AD-LLM base, rank-4 factors with a nonzero B, and one
+    client's batch of 4 x 1024 tokens with 8 prefix features."""
+    from repro_torch.distill.celladapt import adllm_config, init_adllm
+    from repro_torch.distill.lora import LoRAConfig, init_lora
+    acfg = adllm_config(cfg.replace(param_dtype=dtype),
+                        feature_dim=FEATURES, feature_tokens=PREFIX,
+                        num_waypoints=WAYPOINTS)
+    base = init_adllm(acfg, seed=seed, device=dev)
+    lcfg = LoRAConfig(rank=RANK, alpha=2.0 * RANK)
+    factors = init_lora(base, lcfg, seed=seed + 1)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    for f in _walk_factors(factors):
+        f["B"] = torch.randn(f["B"].shape, generator=g, device=dev) * 1e-2
+    batch = {"features": torch.randn((B, PREFIX, FEATURES), generator=g,
+                                     device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev, dtype=torch.int32),
+             "waypoints": torch.randn((B, WAYPOINTS, 2), generator=g,
+                                      device=dev)}
+    return acfg, lcfg, base, factors, batch
+
+
+def _walk_factors(tree):
+    if "A" in tree:
+        yield tree
+        return
+    for v in tree.values():
+        yield from _walk_factors(v)
+
+
+def _plain_lora_ad(ref):
+    """The plain LoRA matmul under autograd, in place of the kernel."""
+    def lora_matmul_ad(x, w, a, b, *, scale=1.0):
+        return ref.lora_matmul_ref(x, w, a, b, scale=scale)
+    return lora_matmul_ad
+
+
+def distill_step_vs_plain(torch, cfg, dev):
+    """One float32 distill local step at full width (teacher and student
+    forwards, the student's backward, Adam on the factors) through the
+    kernels and through the plain versions: loss, factor grads, updated
+    factors."""
+    from repro_torch.distill.federated import (make_student_loss,
+                                               make_student_step)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train.optimizer import Adam
+    from repro_torch.tree import flatten, leaves, unflatten
+    acfg, lcfg, base, factors, batch = _distill_setup(torch, cfg, dev,
+                                                      "float32", 21)
+    loss_fn = make_student_loss(acfg, lcfg)
+    opt = Adam(lr=1e-3)
+    flat, spec = flatten(factors)
+
+    def run():
+        live = [f.detach().requires_grad_() for f in flat]
+        loss, _ = loss_fn(unflatten(spec, live), base, batch)
+        grads = torch.autograd.grad(loss, live)
+        new, st, _ = make_student_step(loss_fn, opt)(
+            factors, opt.init(factors), batch, base)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, leaves(new), leaves(st.v)
+
+    ops.reset_launch_counts()
+    kernel = run()
+    counts = ops.launch_counts()
+    check(counts["lora_matmul"] > 0 and counts["flash_attention"] > 0,
+          f"the kernel run launched no kernel: {counts}")
+    saved = ops.flash_attention_ad, ops.lora_matmul_ad
+    ops.flash_attention_ad = _plain_flash_ad(ref)
+    ops.lora_matmul_ad = _plain_lora_ad(ref)
+    ops.reset_launch_counts()
+    try:
+        plain = run()
+    finally:
+        ops.flash_attention_ad, ops.lora_matmul_ad = saved
+    check(sum(ops.launch_counts().values()) == 0,
+          "the plain run launched a kernel")
+    dloss = abs(kernel[0] - plain[0])
+    check(dloss <= DISTILL_LOSS_ATOL, f"f32 distill loss differs by {dloss}")
+    grad_rel = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(kernel[1], plain[1]))
+    check(grad_rel <= STEP_GRAD_RTOL,
+          f"f32 distill factor grads differ: {grad_rel}")
+    near = total = 0
+    worst = worst_near = 0.0
+    for a, b, va, vb in zip(kernel[2], plain[2], kernel[3], plain[3]):
+        d = (a - b).abs()
+        den = torch.minimum(*(torch.where(
+            v > 0, torch.sqrt(v / (1 - opt.b2)), torch.inf) for v in (va, vb)))
+        flag = den < NEAR_EPS
+        near += int(flag.sum())
+        total += d.numel()
+        worst = max(worst, float(torch.where(flag, 0.0, d).max()))
+        worst_near = max(worst_near, float(d.max()))
+    check(worst <= STEP_PARAM_ATOL,
+          f"f32 distill step: updated factors differ by {worst:.3e}")
+    check(worst_near <= 2 * opt.lr,
+          f"f32 distill step: near-eps factors differ by {worst_near:.3e}")
+    print(f"[distill-step] float32 local step, kernels vs plain versions "
+          f"(flash attention and LoRA matmul): loss {kernel[0]:.6f} vs "
+          f"{plain[0]:.6f} (|diff| {dloss:.2e}, atol {DISTILL_LOSS_ATOL}); "
+          f"factor grads max |diff| / leaf max {grad_rel:.2e} (rtol "
+          f"{STEP_GRAD_RTOL}); updated factors max |diff| {worst:.2e} (atol "
+          f"{STEP_PARAM_ATOL}) on all but the {near} of {total} near-eps "
+          f"elements, those within {worst_near:.2e} (atol {2 * opt.lr}); "
+          f"kernel run launches {counts}")
+    del kernel, plain, base, factors, flat
+    torch.cuda.empty_cache()
+    return dloss, grad_rel, worst, near
+
+
+def profile_distill_step(torch, cfg, dev, steps=3):
+    """A bf16 distill local step at full width (one client, 4 x 1024
+    tokens + 8 prefix tokens): wall time, tokens/s, device busy share,
+    top device ops and the LoRA kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distill.federated import (make_student_loss,
+                                               make_student_step)
+    from repro_torch.train.optimizer import Adam
+    acfg, lcfg, base, factors, batch = _distill_setup(torch, cfg, dev,
+                                                      "bfloat16", 31)
+    opt = Adam(lr=1e-3)
+    step = make_student_step(make_student_loss(acfg, lcfg), opt)
+    state = [factors, opt.init(factors)]
+
+    def run(n):
+        for _ in range(n):
+            state[0], state[1], _ = step(state[0], state[1], batch, base)
+        torch.cuda.synchronize()
+
+    run(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                   e.count // steps, e.key[:70])
+                  for e in prof.key_averages())[::-1]
+    busy = sum(r[0] for r in rows)
+    lora = sum(r[0] for r in rows if "lora_mma_kernel" in r[2])
+    flash = sum(r[0] for r in rows if "flash_" in r[2])
+    tokens = B * (S + PREFIX)
+    print(f"[profile] bf16 distill local step, {B}x({S}+{PREFIX}) tokens, "
+          f"rank {RANK}: wall {wall:.3f} ms, {tokens / wall * 1e3:.0f} "
+          f"tokens/s, device busy {busy:.3f} ms (idle "
+          f"{100 * max(0.0, 1 - busy / wall):.1f}%), "
+          f"{sum(r[1] for r in rows)} device ops/step, peak memory "
+          f"{peak:.2f} GiB; LoRA kernel {lora:.3f} ms "
+          f"({100 * lora / busy:.1f}% of device time), flash kernels "
+          f"{flash:.3f} ms ({100 * flash / busy:.1f}%)")
+    for t, n, key in rows[:10]:
+        print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    del state, base, factors
+    torch.cuda.empty_cache()
+    return wall, busy, lora, peak
 
 
 def _plain_flash_ad(ref):
@@ -946,6 +1388,7 @@ def main():
     kernels = kernel_checks(torch, cfg, dev)
     kernels.update(flash_checks(torch, dev))
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
+    kernels["lora_matmul"] = lora_checks(torch, dev)
 
     # 4. the main path: serve flad-adllm at full width and depth
     t0 = time.perf_counter()
@@ -994,11 +1437,19 @@ def main():
     step_vs_plain(torch, cfg, dev)
     profile_local_step(torch, cfg, dev)
 
-    # 7. one line per ported kernel
+    # 7. the distillation path: two distill_fl rounds at full width
+    distill_launches, _, _ = distill_main_path(torch, cfg, dev)
+
+    # 8. float32 distill step through kernels vs plain; a step's profile
+    distill_step_vs_plain(torch, cfg, dev)
+    profile_distill_step(torch, cfg, dev)
+
+    # 9. one line per ported kernel
     print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
-        by_path = {"serve": launches[name], "train": train_launches[name]}
+        by_path = {"serve": launches[name], "train": train_launches[name],
+                   "distill": distill_launches[name]}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "

@@ -7,9 +7,12 @@ runs on a machine that has no JAX. Every entry point takes an explicit
 ``device`` and defaults to ``"cuda"``; the tests pass ``device="cpu"``,
 where each hand-written kernel's wrapper runs its plain PyTorch version.
 
-Ported so far: the continuous-batching serving path for the dense
-decoder family (:func:`repro_torch.serve.serve_continuous`), carried by
-three hand-written CUDA kernels in :mod:`repro_torch.kernels`
-(paged decode attention, chunked paged prefill attention, int8 row
-quantization).
+Ported so far, for the dense decoder family: the continuous-batching
+serving path (:func:`repro_torch.serve.serve_continuous`), hierarchical
+FL training (``hier_fl``) and federated LoRA distillation
+(``distill_fl``) through :class:`repro_torch.api.Session`, carried by
+nine hand-written CUDA kernels in :mod:`repro_torch.kernels` (paged
+decode and prefill attention, int8 quantize and dequantize, the
+flash-attention forward and its three backward kernels, the fused LoRA
+matmul).
 """

@@ -1,6 +1,6 @@
 """repro_torch.api — the Session and Strategy layer of the port (port of
-``repro.api``): ``Session(...).run`` drives round strategies (``hier_fl``
-and its base ``fedavg``) on one device."""
+``repro.api``): ``Session(...).run`` runs round strategies (``hier_fl``
+and its base ``fedavg``) and ``distill_fl`` on one device."""
 from repro_torch.api.session import (Session, load_config,  # noqa: F401
                                      resolve_shape)
 from repro_torch.api.strategies import (Strategy,  # noqa: F401

@@ -2,8 +2,8 @@
 ``repro/api/session.py``).
 
 A Session composes a model config (``arch``; the CPU-smoke reduced
-variant unless ``full=True``), an input shape, a registered round
-:class:`~repro_torch.api.strategies.Strategy` and
+variant unless ``full=True``), an input shape, a registered round or
+distillation :class:`~repro_torch.api.strategies.Strategy` and
 :class:`~repro_torch.train.loop.LoopHooks`, on one ``device`` (default
 ``"cuda"``; the reference's device mesh has no counterpart on one card)::
 
@@ -71,10 +71,10 @@ class Session:
             self.strategy = get_strategy(strategy,
                                          learning_rate=learning_rate,
                                          **strategy_options)
-        if self.strategy.loop != "round":
+        if self.strategy.loop not in ("round", "distill"):
             raise NotImplementedError(
                 f"{self.strategy.name!r} runs a {self.strategy.loop!r} "
-                f"loop; the port drives round strategies only")
+                f"loop; the port drives round and distill loops only")
         #: default shape: 128-token sequences, 2 per client step
         self.shape = resolve_shape(shape) or ShapeConfig("session", 128, 2,
                                                          "train")
@@ -117,8 +117,11 @@ class Session:
         """Run ``steps`` FL rounds and return the loop output.
 
         ``state``: (client_params, client_opt) to start from instead of
-        the strategy's init; ``batches``: a ``fn(round_idx) -> round
-        batch`` or an iterable of round batches (default: synthetic);
+        the strategy's init (for ``distill_fl``, client_params is
+        ``{"base", "factors"}``: the loop carries only the factors and
+        hands the frozen base to every round as the teacher);
+        ``batches``: a ``fn(round_idx) -> round batch`` or an iterable of
+        round batches (default: synthetic);
         ``metrics``: a :class:`repro_torch.obs.MetricsRegistry` or a path
         that collects every logged round's scalar metrics
         (``out["metrics_path"]`` when a path)."""
@@ -147,7 +150,15 @@ class Session:
         else:
             round_fn = lambda r, _it=iter(batches): next(_it)  # noqa: E731
         params, opt = init_state
-        out = fl_loop(step, params, opt, round_fn, rounds=steps, hooks=hooks)
+        if self.strategy.loop == "distill":
+            base = params["base"]
+            out = fl_loop(step, params["factors"], opt, round_fn,
+                          rounds=steps, hooks=hooks, teacher=base)
+            out["client_params"] = {"base": base,
+                                    "factors": out["client_params"]}
+        else:
+            out = fl_loop(step, params, opt, round_fn, rounds=steps,
+                          hooks=hooks)
         self.state = (out["client_params"], out["client_opt"])
         self._built = (step, self.state)
         self.history.extend(out["history"])

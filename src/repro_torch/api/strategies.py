@@ -10,9 +10,11 @@ A :class:`Strategy` owns what an execution mode needs:
 
 The reference takes a device mesh where this port takes one ``device``:
 the port runs on one card. Ported: ``fedavg`` (flat FedAvg rounds over
-client-stacked params) and ``hier_fl`` (the same rounds over the explicit
-vehicle -> edge -> cloud fabric of :mod:`repro_torch.comm`). The
-reference's other strategies raise ``NotImplementedError`` by name.
+client-stacked params), ``hier_fl`` (the same rounds over the explicit
+vehicle -> edge -> cloud fabric of :mod:`repro_torch.comm`) and
+``distill_fl`` (per-pod LoRA students distilled from a frozen AD-LLM,
+adapter deltas on the fabric). The reference's other strategies raise
+``NotImplementedError`` by name.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ _REGISTRY: Dict[str, Type["Strategy"]] = {}
 
 #: strategies of the reference that later slices of the port bring
 LATER = ("tensor", "pipeline", "swift_pipeline", "fl_pipeline",
-         "async_hier_fl", "distill_fl")
+         "async_hier_fl")
 
 
 def register_strategy(name: str) -> Callable[[type], type]:
@@ -68,7 +70,8 @@ class Strategy(abc.ABC):
     """One way to realize FLAD training (see module docstring)."""
 
     name: str = ""
-    #: which driver Session.run uses ("round" -> fl_loop)
+    #: which loop Session.run runs ("round" -> fl_loop; "distill" ->
+    #: fl_loop with the frozen base as the teacher)
     loop: str = "round"
 
     def __init__(self, *, learning_rate: float = 1e-3):
@@ -200,12 +203,17 @@ class HierFLStrategy(FedAvgStrategy):
         self._bits = None
         self._round = 0
 
+    def _wire_tree(self, cfg):
+        """The tree whose bytes ride the uplink, on the meta device (full
+        params here; ``distill_fl`` sends the LoRA factor tree)."""
+        from repro_torch.models.lm import abstract_params
+        return abstract_params(cfg)
+
     def _round_stats(self, cfg) -> Dict:
         """Per-round wire accounting from the link models."""
         from repro_torch.comm.codecs import tree_edge_nbytes, tree_nbytes
         from repro_torch.comm.hierarchy import staleness_weights
-        from repro_torch.models.lm import abstract_params
-        ptree = abstract_params(cfg)
+        ptree = self._wire_tree(cfg)
         per_client = tree_nbytes(self.codec, ptree)
         per_edge = [tree_edge_nbytes(self.codec, ptree, len(members))
                     for members in self.topology.edges]
@@ -234,32 +242,43 @@ class HierFLStrategy(FedAvgStrategy):
         self._bits = GeneratorBits(seed + 1, device)
         return state
 
-    def make_step(self, cfg, shape, device):
-        from repro_torch.comm.codecs import GeneratorBits, zero_residual
-        from repro_torch.comm.hierarchy import make_hier_round
-
+    def _wire_metrics(self, cfg) -> Dict:
+        """This round's wire accounting as round metrics."""
         stats = self._round_stats(cfg)
         self.comm_stats = stats
-        hier_round = make_hier_round(
-            cfg, shape, self._optimizer(), self.topology, self.codec,
-            local_steps=self.local_steps, remat=self.remat,
-            client_weights=self.client_weights,
-            staleness=stats["staleness"])
-        wire_metrics = {
+        return {
             "comm_bytes_up": float(stats["uplink_bytes"]),
             "comm_bytes_backhaul": float(stats["backhaul_bytes"]),
             "sim_round_s": float(stats["round_time_s"]),
         }
 
+    def _round_bits(self, device):
+        """The codec's bits source for the next round: ``codec_bits`` at
+        this round when given, else the strategy's generator stream."""
+        from repro_torch.comm.codecs import GeneratorBits
+        if self._bits is None:
+            self._bits = GeneratorBits(self.seed, device)
+        if self.codec_bits is None:
+            return self._bits
+        r = self._round
+        return lambda leaf, client, shp: self.codec_bits(r, leaf, client,
+                                                         shp)
+
+    def make_step(self, cfg, shape, device):
+        from repro_torch.comm.codecs import zero_residual
+        from repro_torch.comm.hierarchy import make_hier_round
+
+        wire_metrics = self._wire_metrics(cfg)
+        hier_round = make_hier_round(
+            cfg, shape, self._optimizer(), self.topology, self.codec,
+            local_steps=self.local_steps, remat=self.remat,
+            client_weights=self.client_weights,
+            staleness=self.comm_stats["staleness"])
+
         def round_fn(client_params, client_opt, batches):
-            if self._bits is None:
-                self._bits = GeneratorBits(self.seed, device)
             if self._residual is None:
                 self._residual = zero_residual(client_params)
-            r = self._round
-            bits = self._bits if self.codec_bits is None else (
-                lambda leaf, client, shp: self.codec_bits(r, leaf, client,
-                                                          shp))
+            bits = self._round_bits(device)
             client_params, client_opt, metrics, self._residual = \
                 hier_round(client_params, client_opt, batches,
                            self._residual, bits)
@@ -272,3 +291,241 @@ class HierFLStrategy(FedAvgStrategy):
         from repro_torch.core.fedavg import fedavg
         return fedavg(state[0], weights=self.client_weights,
                       topology=self.topology)
+
+
+@register_strategy("distill_fl")
+class DistillFLStrategy(HierFLStrategy):
+    """Federated personalized distillation (paper §3.3/§5.2): the cloud
+    AD-LLM teaches per-pod LoRA students and **only adapter deltas ride
+    the fabric**.
+
+    ``init`` warms the AD-LLM on public (IID) driving data
+    (``warmup_steps`` supervised waypoint steps), freezes it as the
+    teacher and backbone, and hands every vehicle the same LoRA factor
+    tree (B = 0). Each round
+    (:func:`repro_torch.distill.federated.make_distill_round`) the
+    students take ``local_steps`` distillation steps on their pod's
+    non-IID partition through the fused base + low-rank kernel, factor
+    deltas go through the codec with error feedback, pods partially
+    average, and the cloud merge is blended back per pod (``mix``).
+
+    State is ``({"base": frozen params, "factors": [C, ...] factor
+    tree}, client Adam state)``; :meth:`merge_params` gives the global
+    view (base + cloud-merged adapter) and :meth:`pod_params` a pod's
+    personalized model. ``codec_bits`` as for ``hier_fl``.
+    """
+
+    loop = "distill"
+
+    def __init__(self, *, learning_rate: float = 1e-2,
+                 local_steps: int = 1, topology="2@nano*2,agx*2",
+                 codec: str = "int8",
+                 codec_options: Optional[Dict] = None,
+                 client_weights: Optional[Any] = None,
+                 async_decay: Optional[float] = None,
+                 async_deadline: Optional[float] = None,
+                 codec_bits: Optional[Callable] = None, seed: int = 0,
+                 lora_rank: int = 4, lora_alpha: Optional[float] = None,
+                 lora_targets: Optional[Tuple[str, ...]] = None,
+                 kd_weight: float = 0.3, kd_temp: float = 2.0,
+                 logit_weight: float = 0.1, mix: float = 0.5,
+                 warmup_steps: int = 20, warmup_lr: float = 1e-3,
+                 feature_dim: int = 32, feature_tokens: int = 8,
+                 num_waypoints: int = 6, n_towns: int = 4,
+                 samples_per_vehicle: int = 256, heldout: int = 64,
+                 beta: float = 0.1, data_seed: int = 0):
+        from repro_torch.distill.lora import DEFAULT_TARGETS, LoRAConfig
+        super().__init__(learning_rate=learning_rate,
+                         local_steps=local_steps, topology=topology,
+                         codec=codec, codec_options=codec_options,
+                         client_weights=client_weights,
+                         async_decay=async_decay,
+                         async_deadline=async_deadline,
+                         codec_bits=codec_bits, seed=seed)
+        self.lora_cfg = LoRAConfig(
+            rank=lora_rank,
+            alpha=float(lora_alpha if lora_alpha is not None
+                        else 2 * lora_rank),
+            targets=tuple(lora_targets or DEFAULT_TARGETS))
+        self.kd_weight = kd_weight
+        self.kd_temp = kd_temp
+        self.logit_weight = logit_weight
+        self.mix = mix
+        self.warmup_steps = warmup_steps
+        self.warmup_lr = warmup_lr
+        self.feature_dim = feature_dim
+        self.feature_tokens = feature_tokens
+        self.num_waypoints = num_waypoints
+        self.n_towns = n_towns
+        self.samples_per_vehicle = samples_per_vehicle
+        self.heldout = heldout
+        self.beta = beta
+        self.data_seed = data_seed
+        self.warmup_history: Optional[list] = None
+        self._base = None
+        self._data = None
+        self._round_ctr = 0
+
+    # ---- configs / data ---------------------------------------------------
+    def adllm_cfg(self, cfg: ModelConfig) -> ModelConfig:
+        """The AD-LLM view of the session config (prefix features and a
+        waypoint head); the base ``cfg`` still drives serving."""
+        from repro_torch.distill.celladapt import adllm_config
+        if cfg.family != "dense":
+            raise ValueError(
+                f"distill_fl needs a dense AD-LLM config, got family "
+                f"{cfg.family!r}")
+        return adllm_config(cfg, feature_dim=self.feature_dim,
+                            feature_tokens=self.feature_tokens,
+                            num_waypoints=self.num_waypoints)
+
+    def _driving_cfg(self):
+        from repro_torch.data.synthetic import DrivingDataConfig
+        return DrivingDataConfig(n_towns=self.n_towns,
+                                 patches=self.feature_tokens,
+                                 feature_dim=self.feature_dim,
+                                 num_waypoints=self.num_waypoints,
+                                 seed=self.data_seed)
+
+    def datasets(self, cfg, shape):
+        """(per-vehicle train sets, per-pod held-out sets, pod mixtures)
+        as numpy — built once per strategy lifetime, bit-equal to the
+        reference's."""
+        if self._data is None:
+            from repro_torch.data.partition import pod_datasets
+            self._data = pod_datasets(
+                self._driving_cfg(), self.topology.member_indices,
+                self.samples_per_vehicle, seq_len=shape.seq_len,
+                vocab=self.adllm_cfg(cfg).vocab_size, beta=self.beta,
+                seed=self.data_seed, heldout=self.heldout)
+        return self._data
+
+    def warmup_batches(self, cfg, shape):
+        """The public-data batches of the supervised warmup, as numpy."""
+        from repro_torch.data.partition import adllm_public_dataset
+        from repro_torch.data.pipeline import batches as data_batches
+        gb = shape.global_batch
+        pub = adllm_public_dataset(
+            self._driving_cfg(), max(self.warmup_steps * gb, gb),
+            seq_len=shape.seq_len, vocab=self.adllm_cfg(cfg).vocab_size,
+            seed=self.data_seed + 31)
+        it = data_batches(pub, gb, seed=self.data_seed,
+                          epochs=self.warmup_steps)
+        return [b for _, b in zip(range(self.warmup_steps), it)]
+
+    # ---- wire accounting: only the factor tree rides the uplink -----------
+    def _wire_tree(self, cfg):
+        from repro_torch.distill.celladapt import init_adllm
+        from repro_torch.distill.lora import init_lora
+        return init_lora(init_adllm(self.adllm_cfg(cfg), device="meta"),
+                         self.lora_cfg)
+
+    # ---- strategy protocol ------------------------------------------------
+    def init(self, cfg, shape, device, seed):
+        """Base from ``seed`` (warmed up), factors from ``seed + 2``, the
+        codec's bits from ``seed + 1``."""
+        from repro_torch.comm.codecs import GeneratorBits
+        from repro_torch.core.fedavg import stack_clients
+        from repro_torch.distill.celladapt import init_adllm
+        from repro_torch.distill.federated import warmup_base
+        from repro_torch.distill.lora import init_lora
+        acfg = self.adllm_cfg(cfg)
+        base = init_adllm(acfg, seed=seed, device=device)
+        if self.warmup_steps:
+            warm = [{k: torch.as_tensor(v, device=device)
+                     for k, v in b.items()}
+                    for b in self.warmup_batches(cfg, shape)]
+            base, self.warmup_history = warmup_base(base, acfg, warm,
+                                                    lr=self.warmup_lr)
+        factors = init_lora(base, self.lora_cfg, seed=seed + 2)
+        n = self.topology.n_clients
+        cf = stack_clients(factors, n)
+        opt = self._optimizer().init(cf)._replace(
+            step=torch.zeros((n,), dtype=torch.int32, device=device))
+        self._base = base
+        self._residual = None
+        self._round = 0
+        self._round_ctr = 0
+        self._bits = GeneratorBits(seed + 1, device)
+        return {"base": base, "factors": cf}, opt
+
+    def make_step(self, cfg, shape, device):
+        from repro_torch.comm.codecs import zero_residual
+        from repro_torch.distill.federated import make_distill_round
+
+        wire_metrics = self._wire_metrics(cfg)
+        distill_round = make_distill_round(
+            self.adllm_cfg(cfg), self._optimizer(), self.topology,
+            self.codec, lora_cfg=self.lora_cfg, kd_weight=self.kd_weight,
+            kd_temp=self.kd_temp, logit_weight=self.logit_weight,
+            mix=self.mix, client_weights=self.client_weights,
+            staleness=self.comm_stats["staleness"])
+
+        def round_fn(client_factors, client_opt, batches, base):
+            if self._residual is None:
+                self._residual = zero_residual(client_factors)
+            bits = self._round_bits(device)
+            client_factors, client_opt, metrics, self._residual = \
+                distill_round(client_factors, client_opt, batches, base,
+                              self._residual, bits)
+            self._round += 1
+            return client_factors, client_opt, dict(metrics,
+                                                    **wire_metrics)
+
+        return round_fn
+
+    def _unpack(self, params_like):
+        if isinstance(params_like, dict) and "base" in params_like \
+                and "factors" in params_like:
+            return params_like["base"], params_like["factors"]
+        if self._base is None:
+            raise RuntimeError(
+                "distill_fl has no frozen base yet; init the session "
+                "(build/run) before asking for a merged view")
+        return self._base, params_like
+
+    def merge_params(self, state, cfg=None):
+        """Global view: base + cloud-merged (hierarchical-mean) adapter."""
+        from repro_torch.comm.hierarchy import hierarchical_mean
+        from repro_torch.distill.lora import merge_lora
+        base, factors = self._unpack(state[0])
+        gf = hierarchical_mean(factors, self.client_weights, self.topology)
+        return merge_lora(base, gf, self.lora_cfg)
+
+    def teacher_params(self, state=None):
+        """The frozen cloud teacher (warmed-up base, no adapter)."""
+        if state is not None:
+            return self._unpack(state[0])[0]
+        if self._base is None:
+            raise RuntimeError(
+                "distill_fl has no frozen base yet; init the session "
+                "(build/run) before asking for the teacher")
+        return self._base
+
+    def pod_params(self, state, pod: int):
+        """Pod ``pod``'s personalized model: base + that pod's adapter
+        (the mean of its members' factors) folded in."""
+        from repro_torch.distill.lora import merge_lora
+        from repro_torch.tree import tree_map
+        base, factors = self._unpack(state[0])
+        members = self.topology.member_indices
+        if not 0 <= pod < len(members):
+            raise ValueError(
+                f"pod {pod} out of range for {len(members)} edge pods")
+        idx = [int(i) for i in members[pod]]
+        pf = tree_map(lambda x: x[torch.as_tensor(idx, device=x.device)]
+                      .float().mean(dim=0), factors)
+        return merge_lora(base, pf, self.lora_cfg)
+
+    def default_batch(self, cfg, shape, gen):
+        """The next round's [C, E, B, ...] batches from the vehicles'
+        datasets (the generator only names the device: the data is
+        numpy's, as the reference's)."""
+        from repro_torch.data.pipeline import client_round_batches
+        train, _, _ = self.datasets(cfg, shape)
+        b = client_round_batches(train, self.local_steps,
+                                 shape.global_batch,
+                                 round_idx=self._round_ctr)
+        self._round_ctr += 1
+        return {k: torch.as_tensor(v, device=gen.device)
+                for k, v in b.items()}

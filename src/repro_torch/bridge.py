@@ -10,6 +10,13 @@ strategy's state — client-stacked params and Adam state — into the
 port's. This is how both packages compute on the same weights in the
 tests.
 
+LoRA factor trees cross too. The reference's factor tree (and the Adam
+moments over it) has the params' structure with None at every leaf that
+is not adapted; the port's holds the adapted leaves only, so
+:func:`tree_from_numpy` drops None leaves and the dicts they leave
+empty, and :func:`factors_to_reference` puts them back. The AD-LLM's
+params (``projector``, ``wp_head``) are ordinary nested dicts.
+
 bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
 own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses), so a bfloat16 leaf goes in through
@@ -39,9 +46,12 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
 
 def tree_from_numpy(tree, device="cuda"):
     """A nested dict of numpy arrays (any leading axes) as torch tensors
-    on ``device``; every leaf is copied."""
+    on ``device``; every leaf is copied. None leaves, and dicts left
+    empty without them, are dropped (a reference LoRA factor tree)."""
     if isinstance(tree, dict):
-        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+        out = {k: tree_from_numpy(v, device) for k, v in tree.items()
+               if v is not None}
+        return {k: v for k, v in out.items() if not isinstance(v, dict) or v}
     return _leaf_to_torch(tree, torch.device(device))
 
 
@@ -72,6 +82,22 @@ def tree_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy().copy()
+
+
+def factors_to_reference(factors: dict, params: dict):
+    """A port factor tree as the reference's: the structure of
+    ``params`` (a nested dict, of any leaves), with the factor dict
+    {"A", "B"} as numpy where the port has one and None elsewhere."""
+    out = {}
+    for k, v in params.items():
+        f = factors.get(k) if isinstance(factors, dict) else None
+        if isinstance(f, dict) and "A" in f:
+            out[k] = tree_to_numpy(f)
+        elif isinstance(v, dict):
+            out[k] = factors_to_reference(f or {}, v)
+        else:
+            out[k] = None
+    return out
 
 
 def params_to_numpy(module: LM) -> dict:

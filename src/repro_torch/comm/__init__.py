@@ -9,5 +9,6 @@ from repro_torch.comm.codecs import (Codec, GeneratorBits,  # noqa: F401
                                      available_codecs, get_codec)
 from repro_torch.comm.hierarchy import (cloud_merge,  # noqa: F401
                                         edge_aggregate, hierarchical_mean,
-                                        make_hier_round, staleness_weights)
+                                        make_hier_round, pod_broadcast,
+                                        pod_slice, staleness_weights)
 from repro_torch.comm.topology import Topology, parse_topology  # noqa: F401

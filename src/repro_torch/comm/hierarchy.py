@@ -4,7 +4,9 @@
 ``edge_aggregate`` computes each edge pod's weighted partial average of
 its members' updates; ``cloud_merge`` combines the edge partials,
 optionally down-weighting stale edges (``decay ** lag``).
-``make_hier_round`` is the whole round the ``hier_fl`` strategy runs:
+``pod_slice``/``pod_broadcast`` carry per-pod state (``distill_fl``'s
+personalized adapters). ``make_hier_round`` is the whole round the
+``hier_fl`` strategy runs:
 local steps per client, the per-client codec roundtrip with error
 feedback, edge partial averages, the cloud merge and the broadcast.
 The event-time halves (``edge_commit`` per pod, ``cloud_merge_at`` on a
@@ -71,6 +73,25 @@ def cloud_merge(edge_stacked, edge_weights, staleness=None):
                 ).to(x.dtype)
 
     return tree_map(merge, edge_stacked)
+
+
+def pod_slice(stacked, topology: Topology):
+    """Client-stacked [C, ...] tree -> edge-stacked [E, ...] tree taking
+    each pod's first member. Valid whenever pod members hold identical
+    state, the invariant the pod-broadcast rounds keep (every member
+    starts a round from its pod's shared adapter)."""
+    idx = [int(members[0]) for members in topology.member_indices]
+    return tree_map(lambda x: x[torch.as_tensor(idx, device=x.device)],
+                    stacked)
+
+
+def pod_broadcast(edge_stacked, topology: Topology):
+    """Edge-stacked [E, ...] tree -> client-stacked [C, ...] tree: every
+    vehicle receives its own pod's state (the personalized counterpart
+    of ``core.fedavg.broadcast_round``, which sends one tree to all)."""
+    ce = [int(e) for e in topology.client_edge]
+    return tree_map(lambda x: x[torch.as_tensor(ce, device=x.device)],
+                    edge_stacked)
 
 
 def hierarchical_mean(stacked, weights, topology: Topology,

@@ -47,6 +47,7 @@ SIGNATURES = {
                       [_I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq": ("flash_attention_bwd_dq",
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
+    "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),
 }
 
 _lock = threading.Lock()

@@ -437,9 +437,96 @@ def flash_attention_ad(q, k, v, scale=None, causal=True, window=None,
                                    q_offset, int(block_q), int(block_k))
 
 
+# ------------------------------------------------------------ LoRA matmul
+MAX_RANK = 16                 #: kMaxRank of lora_matmul.cu
+
+
+def lora_matmul(x, w, a, b, *, scale: float = 1.0):
+    """Fused ``y = x @ w + scale * (x @ a) @ b``: both products and the
+    rank-r product in float32, x @ a never rounded, y rounded once to x's
+    dtype. x: [M, K] contiguous; w: [K, N]; a: [K, r]; b: [r, N]; all four
+    float32 or all bfloat16, 1 <= r <= 16. w, a and b may be strided
+    views: w needs one unit stride (a transposed view is fine), a and b
+    take any, so the backward's ``lora_matmul(g, w.T, b.T, a.T)`` copies
+    nothing."""
+    _require(all(t.dim() == 2 for t in (x, w, a, b)),
+             "x, w, a and b must be 2-D")
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    _require(w.shape[0] == k and a.shape[0] == k
+             and tuple(b.shape) == (r, n),
+             f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, a "
+             f"{tuple(a.shape)}, b {tuple(b.shape)} do not chain")
+    _require(1 <= r <= MAX_RANK, f"rank {r} not in [1, {MAX_RANK}]")
+    _require(x.dtype in (torch.float32, torch.bfloat16)
+             and w.dtype == a.dtype == b.dtype == x.dtype,
+             f"x, w, a, b must share float32 or bfloat16, got {x.dtype}, "
+             f"{w.dtype}, {a.dtype}, {b.dtype}")
+    _contiguous(x=x)
+    _require(w.stride(0) == 1 or w.stride(1) == 1,
+             "w needs a unit stride along one axis")
+    scale = float(scale)
+    if not _on_card(x, w, a, b):
+        return ref.lora_matmul_ref(x, w, a, b, scale=scale)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    err = build.load("lora_matmul")(
+        _DTYPE_CODES[x.dtype], _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y),
+        m, n, k, r, *w.stride(), *a.stride(), *b.stride(), scale, _stream(x))
+    _raise_on(err, "lora_matmul")
+    lora_matmul.launches += 1
+    return y
+
+
+class _LoraMatmulAD(torch.autograd.Function):
+    """The fused kernel forward; the reference's closed-form VJP
+    (``ops._lora_ad_bwd``) backward:
+
+      dx = lora_matmul(g, w^T, b^T, a^T)   (the same kernel, transposed
+                                            views)
+      dw = x^T g;  da = scale * x^T (g b^T);  db = scale * (x a)^T g
+
+    the last three as float32 products. Each is computed only when
+    autograd asks for it: with a frozen base no dw is formed, and the
+    first layer's dx is skipped when its input needs no grad."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, scale):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scale = scale
+        return lora_matmul(x, w, a, b, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        s = ctx.scale
+        g = g.contiguous()
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        dx = dw = da = db = None
+        if need_x:
+            dx = lora_matmul(g, w.T, b.T, a.T, scale=s).to(x.dtype)
+        if need_w or need_a or need_b:
+            xf, gf = x.float(), g.float()
+            if need_w:
+                dw = (xf.T @ gf).to(w.dtype)
+            if need_a:
+                da = (s * (xf.T @ (gf @ b.float().T))).to(a.dtype)
+            if need_b:
+                db = (s * ((xf @ a.float()).T @ gf)).to(b.dtype)
+        return dx, dw, da, db, None
+
+
+def lora_matmul_ad(x, w, a, b, *, scale: float = 1.0):
+    """Differentiable :func:`lora_matmul` (the reference's
+    ``lora_matmul_ad``): the kernel forward, dx through the same kernel
+    in the backward pass."""
+    return _LoraMatmulAD.apply(x, w, a, b, float(scale))
+
+
 KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
-           flash_attention_bwd_dkv, flash_attention_bwd_dq)
+           flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul)
 for _fn in KERNELS:
     _fn.launches = 0
 

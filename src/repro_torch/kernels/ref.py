@@ -221,3 +221,13 @@ def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *, scale: float,
                         window=window, q_offset=q_offset)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(_acc(q)))
     return dq.reshape(q.shape).to(q.dtype)
+
+
+def lora_matmul_ref(x, w, a, b, *, scale: float = 1.0):
+    """y = x @ w + scale * (x @ a) @ b: both products and the rank-r
+    product in float32, one rounding to x's dtype.
+
+    x: [M, K]; w: [K, N]; a: [K, r]; b: [r, N]."""
+    xf = x.float()
+    low = (xf @ a.float()) @ b.float()
+    return (xf @ w.float() + scale * low).to(x.dtype)

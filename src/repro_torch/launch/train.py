@@ -1,13 +1,18 @@
 """Training launcher of the port — a thin CLI over
-:class:`repro_torch.api.Session` for the ``hier_fl`` strategy.
+:class:`repro_torch.api.Session` for the ``hier_fl`` and ``distill_fl``
+strategies.
 
-The reference's flags for ``hier_fl``, plus ``--device`` (default
+The reference's flags for those two, plus ``--device`` (default
 ``cuda``). Other strategies, edge backups, checkpoints and tracing come
 with later slices of the port.
 
   python -m repro_torch.launch.train --arch flad-adllm --full \\
       --strategy hier_fl --topology 2@nano*2,agx*2 --codec int8 \\
       --local-steps 2 --steps 2 --shape 1024x4
+  python -m repro_torch.launch.train --arch flad-adllm --full \\
+      --strategy distill_fl --topology 2@nano*2,agx*2 --codec int8 \\
+      --local-steps 2 --steps 2 --shape 1024x4 --lora-rank 4 \\
+      --distill-warmup 2
 """
 import argparse
 
@@ -16,7 +21,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="flad-adllm")
     ap.add_argument("--shape", default=None, help="named shape or 'SEQxBATCH'")
-    ap.add_argument("--strategy", default="hier_fl", choices=["hier_fl"])
+    ap.add_argument("--strategy", default="hier_fl",
+                    choices=["hier_fl", "distill_fl"])
     ap.add_argument("--steps", type=int, default=50, help="FL rounds")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--local-steps", type=int, default=1,
@@ -30,6 +36,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--async-decay", type=float, default=None,
                     help="staleness decay per missed round deadline "
                          "(enables the predicted-staleness merge)")
+    ap.add_argument("--lora-rank", type=int, default=4,
+                    help="distill_fl: LoRA rank of the per-pod adapters")
+    ap.add_argument("--kd-weight", type=float, default=0.3,
+                    help="distill_fl: weight of the teacher-distillation "
+                         "terms in the student loss")
+    ap.add_argument("--mix", type=float, default=0.5,
+                    help="distill_fl: per-round blend toward the cloud "
+                         "merge (1 = global adapter, 0 = per-pod only)")
+    ap.add_argument("--distill-warmup", type=int, default=20,
+                    help="distill_fl: supervised warmup steps for the "
+                         "frozen AD-LLM teacher")
     ap.add_argument("--full", action="store_true",
                     help="use the full published config")
     ap.add_argument("--metrics", default=None, metavar="PATH",
@@ -44,12 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from repro_torch.api import LoopHooks, Session
+    options = dict(local_steps=args.local_steps, topology=args.topology,
+                   codec=args.codec, async_decay=args.async_decay)
+    if args.strategy == "distill_fl":
+        options.update(lora_rank=args.lora_rank, kd_weight=args.kd_weight,
+                       mix=args.mix, warmup_steps=args.distill_warmup)
     session = Session(
         args.arch, full=args.full, shape=args.shape, strategy=args.strategy,
         learning_rate=args.lr, seed=args.seed, device=args.device,
-        hooks=LoopHooks(log_every=1), local_steps=args.local_steps,
-        topology=args.topology, codec=args.codec,
-        async_decay=args.async_decay)
+        hooks=LoopHooks(log_every=1), **options)
     out = session.run(args.steps, metrics=args.metrics)
     last = out["history"][-1]
     print(f"[train] done: {last}")

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distill.lora import lora_linear
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -121,12 +122,25 @@ def dense_mha(q, k, v, *, scale: float, q_pos, kv_pos, causal: bool,
     return o.reshape(b, nq, sq, d)
 
 
-def qkv(p, x, cfg: ModelConfig, rot):
+def _adapted_matmul(p: dict, name: str, x, lora, lora_scale: float):
+    """``x @ p[name]``, with the leaf's LoRA factors fused in when the
+    factor subtree ``lora`` carries them: the fused base + low-rank
+    kernel (:func:`repro_torch.distill.lora.lora_linear`), so the merged
+    weight is never formed."""
+    f = None if lora is None else lora.get(name)
+    if f is None:
+        return x @ p[name]
+    return lora_linear(x, p[name], f, lora_scale)
+
+
+def qkv(p, x, cfg: ModelConfig, rot, lora=None, lora_scale: float = 1.0):
     """Projections, head split, optional head norms and rope by the
     ``rot = rope_tables(...)`` pair: x [B, S, d] -> q [B, Hq, S, D], k/v
-    [B, Hkv, S, D] (the paged engine shares it)."""
+    [B, Hkv, S, D] (the paged engine shares it). ``lora``: the block's
+    attention factor subtree, or None."""
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (_adapted_matmul(p, name, x, lora, lora_scale)
+               for name in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = _split_heads(q, nq, hd)
@@ -154,7 +168,8 @@ def _contiguous_positions(positions) -> bool:
 
 def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
               window: Optional[int] = None,
-              positions_contiguous: Optional[bool] = None):
+              positions_contiguous: Optional[bool] = None, lora=None,
+              lora_scale: float = 1.0):
     """Causal self-attention, with or without a contiguous KV cache.
 
     With ``cache`` the new K/V rows are written into it in place (see
@@ -168,13 +183,16 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
     the CPU and raises on the card.
     ``positions_contiguous`` vouches for the layout (None checks the
     values); ``rot`` passes precomputed :func:`rope_tables` for
-    ``positions``. Returns (output, cache)."""
+    ``positions``. ``lora``: optional factor subtree of this block's
+    attention params ({"wq": {"A", "B"}, ...}); adapted projections run
+    the fused base + low-rank kernel with ``lora_scale``. Returns
+    (output, cache)."""
     b, s, _ = x.shape
     nq, hd = cfg.num_heads, cfg.hd
     scale = hd ** -0.5
     if rot is None:
         rot = rope_tables(positions, hd, cfg.rope_theta)
-    q, k, v = qkv(p, x, cfg, rot)
+    q, k, v = qkv(p, x, cfg, rot, lora, lora_scale)
     q_pos = positions if positions.dim() == 1 else positions[0]
     if cache is not None:
         k, v, kv_pos, cache = update_kv_cache(cache, k, v, positions)
@@ -198,7 +216,7 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
                 f"in {ops.HEAD_DIMS} (head_dim {hd}, contiguous "
                 f"{positions_contiguous})")
     o = o.transpose(1, 2).reshape(b, s, nq * hd)
-    return (o @ p["wo"]).to(x.dtype), cache
+    return _adapted_matmul(p, "wo", o, lora, lora_scale).to(x.dtype), cache
 
 
 # ------------------------------------------------------------- kv cache ----
@@ -243,8 +261,10 @@ def init_mlp(gen, cfg: ModelConfig, device,
     }
 
 
-def mlp(p, x):
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def mlp(p, x, lora=None, lora_scale: float = 1.0):
+    h = F.silu(_adapted_matmul(p, "wg", x, lora, lora_scale)) \
+        * _adapted_matmul(p, "wi", x, lora, lora_scale)
+    return _adapted_matmul(p, "wo", h, lora, lora_scale)
 
 
 # ------------------------------------------------------------ embedding ----

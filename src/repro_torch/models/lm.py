@@ -67,7 +67,7 @@ class LM(ParamTree):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.prefix_tokens:
+    if cfg.family != "dense" or cfg.moe.num_experts:
         raise NotImplementedError(
             f"the port covers the dense decoder so far, not {cfg.name!r} "
             f"({cfg.family})")
@@ -98,6 +98,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> LM:
     if not cfg.tie_embeddings:
         tree["head"] = B.init_linear(gen, cfg.d_model, cfg.vocab_size,
                                      cfg.dtype, device)
+    if cfg.prefix_tokens:   # vision features -> d_model (the AD-LLM)
+        tree["projector"] = B.init_linear(gen, cfg.prefix_dim, cfg.d_model,
+                                          cfg.dtype, device)
     return LM(cfg, tree)
 
 
@@ -109,14 +112,18 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 def apply_block(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
                 window: Optional[int] = None,
-                positions_contiguous: Optional[bool] = None):
+                positions_contiguous: Optional[bool] = None, lora=None,
+                lora_scale: float = 1.0):
+    """One block; ``lora`` is this layer's factor subtree (or None)."""
+    lora = lora or {}
     a, cache = B.attention(p["attn"], B.rms_norm(p["ln1"], x, cfg.norm_eps),
                            cfg, positions=positions, cache=cache, rot=rot,
                            window=window,
-                           positions_contiguous=positions_contiguous)
+                           positions_contiguous=positions_contiguous,
+                           lora=lora.get("attn"), lora_scale=lora_scale)
     x = x + a
     h = B.rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + B.mlp(p["ffn"], h), cache
+    return x + B.mlp(p["ffn"], h, lora.get("ffn"), lora_scale), cache
 
 
 def logits_of(params, cfg: ModelConfig, h):
@@ -129,7 +136,8 @@ def logits_of(params, cfg: ModelConfig, h):
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             caches: Optional[dict] = None, window: Optional[int] = None,
             remat: bool = False, logits_slice: Optional[int] = None,
-            hidden_only: bool = False):
+            hidden_only: bool = False, prefix_embeds=None, lora=None,
+            lora_scale: float = 1.0):
     """tokens: [B, S] int. Returns (logits [B, S, V] float32 — or the
     final-norm hidden states with ``hidden_only`` — , caches, aux).
 
@@ -140,10 +148,30 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     ``remat`` recomputes each block in the backward pass
     (``torch.utils.checkpoint``, the reference's per-block
     ``jax.checkpoint``); it needs ``caches=None``.
+    ``prefix_embeds`` [B, P, F] (the AD-LLM's vision features) go through
+    ``projector`` in the model dtype and sit before the token embeddings,
+    at positions 0..P-1; their rows are dropped after the final norm.
+    ``lora`` is a factor tree from :func:`repro_torch.distill.lora
+    .init_lora`: factors on the block stack run through the fused base +
+    low-rank kernel with ``lora_scale``; factors anywhere else raise.
     ``aux`` is the (zero) MoE auxiliary loss, kept for the reference's
     return signature. ``params`` may be the module or its nested dict."""
     _check_family(cfg)
+    lora_blocks = None
+    if lora is not None:
+        bad = sorted(k for k, v in lora.items() if k != "blocks" and v)
+        if bad:
+            raise NotImplementedError(
+                f"LoRA factors outside the block stack are not supported "
+                f"by the fused forward (got factors under {bad}); adapt "
+                f"only block projections or fold with merge_lora instead")
+        lora_blocks = lora.get("blocks")
     x = B.embed(params["embed"], tokens)
+    npfx = 0
+    if prefix_embeds is not None:
+        pfx = B.linear(params["projector"], prefix_embeds.to(x.dtype))
+        x = torch.cat([pfx, x], dim=1)
+        npfx = pfx.shape[1]
     contiguous = None
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -154,13 +182,17 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     for l in range(cfg.num_layers):
         lc = None if caches is None else {k: c[l] for k, c in caches.items()}
         kw = dict(positions=positions, rot=rot, window=window,
-                  positions_contiguous=contiguous)
+                  positions_contiguous=contiguous, lora_scale=lora_scale,
+                  lora=None if lora_blocks is None
+                  else layer(lora_blocks, l))
         if remat and lc is None and torch.is_grad_enabled():
             x, _ = checkpoint(apply_block, layer(blocks, l), x, cfg,
                               use_reentrant=False, **kw)
         else:
             x, _ = apply_block(layer(blocks, l), x, cfg, cache=lc, **kw)
     x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
+    if npfx:
+        x = x[:, npfx:]
     if logits_slice is not None:
         x = x[:, -logits_slice:]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -76,18 +76,25 @@ class LoopHooks:
 
 def fl_loop(fl_round: Callable, client_params, client_opt,
             round_batches_fn: Callable, *, rounds: int,
-            hooks: Optional[LoopHooks] = None) -> Dict:
+            hooks: Optional[LoopHooks] = None, teacher=None) -> Dict:
     """round_batches_fn(round_idx) -> client-stacked batches [C, E, B, ...].
     Rounds are few and each is expensive, so the default cadence logs
-    every round."""
+    every round.
+
+    ``teacher``: the student/teacher split of federated distillation —
+    optional frozen params handed to every round as
+    ``fl_round(client_params, client_opt, batches, teacher)``; the loop
+    carries only the trainable student side."""
     hooks = hooks or LoopHooks(log_every=1)
     hooks.check_ported()
+    extra = () if teacher is None else (teacher,)
     hist = []
     t0 = time.time()
     for r in range(rounds):
         batches = round_batches_fn(r)
         client_params, client_opt, metrics = fl_round(client_params,
-                                                      client_opt, batches)
+                                                      client_opt, batches,
+                                                      *extra)
         if hooks.on_round is not None:
             hooks.on_round(r, metrics)
         if hooks.should_log(r):

@@ -216,3 +216,60 @@ def test_dequantize_kernel_bitwise(dev):
     want = ref.dequantize_int8_ref(q, scale)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _lora(dev, dtype, m, k, n, r, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x, w, a, b, gy = (torch.randn(s, generator=g) * std for s, std in (
+        ((m, k), 1.0), ((k, n), k ** -0.5), ((k, r), k ** -0.5),
+        ((r, n), 0.1), ((m, n), 1.0)))
+    return [t.to(dtype).to(dev) for t in (x, w, a, b, gy)]
+
+
+def _lora_tol(dtype, want):
+    peak = float(want.float().abs().max())
+    return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
+
+
+LORA_CASES = [(256, 1024, 512, 4), (1000, 96, 132, 8), (130, 200, 72, 16),
+              (33, 40, 8, 1)]
+
+
+@pytest.mark.parametrize("m,k,n,r", LORA_CASES,
+                         ids=["path-like", "ragged", "rank16", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["forward", "dx"])
+def test_lora_kernel_matches_plain(dev, dtype, m, k, n, r, layout):
+    """The fused LoRA kernel against its plain version: float32 within
+    1e-5 of the largest magnitude (sums in another order), bf16 within a
+    bf16 ulp there (one rounding of a float32 value on each side); the
+    dx layout reads transposed views of w, b and a, as the backward
+    does."""
+    x, w, a, b, gy = _lora(dev, dtype, m, k, n, r)
+    args = (x, w, a, b) if layout == "forward" else (gy, w.T, b.T, a.T)
+    before = ops.launch_counts()["lora_matmul"]
+    got = ops.lora_matmul(*args, scale=2.0)
+    want = ref.lora_matmul_ref(*args, scale=2.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lora_matmul"] == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _lora_tol(dtype, want)
+
+
+def test_lora_autograd_runs_the_kernel(dev):
+    """lora_matmul_ad: the kernel forward, dx through the kernel on
+    transposed views, da and db as float32 products; no dw for a frozen
+    w."""
+    x, w, a, b, gy = _lora(dev, torch.float32, 300, 256, 192, 4, seed=1)
+    x, a, b = (t.requires_grad_() for t in (x, a, b))
+    before = ops.launch_counts()["lora_matmul"]
+    y = ops.lora_matmul_ad(x, w, a, b, scale=0.5)
+    grads = torch.autograd.grad(y, (x, a, b), gy)
+    assert ops.launch_counts()["lora_matmul"] == before + 2
+    want = torch.autograd.grad(ref.lora_matmul_ref(x, w, a, b, scale=0.5),
+                               (x, a, b), gy)
+    for got, exp in zip(grads, want):
+        assert float((got - exp).abs().max()) <= _lora_tol(torch.float32,
+                                                           exp)

@@ -1,0 +1,439 @@
+"""``distill_fl`` in the port against the reference on the CPU, at
+``reduced(flad_adllm)``'s AD-LLM view (2 layers, d_model 128, float32; 8
+prefix features of width 32, 6 waypoints, rank-4 LoRA) over
+``2@nano*2,agx*2``, 16 x 8 token batches, 2 local steps a round.
+
+What is held, and why:
+  * the data (vehicle, held-out and warmup sets, round batches):
+    bitwise — both packages draw them with numpy;
+  * the student loss and its factor grads on one batch: the loss terms
+    within 1e-5 relative, kd_kl also within 1e-6 absolute (it sums
+    p * (log p - log q) * T^2 with log p ~ log q ~ -6, each carrying
+    float32 rounding of order 6 * 2^-24, so where the KL is small, 1e-5
+    of it is below what float32 resolves), each factor grad within 1e-5
+    of its leaf's largest;
+  * two rounds of ``make_distill_round`` (codec ``none``, and ``int8`` fed
+    the reference's own bits along its key chain), the two-step
+    supervised warmup, and a two-round ``Session.run`` with int8, all
+    from the reference's state: the wire metrics exactly, the base
+    bitwise unchanged, loss and task_l1 within 1e-5 relative, and the
+    factors (warmed params) within 2e-5 (``none``) or two quantization
+    steps (``int8``: 2 * the row's largest scale) for all but 0.1% of the
+    elements, those within 1e-3 (one learning rate), and kd_l1/kd_kl
+    within 1e-2 relative. The last three are looser than a first step
+    would need, because training through Adam and L1 losses amplifies
+    last-bit differences: an element whose grad is near Adam's eps moves
+    by a fraction of lr that rounding decides (ROADMAP queue C), and one
+    such move flips the sign of some |s_wp - t_wp| in the alignment term
+    (which starts each round at exactly 0) or |wp - target| in the
+    warmup, which changes later grads by 1/96 each; Adam's normalized
+    step turns that into up to half an lr for an element with a small
+    grad. The reference disagrees with itself the same way: its XLA and
+    Pallas attention paths leave factors up to 4.2e-5 apart after the
+    two ``none`` rounds and kd_l1/kd_kl up to 1.6e-3 relative apart (the
+    ``none`` test prints this). A single step, where nothing has been
+    amplified yet, is held to 1e-5 above.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import LoopHooks as JHooks, Session as JSession
+from repro.comm.codecs import get_codec as jax_codec
+from repro.comm.codecs import zero_residual as jax_zero_residual
+from repro.comm.topology import parse_topology as jax_topology
+from repro.data.partition import adllm_public_dataset as jax_public
+from repro.data.partition import pod_datasets as jax_pod_datasets
+from repro.data.pipeline import batches as jax_batches
+from repro.data.pipeline import client_round_batches as jax_round_batches
+from repro.data.synthetic import DrivingDataConfig as JDataCfg
+from repro.distill import federated as jfed
+from repro.distill.celladapt import init_adllm as jax_init_adllm
+from repro.models import blocks as jblocks
+from repro.train.optimizer import Adam as JAdam
+from repro_torch import bridge
+from repro_torch.api import LoopHooks, Session
+from repro_torch.api.strategies import DistillFLStrategy
+from repro_torch.comm.codecs import get_codec
+from repro_torch.comm.topology import parse_topology
+from repro_torch.data import partition, pipeline
+from repro_torch.data.synthetic import DrivingDataConfig
+from repro_torch.distill import federated
+from repro_torch.distill.lora import LoRAConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import train as launch
+from repro_torch.train.optimizer import Adam
+from repro_torch.tree import flatten, leaves, tree_map
+from test_torch_fl import NEAR_EPS, record_adam_denominators
+from test_torch_lora import _acfgs
+
+TOPO = "2@nano*2,agx*2"
+C, ROUNDS, LOCAL = 4, 2, 2
+SEQ, BATCH = 16, 8
+KD_KL_ATOL = 1e-6
+KD_ROUND_RTOL = 1e-2
+OUTLIER_ATOL = 1e-3
+OPTS = dict(topology=TOPO, local_steps=LOCAL, lora_rank=4, warmup_steps=2)
+QUIET = dict(log_every=1, log_fn=lambda *a, **k: None)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # tiny CPU ops: a thread pool only adds contention under xdist
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _tensors(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _metrics_close(want, got, kd_rtol=1e-5):
+    """Round metrics within 1e-5 relative (kd_l1 and kd_kl within
+    ``kd_rtol``); kd_kl also within KD_KL_ATOL (see the module
+    docstring)."""
+    for key in ("loss", "task_l1", "kd_l1", "kd_kl"):
+        w, g = np.asarray(want[key]), np.asarray(got[key])
+        rel = np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))
+        print(f"{key}: max relative difference {rel:.2e}")
+        np.testing.assert_allclose(
+            g, w, rtol=kd_rtol if key.startswith("kd") else 1e-5,
+            atol=KD_KL_ATOL if key == "kd_kl" else 0, err_msg=key)
+
+
+def _factors_close(want, got, low, tol):
+    """Every element within ``tol`` (a number or one array per leaf) but
+    at most 0.1% of them, and those within OUTLIER_ATOL (see the module
+    docstring). Prints how many fell outside ``tol``, and how many of
+    those are near-eps (some Adam update met a nonzero sqrt(v_hat) below
+    NEAR_EPS). Returns (outliers, near-eps outliers, total, worst)."""
+    if np.isscalar(tol):
+        tol = [tol] * len(low)
+    out = near = total = 0
+    worst = 0.0
+    for w, g, lo, t in zip(want, got, low, tol):
+        d = np.abs(g.detach().numpy() - np.asarray(w))
+        over = d > t
+        out += int(over.sum())
+        near += int((over & (lo.numpy() < NEAR_EPS)).sum())
+        total += d.size
+        worst = max(worst, float(d.max()))
+    print(f"{out} of {total} elements outside the tolerance ({near} of "
+          f"them near-eps), all within {worst:.2e}")
+    assert out <= 1e-3 * total, (out, total)
+    assert worst <= OUTLIER_ATOL, worst
+    return out, near, total, worst
+
+
+def _bits_source(key, sizes, rounds):
+    """The reference's int8 codec words along its key chain (per round a
+    split, then one key per leaf, then one per client) as a port
+    ``codec_bits(round, leaf, client, shape)``, and the chain's end."""
+    bits = {}
+    for r in range(rounds):
+        key, sub = jax.random.split(key)
+        for i, lk in enumerate(jax.random.split(sub, len(sizes))):
+            for c, kk in enumerate(jax.random.split(lk, C)):
+                words = np.asarray(jax.random.bits(
+                    kk, (-(-sizes[i] // ops.LANES), ops.LANES), jnp.uint32))
+                bits[r, i, c] = torch.from_numpy(
+                    words.view(np.int32).copy()).view(torch.uint32)
+
+    def codec_bits(r, leaf, client, shape):
+        assert tuple(shape) == tuple(bits[r, leaf, client].shape)
+        return bits[r, leaf, client]
+
+    return codec_bits
+
+
+class _ScaleRecorder:
+    """Keeps every quantize call's scales, to size the int8 tolerance."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        quantize = ops.quantize_int8
+
+        def recording(x, b):
+            q, s = quantize(x, b)
+            self.calls.append(s)
+            return q, s
+
+        monkeypatch.setattr(ops, "quantize_int8", recording)
+
+    def steps(self, sizes, shapes, rounds):
+        """Two quantization steps per element of each client-stacked
+        factor leaf: 2 * the row's largest scale over rounds and
+        clients."""
+        n = len(sizes)
+        assert len(self.calls) == rounds * n * C
+        out = []
+        for i, shape in enumerate(shapes):
+            per = [np.repeat(self.calls[(r * n + i) * C + c].numpy(),
+                             ops.LANES, 1).reshape(-1)[:sizes[i]]
+                   for r in range(rounds) for c in range(C)]
+            row = 2 * np.max(np.stack(per), 0).reshape(shape[1:])
+            out.append(np.broadcast_to(row, shape))
+        return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """A reference ``distill_fl`` Session after init (warmup included),
+    its initial state as numpy, two rounds of its batches, then its
+    state after running them."""
+    js = JSession("flad-adllm", strategy="distill_fl", mesh=(1,),
+                  shape=f"{SEQ}x{BATCH}", codec="int8", **OPTS)
+    _, (jp, jo) = js.build()
+    init = (_np(jp), _np(jo))
+    key = js.strategy._key
+    batches = [_np(js.strategy.default_batch(js.cfg, js.shape, None, None))
+               for _ in range(ROUNDS)]
+    out = js.run(ROUNDS, batches=batches, hooks=JHooks(**QUIET))
+    return js, init, key, batches, out
+
+
+def test_distill_data_bit_equal(reference):
+    js, _, _, batches, _ = reference
+    st = DistillFLStrategy(codec="int8", **OPTS)
+    tcfg = _acfgs()[1]
+    shape = Session("flad-adllm", strategy=st, shape=f"{SEQ}x{BATCH}",
+                    device="cpu").shape
+    train, held, mix = st.datasets(tcfg, shape)
+    jtrain, jheld, jmix = js.strategy.datasets(js.cfg, js.shape)
+    np.testing.assert_array_equal(mix, jmix)
+    for a, b in zip(train + held, jtrain + jheld):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+    gen = torch.Generator()
+    for want in batches:
+        got = st.default_batch(tcfg, shape, gen)
+        for k, v in want.items():
+            assert got[k].numpy().dtype == v.dtype
+            np.testing.assert_array_equal(got[k].numpy(), v)
+    # the warmup's public batches, as the reference's init builds them
+    dcfg = JDataCfg(n_towns=4, patches=8, feature_dim=32, num_waypoints=6,
+                    seed=0)
+    pub = jax_public(dcfg, 2 * BATCH, seq_len=SEQ, vocab=512, seed=31)
+    jwarm = [b for _, b in zip(range(2), jax_batches(pub, BATCH, seed=0,
+                                                     epochs=2))]
+    for a, b in zip(st.warmup_batches(tcfg, shape), jwarm):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+    # the modules themselves, off the strategy's defaults
+    dc = DrivingDataConfig(n_towns=3, patches=4, feature_dim=16,
+                           num_waypoints=5, seed=4)
+    jdc = JDataCfg(n_towns=3, patches=4, feature_dim=16, num_waypoints=5,
+                   seed=4)
+    members = parse_topology("3@nano*3,agx*2").member_indices
+    got = partition.pod_datasets(dc, members, 10, seq_len=12, vocab=300,
+                                 beta=0.3, seed=2, heldout=5)
+    want = jax_pod_datasets(jdc, members, 10, seq_len=12, vocab=300,
+                            beta=0.3, seed=2, heldout=5)
+    for a, b in zip(got[0] + got[1] + [{"m": got[2]}],
+                    want[0] + want[1] + [{"m": want[2]}]):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+    rb = pipeline.client_round_batches(got[0], 3, 2, round_idx=5)
+    jrb = jax_round_batches(want[0], 3, 2, round_idx=5)
+    for k in jrb:
+        np.testing.assert_array_equal(rb[k], jrb[k])
+
+
+def test_student_loss_and_factor_grads_match_reference():
+    jcfg, tcfg = _acfgs()
+    kb, kl = jax.random.split(jax.random.PRNGKey(3))
+    jbase = jax_init_adllm(kb, jcfg)
+    from repro.distill import lora as jlora
+    jl = jlora.LoRAConfig(rank=4, alpha=8.0)
+    rng = np.random.default_rng(4)
+    jf = jax.tree.map(
+        lambda f: {"A": f["A"], "B": jnp.asarray(
+            rng.standard_normal(f["B"].shape).astype(np.float32) * 0.05)},
+        jlora.init_lora(kl, jbase, jl),
+        is_leaf=lambda v: isinstance(v, dict) and "A" in v)
+    batch = {"features": rng.standard_normal((4, 8, 32)).astype(np.float32),
+             "tokens": rng.integers(0, 512, (4, SEQ)).astype(np.int32),
+             "waypoints": rng.standard_normal((4, 6, 2)).astype(np.float32)}
+    (jloss, jm), jg = jax.value_and_grad(
+        jfed.make_student_loss(jcfg, jl), has_aux=True)(
+            jf, jbase, {k: jnp.asarray(v) for k, v in batch.items()})
+    base = bridge.tree_from_numpy(_np(jbase), "cpu")
+    factors = bridge.tree_from_numpy(_np(jf), "cpu")
+    flat, spec = flatten(factors)
+    live = [f.requires_grad_() for f in flat]
+    loss_fn = federated.make_student_loss(tcfg, LoRAConfig(rank=4,
+                                                           alpha=8.0))
+    loss, m = loss_fn(factors, base, _tensors(batch))
+    grads = torch.autograd.grad(loss, live)
+    _metrics_close({k: float(v) for k, v in jm.items()},
+                   {k: float(v.detach()) for k, v in m.items()})
+    jgl = jax.tree.leaves(jg)
+    assert len(jgl) == len(grads) == 10
+    for g, w in zip(grads, jgl):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), (err, np.abs(w).max())
+    assert all(not t.requires_grad for t in leaves(base))
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_distill_rounds_match_reference(reference, codec, monkeypatch):
+    """Two make_distill_round rounds from the reference Session's
+    initial state (warmed base, B = 0 factors), on its batches."""
+    js, (jp, jo), key, batches, _ = reference
+    jcfg, tcfg = _acfgs()
+    jl = js.strategy.lora_cfg
+    kw = dict(kd_weight=0.3, kd_temp=2.0, logit_weight=0.1, mix=0.5)
+    bits = _bits_source(key, [int(np.prod(x.shape[1:])) for x in
+                              jax.tree.leaves(jp["factors"])], ROUNDS)
+
+    def reference_rounds(pallas_attention: bool):
+        jblocks.set_kernel_backend(pallas_attention)
+        try:
+            jround = jax.jit(jfed.make_distill_round(
+                jcfg, JAdam(lr=1e-3), jax_topology(TOPO), jax_codec(codec),
+                lora_cfg=jl, local_steps=LOCAL, **kw))
+            jf, jopt, k = jp["factors"], jo, key
+            jres = jax_zero_residual(jp["factors"])
+            ms = []
+            for r in range(ROUNDS):
+                k, sub = jax.random.split(k)
+                jf, jopt, m, jres = jround(jf, jopt, batches[r], jp["base"],
+                                           jres, sub)
+                ms.append(_np(m))
+            return jf, ms
+        finally:
+            jblocks.set_kernel_backend(False)
+
+    jf, jmetrics = reference_rounds(False)
+    if codec == "none":     # how far the reference is from itself
+        pf, pm = reference_rounds(True)
+        d = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                for a, b in zip(jax.tree.leaves(jf), jax.tree.leaves(pf)))
+        rel = {k: max(float(np.max(np.abs(a[k] - b[k]) / np.abs(a[k])))
+                      for a, b in zip(jmetrics, pm)) for k in pm[0]}
+        print(f"reference, XLA vs Pallas attention: factors up to {d:.2e} "
+              f"apart; metrics up to "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + " relative")
+    sizes = [int(np.prod(x.shape[1:])) for x in jax.tree.leaves(jf)]
+    shapes = [x.shape for x in jax.tree.leaves(jf)]
+
+    base, (factors, opt) = (bridge.tree_from_numpy(jp["base"], "cpu"),
+                            bridge.fl_state_from_numpy(
+                                jp["factors"], jo.step, jo.m, jo.v, "cpu"))
+    before = [t.clone() for t in leaves(base)]
+    scales = _ScaleRecorder(monkeypatch)
+    low = record_adam_denominators(monkeypatch)
+    tround = federated.make_distill_round(
+        tcfg, Adam(lr=1e-3), parse_topology(TOPO), get_codec(codec),
+        lora_cfg=LoRAConfig(rank=jl.rank, alpha=jl.alpha), **kw)
+    res = tree_map(torch.zeros_like, factors)
+    tmetrics = []
+    for r in range(ROUNDS):
+        src = None if codec == "none" else (
+            lambda i, c, s, r=r: bits(r, i, c, s))
+        factors, opt, m, res = tround(factors, opt, _tensors(batches[r]),
+                                      base, res, src)
+        tmetrics.append({k: v.numpy() for k, v in m.items()})
+    monkeypatch.undo()
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(base)))
+    tol = 2e-5 if codec == "none" else scales.steps(sizes, shapes, ROUNDS)
+    _factors_close(jax.tree.leaves(jf), leaves(factors), low, tol)
+    for want, got in zip(jmetrics, tmetrics):
+        _metrics_close(want, got, KD_ROUND_RTOL)
+
+
+def test_warmup_matches_reference(reference, monkeypatch):
+    """The supervised warmup from the reference's initial AD-LLM, on the
+    same public batches, against the reference Session's warmed base."""
+    js, _, _, _, _ = reference
+    jcfg, tcfg = _acfgs()
+    kb, _ = jax.random.split(jax.random.PRNGKey(0))
+    base0 = bridge.tree_from_numpy(_np(jax_init_adllm(kb, jcfg)), "cpu")
+    st = DistillFLStrategy(codec="int8", **OPTS)
+    shape = Session("flad-adllm", strategy=st, shape=f"{SEQ}x{BATCH}",
+                    device="cpu").shape
+    warm = [_tensors(b) for b in st.warmup_batches(tcfg, shape)]
+    low = record_adam_denominators(monkeypatch)
+    base, losses = federated.warmup_base(base0, tcfg, warm, lr=1e-3)
+    monkeypatch.undo()
+    np.testing.assert_allclose(losses, js.strategy.warmup_history,
+                               rtol=1e-5)
+    want = jax.tree.leaves(js.strategy._base)
+    _factors_close(want, leaves(base), low, 1e-4)
+    assert all(not t.requires_grad for t in leaves(base))
+
+
+def test_session_distill_fl_matches_reference(reference, monkeypatch):
+    """Two int8 rounds through the port's Session.run from the reference
+    Session's initial state, on its batches and codec bits."""
+    js, (jp, jo), key, batches, jout = reference
+    sizes = [int(np.prod(x.shape[1:]))
+             for x in jax.tree.leaves(jp["factors"])]
+    shapes = [x.shape for x in jax.tree.leaves(jp["factors"])]
+    base = bridge.tree_from_numpy(jp["base"], "cpu")
+    factors, opt = bridge.fl_state_from_numpy(jp["factors"], jo.step, jo.m,
+                                              jo.v, "cpu")
+    before = [t.clone() for t in leaves(base)]
+    scales = _ScaleRecorder(monkeypatch)
+    low = record_adam_denominators(monkeypatch)
+    ts = Session("flad-adllm", strategy="distill_fl",
+                 shape=f"{SEQ}x{BATCH}", codec="int8", device="cpu",
+                 codec_bits=_bits_source(key, sizes, ROUNDS), **OPTS)
+    out = ts.run(ROUNDS, state=({"base": base, "factors": factors}, opt),
+                 batches=[_tensors(b) for b in batches],
+                 hooks=LoopHooks(**QUIET))
+    monkeypatch.undo()
+    assert ts.state[0]["base"] is base
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(base)))
+    _factors_close(jax.tree.leaves(js.state[0]["factors"]),
+                   leaves(ts.state[0]["factors"]), low,
+                   scales.steps(sizes, shapes, ROUNDS))
+    for h, jh in zip(out["history"], jout["history"]):
+        for k in ("comm_bytes_up", "comm_bytes_backhaul", "sim_round_s"):
+            assert h[k] == jh[k], k
+        _metrics_close({k: jh[f"per_client/{k}"] for k in
+                        ("loss", "task_l1", "kd_l1", "kd_kl")},
+                       {k: h[f"per_client/{k}"] for k in
+                        ("loss", "task_l1", "kd_l1", "kd_kl")},
+                       KD_ROUND_RTOL)
+    # the global and per-pod views fold the adapters into the base alike
+    for got, want in ((ts.merged_params(), js.merged_params()),
+                      (ts.strategy.pod_params(ts.state, 1),
+                       js.strategy.pod_params(js.state, 1))):
+        for g, w in zip(leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-4)
+
+
+def test_launcher_distill_fl_on_cpu(capsys):
+    out = launch.main(["--strategy", "distill_fl", "--topology", TOPO,
+                       "--codec", "int8", "--local-steps", "2", "--steps",
+                       "2", "--shape", "16x8", "--distill-warmup", "2",
+                       "--device", "cpu"])
+    hist = out["history"]
+    assert len(hist) == 2 and "[train] done" in capsys.readouterr().out
+    for h in hist:
+        for k in ("loss", "task_l1", "kd_l1", "kd_kl"):
+            assert np.isfinite(h[f"per_client/{k}"]).all()
+        # a client sends 10 int8 factor leaves: 10240 codes and 80 row
+        # scales of 4 B, 10560 B; 4 clients up, 2 pods on the backhaul
+        assert h["comm_bytes_up"] == 42240.0
+        assert h["comm_bytes_backhaul"] == 21120.0
+    st = out["session"].strategy
+    assert len(st.warmup_history) == 2
+    blocks = out["session"].state[0]["factors"]["blocks"]
+    for f in [blocks["attn"][p] for p in ("wk", "wo", "wq", "wv")] \
+            + [blocks["ffn"]["wo"]]:
+        assert float(f["B"].abs().max()) > 0

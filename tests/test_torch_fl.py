@@ -234,8 +234,8 @@ def test_topology_and_aggregation_match_reference():
 
 
 def test_strategy_registry():
-    assert available_strategies() == ("fedavg", "hier_fl")
-    for name in ("pipeline", "async_hier_fl", "distill_fl"):
+    assert available_strategies() == ("distill_fl", "fedavg", "hier_fl")
+    for name in ("pipeline", "async_hier_fl", "fl_pipeline"):
         with pytest.raises(NotImplementedError, match="later slice"):
             get_strategy(name)
     with pytest.raises(ValueError, match="unknown strategy"):
