@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the nine hand-written kernels from src/repro_torch/kernels/csrc
+  2. builds the ten hand-written kernels from src/repro_torch/kernels/csrc
      with nvcc for sm_90a, all at once, and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
@@ -20,7 +20,9 @@ In order, it
      matmul at the distillation path's shapes (M 4128; (K, N) of wq/wo,
      wk/wv and ffn.wo; r 4; forward and the backward's transposed dx;
      bf16 and float32) with ragged and rank-16 cases and its autograd
-     wrapper's dx, da and db;
+     wrapper's dx, da and db, and the chunkwise mLSTM at the xLSTM prefill's
+     shape (B 8, NH 4, S 512, DH 512, float32) with ragged-S,
+     initial-state, bf16 and DH-64 cases;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -44,7 +46,14 @@ In order, it
   8. runs one float32 distill local step through the kernels and through
      the plain versions and compares the loss, the factor grads and the
      updated factors; profiles one bf16 distill local step;
-  9. prints one JSON line describing every ported kernel, the card's
+  9. serves xlstm-350m at full width and depth (bf16, random weights from
+     a seed) through the serving launcher's legacy static-batch scheduler
+     (Session.serve): 3 request batches of 8 x 512-token prompts and 32
+     decode steps; checks the exact mLSTM kernel launch count (21 a
+     prefill), finite logits and token ids; profiles a prefill and a
+     decode step; holds a float32 prefill plus decode steps through the
+     kernel against the same through the plain version;
+ 10. prints one JSON line describing every ported kernel, the card's
      name and power limit, and {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -123,6 +132,22 @@ DISTILL_ARGV = ["--arch", "flad-adllm", "--full", "--strategy", "distill_fl",
 FACTOR_LEAVES = 10             # A and B of attn.{wk,wo,wq,wv} and ffn.wo
 DISTILL_LOSS_ATOL = 1e-5
 L2_FLUSH_BYTES = 256 * 2 ** 20  # five times the H100's 50 MB L2
+# the xLSTM serving slice: xlstm-350m through the legacy scheduler
+XB, XCTX, XDECODE, XREQ = 8, 512, 32, 3
+XLSTM_ARGV = ["--arch", "xlstm-350m", "--full", "--scheduler", "legacy",
+              "--batch", str(XB), "--context", str(XCTX), "--decode-steps",
+              str(XDECODE), "--requests", str(XREQ), "--device", "cuda"]
+MLSTM_CHUNK = 64               # the kernel's chunk (mlstm_chunked.cu kC)
+# mLSTM kernel vs its plain version at chunk 64: float32 h within 5e-5 of
+# its largest magnitude (den = |n.q| can cancel and magnify the order of
+# the sums), C, n and m within 1e-5; bf16 h one bf16 ulp of the largest
+MLSTM_H_RTOL_F32, MLSTM_STATE_RTOL = 5e-5, 1e-5
+# float32 prefill + decode, kernel vs plain version (the path's chunk,
+# 256): logits within 1e-4 of the largest magnitude
+XLSTM_LOGIT_RTOL = 1e-4
+XLSTM_F32_STEPS = 4
+MLSTM_LIBRARY_NOTE = ("no single PyTorch call computes the stabilized "
+                      "chunkwise mLSTM recurrence")
 
 
 def check(cond, msg):
@@ -1211,6 +1236,277 @@ def profile_local_step(torch, cfg, dev, steps=3):
     return wall, busy, peak
 
 
+# ------------------------------------------------------------------ mLSTM
+def _mlstm_inputs(torch, dev, b, nh, s, dh, dtype, seed, state):
+    """q, k (pre-scaled), v in ``dtype``, float32 gates (lf = log sigmoid),
+    and the initial state: random when ``state == "random"``, the fresh
+    zeros / -1e30 of a prefill when ``"fresh"``, none when None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    args = (rand(b, nh, s, dh).to(dtype),
+            (rand(b, nh, s, dh) * dh ** -0.5).to(dtype),
+            rand(b, nh, s, dh).to(dtype), rand(b, nh, s),
+            torch.nn.functional.logsigmoid(rand(b, nh, s) + 2.0))
+    kw = {}
+    if state == "random":
+        kw = dict(C0=rand(b, nh, dh, dh) * 0.1, n0=rand(b, nh, dh) * 0.1,
+                  m0=rand(b, nh))
+    elif state == "fresh":
+        kw = dict(C0=torch.zeros((b, nh, dh, dh), device=dev),
+                  n0=torch.zeros((b, nh, dh), device=dev),
+                  m0=torch.full((b, nh), -1e30, device=dev))
+    return args, kw
+
+
+def _mlstm_work(b, nh, s, dh, esz, state):
+    """(bytes, flops) of one call: q, k, v, the gates and the initial
+    state read once, h and the final state written once; 4 S DH^2 flops
+    per (b, h) for C q and the C update, 4 DH per causal pair inside a
+    64-step chunk for q.k and P v (what the recurrence needs at the
+    kernel's chunk)."""
+    pairs = sum(c * (c + 1) // 2 for c in
+                [min(MLSTM_CHUNK, s - t) for t in range(0, s, MLSTM_CHUNK)])
+    st = (dh * dh + dh + 1) * 4
+    nbytes = b * nh * (4 * s * dh * esz + 2 * s * 4 + st
+                       + (st if state else 0))
+    return nbytes, b * nh * (4 * s * dh * dh + 4 * dh * pairs)
+
+
+def mlstm_checks(torch, dev):
+    """The chunkwise mLSTM kernel against its plain version (chunk 64) on
+    the card: the prefill's shape with the fresh state it is given there
+    (timed, cold L2), a ragged S, a random initial state, bf16 inputs and
+    the reduced config's DH 64. Returns the kernel's JSON row."""
+    from repro_torch.kernels import ops, ref
+    cases = [("path", 8, 4, XCTX, 512, torch.float32, "fresh"),
+             ("ragged S 333", 8, 4, 333, 512, torch.float32, None),
+             ("initial state", 2, 4, XCTX, 512, torch.float32, "random"),
+             ("bf16", 8, 4, XCTX, 512, torch.bfloat16, "fresh"),
+             ("DH 64", 8, 4, XCTX, 64, torch.float32, "random")]
+    max_err, rows = 0.0, {}
+    for label, b, nh, s, dh, dtype, state in cases:
+        args, kw = _mlstm_inputs(torch, dev, b, nh, s, dh, dtype, 41, state)
+        got = ops.mlstm_chunked(*args, **kw)
+        want = ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("h", "C", "n", "m"), (got[0], *got[1]),
+                              (want[0], *want[1])):
+            check(bool(torch.isfinite(g).all()),
+                  f"mlstm {label} {name}: non-finite")
+            err = _err(g, w)
+            peak = max(1.0, float(w.float().abs().max()))
+            rtol = (MLSTM_STATE_RTOL if name != "h" else
+                    MLSTM_H_RTOL_F32 if dtype == torch.float32 else BF16_ULP)
+            check(err <= rtol * peak, f"mlstm {label} {name}: max err "
+                  f"{err:.3e} > {rtol * peak:.3e}")
+            errs.append(f"{name} {err:.2e}")
+            if name == "h":
+                max_err = max(max_err, err)
+        line = (f"[kernel] mlstm_chunked {label} (B {b}, NH {nh}, S {s}, "
+                f"DH {dh}, {str(dtype).split('.')[-1]}, initial state "
+                f"{state}): max|err| " + ", ".join(errs))
+        if label in ("path", "bf16"):
+            ms, plain, call = timings(
+                lambda: ops.mlstm_chunked(*args, **kw),
+                lambda: ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK,
+                                                **kw),
+                "mlstm_chunked_kernel")
+            esz = 4 if dtype == torch.float32 else 2
+            nbytes, flops = _mlstm_work(b, nh, s, dh, esz, state)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            rows[label] = dict(ms=ms, plain_ms=plain, call_ms=call,
+                               bound_ms=b_ms, bound_by=b_by)
+            line += (f"; device: kernel {ms:.5f} ms, plain {plain:.5f} ms; "
+                     f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                     f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s "
+                     f"of needed work; host clock per call {call:.5f} ms")
+        print(line)
+        del args, kw, got, want
+    head = rows["path"]
+    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked.cu",
+                replaces="src/repro/kernels/mlstm.py:90", max_abs_err=max_err,
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                call_ms=head["call_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None,
+                library_call=MLSTM_LIBRARY_NOTE,
+                headline="float32, B 8, NH 4, S 512, DH 512, fresh state",
+                bf16_ms=rows["bf16"]["ms"],
+                bf16_plain_ms=rows["bf16"]["plain_ms"],
+                bf16_bound_ms=rows["bf16"]["bound_ms"])
+
+
+def xlstm_main_path(torch, cfg, dev):
+    """Serve xlstm-350m through the launcher's legacy scheduler
+    (Session.serve); checks the exact launch counts, the streams and the
+    last logits; returns (launch counts, report, peak GiB)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import xlstm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = launch.main(XLSTM_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_super, n_m = xlstm._layout(cfg)
+    want = dict.fromkeys(counts, 0)
+    want["mlstm_chunked"] = XREQ * n_super * n_m     # 21 a prefill
+    check(counts == want, f"xlstm launches {counts} != {want}")
+    seqs = rep["sequences"]
+    check(len(seqs) == XREQ and all(tuple(x.shape) == (XB, XDECODE + 1)
+                                    for x in seqs), "xlstm stream shapes")
+    check(all(0 <= int(x.min()) and int(x.max()) < cfg.vocab_size
+              for x in seqs), "xlstm token id out of range")
+    logits = rep["last_logits"]
+    check(tuple(logits.shape) == (XB, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "xlstm logits non-finite")
+    print(f"[xlstm] {cfg.name}: {XREQ} request batches of {XB} x {XCTX} "
+          f"tokens + {XDECODE} decode steps through Session.serve(legacy): "
+          f"{rep['total_tokens']} tokens, cold {rep['tokens_per_s']:.1f} "
+          f"tok/s, warm {rep['warm_tokens_per_s']:.1f} tok/s, wall "
+          f"{wall:.2f} s incl. init; peak device memory {peak:.2f} GiB; "
+          f"first row {seqs[0][0, :8].tolist()}; launches {counts}")
+    del rep
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def _profiled(torch, fn, n):
+    """(wall ms per call, device busy ms per call, top device ops) of
+    ``n`` calls of ``fn``, each ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / n / 1e3,
+                   e.count // n, e.key[:70])
+                  for e in prof.key_averages())[::-1]
+    return wall, sum(r[0] for r in rows), rows
+
+
+def profile_xlstm(torch, cfg, dev):
+    """A bf16 prefill of 8 x 512 tokens and a decode step of xlstm-350m:
+    wall time, device busy and idle share, top device ops."""
+    from repro_torch.models import xlstm
+    params = xlstm.init(cfg, seed=0, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (XB, XCTX), generator=g,
+                         device=dev, dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        st = [xlstm.init_state(cfg, XB, dev)]
+
+        def prefill():
+            st[0] = xlstm.init_state(cfg, XB, dev)
+            out["logits"] = xlstm.forward(params, cfg, toks, states=st[0],
+                                          logits_slice=1)[0]
+
+        def decode():
+            tok = out["logits"][:, -1:].argmax(-1).to(torch.int32)
+            out["logits"] = xlstm.forward(params, cfg, tok, states=st[0],
+                                          step=True)[0]
+
+        prefill()
+        res = {}
+        for name, fn, n in (("prefill", prefill, 2), ("decode step", decode,
+                                                      8)):
+            wall, busy, rows = _profiled(torch, fn, n)
+            mlstm = sum(r[0] for r in rows if "mlstm_chunked_kernel" in r[2])
+            res[name] = (wall, busy)
+            print(f"[profile] xlstm bf16 {name} (batch {XB}"
+                  + (f", {XCTX} tokens" if name == "prefill" else "")
+                  + f"): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                  f"(idle {100 * max(0.0, 1 - busy / wall):.1f}%), "
+                  f"{sum(r[1] for r in rows)} device ops, mLSTM kernel "
+                  f"{mlstm:.3f} ms")
+            for t, k, key in rows[:6]:
+                print(f"[profile]   {t:.4f} ms in {k:5d} x {key}")
+        check(bool(torch.isfinite(out["logits"]).all()),
+              "xlstm profile: non-finite logits")
+    del params, st, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def xlstm_f32_vs_plain(torch, cfg, dev):
+    """Float32 prefill (8 x 512 tokens) plus decode steps at full width,
+    through the kernel and through the plain version (the path's chunk),
+    teacher-forced on the kernel run's greedy tokens: max logit
+    difference and greedy agreement."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import xlstm
+    c32 = cfg.replace(param_dtype="float32")
+    params = xlstm.init(c32, seed=1, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (XB, XCTX), generator=g,
+                         device=dev, dtype=torch.int32)
+
+    def run(forced=None):
+        logits_all, greedy = [], []
+        with torch.no_grad():
+            st = xlstm.init_state(c32, XB, dev)
+            logits = xlstm.forward(params, c32, toks, states=st,
+                                   logits_slice=1)[0]
+            for i in range(XLSTM_F32_STEPS + 1):
+                logits_all.append(logits)
+                greedy.append(logits[:, -1:].argmax(-1).to(torch.int32))
+                if i == XLSTM_F32_STEPS:
+                    break
+                tok = greedy[-1] if forced is None else forced[i]
+                logits = xlstm.forward(params, c32, tok, states=st,
+                                       step=True)[0]
+        torch.cuda.synchronize()
+        return logits_all, greedy
+
+    n_super, n_m = xlstm._layout(cfg)
+    ops.reset_launch_counts()
+    kernel = run()
+    check(ops.mlstm_chunked.launches == n_super * n_m, "f32 kernel run: "
+          f"launches {ops.mlstm_chunked.launches} != {n_super * n_m}")
+    saved = ops.mlstm_chunked
+
+    def plain(q, k, v, ig, lf, *, chunk=64, C0=None, n0=None, m0=None):
+        return ref.mlstm_chunkwise_ref(q, k, v, ig, lf, chunk=chunk, C0=C0,
+                                       n0=n0, m0=m0)
+
+    ops.mlstm_chunked = plain
+    ops.reset_launch_counts()
+    try:
+        plain_run = run(forced=kernel[1])
+    finally:
+        ops.mlstm_chunked = saved
+    check(sum(ops.launch_counts().values()) == 0,
+          "the plain run launched a kernel")
+    peak = max(float(l.abs().max()) for l in plain_run[0])
+    drift = max(_err(a, b) for a, b in zip(kernel[0], plain_run[0]))
+    agree = sum(int((a == b).sum()) for a, b in zip(kernel[1], plain_run[1]))
+    total = sum(a.numel() for a in kernel[1])
+    check(drift <= XLSTM_LOGIT_RTOL * peak, f"f32 xlstm logits differ by "
+          f"{drift:.3e} > {XLSTM_LOGIT_RTOL * peak:.3e}")
+    print(f"[xlstm-f32] prefill of {XB} x {XCTX} + {XLSTM_F32_STEPS} decode "
+          f"steps, float32, kernel vs plain version (teacher-forced): max "
+          f"logit |diff| {drift:.3e} (atol {XLSTM_LOGIT_RTOL * peak:.3e} = "
+          f"{XLSTM_LOGIT_RTOL} x largest |logit| {peak:.3f}); greedy "
+          f"agreement {agree}/{total}")
+    del params, kernel, plain_run
+    torch.cuda.empty_cache()
+    return drift, agree, total
+
+
 # --------------------------------------------------------------- main path
 def serve_main_path(torch, cfg, params, dev):
     """Serve a fleet trace with both cache modes; returns launch counts."""
@@ -1389,6 +1685,7 @@ def main():
     kernels.update(flash_checks(torch, dev))
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
     kernels["lora_matmul"] = lora_checks(torch, dev)
+    kernels["mlstm_chunked"] = mlstm_checks(torch, dev)
 
     # 4. the main path: serve flad-adllm at full width and depth
     t0 = time.perf_counter()
@@ -1444,12 +1741,20 @@ def main():
     distill_step_vs_plain(torch, cfg, dev)
     profile_distill_step(torch, cfg, dev)
 
-    # 9. one line per ported kernel
-    print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}")
+    # 9. the xLSTM serving path: xlstm-350m through the legacy scheduler
+    xcfg = get_config("xlstm-350m")
+    xlstm_launches, _ = xlstm_main_path(torch, xcfg, dev)
+    profile_xlstm(torch, xcfg, dev)
+    xlstm_f32_vs_plain(torch, xcfg, dev)
+
+    # 10. one line per ported kernel
+    print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}; "
+          f"mlstm_chunked's: {MLSTM_LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
         by_path = {"serve": launches[name], "train": train_launches[name],
-                   "distill": distill_launches[name]}
+                   "distill": distill_launches[name],
+                   "xlstm_serve": xlstm_launches[name]}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "

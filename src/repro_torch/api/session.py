@@ -11,9 +11,12 @@ distillation :class:`~repro_torch.api.strategies.Strategy` and
     out = Session("flad-adllm", strategy="hier_fl", codec="int8",
                   shape="1024x4", full=True).run(2)
 
+``Session.serve`` serves the session's model: the legacy static-batch
+driver (:func:`repro_torch.api.serving.serve_requests`) or the
+continuous-batching tier (:func:`repro_torch.serve.serve_continuous`). A
+serving session needs no training strategy (``strategy=None``).
 Tracing (``trace=``) and profiling (``profile=``) come with the
-observability slice and raise; serving runs through
-:func:`repro_torch.serve.serve_continuous`.
+observability slice and raise.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ class Session:
     def __init__(self, arch: Optional[str] = None, *,
                  cfg: Optional[ModelConfig] = None, full: bool = False,
                  shape: Union[ShapeConfig, str, None] = None,
-                 strategy: Union[str, Strategy] = "hier_fl",
+                 strategy: Union[str, Strategy, None] = "hier_fl",
                  learning_rate: float = 1e-3, seed: int = 0, hooks=None,
                  device="cuda", **strategy_options):
         if cfg is None:
@@ -60,7 +63,13 @@ class Session:
         self.device = torch.device(device)
         self.seed = seed
         self.hooks = hooks
-        if isinstance(strategy, Strategy):
+        if strategy is None:          # a serving session
+            if strategy_options:
+                raise ValueError(
+                    f"strategy options {sorted(strategy_options)} need a "
+                    f"strategy")
+            self.strategy = None
+        elif isinstance(strategy, Strategy):
             if strategy_options:
                 raise ValueError(
                     f"strategy options {sorted(strategy_options)} are "
@@ -71,7 +80,8 @@ class Session:
             self.strategy = get_strategy(strategy,
                                          learning_rate=learning_rate,
                                          **strategy_options)
-        if self.strategy.loop not in ("round", "distill"):
+        if self.strategy is not None and self.strategy.loop not in (
+                "round", "distill"):
             raise NotImplementedError(
                 f"{self.strategy.name!r} runs a {self.strategy.loop!r} "
                 f"loop; the port drives round and distill loops only")
@@ -82,13 +92,20 @@ class Session:
         self.state: Optional[Tuple[Any, Any]] = None
         self.history: list = []
 
+    def _strategy(self) -> Strategy:
+        if self.strategy is None:
+            raise RuntimeError("this session has no training strategy "
+                               "(strategy=None); it can only serve")
+        return self.strategy
+
     def build(self, *, init: bool = True
               ) -> Tuple[Callable, Optional[Tuple[Any, Any]]]:
         """(step_fn, state): the strategy's round function and its state
         on this session's device. Cached; ``init=False`` skips the state
         (the caller supplies its own)."""
         if self._built is None:
-            step = self.strategy.make_step(self.cfg, self.shape, self.device)
+            step = self._strategy().make_step(self.cfg, self.shape,
+                                              self.device)
             self._built = (step, None)
         if init and self._built[1] is None:
             state = self.strategy.init(self.cfg, self.shape, self.device,
@@ -102,7 +119,7 @@ class Session:
         state = state if state is not None else self.state
         if state is None:
             raise RuntimeError("no state yet; call build()/run() first")
-        return self.strategy.merge_params(state, self.cfg)
+        return self._strategy().merge_params(state, self.cfg)
 
     def default_batches(self, salt: int = 1) -> Iterator:
         """Endless synthetic round batches from a generator seeded with
@@ -110,7 +127,7 @@ class Session:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + salt)
         while True:
-            yield self.strategy.default_batch(self.cfg, self.shape, gen)
+            yield self._strategy().default_batch(self.cfg, self.shape, gen)
 
     def run(self, steps: int, *, state=None, batches=None, hooks=None,
             trace=None, metrics=None, profile=None) -> Dict:
@@ -165,3 +182,54 @@ class Session:
         if metrics_path is not None:
             out["metrics_path"] = registry.save(metrics_path)
         return out
+
+    def serve(self, *, requests: int = 3, batch: int = 8, context: int = 64,
+              decode_steps: int = 16, params=None, scheduler: str = "legacy",
+              sampling: str = "greedy", temperature: float = 1.0,
+              pod: Optional[int] = None, trace=None,
+              speculative: bool = False, draft_pod: Optional[int] = None,
+              log_fn=print, **serve_options) -> Dict:
+        """Serve the session's model on its device; uses the trained
+        params when the session has run, else a fresh init from its seed.
+
+        ``scheduler="legacy"``: the static-batch driver
+        (:func:`repro_torch.api.serving.serve_requests`): ``requests``
+        batches of ``batch`` prompts of ``context`` tokens, each one
+        prefill and ``decode_steps`` decode steps. ``scheduler=
+        "continuous"``: the paged-KV continuous-batching tier
+        (:func:`repro_torch.serve.serve_continuous`): ``requests`` is the
+        trace length, ``batch`` the lanes, ``context`` the monolithic
+        prefill bucket; ``serve_options`` pass through. Per-pod serving
+        (``pod=``), speculative decoding (``speculative=``,
+        ``draft_pod=``) and tracing (``trace=``) come with later slices of
+        the port and raise."""
+        later = {"pod": (pod is not None, "per-pod personalized serving (pod=) comes "
+                              "with the per-pod serving slice of the port"),
+                 "speculative": (speculative or draft_pod is not None,
+                                 "speculative decoding comes with the "
+                                 "speculative-decoding slice of the port"),
+                 "trace": (trace is not None, "tracing comes with the observability "
+                                  "slice of the port")}
+        for value, msg in later.values():
+            if value:
+                raise NotImplementedError(msg)
+        if params is None and self.state is not None:
+            params = self.merged_params()
+        if scheduler == "continuous":
+            from repro_torch.serve import serve_continuous
+            return serve_continuous(self.cfg, params=params, seed=self.seed,
+                                    slots=batch, max_context=context,
+                                    num_requests=requests, sampling=sampling,
+                                    temperature=temperature,
+                                    device=self.device, log_fn=log_fn,
+                                    **serve_options)
+        if scheduler != "legacy":
+            raise ValueError(f"unknown scheduler {scheduler!r} "
+                             "(legacy|continuous)")
+        from repro_torch.api.serving import serve_requests
+        return serve_requests(self.cfg, batch=batch, context=context,
+                              decode_steps=decode_steps, requests=requests,
+                              params=params, seed=self.seed,
+                              sampling=sampling, temperature=temperature,
+                              device=self.device, log_fn=log_fn,
+                              **serve_options)

@@ -3,6 +3,7 @@ smoke variant, the effective attention window, and the dense family's
 input specs and random batches."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
@@ -11,13 +12,20 @@ from repro_torch.config import LONG_CONTEXT_WINDOW, ModelConfig, ShapeConfig
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """CPU-smoke variant of a dense decoder: 2 layers, d_model 128, tiny
-    vocab, float32 — the same shrink the reference applies."""
-    _check_dense(cfg)
-    return cfg.replace(name=cfg.name + "-smoke", num_layers=2, d_model=128,
-                       num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
-                       vocab_size=512, param_dtype="float32", q_chunk=64,
-                       kv_chunk=64)
+    """CPU-smoke variant of the same family: 2 layers, d_model 128, tiny
+    vocab, float32 — the same shrink the reference applies (an xLSTM
+    keeps 4 KV heads and puts an sLSTM block every 2 layers)."""
+    if cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(
+            f"the port covers the dense and ssm families so far, not "
+            f"{cfg.family!r}")
+    kw = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
+              head_dim=32, d_ff=256, vocab_size=512, param_dtype="float32",
+              q_chunk=64, kv_chunk=64)
+    if cfg.family == "ssm":
+        kw["num_kv_heads"] = 4
+        kw["ssm"] = dataclasses.replace(cfg.ssm, slstm_every=2)
+    return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -27,8 +35,9 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def effective_window(cfg: ModelConfig, shape: ShapeConfig):
-    """long_500k forces a sliding window on full-attention families."""
-    if shape.name == "long_500k":
+    """long_500k forces a sliding window on full-attention families (SSM
+    paths are already O(1))."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm",):
         return LONG_CONTEXT_WINDOW
     return cfg.window
 

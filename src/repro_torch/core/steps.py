@@ -1,5 +1,9 @@
-"""Step builders (port of ``repro/core/steps.py``): ``make_train_step``,
-loss + grad + optimizer update at train shapes."""
+"""Step builders (port of ``repro/core/steps.py``):
+
+``make_train_step``   — loss + grad + optimizer update (train shapes)
+``make_prefill_step`` — context ingestion into the decode state
+``make_serve_step``   — one-token decode against a KV cache / SSM state
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,3 +46,29 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         return params, opt_state, dict(metrics, loss=loss.detach())
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig):
+    """prefill_step(params, batch, state) -> (logits [B, 1, V], state)."""
+    model = build_model(cfg)
+    window = effective_window(cfg, shape)
+
+    def prefill_step(params, batch, state):
+        if cfg.family == "ssm":
+            return model.prefill(params, batch, state)
+        return model.prefill(params, batch, state, window=window)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig):
+    """serve_step(params, tokens [B, 1], state, pos) -> (logits, state)."""
+    model = build_model(cfg)
+    window = effective_window(cfg, shape)
+
+    def serve_step(params, tokens, state, pos):
+        if cfg.family == "ssm":
+            return model.decode_step(params, tokens, state, pos)
+        return model.decode_step(params, tokens, state, pos, window=window)
+
+    return serve_step

@@ -48,6 +48,7 @@ SIGNATURES = {
     "flash_bwd_dq": ("flash_attention_bwd_dq",
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),
+    "mlstm_chunked": ("mlstm_chunked", [_I] + [_P] * 12 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -524,9 +524,72 @@ def lora_matmul_ad(x, w, a, b, *, scale: float = 1.0):
     return _LoraMatmulAD.apply(x, w, a, b, float(scale))
 
 
+# ------------------------------------------------------------------ mLSTM
+MLSTM_MAX_DH = 512            #: head widths mlstm_chunked.cu takes
+
+
+def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
+                  m0=None):
+    """Stabilized chunkwise mLSTM. q/k/v: [B, NH, S, DH] (k pre-scaled),
+    all float32 or all bfloat16; ig/lf: [B, NH, S] float32; optional
+    initial state C0 [B, NH, DH, DH], n0 [B, NH, DH], m0 [B, NH] float32
+    (all three or none; none starts from C = 0, n = 0, m = -1e30).
+    Returns (h [B, NH, S, DH] in q's dtype, (C, n, m) float32).
+
+    The kernel walks the sequence in chunks of 64 steps, its own tiling,
+    and takes any S >= 1. ``chunk`` is the plain version's chunk length
+    (the last chunk may be shorter): any chunking computes the same
+    recurrence and differs only in rounding, so the CPU route takes the
+    caller's chunk to match the reference's sums."""
+    _require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
+             "q, k and v must be matching [B, NH, S, DH]")
+    b, nh, s, dh = q.shape
+    _require(s >= 1 and b >= 1 and nh >= 1, "empty batch, heads or sequence")
+    _require(1 <= dh <= MLSTM_MAX_DH, f"head_dim {dh} not in [1, "
+             f"{MLSTM_MAX_DH}]")
+    _require(q.dtype in (torch.float32, torch.bfloat16)
+             and k.dtype == v.dtype == q.dtype,
+             f"q, k, v must share float32 or bfloat16, got {q.dtype}, "
+             f"{k.dtype}, {v.dtype}")
+    for name, t in (("ig", ig), ("lf", lf)):
+        _require(t.dtype == torch.float32 and tuple(t.shape) == (b, nh, s),
+                 f"{name} must be float32 [B, NH, S]")
+    state = (C0, n0, m0)
+    _require(all(t is None for t in state) or all(t is not None
+                                                  for t in state),
+             "pass all of C0, n0, m0 or none")
+    given = C0 is not None
+    if given:
+        for name, t, shp in (("C0", C0, (b, nh, dh, dh)),
+                             ("n0", n0, (b, nh, dh)), ("m0", m0, (b, nh))):
+            _require(t.dtype == torch.float32 and tuple(t.shape) == shp,
+                     f"{name} must be float32 {list(shp)}")
+        _contiguous(C0=C0, n0=n0, m0=m0)
+    _contiguous(q=q, k=k, v=v, ig=ig, lf=lf)
+    chunk = operator.index(chunk)
+    _require(chunk >= 1, f"chunk must be >= 1, got {chunk}")
+    extra = (C0, n0, m0) if given else ()
+    if not _on_card(q, k, v, ig, lf, *extra):
+        return ref.mlstm_chunkwise_ref(q, k, v, ig, lf, chunk=chunk, C0=C0,
+                                       n0=n0, m0=m0)
+    h = torch.empty_like(q)
+    kw = dict(dtype=torch.float32, device=q.device)
+    C = torch.empty((b, nh, dh, dh), **kw)
+    n = torch.empty((b, nh, dh), **kw)
+    m = torch.empty((b, nh), **kw)
+    err = build.load("mlstm_chunked")(
+        _DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(ig), _ptr(lf),
+        _ptr(C0), _ptr(n0), _ptr(m0), _ptr(h), _ptr(C), _ptr(n), _ptr(m), b,
+        nh, s, dh, _stream(q))
+    _raise_on(err, "mlstm_chunked")
+    mlstm_chunked.launches += 1
+    return h, (C, n, m)
+
+
 KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
-           flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul)
+           flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
+           mlstm_chunked)
 for _fn in KERNELS:
     _fn.launches = 0
 

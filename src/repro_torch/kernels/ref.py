@@ -231,3 +231,103 @@ def lora_matmul_ref(x, w, a, b, *, scale: float = 1.0):
     xf = x.float()
     low = (xf @ a.float()) @ b.float()
     return (xf @ w.float() + scale * low).to(x.dtype)
+
+
+# ------------------------------------------------------------------ mLSTM
+def _mlstm_init_state(q, C0, n0, m0):
+    """(C, n, m) float32 from the given initial state, or the fresh one:
+    C = 0, n = 0, m = -1e30."""
+    b, nh, _, dh = q.shape
+    kw = dict(dtype=torch.float32, device=q.device)
+    C = torch.zeros((b, nh, dh, dh), **kw) if C0 is None else C0.float()
+    n = torch.zeros((b, nh, dh), **kw) if n0 is None else n0.float()
+    m = torch.full((b, nh), NEG_INF, **kw) if m0 is None else m0.float()
+    return C, n, m
+
+
+def mlstm_chunked_ref(q, k, v, ig, lf, *, C0=None, n0=None, m0=None):
+    """Stabilized mLSTM over the sequence, step by step: the exact
+    recurrence the chunked kernel reproduces (the reference's oracle).
+
+    q/k/v: [B, NH, S, DH] (k pre-scaled); ig/lf: [B, NH, S]; optional
+    initial (C0 [B, NH, DH, DH], n0 [B, NH, DH], m0 [B, NH]). Returns
+    (h [B, NH, S, DH] in q's dtype, (C, n, m) float32 final states)."""
+    C, n, m = _mlstm_init_state(q, C0, n0, m0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    igf, lff = ig.float(), lf.float()
+    hs = []
+    for t in range(q.shape[2]):
+        q_t, k_t, v_t = qf[:, :, t], kf[:, :, t], vf[:, :, t]
+        i_t, lf_t = igf[:, :, t], lff[:, :, t]
+        m_new = torch.maximum(lf_t + m, i_t)
+        fs = torch.exp(lf_t + m - m_new)[..., None]
+        is_ = torch.exp(i_t - m_new)[..., None]
+        C = fs[..., None] * C + is_[..., None] * (v_t[..., :, None]
+                                                  * k_t[..., None, :])
+        n = fs * n + is_ * k_t
+        num = torch.einsum("bhij,bhj->bhi", C, q_t)
+        den = torch.maximum(torch.einsum("bhj,bhj->bh", n, q_t).abs(),
+                            torch.exp(-m_new))[..., None]
+        m = m_new
+        hs.append(num / den)
+    return torch.stack(hs, dim=2).to(q.dtype), (C, n, m)
+
+
+def mlstm_chunk_body(C, n, m, q, k, v, ig, lf):
+    """One chunk of the stabilized mLSTM in parallel (the reference's
+    ``models/recurrent.mlstm_chunk_body``, the per-step recurrence
+    unrolled exactly).
+
+    q/k/v: [B, NH, c, DH] float32; ig/lf: [B, NH, c]; carry C [B, NH, DH,
+    DH], n [B, NH, DH], m [B, NH]. Returns (C', n', m', h [B, NH, c, DH]).
+
+    With b_t = cumsum(lf) (inclusive) and M_t = running max of (i_j - b_j):
+      m_t   = b_t + max(m_in, M_t)
+      h_t   = [ sum_{j<=t} e^{b_t-b_j+i_j-m_t} v_j (k_j.q_t)
+                + e^{m_in+b_t-m_t} C_in q_t ] / den_t
+    The decay matrix is exponentiated whole and masked afterwards, as the
+    reference does (its upper triangle may overflow; the mask drops it)."""
+    c = q.shape[2]
+    b_ = torch.cumsum(lf, dim=-1)
+    a_ = ig - b_
+    M = torch.cummax(a_, dim=-1).values
+    m_t = b_ + torch.maximum(m[..., None], M)
+    m_out = m_t[..., -1]
+    D = b_[..., :, None] - b_[..., None, :] + ig[..., None, :] \
+        - m_t[..., :, None]
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    D = torch.where(tri, torch.exp(D), 0.0)
+    S = torch.einsum("bhtd,bhjd->bhtj", q, k)
+    inter = torch.exp(m[..., None] + b_ - m_t)
+    num = torch.einsum("bhtj,bhjd->bhtd", S * D, v) \
+        + inter[..., None] * torch.einsum("bhij,bhtj->bhti", C, q)
+    n_t = torch.einsum("bhtj,bhjd->bhtd", D, k) \
+        + inter[..., None] * n[..., None, :]
+    den = torch.maximum(torch.einsum("bhtd,bhtd->bht", n_t, q).abs(),
+                        torch.exp(-m_t))[..., None]
+    h = num / den
+    w_k = torch.exp(b_[..., -1:] - b_ + ig - m_out[..., None])
+    carry = torch.exp(m + b_[..., -1] - m_out)
+    C_out = carry[..., None, None] * C \
+        + torch.einsum("bhtd,bhte->bhde", v * w_k[..., None], k)
+    n_out = carry[..., None] * n + torch.einsum("bhtd,bht->bhd", k, w_k)
+    return C_out, n_out, m_out, h
+
+
+def mlstm_chunkwise_ref(q, k, v, ig, lf, *, chunk: int = 64, C0=None,
+                        n0=None, m0=None):
+    """The chunked kernel's function, chunk by chunk: :func:`mlstm_chunk_body`
+    over chunks of ``chunk`` steps, the last one shorter when ``chunk``
+    does not divide S. Arguments and returns as :func:`mlstm_chunked_ref`;
+    q, k and v are read as float32."""
+    C, n, m = _mlstm_init_state(q, C0, n0, m0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    igf, lff = ig.float(), lf.float()
+    hs = []
+    for t0 in range(0, q.shape[2], chunk):
+        sl = slice(t0, t0 + chunk)
+        C, n, m, h = mlstm_chunk_body(C, n, m, qf[:, :, sl], kf[:, :, sl],
+                                      vf[:, :, sl], igf[:, :, sl],
+                                      lff[:, :, sl])
+        hs.append(h)
+    return torch.cat(hs, dim=2).to(q.dtype), (C, n, m)

@@ -1,23 +1,19 @@
-"""Serving launcher of the port: the continuous-batching tier on the card.
+"""Serving launcher of the port — a thin CLI over
+:meth:`repro_torch.api.Session.serve`, on the card by default.
 
-The same flags as ``repro/launch/serve.py``'s continuous scheduler, plus
-``--device`` (default ``cuda``). It calls
-:func:`repro_torch.serve.serve_continuous` directly: ``Session.serve``
-comes with the slice that ports ``Session.run``. The legacy static-batch
-scheduler, speculative decoding and tracing are later slices and raise.
+The reference's flags, plus ``--device`` (default ``cuda``). Both
+schedulers go through ``Session.serve``: ``--scheduler legacy`` is the
+static-batch driver (``--batch`` prompts of ``--context`` tokens,
+``--decode-steps`` decode steps, ``--requests`` batches), ``--scheduler
+continuous`` the paged continuous-batching tier. Speculative decoding and
+tracing are later slices and raise.
 
+  python -m repro_torch.launch.serve --arch xlstm-350m --full \\
+      --scheduler legacy --batch 8 --context 512 --decode-steps 32
   python -m repro_torch.launch.serve --arch flad-adllm --full \\
       --slots 8 --block-size 16 --cache int8 --fleet nano*2,agx*2
 """
 import argparse
-
-_LATER = {
-    "legacy": "the legacy static-batch scheduler comes with a later slice "
-              "of the port (it runs no kernel of this one)",
-    "speculative": "--speculative comes with the speculative-decoding "
-                   "slice of the port",
-    "trace": "--trace comes with the observability slice of the port",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -25,9 +21,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="flad-adllm")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--context", type=int, default=64,
-                    help="monolithic prefill bucket (max_context)")
+                    help="prompt tokens (legacy) / monolithic prefill "
+                         "bucket, max_context (continuous)")
+    ap.add_argument("--decode-steps", type=int, default=16,
+                    help="decode steps per batch (legacy scheduler)")
     ap.add_argument("--requests", type=int, default=3,
-                    help="trace length")
+                    help="request batches (legacy) / trace length "
+                         "(continuous)")
     ap.add_argument("--scheduler", choices=("legacy", "continuous"),
                     default="continuous")
     ap.add_argument("--slots", type=int, default=0,
@@ -68,26 +68,23 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    if args.scheduler == "legacy":
-        raise NotImplementedError(_LATER["legacy"])
-    if args.speculative:
-        raise NotImplementedError(_LATER["speculative"])
-    if args.trace:
-        raise NotImplementedError(_LATER["trace"])
+    from repro_torch.api import Session
 
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.serve import serve_continuous
-
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = reduced(cfg)
-    return serve_continuous(
-        cfg, seed=args.seed, slots=args.slots or args.batch,
-        block_size=args.block_size, max_context=args.context,
-        cache=args.cache, prefill=args.prefill,
-        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
-        sampling=args.sampling, temperature=args.temperature,
-        fleet=args.fleet, num_requests=args.requests, device=args.device)
+    session = Session(args.arch, full=args.full, strategy=None,
+                      seed=args.seed, device=args.device)
+    kw = {}
+    if args.scheduler == "continuous":
+        kw = dict(block_size=args.block_size, cache=args.cache,
+                  fleet=args.fleet, prefill=args.prefill,
+                  prefill_chunk=args.prefill_chunk,
+                  prefix_cache=args.prefix_cache)
+    return session.serve(requests=args.requests,
+                         batch=args.slots or args.batch,
+                         context=args.context,
+                         decode_steps=args.decode_steps,
+                         scheduler=args.scheduler, sampling=args.sampling,
+                         temperature=args.temperature, trace=args.trace,
+                         speculative=args.speculative, **kw)
 
 
 if __name__ == "__main__":

@@ -1,21 +1,34 @@
-"""Uniform model interface (port of ``repro/models/registry.py``, dense
-family only): ``build_model(cfg)`` returns a :class:`Model` whose
-``loss(params, batch)`` is the reference's ``_build_lm`` loss — the
-decoder's final hidden states into the chunked cross-entropy, never
-materializing the [B, S, V] logits."""
+"""Uniform model interface (port of ``repro/models/registry.py``, dense and
+ssm families): ``build_model(cfg)`` returns a :class:`Model` whose
+members are plain functions, as the reference's.
+
+The dense ``loss`` is the reference's ``_build_lm`` loss — the decoder's
+final hidden states into the chunked cross-entropy, never materializing
+the [B, S, V] logits; its ``prefill``/``decode_step`` run the
+contiguous-cache forward (plain attention over the cache, as the
+reference runs XLA there). The ssm family is the xLSTM: ``prefill`` runs
+the mLSTM's chunkwise kernel, ``decode_step`` the cells' one-token steps;
+its training waits for a later slice.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.config import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    init: Callable[..., Any]          # (seed=0, device="cuda") -> params
     loss: Callable[..., Any]          # (params, batch) -> (loss, metrics)
+    init_state: Callable[..., Any]    # (batch, cache_len, device) -> state
+    prefill: Callable[..., Any]       # (params, batch, state) -> (logits, state)
+    decode_step: Callable[..., Any]   # (params, tokens, state, pos) -> (logits, state)
 
 
 def _hidden_ce(params, x, labels, aux):
@@ -25,12 +38,71 @@ def _hidden_ce(params, x, labels, aux):
     return loss + aux, dict(metrics, aux=aux)
 
 
-def build_model(cfg: ModelConfig) -> Model:
+# -------------------------------------------------------------- dense ----
+def _build_lm(cfg: ModelConfig) -> Model:
     lm._check_family(cfg)
+
+    def init(seed: int = 0, device="cuda"):
+        return lm.init(cfg, seed=seed, device=device)
 
     def loss(params, batch, *, remat=True, window=None):
         x, _, aux = lm.forward(params, cfg, batch["tokens"], window=window,
                                remat=remat, hidden_only=True)
         return _hidden_ce(params, x, batch["labels"], aux)
 
-    return Model(cfg, loss)
+    def init_state(batch: int, cache_len: int, device="cuda"):
+        return {"caches": lm.init_cache(cfg, batch, cache_len, device)}
+
+    def prefill(params, batch, state, *, window=None):
+        logits, caches, _ = lm.forward(params, cfg, batch["tokens"],
+                                       caches=state["caches"], window=window,
+                                       logits_slice=1)
+        return logits, {"caches": caches}
+
+    def decode_step(params, tokens, state, pos, *, window=None):
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=tokens.device)
+        logits, caches, _ = lm.forward(params, cfg, tokens,
+                                       positions=positions,
+                                       caches=state["caches"], window=window)
+        return logits, {"caches": caches}
+
+    return Model(cfg, init, loss, init_state, prefill, decode_step)
+
+
+# ---------------------------------------------------------------- ssm ----
+def _build_xlstm(cfg: ModelConfig) -> Model:
+    def init(seed: int = 0, device="cuda"):
+        return xlstm.init(cfg, seed=seed, device=device)
+
+    def loss(params, batch, *, remat=True, window=None):
+        raise NotImplementedError(
+            "xLSTM training comes with a later slice of the port: the "
+            "mLSTM kernel has no backward yet (the reference differentiates "
+            "the chunk body through XLA)")
+
+    def init_state(batch: int, cache_len: int, device="cuda"):
+        return xlstm.init_state(cfg, batch, device)
+
+    def prefill(params, batch, state):
+        logits, st, _ = xlstm.forward(params, cfg, batch["tokens"],
+                                      states=state, logits_slice=1)
+        return logits, st
+
+    def decode_step(params, tokens, state, pos, *, window=None):
+        logits, st, _ = xlstm.forward(params, cfg, tokens, states=state,
+                                      step=True)
+        return logits, st
+
+    return Model(cfg, init, loss, init_state, prefill, decode_step)
+
+
+MODEL_BUILDERS = {"dense": _build_lm, "ssm": _build_xlstm}
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family not in MODEL_BUILDERS:
+        raise NotImplementedError(
+            f"the port covers the families {sorted(MODEL_BUILDERS)} so far, "
+            f"not {cfg.name!r} ({cfg.family})")
+    return MODEL_BUILDERS[cfg.family](cfg)

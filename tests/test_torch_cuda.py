@@ -10,7 +10,9 @@ different orders; 2e-5 for flash gradients, sums over many rows);
 bfloat16 paged attention 2e-2 (one bfloat16 rounding of the output);
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
 it); the quantizer and dequantizer bitwise; the flash backward bitwise
-equal across runs (no atomics).
+equal across runs (no atomics); the mLSTM kernel's float32 h within 5e-5
+of its largest magnitude (den = |n.q| can cancel and magnify the order of
+the sums) and its state within 1e-5, bf16 h one bf16 ulp there.
 """
 import numpy as np
 import pytest
@@ -273,3 +275,71 @@ def test_lora_autograd_runs_the_kernel(dev):
     for got, exp in zip(grads, want):
         assert float((got - exp).abs().max()) <= _lora_tol(torch.float32,
                                                            exp)
+
+
+def _mlstm(dev, dtype, b, nh, s, dh, state, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((b, nh, s, dh), generator=g) for _ in range(3))
+    args = [q.to(dtype).to(dev), (k * dh ** -0.5).to(dtype).to(dev),
+            v.to(dtype).to(dev), torch.randn((b, nh, s), generator=g).to(dev),
+            torch.nn.functional.logsigmoid(
+                torch.randn((b, nh, s), generator=g) + 2.0).to(dev)]
+    kw = {}
+    if state:
+        kw = {name: t.to(dev) for name, t in (
+            ("C0", torch.randn((b, nh, dh, dh), generator=g) * 0.1),
+            ("n0", torch.randn((b, nh, dh), generator=g) * 0.1),
+            ("m0", torch.randn((b, nh), generator=g)))}
+    return args, kw
+
+
+MLSTM_CASES = [(2, 4, 512, 512, False), (1, 4, 333, 512, True),
+               (2, 4, 100, 64, True), (1, 3, 70, 16, False),
+               (1, 2, 129, 40, True), (2, 2, 1, 128, True)]
+
+
+@pytest.mark.parametrize("b,nh,s,dh,state", MLSTM_CASES,
+                         ids=["path-width", "ragged-state", "dh64", "dh16",
+                              "dh40", "one-step"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mlstm_kernel_matches_plain(dev, dtype, b, nh, s, dh, state):
+    args, kw = _mlstm(dev, dtype, b, nh, s, dh, state)
+    before = ops.launch_counts()["mlstm_chunked"]
+    h, fin = ops.mlstm_chunked(*args, **kw)
+    want_h, want_fin = ref.mlstm_chunkwise_ref(*args, chunk=64, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunked"] == before + 1
+    assert h.dtype == dtype and all(t.dtype == torch.float32 for t in fin)
+    for name, got, want in zip("hCnm", (h, *fin), (want_h, *want_fin)):
+        assert bool(torch.isfinite(got).all()), name
+        peak = max(1.0, float(want.float().abs().max()))
+        rtol = (1e-5 if name != "h" else
+                5e-5 if dtype == torch.float32 else 2.0 ** -7)
+        assert float((got.float() - want.float()).abs().max()) \
+            <= rtol * peak, name
+
+
+def test_mlstm_cuda_never_takes_the_plain_path(dev, monkeypatch):
+    """A CUDA tensor launches the kernel: the plain versions are never
+    called, in the wrapper or in a prefill through the cell."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import recurrent
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(ref, "mlstm_chunkwise_ref", boom)
+    monkeypatch.setattr(ref, "mlstm_chunk_body", boom)
+    args, kw = _mlstm(dev, torch.float32, 1, 2, 40, 32, True)
+    before = ops.launch_counts()["mlstm_chunked"]
+    ops.mlstm_chunked(*args, **kw)
+    cfg = reduced(get_config("xlstm-350m"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = recurrent.init_mlstm(g, cfg, dev)
+    x = torch.randn((2, 37, cfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        y, st = recurrent.apply_mlstm_seq(p, x, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunked"] == before + 2
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st["C"]).all())

@@ -134,13 +134,14 @@ def test_new_wrappers_never_fall_back():
         lambda: ops.lora_matmul(
             torch.zeros((4, 8), device=m), torch.zeros((8, 6), device=m),
             torch.zeros((8, 2), device=m), torch.zeros((2, 6), device=m)),
+        lambda: ops.mlstm_chunked(q, q, q, stats, stats),
     ]
     before = ops.launch_counts()
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     assert ops.launch_counts() == before
-    assert len(ops.KERNELS) == 9
+    assert len(ops.KERNELS) == 10
 
 
 def test_wrappers_check_their_inputs():

@@ -299,8 +299,7 @@ def test_later_slices_raise(setup):
     with pytest.raises(NotImplementedError, match="slice"):
         serve_continuous(cfg, params=tp, device="cpu", trace="t.json")
     from repro_torch.launch import serve as launch
-    for argv in (["--scheduler", "legacy"], ["--speculative"],
-                 ["--trace", "t.json"]):
+    for argv in (["--speculative"], ["--trace", "t.json"]):
         with pytest.raises(NotImplementedError, match="slice"):
             launch.main(argv + ["--device", "cpu"])
     # cache-free forward runs the flash-attention wrapper, which has no
