@@ -1277,9 +1277,11 @@ def _mlstm_work(b, nh, s, dh, esz, state):
 
 def mlstm_checks(torch, dev):
     """The chunkwise mLSTM kernel against its plain version (chunk 64) on
-    the card: the prefill's shape with the fresh state it is given there
-    (timed, cold L2), a ragged S, a random initial state, bf16 inputs and
-    the reduced config's DH 64. Returns the kernel's JSON row."""
+    the card, each case timed with a cold L2 beside the plain version and
+    its bound: the prefill's shape with the fresh state it is given there,
+    a ragged S, a random initial state, bf16 inputs and the reduced
+    config's DH 64. Returns the kernel's JSON row (the prefill's shape as
+    the headline, every case under ``cases``)."""
     from repro_torch.kernels import ops, ref
     cases = [("path", 8, 4, XCTX, 512, torch.float32, "fresh"),
              ("ragged S 333", 8, 4, 333, 512, torch.float32, None),
@@ -1309,21 +1311,19 @@ def mlstm_checks(torch, dev):
         line = (f"[kernel] mlstm_chunked {label} (B {b}, NH {nh}, S {s}, "
                 f"DH {dh}, {str(dtype).split('.')[-1]}, initial state "
                 f"{state}): max|err| " + ", ".join(errs))
-        if label in ("path", "bf16"):
-            ms, plain, call = timings(
-                lambda: ops.mlstm_chunked(*args, **kw),
-                lambda: ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK,
-                                                **kw),
-                "mlstm_chunked_kernel")
-            esz = 4 if dtype == torch.float32 else 2
-            nbytes, flops = _mlstm_work(b, nh, s, dh, esz, state)
-            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-            rows[label] = dict(ms=ms, plain_ms=plain, call_ms=call,
-                               bound_ms=b_ms, bound_by=b_by)
-            line += (f"; device: kernel {ms:.5f} ms, plain {plain:.5f} ms; "
-                     f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
-                     f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s "
-                     f"of needed work; host clock per call {call:.5f} ms")
+        ms, plain, call = timings(
+            lambda: ops.mlstm_chunked(*args, **kw),
+            lambda: ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK, **kw),
+            "mlstm_chunked_kernel")
+        esz = 4 if dtype == torch.float32 else 2
+        nbytes, flops = _mlstm_work(b, nh, s, dh, esz, state)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        rows[label] = dict(ms=ms, plain_ms=plain, call_ms=call,
+                           bound_ms=b_ms, bound_by=b_by)
+        line += (f"; device: kernel {ms:.5f} ms, plain {plain:.5f} ms; "
+                 f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                 f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s "
+                 f"of needed work; host clock per call {call:.5f} ms")
         print(line)
         del args, kw, got, want
     head = rows["path"]
@@ -1334,9 +1334,7 @@ def mlstm_checks(torch, dev):
                 bound_by=head["bound_by"], library_ms=None,
                 library_call=MLSTM_LIBRARY_NOTE,
                 headline="float32, B 8, NH 4, S 512, DH 512, fresh state",
-                bf16_ms=rows["bf16"]["ms"],
-                bf16_plain_ms=rows["bf16"]["plain_ms"],
-                bf16_bound_ms=rows["bf16"]["bound_ms"])
+                cases=rows)
 
 
 def xlstm_main_path(torch, cfg, dev):

@@ -13,7 +13,7 @@ synchronize.
 Prompts and temperature samples come from two ``torch.Generator``\\ s on
 the serving device, seeded with ``seed`` and ``seed + 1`` (the reference
 splits a JAX key; the streams differ, so the tests feed both packages the
-same numpy prompts through the step builders). Greedy decoding draws no
+same numpy prompts through the step functions). Greedy decoding draws no
 random numbers.
 """
 from __future__ import annotations
@@ -46,11 +46,6 @@ def _make_sampler(sampling: str, temperature: float):
     return sample
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def serve_requests(cfg: ModelConfig, *, batch: int = 8, context: int = 64,
                    decode_steps: int = 16, requests: int = 3, params=None,
                    seed: int = 0, sampling: str = "greedy",
@@ -64,6 +59,7 @@ def serve_requests(cfg: ModelConfig, *, batch: int = 8, context: int = 64,
     decode step's logits and the device."""
     from repro_torch.core.steps import make_prefill_step, make_serve_step
     from repro_torch.models.registry import build_model
+    from repro_torch.serve import _synchronize
 
     device = torch.device(device)
     shape = ShapeConfig("serve", context + decode_steps, batch, "decode")

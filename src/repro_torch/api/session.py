@@ -12,11 +12,10 @@ distillation :class:`~repro_torch.api.strategies.Strategy` and
                   shape="1024x4", full=True).run(2)
 
 ``Session.serve`` serves the session's model: the legacy static-batch
-driver (:func:`repro_torch.api.serving.serve_requests`) or the
-continuous-batching tier (:func:`repro_torch.serve.serve_continuous`). A
-serving session needs no training strategy (``strategy=None``).
-Tracing (``trace=``) and profiling (``profile=``) come with the
-observability slice and raise.
+scheduler (:func:`repro_torch.api.serving.serve_requests`) or the
+continuous-batching tier (:func:`repro_torch.serve.serve_continuous`);
+it needs no step of the session's strategy. Tracing (``trace=``) and
+profiling (``profile=``) come with the observability slice and raise.
 """
 from __future__ import annotations
 
@@ -54,7 +53,7 @@ class Session:
     def __init__(self, arch: Optional[str] = None, *,
                  cfg: Optional[ModelConfig] = None, full: bool = False,
                  shape: Union[ShapeConfig, str, None] = None,
-                 strategy: Union[str, Strategy, None] = "hier_fl",
+                 strategy: Union[str, Strategy] = "hier_fl",
                  learning_rate: float = 1e-3, seed: int = 0, hooks=None,
                  device="cuda", **strategy_options):
         if cfg is None:
@@ -63,13 +62,7 @@ class Session:
         self.device = torch.device(device)
         self.seed = seed
         self.hooks = hooks
-        if strategy is None:          # a serving session
-            if strategy_options:
-                raise ValueError(
-                    f"strategy options {sorted(strategy_options)} need a "
-                    f"strategy")
-            self.strategy = None
-        elif isinstance(strategy, Strategy):
+        if isinstance(strategy, Strategy):
             if strategy_options:
                 raise ValueError(
                     f"strategy options {sorted(strategy_options)} are "
@@ -80,8 +73,7 @@ class Session:
             self.strategy = get_strategy(strategy,
                                          learning_rate=learning_rate,
                                          **strategy_options)
-        if self.strategy is not None and self.strategy.loop not in (
-                "round", "distill"):
+        if self.strategy.loop not in ("round", "distill"):
             raise NotImplementedError(
                 f"{self.strategy.name!r} runs a {self.strategy.loop!r} "
                 f"loop; the port drives round and distill loops only")
@@ -92,20 +84,13 @@ class Session:
         self.state: Optional[Tuple[Any, Any]] = None
         self.history: list = []
 
-    def _strategy(self) -> Strategy:
-        if self.strategy is None:
-            raise RuntimeError("this session has no training strategy "
-                               "(strategy=None); it can only serve")
-        return self.strategy
-
     def build(self, *, init: bool = True
               ) -> Tuple[Callable, Optional[Tuple[Any, Any]]]:
         """(step_fn, state): the strategy's round function and its state
         on this session's device. Cached; ``init=False`` skips the state
         (the caller supplies its own)."""
         if self._built is None:
-            step = self._strategy().make_step(self.cfg, self.shape,
-                                              self.device)
+            step = self.strategy.make_step(self.cfg, self.shape, self.device)
             self._built = (step, None)
         if init and self._built[1] is None:
             state = self.strategy.init(self.cfg, self.shape, self.device,
@@ -119,7 +104,7 @@ class Session:
         state = state if state is not None else self.state
         if state is None:
             raise RuntimeError("no state yet; call build()/run() first")
-        return self._strategy().merge_params(state, self.cfg)
+        return self.strategy.merge_params(state, self.cfg)
 
     def default_batches(self, salt: int = 1) -> Iterator:
         """Endless synthetic round batches from a generator seeded with
@@ -127,7 +112,7 @@ class Session:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + salt)
         while True:
-            yield self._strategy().default_batch(self.cfg, self.shape, gen)
+            yield self.strategy.default_batch(self.cfg, self.shape, gen)
 
     def run(self, steps: int, *, state=None, batches=None, hooks=None,
             trace=None, metrics=None, profile=None) -> Dict:
@@ -192,7 +177,7 @@ class Session:
         """Serve the session's model on its device; uses the trained
         params when the session has run, else a fresh init from its seed.
 
-        ``scheduler="legacy"``: the static-batch driver
+        ``scheduler="legacy"``: the static-batch loop
         (:func:`repro_torch.api.serving.serve_requests`): ``requests``
         batches of ``batch`` prompts of ``context`` tokens, each one
         prefill and ``decode_steps`` decode steps. ``scheduler=

@@ -8,7 +8,10 @@ numpy arrays — into the port's :class:`repro_torch.models.lm.LM`, and
 [C, ...] trees included, and :func:`fl_state_from_numpy` turns an FL
 strategy's state — client-stacked params and Adam state — into the
 port's. This is how both packages compute on the same weights in the
-tests.
+tests. The xLSTM's parameters and decode states (``repro.models.xlstm``'s
+[n_super, k, ...]-stacked trees) cross through :func:`tree_from_numpy`
+and :func:`tree_to_numpy` as they are, each leaf keeping its dtype: the
+mLSTM gates and the sLSTM's weights are float32 beside bfloat16 ones.
 
 LoRA factor trees cross too. The reference's factor tree (and the Adam
 moments over it) has the params' structure with None at every leaf that

@@ -1,4 +1,4 @@
-"""Step builders (port of ``repro/core/steps.py``):
+"""Step functions (port of ``repro/core/steps.py``):
 
 ``make_train_step``   — loss + grad + optimizer update (train shapes)
 ``make_prefill_step`` — context ingestion into the decode state

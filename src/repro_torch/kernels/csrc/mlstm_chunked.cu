@@ -31,17 +31,19 @@
 //     is 1 MiB, far over an SM's 227 KB. So a CTA owns 64 rows of C (the v
 //     dimension) for one (b, h): grid (DH / 64, NH, B), 256 CTAs on the
 //     path, and walks the chunks in order. Its C slice (64 x DH float32,
-//     133 KB at DH 512) stays in shared memory for the whole sequence.
+//     139 KB at DH 512) stays in shared memory for the whole sequence.
 //   * Per chunk of 64 steps: the gates' scans (cumsum, running max) on one
 //     thread; then q and k stream through shared memory in 64-wide tiles
 //     of the key dimension, giving S = q k^T [64, 64], C q for the CTA's
-//     rows and q.n; P = S o D in registers (D only where j <= t); h's rows
-//     from P v and C q; then k streams again for C += (w o v)^T k and n.
-//     S, D, n and den are the same for every row slice, and each CTA
-//     recomputes them: c^2 DH + c DH against the c DH^2 of its C terms.
+//     rows (one loop, sharing q's operand) and q.n; P = S o D in registers
+//     (D only where j <= t); h's rows from P v and C q; then k streams
+//     again for C += (w o v)^T k and n. Each tile's global loads are issued
+//     into registers while the tile before it is multiplied. S, D, n and
+//     den are the same for every row slice, and each CTA recomputes them:
+//     c^2 DH + c DH against the c DH^2 of its C terms.
 //   * Every product is one 64 x 64 output tile on 256 threads, 4 x 4
-//     outputs a thread on a 16-strided grid, operands k-major in shared
-//     memory with a row stride of 65 floats (conflict-free reads).
+//     outputs a thread, operands k-major in shared memory with 16-byte
+//     rows of 68 floats: each k step reads one float4 of each operand.
 //   * Any S: the last chunk is masked (rows past S are zero and skipped).
 // Warp-level tensor-core products would change the float32 function and
 // are not used; a faster kernel (larger register tiles, S shared between
@@ -56,8 +58,10 @@ enum DType { kF32 = 0, kBF16 = 1 };   // dtype codes shared with ops.py
 constexpr int kC = 64;                // time steps per chunk
 constexpr int kR = 64;                // rows of C a CTA owns
 constexpr int kT = 64;                // key-dimension tile
-constexpr int kLd = 65;               // padded row stride of a 64-wide tile
+constexpr int kLd = 68;               // row stride of a 64-wide smem tile:
+                                      // 16-byte rows, conflict-free stores
 constexpr int kThreads = 256;         // 16 x 16, 4 x 4 outputs each
+constexpr int kPer = kC * kT / kThreads;   // tile elements per thread
 constexpr float kMInit = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -73,24 +77,73 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// acc[a][b] += sum_{k < n} A[k][ty + 16a] * B[k][tx + 16b]; A has row
-// stride kLd, B row stride ldb.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4][4], const float4& a,
+                                     const float4& b) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// acc[a][b] += sum_{k < n} A[k][4 ty + a] * B[k][4 tx + b]; both operands
+// k-major with row stride kLd.
 __device__ __forceinline__ void outer(float (&acc)[4][4],
                                       const float* __restrict__ A,
-                                      const float* __restrict__ B, int ldb,
-                                      int n, int ty, int tx) {
+                                      const float* __restrict__ B, int n,
+                                      int ty, int tx) {
 #pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    float a[4], b[4];
+  for (int k = 0; k < n; ++k)
+    fma4(acc, ld4(A + k * kLd + 4 * ty), ld4(B + k * kLd + 4 * tx));
+}
+
+// A 64 x 64 tile of rows [t0, t0 + cl) and columns [e0, e0 + ne) of a
+// [S, Dh] matrix, zero-padded, through registers. Transposed (dst[e][t]):
+// a warp takes 4 rows x 8 columns per step, so its global reads are 32-byte
+// row pieces and its stores hit 32 distinct banks. Natural (dst[t][e]): a
+// warp takes 32 consecutive columns of one row.
+template <typename T>
+__device__ __forceinline__ void load_tile(float (&r)[kPer],
+                                          const T* __restrict__ src, int t0,
+                                          int cl, int e0, int ne, int Dh,
+                                          bool transposed) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[k * kLd + ty + 16 * i];
-      b[i] = B[k * ldb + tx + 16 * i];
+  for (int it = 0; it < kPer; ++it) {
+    int t, e;
+    if (transposed) {
+      const int blk = it * 8 + warp;            // 8 e-blocks x 16 t-blocks
+      e = (blk & 7) * 8 + (lane & 7);
+      t = (blk >> 3) * 4 + (lane >> 3);
+    } else {
+      const int idx = it * kThreads + tid;
+      t = idx >> 6;
+      e = idx & 63;
     }
+    r[it] = (t < cl && e < ne)
+                ? to_f(src[(size_t)(t0 + t) * Dh + e0 + e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_tile(const float (&r)[kPer],
+                                           float* __restrict__ dst,
+                                           bool transposed) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  for (int it = 0; it < kPer; ++it) {
+    if (transposed) {
+      const int blk = it * 8 + warp;
+      const int e = (blk & 7) * 8 + (lane & 7);
+      const int t = (blk >> 3) * 4 + (lane >> 3);
+      dst[e * kLd + t] = r[it];
+    } else {
+      const int idx = it * kThreads + tid;
+      dst[(idx >> 6) * kLd + (idx & 63)] = r[it];
+    }
   }
 }
 
@@ -108,8 +161,8 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     const float* __restrict__ n0, const float* __restrict__ m0,
     T* __restrict__ h, float* __restrict__ Cout, float* __restrict__ nout,
     float* __restrict__ mout, int S, int Dh) {
-  extern __shared__ float smem[];
-  float* Cs = smem;                 // [Dh][kLd]: Cs[e][i] = C[r0 + i][e]
+  extern __shared__ float4 smem4[];
+  float* Cs = reinterpret_cast<float*>(smem4);  // Cs[e][i] = C[r0 + i][e]
   float* T0 = Cs + (size_t)Dh * kLd;  // q^T tile, then P^T, then k tile
   float* T1 = T0 + kT * kLd;        // k^T tile
   float* Vs = T1 + kT * kLd;        // v[:, r0:r0+64], later scaled by w
@@ -141,8 +194,11 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     nv[e] = n0 != nullptr ? n0[bh * Dh + e] : 0.f;
   if (tid == 0) mst[0] = m0 != nullptr ? m0[bh] : kMInit;
 
+  float rq[kPer], rk[kPer];
   for (int t0 = 0; t0 < S; t0 += kC) {
     const int cl = min(kC, S - t0);
+    load_tile(rq, qb, t0, cl, 0, min(kT, Dh), Dh, true);
+    load_tile(rk, kb, t0, cl, 0, min(kT, Dh), Dh, true);
     if (tid < kC) {
       igs[tid] = tid < cl ? igb[t0 + tid] : 0.f;
       bc[tid] = tid < cl ? lfb[t0 + tid] : 0.f;
@@ -167,25 +223,26 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       wk[tid] = live ? expf(((b_last - bc[tid]) + igs[tid]) - m_out) : 0.f;
     }
 
-    // ---- q k^T, C q and q.n over 64-wide tiles of the key dimension
+    // ---- q k^T, C q and q.n over 64-wide tiles of the key dimension; the
+    // next tile's global loads are in flight while this one is multiplied
     float sacc[4][4] = {}, cacc[4][4] = {};
     float qn = 0.f;
     for (int e0 = 0; e0 < Dh; e0 += kT) {
       const int ne = min(kT, Dh - e0);
-      for (int idx = tid; idx < kC * kT; idx += kThreads) {
-        const int t = idx >> 6, e = idx & 63;
-        float qv = 0.f, kv = 0.f;
-        if (t < cl && e < ne) {
-          const size_t off = (size_t)(t0 + t) * Dh + e0 + e;
-          qv = to_f(qb[off]);
-          kv = to_f(kb[off]);
-        }
-        T0[e * kLd + t] = qv;
-        T1[e * kLd + t] = kv;
-      }
+      store_tile(rq, T0, true);
+      store_tile(rk, T1, true);
       __syncthreads();
-      outer(sacc, T0, T1, kLd, ne, ty, tx);
-      outer(cacc, T0, Cs + (size_t)e0 * kLd, kLd, ne, ty, tx);
+      if (e0 + kT < Dh) {
+        load_tile(rq, qb, t0, cl, e0 + kT, min(kT, Dh - e0 - kT), Dh, true);
+        load_tile(rk, kb, t0, cl, e0 + kT, min(kT, Dh - e0 - kT), Dh, true);
+      }
+      const float* Cb = Cs + (size_t)e0 * kLd + 4 * tx;
+#pragma unroll 4
+      for (int kk = 0; kk < ne; ++kk) {
+        const float4 a = ld4(T0 + kk * kLd + 4 * ty);
+        fma4(sacc, a, ld4(T1 + kk * kLd + 4 * tx));
+        fma4(cacc, a, ld4(Cb + kk * kLd));
+      }
       {
         const int t = tid & 63, part = tid >> 6;
         for (int e = part * 16; e < min(part * 16 + 16, ne); ++e)
@@ -194,26 +251,31 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       __syncthreads();
     }
     qnp[(tid >> 6) * kC + (tid & 63)] = qn;
+    load_tile(rk, kb, t0, cl, 0, min(kT, Dh), Dh, false);   // for the update
 
     // ---- P = S o D (j <= t), its row sums; P^T and v's slice to smem
     float rs[4];
+    float p[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int t = ty + 16 * a;
+      const int t = 4 * ty + a;
       rs[a] = 0.f;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int j = tx + 16 * b;
-        float p = 0.f;
+        const int j = 4 * tx + b;
+        p[a][b] = 0.f;
         if (j <= t && t < cl)
-          p = sacc[a][b] * expf(((bc[t] - bc[j]) + igs[j]) - mt[t]);
-        rs[a] += p;
-        T0[j * kLd + t] = p;
+          p[a][b] = sacc[a][b] * expf(((bc[t] - bc[j]) + igs[j]) - mt[t]);
+        rs[a] += p[a][b];
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], off);
     }
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      *reinterpret_cast<float4*>(T0 + (4 * tx + b) * kLd + 4 * ty) =
+          make_float4(p[0][b], p[1][b], p[2][b], p[3][b]);
     for (int idx = tid; idx < kC * kR; idx += kThreads) {
       const int j = idx >> 6, i = idx & 63;
       Vs[j * kLd + i] =
@@ -223,10 +285,10 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
 
     // ---- h = (P v + inter * C q) / den for the CTA's rows
     float oacc[4][4] = {};
-    outer(oacc, T0, Vs, kLd, cl, ty, tx);
+    outer(oacc, T0, Vs, cl, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int t = ty + 16 * a;
+      const int t = 4 * ty + a;
       if (t >= cl) continue;
       const float qnt = qnp[t] + qnp[kC + t] + qnp[2 * kC + t] +
                         qnp[3 * kC + t];
@@ -235,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       T* hrow = h + (bh * S + t0 + t) * Dh + r0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int i = tx + 16 * b;
+        const int i = 4 * tx + b;
         if (i < nr)
           hrow[i] = from_f<T>((oacc[a][b] + inter[t] * cacc[a][b]) / den);
       }
@@ -249,25 +311,24 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     }
     for (int e0 = 0; e0 < Dh; e0 += kT) {
       const int ne = min(kT, Dh - e0);
-      for (int idx = tid; idx < kC * kT; idx += kThreads) {
-        const int j = idx >> 6, e = idx & 63;
-        T0[j * kLd + e] = (j < cl && e < ne)
-                              ? to_f(kb[(size_t)(t0 + j) * Dh + e0 + e])
-                              : 0.f;
-      }
+      store_tile(rk, T0, false);
       __syncthreads();
+      if (e0 + kT < Dh)
+        load_tile(rk, kb, t0, cl, e0 + kT, min(kT, Dh - e0 - kT), Dh, false);
       float uacc[4][4] = {};
-      outer(uacc, T0, Vs, kLd, cl, ty, tx);
+      outer(uacc, T0, Vs, cl, ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const int e = ty + 16 * a;
+        const int e = 4 * ty + a;
         if (e >= ne) continue;
-        float* crow = Cs + (size_t)(e0 + e) * kLd;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int i = tx + 16 * b;
-          crow[i] = carry * crow[i] + uacc[a][b];
-        }
+        float4* crow = reinterpret_cast<float4*>(
+            Cs + (size_t)(e0 + e) * kLd + 4 * tx);
+        float4 c = *crow;
+        c.x = carry * c.x + uacc[a][0];
+        c.y = carry * c.y + uacc[a][1];
+        c.z = carry * c.z + uacc[a][2];
+        c.w = carry * c.w + uacc[a][3];
+        *crow = c;
       }
       if (tid < ne) {
         float s = 0.f;

@@ -3,7 +3,7 @@
 
 The reference's flags, plus ``--device`` (default ``cuda``). Both
 schedulers go through ``Session.serve``: ``--scheduler legacy`` is the
-static-batch driver (``--batch`` prompts of ``--context`` tokens,
+static-batch loop (``--batch`` prompts of ``--context`` tokens,
 ``--decode-steps`` decode steps, ``--requests`` batches), ``--scheduler
 continuous`` the paged continuous-batching tier. Speculative decoding and
 tracing are later slices and raise.
@@ -70,8 +70,8 @@ def main(argv=None):
 
     from repro_torch.api import Session
 
-    session = Session(args.arch, full=args.full, strategy=None,
-                      seed=args.seed, device=args.device)
+    session = Session(args.arch, full=args.full, seed=args.seed,
+                      device=args.device)
     kw = {}
     if args.scheduler == "continuous":
         kw = dict(block_size=args.block_size, cache=args.cache,

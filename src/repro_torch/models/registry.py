@@ -89,7 +89,7 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
                                       states=state, logits_slice=1)
         return logits, st
 
-    def decode_step(params, tokens, state, pos, *, window=None):
+    def decode_step(params, tokens, state, pos):
         logits, st, _ = xlstm.forward(params, cfg, tokens, states=state,
                                       step=True)
         return logits, st
@@ -97,12 +97,12 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
     return Model(cfg, init, loss, init_state, prefill, decode_step)
 
 
-MODEL_BUILDERS = {"dense": _build_lm, "ssm": _build_xlstm}
+FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm}
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in MODEL_BUILDERS:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port covers the families {sorted(MODEL_BUILDERS)} so far, "
+            f"the port covers the families {sorted(FAMILIES)} so far, "
             f"not {cfg.name!r} ({cfg.family})")
-    return MODEL_BUILDERS[cfg.family](cfg)
+    return FAMILIES[cfg.family](cfg)

@@ -84,7 +84,7 @@ def _super_block(params, x, cfg: ModelConfig, states, step: bool):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, states=None, step=False,
-            logits_slice=None, hidden_only=False, **_):
+            logits_slice=None, hidden_only=False):
     """tokens: [B, S] int. Returns (logits [B, S, V] float32 — or the
     final-norm hidden states with ``hidden_only`` — , states, aux).
 

@@ -1,6 +1,6 @@
 """The port's xLSTM serving slice against the reference on the CPU, at
 ``reduced(xlstm_350m)`` in float32: ``xlstm.forward``'s logits, prefill
-plus decode through the step builders (greedy streams equal), the
+plus decode through the step functions (greedy streams equal), the
 port's incremental decode against its full forward, the bridge over the
 stacked parameter and state trees, and ``Session.serve`` / the launcher
 with the legacy scheduler for both ported architectures.
@@ -103,7 +103,7 @@ def test_forward_matches_reference(setup, s):
 
 def test_prefill_and_decode_match_reference(setup):
     """Prefill 12 tokens, then 6 greedy decode steps through each
-    package's step builders on the same numpy prompts."""
+    package's step functions on the same numpy prompts."""
     jcfg, cfg, jparams, tp = setup
     batch, context, steps = 2, 12, 6
     jshape = JShape("serve", context + steps, batch, "decode")
@@ -195,7 +195,7 @@ def test_bridge_round_trips_stacked_trees(dtype):
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "flad-adllm"])
 def test_session_serves_with_the_legacy_scheduler(arch):
-    rep = Session(arch, strategy=None, device="cpu", seed=3).serve(
+    rep = Session(arch, device="cpu", seed=3).serve(
         scheduler="legacy", batch=2, context=10, decode_steps=3, requests=2,
         log_fn=None)
     assert rep["device"] == "cpu" and rep["total_tokens"] == 2 * 2 * 4
@@ -221,7 +221,7 @@ def test_launcher_serves_legacy_on_cpu(arch):
 
 
 def test_later_parts_of_serving_raise():
-    session = Session("xlstm-350m", strategy=None, device="cpu")
+    session = Session("xlstm-350m", device="cpu")
     for kw, match in ((dict(pod=0), "per-pod"),
                       (dict(speculative=True), "speculative"),
                       (dict(trace="t.json"), "observability")):
@@ -232,5 +232,3 @@ def test_later_parts_of_serving_raise():
     # the paged engine serves the dense family only, as the reference's
     with pytest.raises(NotImplementedError, match="dense"):
         session.serve(scheduler="continuous", log_fn=None)
-    with pytest.raises(RuntimeError, match="only serve"):
-        session.run(1)
