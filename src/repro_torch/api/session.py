@@ -188,15 +188,15 @@ class Session:
         (``pod=``), speculative decoding (``speculative=``,
         ``draft_pod=``) and tracing (``trace=``) come with later slices of
         the port and raise."""
-        later = {"pod": (pod is not None, "per-pod personalized serving (pod=) comes "
-                              "with the per-pod serving slice of the port"),
-                 "speculative": (speculative or draft_pod is not None,
-                                 "speculative decoding comes with the "
-                                 "speculative-decoding slice of the port"),
-                 "trace": (trace is not None, "tracing comes with the observability "
-                                  "slice of the port")}
-        for value, msg in later.values():
-            if value:
+        later = ((pod is not None, "per-pod personalized serving (pod=) "
+                  "comes with the per-pod serving slice of the port"),
+                 (speculative or draft_pod is not None, "speculative "
+                  "decoding comes with the speculative-decoding slice of "
+                  "the port"),
+                 (trace is not None, "tracing comes with the observability "
+                  "slice of the port"))
+        for asked, msg in later:
+            if asked:
                 raise NotImplementedError(msg)
         if params is None and self.state is not None:
             params = self.merged_params()

@@ -24,11 +24,12 @@ from repro_torch.models import lm, xlstm
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable[..., Any]          # (seed=0, device="cuda") -> params
+    init: Callable[..., Any]          # (seed, device) -> params
     loss: Callable[..., Any]          # (params, batch) -> (loss, metrics)
     init_state: Callable[..., Any]    # (batch, cache_len, device) -> state
-    prefill: Callable[..., Any]       # (params, batch, state) -> (logits, state)
-    decode_step: Callable[..., Any]   # (params, tokens, state, pos) -> (logits, state)
+    prefill: Callable[..., Any]       # (params, batch, state)
+    decode_step: Callable[..., Any]   # (params, tokens, state, pos)
+    # prefill and decode_step return (logits [B, S, V] float32, state)
 
 
 def _hidden_ce(params, x, labels, aux):

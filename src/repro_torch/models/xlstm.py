@@ -98,9 +98,9 @@ def forward(params, cfg: ModelConfig, tokens, *, states=None, step=False,
         states = init_state(cfg, tokens.shape[0], x.device)
     n_super, _ = _layout(cfg)
     for s in range(n_super):
-        x = _super_block((layer(params["mlstm"], s), layer(params["slstm"], s)),
-                         x, cfg, (layer(states["mlstm"], s),
-                                  layer(states["slstm"], s)), step)
+        x = _super_block(
+            (layer(params["mlstm"], s), layer(params["slstm"], s)), x, cfg,
+            (layer(states["mlstm"], s), layer(states["slstm"], s)), step)
     x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
