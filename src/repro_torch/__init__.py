@@ -7,12 +7,13 @@ runs on a machine that has no JAX. Every entry point takes an explicit
 ``device`` and defaults to ``"cuda"``; the tests pass ``device="cpu"``,
 where each hand-written kernel's wrapper runs its plain PyTorch version.
 
-Ported so far, for the dense decoder family: the continuous-batching
+Ported so far: for the dense decoder family, the continuous-batching
 serving path (:func:`repro_torch.serve.serve_continuous`), hierarchical
 FL training (``hier_fl``) and federated LoRA distillation
-(``distill_fl``) through :class:`repro_torch.api.Session`, carried by
-nine hand-written CUDA kernels in :mod:`repro_torch.kernels` (paged
-decode and prefill attention, int8 quantize and dequantize, the
-flash-attention forward and its three backward kernels, the fused LoRA
-matmul).
+(``distill_fl``) through :class:`repro_torch.api.Session`; for both the
+dense decoder and the xLSTM, serving with the legacy static-batch
+scheduler (``Session.serve``). They are carried by ten hand-written CUDA
+kernels in :mod:`repro_torch.kernels` (paged decode and prefill
+attention, int8 quantize and dequantize, the flash-attention forward and
+its three backward kernels, the fused LoRA matmul, the chunkwise mLSTM).
 """
