@@ -41,10 +41,14 @@ SIGNATURES = {
     "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",
                   [_I] + [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
+    "flash_fwd_tc": ("flash_attention_fwd_tc",
+                     [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_preprocess": ("flash_attention_bwd_preprocess",
                              [_I] + [_P] * 3 + [_I, _I, _P]),
     "flash_bwd_dkv": ("flash_attention_bwd_dkv",
                       [_I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
+    "flash_bwd_dkv_tc": ("flash_attention_bwd_dkv_tc",
+                         [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq": ("flash_attention_bwd_dq",
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),

@@ -11,7 +11,11 @@ Dispatch is by the device of the tensors and nothing else:
 
 Every wrapper checks device, dtype, shape and contiguity on both routes,
 and carries a plain integer ``launches`` that counts its kernel launches
-(plain-version calls do not count).
+(plain-version calls do not count). The flash forward and dK/dV wrappers
+have two kernels behind them, chosen by dtype: bf16 at head_dim 64 goes
+to a tensor-core kernel (wgmma on TMA-fed tiles), float32 and the other
+widths to a SIMT kernel; their ``routes`` dict counts the launches of
+each (:func:`route_counts`).
 """
 from __future__ import annotations
 
@@ -228,6 +232,7 @@ def dequantize_int8(q, scale):
 # --------------------------------------------------------- flash attention
 MAX_THREADS = 1024            #: threads a CTA may have
 MAX_SMEM = 227 * 1024         #: shared memory a CTA may opt into
+TC_HEAD_DIM = 64              #: head_dim of the bf16 tensor-core kernels
 
 
 def _check_qkv(q, k, v):
@@ -248,17 +253,24 @@ def _check_qkv(q, k, v):
     return b, hq, sq, d, hkv, skv
 
 
-def _attn_args(*, scale, window, q_offset, block_q, block_k, sq, skv,
-               d):
-    """Normalized (scale, window, q_offset) and the kernels' tiles
-    (BQ, BK): the requested blocks, clamped to the sequence like the
-    reference's ``_block_and_pad`` and rounded up to whole warps."""
+def _attn_args(*, scale, window, q_offset, block_q, block_k, d):
+    """Normalized (scale, window, q_offset); ``block_q``/``block_k`` must
+    be positive (they shape only the SIMT kernels' tiles, see
+    :func:`_simt_tiles`)."""
     scale = float(scale) if scale is not None else d ** -0.5
     if window is not None:
         window = operator.index(window)
         _require(window >= 1, f"window must be >= 1, got {window}")
     q_offset = operator.index(q_offset)
     _require(block_q >= 1 and block_k >= 1, "block sizes must be >= 1")
+    return scale, window, q_offset
+
+
+def _simt_tiles(block_q, block_k, sq, skv, d):
+    """The SIMT kernels' tiles (BQ, BK): the requested blocks, clamped to
+    the sequence like the reference's ``_block_and_pad`` and rounded up to
+    whole warps, checked against the CTA's thread and shared-memory
+    limits. The tensor-core kernels fix their own tiles."""
     bq = -(-min(block_q, sq) // 32) * 32
     bk = -(-min(block_k, skv) // 32) * 32
     tpr = d // 32                     # threads per row (flash_attention.cuh)
@@ -267,7 +279,14 @@ def _attn_args(*, scale, window, q_offset, block_q, block_k, sq, skv,
              f"head_dim {d}")
     _require(2 * max(bq, bk) * (d + 1) * 4 <= MAX_SMEM,
              f"tiles {bq}x{bk} exceed {MAX_SMEM} bytes of shared memory")
-    return scale, window, q_offset, bq, bk
+    return bq, bk
+
+
+def _tc_route(q) -> bool:
+    """True for the tensor-core (wgmma) kernels: bf16 at head_dim
+    :data:`TC_HEAD_DIM`. float32, and bf16 at another head_dim, take the
+    SIMT kernels."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == TC_HEAD_DIM
 
 
 def _card_dtype(t) -> int:
@@ -284,12 +303,19 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     (float32 or bfloat16, contiguous); query row r at absolute position
     ``q_offset + r``; causal and ``window`` masks as the reference's.
     Returns o [B, Hq, Sq, D] in q's dtype (and the float32 row logsumexp
-    [B, Hq, Sq] with ``return_lse``). ``block_q``/``block_k`` set the
-    kernel's query and KV tiles."""
+    [B, Hq, Sq] with ``return_lse``).
+
+    On the card, dispatch is by dtype and head width: bf16 at head_dim 64
+    launches the tensor-core kernel (``csrc/flash_fwd_tc.cu``: wgmma on
+    TMA-fed tiles, its own 64 x 128 tiles, p rounded to bf16 for p.v);
+    float32, and bf16 at another head_dim, launch the SIMT kernel
+    (``csrc/flash_fwd.cu``, all float32), whose query and KV tiles
+    ``block_q``/``block_k`` set. ``flash_attention.routes`` counts the
+    launches of each."""
     b, hq, sq, d, hkv, skv = _check_qkv(q, k, v)
-    scale, window, q_offset, bq, bk = _attn_args(
+    scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
-        block_k=block_k, sq=sq, skv=skv, d=d)
+        block_k=block_k, d=d)
     if not _on_card(q, k, v):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, q_offset=q_offset,
@@ -298,12 +324,20 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = build.load("flash_fwd")(
-        code, _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv, sq,
-        skv, d, bq, bk, scale, int(causal), window or 0, q_offset,
-        _stream(q))
-    _raise_on(err, "flash_attention")
+    mask = (int(causal), window or 0, q_offset)
+    if _tc_route(q):
+        _aligned(q=q, k=k, v=v)       # TMA reads from 16-byte aligned bases
+        route, err = "wgmma", build.load("flash_fwd_tc")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv, sq,
+            skv, scale, *mask, _stream(q))
+    else:
+        bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
+        route, err = "simt", build.load("flash_fwd")(
+            code, _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv,
+            sq, skv, d, bq, bk, scale, *mask, _stream(q))
+    _raise_on(err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.routes[route] += 1
     return (o, lse) if return_lse else o
 
 
@@ -345,23 +379,41 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale=None,
                             block_q: int = 128, block_k: int = 128):
     """(dK, dV) [B, Hkv, Skv, D] in k's dtype from the forward's q, k, v,
     its lse, the cotangent ``do`` and ``delta``; each KV head sums its
-    query group. Deterministic: no atomics."""
+    query group. Deterministic: no atomics.
+
+    On the card, bf16 at head_dim 64 launches the tensor-core kernel
+    (``csrc/flash_bwd_dkv_tc.cu``: all four products on wgmma in the
+    transposed frame, p and dS rounded to bf16 for the dV and dK products,
+    its own tiles); float32, and bf16 at another head_dim, the SIMT
+    kernel (``csrc/flash_bwd_dkv.cu``, all float32, tiles from
+    ``block_q``/``block_k``). ``flash_attention_bwd_dkv.routes`` counts the
+    launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
-    scale, window, q_offset, bq, bk = _attn_args(
+    scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
-        block_k=block_k, sq=sq, skv=skv, d=d)
+        block_k=block_k, d=d)
     if not _on_card(q, k, v, do, lse, delta):
         return ref.flash_attention_bwd_dkv_ref(
             q, k, v, do, lse, delta, scale=scale, causal=causal,
             window=window, q_offset=q_offset)
     code = _card_dtype(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = build.load("flash_bwd_dkv")(
-        code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, d, bq, bk, scale,
-        int(causal), window or 0, q_offset, _stream(q))
-    _raise_on(err, "flash_attention_bwd_dkv")
+    mask = (int(causal), window or 0, q_offset)
+    if _tc_route(q):
+        _aligned(q=q, k=k, v=v, do=do)
+        route, err = "wgmma", build.load("flash_bwd_dkv_tc")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, scale, *mask,
+            _stream(q))
+    else:
+        bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
+        route, err = "simt", build.load("flash_bwd_dkv")(
+            code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+            _ptr(delta), _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, d, bq, bk,
+            scale, *mask, _stream(q))
+    _raise_on(err, f"flash_attention_bwd_dkv ({route})")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.routes[route] += 1
     return dk, dv
 
 
@@ -372,14 +424,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     """dQ [B, Hq, Sq, D] in q's dtype from the same inputs as
     :func:`flash_attention_bwd_dkv`."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
-    scale, window, q_offset, bq, bk = _attn_args(
+    scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
-        block_k=block_k, sq=sq, skv=skv, d=d)
+        block_k=block_k, d=d)
     if not _on_card(q, k, v, do, lse, delta):
         return ref.flash_attention_bwd_dq_ref(
             q, k, v, do, lse, delta, scale=scale, causal=causal,
             window=window, q_offset=q_offset)
     code = _card_dtype(q)
+    bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
     dq = torch.empty_like(q)
     err = build.load("flash_bwd_dq")(
         code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
@@ -590,14 +643,24 @@ KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
            flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
            mlstm_chunked)
-for _fn in KERNELS:
-    _fn.launches = 0
+#: wrappers with two kernels behind them, each launch counted by route too
+ROUTED = (flash_attention, flash_attention_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in ROUTED:
+        fn.routes = {"wgmma": 0, "simt": 0}
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def route_counts() -> dict:
+    """{wrapper: {"wgmma": n, "simt": n}} of the routed wrappers."""
+    return {fn.__name__: dict(fn.routes) for fn in ROUTED}
