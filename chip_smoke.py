@@ -7,22 +7,26 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the ten hand-written kernels from src/repro_torch/kernels/csrc
-     with nvcc for sm_90a, all at once, and prints the build time;
+  2. builds the twelve hand-written kernel libraries from
+     src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
+     prints the build time; checks that the two tensor-core flash kernels'
+     SASS holds HGMMA (wgmma) instructions and prints their registers,
+     spills and shared memory;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
      lanes, block size 16, chunk 16, contexts up to 300 tokens), the
      flash-attention forward and its three backward kernels at the
-     training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 and float32
-     with ragged, offset and windowed cases and the distillation path's
-     1032 rows, dequantize on one ffn.wi leaf's rows, and the fused LoRA
-     matmul at the distillation path's shapes (M 4128; (K, N) of wq/wo,
-     wk/wv and ffn.wo; r 4; forward and the backward's transposed dx;
-     bf16 and float32) with ragged and rank-16 cases and its autograd
-     wrapper's dx, da and db, and the chunkwise mLSTM at the xLSTM prefill's
-     shape (B 8, NH 4, S 512, DH 512, float32) with ragged-S,
-     initial-state, bf16 and DH-64 cases;
+     training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 (the
+     forward and dK/dV on their tensor-core kernels) and float32 (all
+     four on the SIMT kernels) with ragged, offset and windowed cases and
+     the distillation path's 1032 rows, dequantize on one ffn.wi leaf's
+     rows, and the fused LoRA matmul at the distillation path's shapes
+     (M 4128; (K, N) of wq/wo, wk/wv and ffn.wo; r 4; forward and the
+     backward's transposed dx; bf16 and float32) with ragged and rank-16
+     cases and its autograd wrapper's dx, da and db, and the chunkwise
+     mLSTM at the xLSTM prefill's shape (B 8, NH 4, S 512, DH 512,
+     float32) with ragged-S, initial-state, bf16 and DH-64 cases;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -31,21 +35,24 @@ In order, it
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
      steps each, 4 x 1024 tokens a step, int8 uplinks; checks the exact
-     launch counts, finite losses, moved params and the wire metrics
-     against the topology's formulas;
+     launch counts (the flash forward and dK/dV all on their tensor-core
+     route), finite losses, moved params and the wire metrics against
+     the topology's formulas;
   6. runs one float32 local train step through the kernels and through
      plain attention and compares the loss, the grads and the updated
-     params; profiles one bf16 local step;
+     params; profiles one bf16 local step and its flash kernels' share;
   7. runs federated distillation of flad-adllm's AD-LLM view at full
      width and depth through the training launcher: 2 warmup steps of
      the whole model, then two distill_fl rounds of 4 rank-4 LoRA
      students, 2 local steps each, 4 x (1024 + 8 prefix) tokens a step,
-     int8 factor uplinks; checks the exact launch counts, finite losses,
-     the base bitwise unchanged, moved factors and the wire metrics over
-     the factor tree;
+     int8 factor uplinks; checks the exact launch counts (the flash
+     forward and dK/dV on their tensor-core route), finite losses, the
+     base bitwise unchanged, moved factors and the wire metrics over the
+     factor tree;
   8. runs one float32 distill local step through the kernels and through
      the plain versions and compares the loss, the factor grads and the
-     updated factors; profiles one bf16 distill local step;
+     updated factors; profiles one bf16 distill local step and its flash
+     kernels' share;
   9. serves xlstm-350m at full width and depth (bf16, random weights from
      a seed) through the serving launcher's legacy static-batch scheduler
      (Session.serve): 3 request batches of 8 x 512-token prompts and 32
@@ -61,7 +68,9 @@ result line. It also exits non-zero when torch sees no CUDA device, and
 when run without the repository's src/ beside it. It never imports JAX
 or the JAX package.
 """
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +108,21 @@ FLASH_CASES = [("causal", S, S, {}), ("ragged", 1000, 1000, {}),
 FLASH_ATOL_F32 = 1e-5          # o, lse, delta
 FLASH_GRAD_ATOL_F32 = 2e-5     # dq, dk, dv (sums over up to 2048 rows)
 BF16_ULP = 2.0 ** -7
+# the wrappers with a tensor-core (bf16, head_dim 64) and a SIMT route:
+# (tensor-core library, its shared-memory query and argument, profiler
+# names of the bf16 and the float32 kernels, their sources)
+TC_KERNELS = {
+    "flash_attention": ("flash_fwd_tc", "flash_attention_fwd_tc_smem", (2,),
+                        "flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_tc",
+                                "flash_attention_bwd_dkv_tc_smem", (),
+                                "flash_bwd_dkv_wgmma_kernel",
+                                "flash_bwd_dkv_kernel"),
+}
+FLASH_NAMES = {"flash_attention": "flash_fwd",
+               "flash_attention_bwd_preprocess": "flash_bwd_preprocess",
+               "flash_attention_bwd_dkv": "flash_bwd_dkv",
+               "flash_attention_bwd_dq": "flash_bwd_dq"}
 TOPOLOGY, ROUNDS, CLIENTS, LOCAL_STEPS = "2@nano*2,agx*2", 2, 4, 2
 TRAIN_ARGV = ["--arch", "flad-adllm", "--full", "--strategy", "hier_fl",
               "--topology", TOPOLOGY, "--codec", "int8", "--local-steps",
@@ -247,6 +271,27 @@ def bound(nbytes, flops, flops_rate):
     t_ops = flops / flops_rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def check_routes(ops, counts, path):
+    """Every flash forward and dK/dV launch of a bf16 main path went
+    through the tensor-core kernels; returns the route counts."""
+    routes = ops.route_counts()
+    for fn in TC_KERNELS:
+        want = {"wgmma": counts[fn], "simt": 0}
+        check(routes[fn] == want, f"{path}: {fn} launches by route "
+              f"{routes[fn]} != {want}")
+    return routes
+
+
+def flash_split(rows):
+    """(total ms, {kernel: ms}) of the flash kernels in profile rows
+    (ms, count, name), by profiler name."""
+    names = [tc[3] for tc in TC_KERNELS.values()] + [
+        f"{stem}_kernel" for stem in FLASH_NAMES.values()]
+    split = {n: sum(r[0] for r in rows if n in r[2]) for n in names}
+    split = {n: t for n, t in split.items() if t > 0}
+    return sum(split.values()), split
 
 
 # ------------------------------------------------------------ kernel inputs
@@ -438,15 +483,18 @@ def _err(a, b):
 
 def flash_checks(torch, dev):
     """The flash forward and the three backward kernels against their
-    plain versions (bf16 and float32; causal, ragged, offset, window), the
-    backward bitwise equal across two runs; timings at the causal
-    training shape. Returns the kernels' JSON rows (bf16, the main path's
-    dtype, with float32 times beside)."""
+    plain versions (bf16 and float32; causal, ragged, offset, window, the
+    distillation path's 1032 rows), the backward bitwise equal across two
+    runs, every bf16 forward and dK/dV launch on the tensor-core route and
+    every float32 one on the SIMT route; timings at the causal training
+    shape. Returns the kernels' JSON rows (bf16, the main path's dtype,
+    with the float32 kernels' times beside)."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     errs = {k: 0.0 for k in ("fwd", "pre", "dkv", "dq")}
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
+        routes0 = ops.route_counts()
         for case, sq, skv, kw in FLASH_CASES:
             q, k, v, do = _flash_inputs(torch, dev, dtype, sq, skv, 4)
             o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
@@ -492,6 +540,17 @@ def flash_checks(torch, dev):
                               for lab, a, b in pairs)
                   + "; backward bitwise repeatable")
             del o, lse, ro, rlse, rdk, rdv, rdq, again
+        # one forward and two dK/dV launches a case (the direct call and
+        # flash_attention_bwd's), all on this dtype's route
+        route = "wgmma" if dtype == torch.bfloat16 else "simt"
+        grew = {fn: {r: n - routes0[fn][r] for r, n in c.items()}
+                for fn, c in ops.route_counts().items()}
+        want = {fn: {"wgmma": 0, "simt": 0} for fn in grew}
+        want["flash_attention"][route] = len(FLASH_CASES)
+        want["flash_attention_bwd_dkv"][route] = 2 * len(FLASH_CASES)
+        check(grew == want, f"flash {name}: launches by route {grew} != "
+              f"{want}")
+        print(f"[kernel] flash {name}: launches by route {grew}")
 
     rows, f32_ms = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -506,27 +565,31 @@ def flash_checks(torch, dev):
             q, k, v, is_causal=True, enable_gqa=True), None, iters=20)
         lib_bwd = device_ms(lambda: torch.autograd.grad(
             lo, (ql, kl, vl), do, retain_graph=True), None, iters=20)
+        esz = 2 if dtype == torch.bfloat16 else 4
+        # the profiler name of each wrapper's kernel in this dtype
+        match = {n: f"{stem}_kernel" for n, stem in FLASH_NAMES.items()}
+        for n, tc in TC_KERNELS.items():
+            match[n] = tc[3] if esz == 2 else tc[4]
         runs = {
             "flash_attention": (
                 lambda: ops.flash_attention(q, k, v, return_lse=True),
                 lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
-                "flash_fwd_kernel", lib_fwd),
+                lib_fwd),
             "flash_attention_bwd_preprocess": (
                 lambda: ops.flash_attention_bwd_preprocess(o, do),
                 lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
-                "flash_bwd_preprocess_kernel", lib_bwd),
+                lib_bwd),
             "flash_attention_bwd_dkv": (
                 lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                 lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
                                                         delta, scale=sc),
-                "flash_bwd_dkv_kernel", lib_bwd),
+                lib_bwd),
             "flash_attention_bwd_dq": (
                 lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta),
                 lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse,
                                                        delta, scale=sc),
-                "flash_bwd_dq_kernel", lib_bwd),
+                lib_bwd),
         }
-        esz = 2 if dtype == torch.bfloat16 else 4
         rate = BF16_FLOPS_PER_S if esz == 2 else F32_FLOPS_PER_S
         nq, nkv, stat = B * HQ * S * D, B * HKV * S * D, B * HQ * S
         pairs = B * HQ * _pairs(S, S)
@@ -540,25 +603,29 @@ def flash_checks(torch, dev):
             "flash_attention_bwd_dq": ((3 * nq + 2 * nkv) * esz + 8 * stat,
                                        6 * D * pairs),
         }
-        for name, (kfn, pfn, match, lib) in runs.items():
-            ms, plain, call = timings(kfn, pfn, match)
+        for name, (kfn, pfn, lib) in runs.items():
+            ms, plain, call = timings(kfn, pfn, match[name])
             b_ms, b_by = bound(*work[name], rate)
             print(f"[kernel] {name} {'bf16' if esz == 2 else 'f32'} causal "
-                  f"B{B} Hq{HQ} Hkv{HKV} S{S} D{D}: device: kernel "
-                  f"{ms:.5f} ms, plain {plain:.5f} ms, library "
+                  f"B{B} Hq{HQ} Hkv{HKV} S{S} D{D} ({match[name]}): "
+                  f"device: kernel {ms:.5f} ms ({work[name][1] / ms / 1e9:.1f}"
+                  f" TFLOP/s of needed work), plain {plain:.5f} ms, library "
                   f"{lib if lib is None else round(lib, 5)} ms; bound "
                   f"{b_ms:.5f} ms ({b_by}); host clock per call "
                   f"{call:.5f} ms")
+            src = f"src/repro_torch/kernels/csrc/{match[name][:-7]}.cu"
             if esz == 4:
-                f32_ms[name] = (ms, plain, lib, b_ms)
+                f32_ms[name] = (ms, plain, lib, b_ms, src)
                 continue
             key = {"flash_attention": "fwd",
                    "flash_attention_bwd_preprocess": "pre",
                    "flash_attention_bwd_dkv": "dkv",
                    "flash_attention_bwd_dq": "dq"}[name]
+            if name in TC_KERNELS:
+                src = (f"src/repro_torch/kernels/csrc/"
+                       f"{TC_KERNELS[name][0]}.cu")
             rows[name] = dict(
-                source=f"src/repro_torch/kernels/csrc/"
-                       f"{match.replace('_kernel', '')}.cu",
+                source=src,
                 replaces="src/repro/kernels/flash_attention.py:" + {
                     "fwd": "161", "pre": "579", "dkv": "599",
                     "dq": "639"}[key],
@@ -569,9 +636,38 @@ def flash_checks(torch, dev):
                               "its whole backward (all three kernels' "
                               "work)"),
                 f32_ms=f32_ms[name][0], f32_plain_ms=f32_ms[name][1],
-                f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3])
+                f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3],
+                f32_source=f32_ms[name][4])
         del q, k, v, do, o, lse, delta, ql, kl, vl, lo
     return rows
+
+
+def tc_report():
+    """The tensor-core kernels as built: each library's SASS must hold
+    HGMMA (wgmma) instructions; their registers and spills from ptxas and
+    their dynamic shared memory. Returns {wrapper: report}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import build
+    out = {}
+    for name, (stem, smem_fn, args, kname, _) in TC_KERNELS.items():
+        rep = build.build_report[stem]
+        sass = subprocess.run(
+            [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+             rep["path"]], capture_output=True, text=True, timeout=300).stdout
+        hgmma = sass.count("HGMMA")
+        check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           rep["log"])]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", rep["log"])]
+        smem = getattr(ctypes.CDLL(rep["path"]), smem_fn)(*args)
+        out[name] = dict(hgmma=hgmma, registers=regs, spill_bytes=spills,
+                         dynamic_smem_bytes=smem)
+        print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA instructions in "
+              f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread "
+              f"at launch, spill stores + loads {spills or 'not rebuilt'} "
+              f"bytes; {smem} bytes of dynamic shared memory a CTA")
+    return out
 
 
 def dequant_check(torch, cfg, dev):
@@ -780,6 +876,7 @@ def train_main_path(torch, cfg, dev):
                 flash_attention_bwd_dkv=steps, flash_attention_bwd_dq=steps,
                 quantize_int8=codec, dequantize_int8=codec)
     check(counts == want, f"training launches {counts} != {want}")
+    routes = check_routes(ops, counts, "training")
     hist = out["history"]
     check(len(hist) == ROUNDS, "one history entry per round")
     for h in hist:
@@ -820,10 +917,11 @@ def train_main_path(torch, cfg, dev):
           + f"; peak device memory {peak:.1f} GiB; wire per round: up "
           f"{per_client * CLIENTS} B, backhaul {2 * per_client} B, "
           f"sim {max(arrivals):.4f} s; largest change per leaf "
-          + ", ".join(f"{m:.2e}" for m in moved) + f"; launches {counts}")
+          + ", ".join(f"{m:.2e}" for m in moved) + f"; launches {counts}; "
+          f"flash launches by route {routes}")
     del out, merged, init
     torch.cuda.empty_cache()
-    return counts, peak
+    return counts, peak, routes
 
 
 def _factor_sizes(torch, cfg):
@@ -883,6 +981,7 @@ def distill_main_path(torch, cfg, dev):
                 dequantize_int8=ROUNDS * CLIENTS * FACTOR_LEAVES,
                 lora_matmul=steps * (5 * L + 5 * L - 3))
     check(counts == want, f"distill launches {counts} != {want}")
+    routes = check_routes(ops, counts, "distillation")
     hist = out["history"]
     check(len(hist) == ROUNDS, "one history entry per round")
     for h in hist:
@@ -934,10 +1033,11 @@ def distill_main_path(torch, cfg, dev):
           + ", ".join(f"{k} {v:.2e}" for k, v in b_moved.items())
           + f"; peak device memory {peak:.1f} GiB; wire per round: up "
           f"{per_client * CLIENTS} B, backhaul {2 * per_client} B, sim "
-          f"{max(arrivals):.6f} s; launches {counts}")
+          f"{max(arrivals):.6f} s; launches {counts}; flash launches by "
+          f"route {routes}")
     del out, session, base, factors, flat, snap
     torch.cuda.empty_cache()
-    return counts, wall, peak
+    return counts, wall, peak, routes
 
 
 def _distill_setup(torch, cfg, dev, dtype, seed):
@@ -1086,7 +1186,7 @@ def profile_distill_step(torch, cfg, dev, steps=3):
                   for e in prof.key_averages())[::-1]
     busy = sum(r[0] for r in rows)
     lora = sum(r[0] for r in rows if "lora_mma_kernel" in r[2])
-    flash = sum(r[0] for r in rows if "flash_" in r[2])
+    flash, split = flash_split(rows)
     tokens = B * (S + PREFIX)
     print(f"[profile] bf16 distill local step, {B}x({S}+{PREFIX}) tokens, "
           f"rank {RANK}: wall {wall:.3f} ms, {tokens / wall * 1e3:.0f} "
@@ -1095,7 +1195,8 @@ def profile_distill_step(torch, cfg, dev, steps=3):
           f"{sum(r[1] for r in rows)} device ops/step, peak memory "
           f"{peak:.2f} GiB; LoRA kernel {lora:.3f} ms "
           f"({100 * lora / busy:.1f}% of device time), flash kernels "
-          f"{flash:.3f} ms ({100 * flash / busy:.1f}%)")
+          f"{flash:.3f} ms ({100 * flash / busy:.1f}%): "
+          + ", ".join(f"{k} {t:.3f}" for k, t in split.items()))
     for t, n, key in rows[:10]:
         print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
     del state, base, factors
@@ -1225,10 +1326,14 @@ def profile_local_step(torch, cfg, dev, steps=3):
                   for e in prof.key_averages())[::-1]
     busy = sum(r[0] for r in rows)
     ops_per_step = sum(r[1] for r in rows)
+    flash, split = flash_split(rows)
     print(f"[profile] bf16 local train step, {B}x{S} tokens: wall "
           f"{wall:.3f} ms, {B * S / wall * 1e3:.0f} tokens/s, device busy "
           f"{busy:.3f} ms (idle {100 * max(0.0, 1 - busy / wall):.1f}%), "
-          f"{ops_per_step} device ops/step, peak memory {peak:.2f} GiB")
+          f"{ops_per_step} device ops/step, peak memory {peak:.2f} GiB; "
+          f"flash kernels {flash:.3f} ms ({100 * flash / busy:.1f}% of "
+          f"device time): "
+          + ", ".join(f"{k} {t:.3f}" for k, t in split.items()))
     for t, n, key in rows[:8]:
         print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
     del state, params
@@ -1676,6 +1781,7 @@ def main():
         for line in r["log"].splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
+    tc = tc_report()
 
     # 3. kernels against their plain versions
     cfg = get_config("flad-adllm")
@@ -1726,14 +1832,15 @@ def main():
     # 5. the training path: two hier_fl rounds at full width
     del params
     torch.cuda.empty_cache()
-    train_launches, _ = train_main_path(torch, cfg, dev)
+    train_launches, _, train_routes = train_main_path(torch, cfg, dev)
 
     # 6. float32 step through kernels vs plain attention; a step's profile
     step_vs_plain(torch, cfg, dev)
     profile_local_step(torch, cfg, dev)
 
     # 7. the distillation path: two distill_fl rounds at full width
-    distill_launches, _, _ = distill_main_path(torch, cfg, dev)
+    distill_launches, _, _, distill_routes = distill_main_path(torch, cfg,
+                                                               dev)
 
     # 8. float32 distill step through kernels vs plain; a step's profile
     distill_step_vs_plain(torch, cfg, dev)
@@ -1757,10 +1864,17 @@ def main():
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "
                   f"{k['bound_ms']:.5f} ms: some input came from the L2")
+        extra = {}
+        if name in TC_KERNELS:
+            extra = {"launches_by_route": {
+                "wgmma": train_routes[name]["wgmma"]
+                + distill_routes[name]["wgmma"],
+                "simt": train_routes[name]["simt"]
+                + distill_routes[name]["simt"]}, "build": tc[name]}
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
+                     "launches_by_path": by_path, **extra,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],

@@ -30,16 +30,20 @@
 //   dK  += dS^T Q   A = dS^T in registers; B = the Q tile, MN-major.
 // One CTA owns 64 * NWG keys of one KV head (NWG = 2 consumer warpgroups
 // of 64 keys), K and V loaded once by TMA and kept in shared memory, the
-// dK and dV accumulators in registers for the whole walk. A producer warp
-// streams 64-row Q and dO tiles of every query head of the group through
-// a STAGES-deep ring of TMA loads, only over the query tiles that can see
-// the CTA's keys (live_rows); a warpgroup skips the products of a tile
-// none of whose rows sees its own keys. The element mask is applied only
-// on tiles that cross the diagonal, the window's edge, Sq or Skv. No
-// atomics: a CTA owns its keys' rows and walks heads and tiles in a fixed
-// order, so the result is the same bit for bit on every run. The key tile
-// is the grid's slow axis, first tile (heaviest under a causal mask)
-// first.
+// dK and dV accumulators in registers for the whole walk. A producer
+// warpgroup (setmaxnreg hands its registers to the consumers) streams the
+// walk's tiles through a STAGES-deep ring: one thread loads 64-row Q and
+// dO tiles of every query head of the group by TMA, a second warp copies
+// their rows' lse and delta beside them; only the query tiles that can see
+// the CTA's keys (live_rows) are visited, and a warpgroup skips the
+// products of a tile none of whose rows sees its own keys. Within a
+// warpgroup the four products overlap the elementwise work: P is formed
+// while dP^T runs, dS while dV's product runs, and dK's product runs into
+// the next tile. The element mask is applied only on tiles that cross the
+// diagonal, the window's edge, Sq or Skv. No atomics: a CTA owns its keys'
+// rows and walks heads and tiles in a fixed order, so the result is the
+// same bit for bit on every run. The key tile is the grid's slow axis,
+// first tile (heaviest under a causal mask) first.
 #include "flash_attention.cuh"
 #include "hopper.cuh"
 
@@ -60,12 +64,210 @@ struct Smem {
   __nv_bfloat16 v[NWG * BKW * D];
   __nv_bfloat16 q[STAGES][BQ * D];
   __nv_bfloat16 dout[STAGES][BQ * D];
+  float lse2[STAGES][BQ];    // lse * log2(e) of the tile's rows
+  float delta[STAGES][BQ];
   uint64_t kv_full;
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
 };
 
-__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+// Registers a thread: the CTA's three warpgroups share the SM's 64K; the
+// producer warpgroup gives back all but 40.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// A 64 x 64 float32 accumulator fragment as the bf16 A fragments of a
+// 64-deep product, one per 16-deep step.
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
+                                          const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// The CTA's walk: tile i is query head hk * G + i / n_rt, rows r0(i) ..
+// r0(i) + 63, for the live query tiles rt0 .. rt0 + n_rt - 1 of each head.
+struct Walk {
+  int qplane0;   // b * Hq + hk * G: the plane of the group's first head
+  int rt0, n_rt, n_tiles;
+  __device__ __forceinline__ int plane(int i) const {
+    return qplane0 + i / n_rt;
+  }
+  __device__ __forceinline__ int r0(int i) const {
+    return (rt0 + i % n_rt) * BQ;
+  }
+};
+
+// The TMA thread: the CTA's K and V once, then the Q / dO ring.
+__device__ __forceinline__ void produce_tiles(Smem& s, const CUtensorMap& tq,
+                                              const CUtensorMap& tk,
+                                              const CUtensorMap& tv,
+                                              const CUtensorMap& tdo,
+                                              int k_lo, int kvplane,
+                                              const Walk& w) {
+  mbar_expect_tx(&s.kv_full, 2 * NWG * BKW * D * 2);
+  tma_load_3d(s.k, &tk, &s.kv_full, 0, k_lo, kvplane);
+  tma_load_3d(s.v, &tv, &s.kv_full, 0, k_lo, kvplane);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(&s.empty[st], ((i / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&s.full[st], 2 * TILE_BYTES);
+    tma_load_3d(s.q[st], &tq, &s.full[st], 0, w.r0(i), w.plane(i));
+    tma_load_3d(s.dout[st], &tdo, &s.full[st], 0, w.r0(i), w.plane(i));
+  }
+}
+
+// The statistics warp: each tile's lse (times log2 e) and delta rows into
+// the ring beside its Q and dO, zeros past Sq; each lane's arrival
+// publishes its stores.
+__device__ __forceinline__ void produce_stats(Smem& s, const float* lse,
+                                              const float* delta, int Sq,
+                                              const Walk& w) {
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int st = i % STAGES;
+    const size_t plane = (size_t)w.plane(i) * Sq;
+    mbar_wait(&s.empty[st], ((i / STAGES) & 1) ^ 1);
+#pragma unroll
+    for (int e = lane; e < BQ; e += 32) {
+      const int row = w.r0(i) + e;
+      s.lse2[st][e] = row < Sq ? lse[plane + row] * kLog2e : 0.0f;
+      s.delta[st][e] = row < Sq ? delta[plane + row] : 0.0f;
+    }
+    mbar_arrive(&s.full[st]);
+  }
+}
+
+// A consumer warpgroup wg: keys kw_lo .. kw_lo + 63 of the CTA's 64 * NWG;
+// returns with its dK and dV rows written.
+__device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
+                                        __nv_bfloat16* dv, int kvplane,
+                                        int Sq, int Skv, int k_lo,
+                                        const Walk& w, float scale,
+                                        const flash::Mask& mask) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int kw_lo = k_lo + wg * BKW;
+  const int key_lo = 16 * (warp % 4) + lane / 4;   // keys key_lo, key_lo + 8
+  const int c_lo = 2 * (lane % 4);                 // rows + 8j + {0, 1}
+  int my_begin = 0, my_end = 0;                    // rows that see my keys
+  if (kw_lo < Skv)
+    flash::live_rows(mask, kw_lo, min(Skv, kw_lo + BKW) - 1, Sq, &my_begin,
+                     &my_end);
+  float dka[32], dva[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.0f;
+  const float scale_log2 = scale * kLog2e;
+
+  // Per tile: S^T and dP^T are issued as two groups; P is formed while
+  // dP^T runs and dV's product is issued while dS is formed; dK's product
+  // is left running into the next tile. A stage is released once the
+  // products that read it are known to be done (pend).
+  mbar_wait(&s.kv_full, 0);
+  const uint64_t dkd = desc_sw128(s.k + wg * BKW * D);
+  const uint64_t dvd = desc_sw128(s.v + wg * BKW * D);
+  int pend = -1;
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int st = i % STAGES;
+    const int r0 = w.r0(i);
+    mbar_wait(&s.full[st], (i / STAGES) & 1);
+    if (r0 >= my_end || r0 + BQ <= my_begin) {   // no row sees my keys
+      if (lane == 0) mbar_arrive(&s.empty[st]);
+      continue;
+    }
+    float sa[32], dpa[32];
+    wgmma_fence();
+    const uint64_t dqd = desc_sw128(s.q[st]);
+    const uint64_t dod = desc_sw128(s.dout[st]);
+    wgmma_ss_m64n64_zero(sa, dkd, dqd);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_m64n64(sa, dkd + 2 * kk, dqd + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_ss_m64n64_zero(dpa, dvd, dod);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_m64n64(dpa, dvd + 2 * kk, dod + 2 * kk, 1);
+    wgmma_commit();
+    const bool whole =
+        r0 + BQ <= Sq && kw_lo + BKW <= Skv &&
+        (!mask.causal || kw_lo + BKW - 1 <= mask.q_offset + r0) &&
+        (mask.window <= 0 ||
+         kw_lo > mask.q_offset + r0 + BQ - 1 - mask.window);
+
+    wgmma_wait<1>();       // S^T, and the last tile's dV and dK products
+    fence_regs(sa);
+    if (pend >= 0 && lane == 0) mbar_arrive(&s.empty[pend]);
+    pend = st;
+    if (!whole) {          // masked pairs: s = -inf, so p = 0
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int key = kw_lo + key_lo + 8 * ((x >> 1) & 1);
+        const int row = r0 + 8 * (x >> 2) + c_lo + (x & 1);
+        const int qp = mask.q_offset + row;
+        const bool ok = (row < Sq) & (key < Skv) &
+                        (!mask.causal | (key <= qp)) &
+                        ((mask.window <= 0) | (key > qp - mask.window));
+        sa[x] = ok ? sa[x] : -INFINITY;
+      }
+    }
+    const float* lse2 = s.lse2[st];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = 8 * (x >> 2) + c_lo + (x & 1);   // query row - r0
+      sa[x] = ex2(fmaf(sa[x], scale_log2, -lse2[col]));
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_frag(pa, sa);
+    fence_regs(dva);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_m64n64_tb(dva, pa[kk], desc_sw128(s.dout[st] + kk * 16 * D));
+    wgmma_commit();
+
+    wgmma_wait<1>();       // dP^T (dV's product may still run)
+    fence_regs(dpa);
+    const float* dl = s.delta[st];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = 8 * (x >> 2) + c_lo + (x & 1);
+      dpa[x] = sa[x] * (dpa[x] - dl[col]) * scale;
+    }
+    pack_frag(da, dpa);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_m64n64_tb(dka, da[kk], desc_sw128(s.q[st] + kk * 16 * D));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dva);
+  fence_regs(dka);
+  if (pend >= 0 && lane == 0) mbar_arrive(&s.empty[pend]);
+
+  // ---- epilogue: the warpgroup's 64 rows of dK and dV as bf16
+  const size_t kplane = (size_t)kvplane * Skv;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = kw_lo + key_lo + 8 * hh;
+    if (key >= Skv) continue;
+    __nv_bfloat16* dkrow = dk + (kplane + key) * D;
+    __nv_bfloat16* dvrow = dv + (kplane + key) * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int x = 4 * j + 2 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j + c_lo) =
+          __floats2bfloat162_rn(dka[x], dka[x + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j + c_lo) =
+          __floats2bfloat162_rn(dva[x], dva[x + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -83,150 +285,34 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int r_begin, r_end;
   flash::live_rows(mask, k_lo, min(Skv, k_lo + NWG * BKW) - 1, Sq, &r_begin,
                    &r_end);
-  const int rt0 = r_begin / BQ;
-  const int n_rt = r_end > r_begin ? (r_end + BQ - 1) / BQ - rt0 : 0;
-  const int n_tiles = G * n_rt;
+  Walk w;
+  w.qplane0 = b * Hq + hk * G;
+  w.rt0 = r_begin / BQ;
+  w.n_rt = r_end > r_begin ? (r_end + BQ - 1) / BQ - w.rt0 : 0;
+  w.n_tiles = G * w.n_rt;
 
   if (threadIdx.x == 0) {
     mbar_init(&s.kv_full, 1);
     for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&s.full[i], 1);
+      mbar_init(&s.full[i], 1 + 32);     // the TMA thread + the stats warp
       mbar_init(&s.empty[i], NWG * 4);   // one arrival per consumer warp
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == NWG * 4) {
-    // ---- producer: the CTA's K and V once, then the Q / dO ring
-    if (lane == 0) {
-      mbar_expect_tx(&s.kv_full, 2 * NWG * BKW * D * 2);
-      tma_load_3d(s.k, &tk, &s.kv_full, 0, k_lo, b * Hkv + hk);
-      tma_load_3d(s.v, &tv, &s.kv_full, 0, k_lo, b * Hkv + hk);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % STAGES;
-        const int h = hk * G + i / n_rt;
-        const int r0 = (rt0 + i % n_rt) * BQ;
-        mbar_wait(&s.empty[st], ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&s.full[st], 2 * TILE_BYTES);
-        tma_load_3d(s.q[st], &tq, &s.full[st], 0, r0, b * Hq + h);
-        tma_load_3d(s.dout[st], &tdo, &s.full[st], 0, r0, b * Hq + h);
-      }
+  const int warp = threadIdx.x / 32;
+  if (warp >= NWG * 4) {
+    regs_dec<kProducerRegs>();
+    if (warp == NWG * 4) {
+      if (threadIdx.x % 32 == 0)
+        produce_tiles(s, tq, tk, tv, tdo, k_lo, b * Hkv + hk, w);
+    } else if (warp == NWG * 4 + 1) {
+      produce_stats(s, lse, delta, Sq, w);
     }
-    return;
-  }
-
-  // ---- consumer warpgroup wg: keys kw_lo .. kw_lo + 63
-  const int wg = warp / 4;
-  const int kw_lo = k_lo + wg * BKW;
-  const int key_lo = 16 * (warp % 4) + lane / 4;   // keys key_lo, key_lo + 8
-  const int c_lo = 2 * (lane % 4);                 // rows + 8j + {0, 1}
-  int my_begin = 0, my_end = 0;                    // rows that see my keys
-  if (kw_lo < Skv)
-    flash::live_rows(mask, kw_lo, min(Skv, kw_lo + BKW) - 1, Sq, &my_begin,
-                     &my_end);
-  float dka[32], dva[32];
-#pragma unroll
-  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.0f;
-  const float scale_log2 = scale * kLog2e;
-
-  mbar_wait(&s.kv_full, 0);
-  const uint64_t dkd = desc_sw128(s.k + wg * BKW * D);
-  const uint64_t dvd = desc_sw128(s.v + wg * BKW * D);
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % STAGES;
-    const int h = hk * G + i / n_rt;
-    const int r0 = (rt0 + i % n_rt) * BQ;
-    mbar_wait(&s.full[st], (i / STAGES) & 1);
-    if (r0 < my_end && r0 + BQ > my_begin) {
-      float sa[32], dpa[32];
-      const uint64_t dqd = desc_sw128(s.q[st]);
-      const uint64_t dod = desc_sw128(s.dout[st]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(sa, dkd + 2 * kk, dqd + 2 * kk, kk);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(dpa, dvd + 2 * kk, dod + 2 * kk, kk);
-      wgmma_commit();
-
-      // the statistics of this thread's 16 columns (query rows)
-      const size_t plane = (size_t)(b * Hq + h) * Sq;
-      float lse2[16], dl[16];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = r0 + 8 * j + c_lo + e;
-          lse2[2 * j + e] = row < Sq ? lse[plane + row] * kLog2e : 0.0f;
-          dl[2 * j + e] = row < Sq ? delta[plane + row] : 0.0f;
-        }
-      }
-      const bool whole =
-          r0 + BQ <= Sq && kw_lo + BKW <= Skv &&
-          (!mask.causal || kw_lo + BKW - 1 <= mask.q_offset + r0) &&
-          (mask.window <= 0 ||
-           kw_lo > mask.q_offset + r0 + BQ - 1 - mask.window);
-      wgmma_wait_all();
-      fence_regs(sa);
-      fence_regs(dpa);
-
-      uint32_t pa[4][4], da[4][4];
-#pragma unroll
-      for (int x = 0; x < 32; ++x) {
-        const int c = 2 * (x >> 2) + (x & 1);     // column index / stat slot
-        float p = exp2f(sa[x] * scale_log2 - lse2[c]);
-        if (!whole) {
-          const int key = kw_lo + key_lo + 8 * ((x >> 1) & 1);
-          const int row = r0 + 8 * (x >> 2) + c_lo + (x & 1);
-          if (!(row < Sq && key < Skv && mask(row, key))) p = 0.0f;
-        }
-        sa[x] = p;
-        dpa[x] = p * (dpa[x] - dl[c]) * scale;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pa[kk][r] = pack_bf16(sa[8 * kk + 2 * r], sa[8 * kk + 2 * r + 1]);
-          da[kk][r] = pack_bf16(dpa[8 * kk + 2 * r], dpa[8 * kk + 2 * r + 1]);
-        }
-      }
-      fence_regs(dva);
-      fence_regs(dka);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_m64n64_tb(dva, pa[kk], desc_sw128(s.dout[st] + kk * 16 * D));
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_m64n64_tb(dka, da[kk], desc_sw128(s.q[st] + kk * 16 * D));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dva);
-      fence_regs(dka);
-    }
-    if (lane == 0) mbar_arrive(&s.empty[st]);
-  }
-
-  // ---- epilogue: the warpgroup's 64 rows of dK and dV as bf16
-  const size_t kplane = (size_t)(b * Hkv + hk) * Skv;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = kw_lo + key_lo + 8 * hh;
-    if (key >= Skv) continue;
-    __nv_bfloat16* dkrow = dk + (kplane + key) * D;
-    __nv_bfloat16* dvrow = dv + (kplane + key) * D;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int x = 4 * j + 2 * hh;
-      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j + c_lo) =
-          __floats2bfloat162_rn(dka[x], dka[x + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j + c_lo) =
-          __floats2bfloat162_rn(dva[x], dva[x + 1]);
-    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    consume(s, dk, dv, b * Hkv + hk, Sq, Skv, k_lo, w, scale, mask);
   }
 }
 
@@ -253,7 +339,7 @@ static int launch(const void* q, const void* k, const void* v,
     opted_in = true;
   }
   const dim3 grid(B * Hkv, (Skv + NWG * BKW - 1) / (NWG * BKW));
-  flash_bwd_dkv_wgmma_kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
       Hq, Hkv, Sq, Skv, scale, mask);
   return (int)cudaGetLastError();
@@ -276,4 +362,9 @@ extern "C" int flash_attention_bwd_dkv_tc(const void* q, const void* k,
   const flash::Mask mask{q_offset, causal, window};
   return flash_tc_bwd::launch(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv,
                               Sq, Skv, scale, mask, (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of a CTA, in bytes.
+extern "C" int flash_attention_bwd_dkv_tc_smem() {
+  return (int)sizeof(flash_tc_bwd::Smem) + 1024;
 }

@@ -230,8 +230,9 @@ def dequantize_int8(q, scale):
 
 
 # --------------------------------------------------------- flash attention
-MAX_THREADS = 1024            #: threads a CTA may have
-MAX_SMEM = 227 * 1024         #: shared memory a CTA may opt into
+#: threads a SIMT flash CTA may have: the kernels take up to 214
+#: registers a thread (ptxas), and the SM's 64K registers hold 256 such
+SIMT_THREADS = 256
 TC_HEAD_DIM = 64              #: head_dim of the bf16 tensor-core kernels
 
 
@@ -268,17 +269,13 @@ def _attn_args(*, scale, window, q_offset, block_q, block_k, d):
 
 def _simt_tiles(block_q, block_k, sq, skv, d):
     """The SIMT kernels' tiles (BQ, BK): the requested blocks, clamped to
-    the sequence like the reference's ``_block_and_pad`` and rounded up to
-    whole warps, checked against the CTA's thread and shared-memory
-    limits. The tensor-core kernels fix their own tiles."""
-    bq = -(-min(block_q, sq) // 32) * 32
-    bk = -(-min(block_k, skv) // 32) * 32
-    tpr = d // 32                     # threads per row (flash_attention.cuh)
-    _require(bq * tpr <= MAX_THREADS and bk * tpr <= MAX_THREADS,
-             f"tiles {bq}x{bk} need more than {MAX_THREADS} threads at "
-             f"head_dim {d}")
-    _require(2 * max(bq, bk) * (d + 1) * 4 <= MAX_SMEM,
-             f"tiles {bq}x{bk} exceed {MAX_SMEM} bytes of shared memory")
+    the sequence like the reference's ``_block_and_pad`` and to what a
+    CTA of :data:`SIMT_THREADS` threads holds (D/32 threads a row), then
+    rounded up to whole warps. The tensor-core kernels fix their own
+    tiles."""
+    rows = SIMT_THREADS // (d // 32)          # flash_attention.cuh layout
+    bq = -(-min(block_q, sq, rows) // 32) * 32
+    bk = -(-min(block_k, skv, rows) // 32) * 32
     return bq, bk
 
 

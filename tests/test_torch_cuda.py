@@ -9,7 +9,8 @@ Tolerances: float32 attention 1e-5 (both sides compute in float32, in
 different orders; 2e-5 for flash gradients, sums over many rows);
 bfloat16 paged attention 2e-2 (one bfloat16 rounding of the output);
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
-it); the quantizer and dequantizer bitwise; the flash backward bitwise
+it), on the tensor-core route (head_dim 64, wgmma) as on the SIMT one,
+whose route counts each test checks; the quantizer and dequantizer bitwise; the flash backward bitwise
 equal across runs (no atomics); the mLSTM kernel's float32 h within 5e-5
 of its largest magnitude (den = |n.q| can cancel and magnify the order of
 the sums) and its state within 1e-5, bf16 h one bf16 ulp there.
@@ -150,7 +151,7 @@ def _flash(dev, dtype, sq, skv, seed=0, b=2, hq=4, hkv=2, d=64):
 def test_flash_kernels_match_plain(dev, dtype, case):
     sq, skv, kw = FLASH_CASES[case]
     q, k, v, do = _flash(dev, dtype, sq, skv)
-    before = ops.launch_counts()
+    before, routes = ops.launch_counts(), ops.route_counts()
     o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     delta = ops.flash_attention_bwd_preprocess(o, do)
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -159,6 +160,9 @@ def test_flash_kernels_match_plain(dev, dtype, case):
     for name in ("flash_attention", "flash_attention_bwd_preprocess",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name] == before[name] + 1
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    for name, counts in ops.route_counts().items():
+        assert counts[route] == routes[name][route] + 1
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     sc = q.shape[-1] ** -0.5
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -179,6 +183,98 @@ def test_flash_kernels_match_plain(dev, dtype, case):
         else:
             tol = 2.0 ** -7 * float(want.float().abs().max())
         assert err <= tol, (label, err, tol)
+
+
+def _flash_close(label, got, want, dtype):
+    """The flash limits: float32 1e-5 (2e-5 for gradients); bf16 outputs
+    one bf16 ulp of the largest magnitude, float32 statistics 1e-5 of
+    theirs."""
+    assert torch.isfinite(got).all(), label
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        tol = 2e-5 if label in ("dk", "dv", "dq") else 1e-5
+    elif label in ("lse", "delta"):
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+    else:
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+    assert err <= tol, (label, err, tol)
+
+
+#: (Sq, Skv, mask options, Hq, Hkv): the tensor-core kernels at their tile
+#: edges: one query row (seeing 77 keys), Sq and Skv no multiples of 64 or
+#: 128, GQA groups of 1, 3 and 4, the distillation path's 1032 rows, no
+#: causal mask
+TC_EDGES = {"sq1": (1, 77, {"q_offset": 76}, 4, 2),
+            "ragged-offset": (100, 130, {"q_offset": 30}, 4, 2),
+            "g1": (200, 200, {}, 2, 2),
+            "g3-window": (300, 300, {"window": 40}, 6, 2),
+            "g4": (150, 150, {}, 8, 2),
+            "distill-1032": (1032, 1032, {}, 2, 1),
+            "full": (70, 90, {"causal": False}, 4, 2)}
+
+
+@pytest.mark.parametrize("case", TC_EDGES)
+def test_flash_tensor_core_route_at_tile_edges(dev, case):
+    """bf16 at head_dim 64 launches the wgmma forward and dK/dV kernels
+    (their route counts move, the SIMT ones do not), within the bf16
+    limits of the plain versions, dK/dV bitwise repeatable."""
+    sq, skv, kw, hq, hkv = TC_EDGES[case]
+    q, k, v, do = _flash(dev, torch.bfloat16, sq, skv, seed=3, b=1, hq=hq,
+                         hkv=hkv)
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    assert after["flash_attention"] == {
+        "wgmma": before["flash_attention"]["wgmma"] + 1,
+        "simt": before["flash_attention"]["simt"]}
+    assert after["flash_attention_bwd_dkv"] == {
+        "wgmma": before["flash_attention_bwd_dkv"]["wgmma"] + 2,
+        "simt": before["flash_attention_bwd_dkv"]["simt"]}
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=64 ** -0.5, **kw)
+    for label, got, want in (("o", o, ro), ("lse", lse, rlse),
+                             ("dk", dk, rdk), ("dv", dv, rdv)):
+        _flash_close(label, got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
+    """The tensor-core kernels take head_dim 64 only; bf16 at 32 and 128
+    launches the SIMT kernels, counted on their route."""
+    q, k, v, do = _flash(dev, torch.bfloat16, 96, 96, seed=4, d=d)
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dkv"):
+        assert after[name] == {"wgmma": before[name]["wgmma"],
+                               "simt": before[name]["simt"] + 1}
+    ro = ref.flash_attention_ref(q, k, v)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=d ** -0.5)
+    for label, got, want in (("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv)):
+        _flash_close(label, got, want, torch.bfloat16)
+
+
+def test_flash_tensor_core_route_needs_aligned_inputs(dev):
+    """TMA reads from 16-byte aligned bases: a contiguous bf16 tensor two
+    bytes off raises, and nothing is launched."""
+    n = 2 * 4 * 64 * 64
+    q = torch.zeros(n + 1, dtype=torch.bfloat16, device=dev)[1:].view(
+        1, 4, 64 * 2, 64)
+    k = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts() == before
 
 
 def test_flash_backward_is_bitwise_repeatable(dev):
