@@ -15,5 +15,7 @@ dense decoder and the xLSTM, serving with the legacy static-batch
 scheduler (``Session.serve``). They are carried by ten hand-written CUDA
 kernels in :mod:`repro_torch.kernels` (paged decode and prefill
 attention, int8 quantize and dequantize, the flash-attention forward and
-its three backward kernels, the fused LoRA matmul, the chunkwise mLSTM).
+its three backward kernels, the fused LoRA matmul, the chunkwise mLSTM);
+the flash forward and dK/dV have a second, tensor-core (wgmma) kernel
+that bf16 at head_dim 64 takes.
 """

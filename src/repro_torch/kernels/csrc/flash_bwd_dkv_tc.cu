@@ -36,13 +36,16 @@
 // dO tiles of every query head of the group by TMA, a second warp copies
 // their rows' lse and delta beside them; only the query tiles that can see
 // the CTA's keys (live_rows) are visited, and a warpgroup skips the
-// products of a tile none of whose rows sees its own keys. Within a
-// warpgroup the four products overlap the elementwise work: P is formed
-// while dP^T runs, dS while dV's product runs, and dK's product runs into
-// the next tile. The element mask is applied only on tiles that cross the
-// diagonal, the window's edge, Sq or Skv. No atomics: a CTA owns its keys'
-// rows and walks heads and tiles in a fixed order, so the result is the
-// same bit for bit on every run. The key tile is the grid's slow axis,
+// products of a tile none of whose rows sees its own keys. A warpgroup
+// issues a tile's S^T and dP^T, forms P and dS from them, and issues the
+// tile's dV and dK products; the other warpgroup's products fill the
+// tensor cores while it forms P and dS. (Leaving dV and dK running into
+// the next tile keeps 128 accumulator registers in flight, more than the
+// 168 a thread ptxas allows here: it then serializes every wgmma.) The
+// element mask is applied only on tiles that cross the diagonal, the
+// window's edge, Sq or Skv. No atomics: a CTA owns its keys' rows and
+// walks heads and tiles in a fixed order, so the result is the same bit
+// for bit on every run. The key tile is the grid's slow axis,
 // first tile (heaviest under a causal mask) first.
 #include "flash_attention.cuh"
 #include "hopper.cuh"
@@ -160,14 +163,12 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
   for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.0f;
   const float scale_log2 = scale * kLog2e;
 
-  // Per tile: S^T and dP^T are issued as two groups; P is formed while
-  // dP^T runs and dV's product is issued while dS is formed; dK's product
-  // is left running into the next tile. A stage is released once the
-  // products that read it are known to be done (pend).
+  // Per tile: S^T and dP^T are issued; when they are done P and dS are
+  // formed and the tile's dV and dK products issued; when those are done
+  // the stage is released.
   mbar_wait(&s.kv_full, 0);
   const uint64_t dkd = desc_sw128(s.k + wg * BKW * D);
   const uint64_t dvd = desc_sw128(s.v + wg * BKW * D);
-  int pend = -1;
   for (int i = 0; i < w.n_tiles; ++i) {
     const int st = i % STAGES;
     const int r0 = w.r0(i);
@@ -184,7 +185,6 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
 #pragma unroll
     for (int kk = 1; kk < D / 16; ++kk)
       wgmma_ss_m64n64(sa, dkd + 2 * kk, dqd + 2 * kk, 1);
-    wgmma_commit();
     wgmma_ss_m64n64_zero(dpa, dvd, dod);
 #pragma unroll
     for (int kk = 1; kk < D / 16; ++kk)
@@ -196,10 +196,9 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
         (mask.window <= 0 ||
          kw_lo > mask.q_offset + r0 + BQ - 1 - mask.window);
 
-    wgmma_wait<1>();       // S^T, and the last tile's dV and dK products
+    wgmma_wait<0>();       // S^T and dP^T
     fence_regs(sa);
-    if (pend >= 0 && lane == 0) mbar_arrive(&s.empty[pend]);
-    pend = st;
+    fence_regs(dpa);
     if (!whole) {          // masked pairs: s = -inf, so p = 0
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
@@ -213,40 +212,31 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
       }
     }
     const float* lse2 = s.lse2[st];
+    const float* dl = s.delta[st];
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       const int col = 8 * (x >> 2) + c_lo + (x & 1);   // query row - r0
       sa[x] = ex2(fmaf(sa[x], scale_log2, -lse2[col]));
+      dpa[x] = sa[x] * (dpa[x] - dl[col]) * scale;
     }
     uint32_t pa[4][4], da[4][4];
     pack_frag(pa, sa);
-    fence_regs(dva);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_m64n64_tb(dva, pa[kk], desc_sw128(s.dout[st] + kk * 16 * D));
-    wgmma_commit();
-
-    wgmma_wait<1>();       // dP^T (dV's product may still run)
-    fence_regs(dpa);
-    const float* dl = s.delta[st];
-#pragma unroll
-    for (int x = 0; x < 32; ++x) {
-      const int col = 8 * (x >> 2) + c_lo + (x & 1);
-      dpa[x] = sa[x] * (dpa[x] - dl[col]) * scale;
-    }
     pack_frag(da, dpa);
+    fence_regs(dva);
     fence_regs(dka);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_m64n64_tb(dva, pa[kk], desc_sw128(s.dout[st] + kk * 16 * D));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_m64n64_tb(dka, da[kk], desc_sw128(s.q[st] + kk * 16 * D));
     wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    if (lane == 0) mbar_arrive(&s.empty[st]);
   }
-  wgmma_wait<0>();
-  fence_regs(dva);
-  fence_regs(dka);
-  if (pend >= 0 && lane == 0) mbar_arrive(&s.empty[pend]);
 
   // ---- epilogue: the warpgroup's 64 rows of dK and dV as bf16
   const size_t kplane = (size_t)kvplane * Skv;

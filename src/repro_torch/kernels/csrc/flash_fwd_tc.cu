@@ -29,7 +29,7 @@
 //     tile first;
 //   * a producer warpgroup (one issuing thread; setmaxnreg hands its
 //     registers to the consumers) loads each query tile once and keeps a
-//     STAGES-deep ring of 128-key K and V tiles in flight by TMA across
+//     STAGES-deep ring of 64-key K and V tiles in flight by TMA across
 //     both query tiles: 3-D tensor maps, so rows past Skv read as zeros
 //     and never as the next head's; a full and an empty mbarrier a stage;
 //   * S = Q K^T is a wgmma with both operands in shared memory (K is
@@ -52,7 +52,7 @@ using namespace hopper;
 
 constexpr int D = 64;
 constexpr int BQ = 64;          // query rows of a warpgroup (wgmma M)
-constexpr int BK = 128;         // keys of a K/V tile
+constexpr int BK = 64;          // keys of a K/V tile
 constexpr int STAGES = 3;
 constexpr int Q_BYTES = BQ * D * 2;
 constexpr int KV_BYTES = BK * D * 2;
@@ -83,7 +83,7 @@ struct Work {
   int qt[2];
 };
 
-// The live 128-key tiles [kt0, kt0 + n) of the query tile at q_lo.
+// The live 64-key tiles [kt0, kt0 + n) of the query tile at q_lo.
 __device__ __forceinline__ void live_tiles(const flash::Mask& mask, int q_lo,
                                            int Sq, int Skv, int* kt0,
                                            int* n) {
@@ -120,19 +120,19 @@ __device__ __forceinline__ void produce(Smem<NWG>& s, const CUtensorMap& tq,
   }
 }
 
-// sc = Q K^T for one 128-key tile (issued, not waited for). The first
+// sc = Q K^T for one 64-key tile (issued, not waited for). The first
 // 16-deep step overwrites sc without reading it.
-__device__ __forceinline__ void qk_tile(float (&sc)[64], uint64_t dq,
+__device__ __forceinline__ void qk_tile(float (&sc)[32], uint64_t dq,
                                         uint64_t dk) {
-  wgmma_ss_m64n128_zero(sc, dq, dk);
+  wgmma_ss_m64n64_zero(sc, dq, dk);
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss_m64n128(sc, dq + 2 * kk, dk + 2 * kk, 1);
+    wgmma_ss_m64n64(sc, dq + 2 * kk, dk + 2 * kk, 1);
 }
 
-// O += P V for one 128-key tile (issued, not waited for).
+// O += P V for one 64-key tile (issued, not waited for).
 __device__ __forceinline__ void pv_tile(float (&acc)[32],
-                                        const uint32_t (&pa)[8][4],
+                                        const uint32_t (&pa)[4][4],
                                         const __nv_bfloat16* v) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
@@ -144,7 +144,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[32],
 // pairs become -inf; the running row max m (log2 domain) moves to the
 // tile's, corr is 2^(old max - new max); sc becomes p = 2^(s scale_log2
 // - m) and part gains the rows' partial sums (this thread's columns).
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
                                              float (&corr)[2],
                                              float (&part)[2], bool whole,
                                              int row0, int key0, int Skv,
@@ -152,7 +152,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
                                              float scale_log2) {
   if (!whole) {
 #pragma unroll
-    for (int x = 0; x < 64; ++x) {
+    for (int x = 0; x < 32; ++x) {
       const int qp = mask.q_offset + row0 + 8 * ((x >> 1) & 1);
       const int key = key0 + 8 * (x >> 2) + (x & 1);
       const bool ok = (key < Skv) & (!mask.causal | (key <= qp)) &
@@ -164,7 +164,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 8; ++j)
       mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -173,7 +173,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
     m[h] = m_new;
   }
 #pragma unroll
-  for (int x = 0; x < 64; ++x) {
+  for (int x = 0; x < 32; ++x) {
     const int h = (x >> 1) & 1;
     sc[x] = ex2(fmaf(sc[x], scale_log2, -m[h]));   // -inf (masked) -> 0
     part[h] += sc[x];
@@ -182,10 +182,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
 
 // P (float32 sc) as the bf16 A fragments of the P V product, one per
 // 16-key step.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&sc)[64]) {
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
+                                       const float (&sc)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
@@ -227,8 +227,8 @@ __device__ __forceinline__ void consume(Smem<NWG>& s, __nv_bfloat16* o,
     // before it. P lives in registers as bf16 pairs (pa), S in sc.
     mbar_wait(&s.q_full[t], 0);
     const uint64_t dq = desc_sw128(s.q[t][wg]);
-    float sc[64];
-    uint32_t pa[8][4];
+    float sc[32];
+    uint32_t pa[4][4];
     if (n > 0) {
       mbar_wait(&s.full[it % STAGES], (it / STAGES) & 1);
       wgmma_fence();

@@ -5,7 +5,7 @@ plain PyTorch on the CPU and held to the limit the card check applies.
 operands with float32 accumulation, as the float32 plain versions do, but
 round two intermediates to bf16 where the plain versions keep float32:
 
-  * forward: P, once per 128-key tile of the online softmax (relative to
+  * forward: P, once per 64-key tile of the online softmax (relative to
     that tile's running max), before the P V product; the row sum l comes
     from the float32 P;
   * dK/dV: P^T and dS^T, before the dV and dK products.
@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import ref
 
 BF16_ULP = 2.0 ** -7
-BK = 128                     # keys of a tile (flash_fwd_tc.cu)
+BK = 64                      # keys of a tile (flash_fwd_tc.cu)
 D = 64
 CASES = {"causal-1024": (1024, 1024, {}),
          "distill-1032": (1032, 1032, {}),
@@ -64,7 +64,7 @@ def _mask(sq, skv, kw):
 
 def forward_bf16_route(q, k, v, **kw):
     """The tensor-core forward's arithmetic: an online softmax over
-    128-key tiles, P rounded to bf16 before P V, l from float32 P."""
+    64-key tiles, P rounded to bf16 before P V, l from float32 P."""
     sq, skv = q.shape[2], k.shape[2]
     scale = D ** -0.5
     mask = _mask(sq, skv, kw)
