@@ -30,13 +30,13 @@
 //   dK  += dS^T Q   A = dS^T in registers; B = the Q tile, MN-major.
 // One CTA owns 64 * NWG keys of one KV head (NWG = 2 consumer warpgroups
 // of 64 keys), K and V loaded once by TMA and kept in shared memory, the
-// dK and dV accumulators in registers for the whole walk. A producer
-// warpgroup (setmaxnreg hands its registers to the consumers) streams the
-// walk's tiles through a STAGES-deep ring: one thread loads 64-row Q and
-// dO tiles of every query head of the group by TMA, a second warp copies
-// their rows' lse and delta beside them; only the query tiles that can see
-// the CTA's keys (live_rows) are visited, and a warpgroup skips the
-// products of a tile none of whose rows sees its own keys. A warpgroup
+// dK and dV accumulators in registers for the whole walk. Two producer
+// warps stream the walk's tiles through a STAGES-deep ring: one thread
+// loads 64-row Q and dO tiles of every query head of the group by TMA,
+// the second warp copies their rows' lse and delta beside them. Only the
+// query tiles that can see the CTA's keys (live_rows) are visited, and a
+// warpgroup skips the products of a tile none of whose rows sees its own
+// keys. A warpgroup
 // issues a tile's S^T and dP^T, forms P and dS from them, and issues the
 // tile's dV and dK products; the other warpgroup's products fill the
 // tensor cores while it forms P and dS. (Leaving dV and dK running into
@@ -73,21 +73,6 @@ struct Smem {
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
 };
-
-// Registers a thread: the CTA's three warpgroups share the SM's 64K; the
-// producer warpgroup gives back all but 40.
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-
-// A 64 x 64 float32 accumulator fragment as the bf16 A fragments of a
-// 64-deep product, one per 16-deep step.
-__device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
-                                          const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
 
 // The CTA's walk: tile i is query head hk * G + i / n_rt, rows r0(i) ..
 // r0(i) + 63, for the live query tiles rt0 .. rt0 + n_rt - 1 of each head.
@@ -167,8 +152,8 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
   // formed and the tile's dV and dK products issued; when those are done
   // the stage is released.
   mbar_wait(&s.kv_full, 0);
-  const uint64_t dkd = desc_sw128(s.k + wg * BKW * D);
-  const uint64_t dvd = desc_sw128(s.v + wg * BKW * D);
+  const __nv_bfloat16* kw = s.k + wg * BKW * D;    // my K and V rows
+  const __nv_bfloat16* vw = s.v + wg * BKW * D;
   for (int i = 0; i < w.n_tiles; ++i) {
     const int st = i % STAGES;
     const int r0 = w.r0(i);
@@ -179,16 +164,8 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
     }
     float sa[32], dpa[32];
     wgmma_fence();
-    const uint64_t dqd = desc_sw128(s.q[st]);
-    const uint64_t dod = desc_sw128(s.dout[st]);
-    wgmma_ss_m64n64_zero(sa, dkd, dqd);
-#pragma unroll
-    for (int kk = 1; kk < D / 16; ++kk)
-      wgmma_ss_m64n64(sa, dkd + 2 * kk, dqd + 2 * kk, 1);
-    wgmma_ss_m64n64_zero(dpa, dvd, dod);
-#pragma unroll
-    for (int kk = 1; kk < D / 16; ++kk)
-      wgmma_ss_m64n64(dpa, dvd + 2 * kk, dod + 2 * kk, 1);
+    mma_ss_k64(sa, kw, s.q[st]);
+    mma_ss_k64(dpa, vw, s.dout[st]);
     wgmma_commit();
     const bool whole =
         r0 + BQ <= Sq && kw_lo + BKW <= Skv &&
@@ -225,12 +202,8 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
     fence_regs(dva);
     fence_regs(dka);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_m64n64_tb(dva, pa[kk], desc_sw128(s.dout[st] + kk * 16 * D));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_m64n64_tb(dka, da[kk], desc_sw128(s.q[st] + kk * 16 * D));
+    mma_rs_k64(dva, pa, s.dout[st]);
+    mma_rs_k64(dka, da, s.q[st]);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dva);
@@ -257,7 +230,7 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* dk,
   }
 }
 
-__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+__global__ void __launch_bounds__(NWG * 128 + 64, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -292,16 +265,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp >= NWG * 4) {
-    regs_dec<kProducerRegs>();
-    if (warp == NWG * 4) {
-      if (threadIdx.x % 32 == 0)
-        produce_tiles(s, tq, tk, tv, tdo, k_lo, b * Hkv + hk, w);
-    } else if (warp == NWG * 4 + 1) {
-      produce_stats(s, lse, delta, Sq, w);
-    }
+  if (warp == NWG * 4) {                          // the TMA warp
+    if (threadIdx.x % 32 == 0)
+      produce_tiles(s, tq, tk, tv, tdo, k_lo, b * Hkv + hk, w);
+  } else if (warp == NWG * 4 + 1) {               // the statistics warp
+    produce_stats(s, lse, delta, Sq, w);
   } else {
-    regs_inc<kConsumerRegs>();
     consume(s, dk, dv, b * Hkv + hk, Sq, Skv, k_lo, w, scale, mask);
   }
 }
@@ -329,7 +298,7 @@ static int launch(const void* q, const void* k, const void* v,
     opted_in = true;
   }
   const dim3 grid(B * Hkv, (Skv + NWG * BKW - 1) / (NWG * BKW));
-  flash_bwd_dkv_wgmma_kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<<<grid, NWG * 128 + 64, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
       Hq, Hkv, Sq, Skv, scale, mask);
   return (int)cudaGetLastError();

@@ -27,11 +27,11 @@
 //     walks two 64-row query tiles, one from each end of the sequence, so
 //     under a causal mask every CTA has about the same work, the heavier
 //     tile first;
-//   * a producer warpgroup (one issuing thread; setmaxnreg hands its
-//     registers to the consumers) loads each query tile once and keeps a
-//     STAGES-deep ring of 64-key K and V tiles in flight by TMA across
-//     both query tiles: 3-D tensor maps, so rows past Skv read as zeros
-//     and never as the next head's; a full and an empty mbarrier a stage;
+//   * a producer warp (one issuing thread) loads each query tile once and
+//     keeps a STAGES-deep ring of 64-key K and V tiles in flight by TMA
+//     across both query tiles: 3-D tensor maps, so rows past Skv read as
+//     zeros and never as the next head's; a full and an empty mbarrier a
+//     stage;
 //   * S = Q K^T is a wgmma with both operands in shared memory (K is
 //     K-major as stored); the online softmax runs on S's accumulator
 //     fragment; P, packed to bf16 in registers, is the A operand of
@@ -68,11 +68,6 @@ struct Smem {
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
 };
-
-// Registers a thread: the CTA's (NWG + 1) warpgroups share the SM's 64K;
-// the producer warpgroup gives back all but kProducerRegs, the consumers
-// take 232 (240 when there is one).
-constexpr int kProducerRegs = 40;
 
 // The CTA's work: query tiles qt[0] and, when n_q == 2, qt[1] of the NWG
 // heads qplane .. qplane + NWG - 1, which read KV plane kvplane. Under a
@@ -120,25 +115,6 @@ __device__ __forceinline__ void produce(Smem<NWG>& s, const CUtensorMap& tq,
   }
 }
 
-// sc = Q K^T for one 64-key tile (issued, not waited for). The first
-// 16-deep step overwrites sc without reading it.
-__device__ __forceinline__ void qk_tile(float (&sc)[32], uint64_t dq,
-                                        uint64_t dk) {
-  wgmma_ss_m64n64_zero(sc, dq, dk);
-#pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss_m64n64(sc, dq + 2 * kk, dk + 2 * kk, 1);
-}
-
-// O += P V for one 64-key tile (issued, not waited for).
-__device__ __forceinline__ void pv_tile(float (&acc)[32],
-                                        const uint32_t (&pa)[4][4],
-                                        const __nv_bfloat16* v) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs_m64n64_tb(acc, pa[kk], desc_sw128(v + kk * 16 * D));
-}
-
 // The online softmax step of one tile of raw scores sc (rows row0 and
 // row0 + 8, keys key0 + 8j + {0, 1}): unless the tile is whole, masked
 // pairs become -inf; the running row max m (log2 domain) moves to the
@@ -180,17 +156,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
   }
 }
 
-// P (float32 sc) as the bf16 A fragments of the P V product, one per
-// 16-key step.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
-                                       const float (&sc)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-}
-
 // A consumer warpgroup wg: query head qplane + wg, rows q_lo .. q_lo + 63
 // of each of the CTA's query tiles.
 template <int NWG>
@@ -226,27 +191,27 @@ __device__ __forceinline__ void consume(Smem<NWG>& s, __nv_bfloat16* o,
     // warpgroup takes the softmax of tile j + 1's scores, issued just
     // before it. P lives in registers as bf16 pairs (pa), S in sc.
     mbar_wait(&s.q_full[t], 0);
-    const uint64_t dq = desc_sw128(s.q[t][wg]);
+    const __nv_bfloat16* qs = s.q[t][wg];
     float sc[32];
     uint32_t pa[4][4];
     if (n > 0) {
       mbar_wait(&s.full[it % STAGES], (it / STAGES) & 1);
       wgmma_fence();
-      qk_tile(sc, dq, desc_sw128(s.k[it % STAGES]));
+      mma_ss_k64(sc, qs, s.k[it % STAGES]);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       float corr[2];
       softmax_tile(sc, m, corr, l, whole(0), row0, kt0 * BK + c_lo, Skv,
                    mask, scale_log2);
-      pack_p(pa, sc);
+      pack_frag(pa, sc);
       for (int j = 0; j + 1 < n; ++j, ++it) {
         const int st = it % STAGES, nx = (it + 1) % STAGES;
         mbar_wait(&s.full[nx], ((it + 1) / STAGES) & 1);
         wgmma_fence();
-        qk_tile(sc, dq, desc_sw128(s.k[nx]));
+        mma_ss_k64(sc, qs, s.k[nx]);
         wgmma_commit();
-        pv_tile(acc, pa, s.v[st]);
+        mma_rs_k64(acc, pa, s.v[st]);
         wgmma_commit();
         wgmma_wait<1>();             // S of tile j + 1; P V of tile j runs
         fence_regs(sc);
@@ -260,10 +225,10 @@ __device__ __forceinline__ void consume(Smem<NWG>& s, __nv_bfloat16* o,
         for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + part[h];
 #pragma unroll
         for (int x = 0; x < 32; ++x) acc[x] *= corr[(x >> 1) & 1];
-        pack_p(pa, sc);
+        pack_frag(pa, sc);
       }
       wgmma_fence();
-      pv_tile(acc, pa, s.v[it % STAGES]);
+      mma_rs_k64(acc, pa, s.v[it % STAGES]);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -294,7 +259,7 @@ __device__ __forceinline__ void consume(Smem<NWG>& s, __nv_bfloat16* o,
 }
 
 template <int NWG>
-__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -327,12 +292,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  if (warp >= NWG * 4) {
-    regs_dec<kProducerRegs>();
+  if (threadIdx.x >= NWG * 128) {                 // the producer warp
     if (threadIdx.x == NWG * 128) produce(s, tq, tk, tv, w, Sq, Skv, mask);
   } else {
-    regs_inc<(NWG == 1 ? 240 : 232)>();
     consume(s, o, lse, w, Sq, Skv, scale_log2, mask);
   }
 }
@@ -357,7 +319,7 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   }
   const int nqt = (Sq + BQ - 1) / BQ;
   const dim3 grid(B * Hq / NWG, (nqt + 1) / 2);
-  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(
+  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, Hq, Hkv, Sq, Skv, scale * kLog2e,
       mask);
   return (int)cudaGetLastError();

@@ -103,17 +103,6 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return d;
 }
 
-// Hand registers back to the SM (a producer warpgroup) or take them
-// (a consumer warpgroup); every warp of the warpgroup executes it.
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -149,10 +138,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory;
-// scale_d == 0 overwrites D.
+// D[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -168,11 +156,11 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// D[64 x 64] = A[64 x 16] B[16 x 64] as wgmma_ss_m64n64 with scale_d 0; D
-// is written only, so its old values are never read.
+// D[64 x 64] = A[64 x 16] B[16 x 64], as wgmma_ss_m64n64 with scale-d
+// false; D is written only, so its old values are never read.
 __device__ __forceinline__ void wgmma_ss_m64n64_zero(float (&d)[32],
                                                      uint64_t da,
                                                      uint64_t db) {
@@ -215,6 +203,40 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------- 64 x 64 x 64 products
+// D = A B^T over a 64-deep reduction (four 16-deep steps): A and B are
+// [64, 64] bf16 tiles in shared memory, read along their rows (K-major).
+__device__ __forceinline__ void mma_ss_k64(float (&d)[32], const void* a,
+                                           const void* b) {
+  const uint64_t da = desc_sw128(a), db = desc_sw128(b);
+  wgmma_ss_m64n64_zero(d, da, db);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_ss_m64n64(d, da + 2 * kk, db + 2 * kk);
+}
+
+// D += A B over a 64-deep reduction: A the bf16 fragments of pack_frag,
+// B a [64, 64] bf16 tile in shared memory read down its columns
+// (MN-major), 16 rows a step.
+__device__ __forceinline__ void mma_rs_k64(float (&d)[32],
+                                           const uint32_t (&a)[4][4],
+                                           const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_m64n64_tb(d, a[kk], desc_sw128(b + kk * 16 * 64));
+}
+
+// A 64 x 64 float32 accumulator fragment as the bf16 A fragments of a
+// 64-deep product, one per 16-deep step.
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
+                                          const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 }  // namespace hopper

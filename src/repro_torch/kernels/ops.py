@@ -304,7 +304,7 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
 
     On the card, dispatch is by dtype and head width: bf16 at head_dim 64
     launches the tensor-core kernel (``csrc/flash_fwd_tc.cu``: wgmma on
-    TMA-fed tiles, its own 64 x 128 tiles, p rounded to bf16 for p.v);
+    TMA-fed tiles, its own 64 x 64 tiles, p rounded to bf16 for p.v);
     float32, and bf16 at another head_dim, launch the SIMT kernel
     (``csrc/flash_fwd.cu``, all float32), whose query and KV tiles
     ``block_q``/``block_k`` set. ``flash_attention.routes`` counts the
