@@ -110,7 +110,7 @@ FLASH_GRAD_ATOL_F32 = 2e-5     # dq, dk, dv (sums over up to 2048 rows)
 BF16_ULP = 2.0 ** -7
 # the wrappers with a tensor-core (bf16, head_dim 64) and a SIMT route:
 # (tensor-core library, its shared-memory query and argument, profiler
-# names of the bf16 and the float32 kernels, their sources)
+# names of the bf16 and the float32 kernels)
 TC_KERNELS = {
     "flash_attention": ("flash_fwd_tc", "flash_attention_fwd_tc_smem", (2,),
                         "flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
