@@ -7,24 +7,26 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twelve hand-written kernel libraries from
+  2. builds the fourteen hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the two tensor-core flash kernels'
-     SASS holds HGMMA (wgmma) instructions and prints their registers,
-     spills and shared memory;
+     prints the build time; checks that the four tensor-core libraries'
+     (flash forward, dK/dV, dQ; LoRA matmul) SASS holds HGMMA (wgmma)
+     instructions and prints their registers, spills and shared memory;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
      lanes, block size 16, chunk 16, contexts up to 300 tokens), the
      flash-attention forward and its three backward kernels at the
      training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 (the
-     forward and dK/dV on their tensor-core kernels) and float32 (all
-     four on the SIMT kernels) with ragged, offset and windowed cases and
+     forward, dK/dV and dQ on their tensor-core kernels) and float32
+     (all four on the SIMT kernels) with ragged, offset and windowed cases and
      the distillation path's 1032 rows, dequantize on one ffn.wi leaf's
      rows, and the fused LoRA matmul at the distillation path's shapes
      (M 4128; (K, N) of wq/wo, wk/wv and ffn.wo; r 4; forward and the
-     backward's transposed dx; bf16 and float32) with ragged and rank-16
-     cases and its autograd wrapper's dx, da and db, and the chunkwise
+     backward's transposed dx; bf16 on the wgmma kernel, timed beside
+     the mma.sync kernel it replaced, and float32) with ragged and
+     rank-16 cases and its autograd wrapper's dx, da and db, and the
+     chunkwise
      mLSTM at the xLSTM prefill's shape (B 8, NH 4, S 512, DH 512,
      float32) with ragged-S, initial-state, bf16 and DH-64 cases;
   4. serves flad-adllm at full width and depth (bf16, random weights from
@@ -35,8 +37,9 @@ In order, it
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
      steps each, 4 x 1024 tokens a step, int8 uplinks; checks the exact
-     launch counts (the flash forward and dK/dV all on their tensor-core
-     route), finite losses, moved params and the wire metrics against
+     launch counts (the flash forward, dK/dV and dQ all on their
+     tensor-core route), finite losses, moved params and the wire
+     metrics against
      the topology's formulas;
   6. runs one float32 local train step through the kernels and through
      plain attention and compares the loss, the grads and the updated
@@ -46,7 +49,8 @@ In order, it
      the whole model, then two distill_fl rounds of 4 rank-4 LoRA
      students, 2 local steps each, 4 x (1024 + 8 prefix) tokens a step,
      int8 factor uplinks; checks the exact launch counts (the flash
-     forward and dK/dV on their tensor-core route), finite losses, the
+     kernels and the LoRA matmul on their tensor-core routes), finite
+     losses, the
      base bitwise unchanged, moved factors and the wire metrics over the
      factor tree;
   8. runs one float32 distill local step through the kernels and through
@@ -108,9 +112,11 @@ FLASH_CASES = [("causal", S, S, {}), ("ragged", 1000, 1000, {}),
 FLASH_ATOL_F32 = 1e-5          # o, lse, delta
 FLASH_GRAD_ATOL_F32 = 2e-5     # dq, dk, dv (sums over up to 2048 rows)
 BF16_ULP = 2.0 ** -7
-# the wrappers with a tensor-core (bf16, head_dim 64) and a SIMT route:
-# (tensor-core library, its shared-memory query and argument, profiler
-# names of the bf16 and the float32 kernels)
+# the wrappers with a tensor-core (wgmma) route beside another: the flash
+# kernels' SIMT route (float32, head_dims 32 and 128) and the LoRA
+# matmul's mma.sync / float32 kernel: (tensor-core library, its
+# shared-memory query and argument, profiler names of the tensor-core and
+# the other route's kernel)
 TC_KERNELS = {
     "flash_attention": ("flash_fwd_tc", "flash_attention_fwd_tc_smem", (2,),
                         "flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -118,6 +124,12 @@ TC_KERNELS = {
                                 "flash_attention_bwd_dkv_tc_smem", (),
                                 "flash_bwd_dkv_wgmma_kernel",
                                 "flash_bwd_dkv_kernel"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_tc",
+                               "flash_attention_bwd_dq_tc_smem", (2,),
+                               "flash_bwd_dq_wgmma_kernel",
+                               "flash_bwd_dq_kernel"),
+    "lora_matmul": ("lora_matmul_tc", "lora_matmul_tc_smem", (8,),
+                    "lora_wgmma_kernel", "lora_mma_kernel"),
 }
 FLASH_NAMES = {"flash_attention": "flash_fwd",
                "flash_attention_bwd_preprocess": "flash_bwd_preprocess",
@@ -170,6 +182,10 @@ MLSTM_H_RTOL_F32, MLSTM_STATE_RTOL = 5e-5, 1e-5
 # 256): logits within 1e-4 of the largest magnitude
 XLSTM_LOGIT_RTOL = 1e-4
 XLSTM_F32_STEPS = 4
+PREPROCESS_LIBRARY_NOTE = (
+    "null: no single PyTorch call takes bf16 o and dO to the float32 "
+    "rowsum(dO * O) (vecdot and einsum round their bf16 result; a cast "
+    "first is a second call)")
 MLSTM_LIBRARY_NOTE = ("no single PyTorch call computes the stabilized "
                       "chunkwise mLSTM recurrence")
 
@@ -274,20 +290,44 @@ def bound(nbytes, flops, flops_rate):
 
 
 def check_routes(ops, counts, path):
-    """Every flash forward and dK/dV launch of a bf16 main path went
-    through the tensor-core kernels; returns the route counts."""
+    """Every launch of a routed wrapper (the flash forward, dK/dV and dQ,
+    the LoRA matmul) on a bf16 main path went through its tensor-core
+    kernel; returns the route counts."""
     routes = ops.route_counts()
     for fn in TC_KERNELS:
-        want = {"wgmma": counts[fn], "simt": 0}
+        want = dict.fromkeys(routes[fn], 0)
+        want["wgmma"] = counts[fn]
         check(routes[fn] == want, f"{path}: {fn} launches by route "
               f"{routes[fn]} != {want}")
     return routes
 
 
+def per_launch(rows, kernels):
+    """Each tensor-core flash kernel's device ms a launch in profile rows
+    (ms a step, launches a step, name), beside its ``flash_checks`` time
+    (cold L2, one launch at a time) from ``kernels``' JSON rows."""
+    out = {}
+    for fn in FLASH_NAMES:
+        if fn not in TC_KERNELS:
+            continue
+        name = TC_KERNELS[fn][3]
+        hits = [r for r in rows if name in r[2]]
+        n = sum(r[1] for r in hits)
+        if n:
+            out[name] = (sum(r[0] for r in hits) / n, n,
+                         kernels[fn]["ms"] if kernels else None)
+    print("[profile]   tensor-core flash kernels a launch in the step vs "
+          "alone (flash_checks): " + ", ".join(
+              f"{k} {ms:.5f} ms x {n} vs {alone:.5f} ms"
+              if alone else f"{k} {ms:.5f} ms x {n}"
+              for k, (ms, n, alone) in out.items()))
+    return out
+
+
 def flash_split(rows):
     """(total ms, {kernel: ms}) of the flash kernels in profile rows
     (ms, count, name), by profiler name."""
-    names = [tc[3] for tc in TC_KERNELS.values()] + [
+    names = [TC_KERNELS[n][3] for n in FLASH_NAMES if n in TC_KERNELS] + [
         f"{stem}_kernel" for stem in FLASH_NAMES.values()]
     split = {n: sum(r[0] for r in rows if n in r[2]) for n in names}
     split = {n: t for n, t in split.items() if t > 0}
@@ -485,8 +525,8 @@ def flash_checks(torch, dev):
     """The flash forward and the three backward kernels against their
     plain versions (bf16 and float32; causal, ragged, offset, window, the
     distillation path's 1032 rows), the backward bitwise equal across two
-    runs, every bf16 forward and dK/dV launch on the tensor-core route and
-    every float32 one on the SIMT route; timings at the causal training
+    runs, every bf16 forward, dK/dV and dQ launch on the tensor-core route
+    and every float32 one on the SIMT route; timings at the causal training
     shape. Returns the kernels' JSON rows (bf16, the main path's dtype,
     with the float32 kernels' times beside)."""
     from repro_torch.kernels import ops, ref
@@ -540,14 +580,15 @@ def flash_checks(torch, dev):
                               for lab, a, b in pairs)
                   + "; backward bitwise repeatable")
             del o, lse, ro, rlse, rdk, rdv, rdq, again
-        # one forward and two dK/dV launches a case (the direct call and
-        # flash_attention_bwd's), all on this dtype's route
+        # one forward and two dK/dV and dQ launches a case (the direct
+        # call and flash_attention_bwd's), all on this dtype's route
         route = "wgmma" if dtype == torch.bfloat16 else "simt"
         grew = {fn: {r: n - routes0[fn][r] for r, n in c.items()}
                 for fn, c in ops.route_counts().items()}
-        want = {fn: {"wgmma": 0, "simt": 0} for fn in grew}
+        want = {fn: dict.fromkeys(c, 0) for fn, c in grew.items()}
         want["flash_attention"][route] = len(FLASH_CASES)
         want["flash_attention_bwd_dkv"][route] = 2 * len(FLASH_CASES)
+        want["flash_attention_bwd_dq"][route] = 2 * len(FLASH_CASES)
         check(grew == want, f"flash {name}: launches by route {grew} != "
               f"{want}")
         print(f"[kernel] flash {name}: launches by route {grew}")
@@ -568,8 +609,9 @@ def flash_checks(torch, dev):
         esz = 2 if dtype == torch.bfloat16 else 4
         # the profiler name of each wrapper's kernel in this dtype
         match = {n: f"{stem}_kernel" for n, stem in FLASH_NAMES.items()}
-        for n, tc in TC_KERNELS.items():
-            match[n] = tc[3] if esz == 2 else tc[4]
+        for n in FLASH_NAMES:
+            if n in TC_KERNELS:
+                match[n] = TC_KERNELS[n][3 if esz == 2 else 4]
         runs = {
             "flash_attention": (
                 lambda: ops.flash_attention(q, k, v, return_lse=True),
@@ -578,7 +620,7 @@ def flash_checks(torch, dev):
             "flash_attention_bwd_preprocess": (
                 lambda: ops.flash_attention_bwd_preprocess(o, do),
                 lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
-                lib_bwd),
+                None),
             "flash_attention_bwd_dkv": (
                 lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                 lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
@@ -631,10 +673,12 @@ def flash_checks(torch, dev):
                     "dq": "639"}[key],
                 max_abs_err=errs[key], ms=ms, plain_ms=plain, call_ms=call,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library_call=("F.scaled_dot_product_attention(causal, "
-                              "enable_gqa) forward" if key == "fwd" else
-                              "its whole backward (all three kernels' "
-                              "work)"),
+                library_call={
+                    "fwd": "F.scaled_dot_product_attention(causal, "
+                           "enable_gqa) forward",
+                    "pre": PREPROCESS_LIBRARY_NOTE}.get(
+                        key, "SDPA's whole backward (all three kernels' "
+                             "work)"),
                 f32_ms=f32_ms[name][0], f32_plain_ms=f32_ms[name][1],
                 f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3],
                 f32_source=f32_ms[name][4])
@@ -722,23 +766,52 @@ def _lora_tol(torch, dtype, want):
     return (LORA_RTOL_F32 if dtype == torch.float32 else BF16_ULP) * peak
 
 
+def _lora_mma(args, scale):
+    """The mma.sync kernel (csrc/lora_matmul.cu) on bf16 operands that the
+    wrapper sends to the wgmma kernel: launched directly, uncounted, to
+    time the kernel the wgmma route replaced on the same inputs."""
+    import torch
+    from repro_torch.kernels import build
+    x, w, a, b = args
+    y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
+    err = build.load("lora_matmul")(
+        1, x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), x.shape[0], w.shape[1], x.shape[1], a.shape[1],
+        *w.stride(), *a.stride(), *b.stride(), scale,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"lora_matmul (mma) launch failed: CUDA error {err}")
+    return y
+
+
+def _lora_route_check(ops, args, before, want):
+    grew = ops.route_counts()["lora_matmul"]
+    grew = {r: n - before[r] for r, n in grew.items()}
+    check(grew == {**dict.fromkeys(grew, 0), want: 1},
+          f"lora_matmul launches by route {grew}, want one on {want}")
+
+
 def lora_checks(torch, dev):
     """The fused LoRA kernel against its plain version on the card: the
     distill path's three (K, N) shapes at M = 4 x 1032, r = 4, forward and
-    the backward's transposed dx layout, bf16 and float32, timed with a
-    cold L2 beside the plain version and cuBLAS's three-GEMM composition;
-    a ragged and a rank-16 case; and the autograd wrapper's dx, da and db
-    against autograd through the plain version. Returns the kernel's JSON
-    row (ffn.wo's bf16 forward as the headline, every shape under
-    ``shapes``, one layer's five forward and five dx calls summed under
-    ``layer_*``)."""
+    the backward's transposed dx layout, bf16 (on the wgmma kernel, with
+    the mma.sync kernel it replaced checked and timed beside it) and
+    float32, timed with a cold L2 beside the plain version and cuBLAS's
+    three-GEMM composition; a ragged case (on the mma.sync kernel: its row
+    stride 132 is no multiple of 8) and a rank-16 case; each launch's
+    route as ``ops.lora_route`` says; and the autograd wrapper's dx, da
+    and db against autograd through the plain version. Returns the
+    kernel's JSON row (ffn.wo's bf16 forward as the headline, every shape
+    under ``shapes``, one layer's five forward and five dx calls summed
+    under ``layer_*``)."""
     from repro_torch.kernels import ops, ref
     scale = 2.0                      # alpha / rank = 2 * 4 / 4 on the path
     max_err = 0.0
     shapes = []
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        match = "lora_mma_kernel" if name == "bf16" else "lora_f32_kernel"
+        match = ("lora_wgmma_kernel" if name == "bf16"
+                 else "lora_f32_kernel")
+        route = "wgmma" if name == "bf16" else "mma"
         esz = 2 if name == "bf16" else 4
         rate = BF16_FLOPS_PER_S if name == "bf16" else F32_FLOPS_PER_S
         for label, k, n in LORA_SHAPES:
@@ -748,16 +821,24 @@ def lora_checks(torch, dev):
             for layout, args, dims in (
                     ("forward", (x, w, a, b), (k, n)),
                     ("dx", (g, w.T, b.T, a.T), (n, k))):
+                before = ops.route_counts()["lora_matmul"]
                 got = ops.lora_matmul(*args, scale=scale)
                 want = ref.lora_matmul_ref(*args, scale=scale)
                 torch.cuda.synchronize()
+                _lora_route_check(ops, args, before, route)
                 check(bool(torch.isfinite(got).all()),
                       f"lora {name} {label} {layout}: non-finite")
                 err, tol = _err(got, want), _lora_tol(torch, dtype, want)
                 check(err <= tol, f"lora {name} {label} {layout}: max err "
                       f"{err:.3e} > {tol:.3e}")
+                mma_ms = mma_err = None
                 if name == "bf16":
                     max_err = max(max_err, err)
+                    mma_err = _err(_lora_mma(args, scale), want)
+                    check(mma_err <= tol, f"lora mma {label} {layout}: max "
+                          f"err {mma_err:.3e} > {tol:.3e}")
+                    mma_ms = device_ms(lambda: _lora_mma(args, scale),
+                                       "lora_mma_kernel")
                 xx, ww, aa, bb = args
                 ms, plain, call = timings(
                     lambda: ops.lora_matmul(*args, scale=scale),
@@ -768,13 +849,19 @@ def lora_checks(torch, dev):
                                    rate)
                 shapes.append(dict(dtype=name, shape=label, layout=layout,
                                    m=LORA_M, k=dims[0], n=dims[1], r=RANK,
-                                   max_abs_err=err, ms=ms, plain_ms=plain,
+                                   route=route, max_abs_err=err, ms=ms,
+                                   mma_ms=mma_ms, plain_ms=plain,
                                    library_ms=lib, bound_ms=b_ms,
                                    bound_by=b_by, call_ms=call))
+                old = ("" if mma_ms is None else
+                       f", the mma.sync kernel {mma_ms:.5f} ms (max|err| "
+                       f"{mma_err:.3e})")
                 print(f"[kernel] lora_matmul {name} {label} {layout} "
                       f"(M {LORA_M}, K {dims[0]}, N {dims[1]}, r {RANK}): "
-                      f"max|err| {err:.3e} (atol {tol:.3e}); device: kernel "
-                      f"{ms:.5f} ms, plain {plain:.5f} ms, cuBLAS "
+                      f"route {route}, max|err| {err:.3e} (atol "
+                      f"{tol:.3e}); device: kernel {ms:.5f} ms "
+                      f"({_lora_work(LORA_M, *dims, RANK, esz)[1] / ms / 1e9:.1f}"
+                      f" TFLOP/s){old}, plain {plain:.5f} ms, cuBLAS "
                       f"x@w + s*((x@a)@b) (three GEMMs) {lib} ms; bound "
                       f"{b_ms:.5f} ms ({b_by}); host clock per call "
                       f"{call:.5f} ms")
@@ -786,16 +873,23 @@ def lora_checks(torch, dev):
             g = _lora_inputs(torch, dev, dtype, m, n, 1, 1, 14)[0]
             for layout, args in (("forward", (x, w, a, b)),
                                  ("dx", (g, w.T, b.T, a.T))):
+                want_route = ops.lora_route(dtype, args[0].shape,
+                                            args[1].stride())
+                check(want_route == ("wgmma" if name == "bf16"
+                                     and label == "rank 16" else "mma"),
+                      f"lora {name} {label} {layout}: route {want_route}")
+                before = ops.route_counts()["lora_matmul"]
                 got = ops.lora_matmul(*args, scale=scale)
                 want = ref.lora_matmul_ref(*args, scale=scale)
                 torch.cuda.synchronize()
+                _lora_route_check(ops, args, before, want_route)
                 err, tol = _err(got, want), _lora_tol(torch, dtype, want)
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"lora {name} {label} {layout}: max err {err:.3e} > "
                       f"{tol:.3e}")
                 print(f"[kernel] lora_matmul {name} {label} {layout} "
-                      f"(M {m}, K {k}, N {n}, r {r}): max|err| {err:.3e} "
-                      f"(atol {tol:.3e})")
+                      f"(M {m}, K {k}, N {n}, r {r}): route {want_route}, "
+                      f"max|err| {err:.3e} (atol {tol:.3e})")
     # the autograd wrapper: dx through the kernel, da and db in float32
     for dtype in (torch.float32, torch.bfloat16):
         x, w, a, b = _lora_inputs(torch, dev, dtype, LORA_M, 4096, 1024,
@@ -819,12 +913,16 @@ def lora_checks(torch, dev):
     per_layer = {"wq/attn.wo": 2, "wk/wv": 2, "ffn.wo": 1}
     layer = {key: sum(per_layer[r["shape"]] * r[key] for r in shapes
                       if r["dtype"] == "bf16")
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "mma_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
     print(f"[kernel] lora_matmul bf16, one layer's 5 forward + 5 dx calls: "
-          f"kernel {layer['ms']:.5f} ms, plain {layer['plain_ms']:.5f} ms, "
+          f"kernel {layer['ms']:.5f} ms, the mma.sync kernel "
+          f"{layer['mma_ms']:.5f} ms, plain {layer['plain_ms']:.5f} ms, "
           f"cuBLAS composition {layer['library_ms']:.5f} ms, bound "
           f"{layer['bound_ms']:.5f} ms")
-    return dict(source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+    return dict(source="src/repro_torch/kernels/csrc/lora_matmul_tc.cu",
+                mma_source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+                mma_ms=head["mma_ms"],
                 replaces="src/repro/kernels/lora_matmul.py:57",
                 max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
                 call_ms=head["call_ms"], bound_ms=head["bound_ms"],
@@ -1153,10 +1251,11 @@ def distill_step_vs_plain(torch, cfg, dev):
     return dloss, grad_rel, worst, near
 
 
-def profile_distill_step(torch, cfg, dev, steps=3):
+def profile_distill_step(torch, cfg, dev, steps=3, kernels=None):
     """A bf16 distill local step at full width (one client, 4 x 1024
     tokens + 8 prefix tokens): wall time, tokens/s, device busy share,
-    top device ops and the LoRA kernel's share."""
+    top device ops, the LoRA kernel's share and the tensor-core flash
+    kernels' time a launch."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.distill.federated import (make_student_loss,
                                                make_student_step)
@@ -1185,7 +1284,7 @@ def profile_distill_step(torch, cfg, dev, steps=3):
                    e.count // steps, e.key[:70])
                   for e in prof.key_averages())[::-1]
     busy = sum(r[0] for r in rows)
-    lora = sum(r[0] for r in rows if "lora_mma_kernel" in r[2])
+    lora = sum(r[0] for r in rows if TC_KERNELS["lora_matmul"][3] in r[2])
     flash, split = flash_split(rows)
     tokens = B * (S + PREFIX)
     print(f"[profile] bf16 distill local step, {B}x({S}+{PREFIX}) tokens, "
@@ -1199,6 +1298,7 @@ def profile_distill_step(torch, cfg, dev, steps=3):
           + ", ".join(f"{k} {t:.3f}" for k, t in split.items()))
     for t, n, key in rows[:10]:
         print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    per_launch(rows, kernels)
     del state, base, factors
     torch.cuda.empty_cache()
     return wall, busy, lora, peak
@@ -1288,10 +1388,10 @@ def step_vs_plain(torch, cfg, dev):
     return dloss, grad_rel, worst, near
 
 
-def profile_local_step(torch, cfg, dev, steps=3):
+def profile_local_step(torch, cfg, dev, steps=3, kernels=None):
     """A bf16 local train step at full width (one client, 4 x 1024
-    tokens): wall time, tokens/s, device busy share, top device ops and
-    peak memory."""
+    tokens): wall time, tokens/s, device busy share, top device ops, peak
+    memory and the tensor-core flash kernels' time a launch."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import ShapeConfig
     from repro_torch.core.steps import make_train_step
@@ -1336,6 +1436,7 @@ def profile_local_step(torch, cfg, dev, steps=3):
           + ", ".join(f"{k} {t:.3f}" for k, t in split.items()))
     for t, n, key in rows[:8]:
         print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    per_launch(rows, kernels)
     del state, params
     torch.cuda.empty_cache()
     return wall, busy, peak
@@ -1836,7 +1937,7 @@ def main():
 
     # 6. float32 step through kernels vs plain attention; a step's profile
     step_vs_plain(torch, cfg, dev)
-    profile_local_step(torch, cfg, dev)
+    profile_local_step(torch, cfg, dev, kernels=kernels)
 
     # 7. the distillation path: two distill_fl rounds at full width
     distill_launches, _, _, distill_routes = distill_main_path(torch, cfg,
@@ -1844,7 +1945,7 @@ def main():
 
     # 8. float32 distill step through kernels vs plain; a step's profile
     distill_step_vs_plain(torch, cfg, dev)
-    profile_distill_step(torch, cfg, dev)
+    profile_distill_step(torch, cfg, dev, kernels=kernels)
 
     # 9. the xLSTM serving path: xlstm-350m through the legacy scheduler
     xcfg = get_config("xlstm-350m")
@@ -1867,10 +1968,8 @@ def main():
         extra = {}
         if name in TC_KERNELS:
             extra = {"launches_by_route": {
-                "wgmma": train_routes[name]["wgmma"]
-                + distill_routes[name]["wgmma"],
-                "simt": train_routes[name]["simt"]
-                + distill_routes[name]["simt"]}, "build": tc[name]}
+                r: train_routes[name][r] + distill_routes[name][r]
+                for r in train_routes[name]}, "build": tc[name]}
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),

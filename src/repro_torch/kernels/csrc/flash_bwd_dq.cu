@@ -16,6 +16,8 @@
 // and read by every row of the CTA; each query row's q, dO and dQ
 // accumulator stay in the registers of its D/32 threads. No atomics: each
 // CTA owns its dQ rows, so the result is the same bit for bit on every run.
+// bf16 at head_dim 64 runs flash_bwd_dq_tc.cu on the tensor cores instead;
+// this kernel keeps float32 and head_dims 32 and 128.
 #include "flash_attention.cuh"
 
 namespace flash {

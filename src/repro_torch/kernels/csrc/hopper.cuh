@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the tensor-core flash kernels
-// (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu): mbarriers, TMA tile loads,
-// shared-memory matrix descriptors and warpgroup MMAs (wgmma), as PTX.
+// Hopper building blocks shared by the tensor-core kernels
+// (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu, flash_bwd_dq_tc.cu,
+// lora_matmul_tc.cu): mbarriers, TMA tile loads, shared-memory matrix
+// descriptors and warpgroup MMAs (wgmma), as PTX.
 //
 // Conventions, all for bf16 tiles of 64-element (128-byte) rows:
 //   * TMA writes a tile into shared memory with the 128-byte swizzle, so a
@@ -12,6 +13,9 @@
 //     tile read down its columns) is described with SBO = 1024 and
 //     advances 16 rows (2048 bytes) per 16-deep step, and the wgmma takes
 //     it with the transpose bit set;
+//   * an MN-major operand wider than 64 (a [16k, 128] B tile) is two
+//     64-column halves, each a TMA box of its own; the descriptor's LBO is
+//     the byte distance from the first half to the second;
 //   * a wgmma's accumulator fragment of a 64 x N tile: thread t of warp w
 //     of the warpgroup holds, for n8 column block j, d[4j + 0..1] at row
 //     16w + t/4 and d[4j + 2..3] at row 16w + t/4 + 8, columns
@@ -86,6 +90,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Copy the box at coordinates (c0, c1) (innermost first) of a 2-D tensor
+// map into shared memory, as tma_load_3d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma, TMA) once a barrier orders them before the reader.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The byte offset `off` within a 1024-byte-aligned tile, 128-byte swizzled
+// as TMA writes it: the 16-byte chunk index XOR the row index mod 8.
+__device__ __forceinline__ uint32_t swizzle128(uint32_t off) {
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
 // The shared-memory address `p` rounded up to a 1024-byte boundary.
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uint32_t a = smem_addr(p);
@@ -101,6 +129,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   d |= (uint64_t)(1024 >> 4) << 32;   // SBO: 8 rows of 128 bytes
   d |= (uint64_t)1 << 62;             // 128-byte swizzle
   return d;
+}
+
+// As desc_sw128 with the leading byte offset `lbo`: the distance between
+// the 64-column halves of an MN-major operand wider than 64.
+__device__ __forceinline__ uint64_t desc_sw128_lbo(const void* p,
+                                                   uint32_t lbo) {
+  return (desc_sw128(p) & ~((uint64_t)0x3FFF << 16)) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -205,6 +241,65 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major in shared memory, B
+// K-major (TB 0) or MN-major (TB 1: the transpose bit) in shared memory;
+// scale_d 0 writes D without reading it.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n16(float (&d)[8], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 8] (+)= A[64 x 16] B[16 x 8], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n8(float (&d)[4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ------------------------------------------------- 64 x 64 x 64 products
 // D = A B^T over a 64-deep reduction (four 16-deep steps): A and B are
 // [64, 64] bf16 tiles in shared memory, read along their rows (K-major).
@@ -282,6 +377,28 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base,
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a bf16 matrix of `rows` rows of `cols` elements,
+// `ld` elements apart (a multiple of 8; a 16-byte aligned base), read in
+// boxes of box_rows x box_cols with the 128-byte swizzle (box_cols 64);
+// elements past either edge read as zeros.
+inline cudaError_t bf16_matrix_map(CUtensorMap* map, const void* base,
+                                   int rows, int cols, long long ld,
+                                   int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

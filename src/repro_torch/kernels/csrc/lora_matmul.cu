@@ -34,7 +34,9 @@
 //     4 x 4 outputs a thread, no TF32;
 //   * ragged M, N, K and odd strides are bounds checks on the loads and
 //     stores; 16-byte loads are used where a row is aligned and whole.
-// wgmma with TMA-fed W tiles and a persistent schedule are later work.
+// bf16 operands that TMA can describe (ops.lora_route: the distillation
+// path's forward and dx) run lora_matmul_tc.cu on wgmma instead; this
+// kernel keeps float32 and the other bf16 layouts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -11,11 +11,13 @@ Dispatch is by the device of the tensors and nothing else:
 
 Every wrapper checks device, dtype, shape and contiguity on both routes,
 and carries a plain integer ``launches`` that counts its kernel launches
-(plain-version calls do not count). The flash forward and dK/dV wrappers
-have two kernels behind them, chosen by dtype: bf16 at head_dim 64 goes
-to a tensor-core kernel (wgmma on TMA-fed tiles), float32 and the other
-widths to a SIMT kernel; their ``routes`` dict counts the launches of
-each (:func:`route_counts`).
+(plain-version calls do not count). The flash forward, dK/dV and dQ
+wrappers have two kernels behind them, chosen by dtype: bf16 at
+head_dim 64 goes to a tensor-core kernel (wgmma on TMA-fed tiles),
+float32 and the other widths to a SIMT kernel. The LoRA matmul sends
+bf16 operands that TMA can describe to a wgmma kernel and the rest to
+its mma.sync / float32 kernel (:func:`lora_route`). Their ``routes``
+dict counts the launches of each (:func:`route_counts`).
 """
 from __future__ import annotations
 
@@ -419,7 +421,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
                            q_offset: int = 0, block_q: int = 128,
                            block_k: int = 128):
     """dQ [B, Hq, Sq, D] in q's dtype from the same inputs as
-    :func:`flash_attention_bwd_dkv`."""
+    :func:`flash_attention_bwd_dkv`. Deterministic: no atomics.
+
+    On the card, bf16 at head_dim 64 launches the tensor-core kernel
+    (``csrc/flash_bwd_dq_tc.cu``: S, dP and dQ on wgmma, dS rounded to
+    bf16 for the dQ product, its own tiles); float32, and bf16 at another
+    head_dim, the SIMT kernel (``csrc/flash_bwd_dq.cu``, all float32,
+    tiles from ``block_q``/``block_k``). ``flash_attention_bwd_dq.routes``
+    counts the launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
     scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
@@ -429,14 +438,22 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
             q, k, v, do, lse, delta, scale=scale, causal=causal,
             window=window, q_offset=q_offset)
     code = _card_dtype(q)
-    bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
     dq = torch.empty_like(q)
-    err = build.load("flash_bwd_dq")(
-        code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dq), b, hq, hkv, sq, skv, d, bq, bk, scale, int(causal),
-        window or 0, q_offset, _stream(q))
-    _raise_on(err, "flash_attention_bwd_dq")
+    mask = (int(causal), window or 0, q_offset)
+    if _tc_route(q):
+        _aligned(q=q, k=k, v=v, do=do)
+        route, err = "wgmma", build.load("flash_bwd_dq_tc")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(dq), b, hq, hkv, sq, skv, scale, *mask, _stream(q))
+    else:
+        bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
+        route, err = "simt", build.load("flash_bwd_dq")(
+            code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+            _ptr(delta), _ptr(dq), b, hq, hkv, sq, skv, d, bq, bk, scale,
+            *mask, _stream(q))
+    _raise_on(err, f"flash_attention_bwd_dq ({route})")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.routes[route] += 1
     return dq
 
 
@@ -491,6 +508,23 @@ def flash_attention_ad(q, k, v, scale=None, causal=True, window=None,
 MAX_RANK = 16                 #: kMaxRank of lora_matmul.cu
 
 
+def lora_route(dtype, x_shape, w_strides, x_ptr: int = 0,
+               w_ptr: int = 0) -> str:
+    """The kernel a card launch of :func:`lora_matmul` takes, from the
+    operands' dtype, x's shape [M, K] (x is contiguous), w's strides and
+    the two base addresses: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``) for
+    bf16 operands that TMA can describe — K and w's non-unit stride
+    multiples of 8 elements, x and w 16-byte aligned — else ``"mma"``
+    (``csrc/lora_matmul.cu``: mma.sync for bf16, CUDA cores for
+    float32)."""
+    sk, sn = w_strides
+    ldw = sn if sn != 1 else sk        # the stride that is not the unit one
+    k = x_shape[1]
+    tma = (k >= 1 and k % 8 == 0 and ldw % 8 == 0 and x_ptr % 16 == 0
+           and w_ptr % 16 == 0)
+    return "wgmma" if dtype == torch.bfloat16 and tma else "mma"
+
+
 def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     """Fused ``y = x @ w + scale * (x @ a) @ b``: both products and the
     rank-r product in float32, x @ a never rounded, y rounded once to x's
@@ -498,7 +532,12 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     float32 or all bfloat16, 1 <= r <= 16. w, a and b may be strided
     views: w needs one unit stride (a transposed view is fine), a and b
     take any, so the backward's ``lora_matmul(g, w.T, b.T, a.T)`` copies
-    nothing."""
+    nothing.
+
+    On the card the kernel follows :func:`lora_route`: bf16 operands
+    that TMA can describe (the distillation path's forward and dx) launch
+    the wgmma kernel, everything else the mma.sync / float32 kernel;
+    ``lora_matmul.routes`` counts the launches of each."""
     _require(all(t.dim() == 2 for t in (x, w, a, b)),
              "x, w, a and b must be 2-D")
     m, k = x.shape
@@ -521,11 +560,20 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    err = build.load("lora_matmul")(
-        _DTYPE_CODES[x.dtype], _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y),
-        m, n, k, r, *w.stride(), *a.stride(), *b.stride(), scale, _stream(x))
-    _raise_on(err, "lora_matmul")
+    route = lora_route(x.dtype, x.shape, w.stride(), x.data_ptr(),
+                       w.data_ptr())
+    if route == "wgmma":
+        err = build.load("lora_matmul_tc")(
+            _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), m, n, k, r,
+            *w.stride(), *a.stride(), *b.stride(), scale, _stream(x))
+    else:
+        err = build.load("lora_matmul")(
+            _DTYPE_CODES[x.dtype], _ptr(x), _ptr(w), _ptr(a), _ptr(b),
+            _ptr(y), m, n, k, r, *w.stride(), *a.stride(), *b.stride(),
+            scale, _stream(x))
+    _raise_on(err, f"lora_matmul ({route})")
     lora_matmul.launches += 1
+    lora_matmul.routes[route] += 1
     return y
 
 
@@ -640,15 +688,19 @@ KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
            flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
            mlstm_chunked)
-#: wrappers with two kernels behind them, each launch counted by route too
-ROUTED = (flash_attention, flash_attention_bwd_dkv)
+#: wrappers with two kernels behind them, each launch counted by route
+#: too: the tensor-core (wgmma) kernel, and the other one ("simt" for the
+#: flash kernels, "mma" for the LoRA matmul's mma.sync / float32 kernel)
+ROUTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+          lora_matmul)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     for fn in ROUTED:
-        fn.routes = {"wgmma": 0, "simt": 0}
+        fn.routes = {"wgmma": 0,
+                     "mma" if fn is lora_matmul else "simt": 0}
 
 
 reset_launch_counts()
@@ -659,5 +711,5 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """{wrapper: {"wgmma": n, "simt": n}} of the routed wrappers."""
+    """{wrapper: {"wgmma": n, other route: n}} of the routed wrappers."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -162,7 +162,8 @@ def test_flash_kernels_match_plain(dev, dtype, case):
         assert after[name] == before[name] + 1
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
     for name, counts in ops.route_counts().items():
-        assert counts[route] == routes[name][route] + 1
+        if name.startswith("flash"):
+            assert counts[route] == routes[name][route] + 1
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     sc = q.shape[-1] ** -0.5
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -215,9 +216,9 @@ TC_EDGES = {"sq1": (1, 77, {"q_offset": 76}, 4, 2),
 
 @pytest.mark.parametrize("case", TC_EDGES)
 def test_flash_tensor_core_route_at_tile_edges(dev, case):
-    """bf16 at head_dim 64 launches the wgmma forward and dK/dV kernels
-    (their route counts move, the SIMT ones do not), within the bf16
-    limits of the plain versions, dK/dV bitwise repeatable."""
+    """bf16 at head_dim 64 launches the wgmma forward, dK/dV and dQ
+    kernels (their route counts move, the SIMT ones do not), within the
+    bf16 limits of the plain versions, dK/dV bitwise repeatable."""
     sq, skv, kw, hq, hkv = TC_EDGES[case]
     q, k, v, do = _flash(dev, torch.bfloat16, sq, skv, seed=3, b=1, hq=hq,
                          hkv=hkv)
@@ -226,20 +227,22 @@ def test_flash_tensor_core_route_at_tile_edges(dev, case):
     delta = ops.flash_attention_bwd_preprocess(o, do)
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     after = ops.route_counts()
-    assert after["flash_attention"] == {
-        "wgmma": before["flash_attention"]["wgmma"] + 1,
-        "simt": before["flash_attention"]["simt"]}
-    assert after["flash_attention_bwd_dkv"] == {
-        "wgmma": before["flash_attention_bwd_dkv"]["wgmma"] + 2,
-        "simt": before["flash_attention_bwd_dkv"]["simt"]}
+    for name, n in (("flash_attention", 1), ("flash_attention_bwd_dkv", 2),
+                    ("flash_attention_bwd_dq", 1)):
+        assert after[name] == {"wgmma": before[name]["wgmma"] + n,
+                               "simt": before[name]["simt"]}, name
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=64 ** -0.5, **kw)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                         scale=64 ** -0.5, **kw)
     for label, got, want in (("o", o, ro), ("lse", lse, rlse),
-                             ("dk", dk, rdk), ("dv", dv, rdv)):
+                             ("dk", dk, rdk), ("dv", dv, rdv),
+                             ("dq", dq, rdq)):
         _flash_close(label, got, want, torch.bfloat16)
 
 
@@ -252,15 +255,20 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
     delta = ops.flash_attention_bwd_preprocess(o, do)
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     after = ops.route_counts()
-    for name in ("flash_attention", "flash_attention_bwd_dkv"):
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
         assert after[name] == {"wgmma": before[name]["wgmma"],
                                "simt": before[name]["simt"] + 1}
     ro = ref.flash_attention_ref(q, k, v)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=d ** -0.5)
-    for label, got, want in (("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv)):
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                         scale=d ** -0.5)
+    for label, got, want in (("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv),
+                             ("dq", dq, rdq)):
         _flash_close(label, got, want, torch.bfloat16)
 
 
@@ -278,11 +286,17 @@ def test_flash_tensor_core_route_needs_aligned_inputs(dev):
 
 
 def test_flash_backward_is_bitwise_repeatable(dev):
+    """dQ, dK and dV equal bit for bit across two runs; bf16 at head_dim
+    64, so dK/dV and dQ both run their wgmma kernels."""
     q, k, v, do = _flash(dev, torch.bfloat16, 200, 200, seed=1)
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    before = ops.route_counts()
     first = ops.flash_attention_bwd(q, k, v, o, lse, do)
     second = ops.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[name]["wgmma"] == before[name]["wgmma"] + 2, name
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -329,31 +343,86 @@ def _lora_tol(dtype, want):
     return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
 
 
-LORA_CASES = [(256, 1024, 512, 4), (1000, 96, 132, 8), (130, 200, 72, 16),
-              (33, 40, 8, 1)]
+#: (M, K, N, r) and the route a bf16 call takes in either layout: the
+#: ragged case's row stride 132 is no multiple of 8, so it stays on the
+#: mma.sync kernel; the rest are TMA-describable and go to wgmma (K 40 and
+#: N 8 included: each one partial tile)
+LORA_CASES = [(256, 1024, 512, 4, "wgmma"), (1000, 96, 132, 8, "mma"),
+              (130, 200, 72, 16, "wgmma"), (33, 40, 8, 1, "wgmma")]
 
 
-@pytest.mark.parametrize("m,k,n,r", LORA_CASES,
+@pytest.mark.parametrize("m,k,n,r,bf16_route", LORA_CASES,
                          ids=["path-like", "ragged", "rank16", "tiny"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("layout", ["forward", "dx"])
-def test_lora_kernel_matches_plain(dev, dtype, m, k, n, r, layout):
+def test_lora_kernel_matches_plain(dev, dtype, m, k, n, r, bf16_route,
+                                   layout):
     """The fused LoRA kernel against its plain version: float32 within
     1e-5 of the largest magnitude (sums in another order), bf16 within a
     bf16 ulp there (one rounding of a float32 value on each side); the
     dx layout reads transposed views of w, b and a, as the backward
-    does."""
+    does. Each launch is counted on the route ``ops.lora_route`` names:
+    float32 always on the mma kernel."""
     x, w, a, b, gy = _lora(dev, dtype, m, k, n, r)
     args = (x, w, a, b) if layout == "forward" else (gy, w.T, b.T, a.T)
+    route = bf16_route if dtype == torch.bfloat16 else "mma"
+    assert ops.lora_route(dtype, args[0].shape, args[1].stride(),
+                          args[0].data_ptr(), args[1].data_ptr()) == route
     before = ops.launch_counts()["lora_matmul"]
+    routes = ops.route_counts()["lora_matmul"]
     got = ops.lora_matmul(*args, scale=2.0)
     want = ref.lora_matmul_ref(*args, scale=2.0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["lora_matmul"] == before + 1
+    after = ops.route_counts()["lora_matmul"]
+    assert after == {**routes, route: routes[route] + 1}
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     assert float((got.float() - want.float()).abs().max()) \
         <= _lora_tol(dtype, want)
+
+
+#: the distillation path's adapted projections (M 4 x 1032, r 4)
+LORA_PATH = {"wq/attn.wo": (1024, 1024), "wk/wv": (1024, 512),
+             "ffn.wo": (4096, 1024)}
+
+
+@pytest.mark.parametrize("shape", LORA_PATH)
+@pytest.mark.parametrize("layout", ["forward", "dx"])
+def test_lora_path_shapes_run_the_wgmma_kernel(dev, shape, layout):
+    """The distillation path's three shapes at M 4128, forward and dx,
+    launch the wgmma kernel and agree with the plain version within a
+    bf16 ulp of the largest magnitude."""
+    k, n = LORA_PATH[shape]
+    x, w, a, b, gy = _lora(dev, torch.bfloat16, 4 * 1032, k, n, 4, seed=2)
+    args = (x, w, a, b) if layout == "forward" else (gy, w.T, b.T, a.T)
+    routes = ops.route_counts()["lora_matmul"]
+    got = ops.lora_matmul(*args, scale=2.0)
+    want = ref.lora_matmul_ref(*args, scale=2.0)
+    torch.cuda.synchronize()
+    assert ops.route_counts()["lora_matmul"] == {
+        "wgmma": routes["wgmma"] + 1, "mma": routes["mma"]}
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _lora_tol(torch.bfloat16, want)
+
+
+def test_lora_unaligned_base_takes_the_mma_kernel(dev):
+    """TMA reads from 16-byte aligned bases: bf16 x one element into its
+    storage goes to the mma.sync kernel, and agrees with the plain
+    version all the same."""
+    x, w, a, b, _ = _lora(dev, torch.bfloat16, 130, 64, 72, 4, seed=3)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xs[1:] = x.reshape(-1)
+    xv = xs[1:].view(x.shape)
+    routes = ops.route_counts()["lora_matmul"]
+    got = ops.lora_matmul(xv, w, a, b, scale=2.0)
+    want = ref.lora_matmul_ref(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    assert ops.route_counts()["lora_matmul"] == {
+        "wgmma": routes["wgmma"], "mma": routes["mma"] + 1}
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _lora_tol(torch.bfloat16, want)
 
 
 def test_lora_autograd_runs_the_kernel(dev):
