@@ -783,7 +783,7 @@ def _lora_mma(args, scale):
     return y
 
 
-def _lora_route_check(ops, args, before, want):
+def _lora_route_check(ops, before, want):
     grew = ops.route_counts()["lora_matmul"]
     grew = {r: n - before[r] for r, n in grew.items()}
     check(grew == {**dict.fromkeys(grew, 0), want: 1},
@@ -811,7 +811,7 @@ def lora_checks(torch, dev):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         match = ("lora_wgmma_kernel" if name == "bf16"
                  else "lora_f32_kernel")
-        route = "wgmma" if name == "bf16" else "mma"
+        route = "wgmma" if name == "bf16" else "simt"
         esz = 2 if name == "bf16" else 4
         rate = BF16_FLOPS_PER_S if name == "bf16" else F32_FLOPS_PER_S
         for label, k, n in LORA_SHAPES:
@@ -825,7 +825,7 @@ def lora_checks(torch, dev):
                 got = ops.lora_matmul(*args, scale=scale)
                 want = ref.lora_matmul_ref(*args, scale=scale)
                 torch.cuda.synchronize()
-                _lora_route_check(ops, args, before, route)
+                _lora_route_check(ops, before, route)
                 check(bool(torch.isfinite(got).all()),
                       f"lora {name} {label} {layout}: non-finite")
                 err, tol = _err(got, want), _lora_tol(torch, dtype, want)
@@ -876,13 +876,13 @@ def lora_checks(torch, dev):
                 want_route = ops.lora_route(dtype, args[0].shape,
                                             args[1].stride())
                 check(want_route == ("wgmma" if name == "bf16"
-                                     and label == "rank 16" else "mma"),
+                                     and label == "rank 16" else "simt"),
                       f"lora {name} {label} {layout}: route {want_route}")
                 before = ops.route_counts()["lora_matmul"]
                 got = ops.lora_matmul(*args, scale=scale)
                 want = ref.lora_matmul_ref(*args, scale=scale)
                 torch.cuda.synchronize()
-                _lora_route_check(ops, args, before, want_route)
+                _lora_route_check(ops, before, want_route)
                 err, tol = _err(got, want), _lora_tol(torch, dtype, want)
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"lora {name} {label} {layout}: max err {err:.3e} > "

@@ -514,15 +514,16 @@ def lora_route(dtype, x_shape, w_strides, x_ptr: int = 0,
     operands' dtype, x's shape [M, K] (x is contiguous), w's strides and
     the two base addresses: ``"wgmma"`` (``csrc/lora_matmul_tc.cu``) for
     bf16 operands that TMA can describe — K and w's non-unit stride
-    multiples of 8 elements, x and w 16-byte aligned — else ``"mma"``
+    multiples of 8 elements, x and w 16-byte aligned — else ``"simt"``
     (``csrc/lora_matmul.cu``: mma.sync for bf16, CUDA cores for
-    float32)."""
+    float32; the key every routed wrapper gives its kernel that is not
+    on wgmma)."""
     sk, sn = w_strides
     ldw = sn if sn != 1 else sk        # the stride that is not the unit one
     k = x_shape[1]
     tma = (k >= 1 and k % 8 == 0 and ldw % 8 == 0 and x_ptr % 16 == 0
            and w_ptr % 16 == 0)
-    return "wgmma" if dtype == torch.bfloat16 and tma else "mma"
+    return "wgmma" if dtype == torch.bfloat16 and tma else "simt"
 
 
 def lora_matmul(x, w, a, b, *, scale: float = 1.0):
@@ -689,8 +690,8 @@ KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
            mlstm_chunked)
 #: wrappers with two kernels behind them, each launch counted by route
-#: too: the tensor-core (wgmma) kernel, and the other one ("simt" for the
-#: flash kernels, "mma" for the LoRA matmul's mma.sync / float32 kernel)
+#: too: "wgmma" for the tensor-core kernel, "simt" for the other one (for
+#: the LoRA matmul that is its mma.sync / float32 kernel)
 ROUTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
           lora_matmul)
 
@@ -699,8 +700,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     for fn in ROUTED:
-        fn.routes = {"wgmma": 0,
-                     "mma" if fn is lora_matmul else "simt": 0}
+        fn.routes = {"wgmma": 0, "simt": 0}
 
 
 reset_launch_counts()

@@ -161,9 +161,9 @@ def test_flash_kernels_match_plain(dev, dtype, case):
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name] == before[name] + 1
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
-    for name, counts in ops.route_counts().items():
-        if name.startswith("flash"):
-            assert counts[route] == routes[name][route] + 1
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert ops.route_counts()[name][route] == routes[name][route] + 1
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     sc = q.shape[-1] ** -0.5
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -347,7 +347,7 @@ def _lora_tol(dtype, want):
 #: ragged case's row stride 132 is no multiple of 8, so it stays on the
 #: mma.sync kernel; the rest are TMA-describable and go to wgmma (K 40 and
 #: N 8 included: each one partial tile)
-LORA_CASES = [(256, 1024, 512, 4, "wgmma"), (1000, 96, 132, 8, "mma"),
+LORA_CASES = [(256, 1024, 512, 4, "wgmma"), (1000, 96, 132, 8, "simt"),
               (130, 200, 72, 16, "wgmma"), (33, 40, 8, 1, "wgmma")]
 
 
@@ -363,10 +363,10 @@ def test_lora_kernel_matches_plain(dev, dtype, m, k, n, r, bf16_route,
     bf16 ulp there (one rounding of a float32 value on each side); the
     dx layout reads transposed views of w, b and a, as the backward
     does. Each launch is counted on the route ``ops.lora_route`` names:
-    float32 always on the mma kernel."""
+    float32 always on the "simt" route (the mma.sync / float32 kernel)."""
     x, w, a, b, gy = _lora(dev, dtype, m, k, n, r)
     args = (x, w, a, b) if layout == "forward" else (gy, w.T, b.T, a.T)
-    route = bf16_route if dtype == torch.bfloat16 else "mma"
+    route = bf16_route if dtype == torch.bfloat16 else "simt"
     assert ops.lora_route(dtype, args[0].shape, args[1].stride(),
                           args[0].data_ptr(), args[1].data_ptr()) == route
     before = ops.launch_counts()["lora_matmul"]
@@ -401,7 +401,7 @@ def test_lora_path_shapes_run_the_wgmma_kernel(dev, shape, layout):
     want = ref.lora_matmul_ref(*args, scale=2.0)
     torch.cuda.synchronize()
     assert ops.route_counts()["lora_matmul"] == {
-        "wgmma": routes["wgmma"] + 1, "mma": routes["mma"]}
+        "wgmma": routes["wgmma"] + 1, "simt": routes["simt"]}
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - want.float()).abs().max()) \
         <= _lora_tol(torch.bfloat16, want)
@@ -420,7 +420,7 @@ def test_lora_unaligned_base_takes_the_mma_kernel(dev):
     want = ref.lora_matmul_ref(x, w, a, b, scale=2.0)
     torch.cuda.synchronize()
     assert ops.route_counts()["lora_matmul"] == {
-        "wgmma": routes["wgmma"], "mma": routes["mma"] + 1}
+        "wgmma": routes["wgmma"], "simt": routes["simt"] + 1}
     assert float((got.float() - want.float()).abs().max()) \
         <= _lora_tol(torch.bfloat16, want)
 
