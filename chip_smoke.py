@@ -7,15 +7,18 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the fourteen hand-written kernel libraries from
+  2. builds the sixteen hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the four tensor-core libraries'
-     (flash forward, dK/dV, dQ; LoRA matmul) SASS holds HGMMA (wgmma)
-     instructions and prints their registers, spills and shared memory;
+     prints the build time; checks that the five tensor-core libraries'
+     (flash forward, dK/dV, dQ; LoRA matmul; paged prefill) SASS holds
+     HGMMA (wgmma) instructions and prints their registers, spills and
+     shared memory;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
-     lanes, block size 16, chunk 16, contexts up to 300 tokens), the
+     lanes, block size 16, chunk 16, contexts up to 300 tokens) and the
+     paged ones also at 4096 keys and at ctx 1, each beside the SIMT
+     kernel it replaced and a gather + SDPA composition, the
      flash-attention forward and its three backward kernels at the
      training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 (the
      forward, dK/dV and dQ on their tensor-core kernels) and float32
@@ -32,8 +35,9 @@ In order, it
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
-     kernels' launch counts; profiles a decode step; and holds the paged
-     path against the contiguous-cache forward (plain attention);
+     kernels' launch counts (every paged launch on its Hopper route);
+     profiles a decode step; and holds the paged path against the
+     contiguous-cache forward (plain attention);
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
      steps each, 4 x 1024 tokens a step, int8 uplinks; checks the exact
@@ -66,6 +70,9 @@ In order, it
      kernel against the same through the plain version;
  10. prints one JSON line describing every ported kernel, the card's
      name and power limit, and {"ok": true, "device": {...}} last.
+
+With --paged it stops after the build and the paged kernels' checks
+(step 3's first part) and prints no result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -100,6 +107,17 @@ ORACLE_ATOL_BF16 = 0.25
 TRACE = dict(fleet="nano*2,agx*2", num_requests=12, max_prompt=96, seed=0)
 LIBRARY_NOTE = ("no single PyTorch call computes paged attention through "
                 "a block table or this stochastic int8 quantizer")
+# paged attention at 4096 keys (a flad-adllm context the paged engine
+# takes: the config sets no position limit): decode lanes all at 4096 for
+# timing, and a ragged list for correctness with ctx 0, 1, 16, 4095, 4096
+# and lanes ending on and just past a split boundary (long_decode_ctx);
+# prefill a 16-row chunk ending at 4096 and a partial one
+LONG_CTX = 4096
+LONG_PREFILL_CHUNKS = [(4080, 16), (4088, 5)]
+COMPOSITION_NOTE = ("composition_ms: gather K/V through the table into "
+                    "contiguous [B, Hkv, T*bs, D] (dequantized for int8), "
+                    "then one scaled_dot_product_attention with the mask "
+                    "and enable_gqa: no one call")
 # the training slice: flash attention at the local step's shape
 B, HQ, HKV, S, D = 4, 16, 8, 1024, 64
 FLASH_CASES = [("causal", S, S, {}), ("ragged", 1000, 1000, {}),
@@ -131,6 +149,12 @@ TC_KERNELS = {
     "lora_matmul": ("lora_matmul_tc", "lora_matmul_tc_smem", (8,),
                     "lora_wgmma_kernel", "lora_mma_kernel"),
 }
+# the paged wrappers' Hopper libraries: (stem, profiler name, runs wgmma)
+PAGED_LIBS = {"paged_decode_attention": ("paged_decode_tma",
+                                         "paged_decode_tma_kernel", False),
+              "paged_prefill_attention": ("paged_prefill_tc",
+                                          "paged_prefill_wgmma_kernel",
+                                          True)}
 FLASH_NAMES = {"flash_attention": "flash_fwd",
                "flash_attention_bwd_preprocess": "flash_bwd_preprocess",
                "flash_attention_bwd_dkv": "flash_bwd_dkv",
@@ -369,95 +393,300 @@ def block_tables(ctx_list, t, rng):
     return tables, 1 + sum(need)
 
 
-def kernel_checks(torch, cfg, dev):
-    from repro_torch.kernels import ops, ref
-    rng = np.random.default_rng(0)
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    t = -(-max(DECODE_CTX) // BLOCK) + 1
-    out = {}
+def _decode_composition(torch, q, k, v, ks, vs, tables, ctx, scale):
+    """The yardstick of paged decode (no one PyTorch call computes it):
+    gather each lane's K/V through its table into contiguous
+    [B, Hkv, T*bs, D] (dequantized for int8 pools), then one
+    scaled_dot_product_attention with the ctx mask and enable_gqa."""
+    F = torch.nn.functional
+    hkv, _, bs, d = k.shape
+    b, t = tables.shape
+    idx = tables.long()
 
-    # ---- paged decode: bf16 and int8 pools, NaN-poisoned null block
-    tables_np, nb = block_tables(DECODE_CTX, t, rng)
-    tables = torch.tensor(tables_np, device=dev)
-    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
-    q = torch.randn((SLOTS, hq, d), device=dev).to(torch.bfloat16)
-    rows = sum(DECODE_CTX)
-    errs, times = [], {}
-    for name, kv_dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
-        k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, nb + 1, 1, dev)
-        args = (q, k, v, tables, ctx)
-        kw = dict(k_scales=ks, v_scales=vs)
-        got = ops.paged_decode_attention(*args, **kw)
-        want = ref.paged_decode_attention_ref(*args, **kw)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"decode {name}: non-finite")
-        check(bool((got[0] == 0).all()), f"decode {name}: ctx-0 lane != 0")
-        err = float((got.float() - want.float()).abs().max())
-        check(err <= ATOL_BF16, f"decode {name}: max err {err} > {ATOL_BF16}")
+    def gather(pool, sc):
+        x = pool[:, idx]                                # [Hkv, B, T, bs, D]
+        if sc is not None:
+            x = (x.float() * sc[:, idx]).to(q.dtype)
+        return x.transpose(0, 1).reshape(b, hkv, t * bs, d)
+
+    mask = (torch.arange(t * bs, device=q.device)[None] < ctx[:, None])
+    return F.scaled_dot_product_attention(
+        q[:, :, None], gather(k, ks), gather(v, vs),
+        attn_mask=mask[:, None, None], scale=scale, enable_gqa=True)
+
+
+def _prefill_composition(torch, q, k, v, ks, vs, table, q_offset, ctx_len,
+                         scale):
+    """The yardstick of paged prefill: the chunk's lane gathered as in
+    _decode_composition, then one SDPA with the causal mask from absolute
+    positions and enable_gqa."""
+    F = torch.nn.functional
+    hkv, _, bs, d = k.shape
+    t, c = table.shape[0], q.shape[1]
+    idx = table.long()
+
+    def gather(pool, sc):
+        x = pool[:, idx]                                # [Hkv, T, bs, D]
+        if sc is not None:
+            x = (x.float() * sc[:, idx]).to(q.dtype)
+        return x.reshape(1, hkv, t * bs, d)
+
+    kp = torch.arange(t * bs, device=q.device)
+    qp = q_offset + torch.arange(c, device=q.device)
+    mask = (kp[None] <= qp[:, None]) & (kp[None] < ctx_len)
+    return F.scaled_dot_product_attention(
+        q[None], gather(k, ks), gather(v, vs), attn_mask=mask, scale=scale,
+        enable_gqa=True)
+
+
+def _decode_work(cfg, ctx_list, esz, b):
+    """(bytes, flops) of one decode call: q read and o written once (bf16),
+    each live K/V row read once (and its scale for int8), the tables and
+    ctx_lens once."""
+    rows = sum(ctx_list)
+    nbytes = (2 * b * cfg.num_heads * cfg.hd * 2
+              + 2 * rows * cfg.num_kv_heads * (cfg.hd * esz
+                                               + (4 if esz == 1 else 0)))
+    return nbytes, 4 * rows * cfg.num_heads * cfg.hd
+
+
+def _paged_run(torch, label, new_fn, old_fn, plain_fn, want_route, ops,
+               wrapper, zero_rows=None, rows=None):
+    """One paged case: the Hopper kernel (through the wrapper) and the
+    SIMT kernel it replaced, each held against the plain version (max
+    error over ``rows`` of the output when given), finite, exact zeros
+    in ``zero_rows``, the wrapper's launch on ``want_route`` and two
+    calls bitwise equal. Returns (max error of the new kernel, of the
+    old one)."""
+    before = ops.route_counts()[wrapper]
+    got = new_fn()
+    again = new_fn()
+    grew = {r: n - before[r] for r, n in ops.route_counts()[wrapper].items()}
+    check(grew == {**dict.fromkeys(grew, 0), want_route: 2},
+          f"{label}: launches by route {grew}, want two on {want_route}")
+    old = old_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{label}: two calls differ")
+    errs = []
+    for kind, out in (("new", got), ("old", old)):
+        check(bool(torch.isfinite(out).all()), f"{label} ({kind}): "
+              "non-finite")
+        if zero_rows is not None:
+            check(not bool(out[zero_rows].any()),
+                  f"{label} ({kind}): a ctx-0 lane is not exactly 0")
+        sel = (lambda x: x) if rows is None else rows
+        err = _err(sel(out), sel(want))
+        check(err <= ATOL_BF16, f"{label} ({kind}): max err {err:.3e} > "
+              f"{ATOL_BF16}")
         errs.append(err)
-        times[name] = timings(
-            lambda: ops.paged_decode_attention(*args, **kw),
-            lambda: ref.paged_decode_attention_ref(*args, **kw),
-            "paged_decode_kernel")
-        print(f"[kernel] paged_decode_attention {name} pools: max|err| "
-              f"{err:.3e} (atol {ATOL_BF16}); device: kernel "
-              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms; "
-              f"host clock per call {times[name][2]:.5f} ms")
-    # main path: bf16 pools
-    nbytes = (2 * q.numel() * 2 + 2 * rows * hkv * d * 2
-              + tables.numel() * 4 + ctx.numel() * 4)
-    b_ms, b_by = bound(nbytes, 4 * rows * hq * d, BF16_FLOPS_PER_S)
-    out["paged_decode_attention"] = dict(
-        source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/flash_attention.py:304",
-        max_abs_err=max(errs), ms=times["bf16"][0], plain_ms=times["bf16"][1],
-        call_ms=times["bf16"][2], bound_ms=b_ms, bound_by=b_by,
-        int8_ms=times["int8"][0], int8_plain_ms=times["int8"][1])
+    return errs
 
-    # ---- paged prefill: first, middle and partial last chunk
+
+def _paged_times(torch, new_fn, old_fn, plain_fn, comp_fn, names):
+    """Cold-L2 device ms of the new kernel, the old kernel, the plain
+    version and the composition yardstick, and each wrapper's host clock
+    per call in turns (old, new, new, old)."""
+    def dev(fn, match, iters=50):     # events (warm L2) if no trace
+        ms = device_ms(fn, match, iters)
+        return ms if ms is not None else time_ms(fn, iters=iters)
+
+    new_ms, old_ms = dev(new_fn, names[0]), dev(old_fn, names[1])
+    plain = dev(plain_fn, None, iters=20)
+    comp = dev(comp_fn, None, iters=20)
+    calls = [time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    return dict(ms=new_ms, old_ms=old_ms, plain_ms=plain,
+                composition_ms=comp, call_ms=(calls[1] + calls[2]) / 2,
+                old_call_ms=(calls[0] + calls[3]) / 2, calls=calls)
+
+
+def paged_checks(torch, cfg, dev, rng):
+    """Paged decode and prefill on the card: the Hopper kernels (through
+    the wrappers) and the SIMT kernels they replaced (the wrappers' simt
+    route, same inputs), each against the plain version, at the headline
+    serving shapes (8 lanes up to ctx 300; chunks at 0, 112 and 288), at
+    4096 keys (a ragged lane list with ctx 0, 1, 16, 4095, 4096 and lanes
+    ending on and just past split boundaries; chunks at 4080 and a
+    partial one at 4088) and with every lane at ctx 1, bf16 and int8
+    pools with a NaN-poisoned null block; timed with a cold L2 beside
+    the plain version and the gather + SDPA composition. Returns the two
+    kernels' JSON rows."""
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    scale = d ** -0.5
+    out = {}
+    esz = {"bf16": 2, "int8": 1}
+    dtypes = (("bf16", torch.bfloat16), ("int8", torch.int8))
+
+    # ---- decode
+    t = -(-max(DECODE_CTX) // BLOCK) + 1
+    tables_np, nb = block_tables(DECODE_CTX, t, rng)
+    q = torch.randn((SLOTS, hq, d), device=dev).to(torch.bfloat16)
+    cases = {"headline": (DECODE_CTX, torch.tensor(tables_np, device=dev),
+                          nb, 1, True)}
+    lrng = np.random.default_rng(18)
+    tl = LONG_CTX // BLOCK
+    per = ops.paged_splits(LONG_CTX, SLOTS * hkv)[1]    # split boundaries
+    ragged = [0, 1, 16, LONG_CTX - 1, LONG_CTX, per, 2 * per, per + 1]
+    for name, ctx_list, timed in (("long", [LONG_CTX] * SLOTS, True),
+                                  ("long-ragged", ragged, False),
+                                  ("ctx1", [1] * SLOTS, True)):
+        tw = t if name == "ctx1" else tl
+        tnp, n = block_tables(ctx_list, tw, lrng)
+        cases[name] = (ctx_list, torch.tensor(tnp, device=dev), n, 3, timed)
+    rows = {}
+    errs = [0.0, 0.0]
+    for case, (ctx_list, tables, n, seed, timed) in cases.items():
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+        zero = ctx == 0
+        for name, kv_dtype in dtypes:
+            k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, seed, dev)
+            kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+            args = (q, k, v, tables, ctx)
+            new_fn = lambda: ops.paged_decode_attention(*args, **kw)
+            old_fn = lambda: ops._paged_decode(*args, route="simt", **kw)
+            plain_fn = lambda: ref.paged_decode_attention_ref(*args, **kw)
+            comp_fn = lambda: _decode_composition(torch, q, k, v, ks, vs,
+                                                  tables, ctx, scale)
+            route = ops.paged_route("decode", q.dtype, kv_dtype, d, BLOCK)
+            names = (PAGED_LIBS["paged_decode_attention"][1]
+                     if route != "simt" else "paged_decode_kernel",
+                     "paged_decode_kernel")
+            e = _paged_run(torch, f"decode {case} {name}", new_fn, old_fn,
+                           plain_fn, route, ops, "paged_decode_attention",
+                           zero_rows=zero)
+            errs = [max(a, b) for a, b in zip(errs, e)]
+            nsplit = ops.paged_splits(tables.shape[1] * BLOCK,
+                                      len(ctx_list) * hkv)[0]
+            msg = (f"[kernel] paged_decode_attention {case} {name} pools "
+                   f"({len(ctx_list)} lanes, ctx {min(ctx_list)}.."
+                   f"{max(ctx_list)}, T {tables.shape[1]}, {nsplit} "
+                   f"splits): "
+                   f"max|err| new {e[0]:.3e}, old {e[1]:.3e} (atol "
+                   f"{ATOL_BF16}); bitwise repeatable")
+            if timed:
+                r = _paged_times(torch, new_fn, old_fn, plain_fn, comp_fn,
+                                 names)
+                nbytes, flops = _decode_work(cfg, ctx_list, esz[name],
+                                             len(ctx_list))
+                nbytes += tables.numel() * 4 + ctx.numel() * 4
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+                rows[(case, name)] = r
+                msg += (f"; device: new {r['ms']:.5f} ms, old "
+                        f"{r['old_ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+                        f"ms, composition (gather + SDPA) "
+                        f"{r['composition_ms']:.5f} ms; bound "
+                        f"{r['bound_ms']:.5f} ms ({r['bound_by']}); host "
+                        f"clock per call new {r['call_ms']:.5f} ms, old "
+                        f"{r['old_call_ms']:.5f} ms (old, new, new, old: "
+                        + ", ".join(f"{c:.5f}" for c in r["calls"]) + ")")
+            print(msg)
+            del k, v, ks, vs
+    out["paged_decode_attention"] = _paged_row(
+        rows, errs, "paged_decode_tma.cu", "paged_decode.cu", "304")
+
+    # ---- prefill: first, middle and partial last chunk (headline), two
+    # chunks at 4096 keys, one row at ctx 1
     ctx_max = max(o + c for o, c in PREFILL_CHUNKS)
     t1 = -(-ctx_max // BLOCK) + 1
     tbl_np, nb1 = block_tables([ctx_max], t1, rng)
-    table = torch.tensor(tbl_np[0], device=dev)
-    errs, times = [], {}
-    for name, kv_dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
-        k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, nb1 + 1, 2, dev)
-        kw = dict(k_scales=ks, v_scales=vs)
-        for off, clen in PREFILL_CHUNKS:
-            qc = torch.randn((hq, CHUNK, d), device=dev).to(torch.bfloat16)
+    ltbl_np, nbl = block_tables([LONG_CTX], LONG_CTX // BLOCK, lrng)
+    cases = {"headline": (PREFILL_CHUNKS, torch.tensor(tbl_np[0], device=dev),
+                          nb1, 2),
+             "long": (LONG_PREFILL_CHUNKS,
+                      torch.tensor(ltbl_np[0], device=dev), nbl, 4),
+             "ctx1": ([(0, 1)], torch.tensor(tbl_np[0], device=dev), nb1, 2)}
+    rows = {}
+    errs = [0.0, 0.0]
+    for case, (chunks, table, n, seed) in cases.items():
+        for name, kv_dtype in dtypes:
+            k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, seed, dev)
+            kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+            for off, clen in chunks:
+                qc = torch.randn((hq, CHUNK, d), device=dev).to(torch.bfloat16)
+                args = (qc, k, v, table, off, off + clen)
+                new_fn = lambda: ops.paged_prefill_attention(*args, **kw)
+                old_fn = lambda: ops._paged_prefill(*args, route="simt", **kw)
+                plain_fn = lambda: ref.paged_prefill_attention_ref(*args,
+                                                                   **kw)
+                comp_fn = lambda: _prefill_composition(
+                    torch, qc, k, v, ks, vs, table, off, off + clen, scale)
+                route = ops.paged_route("prefill", qc.dtype, kv_dtype, d,
+                                        BLOCK)
+                names = (PAGED_LIBS["paged_prefill_attention"][1]
+                         if route != "simt" else "paged_prefill_kernel",
+                         "paged_prefill_kernel")
+                e = _paged_run(
+                    torch, f"prefill {case} {name} @{off}+{clen}", new_fn,
+                    old_fn, plain_fn, route, ops, "paged_prefill_attention",
+                    rows=lambda x, c=clen: x[:, :c])
+                errs = [max(a, b) for a, b in zip(errs, e)]
+                nsplit = ops.paged_splits(
+                    min(off + clen, table.shape[0] * BLOCK),
+                    hkv * -(-hq // hkv * CHUNK // ops.PREFILL_TILE))[0]
+                print(f"[kernel] paged_prefill_attention {case} {name} pools "
+                      f"(chunk at {off}, {clen} rows, ctx {off + clen}, "
+                      f"{nsplit} splits): max|err| new {e[0]:.3e}, old "
+                      f"{e[1]:.3e} "
+                      f"(atol {ATOL_BF16}); bitwise repeatable")
+            # time the case's last chunk (headline: the partial one at 288)
+            off, clen = chunks[-1] if case != "long" else chunks[0]
             args = (qc, k, v, table, off, off + clen)
-            got = ops.paged_prefill_attention(*args, **kw)
-            want = ref.paged_prefill_attention_ref(*args, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  f"prefill {name} @{off}: non-finite")
-            err = float((got[:, :clen].float()
-                         - want[:, :clen].float()).abs().max())
-            check(err <= ATOL_BF16,
-                  f"prefill {name} @{off}: max err {err} > {ATOL_BF16}")
-            errs.append(err)
-        # time the partial last chunk, the longest context
-        times[name] = timings(
-            lambda: ops.paged_prefill_attention(*args, **kw),
-            lambda: ref.paged_prefill_attention_ref(*args, **kw),
-            "paged_prefill_kernel")
-        print(f"[kernel] paged_prefill_attention {name} pools: max|err| "
-              f"{max(errs):.3e} (atol {ATOL_BF16}); device: kernel "
-              f"{times[name][0]:.5f} ms, plain {times[name][1]:.5f} ms; "
-              f"host clock per call {times[name][2]:.5f} ms (chunk at "
-              f"{off}, {clen} rows)")
-    off, clen = PREFILL_CHUNKS[-1]
-    ctx_len = off + clen
-    nbytes = (2 * hq * CHUNK * d * 2 + 2 * ctx_len * hkv * d * 2
-              + table.numel() * 4)
-    flops = 4 * hq * d * sum(off + c + 1 for c in range(clen))
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    out["paged_prefill_attention"] = dict(
-        source="src/repro_torch/kernels/csrc/paged_prefill.cu",
-        replaces="src/repro/kernels/flash_attention.py:442",
-        max_abs_err=max(errs), ms=times["bf16"][0], plain_ms=times["bf16"][1],
-        call_ms=times["bf16"][2], bound_ms=b_ms, bound_by=b_by,
-        int8_ms=times["int8"][0], int8_plain_ms=times["int8"][1])
+            r = _paged_times(torch, new_fn, old_fn, plain_fn, comp_fn, names)
+            ctx_len = off + clen
+            nbytes = (2 * hq * CHUNK * d * 2
+                      + 2 * ctx_len * hkv * (d * esz[name]
+                                             + (4 if name == "int8" else 0))
+                      + table.numel() * 4)
+            flops = 4 * hq * d * sum(off + c + 1 for c in range(clen))
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                 BF16_FLOPS_PER_S)
+            rows[(case, name)] = r
+            print(f"[kernel] paged_prefill_attention {case} {name} pools, "
+                  f"timed chunk at {off}, {clen} rows: device: new "
+                  f"{r['ms']:.5f} ms, old {r['old_ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, composition (gather + SDPA) "
+                  f"{r['composition_ms']:.5f} ms; bound {r['bound_ms']:.5f} "
+                  f"ms ({r['bound_by']}); host clock per call new "
+                  f"{r['call_ms']:.5f} ms, old {r['old_call_ms']:.5f} ms "
+                  "(old, new, new, old: "
+                  + ", ".join(f"{c:.5f}" for c in r["calls"]) + ")")
+            del k, v, ks, vs
+    out["paged_prefill_attention"] = _paged_row(
+        rows, errs, "paged_prefill_tc.cu", "paged_prefill.cu", "442")
+    return out
+
+
+def _paged_row(rows, errs, src, simt_src, line):
+    """A paged kernel's JSON row: the headline bf16 case's numbers under
+    the common keys, every other case's under ``<case>_<dtype>_<key>``."""
+    head = rows[("headline", "bf16")]
+    row = dict(source=f"src/repro_torch/kernels/csrc/{src}",
+               simt_source=f"src/repro_torch/kernels/csrc/{simt_src}",
+               replaces=f"src/repro/kernels/flash_attention.py:{line}",
+               max_abs_err=errs[0], old_max_abs_err=errs[1],
+               library_ms=None, library_call=LIBRARY_NOTE,
+               composition_call=COMPOSITION_NOTE,
+               **{k: head[k] for k in ("ms", "old_ms", "plain_ms",
+                                       "composition_ms", "call_ms",
+                                       "old_call_ms", "bound_ms",
+                                       "bound_by")})
+    for (case, name), r in rows.items():
+        prefix = ("" if case == "headline" else f"{case}_") + (
+            "" if name == "bf16" else f"{name}_")
+        if prefix:
+            row.update({prefix + k: r[k] for k in (
+                "ms", "old_ms", "plain_ms", "composition_ms", "call_ms",
+                "old_call_ms", "bound_ms")})
+    return row
+
+
+def kernel_checks(torch, cfg, dev):
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(0)
+    hkv = cfg.num_kv_heads
+    out = paged_checks(torch, cfg, dev, rng)
 
     # ---- quantize: bitwise, random and pinned bits, an all-zero row
     m = hkv * CHUNK                 # rows of one layer's chunk K (or V)
@@ -686,24 +915,33 @@ def flash_checks(torch, dev):
     return rows
 
 
+def _lib_report(stem):
+    """(HGMMA instructions in the SASS, registers a kernel, spill stores +
+    loads a kernel) of a built library, from cuobjdump and ptxas."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import build
+    rep = build.build_report[stem]
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", rep["path"]],
+        capture_output=True, text=True, timeout=300).stdout
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep["log"])]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", rep["log"])]
+    return sass.count("HGMMA"), regs, spills
+
+
 def tc_report():
     """The tensor-core kernels as built: each library's SASS must hold
     HGMMA (wgmma) instructions; their registers and spills from ptxas and
-    their dynamic shared memory. Returns {wrapper: report}."""
-    from torch.utils.cpp_extension import CUDA_HOME
+    their dynamic shared memory. The paged libraries likewise (HGMMA
+    required of the prefill's, which runs wgmma). Returns {wrapper:
+    report}."""
     from repro_torch.kernels import build
     out = {}
     for name, (stem, smem_fn, args, kname, _) in TC_KERNELS.items():
-        rep = build.build_report[stem]
-        sass = subprocess.run(
-            [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
-             rep["path"]], capture_output=True, text=True, timeout=300).stdout
-        hgmma = sass.count("HGMMA")
+        hgmma, regs, spills = _lib_report(stem)
         check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
-                                           rep["log"])]
-        spills = [int(a) + int(b) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", rep["log"])]
+        rep = build.build_report[stem]
         smem = getattr(ctypes.CDLL(rep["path"]), smem_fn)(*args)
         out[name] = dict(hgmma=hgmma, registers=regs, spill_bytes=spills,
                          dynamic_smem_bytes=smem)
@@ -711,6 +949,17 @@ def tc_report():
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread "
               f"at launch, spill stores + loads {spills or 'not rebuilt'} "
               f"bytes; {smem} bytes of dynamic shared memory a CTA")
+    for name, (stem, kname, wgmma) in PAGED_LIBS.items():
+        if stem not in build.build_report:
+            continue
+        hgmma, regs, spills = _lib_report(stem)
+        check(hgmma > 0 or not wgmma, f"{stem}: no HGMMA (wgmma) "
+              "instruction in its SASS")
+        out[name] = dict(hgmma=hgmma, registers=regs, spill_bytes=spills)
+        print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA instructions in "
+              f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
+              f"spill stores + loads {spills or 'not rebuilt'} bytes (one "
+              "entry an instantiation)")
     return out
 
 
@@ -1717,6 +1966,8 @@ def serve_main_path(torch, cfg, params, dev):
     from repro_torch.kernels import ops
     from repro_torch.serve import serve_continuous
     totals = dict.fromkeys(ops.launch_counts(), 0)
+    routes = {fn: dict.fromkeys(ops.route_counts()[fn], 0)
+              for fn in PAGED_LIBS}
     reports = {}
     for cache in ("fp32", "int8"):
         ops.reset_launch_counts()
@@ -1741,24 +1992,36 @@ def serve_main_path(torch, cfg, params, dev):
                               if cache == "int8" else 0),
         })
         check(counts == want, f"{cache}: launches {counts} != {want}")
+        by_route = ops.route_counts()
+        for fn in PAGED_LIBS:      # bf16 q over bf16 or int8 pools
+            fast = dict.fromkeys(by_route[fn], 0)
+            fast[ops.PAGED_ROUTES[fn.split("_")[1]]] = counts[fn]
+            check(by_route[fn] == fast, f"{cache}: {fn} launches by route "
+                  f"{by_route[fn]} != {fast}")
+            for r, n in by_route[fn].items():
+                routes[fn][r] += n
         for name in totals:
             totals[name] += counts[name]
         print(f"[serve] cache={cache}: {rep['requests']} requests, "
               f"{rep['total_new_tokens']} tokens, {rep['decode_steps']} "
               f"decode steps, {rep['prefill_chunks']} prefill chunks; warm "
               f"{rep['warm_tokens_per_s']:.1f} tok/s (cold "
-              f"{rep['tokens_per_s']:.1f}); launches {counts}")
+              f"{rep['tokens_per_s']:.1f}); launches {counts}; paged "
+              f"launches by route " + ", ".join(
+                  f"{fn} {by_route[fn]}" for fn in PAGED_LIBS))
         reports[cache] = rep
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "quantize_int8"):
         check(totals[name] > 0, f"{name} was never launched serving")
-    return totals, reports
+    return totals, reports, routes
 
 
-def profile_decode(torch, cfg, params, dev, steps=10):
+def profile_decode(torch, cfg, params, dev, steps=10, kernels=None):
     """Warm decode steps with all lanes live: wall time per step on the
     host clock, and the device's busy time per step from torch.profiler
-    (the summed kernel, copy and fill durations on the one stream)."""
+    (the summed kernel, copy and fill durations on the one stream); the
+    decode kernel's device time a launch in the step beside its
+    ``paged_checks`` time alone (cold L2, headline shape)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import (ContinuousScheduler, PagedCacheSpec,
                                    PagedEngine, generate_fleet_requests)
@@ -1797,6 +2060,14 @@ def profile_decode(torch, cfg, params, dev, steps=10):
           f"{SLOTS / wall * 1e3:.0f} tok/s")
     for t, n, key in rows[:6]:
         print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+    name = PAGED_LIBS["paged_decode_attention"][1]
+    hits = [r for r in rows if name in r[2]]
+    n = sum(r[1] for r in hits)
+    check(n > 0, f"decode step: no {name} launch in the profile")
+    alone = kernels["paged_decode_attention"]["ms"] if kernels else None
+    print(f"[profile]   decode attention {sum(r[0] for r in hits):.4f} "
+          f"ms/step: {name} {sum(r[0] for r in hits) / n:.5f} ms a launch "
+          f"x {n} in the step vs {alone} ms alone (paged_checks, cold L2)")
     return wall, busy
 
 
@@ -1886,6 +2157,11 @@ def main():
 
     # 3. kernels against their plain versions
     cfg = get_config("flad-adllm")
+    if "--paged" in sys.argv[1:]:
+        rows = paged_checks(torch, cfg, dev, np.random.default_rng(0))
+        print(json.dumps(rows))
+        print("chip_smoke --paged: the paged kernels only; no result line")
+        return 0
     kernels = kernel_checks(torch, cfg, dev)
     kernels.update(flash_checks(torch, dev))
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
@@ -1900,8 +2176,9 @@ def main():
     print(f"[model] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {n_params / 1e6:.1f} M params in {cfg.param_dtype}"
           f" ({time.perf_counter() - t0:.1f} s to init)")
-    launches, reports = serve_main_path(torch, cfg, params, dev)
-    profile_decode(torch, cfg, params, dev)
+    launches, reports, serve_routes = serve_main_path(torch, cfg, params,
+                                                      dev)
+    profile_decode(torch, cfg, params, dev, kernels=kernels)
 
     # 4b. paged path vs contiguous oracle, teacher-forced on served streams
     seqs = reports["fp32"]["sequences"]
@@ -1970,6 +2247,9 @@ def main():
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]
                 for r in train_routes[name]}, "build": tc[name]}
+        if name in PAGED_LIBS:
+            extra = {"launches_by_route": serve_routes[name],
+                     "build": tc[name]}
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),

@@ -37,6 +37,10 @@ SIGNATURES = {
                      [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P]),
     "paged_prefill": ("paged_prefill_attention",
                       [_I, _I] + [_P] * 7 + [_I] * 9 + [_F, _P]),
+    "paged_decode_tma": ("paged_decode_attention_tma",
+                         [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
+    "paged_prefill_tc": ("paged_prefill_attention_tc",
+                         [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
     "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",

@@ -1,7 +1,13 @@
-// Shared device code of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): one CTA attends up to kMaxRows query rows of one KV
-// head through one lane's block table, with the online-softmax recurrence
-// in float32.
+// Shared device code of the two SIMT paged-attention kernels
+// (paged_decode.cu, paged_prefill.cu): one CTA attends up to kMaxRows
+// query rows of one KV head through one lane's block table, with the
+// online-softmax recurrence in float32. They are the "simt" route of
+// kernels/ops.py :: paged_route: float32 q, and bf16 q at head dims or
+// block sizes the TMA-fed kernels do not take. bf16 q over bf16 or int8
+// pools at head dim 64 (the serving path) runs paged_decode_tma.cu and
+// paged_prefill_tc.cu instead, whose shared design (whole blocks loaded
+// by TMA through the block table, keys split over CTAs and merged in
+// order, prefill's products on wgmma) is in paged_tma.cuh.
 //
 // What bounds it on an H100: the bytes of K/V read. A decode step reads
 // every live K/V row of every lane once (2*ctx*D elements per lane and KV
@@ -27,7 +33,8 @@
 //   * int8 pools are dequantized in registers (a quarter of float32's
 //     bytes); (m, l, acc) stay in registers and the warps' partial
 //     results are merged once, through shared memory, at the end.
-// wgmma, TMA and splitting a long context over several CTAs are later work.
+// A long context runs on one CTA per (KV head, lane) here; the TMA-fed
+// kernels split it.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,7 +6,9 @@
 // lane's context length and physical block ids from device memory itself
 // (the TPU's scalar prefetch has no counterpart) and loads only keys below
 // ctx. What bounds it, and what the design does about that, is in
-// paged_attention.cuh.
+// paged_attention.cuh. It is the "simt" route (float32 q, other head dims
+// and block sizes); bf16 q over bf16 or int8 pools at head dim 64 runs
+// paged_decode_tma.cu.
 #include "paged_attention.cuh"
 
 template <int EPL, typename QT, typename KT>

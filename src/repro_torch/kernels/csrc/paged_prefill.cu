@@ -9,7 +9,9 @@
 // position: later keys would add exact zeros. The two scalars q_offset
 // and ctx = q_offset + chunk_len arrive as kernel arguments, so a chunk
 // needs no device-to-host copy. What bounds it, and what the design does
-// about that, is in paged_attention.cuh.
+// about that, is in paged_attention.cuh. It is the "simt" route (float32
+// q, other head dims and block sizes); bf16 q over bf16 or int8 pools at
+// head dim 64 runs paged_prefill_tc.cu.
 #include "paged_attention.cuh"
 
 template <int EPL, typename QT, typename KT>

@@ -16,11 +16,16 @@ wrappers have two kernels behind them, chosen by dtype: bf16 at
 head_dim 64 goes to a tensor-core kernel (wgmma on TMA-fed tiles),
 float32 and the other widths to a SIMT kernel. The LoRA matmul sends
 bf16 operands that TMA can describe to a wgmma kernel and the rest to
-its mma.sync / float32 kernel (:func:`lora_route`). Their ``routes``
-dict counts the launches of each (:func:`route_counts`).
+its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
+and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
+to TMA-fed kernels that split the keys over CTAs (decode on the CUDA
+cores, prefill on wgmma) and the rest to their SIMT kernels
+(:func:`paged_route`). Their ``routes`` dict counts the launches of each
+(:func:`route_counts`).
 """
 from __future__ import annotations
 
+import functools
 import operator
 from typing import Optional
 
@@ -33,6 +38,7 @@ LANES = 128          #: fixed lane width of the quantization row layout
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)   #: head widths the attention kernels take
 MAX_GROUP = 8                #: kMaxRows: GQA group size a decode CTA serves
+PREFILL_TILE = 64            #: query rows of a wgmma paged-prefill CTA
 
 
 def _on_card(*tensors) -> bool:
@@ -77,6 +83,81 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
+# ------------------------------------------------------- paged attention
+PAGED_HEAD_DIM = 64     #: head_dim of the TMA-fed paged kernels
+SPLIT_KEYS = 384        #: keys of a CTA's split, at least (whole 64s)
+MAX_SPLITS = 64         #: splits a (lane, KV head) merges, at most
+SPLIT_CTAS = 256        #: CTAs a call splits up to: about two an SM
+#: the route key of each paged wrapper's Hopper kernel: decode runs on the
+#: CUDA cores fed by TMA (``csrc/paged_decode_tma.cu``), prefill on wgmma
+#: (``csrc/paged_prefill_tc.cu``); both name the SIMT kernel "simt"
+PAGED_ROUTES = {"decode": "tma", "prefill": "wgmma"}
+
+
+@functools.lru_cache(maxsize=256)
+def paged_route(kind: str, q_dtype, kv_dtype, head_dim: int,
+                block_size: int) -> str:
+    """The kernel a card launch of paged ``kind`` ("decode" or "prefill")
+    takes: the TMA-fed kernel (route :data:`PAGED_ROUTES` [kind]) for bf16
+    q over bf16 or int8 pools at head_dim :data:`PAGED_HEAD_DIM` whose
+    blocks TMA can land as whole 128-byte-swizzled atoms (bf16: block
+    size 8, 16, 32 or 64; int8: 16, 32 or 64, so a block's scales are a
+    row of 16-byte multiples too), else "simt" (``csrc/paged_decode.cu``,
+    ``csrc/paged_prefill.cu``: float32 q, other head dims and blocks)."""
+    sizes = (16, 32, 64) if kv_dtype == torch.int8 else (8, 16, 32, 64)
+    fast = (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim == PAGED_HEAD_DIM and block_size in sizes)
+    return PAGED_ROUTES[kind] if fast else "simt"
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_splits(keys: int, heads: int = 1):
+    """(CTAs, keys each) each of ``heads`` (lane, KV head) pairs (decode:
+    B * Hkv; prefill: Hkv * row tiles) of the TMA-fed kernels splits
+    ``keys`` over (decode: the table width T * bs, since ctx_lens lives
+    on the device; prefill: min(ctx_len, T * bs)): enough CTAs that the
+    call has up to :data:`SPLIT_CTAS`, each at least :data:`SPLIT_KEYS`
+    keys, at most :data:`MAX_SPLITS`, and a whole number of 64-key
+    tiles. Above one CTA, the last of a pair to finish merges the splits'
+    (m, l, acc) in split order."""
+    keys = max(1, int(keys))
+    n = min(-(-keys // SPLIT_KEYS), max(1, -(-SPLIT_CTAS // int(heads))),
+            MAX_SPLITS)
+    per = max(SPLIT_KEYS, -(-(-(-keys // n)) // 64) * 64)
+    return -(-keys // per), per
+
+
+def _partial_floats(rows: int, d: int) -> int:
+    """Floats of one split's (acc, m, l) for ``rows`` query rows, in
+    whole float4s (paged_tma.cuh's partial_floats)."""
+    return -(-rows * (d + 2) // 4) * 4
+
+
+_SCRATCH = {}
+
+
+def _split_scratch(t, stream: int, nsplit: int, n_heads: int,
+                   floats: int):
+    """(workspace, counters) of a split launch: ``floats`` float32 per
+    (head, split) for the partial results, and an int32 arrival counter
+    per head, zero before the launch and reset to zero by the CTA that
+    merges. Both are kept per (device, stream) and only grow: launches
+    on one stream run in order, so each finds the counters at zero and
+    the workspace free. (None, None) when nothing splits."""
+    if nsplit == 1:
+        return None, None
+    key = (t.device, stream)
+    ws, ctr = _SCRATCH.get(key, (None, None))
+    need = n_heads * nsplit * floats
+    if ws is None or ws.numel() < need:
+        ws = torch.empty(need, dtype=torch.float32, device=t.device)
+    if ctr is None or ctr.numel() < n_heads:
+        ctr = torch.zeros(n_heads, dtype=torch.int32, device=t.device)
+    _SCRATCH[key] = (ws, ctr)
+    return ws, ctr
+
+
 def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"q must be float32 or bfloat16, got {q.dtype}")
@@ -106,13 +187,36 @@ def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
     return hkv, bs, d
 
 
+def _pick_route(kind, route, q, k_pages, bs, d):
+    best = paged_route(kind, q.dtype, k_pages.dtype, d, bs)
+    route = route or best
+    _require(route in (best, "simt"), f"paged {kind}: route {route!r} "
+             f"cannot take these operands (it takes {best!r} or 'simt')")
+    return route
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                            scale: Optional[float] = None, k_scales=None,
                            v_scales=None):
     """q: [B, Hq, D] decode queries; k_pages/v_pages: [Hkv, NB, bs, D]
     pools (float32/bfloat16 as q, or int8 with ``k_scales``/``v_scales``
     [Hkv, NB, bs, 1] float32); block_tables: [B, T] int32; ctx_lens: [B]
-    int32 visible KV lengths (0 returns zeros). Returns [B, Hq, D]."""
+    int32 visible KV lengths (0 returns zeros). Returns [B, Hq, D].
+
+    On the card the kernel follows :func:`paged_route`: bf16 q over bf16
+    or int8 pools at head_dim 64 launches ``csrc/paged_decode_tma.cu``
+    (keys split over CTAs by :func:`paged_splits`, blocks loaded by TMA),
+    everything else the SIMT kernel; ``paged_decode_attention.routes``
+    counts the launches of each."""
+    return _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens,
+                         scale=scale, k_scales=k_scales, v_scales=v_scales)
+
+
+def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
+                  k_scales, v_scales, route: Optional[str] = None):
+    """:func:`paged_decode_attention` on ``route`` (None: the one
+    :func:`paged_route` picks; "simt" also takes what the Hopper kernel
+    takes, so both can be compared on the same inputs)."""
     _require(q.dim() == 3, "q must be [B, Hq, D]")
     hkv, bs, d = _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     b, hq, _ = q.shape
@@ -132,14 +236,29 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
             q, k_pages, v_pages, block_tables, ctx_lens, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
     _aligned(k_pages=k_pages, v_pages=v_pages)
+    route = _pick_route("decode", route, q, k_pages, bs, d)
     out = torch.empty_like(q)
-    err = build.load("paged_decode")(
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
-        _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
-        _ptr(block_tables), _ptr(ctx_lens), _ptr(out), b, hq, hkv,
-        k_pages.shape[1], bs, d, block_tables.shape[1], scale, _stream(q))
-    _raise_on(err, "paged_decode_attention")
+    nb, t = k_pages.shape[1], block_tables.shape[1]
+    if route == "simt":
+        err = build.load("paged_decode")(
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
+            _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
+            _ptr(block_tables), _ptr(ctx_lens), _ptr(out), b, hq, hkv, nb,
+            bs, d, t, scale, _stream(q))
+    else:
+        _aligned(q=q)
+        stream = _stream(q)
+        nsplit, per = paged_splits(t * bs, b * hkv)
+        ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,
+                                 _partial_floats(hq // hkv, d))
+        err = build.load("paged_decode_tma")(
+            _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages),
+            _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
+            _ptr(block_tables), _ptr(ctx_lens), _ptr(out), _ptr(ws),
+            _ptr(ctr), b, hq, hkv, nb, bs, t, nsplit, per, scale, stream)
+    _raise_on(err, f"paged_decode_attention ({route})")
     paged_decode_attention.launches += 1
+    paged_decode_attention.routes[route] += 1
     return out
 
 
@@ -151,7 +270,23 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
     own K/V (dtype rules as :func:`paged_decode_attention`); block_table:
     [T] int32; q_offset/ctx_len: host ints (ctx_len = q_offset +
     chunk_len), passed to the kernel as arguments. Returns [Hq, C, D];
-    rows past chunk_len are finite garbage."""
+    rows past chunk_len are finite garbage.
+
+    On the card the kernel follows :func:`paged_route`: bf16 q over bf16
+    or int8 pools at head_dim 64 launches ``csrc/paged_prefill_tc.cu``
+    (a KV head's G*C query rows in 64-row tiles, S and P V on wgmma,
+    keys split over CTAs by :func:`paged_splits` of ctx_len), everything
+    else the SIMT kernel; ``paged_prefill_attention.routes`` counts the
+    launches of each."""
+    return _paged_prefill(q, k_pages, v_pages, block_table, q_offset,
+                          ctx_len, scale=scale, k_scales=k_scales,
+                          v_scales=v_scales)
+
+
+def _paged_prefill(q, k_pages, v_pages, block_table, q_offset, ctx_len, *,
+                   scale, k_scales, v_scales, route: Optional[str] = None):
+    """:func:`paged_prefill_attention` on ``route``, as
+    :func:`_paged_decode`."""
     _require(q.dim() == 3, "q must be [Hq, C, D]")
     hkv, bs, d = _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     hq, c, _ = q.shape
@@ -170,14 +305,30 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
             q, k_pages, v_pages, block_table, q_offset, ctx_len, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
     _aligned(k_pages=k_pages, v_pages=v_pages)
+    route = _pick_route("prefill", route, q, k_pages, bs, d)
     out = torch.empty_like(q)
-    err = build.load("paged_prefill")(
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
-        _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
-        _ptr(block_table), _ptr(out), hq, hkv, k_pages.shape[1], bs, d,
-        block_table.shape[0], c, q_offset, ctx_len, scale, _stream(q))
-    _raise_on(err, "paged_prefill_attention")
+    nb, t = k_pages.shape[1], block_table.shape[0]
+    if route == "simt":
+        err = build.load("paged_prefill")(
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
+            _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
+            _ptr(block_table), _ptr(out), hq, hkv, nb, bs, d, t, c,
+            q_offset, ctx_len, scale, _stream(q))
+    else:
+        _aligned(q=q)
+        stream = _stream(q)
+        tiles = -(-(hq // hkv * c) // PREFILL_TILE)
+        nsplit, per = paged_splits(min(ctx_len, t * bs), hkv * tiles)
+        ws, ctr = _split_scratch(q, stream, nsplit, hkv * tiles,
+                                 _partial_floats(PREFILL_TILE, d))
+        err = build.load("paged_prefill_tc")(
+            _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages),
+            _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), _ptr(block_table),
+            _ptr(out), _ptr(ws), _ptr(ctr), hq, hkv, nb, bs, t, c, q_offset,
+            ctx_len, nsplit, per, scale, stream)
+    _raise_on(err, f"paged_prefill_attention ({route})")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.routes[route] += 1
     return out
 
 
@@ -689,18 +840,20 @@ KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
            dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
            flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
            mlstm_chunked)
-#: wrappers with two kernels behind them, each launch counted by route
-#: too: "wgmma" for the tensor-core kernel, "simt" for the other one (for
-#: the LoRA matmul that is its mma.sync / float32 kernel)
-ROUTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-          lora_matmul)
+#: wrappers with two kernels behind them -> the route key of the Hopper
+#: kernel; each launch is counted by route too: that key, or "simt" for
+#: the other kernel (for the LoRA matmul its mma.sync / float32 kernel)
+ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
+          flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
+          paged_decode_attention: PAGED_ROUTES["decode"],
+          paged_prefill_attention: PAGED_ROUTES["prefill"]}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in ROUTED:
-        fn.routes = {"wgmma": 0, "simt": 0}
+    for fn, fast in ROUTED.items():
+        fn.routes = {fast: 0, "simt": 0}
 
 
 reset_launch_counts()
@@ -711,5 +864,5 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """{wrapper: {"wgmma": n, other route: n}} of the routed wrappers."""
+    """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -7,7 +7,9 @@ with one (no JAX needed — this file imports only the port):
 
 Tolerances: float32 attention 1e-5 (both sides compute in float32, in
 different orders; 2e-5 for flash gradients, sums over many rows);
-bfloat16 paged attention 2e-2 (one bfloat16 rounding of the output);
+bfloat16 paged attention 2e-2 (one bfloat16 rounding of the output, and
+of P on the wgmma prefill route), at the serving shapes and at 4096 keys,
+on the route ``ops.paged_route`` names, bitwise repeatable;
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
 it), on the tensor-core route (head_dim 64, wgmma) as on the SIMT one,
 whose route counts each test checks; the quantizer and dequantizer bitwise; the flash backward bitwise
@@ -78,12 +80,16 @@ def test_paged_decode_kernel(dev, q_dtype, kv_dtype, atol, hq, hkv, d, bs):
                      dtype=q_dtype, device=dev)
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
     n = ops.paged_decode_attention.launches
+    routes = ops.route_counts()["paged_decode_attention"]
+    route = ops.paged_route("decode", q_dtype, kv_dtype, d, bs)
     got = ops.paged_decode_attention(q, k, v, tables, ctx, k_scales=ks,
                                      v_scales=vs)
     want = ref.paged_decode_attention_ref(q, k, v, tables, ctx, k_scales=ks,
                                           v_scales=vs)
     torch.cuda.synchronize()
     assert ops.paged_decode_attention.launches == n + 1
+    assert ops.route_counts()["paged_decode_attention"] == {
+        **routes, route: routes[route] + 1}
     assert torch.isfinite(got).all() and not got[ctx == 0].any()
     assert float((got.float() - want.float()).abs().max()) <= atol
 
@@ -99,12 +105,113 @@ def test_paged_prefill_kernel(dev, q_dtype, kv_dtype, atol, q_offset,
     q = torch.tensor(rng.standard_normal((hq, c, d)), dtype=q_dtype,
                      device=dev)
     args = (q, k, v, tables[0], q_offset, q_offset + chunk_len)
+    routes = ops.route_counts()["paged_prefill_attention"]
+    route = ops.paged_route("prefill", q_dtype, kv_dtype, d, bs)
     got = ops.paged_prefill_attention(*args, k_scales=ks, v_scales=vs)
     want = ref.paged_prefill_attention_ref(*args, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
+    assert ops.route_counts()["paged_prefill_attention"] == {
+        **routes, route: routes[route] + 1}
     assert torch.isfinite(got).all()
     err = (got[:, :chunk_len].float() - want[:, :chunk_len].float()).abs()
     assert float(err.max()) <= atol
+
+
+#: 4096 keys (a flad-adllm context the paged engine takes): ctx 0, 1, 16,
+#: 4095, 4096, and lanes ending on and just past a split boundary of the
+#: TMA-fed kernels (from the split plan of 8 lanes x 8 KV heads)
+KV = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _long_ctx(lanes=8, hkv=8):
+    per = ops.paged_splits(4096, lanes * hkv)[1]
+    return [0, 1, 16, 4095, 4096, per, 2 * per, per + 1]
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_decode_4096_keys(dev, kv, d):
+    """bf16 q at 4096 keys on the route ``ops.paged_route`` names (head
+    dim 64: the TMA-fed kernel; 32 and 128: the SIMT one), within 2e-2 of
+    the plain version, ctx-0 lanes exactly 0, two calls bitwise equal."""
+    rng = np.random.default_rng(5)
+    hq, hkv, bs = 16, 8, 16
+    ctx_list = _long_ctx()
+    tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, d, ctx_list)
+    q = torch.tensor(rng.standard_normal((len(ctx_list), hq, d)),
+                     dtype=torch.bfloat16, device=dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    route = ops.paged_route("decode", q.dtype, KV[kv], d, bs)
+    assert route == ("tma" if d == 64 else "simt")
+    routes = ops.route_counts()["paged_decode_attention"]
+    kw = dict(k_scales=ks, v_scales=vs)
+    got = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    again = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    want = ref.paged_decode_attention_ref(q, k, v, tables, ctx, **kw)
+    torch.cuda.synchronize()
+    assert ops.route_counts()["paged_decode_attention"] == {
+        **routes, route: routes[route] + 2}
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all() and not got[ctx == 0].any()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_prefill_4096_keys(dev, kv, d):
+    """A 16-row chunk ending at 4096 keys and a partial one, bf16 q, on
+    the route ``ops.paged_route`` names, within 2e-2 of the plain version
+    (rows below chunk_len), two calls bitwise equal."""
+    rng = np.random.default_rng(6)
+    hq, hkv, bs, c = 16, 8, 16, 16
+    tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, d, [4096])
+    route = ops.paged_route("prefill", torch.bfloat16, KV[kv], d, bs)
+    assert route == ("wgmma" if d == 64 else "simt")
+    kw = dict(k_scales=ks, v_scales=vs)
+    for q_offset, chunk_len in ((4080, 16), (4088, 5)):
+        q = torch.tensor(rng.standard_normal((hq, c, d)),
+                         dtype=torch.bfloat16, device=dev)
+        args = (q, k, v, tables[0], q_offset, q_offset + chunk_len)
+        routes = ops.route_counts()["paged_prefill_attention"]
+        got = ops.paged_prefill_attention(*args, **kw)
+        again = ops.paged_prefill_attention(*args, **kw)
+        want = ref.paged_prefill_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.route_counts()["paged_prefill_attention"] == {
+            **routes, route: routes[route] + 2}
+        assert torch.equal(got, again)
+        assert torch.isfinite(got).all()
+        err = (got[:, :chunk_len].float() - want[:, :chunk_len].float())
+        assert float(err.abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_paged_float32_q_takes_the_simt_route(dev, kv):
+    """float32 q (the float32 oracle's path) launches the SIMT kernels
+    at head dim 64 and block 16, within 1e-5 of the plain versions."""
+    rng = np.random.default_rng(7)
+    kv_dtype = torch.float32 if kv == "f32" else torch.int8
+    tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, 8, 16, 64,
+                                  [300, 0, 17])
+    q = torch.tensor(rng.standard_normal((3, 16, 64)), dtype=torch.float32,
+                     device=dev)
+    ctx = torch.tensor([300, 0, 17], dtype=torch.int32, device=dev)
+    kw = dict(k_scales=ks, v_scales=vs)
+    before = ops.route_counts()
+    got = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    qc = torch.tensor(rng.standard_normal((16, 16, 64)), dtype=torch.float32,
+                      device=dev)
+    pre = ops.paged_prefill_attention(qc, k, v, tables[0], 288, 300, **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        assert after[name] == {**before[name],
+                               "simt": before[name]["simt"] + 1}
+    want = ref.paged_decode_attention_ref(q, k, v, tables, ctx, **kw)
+    pwant = ref.paged_prefill_attention_ref(qc, k, v, tables[0], 288, 300,
+                                            **kw)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((pre[:, :12] - pwant[:, :12]).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("pinned", [False, True], ids=["random", "pinned"])

@@ -1,0 +1,102 @@
+"""Which kernel a card launch of the paged wrappers takes, and over how
+many CTAs it splits a lane's keys.
+
+``ops.paged_route`` decides from the dtypes, the head dim and the block
+size alone, before any launch: bf16 q over bf16 or int8 pools at head dim
+64 whose blocks TMA can land as whole 128-byte-swizzled atoms goes to the
+Hopper kernels (decode ``"tma"``: ``csrc/paged_decode_tma.cu``; prefill
+``"wgmma"``: ``csrc/paged_prefill_tc.cu``), everything else to the SIMT
+kernels (``"simt"``). The serving path's shapes (flad-adllm: head dim 64,
+block size 16, bf16 q over bf16 or int8 pools) must all take the Hopper
+kernels; float32 q must not. ``ops.paged_splits`` sizes the grid's split
+axis from the keys a call can see: decode's table width, prefill's
+ctx_len. Runs on the CPU: no kernel is launched.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+#: (q dtype, pool dtype, head dim, block size) -> the route of decode
+#: and prefill ("fast": "tma" and "wgmma")
+ROUTES = {
+    "serving bf16 cache": (BF16, BF16, 64, 16, "fast"),
+    "serving int8 cache": (BF16, I8, 64, 16, "fast"),
+    "bf16 bs 8": (BF16, BF16, 64, 8, "fast"),
+    "bf16 bs 32": (BF16, BF16, 64, 32, "fast"),
+    "bf16 bs 64": (BF16, BF16, 64, 64, "fast"),
+    "int8 bs 32": (BF16, I8, 64, 32, "fast"),
+    "int8 bs 64": (BF16, I8, 64, 64, "fast"),
+    # an int8 block of 8 keys is 512 bytes: half a swizzle atom
+    "int8 bs 8": (BF16, I8, 64, 8, "simt"),
+    # blocks that do not tile a 64-key stage, or no whole 8-row atom
+    "bf16 bs 4": (BF16, BF16, 64, 4, "simt"),
+    "bf16 bs 24": (BF16, BF16, 64, 24, "simt"),
+    "bf16 bs 128": (BF16, BF16, 64, 128, "simt"),
+    # other head dims keep the SIMT kernels
+    "bf16 d 32": (BF16, BF16, 32, 16, "simt"),
+    "bf16 d 128": (BF16, BF16, 128, 16, "simt"),
+    "int8 d 128": (BF16, I8, 128, 16, "simt"),
+    # float32 q: the float32 oracle's route
+    "float32": (F32, F32, 64, 16, "simt"),
+    "float32 q, int8 pools": (F32, I8, 64, 16, "simt"),
+}
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("case", ROUTES)
+def test_route_choice(case, kind):
+    q_dtype, kv_dtype, d, bs, route = ROUTES[case]
+    want = ops.PAGED_ROUTES[kind] if route == "fast" else "simt"
+    assert ops.paged_route(kind, q_dtype, kv_dtype, d, bs) == want
+
+
+#: (keys a call can see, (lane, KV head) pairs) -> (CTAs a pair splits
+#: them over, keys each): 384 keys a split at least, up to 256 CTAs a call
+#: and 64 splits a pair, then longer splits
+SPLITS = {(1, 1): (1, 384), (128, 1): (1, 384), (384, 1): (1, 384),
+          (385, 1): (2, 384), (768, 1): (2, 384), (769, 1): (3, 384),
+          (4096, 1): (11, 384), (24576, 1): (64, 384),
+          (24577, 1): (55, 448), (100000, 1): (63, 1600),
+          # the serving shapes: decode's 8 lanes x 8 KV heads (tables of
+          # 128 and 320 keys, and 4096); prefill's 8 KV heads x one 32-row
+          # tile (ctx 295, 392 and 4096)
+          (128, 64): (1, 384), (320, 64): (1, 384), (4096, 64): (4, 1024),
+          (295, 8): (1, 384), (392, 8): (2, 384), (4096, 8): (11, 384),
+          (4096, 300): (1, 4096),
+          # the CPU emulation's decode: 6 lanes x 2 KV heads, 928 keys
+          (928, 12): (3, 384)}
+
+
+@pytest.mark.parametrize("keys,heads", SPLITS)
+def test_split_plan(keys, heads):
+    n, per = ops.paged_splits(keys, heads)
+    assert (n, per) == SPLITS[keys, heads]
+    assert per % 64 == 0 and n <= ops.MAX_SPLITS
+    assert (n - 1) * per < keys <= n * per      # no split is empty
+
+
+def test_serving_table_runs_one_split():
+    """The serving path's tables (max_context 128, block 16: 8 slots)
+    launch one CTA a (lane, KV head): nothing to merge."""
+    assert ops.paged_splits(8 * 16, 8 * 8) == (1, ops.SPLIT_KEYS)
+
+
+def test_cpu_calls_count_no_route():
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(rng.standard_normal((2, 4, 16, 64)).astype(
+        np.float32)).to(BF16)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 64)).astype(
+        np.float32)).to(BF16)
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    ctx = torch.tensor([20, 5], dtype=torch.int32)
+    before = ops.route_counts()
+    ops.paged_decode_attention(q, k, k, tables, ctx)
+    ops.paged_prefill_attention(q[0][:, None].expand(4, 4, 64).contiguous(),
+                                k, k, tables[0], 16, 20)
+    assert ops.route_counts() == before
+    assert set(before["paged_decode_attention"]) == {"tma", "simt"}
+    assert set(before["paged_prefill_attention"]) == {"wgmma", "simt"}
