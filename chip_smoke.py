@@ -313,14 +313,16 @@ def bound(nbytes, flops, flops_rate):
             "operations")
 
 
-def check_routes(ops, counts, path):
-    """Every launch of a routed wrapper (the flash forward, dK/dV and dQ,
-    the LoRA matmul) on a bf16 main path went through its tensor-core
-    kernel; returns the route counts."""
+def check_routes(ops, counts, path, fns=TC_KERNELS):
+    """Every launch of the routed wrappers ``fns`` (the flash forward,
+    dK/dV and dQ and the LoRA matmul; on the serving path the paged
+    pair) on a bf16 main path went through its Hopper kernel, none
+    through "simt"; returns the route counts."""
     routes = ops.route_counts()
-    for fn in TC_KERNELS:
+    fast = {fn.__name__: key for fn, key in ops.ROUTED.items()}
+    for fn in fns:
         want = dict.fromkeys(routes[fn], 0)
-        want["wgmma"] = counts[fn]
+        want[fast[fn]] = counts[fn]
         check(routes[fn] == want, f"{path}: {fn} launches by route "
               f"{routes[fn]} != {want}")
     return routes
@@ -1992,12 +1994,8 @@ def serve_main_path(torch, cfg, params, dev):
                               if cache == "int8" else 0),
         })
         check(counts == want, f"{cache}: launches {counts} != {want}")
-        by_route = ops.route_counts()
+        by_route = check_routes(ops, counts, cache, PAGED_LIBS)
         for fn in PAGED_LIBS:      # bf16 q over bf16 or int8 pools
-            fast = dict.fromkeys(by_route[fn], 0)
-            fast[ops.PAGED_ROUTES[fn.split("_")[1]]] = counts[fn]
-            check(by_route[fn] == fast, f"{cache}: {fn} launches by route "
-                  f"{by_route[fn]} != {fast}")
             for r, n in by_route[fn].items():
                 routes[fn][r] += n
         for name in totals:

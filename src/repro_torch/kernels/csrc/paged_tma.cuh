@@ -274,55 +274,46 @@ inline cudaError_t encode(CUtensorMap* map, MapKind kind, const void* base,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A tensor map of `base`, encoded once and then taken from a cache keyed
-// by (kind, base, planes, bs): the pools live as long as their engine, so
-// a decode step encodes nothing.
-inline cudaError_t cached_map(CUtensorMap* map, MapKind kind,
-                              const void* base, int planes, int bs) {
-  struct Entry {
-    MapKind kind;
-    const void* base;
-    int planes, bs;
-    CUtensorMap map;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : cache)
-    if (e.kind == kind && e.base == base && e.planes == planes &&
-        e.bs == bs) {
-      *map = e.map;
-      return cudaSuccess;
-    }
-  Entry e{kind, base, planes, bs, {}};
-  const cudaError_t err = encode(&e.map, kind, base, planes, bs);
-  if (err != cudaSuccess) return err;
-  if (cache.size() >= 4096) cache.clear();
-  cache.push_back(e);
-  *map = e.map;
-  return cudaSuccess;
-}
-
 // The four maps of a launch (the scales' only for int8 pools; a bf16
 // launch passes the K map in their place, unread).
 struct Maps {
   CUtensorMap k, v, ks, vs;
 };
 
+// The maps of a pool pair, encoded once and then taken from a cache keyed
+// by (k, v, ks, vs, planes, bs): the pools live as long as their engine,
+// so a decode step encodes nothing and takes one lock.
 inline cudaError_t pool_maps(Maps* m, bool int8, const void* k,
                              const void* v, const float* ks, const float* vs,
                              int planes, int bs) {
+  struct Entry {
+    const void *k, *v, *ks, *vs;
+    int planes, bs;
+    Maps maps;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.k == k && e.v == v && e.ks == ks && e.vs == vs &&
+        e.planes == planes && e.bs == bs) {
+      *m = e.maps;
+      return cudaSuccess;
+    }
+  Entry e{k, v, ks, vs, planes, bs, {}};
   const MapKind kind = int8 ? kI8Blocks : kBF16Blocks;
-  cudaError_t err = cached_map(&m->k, kind, k, planes, bs);
-  if (err == cudaSuccess) err = cached_map(&m->v, kind, v, planes, bs);
+  cudaError_t err = encode(&e.maps.k, kind, k, planes, bs);
+  if (err == cudaSuccess) err = encode(&e.maps.v, kind, v, planes, bs);
+  if (err == cudaSuccess && int8)
+    err = encode(&e.maps.ks, kScaleRows, ks, planes, bs);
+  if (err == cudaSuccess && int8)
+    err = encode(&e.maps.vs, kScaleRows, vs, planes, bs);
   if (err != cudaSuccess) return err;
-  if (!int8) {
-    m->ks = m->vs = m->k;
-    return cudaSuccess;
-  }
-  err = cached_map(&m->ks, kScaleRows, ks, planes, bs);
-  if (err == cudaSuccess) err = cached_map(&m->vs, kScaleRows, vs, planes, bs);
-  return err;
+  if (!int8) e.maps.ks = e.maps.vs = e.maps.k;
+  if (cache.size() >= 1024) cache.clear();
+  cache.push_back(e);
+  *m = e.maps;
+  return cudaSuccess;
 }
 
 // Raise `kernel`'s dynamic shared-memory cap once per instantiation.

@@ -246,7 +246,6 @@ def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
             _ptr(block_tables), _ptr(ctx_lens), _ptr(out), b, hq, hkv, nb,
             bs, d, t, scale, _stream(q))
     else:
-        _aligned(q=q)
         stream = _stream(q)
         nsplit, per = paged_splits(t * bs, b * hkv)
         ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,

@@ -185,6 +185,50 @@ def test_paged_prefill_4096_keys(dev, kv, d):
         assert float(err.abs().max()) <= 2e-2
 
 
+#: (Hq, Hkv, block size) of the TMA-fed kernels beyond the serving shape:
+#: GQA groups 1, 4 and 8 (prefill's group 8 is 128 rows: two row tiles)
+#: and block sizes 8, 32 and 64 (int8 takes 16 and up)
+TMA_SHAPES = {"g1": (8, 8, 16), "g4": (16, 4, 16), "g8": (16, 2, 16),
+              "bs8": (16, 8, 8), "bs32": (16, 8, 32), "bs64": (16, 8, 64)}
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("shape", TMA_SHAPES)
+def test_paged_tma_routes_at_other_groups_and_blocks(dev, kv, shape):
+    """Decode and prefill of bf16 q at head dim 64 over other GQA groups
+    and block sizes, on the route ``ops.paged_route`` names, within 2e-2
+    of the plain versions, ctx-0 lanes exactly 0, contexts that split."""
+    hq, hkv, bs = TMA_SHAPES[shape]
+    rng = np.random.default_rng(8)
+    ctx_list = [0, 1, bs, 700, 385, 2000]
+    tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, 64, ctx_list)
+    q = torch.tensor(rng.standard_normal((len(ctx_list), hq, 64)),
+                     dtype=torch.bfloat16, device=dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    kw = dict(k_scales=ks, v_scales=vs)
+    routes = ops.route_counts()
+    got = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    want = ref.paged_decode_attention_ref(q, k, v, tables, ctx, **kw)
+    qc = torch.tensor(rng.standard_normal((hq, 16, 64)),
+                      dtype=torch.bfloat16, device=dev)
+    pre = ops.paged_prefill_attention(qc, k, v, tables[5], 1990, 2000, **kw)
+    pwant = ref.paged_prefill_attention_ref(qc, k, v, tables[5], 1990, 2000,
+                                            **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name, kind in (("paged_decode_attention", "decode"),
+                       ("paged_prefill_attention", "prefill")):
+        route = ops.paged_route(kind, torch.bfloat16, KV[kv], 64, bs)
+        assert route == ("simt" if kv == "int8" and bs == 8
+                         else ops.PAGED_ROUTES[kind])
+        assert after[name] == {**routes[name], route: routes[name][route] + 1}
+    assert torch.isfinite(got).all() and not got[ctx == 0].any()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.isfinite(pre).all()
+    err = (pre[:, :10].float() - pwant[:, :10].float()).abs()
+    assert float(err.max()) <= 2e-2
+
+
 @pytest.mark.parametrize("kv", ["f32", "int8"])
 def test_paged_float32_q_takes_the_simt_route(dev, kv):
     """float32 q (the float32 oracle's path) launches the SIMT kernels
