@@ -157,8 +157,8 @@ paged_decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
     }
     float ksc = 1.f, vsc = 1.f;
     if (kInt8 && kk < nv) {
-      ksc = s.scales.k[st][kk / bs][kk % bs];
-      vsc = s.scales.v[st][kk / bs][kk % bs];
+      ksc = s.scales.k[st][scale_index(kk, bs)];
+      vsc = s.scales.v[st][scale_index(kk, bs)];
     }
     float p[G];
 #pragma unroll

@@ -157,8 +157,8 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
       int8_tile_to_bf16(s.ring[st].v, s.conv + KT * D * 2, nv);
       if (threadIdx.x < KT) {
         const int k = threadIdx.x;
-        s.ksc[k] = k < nv ? s.scales.k[st][k / bs][k % bs] : 0.f;
-        s.vsc[k] = k < nv ? s.scales.v[st][k / bs][k % bs] : 0.f;
+        s.ksc[k] = k < nv ? s.scales.k[st][scale_index(k, bs)] : 0.f;
+        s.vsc[k] = k < nv ? s.scales.v[st][scale_index(k, bs)] : 0.f;
       }
       fence_proxy_async();
       consumers_sync();

@@ -13,7 +13,9 @@
 // for int8 with bs % 16 == 0): byte `off` of the stage's linear layout
 // (key k, byte b: k * 64 * esz + b) sits at hopper::swizzle128(off). The
 // int8 scales [Hkv * NB, bs] float32 come as one box of bs floats a
-// block, into a 128-byte slot.
+// block, into a slot of its stage's scale row: TMA writes shared memory
+// from 128-byte boundaries, so block j of a stage starts at float j *
+// scale_stride(bs), with scale_stride(bs) = max(bs, 32).
 //
 // The ring. A stage holds KT = 64 keys: 64 / bs blocks of K and of V. A
 // producer warp reads the CTA's slice of the block table, 32 entries at a
@@ -47,7 +49,9 @@ using namespace hopper;
 constexpr int D = 64;          // head_dim of these kernels
 constexpr int KT = 64;         // keys of a ring stage
 constexpr int STAGES = 4;
-constexpr int SCALE_SLOTS = 4;       // blocks of a stage (bs >= 16, int8)
+// floats of a stage's int8 scale row: KT / bs blocks of max(bs, 32)
+// floats each (bs 16: 4 x 32; bs 32: 2 x 32; bs 64: 1 x 64)
+constexpr int SCALE_FLOATS = 128;
 constexpr int MAX_SPLITS = 64;       // splits a (lane, head) merges
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = paged::kNegInf;
@@ -60,11 +64,24 @@ struct alignas(1024) Stage {
   unsigned char v[KT * D * sizeof(KVT)];
 };
 
-// The int8 scales of the ring: a 128-byte slot a block.
+// The int8 scales of the ring: one row of SCALE_FLOATS a stage.
 struct alignas(128) Scales {
-  float k[STAGES][SCALE_SLOTS][32];
-  float v[STAGES][SCALE_SLOTS][32];
+  float k[STAGES][SCALE_FLOATS];
+  float v[STAGES][SCALE_FLOATS];
 };
+
+// Floats between the starts of two blocks' scales in a stage's row (a
+// whole number of 128 bytes), and where key k of the stage has its scale.
+__host__ __device__ constexpr int scale_stride(int bs) {
+  return bs < 32 ? 32 : bs;
+}
+__device__ __forceinline__ int scale_index(int k, int bs) {
+  return k / bs * scale_stride(bs) + k % bs;
+}
+static_assert(KT / 16 * scale_stride(16) <= SCALE_FLOATS &&
+                  KT / 32 * scale_stride(32) <= SCALE_FLOATS &&
+                  KT / 64 * scale_stride(64) <= SCALE_FLOATS,
+              "a stage's scales fit its row at every int8 block size");
 
 // The barriers of the ring.
 struct Ring {
@@ -140,8 +157,9 @@ __device__ __forceinline__ void produce(Stage<KVT>* ring, Scales* sc,
       tma_load_3d(ring[st].k + j * blk_bytes, &tk, &r.full[st], 0, 0, plane);
       tma_load_3d(ring[st].v + j * blk_bytes, &tv, &r.full[st], 0, 0, plane);
       if constexpr (kInt8) {
-        tma_load_2d(sc->k[st][j], &tks, &r.full[st], 0, plane);
-        tma_load_2d(sc->v[st][j], &tvs, &r.full[st], 0, plane);
+        const int at = j * scale_stride(bs);
+        tma_load_2d(sc->k[st] + at, &tks, &r.full[st], 0, plane);
+        tma_load_2d(sc->v[st] + at, &tvs, &r.full[st], 0, plane);
       }
     }
   }
