@@ -126,8 +126,10 @@ def merge(parts):
     return a / torch.clamp(lsum, min=1e-30)[:, None]
 
 
-def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale):
-    """paged_decode_tma.cu's arithmetic: [B, Hq, D] float32."""
+def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale, drop=0):
+    """paged_decode_tma.cu's arithmetic: [B, Hq, D] float32. ``drop``
+    keys are left out at the end of split 0 of a lane that splits (a
+    fault for the card checks to see)."""
     b, hq, _ = q.shape
     hkv = k.shape[0]
     g = hq // hkv
@@ -143,7 +145,8 @@ def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale):
             parts = []
             for sp in range(nlive):
                 lo = sp * per
-                kend = min(ctx, lo + per)
+                kend = min(ctx, lo + per) - (drop if sp == 0 < nlive - 1
+                                             else 0)
                 warps = [(torch.full((g,), NEG), torch.zeros(g),
                           torch.zeros((g, D))) for _ in range(4)]
                 for t0 in range(lo, kend, KT):
@@ -166,9 +169,10 @@ def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale):
     return out
 
 
-def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale):
+def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
+                     drop=0):
     """paged_prefill_tc.cu's arithmetic: [Hq, C, D] float32 (rows past
-    chunk_len included)."""
+    chunk_len included); ``drop`` as :func:`decode_emulated`."""
     hq, c, _ = q.shape
     hkv = k.shape[0]
     rows = hq // hkv * c
@@ -185,7 +189,8 @@ def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale):
             parts = []
             for sp in range(nsplit):
                 lo = sp * per
-                kend = min(keys, lo + per)
+                kend = min(keys, lo + per) - (drop if sp == 0 < nsplit - 1
+                                              else 0)
                 m = torch.full((qt.shape[0],), NEG)
                 l = torch.zeros(qt.shape[0])
                 acc = torch.zeros((qt.shape[0], D))
@@ -286,3 +291,53 @@ def test_merge_weights(case):
     want = (torch.zeros((2, D)) if case == "all-empty"
             else live[2] / live[1][:, None])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+#: the card checks' bound on each output row of a bf16 paged kernel
+#: (``chip_smoke.py``'s PAGED_RTOL, ``tests/test_torch_cuda.py``'s): this
+#: share of the row's largest |float32 plain value|, plus 1e-5
+CARD_RTOL = {"decode": 2.0 ** -8, "prefill": 2.0 ** -7}
+
+
+def _row_use(got, want, rtol):
+    """The largest share of its row's card bound that an error of ``got``
+    (rounded to bf16, as the kernels write it) takes."""
+    err = (got.to(torch.bfloat16).float() - want).abs()
+    return float((err / (rtol * want.abs().amax(-1, keepdim=True)
+                         + 1e-5)).max())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kind,drop", [("decode", 1), ("prefill", 16)])
+def test_card_row_bound_sees_a_dropped_key(kind, drop, int8):
+    """The row bound of the card checks holds the emulated kernels'
+    output and is broken when split 0 leaves out its last key (decode:
+    lanes at 385, 768 and 900 keys) or its last 16-key block (prefill: a
+    chunk ending on the second split's boundary at 768)."""
+    hq, hkv = GROUPS["g2"]
+    rng = np.random.default_rng(50 + int8)
+    scale = D ** -0.5
+    if kind == "decode":
+        tables, k, v, ks, vs = _inputs(rng, hkv, DECODE_CTX, int8)
+        q = _bf16(rng, (len(DECODE_CTX), hq, D))
+        ctx = torch.tensor(DECODE_CTX, dtype=torch.int32)
+        want = ref.paged_decode_attention_ref(q, k, v, tables, ctx,
+                                              k_scales=ks, v_scales=vs)
+
+        def run(n):
+            return decode_emulated(q, k, v, ks, vs, tables, ctx, scale,
+                                   drop=n)
+    else:
+        q_offset, chunk_len = CHUNKS[2]
+        ctx_len = q_offset + chunk_len
+        tables, k, v, ks, vs = _inputs(rng, hkv, [ctx_len], int8)
+        q = _bf16(rng, (hq, C, D))
+        want = ref.paged_prefill_attention_ref(
+            q, k, v, tables[0], q_offset, ctx_len, k_scales=ks,
+            v_scales=vs)[:, :chunk_len]
+
+        def run(n):
+            return prefill_emulated(q, k, v, ks, vs, tables[0], q_offset,
+                                    ctx_len, scale, drop=n)[:, :chunk_len]
+    assert _row_use(run(0), want, CARD_RTOL[kind]) <= 1.0
+    assert _row_use(run(drop), want, CARD_RTOL[kind]) > 2.0
