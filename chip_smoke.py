@@ -7,36 +7,41 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the sixteen hand-written kernel libraries from
+  2. builds the eighteen hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the five tensor-core libraries'
-     (flash forward, dK/dV, dQ; LoRA matmul; paged prefill) SASS holds
-     HGMMA (wgmma) instructions and prints their registers, spills and
-     shared memory;
+     prints the build time; checks that the six tensor-core libraries'
+     (flash forward, dK/dV, dQ; LoRA matmul; paged prefill; chunkwise
+     mLSTM) SASS holds HGMMA (wgmma) instructions and prints their
+     registers, spills and shared memory;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
      lanes, block size 16, chunk 16, contexts up to 300 tokens) and the
      paged ones also at 4096 keys and at ctx 1, each beside the SIMT
-     kernel it replaced and a gather + SDPA composition, the
-     flash-attention forward and its three backward kernels at the
-     training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in bf16 (the
-     forward, dK/dV and dQ on their tensor-core kernels) and float32
-     (all four on the SIMT kernels) with ragged, offset and windowed cases and
-     the distillation path's 1032 rows, dequantize on one ffn.wi leaf's
-     rows, and the fused LoRA matmul at the distillation path's shapes
-     (M 4128; (K, N) of wq/wo, wk/wv and ffn.wo; r 4; forward and the
-     backward's transposed dx; bf16 on the wgmma kernel, timed beside
-     the mma.sync kernel it replaced, and float32) with ragged and
-     rank-16 cases and its autograd wrapper's dx, da and db, and the
-     chunkwise
-     mLSTM at the xLSTM prefill's shape (B 8, NH 4, S 512, DH 512,
-     float32) with ragged-S, initial-state, bf16 and DH-64 cases;
+     kernel it replaced and a gather + SDPA composition, the int8
+     cache's fused K/V append (bitwise, beside the composition it
+     replaced), the flash-attention forward and its three backward
+     kernels at the training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in
+     bf16 (the forward, dK/dV and dQ on their tensor-core kernels) and
+     float32 (all four on the SIMT kernels) with ragged, offset and
+     windowed cases and the distillation path's 1032 rows, dequantize
+     on one ffn.wi leaf's rows, and the fused LoRA matmul at the
+     distillation path's shapes (M 4128; (K, N) of wq/wo, wk/wv and
+     ffn.wo; r 4; forward and the backward's transposed dx; bf16 on the
+     wgmma kernel, timed beside the mma.sync kernel it replaced, and
+     float32) with ragged and rank-16 cases and its autograd wrapper's
+     dx, da and db, and the chunkwise mLSTM at the xLSTM prefill's shape
+     (B 8, NH 4, S 512, DH 512, float32) with ragged-S, initial-state,
+     bf16 and DH-64 cases
+     (the 3xTF32 wgmma kernel timed beside the SIMT kernel it replaced,
+     both against the plain version and a float64 run, with both
+     kernels' phase splits);
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
-     kernels' launch counts (every paged launch on its Hopper route);
-     profiles a decode step; and holds the paged path against the
+     kernels' launch counts (every paged launch on its Hopper route,
+     every int8 append one fused launch, no quantize_int8); profiles a
+     decode step with each cache; and holds the paged path against the
      contiguous-cache forward (plain attention);
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
@@ -65,14 +70,16 @@ In order, it
      a seed) through the serving launcher's legacy static-batch scheduler
      (Session.serve): 3 request batches of 8 x 512-token prompts and 32
      decode steps; checks the exact mLSTM kernel launch count (21 a
-     prefill), finite logits and token ids; profiles a prefill and a
+     prefill, all on the wgmma route), finite logits and token ids;
+     profiles a prefill and a
      decode step; holds a float32 prefill plus decode steps through the
      kernel against the same through the plain version;
  10. prints one JSON line describing every ported kernel, the card's
      name and power limit, and {"ok": true, "device": {...}} last.
 
 With --paged it stops after the build and the paged kernels' checks
-(step 3's first part) and prints no result line.
+(step 3's first part), with --mlstm after the build, the mLSTM kernels'
+and the fused int8 append's checks; neither prints a result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -81,6 +88,7 @@ or the JAX package.
 """
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -218,6 +226,22 @@ PREPROCESS_LIBRARY_NOTE = (
     "null: no single PyTorch call takes bf16 o and dO to the float32 "
     "rowsum(dO * O) (vecdot and einsum round their bf16 result; a cast "
     "first is a second call)")
+TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
+# tf32 passes of the wgmma mLSTM's products: 3xTF32 for float32 inputs;
+# bf16 inputs are exact in tf32, so their products need two (S one)
+MLSTM_TC_PASSES = {"float32": 3, "bfloat16": 2}
+MLSTM_NAMES = {"wgmma": "mlstm_tc_kernel", "simt": "mlstm_chunked_kernel"}
+# phase clocks of the two mLSTM kernels (their sources list them)
+MLSTM_PHASES = {"simt": ("loads", "scans", "S and C q", "P", "P v and h",
+                         "update"),
+                "wgmma": ("gates", "A1 start", "A1 operands, q.n, n",
+                          "A1 S", "A2 start", "A2 split", "A2 barrier",
+                          "A2 end", "S exchange, P", "P v, h", "B start",
+                          "B split", "B barrier", "B product issue",
+                          "A2 product issue", "A2 copy issue",
+                          "B copy issue", "B end")}
+APPEND_LIBRARY_NOTE = ("no single PyTorch call quantizes rows and "
+                       "scatters codes and scales into paged pools")
 MLSTM_LIBRARY_NOTE = ("no single PyTorch call computes the stabilized "
                       "chunkwise mLSTM recurrence")
 
@@ -286,7 +310,9 @@ def device_ms(fn, match=None, iters=50):
     torch.profiler's CUDA trace: each call follows flush_l2, whose kernel
     is left out of the sum. Sums the durations of the kernels whose name
     contains ``match`` (every kernel when None), divided by ``iters``.
-    None when the profiler recorded no device time."""
+    When the profiler recorded no device time (it sometimes records
+    nothing), CUDA events over back-to-back calls (warm L2) instead, with
+    a note."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     skip = _flush_keys()
@@ -299,19 +325,19 @@ def device_ms(fn, match=None, iters=50):
         torch.cuda.synchronize()
     total = sum(t for key, t in _device_totals(prof).items()
                 if key not in skip and (match is None or match in key))
-    return total / iters / 1e3 if total > 0 else None
+    if total > 0:
+        return total / iters / 1e3
+    print(f"[timing] the profiler recorded no device time for "
+          f"{match or 'a call'}; CUDA events (warm L2) instead")
+    return time_ms(fn, iters=iters, warmup=2)
 
 
 def timings(kernel_fn, plain_fn, match):
     """(kernel device ms, plain device ms, kernel ms per call on the host
-    clock incl. the wrapper) — device times from the profiler with a cold
-    L2, falling back to CUDA events over back-to-back calls (warm L2) when
-    it saw nothing."""
+    clock incl. the wrapper) — device times from :func:`device_ms`."""
     call = time_ms(kernel_fn)
-    k = device_ms(kernel_fn, match)
-    p = device_ms(plain_fn, None, iters=20)
-    return (k if k is not None else call,
-            p if p is not None else time_ms(plain_fn, iters=50), call)
+    return (device_ms(kernel_fn, match), device_ms(plain_fn, None, iters=20),
+            call)
 
 
 def bound(nbytes, flops, flops_rate):
@@ -506,9 +532,8 @@ def _paged_times(torch, new_fn, old_fn, plain_fn, comp_fn, names):
     """Cold-L2 device ms of the new kernel, the old kernel, the plain
     version and the composition yardstick, and each wrapper's host clock
     per call in turns (old, new, new, old)."""
-    def dev(fn, match, iters=50):     # events (warm L2) if no trace
-        ms = device_ms(fn, match, iters)
-        return ms if ms is not None else time_ms(fn, iters=iters)
+    def dev(fn, match, iters=50):
+        return device_ms(fn, match, iters)
 
     new_ms, old_ms = dev(new_fn, names[0]), dev(old_fn, names[1])
     plain = dev(plain_fn, None, iters=20)
@@ -750,7 +775,161 @@ def kernel_checks(torch, cfg, dev):
         source="src/repro_torch/kernels/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:70", max_abs_err=0.0,
         ms=ms, plain_ms=plain, call_ms=call, bound_ms=b_ms, bound_by=b_by)
+    out["quantize_kv_append"] = append_checks(torch, cfg, dev)
     return out
+
+
+def _bits(torch, t):
+    """A tensor's bits, for bitwise comparison."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t.view(
+        torch.int32)
+
+
+def _ops_per_call(torch, fn, n=10):
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if (getattr(e, "device_time_total", 0)
+                   or getattr(e, "cuda_time_total", 0)) > 0) / n
+
+
+def append_checks(torch, cfg, dev):
+    """The int8 KV cache's fused append (``quantize_kv_append``) against
+    its plain version, bitwise outside the null block, at the serving
+    path's shapes: a decode step's append (8 lanes, one of them dead at
+    the null block), a prefill chunk's (16 rows, 7 live) and the
+    monolithic prefill's all-layers write through a table; bf16 rows (the
+    path) and float32. Timed beside its plain version and beside the
+    composition serving ran before (float copy, padding to 128 lanes, the
+    pinned bits, the quantize_int8 kernel, a slice copy, four scatters),
+    with each one's device operations a call. Returns the JSON row (the
+    decode append as the headline)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import kvcache as KC
+    hkv, d, L = cfg.num_kv_heads, cfg.hd, cfg.num_layers
+    spec = KC.PagedCacheSpec.for_requests(SLOTS, 96 + 48, block_size=BLOCK,
+                                          quantized=True)
+    nb = spec.num_blocks
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def pools(lead):
+        shape = (*lead, nb, BLOCK, d)
+        return [torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+                for _ in range(2)] + [
+            torch.rand((*lead, nb, BLOCK, 1), generator=g, device=dev)
+            for _ in range(2)]
+
+    def composition(p, k, v, phys=None, off=None, table=None):
+        pk = dict(zip(("k", "v", "k_scale", "v_scale"), p))
+        if table is None:
+            kq, ks = KC.quantize_rows(k)
+            vq, vs = KC.quantize_rows(v)
+            phys, off = phys.long(), off.long()
+            pk["k"][:, phys, off] = kq
+            pk["v"][:, phys, off] = vq
+            pk["k_scale"][:, phys, off] = ks
+            pk["v_scale"][:, phys, off] = vs
+        else:
+            s_ = k.shape[-2]
+            nbk = -(-s_ // BLOCK)
+            pad = nbk * BLOCK - s_
+            kb = torch.nn.functional.pad(k, (0, 0, 0, pad)).reshape(
+                L, hkv, nbk, BLOCK, d)
+            vb = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(
+                L, hkv, nbk, BLOCK, d)
+            kq, ks = KC.quantize_rows(kb)
+            vq, vs = KC.quantize_rows(vb)
+            row = table[:nbk].long()
+            pk["k"][:, :, row] = kq
+            pk["v"][:, :, row] = vq
+            pk["k_scale"][:, :, row] = ks
+            pk["v_scale"][:, :, row] = vs
+
+    perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    cases = {
+        # decode: 8 lanes, lane 5 dead (null block, offset 0)
+        "decode": ((hkv,), SLOTS,
+                   dict(phys=torch.where(torch.arange(SLOTS, device=dev) == 5,
+                                         0, perm[:SLOTS]),
+                        off=torch.arange(SLOTS, device=dev) * 2 % BLOCK)),
+        # a prefill chunk: 16 rows, 7 live, padding rows to the null block
+        "chunk": ((hkv,), CHUNK,
+                  dict(phys=torch.where(torch.arange(CHUNK, device=dev) < 7,
+                                        perm[SLOTS], 0),
+                       off=torch.arange(CHUNK, device=dev) % BLOCK)),
+        # monolithic prefill: every layer, 100 rows through a 9-block
+        # table whose 7th block is the null block
+        "prefill": ((L, hkv), 100,
+                    dict(table=torch.cat([perm[9:15], torch.zeros(
+                        3, dtype=perm.dtype, device=dev)]).to(torch.int32))),
+    }
+    rows = {}
+    for label, (lead, n, idx) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            k = torch.randn((*lead, n, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((*lead, n, d), generator=g, device=dev).to(dtype)
+            k[..., 3, :] = 0.0                  # an all-zero row
+            base = pools(lead)
+            got = [t.clone() for t in base]
+            want = [t.clone() for t in base]
+            old = [t.clone() for t in base]
+            ops.quantize_kv_append(*got, k, v, **idx)
+            ref.quantize_kv_append_ref(*want, k, v, **idx)
+            composition(old, k, v, **idx)
+            torch.cuda.synchronize()
+            live = (slice(None),) * len(lead) + (slice(1, None),)
+            for a, b_, c in zip(got, want, old):
+                a, b_, c = (_bits(torch, t[live]) for t in (a, b_, c))
+                check(torch.equal(a, b_), f"quantize_kv_append {label} "
+                      f"{dtype}: differs from the plain version outside the "
+                      f"null block")
+                check(torch.equal(b_, c), f"quantize_kv_append {label} "
+                      f"{dtype}: the plain version differs from the "
+                      f"composition")
+            if dtype != torch.bfloat16:
+                continue
+            fn = (lambda: ops.quantize_kv_append(*got, k, v, **idx))
+            plain_fn = (lambda: ref.quantize_kv_append_ref(*want, k, v,
+                                                           **idx))
+            comp_fn = (lambda: composition(old, k, v, **idx))
+            ms, plain, call = timings(fn, plain_fn, "kv_append_kernel")
+            comp = device_ms(comp_fn, None, iters=20)
+            comp_call = time_ms(comp_fn, iters=50)
+            ops_new, ops_comp = _ops_per_call(torch, fn), _ops_per_call(
+                torch, comp_fn)
+            m = 2 * math.prod(lead) * (-(-n // BLOCK) * BLOCK
+                                       if "table" in idx else n)
+            nbytes = (2 * math.prod(lead) * n * d * 2 + m * (d + 4)
+                      + (2 * n * 8 if "phys" in idx else 0))
+            b_ms, b_by = bound(nbytes, 4 * m * d, F32_FLOPS_PER_S)
+            rows[label] = dict(ms=ms, plain_ms=plain, call_ms=call,
+                               composition_ms=comp,
+                               composition_call_ms=comp_call,
+                               ops=ops_new, composition_ops=ops_comp,
+                               bound_ms=b_ms, bound_by=b_by)
+            print(f"[kernel] quantize_kv_append {label} ({m} rows of "
+                  f"{d}, bf16 in): bitwise equal to the plain version and "
+                  f"to the composition serving ran before (bf16 and "
+                  f"float32 rows, outside the null block); device: kernel "
+                  f"{ms:.5f} ms, plain {plain:.5f} ms, the old composition "
+                  f"{comp:.5f} ms; device operations a call: kernel "
+                  f"{ops_new:.0f}, composition {ops_comp:.0f}; host clock "
+                  f"per call: kernel {call:.5f} ms, composition "
+                  f"{comp_call:.5f} ms; bound {b_ms:.7f} ms ({b_by})")
+    head = rows["decode"]
+    return dict(source="src/repro_torch/kernels/csrc/kv_append_int8.cu",
+                replaces="src/repro/kernels/quantize.py:70", max_abs_err=0.0,
+                library_ms=None, library_call=APPEND_LIBRARY_NOTE,
+                headline="decode append: 8 lanes x 8 KV heads, bf16 rows",
+                **head, cases=rows)
 
 
 # ------------------------------------------------------- training kernels
@@ -989,6 +1168,21 @@ def tc_report():
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
               f"spill stores + loads {spills or 'not rebuilt'} bytes (one "
               "entry an instantiation)")
+    stem = "mlstm_chunked_tc"
+    hgmma, regs, spills = _lib_report(stem)
+    check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
+    rep = build.build_report[stem]
+    smem = ctypes.CDLL(rep["path"]).mlstm_chunked_tc_smem()
+    serial = rep["log"].count("C7514")
+    out["mlstm_chunked"] = dict(hgmma=hgmma, registers=regs,
+                                spill_bytes=spills, dynamic_smem_bytes=smem,
+                                serialized_instantiations=serial)
+    print(f"[build] {MLSTM_NAMES['wgmma']} ({stem}.cu): {hgmma} HGMMA "
+          f"instructions in its SASS; ptxas: registers {regs or 'not rebuilt'}"
+          f" a thread, spill stores + loads {spills or 'not rebuilt'} bytes "
+          f"(one entry an instantiation: DH 64, 128, 256, 512 for float32 "
+          f"and bf16); {smem} bytes of dynamic shared memory a CTA; "
+          f"{serial} instantiations with serialized wgmma (ptxas C7514)")
     return out
 
 
@@ -1759,65 +1953,175 @@ def _mlstm_work(b, nh, s, dh, esz, state):
     return nbytes, b * nh * (4 * s * dh * dh + 4 * dh * pairs)
 
 
+def _mlstm_f64(torch, ref, args, kw):
+    """The plain chunkwise version (chunk 64) computed in float64."""
+    q, k, v, ig, lf = (t.double() for t in args)
+    b, nh, s, dh = q.shape
+    if kw:
+        C, n, m = (kw[x].double() for x in ("C0", "n0", "m0"))
+    else:
+        C = torch.zeros((b, nh, dh, dh), dtype=torch.float64, device=q.device)
+        n = torch.zeros((b, nh, dh), dtype=torch.float64, device=q.device)
+        m = torch.full((b, nh), -1e30, dtype=torch.float64, device=q.device)
+    hs = []
+    for t0 in range(0, s, MLSTM_CHUNK):
+        sl = slice(t0, t0 + MLSTM_CHUNK)
+        C, n, m, h = ref.mlstm_chunk_body(C, n, m, q[:, :, sl], k[:, :, sl],
+                                          v[:, :, sl], ig[:, :, sl],
+                                          lf[:, :, sl])
+        hs.append(h)
+    return torch.cat(hs, dim=2), (C, n, m)
+
+
+def _mlstm_phases(torch, ops, args, st, route):
+    """{phase: share of the CTA cycles} of one launch of ``route``'s
+    kernel, from its clock64() phase counters (thread 0 of each CTA)."""
+    names = MLSTM_PHASES[route]
+    prof = torch.zeros(len(names) + 1, dtype=torch.int64, device="cuda")
+    ops._mlstm_card(*args, *st, route=route, prof=prof)
+    torch.cuda.synchronize()
+    p = prof.tolist()
+    return {n: x / p[-1] for n, x in zip(names, p)}
+
+
 def mlstm_checks(torch, dev):
-    """The chunkwise mLSTM kernel against its plain version (chunk 64) on
-    the card, each case timed with a cold L2 beside the plain version and
-    its bound: the prefill's shape with the fresh state it is given there,
-    a ragged S, a random initial state, bf16 inputs and the reduced
-    config's DH 64. Returns the kernel's JSON row (the prefill's shape as
-    the headline, every case under ``cases``)."""
-    from repro_torch.kernels import ops, ref
+    """The chunkwise mLSTM's tensor-core kernel (route wgmma) and the SIMT
+    kernel it replaced against the plain version (chunk 64) on the card,
+    every case timed with a cold L2 for both kernels on the same inputs
+    (turns new, old, old, new) beside the plain version and two bounds:
+    float32 on the CUDA cores and 3xTF32 on the tensor cores (the one the
+    wgmma kernel is held to; bf16 inputs need two passes). Cases: the
+    prefill's shape with the fresh state it is given there, a ragged S, a
+    random initial state, bf16 inputs and the reduced config's DH 64.
+    Also the errors of both kernels and of the plain version against a
+    float64 plain run, the launch's cudaOccupancyMaxActiveClusters, and
+    each kernel's phase split at the prefill's shape. Returns the
+    kernel's JSON row (the prefill's shape as the headline, every case
+    under ``cases``)."""
+    from repro_torch.kernels import build, ops, ref
+    lib = ctypes.CDLL(build.build_report["mlstm_chunked_tc"]["path"])
+    clusters = {d: lib.mlstm_chunked_tc_clusters(c, XB, 4)
+                for d, c in (("float32", 0), ("bfloat16", 1))}
+    ncl = 512 // 64                 # a cluster's CTAs: DH / 64
+    n_cl = XB * 4
+    print(f"[kernel] mlstm_chunked wgmma launch at DH 512 (B {XB}, NH 4: "
+          f"{n_cl} clusters of {ncl} CTAs, {lib.mlstm_chunked_tc_smem()} "
+          f"bytes of shared memory a CTA): cudaOccupancyMaxActiveClusters "
+          f"{clusters}, so {-(-n_cl // max(1, clusters['float32']))} waves")
     cases = [("path", 8, 4, XCTX, 512, torch.float32, "fresh"),
              ("ragged S 333", 8, 4, 333, 512, torch.float32, None),
              ("initial state", 2, 4, XCTX, 512, torch.float32, "random"),
              ("bf16", 8, 4, XCTX, 512, torch.bfloat16, "fresh"),
              ("DH 64", 8, 4, XCTX, 64, torch.float32, "random")]
-    max_err, rows = 0.0, {}
+    max_err, rows, phases = 0.0, {}, {}
     for label, b, nh, s, dh, dtype, state in cases:
         args, kw = _mlstm_inputs(torch, dev, b, nh, s, dh, dtype, 41, state)
+        st = (kw.get("C0"), kw.get("n0"), kw.get("m0"))
+        check(ops.mlstm_route(dtype, dh) == "wgmma",
+              f"mlstm {label}: not on the wgmma route")
+        before = ops.route_counts()["mlstm_chunked"]
         got = ops.mlstm_chunked(*args, **kw)
+        check(ops.route_counts()["mlstm_chunked"]["wgmma"]
+              == before["wgmma"] + 1, f"mlstm {label}: no wgmma launch")
+        old = ops._mlstm_card(*args, *st, route="simt")
         want = ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK, **kw)
+        exact = _mlstm_f64(torch, ref, args, kw)
         torch.cuda.synchronize()
-        errs = []
-        for name, g, w in zip(("h", "C", "n", "m"), (got[0], *got[1]),
-                              (want[0], *want[1])):
-            check(bool(torch.isfinite(g).all()),
-                  f"mlstm {label} {name}: non-finite")
-            err = _err(g, w)
+        errs, f64 = [], []
+        for i, name in enumerate("hCnm"):
+            g = got[0] if i == 0 else got[1][i - 1]
+            o = old[0] if i == 0 else old[1][i - 1]
+            w = want[0] if i == 0 else want[1][i - 1]
+            x = exact[0] if i == 0 else exact[1][i - 1]
             peak = max(1.0, float(w.float().abs().max()))
             rtol = (MLSTM_STATE_RTOL if name != "h" else
                     MLSTM_H_RTOL_F32 if dtype == torch.float32 else BF16_ULP)
-            check(err <= rtol * peak, f"mlstm {label} {name}: max err "
-                  f"{err:.3e} > {rtol * peak:.3e}")
-            errs.append(f"{name} {err:.2e}")
+            for who, t in (("wgmma", g), ("simt", o)):
+                check(bool(torch.isfinite(t).all()),
+                      f"mlstm {label} {name} ({who}): non-finite")
+                err = _err(t, w)
+                check(err <= rtol * peak, f"mlstm {label} {name} ({who}): "
+                      f"max err {err:.3e} > {rtol * peak:.3e}")
+            err = _err(g, w)
+            errs.append(f"{name} {err:.2e} (simt {_err(o, w):.2e})")
             if name == "h":
                 max_err = max(max_err, err)
+            xpeak = max(1.0, float(x.abs().max()))
+            f64.append(f"{name} wgmma {_err(g, x) / xpeak:.2e}, simt "
+                       f"{_err(o, x) / xpeak:.2e}, plain "
+                       f"{_err(w, x) / xpeak:.2e}")
         line = (f"[kernel] mlstm_chunked {label} (B {b}, NH {nh}, S {s}, "
                 f"DH {dh}, {str(dtype).split('.')[-1]}, initial state "
-                f"{state}): max|err| " + ", ".join(errs))
-        ms, plain, call = timings(
-            lambda: ops.mlstm_chunked(*args, **kw),
+                f"{state}): max|err| vs plain " + ", ".join(errs)
+                + "; vs a float64 plain run, relative to the largest "
+                "|value|: " + "; ".join(f64))
+        new_fn = (lambda: ops._mlstm_card(*args, *st))
+        old_fn = (lambda: ops._mlstm_card(*args, *st, route="simt"))
+        turns = [("wgmma", new_fn), ("simt", old_fn), ("simt", old_fn),
+                 ("wgmma", new_fn)]
+        dev_ms = {"wgmma": [], "simt": []}
+        call_ms = {"wgmma": [], "simt": []}
+        for route, fn in turns:
+            call_ms[route].append(time_ms(fn, iters=20, warmup=3))
+            dev_ms[route].append(device_ms(fn, MLSTM_NAMES[route], iters=20))
+        plain = device_ms(
             lambda: ref.mlstm_chunkwise_ref(*args, chunk=MLSTM_CHUNK, **kw),
-            "mlstm_chunked_kernel")
+            None, iters=10)
+        ms, old_ms = (sum(dev_ms[r]) / 2 for r in ("wgmma", "simt"))
         esz = 4 if dtype == torch.float32 else 2
         nbytes, flops = _mlstm_work(b, nh, s, dh, esz, state)
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-        rows[label] = dict(ms=ms, plain_ms=plain, call_ms=call,
-                           bound_ms=b_ms, bound_by=b_by)
-        line += (f"; device: kernel {ms:.5f} ms, plain {plain:.5f} ms; "
-                 f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
-                 f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s "
-                 f"of needed work; host clock per call {call:.5f} ms")
+        passes = MLSTM_TC_PASSES[str(dtype).split(".")[-1]]
+        b_ms, b_by = bound(nbytes, flops * passes, TF32_FLOPS_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        rows[label] = dict(ms=ms, old_ms=old_ms, ms_turns=dev_ms["wgmma"],
+                           old_ms_turns=dev_ms["simt"], plain_ms=plain,
+                           call_ms=sum(call_ms["wgmma"]) / 2,
+                           old_call_ms=sum(call_ms["simt"]) / 2,
+                           bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
+                           f32_bound_by=f32_by)
+        line += (f"; device (turns new, old, old, new): wgmma "
+                 f"{dev_ms['wgmma'][0]:.5f}/{dev_ms['wgmma'][1]:.5f} ms, "
+                 f"simt {dev_ms['simt'][0]:.5f}/{dev_ms['simt'][1]:.5f} ms "
+                 f"(new/old {ms / old_ms:.3f}), plain {plain:.5f} ms; bounds "
+                 f"3xTF32 ({passes} passes at {TF32_FLOPS_PER_S / 1e12:.0f} "
+                 f"TFLOP/s) {b_ms:.5f} ms ({b_by}), float32 CUDA cores "
+                 f"{f32_ms:.5f} ms ({f32_by}); {flops / 1e9:.2f} GFLOP and "
+                 f"{nbytes / 1e6:.1f} MB needed; wgmma {flops / ms / 1e9:.1f} "
+                 f"TFLOP/s of needed work; host clock per call wgmma "
+                 f"{rows[label]['call_ms']:.5f} ms, simt "
+                 f"{rows[label]['old_call_ms']:.5f} ms")
         print(line)
-        del args, kw, got, want
+        if label in ("path", "bf16"):
+            for r in ("simt", "wgmma"):
+                ph = _mlstm_phases(torch, ops, args, st, r)
+                phases[f"{r} {label}"] = ph
+                print(f"[kernel] mlstm_chunked {r} phase split, {label} "
+                      f"case (clock64 between the points thread 0 of "
+                      f"every CTA passes, summed): " + ", ".join(
+                          f"{n} {100 * x:.1f}%" for n, x in ph.items()))
+        # faster in the mean of the turns is the verdict recorded; the run
+        # fails when the new kernel is slower beyond the spread between a
+        # kernel's own two turns (calls differ by up to 3%)
+        spread = max(abs(t[0] - t[1]) for t in dev_ms.values())
+        rows[label]["faster"] = ms < old_ms
+        print(f"[kernel] mlstm_chunked {label}: wgmma "
+              f"{'faster' if ms < old_ms else 'NOT faster'} than simt "
+              f"({ms:.5f} against {old_ms:.5f} ms, turns' spread "
+              f"{spread:.5f} ms)")
+        check(ms - old_ms <= spread, f"mlstm {label}: the wgmma kernel "
+              f"({ms:.5f} ms) is slower than the simt kernel ({old_ms:.5f} "
+              f"ms) beyond the turns' spread {spread:.5f} ms")
+        del args, kw, got, want, old, exact
+    check(rows["bf16"]["ms"] <= rows["path"]["ms"],
+          f"mlstm: bf16 ({rows['bf16']['ms']:.5f} ms) slower than float32 "
+          f"({rows['path']['ms']:.5f} ms)")
     head = rows["path"]
-    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked.cu",
+    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked_tc.cu",
+                simt_source="src/repro_torch/kernels/csrc/mlstm_chunked.cu",
                 replaces="src/repro/kernels/mlstm.py:90", max_abs_err=max_err,
-                ms=head["ms"], plain_ms=head["plain_ms"],
-                call_ms=head["call_ms"], bound_ms=head["bound_ms"],
-                bound_by=head["bound_by"], library_ms=None,
-                library_call=MLSTM_LIBRARY_NOTE,
+                library_ms=None, library_call=MLSTM_LIBRARY_NOTE,
                 headline="float32, B 8, NH 4, S 512, DH 512, fresh state",
+                **head, max_active_clusters=clusters, phases=phases,
                 cases=rows)
 
 
@@ -1841,6 +2145,9 @@ def xlstm_main_path(torch, cfg, dev):
     want = dict.fromkeys(counts, 0)
     want["mlstm_chunked"] = XREQ * n_super * n_m     # 21 a prefill
     check(counts == want, f"xlstm launches {counts} != {want}")
+    routes = check_routes(ops, counts, "xlstm", ("mlstm_chunked",))
+    print(f"[xlstm] mlstm_chunked launches by route: "
+          f"{routes['mlstm_chunked']}")
     seqs = rep["sequences"]
     check(len(seqs) == XREQ and all(tuple(x.shape) == (XB, XDECODE + 1)
                                     for x in seqs), "xlstm stream shapes")
@@ -1857,7 +2164,7 @@ def xlstm_main_path(torch, cfg, dev):
           f"first row {seqs[0][0, :8].tolist()}; launches {counts}")
     del rep
     torch.cuda.empty_cache()
-    return counts, peak
+    return counts, peak, routes["mlstm_chunked"]
 
 
 def _profiled(torch, fn, n):
@@ -1882,7 +2189,11 @@ def _profiled(torch, fn, n):
 
 def profile_xlstm(torch, cfg, dev):
     """A bf16 prefill of 8 x 512 tokens and a decode step of xlstm-350m:
-    wall time, device busy and idle share, top device ops."""
+    wall time, device busy and idle share, top device ops; the prefill
+    also with every mLSTM launch sent to the SIMT kernel, in the same
+    call. (The cells' heads are float32, so the prefill runs the float32
+    mLSTM kernels.)"""
+    from repro_torch.kernels import ops
     from repro_torch.models import xlstm
     params = xlstm.init(cfg, seed=0, device=dev).to_dict()
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1904,13 +2215,25 @@ def profile_xlstm(torch, cfg, dev):
 
         prefill()
         res = {}
-        for name, fn, n in (("prefill", prefill, 2), ("decode step", decode,
-                                                      8)):
+        best = ops.mlstm_route
+
+        def simt_prefill():
+            ops.mlstm_route = lambda dtype, dh: "simt"
+            try:
+                prefill()
+            finally:
+                ops.mlstm_route = best
+
+        for name, fn, n in (("prefill", prefill, 2),
+                            ("prefill (SIMT mLSTM)", simt_prefill, 2),
+                            ("prefill", prefill, 2),
+                            ("decode step", decode, 8)):
             wall, busy, rows = _profiled(torch, fn, n)
-            mlstm = sum(r[0] for r in rows if "mlstm_chunked_kernel" in r[2])
-            res[name] = (wall, busy)
+            mlstm = sum(r[0] for r in rows
+                        if any(n in r[2] for n in MLSTM_NAMES.values()))
+            res.setdefault(name, []).append((wall, busy, mlstm))
             print(f"[profile] xlstm bf16 {name} (batch {XB}"
-                  + (f", {XCTX} tokens" if name == "prefill" else "")
+                  + (f", {XCTX} tokens" if "prefill" in name else "")
                   + f"): wall {wall:.3f} ms, device busy {busy:.3f} ms "
                   f"(idle {100 * max(0.0, 1 - busy / wall):.1f}%), "
                   f"{sum(r[1] for r in rows)} device ops, mLSTM kernel "
@@ -2016,9 +2339,11 @@ def serve_main_path(torch, cfg, params, dev):
         want.update({
             "paged_decode_attention": passes * L * rep["decode_steps"],
             "paged_prefill_attention": passes * L * rep["prefill_chunks"],
-            "quantize_int8": (passes * 2 * L * (rep["decode_steps"]
-                                                + rep["prefill_chunks"])
-                              if cache == "int8" else 0),
+            # one fused K/V append a layer and step in int8 mode; the
+            # quantizer serves the codec only
+            "quantize_kv_append": (passes * L * (rep["decode_steps"]
+                                                 + rep["prefill_chunks"])
+                                   if cache == "int8" else 0),
         })
         check(counts == want, f"{cache}: launches {counts} != {want}")
         by_route = check_routes(ops, counts, cache, PAGED_LIBS)
@@ -2036,64 +2361,95 @@ def serve_main_path(torch, cfg, params, dev):
                   f"{fn} {by_route[fn]}" for fn in PAGED_LIBS))
         reports[cache] = rep
     for name in ("paged_decode_attention", "paged_prefill_attention",
-                 "quantize_int8"):
+                 "quantize_kv_append"):
         check(totals[name] > 0, f"{name} was never launched serving")
+    check(totals["quantize_int8"] == 0, "serving launched quantize_int8")
     return totals, reports, routes
 
 
 def profile_decode(torch, cfg, params, dev, steps=10, kernels=None):
-    """Warm decode steps with all lanes live: wall time per step on the
-    host clock, and the device's busy time per step from torch.profiler
+    """Warm decode steps with all lanes live, with the model-dtype KV
+    cache and with the int8 cache: wall time per step on the host clock,
+    and the device's busy time and operations per step from torch.profiler
     (the summed kernel, copy and fill durations on the one stream); the
     decode kernel's device time a launch in the step beside its
-    ``paged_checks`` time alone (cold L2, headline shape)."""
+    ``paged_checks`` time alone (cold L2, headline shape), and the int8
+    step's fused K/V append. Returns {cache: (wall, busy, ops)}."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import (ContinuousScheduler, PagedCacheSpec,
                                    PagedEngine, generate_fleet_requests)
-    spec = PagedCacheSpec.for_requests(SLOTS, 96 + 110, block_size=BLOCK)
-    eng = PagedEngine(cfg, spec, max_context=128, slots=SLOTS, device=dev)
-    sched = ContinuousScheduler(eng, params, prefill="chunked",
-                                prefill_chunk=CHUNK)
-    for r in generate_fleet_requests(
-            TRACE["fleet"], num_requests=SLOTS, max_prompt=96, seed=1,
-            short_new=(100, 110), long_new=(100, 110),
-            vocab_size=cfg.vocab_size):
-        sched.submit(r)
-    while not (sched.num_active == SLOTS and sched.prefill_done.all()):
-        sched.step()
-
-    def run():
-        for _ in range(steps):
+    out = {}
+    for cache in ("bf16", "int8"):
+        spec = PagedCacheSpec.for_requests(SLOTS, 96 + 110, block_size=BLOCK,
+                                           quantized=cache == "int8")
+        eng = PagedEngine(cfg, spec, max_context=128, slots=SLOTS,
+                          device=dev)
+        sched = ContinuousScheduler(eng, params, prefill="chunked",
+                                    prefill_chunk=CHUNK)
+        for r in generate_fleet_requests(
+                TRACE["fleet"], num_requests=SLOTS, max_prompt=96, seed=1,
+                short_new=(100, 110), long_new=(100, 110),
+                vocab_size=cfg.vocab_size):
+            sched.submit(r)
+        while not (sched.num_active == SLOTS and sched.prefill_done.all()):
             sched.step()
-        torch.cuda.synchronize()
 
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def run():
+            for _ in range(steps):
+                sched.step()
+            torch.cuda.synchronize()
+
         run()
-    rows = sorted(((getattr(e, "device_time_total", 0)
-                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
-                   e.count // steps, e.key[:60])
-                  for e in prof.key_averages())[::-1]
-    busy = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
-    print(f"[profile] warm decode step, {SLOTS} live lanes: wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms (idle "
-          f"{100 * (1 - busy / wall):.1f}%), {launches} device ops/step, "
-          f"{SLOTS / wall * 1e3:.0f} tok/s")
-    for t, n, key in rows[:6]:
-        print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
-    name = PAGED_LIBS["paged_decode_attention"][1]
-    hits = [r for r in rows if name in r[2]]
-    n = sum(r[1] for r in hits)
-    check(n > 0, f"decode step: no {name} launch in the profile")
-    alone = kernels["paged_decode_attention"]["ms"] if kernels else None
-    print(f"[profile]   decode attention {sum(r[0] for r in hits):.4f} "
-          f"ms/step: {name} {sum(r[0] for r in hits) / n:.5f} ms a launch "
-          f"x {n} in the step vs {alone} ms alone (paged_checks, cold L2)")
-    return wall, busy
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+        rows = sorted(((getattr(e, "device_time_total", 0)
+                        or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                       e.count // steps, e.key[:60])
+                      for e in prof.key_averages())[::-1]
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        print(f"[profile] warm decode step, {cache} KV cache, {SLOTS} live "
+              f"lanes: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
+              f"{100 * (1 - busy / wall):.1f}%), {launches} device ops/step, "
+              f"{SLOTS / wall * 1e3:.0f} tok/s")
+        for t, n, key in rows[:6]:
+            print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+        name = PAGED_LIBS["paged_decode_attention"][1]
+        hits = [r for r in rows if name in r[2]]
+        n = sum(r[1] for r in hits)
+        check(n > 0, f"decode step ({cache}): no {name} launch in the "
+              f"profile")
+        alone = kernels["paged_decode_attention"]["ms"] if kernels else None
+        print(f"[profile]   decode attention {sum(r[0] for r in hits):.4f} "
+              f"ms/step: {name} {sum(r[0] for r in hits) / n:.5f} ms a "
+              f"launch x {n} in the step vs {alone} ms alone (paged_checks, "
+              f"cold L2)")
+        if cache == "int8":
+            app = [r for r in rows if "kv_append_kernel" in r[2]]
+            check(sum(r[1] for r in app) == cfg.num_layers,
+                  "int8 decode step: not one fused append a layer")
+            check(not any("quantize_int8_kernel" in r[2] for r in rows),
+                  "int8 decode step launched quantize_int8")
+            print(f"[profile]   fused K/V append "
+                  f"{sum(r[0] for r in app):.4f} ms/step in "
+                  f"{sum(r[1] for r in app)} launches")
+        counts = {}                 # by full kernel name (rows cut it)
+        for e in prof.key_averages():
+            counts[e.key] = counts.get(e.key, 0) + e.count // steps
+        out[cache] = (wall, busy, launches, counts)
+        del sched, eng
+        torch.cuda.empty_cache()
+    a, b = out["bf16"][3], out["int8"][3]
+    diff = {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)
+            if b.get(k, 0) != a.get(k, 0)}
+    extra = out["int8"][2] - out["bf16"][2]
+    print(f"[profile]   int8 step - bf16 step: {extra} device ops; by "
+          f"kernel: " + "; ".join(
+              f"{k[:110]}: {n:+d}" for k, n in sorted(diff.items())))
+    return out
 
 
 def contiguous_oracle(torch, cfg, params, dev, streams, prompts):
@@ -2187,6 +2543,13 @@ def main():
         print(json.dumps(rows))
         print("chip_smoke --paged: the paged kernels only; no result line")
         return 0
+    if "--mlstm" in sys.argv[1:]:
+        rows = {"mlstm_chunked": mlstm_checks(torch, dev),
+                "quantize_kv_append": append_checks(torch, cfg, dev)}
+        print(json.dumps(rows))
+        print("chip_smoke --mlstm: the mLSTM kernels and the fused append "
+              "only; no result line")
+        return 0
     kernels = kernel_checks(torch, cfg, dev)
     kernels.update(flash_checks(torch, dev))
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
@@ -2251,7 +2614,7 @@ def main():
 
     # 9. the xLSTM serving path: xlstm-350m through the legacy scheduler
     xcfg = get_config("xlstm-350m")
-    xlstm_launches, _ = xlstm_main_path(torch, xcfg, dev)
+    xlstm_launches, _, xlstm_routes = xlstm_main_path(torch, xcfg, dev)
     profile_xlstm(torch, xcfg, dev)
     xlstm_f32_vs_plain(torch, xcfg, dev)
 
@@ -2275,6 +2638,8 @@ def main():
         if name in PAGED_LIBS:
             extra = {"launches_by_route": serve_routes[name],
                      "build": tc[name]}
+        if name == "mlstm_chunked":
+            extra = {"launches_by_route": xlstm_routes, "build": tc[name]}
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),

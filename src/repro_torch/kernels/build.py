@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 #: source stem -> (C entry point, argtypes); every entry returns the
 #: launch's cudaGetLastError() as an int
@@ -60,7 +61,12 @@ SIGNATURES = {
     "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),
     "lora_matmul_tc": ("lora_matmul_tc",
                        [_P] * 5 + [_I] * 10 + [_F, _P]),
-    "mlstm_chunked": ("mlstm_chunked", [_I] + [_P] * 12 + [_I] * 4 + [_P]),
+    "mlstm_chunked": ("mlstm_chunked",
+                      [_I] + [_P] * 12 + [_I] * 4 + [_P, _P]),
+    "mlstm_chunked_tc": ("mlstm_chunked_tc",
+                         [_I] + [_P] * 12 + [_I] * 4 + [_P, _P]),
+    "kv_append_int8": ("kv_append_int8",
+                       [_I] + [_P] * 9 + [_I] + [_L] * 4 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -19,8 +19,8 @@
 // kernel's _init. exp() of a masked (j > t) entry is never taken, and
 // exp(m_in + b_t - m_t) at m_in = -1e30 is exactly 0.
 //
-// What bounds it on an H100: operations, on the CUDA cores (float32; TF32
-// would change the function). At the serving path's shape (B 8, NH 4,
+// What bounds it on an H100: operations, on the CUDA cores (float32; one
+// TF32 pass would change the function). At the serving path's shape (B 8, NH 4,
 // S 512, DH 512, float32) the function needs 4 S DH^2 flops per (b, h) for
 // C q and the C update, plus 4 DH flops per causal (t, j) pair inside a
 // chunk for q.k and the P v product: 18.3 GFLOP at chunk 64, 0.27 ms at
@@ -45,9 +45,13 @@
 //     outputs a thread, operands k-major in shared memory with 16-byte
 //     rows of 68 floats: each k step reads one float4 of each operand.
 //   * Any S: the last chunk is masked (rows past S are zero and skipped).
-// Warp-level tensor-core products would change the float32 function and
-// are not used; a faster kernel (larger register tiles, S shared between
-// the row slices of a (b, h) through a cluster) is later work.
+// This is the "simt" route: mlstm_chunked_tc.cu (3xTF32 wgmma, S shared
+// across a cluster) takes DH 64, 128, 256 and 512.
+//
+// Phase clocks: with a non-null `prof`, thread 0 of every CTA adds the
+// clock64() cycles between the CTA barriers that separate its phases to
+// prof[kProfPhases] (loads, scans, S and C q, P, P v and h, update, all):
+// the time each phase holds the CTA, summed over CTAs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +67,7 @@ constexpr int kLd = 68;               // row stride of a 64-wide smem tile:
 constexpr int kThreads = 256;         // 16 x 16, 4 x 4 outputs each
 constexpr int kPer = kC * kT / kThreads;   // tile elements per thread
 constexpr float kMInit = -1e30f;
+constexpr int kProfPhases = 7;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -160,7 +165,8 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     const float* __restrict__ lf, const float* __restrict__ C0,
     const float* __restrict__ n0, const float* __restrict__ m0,
     T* __restrict__ h, float* __restrict__ Cout, float* __restrict__ nout,
-    float* __restrict__ mout, int S, int Dh) {
+    float* __restrict__ mout, int S, int Dh,
+    unsigned long long* __restrict__ prof) {
   extern __shared__ float4 smem4[];
   float* Cs = reinterpret_cast<float*>(smem4);  // Cs[e][i] = C[r0 + i][e]
   float* T0 = Cs + (size_t)Dh * kLd;  // q^T tile, then P^T, then k tile
@@ -194,6 +200,16 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     nv[e] = n0 != nullptr ? n0[bh * Dh + e] : 0.f;
   if (tid == 0) mst[0] = m0 != nullptr ? m0[bh] : kMInit;
 
+  const bool timed = prof != nullptr && tid == 0;
+  long long clk[kProfPhases] = {}, tick = timed ? clock64() : 0;
+  const long long start = tick;
+  auto lap = [&](int phase) {
+    if (timed) {
+      const long long now = clock64();
+      clk[phase] += now - tick;
+      tick = now;
+    }
+  };
   float rq[kPer], rk[kPer];
   for (int t0 = 0; t0 < S; t0 += kC) {
     const int cl = min(kC, S - t0);
@@ -204,6 +220,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       bc[tid] = tid < cl ? lfb[t0 + tid] : 0.f;
     }
     __syncthreads();
+    lap(0);
     const float m_in = mst[0];
     if (tid == 0) {       // the chunk's scans, in the reference's order
       float b = 0.f, M = -INFINITY;
@@ -215,6 +232,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       }
     }
     __syncthreads();
+    lap(1);
     const float m_out = mt[cl - 1], b_last = bc[cl - 1];
     const float carry = expf((m_in + b_last) - m_out);
     if (tid < kC) {
@@ -250,6 +268,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       }
       __syncthreads();
     }
+    lap(2);
     qnp[(tid >> 6) * kC + (tid & 63)] = qn;
     load_tile(rk, kb, t0, cl, 0, min(kT, Dh), Dh, false);   // for the update
 
@@ -282,6 +301,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
           (j < cl && i < nr) ? to_f(vb[(size_t)(t0 + j) * Dh + r0 + i]) : 0.f;
     }
     __syncthreads();
+    lap(3);
 
     // ---- h = (P v + inter * C q) / den for the CTA's rows
     float oacc[4][4] = {};
@@ -303,6 +323,7 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       }
     }
     __syncthreads();
+    lap(4);
 
     // ---- C = carry C + (w o v)^T k, n = carry n + w k
     for (int idx = tid; idx < kC * kR; idx += kThreads) {
@@ -337,9 +358,15 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       }
       __syncthreads();
     }
+    lap(5);
     if (tid == 0) mst[0] = m_out;
   }
   __syncthreads();
+  if (timed) {
+    clk[6] = clock64() - start;
+    for (int p = 0; p < kProfPhases; ++p)
+      atomicAdd(&prof[p], (unsigned long long)clk[p]);
+  }
 
   for (int idx = tid; idx < nr * Dh; idx += kThreads) {
     const int i = idx / Dh, e = idx - i * Dh;
@@ -355,7 +382,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* ig,
            const float* lf, const float* C0, const float* n0,
            const float* m0, void* h, float* C, float* n, float* m, int B,
-           int NH, int S, int Dh, cudaStream_t st) {
+           int NH, int S, int Dh, unsigned long long* prof,
+           cudaStream_t st) {
   const size_t smem = smem_bytes(Dh);
   cudaError_t err = cudaFuncSetAttribute(
       mlstm_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,7 +392,7 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
   dim3 grid((Dh + kR - 1) / kR, NH, B);
   mlstm_chunked_kernel<T><<<grid, kThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, ig, lf, C0, n0, m0, (T*)h, C, n,
-      m, S, Dh);
+      m, S, Dh, prof);
   return (int)cudaGetLastError();
 }
 
@@ -373,12 +401,15 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
 // q, k, v: [B, NH, S, Dh] float32 or bf16 (dtype code), contiguous; ig,
 // lf: [B, NH, S] float32; C0 [B, NH, Dh, Dh], n0 [B, NH, Dh], m0 [B, NH]
 // float32, all three null or none; h: [B, NH, S, Dh] in q's dtype; C, n, m
-// as C0, n0, m0. 1 <= Dh <= 512, S >= 1. Returns cudaGetLastError().
+// as C0, n0, m0. 1 <= Dh <= 512, S >= 1. prof: null, or kProfPhases
+// uint64 counters the phase clocks are added to. Returns
+// cudaGetLastError().
 extern "C" int mlstm_chunked(int dtype, const void* q, const void* k,
                              const void* v, const void* ig, const void* lf,
                              const void* C0, const void* n0, const void* m0,
                              void* h, void* C, void* n, void* m, int B,
-                             int NH, int S, int Dh, void* stream) {
+                             int NH, int S, int Dh, void* prof,
+                             void* stream) {
   using namespace mlstm;
   if (Dh < 1 || Dh > 512 || S < 1 || B < 1 || NH < 1)
     return (int)cudaErrorInvalidValue;
@@ -387,11 +418,12 @@ extern "C" int mlstm_chunked(int dtype, const void* q, const void* k,
   const float *c0 = (const float*)C0, *nn0 = (const float*)n0,
               *mm0 = (const float*)m0;
   float *c = (float*)C, *nn = (float*)n, *mm = (float*)m;
+  unsigned long long* pr = (unsigned long long*)prof;
   if (dtype == kF32)
     return launch<float>(q, k, v, g, f, c0, nn0, mm0, h, c, nn, mm, B, NH, S,
-                         Dh, st);
+                         Dh, pr, st);
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(q, k, v, g, f, c0, nn0, mm0, h, c, nn, mm, B,
-                                 NH, S, Dh, st);
+                                 NH, S, Dh, pr, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,12 @@ its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
 and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
 to TMA-fed kernels that split the keys over CTAs (decode on the CUDA
 cores, prefill on wgmma) and the rest to their SIMT kernels
-(:func:`paged_route`). Their ``routes`` dict counts the launches of each
-(:func:`route_counts`).
+(:func:`paged_route`). The chunkwise mLSTM sends float32 and bf16 at
+head widths 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster
+shares S across a (b, h)'s CTAs, and other widths to its SIMT kernel
+(:func:`mlstm_route`). Their ``routes`` dict counts the launches of each
+(:func:`route_counts`). The int8 KV cache's append is one fused launch
+(:func:`quantize_kv_append`), the serving route of the quantizer.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-LANES = 128          #: fixed lane width of the quantization row layout
+LANES = ref.LANES    #: fixed lane width of the quantization row layout
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)   #: head widths the attention kernels take
 MAX_GROUP = 8                #: kMaxRows: GQA group size a decode CTA serves
@@ -355,6 +359,83 @@ def quantize_int8(x, bits):
     _raise_on(err, "quantize_int8")
     quantize_int8.launches += 1
     return q, scale
+
+
+def quantize_kv_append(k_pool, v_pool, k_scale, v_scale, k_rows, v_rows,
+                       phys=None, off=None, *, table=None) -> None:
+    """Quantize K and V rows to int8 and write them into the paged pools,
+    in place, in one launch: the int8 KV cache's append.
+
+    Pools k_pool/v_pool: int8 [..., NB, bs, D] (D <= 128), scales
+    k_scale/v_scale: float32 [..., NB, bs, 1]; rows k_rows/v_rows:
+    [..., R, D] float32 or bf16 with the pools' leading dims, each row
+    contiguous (a transposed view of a projection's output is read in
+    place, through its strides). Either
+    ``phys``/``off`` ([R] int32 or int64 block ids and in-block offsets:
+    row n goes to ``pool[..., phys[n], off[n]]``, the decode and chunk
+    append), or ``table`` ([T] int32 or int64 block ids: the rows fill
+    blocks ``table[:ceil(R / bs)]`` in order, the last one padded with
+    zero rows, the monolithic prefill's write). Each row is quantized as
+    :func:`quantize_int8` quantizes it zero-padded to 128 lanes with the
+    pinned random word 2**31 (round to nearest): codes and scales are
+    bitwise :func:`repro_torch.kernels.ref.quantize_kv_append_ref`'s."""
+    _require(k_pool.dtype == torch.int8 and v_pool.dtype == torch.int8,
+             "the pools must be int8")
+    _require(k_pool.dim() >= 4 and v_pool.shape == k_pool.shape,
+             "k_pool/v_pool must be matching [..., NB, bs, D] pools")
+    lead, (nb, bs, d) = k_pool.shape[:-3], k_pool.shape[-3:]
+    _require(1 <= d <= LANES, f"head_dim {d} > {LANES} lanes")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _require(t.dtype == torch.float32
+                 and t.shape == k_pool.shape[:-1] + (1,),
+                 f"{name} must be float32 [..., NB, bs, 1]")
+    _require(k_rows.dtype in (torch.float32, torch.bfloat16)
+             and v_rows.dtype == k_rows.dtype,
+             "k_rows/v_rows must share float32 or bfloat16")
+    _require(k_rows.dim() == len(lead) + 2 and v_rows.shape == k_rows.shape
+             and k_rows.shape[:-2] == lead and k_rows.shape[-1] == d,
+             "k_rows/v_rows must be [..., R, D] with the pools' leading "
+             "dims and D")
+    r = k_rows.shape[-2]
+    idx = (phys, off) if table is None else (table,)
+    for t in idx:
+        _require(t is not None and t.dim() == 1
+                 and t.dtype in (torch.int32, torch.int64),
+                 "phys/off or table must be 1-D int32 or int64")
+    if table is None:
+        _require(phys.shape == off.shape == (r,)
+                 and off.dtype == phys.dtype,
+                 "phys and off must be [R] of one dtype")
+        n = r
+    else:
+        _require(phys is None and off is None,
+                 "pass phys and off, or table")
+        n = -(-r // bs) * bs
+        _require(table.shape[0] * bs >= n, "the table has too few blocks")
+    _contiguous(k_pool=k_pool, v_pool=v_pool, k_scale=k_scale,
+                v_scale=v_scale)
+    _require(k_rows.stride(-1) == 1 and v_rows.stride(-1) == 1,
+             "k_rows/v_rows must have contiguous rows")
+    planes = functools.reduce(operator.mul, lead, 1)
+    try:            # one stride a plane: the leading dims flatten in place
+        flat = [t.view(planes, r, d) for t in (k_rows, v_rows)]
+    except RuntimeError:
+        raise ValueError("k_rows/v_rows' leading dims must flatten without "
+                         "a copy") from None
+    if not _on_card(k_pool, v_pool, k_scale, v_scale, k_rows, v_rows, *idx):
+        ref.quantize_kv_append_ref(k_pool, v_pool, k_scale, v_scale, k_rows,
+                                   v_rows, phys, off, table=table)
+        return
+    if r == 0:
+        return
+    err = build.load("kv_append_int8")(
+        _DTYPE_CODES[k_rows.dtype], _ptr(flat[0]), _ptr(flat[1]),
+        _ptr(k_pool), _ptr(v_pool), _ptr(k_scale), _ptr(v_scale), _ptr(phys),
+        _ptr(off), _ptr(table), int(idx[0].dtype == torch.int64),
+        *flat[0].stride()[:2], *flat[1].stride()[:2], planes, r, n, d, nb,
+        bs, _stream(k_rows))
+    _raise_on(err, "quantize_kv_append")
+    quantize_kv_append.launches += 1
 
 
 def dequantize_int8(q, scale):
@@ -775,6 +856,19 @@ def lora_matmul_ad(x, w, a, b, *, scale: float = 1.0):
 
 # ------------------------------------------------------------------ mLSTM
 MLSTM_MAX_DH = 512            #: head widths mlstm_chunked.cu takes
+MLSTM_TC_DH = (64, 128, 256, 512)   #: widths mlstm_chunked_tc.cu takes
+
+
+@functools.lru_cache(maxsize=64)
+def mlstm_route(dtype, dh: int) -> str:
+    """The kernel a card launch of :func:`mlstm_chunked` takes: "wgmma"
+    (``csrc/mlstm_chunked_tc.cu``: 3xTF32 on the tensor cores, a cluster
+    of DH / 64 CTAs sharing S) for float32 or bf16 at head width DH in
+    :data:`MLSTM_TC_DH`, else "simt" (``csrc/mlstm_chunked.cu``, float32
+    on the CUDA cores, any DH up to :data:`MLSTM_MAX_DH`). Inputs whose
+    bases are not 16-byte aligned (TMA's rule) take "simt" too."""
+    return ("wgmma" if dtype in (torch.float32, torch.bfloat16)
+            and dh in MLSTM_TC_DH else "simt")
 
 
 def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
@@ -785,11 +879,13 @@ def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
     (all three or none; none starts from C = 0, n = 0, m = -1e30).
     Returns (h [B, NH, S, DH] in q's dtype, (C, n, m) float32).
 
-    The kernel walks the sequence in chunks of 64 steps, its own tiling,
-    and takes any S >= 1. ``chunk`` is the plain version's chunk length
-    (the last chunk may be shorter): any chunking computes the same
-    recurrence and differs only in rounding, so the CPU route takes the
-    caller's chunk to match the reference's sums."""
+    The kernels walk the sequence in chunks of 64 steps, their own tiling,
+    and take any S >= 1; :func:`mlstm_route` picks the kernel and
+    ``mlstm_chunked.routes`` counts the launches of each. ``chunk`` is the
+    plain version's chunk length (the last chunk may be shorter): any
+    chunking computes the same recurrence and differs only in rounding,
+    so the CPU route takes the caller's chunk to match the reference's
+    sums."""
     _require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
              "q, k and v must be matching [B, NH, S, DH]")
     b, nh, s, dh = q.shape
@@ -821,31 +917,51 @@ def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
     if not _on_card(q, k, v, ig, lf, *extra):
         return ref.mlstm_chunkwise_ref(q, k, v, ig, lf, chunk=chunk, C0=C0,
                                        n0=n0, m0=m0)
+    return _mlstm_card(q, k, v, ig, lf, C0, n0, m0)
+
+
+def _mlstm_card(q, k, v, ig, lf, C0=None, n0=None, m0=None, *, route=None,
+                prof=None):
+    """The card launch of :func:`mlstm_chunked` (inputs already checked)
+    on ``route``: :func:`mlstm_route`'s choice by default, "simt" to time
+    the SIMT kernel on the same inputs. ``prof``: a CUDA int64 tensor the
+    kernel adds its phase clocks to (7 for the SIMT kernel, 6 for the
+    wgmma kernel; the sources list the phases)."""
+    b, nh, s, dh = q.shape
+    best = mlstm_route(q.dtype, dh)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        best = "simt"
+    route = route or best
+    _require(route in (best, "simt"), f"mlstm: route {route!r} cannot take "
+             f"these operands (it takes {best!r} or 'simt')")
     h = torch.empty_like(q)
     kw = dict(dtype=torch.float32, device=q.device)
     C = torch.empty((b, nh, dh, dh), **kw)
     n = torch.empty((b, nh, dh), **kw)
     m = torch.empty((b, nh), **kw)
-    err = build.load("mlstm_chunked")(
-        _DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(ig), _ptr(lf),
-        _ptr(C0), _ptr(n0), _ptr(m0), _ptr(h), _ptr(C), _ptr(n), _ptr(m), b,
-        nh, s, dh, _stream(q))
-    _raise_on(err, "mlstm_chunked")
+    args = (_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(ig),
+            _ptr(lf), _ptr(C0), _ptr(n0), _ptr(m0), _ptr(h), _ptr(C),
+            _ptr(n), _ptr(m), b, nh, s, dh)
+    stem = "mlstm_chunked_tc" if route == "wgmma" else "mlstm_chunked"
+    err = build.load(stem)(*args, _ptr(prof), _stream(q))
+    _raise_on(err, f"mlstm_chunked ({route})")
     mlstm_chunked.launches += 1
+    mlstm_chunked.routes[route] += 1
     return h, (C, n, m)
 
 
 KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
-           dequantize_int8, flash_attention, flash_attention_bwd_preprocess,
-           flash_attention_bwd_dkv, flash_attention_bwd_dq, lora_matmul,
-           mlstm_chunked)
+           quantize_kv_append, dequantize_int8, flash_attention,
+           flash_attention_bwd_preprocess, flash_attention_bwd_dkv,
+           flash_attention_bwd_dq, lora_matmul, mlstm_chunked)
 #: wrappers with two kernels behind them -> the route key of the Hopper
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
-          paged_prefill_attention: PAGED_ROUTES["prefill"]}
+          paged_prefill_attention: PAGED_ROUTES["prefill"],
+          mlstm_chunked: "wgmma"}
 
 
 def reset_launch_counts() -> None:

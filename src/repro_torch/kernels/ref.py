@@ -13,9 +13,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 INV_QMAX = 0.007874015718698502   #: float32(1 / 127), exactly
+LANES = 128                       #: the quantizer's row width
+NEAREST_BITS = 1 << 31            #: random word giving u = 0.5: nearest
 
 
 def _gather_pages(pages, table, scales=None):
@@ -108,6 +111,51 @@ def quantize_int8_ref(x, bits):
     q = torch.clamp(torch.floor(xf / safe + u), -127.0, 127.0).to(torch.int8)
     scale = torch.where(absmax > 0.0, safe, torch.zeros_like(absmax))
     return q, scale
+
+
+def _quantize_rows_nearest(x):
+    """x [..., D] (D <= 128) -> (int8 [..., D], float32 scales [..., 1]):
+    each row zero-padded to 128 lanes and quantized by
+    :func:`quantize_int8_ref` with every random word pinned to 2**31."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    rows = F.pad(x.reshape(-1, d).float(), (0, LANES - d))
+    bits = torch.full(rows.shape, -NEAREST_BITS, dtype=torch.int32,
+                      device=x.device).view(torch.uint32)
+    q, scale = quantize_int8_ref(rows, bits)
+    return q[:, :d].reshape(x.shape), scale.reshape(*lead, 1)
+
+
+def quantize_kv_append_ref(k_pool, v_pool, k_scale, v_scale, k_rows, v_rows,
+                           phys=None, off=None, *, table=None) -> None:
+    """The int8 KV cache's append as separate operations: quantize K and V
+    rows (:func:`_quantize_rows_nearest`), then scatter codes and scales
+    into the pools in place. With ``phys``/``off`` row n of [..., R, D]
+    goes to ``pool[..., phys[n], off[n]]``; with ``table`` the rows are
+    zero-padded to whole blocks of bs and fill blocks ``table[:nb]``."""
+    if table is None:
+        phys, off = phys.long(), off.long()
+        kq, ks = _quantize_rows_nearest(k_rows)
+        vq, vs = _quantize_rows_nearest(v_rows)
+        k_pool[..., phys, off, :] = kq
+        v_pool[..., phys, off, :] = vq
+        k_scale[..., phys, off, :] = ks
+        v_scale[..., phys, off, :] = vs
+        return
+    bs, d = k_pool.shape[-2], k_pool.shape[-1]
+    s = k_rows.shape[-2]
+    pad = (-s) % bs
+    if pad:
+        k_rows = F.pad(k_rows, (0, 0, 0, pad))
+        v_rows = F.pad(v_rows, (0, 0, 0, pad))
+    nb = (s + pad) // bs
+    lead = k_rows.shape[:-2]
+    kq, ks = _quantize_rows_nearest(k_rows.reshape(*lead, nb, bs, d))
+    vq, vs = _quantize_rows_nearest(v_rows.reshape(*lead, nb, bs, d))
+    row = table[:nb].long()
+    k_pool[..., row, :, :] = kq
+    v_pool[..., row, :, :] = vq
+    k_scale[..., row, :, :] = ks
+    v_scale[..., row, :, :] = vs
 
 
 def dequantize_int8_ref(q, scale, *, dtype=torch.float32):
@@ -285,8 +333,11 @@ def mlstm_chunk_body(C, n, m, q, k, v, ig, lf):
       m_t   = b_t + max(m_in, M_t)
       h_t   = [ sum_{j<=t} e^{b_t-b_j+i_j-m_t} v_j (k_j.q_t)
                 + e^{m_in+b_t-m_t} C_in q_t ] / den_t
-    The decay matrix is exponentiated whole and masked afterwards, as the
-    reference does (its upper triangle may overflow; the mask drops it)."""
+    The decay matrix is masked before its exponent is taken, as the
+    kernels do: exp() of a masked (j > t) entry, which may overflow, is
+    never taken, so its gradient is 0 and never inf * 0 = NaN (the
+    reference exponentiates the whole matrix and masks afterwards: the
+    same forward values, NaN gradients once an entry overflows)."""
     c = q.shape[2]
     b_ = torch.cumsum(lf, dim=-1)
     a_ = ig - b_
@@ -296,7 +347,7 @@ def mlstm_chunk_body(C, n, m, q, k, v, ig, lf):
     D = b_[..., :, None] - b_[..., None, :] + ig[..., None, :] \
         - m_t[..., :, None]
     tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
-    D = torch.where(tri, torch.exp(D), 0.0)
+    D = torch.exp(torch.where(tri, D, float("-inf")))
     S = torch.einsum("bhtd,bhjd->bhtj", q, k)
     inter = torch.exp(m[..., None] + b_ - m_t)
     num = torch.einsum("bhtj,bhjd->bhtd", S * D, v) \

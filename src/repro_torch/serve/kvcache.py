@@ -11,13 +11,15 @@ by design, and the paged kernels never load it for a live position.
 Two cache modes share the layout:
 
   * model-dtype pools — K/V stored as written;
-  * int8 pools — every (token, kv-head) row is quantized through the
-    ``quantize_int8`` kernel with a per-row absmax scale, stored beside
-    as [..., 1] float32. Rows are zero-padded to the kernel's 128-lane
-    layout (padding cannot change a row's absmax) and the random-bits
-    input is pinned to 2**31 — ``floor(x + 0.5)`` — so cache quantization
+  * int8 pools — every (token, kv-head) row is quantized with a per-row
+    absmax scale, stored beside as [..., 1] float32, the way the
+    ``quantize_int8`` kernel quantizes it zero-padded to its 128-lane
+    layout (padding cannot change a row's absmax) with the random-bits
+    input pinned to 2**31 — ``floor(x + 0.5)`` — so cache quantization
     is deterministic round-to-nearest: a cache entry must read back
-    identically every step.
+    identically every step. Each append (K and V of every row, codes and
+    scales) is one launch of the fused kernel
+    :func:`repro_torch.kernels.ops.quantize_kv_append`.
 
 Host-side allocation (:class:`BlockAllocator`, :class:`PrefixCache`) is
 plain Python, copied from the reference. Unlike the reference's pure
@@ -306,6 +308,11 @@ def write_prefill(pools: Dict, spec: PagedCacheSpec, k_layers, v_layers,
     ``ctx_lens``); table_row: [T] int32, trailing entries null. Blocks
     beyond the request's allocation scatter into the null block, which is
     garbage by contract."""
+    if spec.quantized:
+        kops.quantize_kv_append(pools["k"], pools["v"], pools["k_scale"],
+                                pools["v_scale"], k_layers, v_layers,
+                                table=table_row)
+        return pools
     l, hkv, s, d = k_layers.shape
     bs = spec.block_size
     pad = (-s) % bs
@@ -316,16 +323,8 @@ def write_prefill(pools: Dict, spec: PagedCacheSpec, k_layers, v_layers,
     kb = k_layers.reshape(l, hkv, nb, bs, d)
     vb = v_layers.reshape(l, hkv, nb, bs, d)
     row = table_row[:nb].long()
-    if spec.quantized:
-        kq, ks = quantize_rows(kb)
-        vq, vs = quantize_rows(vb)
-        pools["k"][:, :, row] = kq
-        pools["v"][:, :, row] = vq
-        pools["k_scale"][:, :, row] = ks
-        pools["v_scale"][:, :, row] = vs
-    else:
-        pools["k"][:, :, row] = kb.to(pools["k"].dtype)
-        pools["v"][:, :, row] = vb.to(pools["v"].dtype)
+    pools["k"][:, :, row] = kb.to(pools["k"].dtype)
+    pools["v"][:, :, row] = vb.to(pools["v"].dtype)
     return pools
 
 
@@ -338,15 +337,11 @@ def append_token(pools: Dict, spec: PagedCacheSpec, k_tok, v_tok, phys, off
     the [Hkv, NB, bs, D] views of one layer; phys/off: [N] physical block
     id and in-block offset. Inactive rows point at (null, 0) — duplicate
     writes there are harmless."""
-    phys, off = phys.long(), off.long()
     if spec.quantized:
-        kq, ks = quantize_rows(k_tok)
-        vq, vs = quantize_rows(v_tok)
-        pools["k"][:, phys, off] = kq
-        pools["v"][:, phys, off] = vq
-        pools["k_scale"][:, phys, off] = ks
-        pools["v_scale"][:, phys, off] = vs
-    else:
-        pools["k"][:, phys, off] = k_tok.to(pools["k"].dtype)
-        pools["v"][:, phys, off] = v_tok.to(pools["v"].dtype)
+        kops.quantize_kv_append(pools["k"], pools["v"], pools["k_scale"],
+                                pools["v_scale"], k_tok, v_tok, phys, off)
+        return pools
+    phys, off = phys.long(), off.long()
+    pools["k"][:, phys, off] = k_tok.to(pools["k"].dtype)
+    pools["v"][:, phys, off] = v_tok.to(pools["v"].dtype)
     return pools

@@ -15,10 +15,13 @@ prefill (whose wgmma route also rounds P to bfloat16), and all within
 2e-2; on the route ``ops.paged_route`` names, bitwise repeatable;
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
 it), on the tensor-core route (head_dim 64, wgmma) as on the SIMT one,
-whose route counts each test checks; the quantizer and dequantizer bitwise; the flash backward bitwise
-equal across runs (no atomics); the mLSTM kernel's float32 h within 5e-5
-of its largest magnitude (den = |n.q| can cancel and magnify the order of
-the sums) and its state within 1e-5, bf16 h one bf16 ulp there.
+whose route counts each test checks; the quantizer, the dequantizer and
+the fused int8 K/V append bitwise (the append outside the null block);
+the flash backward and the wgmma mLSTM bitwise equal across runs (no
+atomics); the mLSTM kernels' (wgmma and SIMT) float32 h within 5e-5 of
+its largest magnitude (den = |n.q| can cancel and magnify the order of
+the sums) and their state within 1e-5, bf16 h one bf16 ulp there, and
+the two kernels within twice those of each other.
 """
 import numpy as np
 import pytest
@@ -678,3 +681,110 @@ def test_mlstm_cuda_never_takes_the_plain_path(dev, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts()["mlstm_chunked"] == before + 2
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st["C"]).all())
+
+
+@pytest.mark.parametrize("b,nh,s,dh,state", [
+    (2, 4, 512, 512, False), (1, 4, 333, 512, True), (2, 3, 100, 128, True),
+    (1, 2, 70, 256, False), (2, 4, 129, 64, True), (1, 2, 1, 512, True)],
+    ids=["path-width", "ragged-state", "dh128", "dh256", "dh64", "one-step"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mlstm_wgmma_route_matches_simt(dev, dtype, b, nh, s, dh, state):
+    """The tensor-core kernel (3xTF32 wgmma, S shared across a cluster)
+    and the SIMT kernel on the same inputs: each within the plain
+    version's tolerances, and within those of each other; the wrapper
+    counts the launch on the wgmma route."""
+    args, kw = _mlstm(dev, dtype, b, nh, s, dh, state)
+    st = (kw.get("C0"), kw.get("n0"), kw.get("m0"))
+    assert ops.mlstm_route(dtype, dh) == "wgmma"
+    before = ops.route_counts()["mlstm_chunked"]
+    new = ops.mlstm_chunked(*args, **kw)
+    assert ops.route_counts()["mlstm_chunked"] == {
+        "wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+    old = ops._mlstm_card(*args, *st, route="simt")
+    want = ref.mlstm_chunkwise_ref(*args, chunk=64, **kw)
+    torch.cuda.synchronize()
+    for i, name in enumerate("hCnm"):
+        got = (new[0], *new[1])[i]
+        simt = (old[0], *old[1])[i]
+        exp = (want[0], *want[1])[i]
+        assert bool(torch.isfinite(got).all()), name
+        peak = max(1.0, float(exp.float().abs().max()))
+        rtol = (1e-5 if name != "h" else
+                5e-5 if dtype == torch.float32 else 2.0 ** -7)
+        for t in (got, simt):
+            assert float((t.float() - exp.float()).abs().max()) \
+                <= rtol * peak, name
+        assert float((got.float() - simt.float()).abs().max()) \
+            <= 2 * rtol * peak, name
+
+
+def test_mlstm_wgmma_is_bitwise_repeatable(dev):
+    """No atomics: the cluster sums S in rank order, so two launches give
+    the same bits."""
+    args, kw = _mlstm(dev, torch.float32, 1, 4, 200, 512, True)
+    a = ops.mlstm_chunked(*args, **kw)
+    b = ops.mlstm_chunked(*args, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip((a[0], *a[1]), (b[0], *b[1])):
+        assert torch.equal(x, y)
+
+
+def _pools_int8(dev, lead, nb, bs, d, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (*lead, nb, bs, d)
+    return [torch.randint(-127, 128, shape, generator=g,
+                          dtype=torch.int32).to(torch.int8).to(dev)
+            for _ in range(2)] + [
+        torch.rand((*lead, nb, bs, 1), generator=g).to(dev)
+        for _ in range(2)]
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_kv_append_kernel_bitwise(dev, dtype, mode):
+    """The fused int8 append against its plain version, bitwise outside
+    the null block (whose contents are garbage by contract): a decode
+    append with a dead lane at (null, 0), a prefill chunk whose padding
+    rows go to the null block, and every layer's prefill through a table
+    with a null entry and a partial last block; the appends' rows as the
+    engine hands them over (a transposed view, read through its
+    strides); int32 and int64 indices; head_dim 64 (masked under 128
+    lanes) and 128."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    nb, bs = 40, 16
+    for d in (64, 128):
+        lead = (3, 8) if mode == "prefill" else (8,)
+        n = {"decode": 8, "chunk": 16, "prefill": 100}[mode]
+        k = (torch.randn((*lead, n, d), generator=g) * 4).to(dtype).to(dev)
+        v = (torch.randn((*lead, n, d), generator=g) * 4).to(dtype).to(dev)
+        if mode != "prefill":       # the engine's layout: [N, Hkv, D]^T
+            k = k.transpose(0, 1).contiguous().transpose(0, 1)
+            v = torch.cat([v, v], dim=-1)[..., :d]   # V: rows 2d apart
+        k[..., 2, :] = 0.0
+        perm = torch.randperm(nb - 1, generator=g) + 1
+        if mode == "decode":
+            idx = dict(phys=torch.where(torch.arange(n) == 3, 0, perm[:n]),
+                       off=torch.arange(n) * 3 % bs)
+        elif mode == "chunk":
+            idx = dict(phys=torch.where(torch.arange(n) < 9, perm[0], 0),
+                       off=torch.arange(n) % bs)
+        else:
+            idx = dict(table=torch.cat([perm[:5], torch.zeros(2).long(),
+                                        perm[5:7]]))
+        for wide in (torch.int64, torch.int32):
+            kw = {key: t.to(wide).to(dev) for key, t in idx.items()}
+            base = _pools_int8(dev, lead, nb, bs, d, seed=d)
+            got = [t.clone() for t in base]
+            want = [t.clone() for t in base]
+            before = ops.launch_counts()["quantize_kv_append"]
+            ops.quantize_kv_append(*got, k, v, **kw)
+            ref.quantize_kv_append_ref(*want, k, v, **kw)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["quantize_kv_append"] == before + 1
+            live = (slice(None),) * len(lead) + (slice(1, None),)
+            for a, b_ in zip(got, want):
+                a, b_ = a[live], b_[live]
+                bits = torch.uint8 if a.dtype == torch.int8 else torch.int32
+                assert torch.equal(a.view(bits), b_.view(bits))

@@ -135,13 +135,19 @@ def test_new_wrappers_never_fall_back():
             torch.zeros((4, 8), device=m), torch.zeros((8, 6), device=m),
             torch.zeros((8, 2), device=m), torch.zeros((2, 6), device=m)),
         lambda: ops.mlstm_chunked(q, q, q, stats, stats),
+        lambda: ops.quantize_kv_append(
+            *[torch.zeros((2, 3, 4, 32), dtype=torch.int8, device=m)
+              for _ in "kv"],
+            *[torch.zeros((2, 3, 4, 1), device=m) for _ in "kv"],
+            *[torch.zeros((2, 5, 32), device=m) for _ in "kv"],
+            *[torch.zeros(5, dtype=torch.int64, device=m) for _ in "po"]),
     ]
     before = ops.launch_counts()
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     assert ops.launch_counts() == before
-    assert len(ops.KERNELS) == 10
+    assert len(ops.KERNELS) == 11
 
 
 def test_wrappers_check_their_inputs():
