@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the eighteen hand-written kernel libraries from
+  2. builds the nineteen hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
      prints the build time; checks that the six tensor-core libraries'
      (flash forward, dK/dV, dQ; LoRA matmul; paged prefill; chunkwise
@@ -18,13 +18,21 @@ In order, it
      function: the serving kernels at flad-adllm's serving shapes (8
      lanes, block size 16, chunk 16, contexts up to 300 tokens) and the
      paged ones also at 4096 keys and at ctx 1, each beside the SIMT
-     kernel it replaced and a gather + SDPA composition, the int8
+     kernel it replaced and a gather + SDPA composition, the batched
+     speculative verify (one launch for 8 lanes' draft windows, bf16 on
+     the wgmma prefill kernel, float32 on the SIMT one with every row
+     bitwise the decode kernel's; beside the reference's per-lane
+     prefill launches and a gather + SDPA composition), the int8
      cache's fused K/V append (bitwise, beside the composition it
      replaced), the flash-attention forward and its three backward
      kernels at the training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in
      bf16 (the forward, dK/dV and dQ on their tensor-core kernels) and
      float32 (all four on the SIMT kernels) with ragged, offset and
-     windowed cases and the distillation path's 1032 rows, dequantize
+     windowed cases and the distillation path's 1032 rows, the
+     backward's preprocess on its 16-byte-load kernel row by row at
+     every (dtype, D) with ragged and grid-stride row counts, timed in
+     turns beside the one-warp-a-row kernel it replaced and torch.bmm
+     with a float32 output, dequantize
      on one ffn.wi leaf's rows, and the fused LoRA matmul at the
      distillation path's shapes (M 4128; (K, N) of wq/wo, wk/wv and
      ffn.wo; r 4; forward and the backward's transposed dx; bf16 on the
@@ -43,11 +51,18 @@ In order, it
      every int8 append one fused launch, no quantize_int8); profiles a
      decode step with each cache; and holds the paged path against the
      contiguous-cache forward (plain attention);
+ 4b. serves the same trace with speculative decoding (draft_k 4): float32
+     params with fp32 and int8 caches, each with a self-draft and a random
+     draft, streams gated bitwise equal to plain decode's with exact launch
+     counts (every verify one launch a layer and step); bf16 self-drafted,
+     reported (acceptance, tokens/s, tokens equal to plain decode); one
+     float32 preemption run whose streams equal the unpressured run's;
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
      steps each, 4 x 1024 tokens a step, int8 uplinks; checks the exact
      launch counts (the flash forward, dK/dV and dQ all on their
-     tensor-core route), finite losses, moved params and the wire
+     tensor-core route, the preprocess on its vec kernel), finite
+     losses, moved params and the wire
      metrics against
      the topology's formulas;
   6. runs one float32 local train step through the kernels and through
@@ -79,7 +94,9 @@ In order, it
 
 With --paged it stops after the build and the paged kernels' checks
 (step 3's first part), with --mlstm after the build, the mLSTM kernels'
-and the fused int8 append's checks; neither prints a result line.
+and the fused int8 append's checks, with --spec after the build, the
+verify's and the preprocess's checks, the serving path and step 4b;
+none prints a result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -222,10 +239,57 @@ MLSTM_H_RTOL_F32, MLSTM_STATE_RTOL = 5e-5, 1e-5
 # 256): logits within 1e-4 of the largest magnitude
 XLSTM_LOGIT_RTOL = 1e-4
 XLSTM_F32_STEPS = 4
+# the flash backward's preprocess, delta = rowsum(dO * O) in float32: its
+# vec kernel (csrc/flash_bwd_preprocess_vec.cu) on every path launch, the
+# one-warp-a-row kernel it replaced timed beside it in turns
+PRE = "flash_attention_bwd_preprocess"
+PRE_NAMES = {"vec": "preprocess_vec_kernel",
+             "simt": "flash_bwd_preprocess_kernel"}
+# delta's row bound. A product reaches the vec kernel's row sum through at
+# most 12 roundings (16 / esz FMAs, then log2(D * esz / 16) shuffle adds;
+# D <= 128); the plain version on the card (the products, then torch's sum
+# of a contiguous float32 row) through at most D / 4 + 4. Each rounding
+# errs by at most 2^-24 of a partial sum, and a partial is at most sum_d
+# |O dO|, so each side is within depth * 2^-24 * sum_d |O dO| of the exact
+# sum (to first order), both depths are at most D / 2 for D >= 32, and D *
+# 2^-24 * sum_d |O dO| bounds their difference; 1e-30 lets an all-zero row
+# through. Against a float64 run the kernel alone is held to 13 * 2^-24
+# (12 roundings, with room for the second-order terms). A dropped 16-byte
+# slice of a row moves it by about 8 / D of sum_d |O dO|, far past either
+# bound (tests/test_torch_preprocess.py); the single bound flash_checks
+# holds delta to stays as the outer one.
+PRE_ROW_ULPS_F64 = 13
+PRE_ROW_ATOL = 1e-30
+# preprocess cases, (label, dtype, B, Hq, Sq, D), all held row by row and
+# bitwise repeatable: the timed shapes (the training shape in bf16 and
+# float32, the distillation path's 1032 rows, bf16 at D 32 and 128);
+# ragged row counts (999 and 3) in both dtypes at every D; and two that
+# outgrow one pass of the resident CTAs, so the grid stride runs
+PRE_TIMED = [("train", "bfloat16", B, HQ, S, D),
+             ("distill", "bfloat16", B, HQ, S + 8, D),
+             ("f32", "float32", B, HQ, S, D),
+             ("d32", "bfloat16", B, HQ, S, 32),
+             ("d128", "bfloat16", B, HQ, S, 128)]
+PRE_RAGGED = [(f"ragged {dt} D{d} {3 * sq} rows", dt, 1, 3, sq, d)
+              for dt in ("bfloat16", "float32") for d in (32, 64, 128)
+              for sq in (333, 1)] + [
+    ("stride bfloat16 D64", "bfloat16", 4, 16, 2200, 64),
+    ("stride float32 D128", "float32", 2, 16, 2000, 128)]
 PREPROCESS_LIBRARY_NOTE = (
-    "null: no single PyTorch call takes bf16 o and dO to the float32 "
-    "rowsum(dO * O) (vecdot and einsum round their bf16 result; a cast "
-    "first is a second call)")
+    "torch.bmm(o [rows, 1, D], dO [rows, D, 1], out_dtype=float32): one "
+    "call, bf16 products summed in float32")
+# the speculative phase: draft_k drafts a lane a step (the launcher's
+# default), so a verify window is 5 rows; the verify kernel alone at the
+# serving shape: 8 lanes (a dead one, partial windows, a window across a
+# block boundary, one near ctx 300)
+SPEC_K = 4
+VERIFY_CTX = [0, 1, 16, 47, 100, 203, 256, 290]
+VERIFY_WIN = [0, 5, 5, 5, 3, 5, 1, 5]
+# the verify's float32 rows vs the float32 plain version: 1e-5 of each
+# row's largest |value| (both sides float32, in different orders)
+VERIFY_RTOL_F32 = 1e-5
+SPEC_LIBRARY_NOTE = ("no single PyTorch call attends every lane's draft "
+                     "window through its block table")
 TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 # tf32 passes of the wgmma mLSTM's products: 3xTF32 for float32 inputs;
 # bf16 inputs are exact in tf32, so their products need two (S one)
@@ -388,7 +452,8 @@ def flash_split(rows):
     """(total ms, {kernel: ms}) of the flash kernels in profile rows
     (ms, count, name), by profiler name."""
     names = [TC_KERNELS[n][3] for n in FLASH_NAMES if n in TC_KERNELS] + [
-        f"{stem}_kernel" for stem in FLASH_NAMES.values()]
+        f"{stem}_kernel" for stem in FLASH_NAMES.values()] + [
+        PRE_NAMES["vec"]]
     split = {n: sum(r[0] for r in rows if n in r[2]) for n in names}
     split = {n: t for n, t in split.items() if t > 0}
     return sum(split.values()), split
@@ -712,6 +777,174 @@ def paged_checks(torch, cfg, dev, rng):
     return out
 
 
+def _verify_composition(torch, q, k, v, ks, vs, tables, ctx, win, scale):
+    """The yardstick of the batched verify: every lane's K/V gathered as
+    in _decode_composition, then one SDPA over [B, Hq, C, D] with each
+    lane's causal window mask and enable_gqa."""
+    F = torch.nn.functional
+    hkv, _, bs, d = k.shape
+    b, t = tables.shape
+    c = q.shape[2]
+    idx = tables.long()
+
+    def gather(pool, sc):
+        x = pool[:, idx]                                # [Hkv, B, T, bs, D]
+        if sc is not None:
+            x = (x.float() * sc[:, idx]).to(q.dtype)
+        return x.transpose(0, 1).reshape(b, hkv, t * bs, d)
+
+    kp = torch.arange(t * bs, device=q.device)
+    qp = ctx[:, None] + torch.arange(c, device=q.device)[None]   # [B, C]
+    mask = ((kp[None, None] <= qp[:, :, None])
+            & (kp[None, None] < (ctx + win)[:, None, None]))
+    return F.scaled_dot_product_attention(
+        q, gather(k, ks), gather(v, vs), attn_mask=mask[:, None],
+        scale=scale, enable_gqa=True)
+
+
+def verify_checks(torch, cfg, dev):
+    """The batched speculative verify (``ops.paged_verify_attention``, one
+    launch for all lanes) at the serving shape: 8 lanes with draft windows
+    of up to SPEC_K + 1 rows (:data:`VERIFY_CTX`, :data:`VERIFY_WIN`: a
+    dead lane, partial windows), bf16 and int8 pools under bf16 q (the
+    wgmma route) and float32 and int8 pools under float32 q (the SIMT
+    route), a NaN-poisoned null block. Each against the float32 plain
+    version row by row (bf16: the paged prefill's 2^-7 of a row's largest
+    |value| + 1e-5; float32: 1e-5 of it), a dead lane exactly zero, two
+    calls bitwise equal, one launch a call on the route paged_route names;
+    every float32 row bitwise equal to the paged decode kernel's at its
+    position (the speculative contract). Timed (bf16 q, cold L2) beside
+    the plain version, the gather + SDPA composition and the per-lane
+    loop of paged prefill launches the reference makes. Returns its JSON
+    row."""
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    scale = d ** -0.5
+    c = SPEC_K + 1
+    ctx_np, win_np = np.array(VERIFY_CTX), np.array(VERIFY_WIN)
+    t = -(-int((ctx_np + win_np).max()) // BLOCK) + 1
+    tables_np, nb = block_tables(list(ctx_np + win_np), t,
+                                 np.random.default_rng(21))
+    tables = torch.tensor(tables_np, device=dev)
+    ctx = torch.tensor(ctx_np, dtype=torch.int32, device=dev)
+    win = torch.tensor(win_np, dtype=torch.int32, device=dev)
+    live = [(b, w) for b, w in enumerate(VERIFY_WIN) if w > 0]
+    rows, errs = {}, {}
+    for q_name, q_dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+        q = torch.randn((SLOTS, hq, c, d), device=dev).to(q_dtype)
+        for kv_name, kv_dtype in ((q_name, q_dtype), ("int8", torch.int8)):
+            label = f"verify {q_name} q, {kv_name} pools"
+            k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, nb + 1, 5, dev)
+            kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+            args = (q, k, v, tables, ctx, win)
+            route = ops.paged_route("prefill", q_dtype, kv_dtype, d, BLOCK)
+            before = ops.route_counts()["paged_verify_attention"]
+            got = ops.paged_verify_attention(*args, **kw)
+            again = ops.paged_verify_attention(*args, **kw)
+            want = ref.paged_verify_attention_ref(q.float(), *args[1:], **kw)
+            torch.cuda.synchronize()
+            grew = {r: n - before[r] for r, n in
+                    ops.route_counts()["paged_verify_attention"].items()}
+            check(grew == {**dict.fromkeys(grew, 0), route: 2},
+                  f"{label}: launches by route {grew}, want two on {route}")
+            check(torch.equal(got, again), f"{label}: two calls differ")
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+            check(not bool(got[0].any()), f"{label}: the dead lane is not "
+                  "exactly 0")
+            rtol = (PAGED_RTOL["prefill"] if q_dtype == torch.bfloat16
+                    else VERIFY_RTOL_F32)
+            atol = PAGED_ROW_ATOL if q_dtype == torch.bfloat16 else 0.0
+            err, use = 0.0, 0.0
+            for b, w in live:
+                wr = want[b, :, :w].float()
+                diff = (got[b, :, :w].float() - wr).abs()
+                tol = rtol * wr.abs().amax(-1, keepdim=True) + atol
+                err = max(err, float(diff.max()))
+                use = max(use, float((diff / tol).max()))
+            check(use <= 1.0, f"{label}: a row's error is {use:.3f} of its "
+                  f"bound ({rtol:.3e} of its largest |value| + {atol})")
+            # each row against the paged decode kernel at its position
+            same = total = 0
+            for col in range(c):
+                on = win_np > col
+                seen = torch.tensor(np.where(on, ctx_np + col + 1, 0)
+                                    .astype(np.int32), device=dev)
+                dec = ops.paged_decode_attention(
+                    q[:, :, col].contiguous(), k, v, tables, seen, **kw)
+                torch.cuda.synchronize()
+                sel = torch.tensor(on, device=dev)
+                eq = (got[:, :, col] == dec).all(-1)[sel]
+                same += int(eq.sum())
+                total += int(eq.numel())
+            if q_dtype == torch.float32:
+                check(same == total, f"{label}: {total - same} of {total} "
+                      "rows differ from the paged decode kernel's")
+            errs[(q_name, kv_name)] = err
+            msg = (f"[kernel] paged_verify_attention {label} ({SLOTS} lanes, "
+                   f"windows {VERIFY_WIN} at ctx {VERIFY_CTX}, route "
+                   f"{route}): max|err| {err:.3e}, worst row at {use:.3f} "
+                   f"of its bound; rows bitwise the decode kernel's "
+                   f"{same}/{total}; bitwise repeatable")
+            if q_dtype == torch.bfloat16:
+                lanes = [b for b, _ in live]
+                per_lane = lambda: [ops.paged_prefill_attention(
+                    q[b], k, v, tables[b], VERIFY_CTX[b],
+                    VERIFY_CTX[b] + VERIFY_WIN[b], **kw) for b in lanes]
+                name = PAGED_LIBS["paged_prefill_attention"][1]
+                r = dict(
+                    ms=device_ms(lambda: ops.paged_verify_attention(
+                        *args, **kw), name),
+                    per_lane_ms=device_ms(per_lane, name),
+                    plain_ms=device_ms(lambda: ref.paged_verify_attention_ref(
+                        *args, **kw), None, iters=20),
+                    composition_ms=device_ms(lambda: _verify_composition(
+                        torch, q, k, v, ks, vs, tables, ctx, win, scale),
+                        None, iters=20),
+                    call_ms=time_ms(lambda: ops.paged_verify_attention(
+                        *args, **kw)),
+                    per_lane_call_ms=time_ms(per_lane))
+                keys = sum(int(cx) + int(w) for cx, w in
+                           zip(VERIFY_CTX, VERIFY_WIN) if w > 0)
+                esz = 2 if kv_dtype == torch.bfloat16 else 1
+                nbytes = (2 * SLOTS * hq * c * d * 2 + tables.numel() * 4
+                          + 2 * SLOTS * 4
+                          + 2 * keys * hkv * (d * esz
+                                              + (4 if esz == 1 else 0)))
+                flops = 4 * hq * d * sum(cx + j + 1 for cx, w in
+                                         zip(VERIFY_CTX, VERIFY_WIN)
+                                         for j in range(w))
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+                rows[kv_name] = r
+                msg += (f"; device: kernel {r['ms']:.5f} ms (one launch), "
+                        f"the reference's per-lane prefill launches "
+                        f"({len(lanes)}) {r['per_lane_ms']:.5f} ms, plain "
+                        f"{r['plain_ms']:.5f} ms, composition (gather + "
+                        f"SDPA) {r['composition_ms']:.5f} ms; bound "
+                        f"{r['bound_ms']:.5f} ms ({r['bound_by']}); host "
+                        f"clock per call {r['call_ms']:.5f} ms, per-lane "
+                        f"loop {r['per_lane_call_ms']:.5f} ms")
+            print(msg)
+            del k, v, ks, vs, got, again, want
+    head = rows["bf16"]
+    return dict(source="src/repro_torch/kernels/csrc/paged_prefill_tc.cu",
+                simt_source="src/repro_torch/kernels/csrc/paged_prefill.cu",
+                replaces="src/repro/kernels/flash_attention.py:442",
+                max_abs_err=errs[("bf16", "bf16")],
+                f32_max_abs_err=errs[("f32", "f32")],
+                library_ms=None, library_call=SPEC_LIBRARY_NOTE,
+                composition_call=COMPOSITION_NOTE,
+                headline=f"{SLOTS} lanes, windows {VERIFY_WIN}, bf16",
+                **{k: head[k] for k in ("ms", "per_lane_ms", "plain_ms",
+                                        "composition_ms", "call_ms",
+                                        "per_lane_call_ms", "bound_ms",
+                                        "bound_by")},
+                **{f"int8_{k}": rows["int8"][k] for k in (
+                    "ms", "per_lane_ms", "plain_ms", "composition_ms",
+                    "bound_ms")})
+
+
 def _paged_row(rows, errs, src, simt_src, line):
     """A paged kernel's JSON row: the headline bf16 case's numbers under
     the common keys, every other case's under ``<case>_<dtype>_<key>``."""
@@ -1026,6 +1259,8 @@ def flash_checks(torch, dev):
         want["flash_attention"][route] = len(FLASH_CASES)
         want["flash_attention_bwd_dkv"][route] = 2 * len(FLASH_CASES)
         want["flash_attention_bwd_dq"][route] = 2 * len(FLASH_CASES)
+        # and two preprocess launches, both on its vec kernel
+        want[PRE]["vec"] = 2 * len(FLASH_CASES)
         check(grew == want, f"flash {name}: launches by route {grew} != "
               f"{want}")
         print(f"[kernel] flash {name}: launches by route {grew}")
@@ -1054,10 +1289,6 @@ def flash_checks(torch, dev):
                 lambda: ops.flash_attention(q, k, v, return_lse=True),
                 lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
                 lib_fwd),
-            "flash_attention_bwd_preprocess": (
-                lambda: ops.flash_attention_bwd_preprocess(o, do),
-                lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
-                None),
             "flash_attention_bwd_dkv": (
                 lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                 lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
@@ -1075,8 +1306,6 @@ def flash_checks(torch, dev):
         work = {   # bytes each input read once and output written once
             "flash_attention": ((2 * nq + 2 * nkv) * esz + 4 * stat,
                                 4 * D * pairs),
-            "flash_attention_bwd_preprocess": (2 * nq * esz + 4 * stat,
-                                               2 * nq),
             "flash_attention_bwd_dkv": ((2 * nq + 4 * nkv) * esz
                                         + 8 * stat, 8 * D * pairs),
             "flash_attention_bwd_dq": ((3 * nq + 2 * nkv) * esz + 8 * stat,
@@ -1097,7 +1326,6 @@ def flash_checks(torch, dev):
                 f32_ms[name] = (ms, plain, lib, b_ms, src)
                 continue
             key = {"flash_attention": "fwd",
-                   "flash_attention_bwd_preprocess": "pre",
                    "flash_attention_bwd_dkv": "dkv",
                    "flash_attention_bwd_dq": "dq"}[name]
             if name in TC_KERNELS:
@@ -1106,21 +1334,163 @@ def flash_checks(torch, dev):
             rows[name] = dict(
                 source=src,
                 replaces="src/repro/kernels/flash_attention.py:" + {
-                    "fwd": "161", "pre": "579", "dkv": "599",
-                    "dq": "639"}[key],
+                    "fwd": "161", "dkv": "599", "dq": "639"}[key],
                 max_abs_err=errs[key], ms=ms, plain_ms=plain, call_ms=call,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 library_call={
                     "fwd": "F.scaled_dot_product_attention(causal, "
-                           "enable_gqa) forward",
-                    "pre": PREPROCESS_LIBRARY_NOTE}.get(
+                           "enable_gqa) forward"}.get(
                         key, "SDPA's whole backward (all three kernels' "
                              "work)"),
                 f32_ms=f32_ms[name][0], f32_plain_ms=f32_ms[name][1],
                 f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3],
                 f32_source=f32_ms[name][4])
         del q, k, v, do, o, lse, delta, ql, kl, vl, lo
+    # the preprocess is timed in preprocess_checks; its largest error here
+    rows[PRE] = dict(max_abs_err=errs["pre"])
     return rows
+
+
+def _delta_rows(torch, label, o, do, got, want):
+    """Each row of delta within its own bound of the plain version ``want``
+    (D * 2^-24 * sum_d |O dO| + 1e-30) and of a float64 run (13 * 2^-24 *
+    the same); see PRE_ROW_ULPS_F64. Returns the largest share of the row
+    bound that a row used."""
+    prod = o.double() * do.double()
+    mag = prod.abs().sum(-1)
+    exact = prod.sum(-1)
+    del prod
+    unit = 2.0 ** -24
+    row_bound = o.shape[-1] * unit * mag + PRE_ROW_ATOL
+    err = (got.double() - want.double()).abs()
+    bad = int((err > row_bound).sum())
+    check(bad == 0, f"{label} delta: {bad} rows past their bound of the "
+          f"plain version (largest err / bound "
+          f"{float((err / row_bound).max()):.3e})")
+    f64_bound = PRE_ROW_ULPS_F64 * unit * mag + PRE_ROW_ATOL
+    bad = int(((got.double() - exact).abs() > f64_bound).sum())
+    check(bad == 0, f"{label} delta: {bad} rows past their bound of a "
+          "float64 run")
+    return float((err / row_bound).max())
+
+
+def _pre_inputs(torch, dev, dtype, b, hq, sq, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, hq, sq, d), generator=g, device=dev)
+            .to(getattr(torch, dtype)) for _ in range(2)]
+
+
+def _bmm_delta(torch, o, do):
+    """The library yardstick: delta as one torch.bmm with a float32
+    output (bf16 inputs; float32 inputs need no out_dtype)."""
+    d = o.shape[-1]
+    a, b = o.reshape(-1, 1, d), do.reshape(-1, d, 1)
+    if o.dtype == torch.float32:
+        return torch.bmm(a, b).reshape(o.shape[:-1])
+    return torch.bmm(a, b, out_dtype=torch.float32).reshape(o.shape[:-1])
+
+
+def preprocess_checks(torch, dev):
+    """The flash backward's preprocess: the vec kernel against the plain
+    version row by row (:func:`_delta_rows`) and against the outer bound
+    flash_checks uses, at every (dtype, D) with ragged row counts and
+    grid-stride passes, two runs bitwise equal, every launch that names no
+    route on "vec"; then the timed shapes (:data:`PRE_TIMED`), the vec and
+    the one-warp-a-row kernel in turns (vec, simt, simt, vec; cold L2),
+    the plain version, the bound, one torch.bmm with a float32 output (the
+    library call) and a one-row launch (a launch's fixed cost). Returns
+    the preprocess's JSON row, headed by the training shape."""
+    from repro_torch.kernels import ops, ref
+    routes0 = ops.route_counts()[PRE]
+    calls, worst, max_err = 0, 0.0, 0.0
+    for label, dtype, b, hq, sq, d in PRE_TIMED + PRE_RAGGED:
+        o, do = _pre_inputs(torch, dev, dtype, b, hq, sq, d, 11)
+        got = ops.flash_attention_bwd_preprocess(o, do)
+        again = ops.flash_attention_bwd_preprocess(o, do)
+        old = ops._preprocess_card(o, do, "simt")
+        want = ref.flash_attention_bwd_preprocess_ref(o, do)
+        torch.cuda.synchronize()
+        calls += 2
+        check(torch.equal(got, again), f"preprocess {label}: two runs "
+              "differ")
+        check(bool(torch.isfinite(got).all()), f"preprocess {label}: "
+              "non-finite")
+        err = _err(got, want)
+        tol = FLASH_ATOL_F32 * (1.0 if dtype == "float32" else
+                                max(1.0, float(want.abs().max())))
+        check(err <= tol, f"preprocess {label}: max err {err:.3e} > "
+              f"{tol:.3e}")
+        share = _delta_rows(torch, f"preprocess {label}", o, do, got, want)
+        _delta_rows(torch, f"preprocess {label} (simt)", o, do, old, want)
+        worst = max(worst, share)
+        if label == "train":
+            max_err = err
+        print(f"[kernel] preprocess {label} ({dtype}, {b * hq * sq} rows, "
+              f"D {d}): vec max err {err:.2e} (simt {_err(old, want):.2e}), "
+              f"largest share of a row's bound {share:.3e}; bitwise "
+              "repeatable")
+        del o, do, got, again, old, want
+    grew = {r: n - routes0[r] for r, n in ops.route_counts()[PRE].items()}
+    n_cases = len(PRE_TIMED) + len(PRE_RAGGED)
+    check(grew == {"vec": calls, "simt": n_cases}, f"preprocess: launches "
+          f"by route {grew} != {{'vec': {calls}, 'simt': {n_cases}}}")
+    # a launch's fixed cost: one bf16 row, cold L2
+    o, do = _pre_inputs(torch, dev, "bfloat16", 1, 1, 1, D, 12)
+    one_row = {r: device_ms(lambda: ops._preprocess_card(o, do, r),
+                            PRE_NAMES[r]) for r in PRE_NAMES}
+    print("[kernel] preprocess at one bf16 row (cold L2): " + ", ".join(
+        f"{r} {t:.5f} ms" for r, t in one_row.items()))
+
+    cases = {}
+    for label, dtype, b, hq, sq, d in PRE_TIMED:
+        o, do = _pre_inputs(torch, dev, dtype, b, hq, sq, d, 12)
+        new_fn = (lambda: ops.flash_attention_bwd_preprocess(o, do))
+        old_fn = (lambda: ops._preprocess_card(o, do, "simt"))
+        dev_ms = {"vec": [], "simt": []}
+        for route, fn in (("vec", new_fn), ("simt", old_fn),
+                          ("simt", old_fn), ("vec", new_fn)):
+            dev_ms[route].append(device_ms(fn, PRE_NAMES[route]))
+        ms, old_ms = (sum(dev_ms[r]) / 2 for r in ("vec", "simt"))
+        plain = device_ms(
+            lambda: ref.flash_attention_bwd_preprocess_ref(o, do), None,
+            iters=20)
+        lib_err = _err(_bmm_delta(torch, o, do),
+                       ref.flash_attention_bwd_preprocess_ref(o, do))
+        lib = device_ms(lambda: _bmm_delta(torch, o, do), None, iters=20)
+        rows = b * hq * sq
+        esz = 2 if dtype == "bfloat16" else 4
+        nbytes = 2 * rows * d * esz + 4 * rows
+        b_ms, b_by = bound(nbytes, 2 * rows * d, F32_FLOPS_PER_S)
+        cases[label] = dict(rows=rows, dtype=dtype, head_dim=d, ms=ms,
+                            old_ms=old_ms, ms_turns=dev_ms["vec"],
+                            old_ms_turns=dev_ms["simt"], plain_ms=plain,
+                            library_ms=lib, library_max_abs_err=lib_err,
+                            call_ms=time_ms(new_fn), bound_ms=b_ms,
+                            bound_by=b_by, share_of_bound=b_ms / ms)
+        print(f"[kernel] preprocess {label} ({dtype}, B{b} Hq{hq} S{sq} "
+              f"D{d}, {rows} rows) device (turns vec, simt, simt, vec): "
+              f"vec {dev_ms['vec'][0]:.5f}/{dev_ms['vec'][1]:.5f} ms, simt "
+              f"{dev_ms['simt'][0]:.5f}/{dev_ms['simt'][1]:.5f} ms "
+              f"(new/old {ms / old_ms:.3f}), plain {plain:.5f} ms, library "
+              f"(torch.bmm, float32 out) {lib:.5f} ms (max err vs plain "
+              f"{lib_err:.2e}); bound {b_ms:.5f} ms ({b_by}): vec "
+              f"{100 * b_ms / ms:.1f}% of it, simt "
+              f"{100 * b_ms / old_ms:.1f}%; past the one-row launch (vec "
+              f"{one_row['vec']:.5f} ms) the vec kernel streams "
+              f"{nbytes / max(ms - one_row['vec'], 1e-9) / 1e9:.2f} TB/s; "
+              f"host clock per call {cases[label]['call_ms']:.5f} ms")
+        del o, do
+    head = cases["train"]
+    return dict(
+        source="src/repro_torch/kernels/csrc/flash_bwd_preprocess_vec.cu",
+        simt_source="src/repro_torch/kernels/csrc/flash_bwd_preprocess.cu",
+        replaces="src/repro/kernels/flash_attention.py:579",
+        max_abs_err=max_err, library_call=PREPROCESS_LIBRARY_NOTE,
+        headline=f"bf16, B {B}, Hq {HQ}, S {S}, D {D}",
+        largest_row_bound_share=worst, one_row_ms=one_row,
+        **{k: head[k] for k in ("ms", "old_ms", "plain_ms", "library_ms",
+                                "call_ms", "bound_ms", "bound_by")},
+        cases=cases)
 
 
 def _lib_report(stem):
@@ -1446,7 +1816,7 @@ def train_main_path(torch, cfg, dev):
                 flash_attention_bwd_dkv=steps, flash_attention_bwd_dq=steps,
                 quantize_int8=codec, dequantize_int8=codec)
     check(counts == want, f"training launches {counts} != {want}")
-    routes = check_routes(ops, counts, "training")
+    routes = check_routes(ops, counts, "training", (*TC_KERNELS, PRE))
     hist = out["history"]
     check(len(hist) == ROUNDS, "one history entry per round")
     for h in hist:
@@ -1551,7 +1921,7 @@ def distill_main_path(torch, cfg, dev):
                 dequantize_int8=ROUNDS * CLIENTS * FACTOR_LEAVES,
                 lora_matmul=steps * (5 * L + 5 * L - 3))
     check(counts == want, f"distill launches {counts} != {want}")
-    routes = check_routes(ops, counts, "distillation")
+    routes = check_routes(ops, counts, "distillation", (*TC_KERNELS, PRE))
     hist = out["history"]
     check(len(hist) == ROUNDS, "one history entry per round")
     for h in hist:
@@ -2367,6 +2737,213 @@ def serve_main_path(torch, cfg, params, dev):
     return totals, reports, routes
 
 
+def _serve_trace(cfg, params, dev, cache, **kw):
+    """The serving path's fleet trace through serve_continuous (a cold and
+    a warm pass), as serve_main_path runs it."""
+    from repro_torch.serve import serve_continuous
+    return serve_continuous(
+        cfg, params=params, device=dev, cache=cache, prefill="chunked",
+        prefill_chunk=CHUNK, slots=SLOTS, block_size=BLOCK, max_context=128,
+        warm_passes=1, log_fn=None, **TRACE, **kw)
+
+
+def _spec_launches(cfg, rep, cache):
+    """The launches a speculative run of the trace makes, two passes:
+    each prefill chunk twice (the target's and the draft's mirror), each
+    speculative step SPEC_K + 1 draft decode forwards and one verify, one
+    fused int8 append a layer for every one of those forwards."""
+    L, passes = cfg.num_layers, 2
+    steps, chunks = rep["spec_steps"], rep["prefill_chunks"]
+    return {"paged_decode_attention": passes * L * (SPEC_K + 1) * steps,
+            "paged_prefill_attention": passes * L * 2 * chunks,
+            "paged_verify_attention": passes * L * steps,
+            "quantize_kv_append": (passes * L * (2 * chunks
+                                                 + (SPEC_K + 2) * steps)
+                                   if cache == "int8" else 0)}
+
+
+def _equal_tokens(got, want):
+    """Stream tokens of ``got`` equal to ``want``'s at the same place."""
+    return sum(int(a == b) for rid in want
+               for a, b in zip(got[rid], want[rid]))
+
+
+def spec_main_path(torch, cfg, params, dev, plain):
+    """Speculative decoding of flad-adllm at full width and depth through
+    serve_continuous(speculative=True) on the serving path's trace:
+      * float32 params (the bf16 weights cast up), fp32 and int8 caches,
+        each with a self-draft and with a random draft (seed 7, rejected
+        nearly always: every step rolls back): the streams must equal
+        plain decode's bitwise (the reference's contract), with the exact
+        launch counts, every paged launch on the SIMT route;
+      * bf16 params (the serving path's), both caches, self-draft:
+        reported (acceptance, tokens/s, stream tokens equal to plain
+        decode's from ``plain``), not gated on equality: the verify's
+        k+1-row products round differently from decode's one-row ones;
+        every paged launch on its Hopper route;
+      * a preemption run (float32, a tight block cap, a later request
+        with a tighter deadline) whose streams equal the run without
+        preemption.
+    Every run's counts start at zero and are read right after it. Returns
+    (launch counts summed over the runs, the paged wrappers' launches by
+    route summed likewise, the summary printed)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    paged = (*PAGED_LIBS, "paged_verify_attention")
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    spec_routes = {fn: dict.fromkeys(ops.route_counts()[fn], 0)
+                   for fn in paged}
+    summary = {}
+
+    def run(c, p, cache, route, **kw):
+        ops.reset_launch_counts()
+        rep = _serve_trace(c, p, dev, cache, **kw)
+        counts = ops.launch_counts()
+        routes = ops.route_counts()
+        for name in totals:
+            totals[name] += counts[name]
+        for fn in paged:
+            for r, n in routes[fn].items():
+                spec_routes[fn][r] += n
+        check(rep["requests"] == 12 and rep["unstarted_requests"] == 0,
+              "spec: not every request finished")
+        if kw.get("speculative"):
+            want = dict.fromkeys(counts, 0)
+            want.update(_spec_launches(c, rep, cache))
+            check(counts == want, f"spec {c.param_dtype} {cache}: launches "
+                  f"{counts} != {want}")
+            hopper = {f.__name__: key for f, key in ops.ROUTED.items()}
+            for fn in paged:
+                fast = route if route == "simt" else hopper[fn]
+                check(routes[fn] == {**dict.fromkeys(routes[fn], 0),
+                                     fast: counts[fn]},
+                      f"spec {c.param_dtype} {cache}: {fn} launches by "
+                      f"route {routes[fn]}, want all on {fast}")
+        return rep, counts
+
+    # float32 at full width: the gate
+    c32 = cfg.replace(param_dtype="float32")
+    p32 = lm.LM(c32, _cast(params.to_dict(), torch.float32))
+    rand32 = lm.init(c32, seed=7, device=dev)
+    for cache in ("fp32", "int8"):
+        base, _ = run(c32, p32, cache, "simt")
+        for draft, dp in (("self", None), ("random", rand32)):
+            rep, counts = run(c32, p32, cache, "simt", speculative=True,
+                              draft_k=SPEC_K, draft_params=dp)
+            eq = _equal_tokens(rep["sequences"], base["sequences"])
+            n = sum(len(x) for x in base["sequences"].values())
+            key = f"float32 cache={cache} draft={draft}"
+            summary[key] = dict(acceptance=rep["acceptance_rate"],
+                                equal_tokens=eq, tokens=n,
+                                spec_steps=rep["spec_steps"],
+                                warm_tokens_per_s=rep["warm_tokens_per_s"],
+                                plain_warm_tokens_per_s=base[
+                                    "warm_tokens_per_s"],
+                                preemptions=rep["preemptions"])
+            print(f"[spec] {key}: acceptance {rep['acceptance_rate']:.4f} "
+                  f"({rep['accepted_drafts']}/{rep['proposed_drafts']}), "
+                  f"{rep['spec_steps']} spec steps, {rep['total_new_tokens']}"
+                  f" tokens, warm {rep['warm_tokens_per_s']:.1f} tok/s "
+                  f"(plain decode {base['warm_tokens_per_s']:.1f}), "
+                  f"{rep['preemptions']} preemptions; streams vs plain "
+                  f"decode {eq}/{n} tokens equal; launches {counts}")
+            check(rep["sequences"] == base["sequences"], f"{key}: the "
+                  f"speculative streams differ from plain decode's "
+                  f"({eq}/{n} tokens equal)")
+            if draft == "self":
+                check(rep["acceptance_rate"] == 1.0,
+                      f"{key}: a self-draft's acceptance "
+                      f"{rep['acceptance_rate']} != 1.0")
+            else:
+                check(rep["acceptance_rate"] < 0.2 and
+                      rep["proposed_drafts"] > 0,
+                      f"{key}: a random draft's acceptance "
+                      f"{rep['acceptance_rate']} is not below 0.2")
+        del base
+    del rand32
+    torch.cuda.empty_cache()
+
+    # bf16, the serving path's params: reported
+    for cache in ("fp32", "int8"):
+        rep, counts = run(cfg, params, cache, "fast",
+                          speculative=True, draft_k=SPEC_K)
+        want = plain[cache]["sequences"]
+        eq = _equal_tokens(rep["sequences"], want)
+        n = sum(len(x) for x in want.values())
+        key = f"bfloat16 cache={cache} draft=self"
+        summary[key] = dict(acceptance=rep["acceptance_rate"],
+                            equal_tokens=eq, tokens=n,
+                            spec_steps=rep["spec_steps"],
+                            warm_tokens_per_s=rep["warm_tokens_per_s"],
+                            plain_warm_tokens_per_s=plain[cache][
+                                "warm_tokens_per_s"],
+                            preemptions=rep["preemptions"])
+        print(f"[spec] {key}: acceptance {rep['acceptance_rate']:.4f} "
+              f"({rep['accepted_drafts']}/{rep['proposed_drafts']}), "
+              f"{rep['spec_steps']} spec steps, warm "
+              f"{rep['warm_tokens_per_s']:.1f} tok/s (plain decode "
+              f"{plain[cache]['warm_tokens_per_s']:.1f}); streams vs plain "
+              f"decode {eq}/{n} tokens equal (bf16: reported, not gated); "
+              f"launches {counts}")
+
+    summary["preemption"] = preemption_run(torch, c32, p32, dev)
+    del p32
+    torch.cuda.empty_cache()
+    check(totals["paged_verify_attention"] > 0,
+          "the speculative runs never launched the verify kernel")
+    return totals, spec_routes, summary
+
+
+def preemption_run(torch, cfg, params, dev):
+    """Two requests at full width (float32): request 0 admitted and
+    decoding, then request 1 with a tighter deadline under a block cap
+    that cannot hold both. Request 0 must be preempted once, resume
+    through the prefix cache, and both streams equal those of an
+    unpressured run."""
+    from repro_torch.serve import (ContinuousScheduler, PagedCacheSpec,
+                                   PagedEngine, ServeRequest)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, (40,)).astype(np.int32),
+               rng.integers(1, cfg.vocab_size, (40,)).astype(np.int32)]
+
+    def requests():
+        return [ServeRequest(rid=0, prompt=prompts[0].copy(),
+                             max_new_tokens=24, deadline_s=100.0),
+                ServeRequest(rid=1, prompt=prompts[1].copy(),
+                             max_new_tokens=8, deadline_s=1.0)]
+
+    spec = PagedCacheSpec.for_requests(2, 64, block_size=BLOCK)
+    eng = PagedEngine(cfg, spec, max_context=64, slots=2, device=dev)
+    kw = dict(prefill="chunked", prefill_chunk=CHUNK, prefix_cache=True)
+    want = {r.rid: list(r.tokens) for r in ContinuousScheduler(
+        eng, params, **kw).run_to_completion(requests())}
+    need = spec.blocks_needed(40 + 24)
+    sched = ContinuousScheduler(eng, params, preemption=True,
+                                max_inflight_blocks=need + 1, **kw)
+    ra, rb = requests()
+    sched.submit(ra)
+    steps = 0
+    while len(ra.tokens) < 4:
+        sched.step(float(steps))
+        steps += 1
+    sched.submit(rb)
+    while not sched.idle:
+        sched.step(float(steps))
+        steps += 1
+        check(steps < 1000, "preemption run did not drain")
+    got = {r.rid: list(r.tokens) for r in sched.finished}
+    order = [r.rid for r in sched.finished]
+    print(f"[spec] preemption (float32, cap {need + 1} blocks, each request "
+          f"needs {need}): {sched.preemptions} preemption(s), finish order "
+          f"{order}, streams equal to the unpressured run: {got == want}")
+    check(sched.preemptions == 1, f"preemptions {sched.preemptions} != 1")
+    check(order == [1, 0], f"finish order {order} != [1, 0]")
+    check(got == want, "the preempted streams differ from the unpressured "
+          "run's")
+    return dict(preemptions=sched.preemptions, order=order,
+                equal=got == want)
+
+
 def profile_decode(torch, cfg, params, dev, steps=10, kernels=None):
     """Warm decode steps with all lanes live, with the model-dtype KV
     cache and with the int8 cache: wall time per step on the host clock,
@@ -2543,6 +3120,17 @@ def main():
         print(json.dumps(rows))
         print("chip_smoke --paged: the paged kernels only; no result line")
         return 0
+    if "--spec" in sys.argv[1:]:
+        rows = {"paged_verify_attention": verify_checks(torch, cfg, dev),
+                PRE: preprocess_checks(torch, dev)}
+        params = lm.init(cfg, seed=0, device=dev)
+        _, reports, _ = serve_main_path(torch, cfg, params, dev)
+        rows["speculative_phase"] = spec_main_path(torch, cfg, params, dev,
+                                                   reports)[2]
+        print(json.dumps(rows))
+        print("chip_smoke --spec: the verify and preprocess kernels, the "
+              "serving path and the speculative phase only; no result line")
+        return 0
     if "--mlstm" in sys.argv[1:]:
         rows = {"mlstm_chunked": mlstm_checks(torch, dev),
                 "quantize_kv_append": append_checks(torch, cfg, dev)}
@@ -2551,7 +3139,12 @@ def main():
               "only; no result line")
         return 0
     kernels = kernel_checks(torch, cfg, dev)
+    kernels["paged_verify_attention"] = verify_checks(torch, cfg, dev)
     kernels.update(flash_checks(torch, dev))
+    pre = preprocess_checks(torch, dev)
+    pre["max_abs_err"] = max(pre["max_abs_err"],
+                             kernels[PRE]["max_abs_err"])
+    kernels[PRE] = pre
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
     kernels["lora_matmul"] = lora_checks(torch, dev)
     kernels["mlstm_chunked"] = mlstm_checks(torch, dev)
@@ -2595,6 +3188,10 @@ def main():
           f"disagreement {fid['disagreement']:.4f} over {fid['positions']} "
           f"positions, max logit drift {fid['max_logit_drift']:.3e}")
 
+    # 4c. speculative decoding and preemption on the serving path
+    spec_launches, spec_routes, spec_summary = spec_main_path(
+        torch, cfg, params, dev, reports)
+
     # 5. the training path: two hier_fl rounds at full width
     del params
     torch.cuda.empty_cache()
@@ -2623,7 +3220,9 @@ def main():
           f"mlstm_chunked's: {MLSTM_LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
-        by_path = {"serve": launches[name], "train": train_launches[name],
+        by_path = {"serve": launches[name],
+                   "spec_serve": spec_launches[name],
+                   "train": train_launches[name],
                    "distill": distill_launches[name],
                    "xlstm_serve": xlstm_launches[name]}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
@@ -2636,10 +3235,20 @@ def main():
                 r: train_routes[name][r] + distill_routes[name][r]
                 for r in train_routes[name]}, "build": tc[name]}
         if name in PAGED_LIBS:
-            extra = {"launches_by_route": serve_routes[name],
-                     "build": tc[name]}
+            extra = {"launches_by_route": {
+                r: serve_routes[name][r] + spec_routes[name][r]
+                for r in serve_routes[name]}, "build": tc[name]}
         if name == "mlstm_chunked":
             extra = {"launches_by_route": xlstm_routes, "build": tc[name]}
+        if name == PRE:
+            extra = {"launches_by_route": {
+                r: train_routes[name][r] + distill_routes[name][r]
+                for r in train_routes[name]}}
+        if name == "paged_verify_attention":
+            extra = {"launches_by_route":
+                     spec_routes["paged_verify_attention"],
+                     "build": tc["paged_prefill_attention"],
+                     "speculative_phase": spec_summary}
         rows.append({"name": name, "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
                      "launches": sum(by_path.values()),

@@ -184,20 +184,54 @@ class Session:
         "continuous"``: the paged-KV continuous-batching tier
         (:func:`repro_torch.serve.serve_continuous`): ``requests`` is the
         trace length, ``batch`` the lanes, ``context`` the monolithic
-        prefill bucket; ``serve_options`` pass through. Per-pod serving
-        (``pod=``), speculative decoding (``speculative=``,
-        ``draft_pod=``) and tracing (``trace=``) come with later slices of
-        the port and raise."""
-        later = ((pod is not None, "per-pod personalized serving (pod=) "
-                  "comes with the per-pod serving slice of the port"),
-                 (speculative or draft_pod is not None, "speculative "
-                  "decoding comes with the speculative-decoding slice of "
-                  "the port"),
-                 (trace is not None, "tracing comes with the observability "
-                  "slice of the port"))
-        for asked, msg in later:
-            if asked:
-                raise NotImplementedError(msg)
+        prefill bucket; ``serve_options`` pass through. Tracing
+        (``trace=``) comes with a later slice of the port and raises.
+
+        ``pod``: serve edge pod ``pod``'s personalized model — the
+        strategy's ``pod_params`` view (``distill_fl``: the base weights
+        with that pod's LoRA adapter folded in) instead of the global
+        merge.
+
+        ``speculative``: draft-verify speculative decoding (continuous
+        scheduler, greedy only). The draft model defaults to the target
+        weights (self-draft); ``draft_pod`` drafts with pod
+        ``draft_pod``'s distilled student — the same base weights with
+        that pod's factors merged in, no second checkpoint
+        (``distill_fl`` only). ``draft_k`` and ``preemption`` ride
+        through ``serve_options``."""
+        if trace is not None:
+            raise NotImplementedError(
+                "tracing comes with the observability slice of the port")
+        if pod is not None:
+            if params is not None:
+                raise ValueError("pass either params or pod, not both")
+            if not hasattr(self.strategy, "pod_params"):
+                raise ValueError(
+                    f"strategy {self.strategy.name!r} has no per-pod "
+                    f"personalized view (pod= needs distill_fl)")
+            if self.state is None:
+                raise RuntimeError("no state yet; run() before serving "
+                                   "a personalized pod model")
+            params = self.strategy.pod_params(self.state, pod)
+        if draft_pod is not None and not speculative:
+            raise ValueError("draft_pod= needs speculative=True")
+        if speculative:
+            if scheduler != "continuous":
+                raise ValueError("speculative decoding needs "
+                                 "scheduler='continuous'")
+            serve_options["speculative"] = True
+            if draft_pod is not None:
+                if not hasattr(self.strategy, "pod_params"):
+                    raise ValueError(
+                        f"strategy {self.strategy.name!r} has no per-pod "
+                        f"student to draft with (draft_pod= needs "
+                        f"distill_fl)")
+                if self.state is None:
+                    raise RuntimeError(
+                        "no state yet; run() before drafting with a "
+                        "distilled pod student")
+                serve_options["draft_params"] = self.strategy.pod_params(
+                    self.state, draft_pod)
         if params is None and self.state is not None:
             params = self.merged_params()
         if scheduler == "continuous":

@@ -203,6 +203,27 @@ def warmup_base(params, acfg: ModelConfig, batches, *, lr: float = 1e-3):
     return unflatten(spec, flat), losses
 
 
+@torch.no_grad()
+def greedy_agreement(target, draft, cfg: ModelConfig, tokens, *,
+                     draft_lora=None, lora_scale: float = 1.0) -> float:
+    """Teacher-forced greedy next-token agreement of ``draft`` with
+    ``target`` over ``tokens`` [B, S] — the analytical predictor of
+    speculative-decode acceptance.
+
+    Both models see the same ground-truth prefixes, so a position counts
+    as agreeing iff the draft's greedy token equals the target's at that
+    prefix — exactly the event the serving tier's greedy exact-match
+    verifier accepts. ``draft_lora`` runs the draft as base + factors
+    through the fused kernel (no merged weights); otherwise ``draft`` is
+    a full param tree."""
+    dev = target["embed"]["table"].device
+    toks = torch.as_tensor(np.asarray(tokens, np.int32), device=dev)
+    tl, _, _ = lm.forward(target, cfg, toks)
+    dl, _, _ = lm.forward(draft, cfg, toks, lora=draft_lora,
+                          lora_scale=lora_scale)
+    return float((tl.argmax(-1) == dl.argmax(-1)).float().mean())
+
+
 def waypoint_eval(base, acfg: ModelConfig, data, *, lora=None,
                   lora_scale: float = 1.0) -> float:
     """Mean waypoint L1 of (base [+ adapter]) over a held-out dataset of

@@ -37,11 +37,11 @@ SIGNATURES = {
     "paged_decode": ("paged_decode_attention",
                      [_I, _I] + [_P] * 8 + [_I] * 7 + [_F, _P]),
     "paged_prefill": ("paged_prefill_attention",
-                      [_I, _I] + [_P] * 7 + [_I] * 9 + [_F, _P]),
+                      [_I, _I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "paged_decode_tma": ("paged_decode_attention_tma",
                          [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
     "paged_prefill_tc": ("paged_prefill_attention_tc",
-                         [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
+                         [_I] + [_P] * 11 + [_I] * 11 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
     "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",
@@ -50,6 +50,8 @@ SIGNATURES = {
                      [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_preprocess": ("flash_attention_bwd_preprocess",
                              [_I] + [_P] * 3 + [_I, _I, _P]),
+    "flash_bwd_preprocess_vec": ("flash_attention_bwd_preprocess_vec",
+                                 [_I] + [_P] * 3 + [_L, _I, _P]),
     "flash_bwd_dkv": ("flash_attention_bwd_dkv",
                       [_I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dkv_tc": ("flash_attention_bwd_dkv_tc",

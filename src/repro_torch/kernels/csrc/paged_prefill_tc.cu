@@ -39,6 +39,16 @@
 //     table slice; the four consumer warps form the warpgroup;
 //   * rows of V at or past ctx (a block's tail) are zeroed in shared
 //     memory before P V reads them, and blocks past ctx are never loaded.
+//
+// The speculative decoder's batched verify is this kernel with the lanes
+// as a grid axis: blockIdx.z is lane b's row tile, and a CTA of lane b
+// takes the lane's table row, its q_offset (lane_ctx[b], the context
+// before its draft window) and ctx (q_offset + lane_len[b]) from device
+// memory; everything else (the Walk of paged_tma.cuh, the split plan, the
+// merge) is per (lane, KV head, row tile) as it is per (KV head, row tile)
+// for one chunk, which is one lane with null lane arrays. A verify window
+// is k + 1 rows, so a lane's G * (k + 1) rows fill a fraction of its
+// 64-row tile: one launch for all lanes instead of one a lane.
 #include "paged_tma.cuh"
 
 namespace paged_tma {
@@ -90,22 +100,32 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tks,
                            const __grid_constant__ CUtensorMap tvs,
-                           const __nv_bfloat16* __restrict__ q,
-                           __nv_bfloat16* __restrict__ out,
-                           const int* __restrict__ table,
+                           const __nv_bfloat16* __restrict__ q_all,
+                           __nv_bfloat16* __restrict__ out_all,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ lane_ctx,
+                           const int* __restrict__ lane_len,
                            float* __restrict__ ws, int* __restrict__ counters,
                            int Hq, int Hkv, int NB, int bs, int T, int C,
-                           int q_offset, int ctx, int split_keys,
+                           int q_offset, int ctx, int nrt, int split_keys,
                            float scale_log2) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
   extern __shared__ unsigned char smem_raw[];
   auto& s = *reinterpret_cast<PrefillSmem<KVT>*>(align1024(smem_raw));
-  const int h = blockIdx.x, sp = blockIdx.y, rt = blockIdx.z;
-  const int nsplit = gridDim.y, nrt = gridDim.z;
+  const int h = blockIdx.x, sp = blockIdx.y;
+  const int b = blockIdx.z / nrt, rt = blockIdx.z % nrt;   // lane, tile
+  const int nsplit = gridDim.y;
   const int R = (Hq / Hkv) * C;             // the group's query rows
+  if (lane_ctx != nullptr) {                // the batched verify
+    q_offset = lane_ctx[b];
+    ctx = q_offset + lane_len[b];
+  }
+  const size_t lane_rows = (size_t)b * Hq * C;   // rows of earlier lanes
+  const __nv_bfloat16* q = q_all + lane_rows * D;
+  __nv_bfloat16* out = out_all + lane_rows * D;
   // the per-lane arguments, in one place: the table row, q_offset, ctx
   Walk w;
-  w.table = table;
+  w.table = tables + (size_t)b * T;
   w.lo = sp * split_keys;
   w.kend = min(min(ctx, T * bs), w.lo + split_keys);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -230,7 +250,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     lt[hh] += __shfl_xor_sync(0xffffffffu, lt[hh], 1);
     lt[hh] += __shfl_xor_sync(0xffffffffu, lt[hh], 2);
   }
-  const size_t tile = (size_t)h * nrt + rt;
+  const size_t tile = ((size_t)b * Hkv + h) * nrt + rt;
   constexpr int kPart = BQ * (D + 2);           // floats of a partial
   const int live_rows = min(BQ, R - rt * BQ);
   __nv_bfloat16* orows = out + ((size_t)h * R + (size_t)rt * BQ) * D;
@@ -268,13 +288,14 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   if (threadIdx.x == 0) counters[tile] = 0;   // ready for the next launch
 }
 
+// B lanes (lane_ctx / lane_len null for one prefill chunk, B = 1).
 template <typename KVT>
 static int launch(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* table,
-                  void* out, float* ws, int* counters, int Hq, int Hkv,
-                  int NB, int bs, int T, int C, int q_offset, int ctx,
-                  int nsplit, int split_keys, float scale,
-                  cudaStream_t stream) {
+                  const int* lane_ctx, const int* lane_len, void* out,
+                  float* ws, int* counters, int B, int Hq, int Hkv, int NB,
+                  int bs, int T, int C, int q_offset, int ctx, int nsplit,
+                  int split_keys, float scale, cudaStream_t stream) {
   Maps m;
   cudaError_t err = pool_maps(&m, sizeof(KVT) == 1, k, v, ks, vs, Hkv * NB,
                               bs);
@@ -285,46 +306,54 @@ static int launch(const void* q, const void* k, const void* v,
   err = opt_in_smem(kernel, smem, &opted_in);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((Hq / Hkv) * C + BQ - 1) / BQ;
-  kernel<<<dim3(Hkv, nsplit, tiles), kPrefillThreads, smem, stream>>>(
+  kernel<<<dim3(Hkv, nsplit, tiles * B), kPrefillThreads, smem, stream>>>(
       m.k, m.v, m.ks, m.vs, (const __nv_bfloat16*)q, (__nv_bfloat16*)out,
-      table, ws, counters, Hq, Hkv, NB, bs, T, C, q_offset, ctx, split_keys,
-      scale * kLog2e);
+      table, lane_ctx, lane_len, ws, counters, Hq, Hkv, NB, bs, T, C,
+      q_offset, ctx, tiles, split_keys, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace paged_tma
 
-// q: [Hq, C, 64] bf16; k/v: [Hkv, NB, bs, 64] bf16 (kv_dtype 1) or int8
-// (kv_dtype 2) with ks/vs [Hkv, NB, bs, 1] float32; table: [T] int32;
-// out: [Hq, C, 64] bf16 (rows at or past chunk_len = ctx - q_offset are
-// finite garbage); all 16-byte aligned. bs in {8, 16, 32, 64} (int8: 16,
-// 32, 64). nsplit (<= 64) CTAs a (KV head, row tile) over split_keys keys
-// each (a multiple of 64) must cover min(ctx, T * bs); above one split, ws
-// holds Hkv * tiles * nsplit * 64 * 66 floats and counters Hkv * tiles
-// int32 zeros (left zero), tiles = ceil(Hq / Hkv * C / 64).
-// Returns cudaGetLastError() of the launch.
+// B lanes of q: [B, Hq, C, 64] bf16; k/v: [Hkv, NB, bs, 64] bf16 (kv_dtype
+// 1) or int8 (kv_dtype 2) with ks/vs [Hkv, NB, bs, 1] float32; tables: [B,
+// T] int32; out: [B, Hq, C, 64] bf16; all 16-byte aligned. Lane b's chunk
+// covers positions [q_offset, ctx): with lane_ctx / lane_len null (one
+// prefill chunk, B = 1) the two scalars, else lane_ctx[b] and lane_ctx[b]
+// + lane_len[b], [B] int32 on the device (the batched verify, each
+// window's own K/V already in the pools). Rows at or past a lane's chunk
+// length are finite garbage; a lane with ctx 0 gets zeros. bs in {8, 16,
+// 32, 64} (int8: 16, 32, 64). nsplit (<= 64) CTAs a (lane, KV head, row
+// tile) over split_keys keys each (a multiple of 64) must cover the keys:
+// min(ctx, T * bs) for one chunk, T * bs for lanes (their windows live on
+// the device); above one split, ws holds B * Hkv * tiles * nsplit * 64 *
+// 66 floats and counters B * Hkv * tiles int32 zeros (left zero), tiles =
+// ceil(Hq / Hkv * C / 64). Returns cudaGetLastError() of the launch.
 extern "C" int paged_prefill_attention_tc(
     int kv_dtype, const void* q, const void* k, const void* v,
-    const float* ks, const float* vs, const int* table, void* out,
-    float* ws, int* counters, int Hq, int Hkv, int NB, int bs, int T, int C,
-    int q_offset, int ctx, int nsplit, int split_keys, float scale,
-    void* stream) {
+    const float* ks, const float* vs, const int* tables, const int* lane_ctx,
+    const int* lane_len, void* out, float* ws, int* counters, int B, int Hq,
+    int Hkv, int NB, int bs, int T, int C, int q_offset, int ctx, int nsplit,
+    int split_keys, float scale, void* stream) {
   using namespace paged_tma;
   cudaStream_t st = (cudaStream_t)stream;
-  const int keys = min(ctx, T * bs);
-  const bool ok = split_keys % KT == 0 && nsplit <= MAX_SPLITS &&
-                  KT % bs == 0 &&
-                  keys > 0 && (long long)nsplit * split_keys >= keys &&
+  const bool lanes = lane_ctx != nullptr;
+  const int keys = lanes ? T * bs : min(ctx, T * bs);
+  const bool ok = B >= 1 && lanes == (lane_len != nullptr) &&
+                  (lanes || B == 1) && split_keys % KT == 0 &&
+                  nsplit <= MAX_SPLITS && KT % bs == 0 && keys > 0 &&
+                  (long long)nsplit * split_keys >= keys &&
                   (long long)(nsplit - 1) * split_keys < keys &&
                   (nsplit == 1 || (ws != nullptr && counters != nullptr));
   if (!ok) return (int)cudaErrorInvalidValue;
   if (kv_dtype == paged::kBF16 && bs % 8 == 0)
-    return launch<__nv_bfloat16>(q, k, v, ks, vs, table, out, ws, counters,
-                                 Hq, Hkv, NB, bs, T, C, q_offset, ctx, nsplit,
-                                 split_keys, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, ks, vs, tables, lane_ctx, lane_len,
+                                 out, ws, counters, B, Hq, Hkv, NB, bs, T, C,
+                                 q_offset, ctx, nsplit, split_keys, scale,
+                                 st);
   if (kv_dtype == paged::kI8 && bs % 16 == 0)
-    return launch<int8_t>(q, k, v, ks, vs, table, out, ws, counters, Hq, Hkv,
-                          NB, bs, T, C, q_offset, ctx, nsplit, split_keys,
-                          scale, st);
+    return launch<int8_t>(q, k, v, ks, vs, tables, lane_ctx, lane_len, out,
+                          ws, counters, B, Hq, Hkv, NB, bs, T, C, q_offset,
+                          ctx, nsplit, split_keys, scale, st);
   return (int)cudaErrorInvalidValue;
 }

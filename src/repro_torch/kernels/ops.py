@@ -20,11 +20,15 @@ its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
 and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
 to TMA-fed kernels that split the keys over CTAs (decode on the CUDA
 cores, prefill on wgmma) and the rest to their SIMT kernels
-(:func:`paged_route`). The chunkwise mLSTM sends float32 and bf16 at
-head widths 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster
-shares S across a (b, h)'s CTAs, and other widths to its SIMT kernel
-(:func:`mlstm_route`). Their ``routes`` dict counts the launches of each
-(:func:`route_counts`). The int8 KV cache's append is one fused launch
+(:func:`paged_route`); the speculative decoder's batched verify
+(:func:`paged_verify_attention`) takes the prefill's route, one launch
+for all lanes. The chunkwise mLSTM sends float32 and bf16 at head widths
+64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster shares S
+across a (b, h)'s CTAs, and other widths to its SIMT kernel
+(:func:`mlstm_route`). The flash backward's preprocess launches its
+16-byte-load kernel on every call ("vec"); its one-warp-a-row kernel
+runs only when asked for ("simt"). Their ``routes`` dict counts the
+launches of each (:func:`route_counts`). The int8 KV cache's append is one fused launch
 (:func:`quantize_kv_append`), the serving route of the quantizer.
 """
 from __future__ import annotations
@@ -307,31 +311,98 @@ def _paged_prefill(q, k_pages, v_pages, block_table, q_offset, ctx_len, *,
         return ref.paged_prefill_attention_ref(
             q, k_pages, v_pages, block_table, q_offset, ctx_len, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
-    _aligned(k_pages=k_pages, v_pages=v_pages)
     route = _pick_route("prefill", route, q, k_pages, bs, d)
+    out = _prefill_launch(route, q, k_pages, v_pages, block_table, None,
+                          None, q_offset, ctx_len, scale, k_scales, v_scales,
+                          "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    paged_prefill_attention.routes[route] += 1
+    return out
+
+
+def _prefill_launch(route, q, k_pages, v_pages, tables, lane_ctx, lane_len,
+                    q_offset, ctx_len, scale, k_scales, v_scales, name):
+    """One launch of the paged prefill kernel on ``route`` (inputs
+    already checked): q [B, Hq, C, D] or one chunk's [Hq, C, D], tables
+    [B, T] or [T]. Each lane's chunk is [lane_ctx[b], lane_ctx[b] +
+    lane_len[b]) from the device, or [q_offset, ctx_len) when the lane
+    arrays are None. Raises on a failed launch; returns the output."""
+    _aligned(k_pages=k_pages, v_pages=v_pages)
+    hkv, nb, bs, d = k_pages.shape
+    hq, c = q.shape[-3:-1]
+    b, t = (q.shape[0] if q.dim() == 4 else 1), tables.shape[-1]
     out = torch.empty_like(q)
-    nb, t = k_pages.shape[1], block_table.shape[0]
+    stream = _stream(q)
+    pools = (_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scales),
+             _ptr(v_scales), _ptr(tables), _ptr(lane_ctx), _ptr(lane_len),
+             _ptr(out))
     if route == "simt":
         err = build.load("paged_prefill")(
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], _ptr(q),
-            _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
-            _ptr(block_table), _ptr(out), hq, hkv, nb, bs, d, t, c,
-            q_offset, ctx_len, scale, _stream(q))
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], *pools, b,
+            hq, hkv, nb, bs, d, t, c, q_offset, ctx_len, scale, stream)
     else:
         _aligned(q=q)
-        stream = _stream(q)
-        tiles = -(-(hq // hkv * c) // PREFILL_TILE)
-        nsplit, per = paged_splits(min(ctx_len, t * bs), hkv * tiles)
+        tiles = b * -(-(hq // hkv * c) // PREFILL_TILE)
+        keys = t * bs if lane_ctx is not None else min(ctx_len, t * bs)
+        nsplit, per = paged_splits(keys, hkv * tiles)
         ws, ctr = _split_scratch(q, stream, nsplit, hkv * tiles,
                                  _partial_floats(PREFILL_TILE, d))
         err = build.load("paged_prefill_tc")(
-            _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages),
-            _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), _ptr(block_table),
-            _ptr(out), _ptr(ws), _ptr(ctr), hq, hkv, nb, bs, t, c, q_offset,
-            ctx_len, nsplit, per, scale, stream)
-    _raise_on(err, f"paged_prefill_attention ({route})")
-    paged_prefill_attention.launches += 1
-    paged_prefill_attention.routes[route] += 1
+            _DTYPE_CODES[k_pages.dtype], *pools, _ptr(ws), _ptr(ctr), b, hq,
+            hkv, nb, bs, t, c, q_offset, ctx_len, nsplit, per, scale, stream)
+    _raise_on(err, f"{name} ({route})")
+    return out
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                           chunk_lens, *, scale: Optional[float] = None,
+                           k_scales=None, v_scales=None):
+    """The speculative decoder's verify: every lane's draft window at
+    once. q: [B, Hq, C, D] (row c of lane b at position ``ctx_lens[b] +
+    c``); k_pages/v_pages: [Hkv, NB, bs, D] pools already holding the
+    windows' own K/V (dtype rules as :func:`paged_decode_attention`);
+    block_tables: [B, T] int32; ctx_lens, chunk_lens: [B] int32 on q's
+    device (lane b's window covers positions [ctx_lens[b], ctx_lens[b] +
+    chunk_lens[b])). Returns [B, Hq, C, D];
+    rows at or past a lane's chunk_len are finite garbage, a dead lane
+    (ctx 0, window 0) gets zeros.
+
+    The reference calls the paged prefill kernel once a lane. On the card
+    this is ONE launch of the paged prefill kernel with the lane as a grid
+    axis, reading each lane's window from device memory, routed as
+    :func:`paged_prefill_attention`: bf16 q over bf16 or int8 pools at
+    head_dim 64 on ``csrc/paged_prefill_tc.cu`` (route "wgmma"; keys
+    split by :func:`paged_splits` of the table width, since the windows
+    live on the device), everything else on ``csrc/paged_prefill.cu``
+    ("simt"), where each float32 row is computed in the paged decode
+    kernel's order (the speculative contract: streams bitwise equal to
+    plain decode). ``paged_verify_attention.routes`` counts the launches
+    of each."""
+    _require(q.dim() == 4, "q must be [B, Hq, C, D]")
+    hkv, bs, d = _check_pools(q, k_pages, v_pages, k_scales, v_scales)
+    b, hq, c, _ = q.shape
+    _require(hq % hkv == 0, f"Hq {hq} is not a multiple of Hkv {hkv}")
+    _require(block_tables.dtype == torch.int32 and block_tables.dim() == 2
+             and block_tables.shape[0] == b, "block_tables must be [B, T] "
+             "int32")
+    for name, t in (("ctx_lens", ctx_lens), ("chunk_lens", chunk_lens)):
+        _require(t.dtype == torch.int32 and tuple(t.shape) == (b,),
+                 f"{name} must be [B] int32")
+    _contiguous(block_tables=block_tables, ctx_lens=ctx_lens,
+                chunk_lens=chunk_lens)
+    scale = float(scale) if scale is not None else d ** -0.5
+    scales = () if k_scales is None else (k_scales, v_scales)
+    if not _on_card(q, k_pages, v_pages, block_tables, ctx_lens, chunk_lens,
+                    *scales):
+        return ref.paged_verify_attention_ref(
+            q, k_pages, v_pages, block_tables, ctx_lens, chunk_lens,
+            scale=scale, k_scales=k_scales, v_scales=v_scales)
+    route = paged_route("prefill", q.dtype, k_pages.dtype, d, bs)
+    out = _prefill_launch(route, q, k_pages, v_pages, block_tables, ctx_lens,
+                          chunk_lens, 0, 0, scale, k_scales, v_scales,
+                          "paged_verify_attention")
+    paged_verify_attention.launches += 1
+    paged_verify_attention.routes[route] += 1
     return out
 
 
@@ -585,7 +656,13 @@ def _check_bwd(q, k, v, do, lse, delta):
 
 def flash_attention_bwd_preprocess(o, do):
     """delta = rowsum(dO * O) in float32: o, do [B, Hq, Sq, D] ->
-    [B, Hq, Sq]."""
+    [B, Hq, Sq].
+
+    On the card every launch takes ``csrc/flash_bwd_preprocess_vec.cu``
+    (route "vec": 16-byte loads, a row to D * esz / 16 lanes, four rows a
+    thread, a grid-stride walk); ``flash_attention_bwd_preprocess.routes``
+    counts the launches of it and of the one-warp-a-row kernel it
+    replaced ("simt", launched only by :func:`_preprocess_card`)."""
     _require(o.dim() == 4 and do.shape == o.shape and do.dtype == o.dtype,
              "o and do must be matching [B, Hq, Sq, D]")
     _require(o.shape[-1] in HEAD_DIMS,
@@ -593,13 +670,27 @@ def flash_attention_bwd_preprocess(o, do):
     _contiguous(o=o, do=do)
     if not _on_card(o, do):
         return ref.flash_attention_bwd_preprocess_ref(o, do)
-    code = _card_dtype(o)
+    return _preprocess_card(o, do)
+
+
+def _preprocess_card(o, do, route: str = "vec"):
+    """The card launch of :func:`flash_attention_bwd_preprocess` (inputs
+    already checked) on ``route``: "vec", or "simt" to time the
+    one-warp-a-row kernel ``csrc/flash_bwd_preprocess.cu`` on the same
+    inputs."""
+    stem = {"vec": "flash_bwd_preprocess_vec",
+            "simt": "flash_bwd_preprocess"}[route]
     delta = torch.empty(o.shape[:3], dtype=torch.float32, device=o.device)
-    err = build.load("flash_bwd_preprocess")(
-        code, _ptr(o), _ptr(do), _ptr(delta), o.numel() // o.shape[-1],
-        o.shape[-1], _stream(o))
-    _raise_on(err, "flash_attention_bwd_preprocess")
+    rows, d = o.numel() // o.shape[-1], o.shape[-1]
+    if rows == 0:
+        return delta
+    if route == "vec":
+        _aligned(o=o, do=do)          # 16-byte loads from the bases
+    err = build.load(stem)(_card_dtype(o), _ptr(o), _ptr(do), _ptr(delta),
+                           rows, d, _stream(o))
+    _raise_on(err, f"flash_attention_bwd_preprocess ({route})")
     flash_attention_bwd_preprocess.launches += 1
+    flash_attention_bwd_preprocess.routes[route] += 1
     return delta
 
 
@@ -950,7 +1041,8 @@ def _mlstm_card(q, k, v, ig, lf, C0=None, n0=None, m0=None, *, route=None,
     return h, (C, n, m)
 
 
-KERNELS = (paged_decode_attention, paged_prefill_attention, quantize_int8,
+KERNELS = (paged_decode_attention, paged_prefill_attention,
+           paged_verify_attention, quantize_int8,
            quantize_kv_append, dequantize_int8, flash_attention,
            flash_attention_bwd_preprocess, flash_attention_bwd_dkv,
            flash_attention_bwd_dq, lora_matmul, mlstm_chunked)
@@ -961,7 +1053,8 @@ ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
-          mlstm_chunked: "wgmma"}
+          paged_verify_attention: PAGED_ROUTES["prefill"],
+          mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec"}
 
 
 def reset_launch_counts() -> None:

@@ -92,6 +92,44 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_table,
     return o.reshape(hq, c, d).to(q.dtype)
 
 
+def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                               chunk_lens, *, scale: Optional[float] = None,
+                               k_scales=None, v_scales=None):
+    """The speculative decoder's verify: q [B, Hq, C, D] (row c of lane b
+    at position ``ctx_lens[b] + c``); k_pages/v_pages: [Hkv, NB, bs, D]
+    pools already holding every window's own K/V; block_tables: [B, T]
+    int32; ctx_lens, chunk_lens: [B] int32. Lane b is
+    :func:`paged_prefill_attention_ref` of its chunk with ``q_offset =
+    ctx_lens[b]`` and ``ctx_len = ctx_lens[b] + chunk_lens[b]``, all lanes
+    at once: row (b, c) sees keys ``kp <= ctx_lens[b] + c`` and ``kp <
+    ctx_len``. Rows at or past a lane's chunk_len come back finite but
+    meaningless; a lane with chunk_len 0 returns zeros. Returns [B, Hq,
+    C, D] in q's dtype."""
+    b, hq, c, d = q.shape
+    hkv, _, bs, _ = k_pages.shape
+    g = hq // hkv
+    t = block_tables.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    k = _gather_pages(k_pages, block_tables, k_scales)  # [Hkv, B, T, bs, D]
+    v = _gather_pages(v_pages, block_tables, v_scales)
+    k = k.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    v = v.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    kp = torch.arange(t * bs, device=q.device)
+    start = ctx_lens.long()[:, None]                         # [B, 1]
+    end = start + chunk_lens.long()[:, None]
+    v = torch.where((kp[None, :] < end)[:, None, :, None], v, 0.0)
+    qg = q.reshape(b, hkv, g, c, d).float()
+    s = torch.einsum("bhgcd,bhkd->bhgck", qg, k) * scale
+    qp = start + torch.arange(c, device=q.device)[None, :]  # [B, C]
+    mask = ((kp[None, None, :] <= qp[:, :, None])
+            & (kp[None, None, :] < end[:, :, None]))         # [B, C, T*bs]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgck,bhkd->bhgcd", p, v)
+    o = torch.where((chunk_lens > 0)[:, None, None, None, None], o, 0.0)
+    return o.reshape(b, hq, c, d).to(q.dtype)
+
+
 def quantize_int8_ref(x, bits):
     """Rowwise-absmax int8 stochastic quantization. x: [M, 128] float;
     bits: [M, 128] torch.uint32 raw random words. Returns (q int8

@@ -1,17 +1,20 @@
 """Serving launcher of the port — a thin CLI over
 :meth:`repro_torch.api.Session.serve`, on the card by default.
 
-The reference's flags, plus ``--device`` (default ``cuda``). Both
-schedulers go through ``Session.serve``: ``--scheduler legacy`` is the
-static-batch loop (``--batch`` prompts of ``--context`` tokens,
-``--decode-steps`` decode steps, ``--requests`` batches), ``--scheduler
-continuous`` the paged continuous-batching tier. Speculative decoding and
-tracing are later slices and raise.
+The reference's flags and defaults, plus ``--device`` (default
+``cuda``). Both schedulers go through ``Session.serve``: ``--scheduler
+legacy`` (the default, as the reference's) is the static-batch loop
+(``--batch`` prompts of ``--context`` tokens, ``--decode-steps`` decode
+steps, ``--requests`` batches), ``--scheduler continuous`` the paged
+continuous-batching tier, with draft-verify speculative decoding under
+``--speculative`` (``--draft-k`` drafts a lane a step, self-drafting).
+Tracing is a later slice and raises.
 
   python -m repro_torch.launch.serve --arch xlstm-350m --full \\
-      --scheduler legacy --batch 8 --context 512 --decode-steps 32
+      --batch 8 --context 512 --decode-steps 32
   python -m repro_torch.launch.serve --arch flad-adllm --full \\
-      --slots 8 --block-size 16 --cache int8 --fleet nano*2,agx*2
+      --scheduler continuous --slots 8 --block-size 16 --cache int8 \\
+      --speculative --draft-k 4
 """
 import argparse
 
@@ -29,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="request batches (legacy) / trace length "
                          "(continuous)")
     ap.add_argument("--scheduler", choices=("legacy", "continuous"),
-                    default="continuous")
+                    default="legacy")
     ap.add_argument("--slots", type=int, default=0,
                     help="continuous-batching lanes (default: --batch)")
     ap.add_argument("--block-size", type=int, default=8,
@@ -49,7 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fleet", default="nano*2,agx*2",
                     help="vehicle fleet spec for the load generator")
     ap.add_argument("--speculative", action="store_true",
-                    help="draft-verify speculative decoding (later slice)")
+                    help="draft-verify speculative decoding (continuous, "
+                         "greedy; float32 streams stay bitwise those of "
+                         "plain decode)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens proposed per lane per step "
+                         "(with --speculative)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="sim-time trace of the final warm pass (later "
                          "slice)")
@@ -77,14 +85,19 @@ def main(argv=None):
         kw = dict(block_size=args.block_size, cache=args.cache,
                   fleet=args.fleet, prefill=args.prefill,
                   prefill_chunk=args.prefill_chunk,
-                  prefix_cache=args.prefix_cache)
+                  prefix_cache=args.prefix_cache,
+                  speculative=args.speculative)
+        if args.speculative:
+            kw["draft_k"] = args.draft_k
+    elif args.speculative:
+        raise SystemExit("--speculative requires --scheduler continuous")
     return session.serve(requests=args.requests,
                          batch=args.slots or args.batch,
                          context=args.context,
                          decode_steps=args.decode_steps,
                          scheduler=args.scheduler, sampling=args.sampling,
                          temperature=args.temperature, trace=args.trace,
-                         speculative=args.speculative, **kw)
+                         **kw)
 
 
 if __name__ == "__main__":

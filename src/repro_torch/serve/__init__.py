@@ -1,10 +1,12 @@
 """repro_torch.serve — the edge serving tier on the card (port of
 ``repro/serve``).
 
-Paged KV-cache (:mod:`repro_torch.serve.kvcache`), paged prefill/decode
-engine (:mod:`repro_torch.serve.engine`), continuous-batching scheduler
+Paged KV-cache (:mod:`repro_torch.serve.kvcache`), paged prefill/decode/
+verify engine and its speculative draft proposer
+(:mod:`repro_torch.serve.engine`), continuous-batching scheduler with
+draft-verify speculative decoding and preemption
 (:mod:`repro_torch.serve.scheduler`) and the fleet load generator
-(:mod:`repro_torch.serve.loadgen`). :func:`serve_continuous` wires the four
+(:mod:`repro_torch.serve.loadgen`). :func:`serve_continuous` wires them
 together behind one call.
 """
 from __future__ import annotations
@@ -17,17 +19,18 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import DraftEngine, PagedEngine
 from repro_torch.serve.kvcache import (BlockAllocator, PagedCacheSpec,
                                        PrefixCache)
-from repro_torch.serve.loadgen import (PrefillCostModel, drive,
-                                       generate_fleet_requests,
+from repro_torch.serve.loadgen import (PrefillCostModel, SpecDecodeCostModel,
+                                       drive, generate_fleet_requests,
                                        generate_pod_requests)
 from repro_torch.serve.scheduler import ContinuousScheduler, ServeRequest
 
-__all__ = ["BlockAllocator", "ContinuousScheduler", "PagedCacheSpec",
-           "PagedEngine", "PrefillCostModel", "PrefixCache", "ServeRequest",
-           "drive", "generate_fleet_requests", "generate_pod_requests",
+__all__ = ["BlockAllocator", "ContinuousScheduler", "DraftEngine",
+           "PagedCacheSpec", "PagedEngine", "PrefillCostModel",
+           "PrefixCache", "ServeRequest", "SpecDecodeCostModel", "drive",
+           "generate_fleet_requests", "generate_pod_requests",
            "int8_cache_fidelity", "serve_continuous"]
 
 
@@ -118,8 +121,8 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
                      long_frac: float = 0.2, warm_passes: int = 1,
                      requests=None, dt_step: float = 0.01,
                      prefill_cost=None, trace=None,
-                     speculative: bool = False,
-                     preemption: Optional[bool] = None,
+                     speculative: bool = False, draft_k: int = 4,
+                     draft_params=None, preemption: Optional[bool] = None,
                      device="cuda",
                      log_fn: Optional[Callable] = print) -> Dict:
     """Serve a fleet request trace through the paged engine on ``device``.
@@ -134,8 +137,14 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
     on pod prefix-block sharing (chunked only). Pass ``requests`` to
     serve a custom trace instead of the built-in fleet trace. ``params``
     defaults to :func:`repro_torch.models.lm.init` seeded with ``seed``.
-    Wall times end in a device synchronize. ``trace``, ``speculative``
-    and ``preemption`` belong to later slices of the port and raise.
+    Wall times end in a device synchronize. ``speculative=True`` turns on
+    draft-verify speculative decoding (``draft_k`` drafts per lane per
+    step from ``draft_params`` — e.g. a distilled pod student; defaults
+    to self-drafting with the target weights) and, under chunked
+    prefill, block-level preemption (override with ``preemption``); its
+    sim clock defaults to a :class:`SpecDecodeCostModel`, which charges
+    the draft forwards and the verify chunk. ``trace`` belongs to a later
+    slice of the port and raises.
 
     Returns the loadgen report plus both throughputs and the per-request
     token streams."""
@@ -144,10 +153,10 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
     if trace is not None:
         raise NotImplementedError(
             "tracing comes with the observability slice of the port")
-    if speculative or preemption:
-        raise NotImplementedError(
-            "speculative decoding and preemption come with the "
-            "speculative-decoding slice of the port")
+    if speculative and prefill_cost is None:
+        # price draft forwards + the verify chunk instead of silently
+        # charging k extra full target steps on the sim clock
+        prefill_cost = SpecDecodeCostModel()
     from repro_torch.models import lm
 
     device = torch.device(device)
@@ -181,7 +190,10 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
                                    prefill_chunk=prefill_chunk,
                                    prefix_cache=prefix_cache,
                                    sampling=sampling,
-                                   temperature=temperature, seed=seed)
+                                   temperature=temperature, seed=seed,
+                                   speculative=speculative, draft_k=draft_k,
+                                   draft_params=draft_params,
+                                   preemption=preemption)
 
     def timed_pass():
         t0 = time.perf_counter()
@@ -213,6 +225,12 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
         "sequences": {r.rid: list(r.tokens) for r in sched.finished},
     })
     if log_fn:
+        if speculative:
+            log_fn(f"[serve:specdec] k={draft_k} "
+                   f"acceptance={report['acceptance_rate']:.2f} "
+                   f"({report['accepted_drafts']}/"
+                   f"{report['proposed_drafts']} drafts), "
+                   f"{report.get('preemptions', 0)} preemptions")
         log_fn(f"[serve:{policy}/{cache}] {report['requests']} requests, "
                f"{report['total_new_tokens']} tokens in "
                f"{report['decode_steps']} decode steps on {device}; "

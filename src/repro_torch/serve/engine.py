@@ -16,7 +16,15 @@ serving tier runs against the block pools of
     layer appends the token's K/V into its physical block and attends
     with the paged decode kernel
     (:func:`repro_torch.kernels.ops.paged_decode_attention`). Dead lanes
-    point at the null block with ctx 0 and cost nothing in the kernel.
+    point at the null block with ctx 0 and cost nothing in the kernel;
+  * **verify** scores a speculative draft window of k + 1 tokens per lane
+    in one target forward: each layer appends the windows' K/V and
+    attends with ONE launch of the batched verify kernel
+    (:func:`repro_torch.kernels.ops.paged_verify_attention`, a window
+    being a chunk of decode positions through the lane's table).
+
+:class:`DraftEngine` runs the same forwards with a draft model's params
+and a pool set of its own.
 
 The layer walk is a Python loop over per-layer views of the stacked
 parameters and pools; K/V rows are written into the pools IN PLACE, and
@@ -71,12 +79,23 @@ class PagedEngine:
         self.max_context = int(max_context)
         self.slots = int(slots)
         self.device = torch.device(device)
-        # (params, their layer views, pools, their layer views)
-        self._views = (None, None, None, None)
+        # {"params" | "pools": [(object, its layer views)]}, newest last
+        self._views = {"params": [], "pools": []}
 
     # ---- pools --------------------------------------------------------
     def init_pools(self) -> Dict:
         return KC.init_pools(self.cfg, self.spec, self.device)
+
+    def _cached_views(self, kind: str, obj, make):
+        """The layer views of ``obj``, kept for the two newest objects of
+        each kind: the target's and, under speculative decoding, the
+        draft model's params and pools, whose forwards alternate."""
+        for o, views in self._views[kind]:
+            if o is obj:
+                return views
+        views = make()
+        self._views[kind] = (self._views[kind] + [(obj, views)])[-2:]
+        return views
 
     def _layer_views(self, params, pools):
         """Per-layer views of the stacked params and pools, rebuilt only
@@ -84,14 +103,11 @@ class PagedEngine:
         card, bounds a decode step, and re-slicing every layer on every
         step was part of that cost. Pool tensors are written in place and
         never replaced, so a cached view stays valid as long as its dict."""
-        p0, lp, q0, lq = self._views
-        if p0 is not params:
-            p0, lp = params, [lm.layer(params["blocks"], l)
-                              for l in range(self.cfg.num_layers)]
-        if q0 is not pools:
-            q0, lq = pools, [{k: t[l] for k, t in pools.items()}
-                             for l in range(self.cfg.num_layers)]
-        self._views = (p0, lp, q0, lq)
+        n = self.cfg.num_layers
+        lp = self._cached_views("params", params, lambda: [
+            lm.layer(params["blocks"], l) for l in range(n)])
+        lq = self._cached_views("pools", pools, lambda: [
+            {k: t[l] for k, t in pools.items()} for l in range(n)])
         return lp, lq
 
     # ---- prefill ------------------------------------------------------
@@ -215,6 +231,55 @@ class PagedEngine:
         x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return lm.logits_of(params, cfg, x)[:, 0], pools
 
+    # ---- speculative verify -------------------------------------------
+    @torch.no_grad()
+    def verify(self, params, pools, tokens, tables, ctx_lens,
+               chunk_lens) -> Tuple:
+        """Score a draft window of C = k+1 tokens per lane in ONE target
+        forward (the speculative-decode verify pass).
+
+        tokens: [slots, C] int32 — column 0 is the lane's pending token,
+        columns 1..k its greedy draft proposals; tables: [slots, T];
+        ctx_lens: [slots] int32 (KV written so far — column c sits at
+        position ctx + c); chunk_lens: [slots] int32 per-lane window (rows
+        at or past a lane's chunk_len write into the null block and give
+        meaningless logits; a dead lane has ctx 0, table 0, window 0).
+        Each layer appends the windows' K/V rows (lane-major) and attends
+        through the lanes' tables in one launch of the batched verify
+        kernel. Returns (logits [slots, C, V], the pools): row c of a
+        lane is the next-token distribution after draft position c."""
+        cfg, spec, dev = self.cfg, self.spec, self.device
+        nq, hd = cfg.num_heads, cfg.hd
+        tokens = _to_device(tokens, dev)
+        tables = _to_device(tables, dev)
+        ctx_lens = _to_device(ctx_lens, dev)
+        chunk_lens = _to_device(chunk_lens, dev)
+        slots, c = tokens.shape
+
+        x = B.embed(params["embed"], tokens)               # [slots, C, d]
+        cols = torch.arange(c, dtype=torch.int32, device=dev)
+        positions = ctx_lens[:, None] + cols[None, :]      # [slots, C]
+        valid = cols[None, :] < chunk_lens[:, None]
+        safe_pos = torch.where(valid, positions, 0)
+        blk = (safe_pos // spec.block_size).long().clamp(
+            max=tables.shape[1] - 1)
+        phys = torch.where(valid, tables.gather(1, blk), 0).reshape(-1)
+        off = torch.where(valid, safe_pos % spec.block_size, 0).reshape(-1)
+        phys, off = phys.long(), off.long()                # [slots * C]
+        rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
+
+        def attend(q, lp):
+            o = kops.paged_verify_attention(
+                q, lp["k"], lp["v"], tables, ctx_lens, chunk_lens,
+                scale=hd ** -0.5, k_scales=lp.get("k_scale"),
+                v_scales=lp.get("v_scale"))              # [slots, Hq, C, D]
+            return o.transpose(1, 2).reshape(slots, c, nq * hd)
+
+        for lp, lpools in zip(*self._layer_views(params, pools)):
+            x = self._layer(lp, lpools, x, rot, phys, off, attend)
+        x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
+        return lm.logits_of(params, cfg, x), pools
+
     # ---- sampling -----------------------------------------------------
     def make_sampler(self, sampling: str = "greedy",
                      temperature: float = 1.0):
@@ -246,3 +311,80 @@ class PagedEngine:
         buf = np.zeros((1, self.max_context), np.int32)
         buf[0, :s] = np.asarray(prompt, np.int32)
         return _to_device(buf, self.device), s
+
+
+class DraftEngine:
+    """Speculative-decode draft proposer sharing the target's machinery.
+
+    Runs the *target* :class:`PagedEngine`'s forwards with the draft
+    model's params (e.g. the distilled pod student: base + merged LoRA
+    factors from ``DistillFLStrategy.pod_params`` — no second
+    checkpoint) and a pool set of its own. Block tables and context
+    lengths are the scheduler's: K/V rows are a pure function of the
+    token prefix, so the target's logical layout — prefix-shared blocks
+    included, which the scheduler mirrors into the draft pools at prefill
+    and copy-on-write time — is valid for the draft pools verbatim."""
+
+    def __init__(self, engine: PagedEngine, params, *, draft_k: int):
+        if draft_k < 1:
+            raise ValueError("draft_k must be >= 1")
+        self.engine = engine
+        self.spec = engine.spec
+        self.params = params
+        self.draft_k = int(draft_k)
+        self.pools = engine.init_pools()
+        self._mirror_kv = None
+
+    def propose(self, tokens, tables, ctx_lens, window) -> np.ndarray:
+        """Greedily draft up to ``draft_k`` tokens per lane.
+
+        tokens: [slots] int32 pending tokens; tables: [slots, T];
+        ctx_lens: [slots]; window: [slots] per-lane draft budget
+        (min(draft_k + 1, tokens the lane may still emit); 0 masks a lane
+        out). Runs ``draft_k + 1`` batched draft decode forwards — forward
+        i deposits token i's K/V at position ctx + i and proposes token
+        i+1 — so even after a full accept the draft pools hold the true
+        stream's K/V at every position below the new context length. A
+        lane is masked to the dead-lane contract for forwards at or past
+        its window, keeping appends inside its funded blocks. Each
+        forward gets fresh host arrays (the engine copies them to the
+        device). Returns drafts [slots, draft_k] int32 (zeros past a
+        lane's window)."""
+        slots = len(tokens)
+        drafts = np.zeros((slots, self.draft_k), np.int32)
+        tok = np.array(tokens, np.int32)
+        tables = np.array(tables, np.int32)
+        ctx = np.array(ctx_lens, np.int32)
+        window = np.array(window, np.int32)
+        for i in range(self.draft_k + 1):
+            live = window > i
+            t_i = np.where(live, tok, 0).astype(np.int32)
+            tab_i = np.where(live[:, None], tables, 0).astype(np.int32)
+            c_i = np.where(live, ctx + i, 0).astype(np.int32)
+            logits, self.pools = self.engine.decode(
+                self.params, self.pools, t_i, tab_i, c_i)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            if i < self.draft_k:
+                drafts[:, i] = np.where(window > i + 1, tok, 0)
+        return drafts
+
+    # ---- prefill mirroring (scheduler-driven) -------------------------
+    def prefill(self, tokens, length) -> None:
+        """Monolithic mirror: run the draft model's bucketed prefill and
+        keep only its K/V (the stream samples from the target)."""
+        _, k, v = self.engine.prefill(self.params, tokens, length)
+        self._mirror_kv = (k, v)
+
+    def write_prefill(self, table_row) -> None:
+        k, v = self._mirror_kv
+        self.pools = self.engine.write_prefill(self.pools, k, v, table_row)
+        self._mirror_kv = None
+
+    def prefill_chunk(self, tokens, table, pos, clen) -> None:
+        """Chunked mirror: same chunk, draft params, draft pools."""
+        _, self.pools = self.engine.prefill_chunk(
+            self.params, self.pools, tokens, table, pos, clen)
+
+    def copy_block(self, src, dst) -> None:
+        """Copy-on-write mirror for whole-prompt prefix hits."""
+        self.pools = self.engine.copy_block(self.pools, src, dst)

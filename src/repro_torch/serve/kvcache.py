@@ -23,9 +23,10 @@ Two cache modes share the layout:
 
 Host-side allocation (:class:`BlockAllocator`, :class:`PrefixCache`) is
 plain Python, copied from the reference. Unlike the reference's pure
-functions, :func:`write_prefill` and :func:`append_token` write into the
-pool tensors IN PLACE (``pool[l, :, phys, off] = rows``) and return the
-same dict.
+functions, :func:`write_prefill`, :func:`append_token` and
+:func:`scatter_rows` write into the pool tensors IN PLACE (``pool[l, :,
+phys, off] = rows``) and return the same dict; :func:`gather_rows`
+returns copies, the speculative decoder's rollback snapshot.
 """
 from __future__ import annotations
 
@@ -325,6 +326,34 @@ def write_prefill(pools: Dict, spec: PagedCacheSpec, k_layers, v_layers,
     row = table_row[:nb].long()
     pools["k"][:, :, row] = kb.to(pools["k"].dtype)
     pools["v"][:, :, row] = vb.to(pools["v"].dtype)
+    return pools
+
+
+def gather_rows(pools: Dict, phys, off) -> Dict:
+    """Snapshot pool rows at ``(phys, off)`` token positions.
+
+    ``phys``/``off``: [N] int physical block ids and in-block offsets, on
+    the pools' device. Returns ``{key: [L, Hkv, N, ...]}`` — copies of the
+    exact stored rows (int8 codes AND their scales in quantized mode), so
+    a later :func:`scatter_rows` restores them bitwise. This is the
+    speculative decoder's rollback snapshot: taken over a lane's draft
+    window before the batched verify appends draft K/V, then written back
+    over the rejected tail so the pools are indistinguishable from never
+    having drafted."""
+    phys, off = phys.long(), off.long()
+    return {key: p[:, :, phys, off] for key, p in pools.items()}
+
+
+def scatter_rows(pools: Dict, rows: Dict, phys, off) -> Dict:
+    """Write :func:`gather_rows` snapshots back at ``(phys, off)``, in
+    place.
+
+    Callers mask a *partial* restore by redirecting kept positions to the
+    null block (``phys = where(rejected, phys, 0)``); duplicate writes
+    into block 0 are harmless by the null-block contract."""
+    phys, off = phys.long(), off.long()
+    for key, p in pools.items():
+        p[:, :, phys, off] = rows[key].to(p.dtype)
     return pools
 
 

@@ -1,6 +1,5 @@
 """Fleet load generator: vehicle request arrivals -> scheduler -> report
-(port of ``repro/serve/loadgen.py`` without the speculative-decoding
-cost model).
+(port of ``repro/serve/loadgen.py``).
 
 Each vehicle in a :func:`repro_torch.sched.costmodel.parse_fleet` fleet
 emits inference requests whose *arrival times* are its request epoch plus
@@ -11,7 +10,9 @@ Traces are drawn from numpy generators seeded with ``seed``, so they come
 out identical to the reference's.
 
 The simulated clock advances ``dt_step`` per scheduler step (plus the
-prefill compute the step ran, under a :class:`PrefillCostModel`) and
+prefill compute the step ran, under a :class:`PrefillCostModel`, and the
+draft forwards and verify chunk of a speculative step, under a
+:class:`SpecDecodeCostModel`) and
 jumps to the next arrival when the scheduler goes idle; it orders
 admissions and scores deadlines. Wall-clock throughput comes from real
 timers around the same loop (:func:`repro_torch.serve.serve_continuous`).
@@ -142,6 +143,30 @@ class PrefillCostModel:
                 + stats.get("prefill_attn_mac", 0) * self.s_per_mac)
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecDecodeCostModel(PrefillCostModel):
+    """Sim-time pricing for speculative draft-verify steps.
+
+    A speculative step's target-side cost IS the ``dt_step`` every step
+    already pays — the batched verify is one target forward, weight-load
+    bound like a plain decode step — so the surcharges here are only what
+    speculation ADDS: ``s_per_draft_forward`` per draft-model forward
+    (the distilled compact student, deployed at a fraction of the
+    teacher's cost — the default is dt_step/8), plus the verify chunk's
+    extra linear work (``verify_tokens`` x ``s_per_token``) and attention
+    score MACs (``verify_attn_mac`` x ``s_per_mac``). Draft prefill
+    mirroring is charged one draft forward per mirrored unit. What
+    speculation BUYS is up to ``draft_k + 1`` tokens per lane out of that
+    single priced step instead of one."""
+    s_per_draft_forward: float = 0.00125
+
+    def step_cost(self, stats: Dict) -> float:
+        return (super().step_cost(stats)
+                + stats.get("draft_forwards", 0) * self.s_per_draft_forward
+                + stats.get("verify_tokens", 0) * self.s_per_token
+                + stats.get("verify_attn_mac", 0) * self.s_per_mac)
+
+
 def _pct(sorted_vals: List[float], p: float) -> float:
     if not sorted_vals:
         return 0.0
@@ -228,6 +253,17 @@ def drive(scheduler: ContinuousScheduler,
         "deadline_hit_rate": (sum(r.met_deadline for r in scored)
                               / max(1, len(scored))),
     }
+    if scheduler.speculative:
+        prop = scheduler.proposed_drafts
+        report.update({
+            "spec_steps": scheduler.spec_steps_run,
+            "draft_forwards": scheduler.draft_forwards_run,
+            "proposed_drafts": prop,
+            "accepted_drafts": scheduler.accepted_drafts,
+            "acceptance_rate": scheduler.accepted_drafts / max(1, prop),
+        })
+    if scheduler.preemption:
+        report["preemptions"] = scheduler.preemptions
     pool = scheduler.metrics.gauge("serve_pool_blocks_in_use").stats()
     if pool is not None:
         report["pool_blocks_mean"] = pool["mean"]

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler over the paged engine (port of
-``repro/serve/scheduler.py`` without speculative decoding, preemption and
-tracing, which come with later slices).
+``repro/serve/scheduler.py`` without tracing, which comes with a later
+slice).
 
 Requests occupy one of ``slots`` fixed batch lanes. Every decode step
 runs ONE fused forward over all lanes; the scheduler decides which
@@ -26,7 +26,42 @@ copy-on-write of the last block when a whole prompt is cached).
 Admission is gated by the :class:`repro_torch.serve.kvcache
 .BlockAllocator` (all-or-nothing reservation of prompt +
 max_new_tokens) and ``max_inflight_blocks``; cold prefix entries are
-LRU-evicted before admission gives up.
+LRU-evicted before admission gives up. With ``preemption`` (the default
+in speculative mode under chunked prefill) admission has one more lever:
+preempt the lowest-priority live lane — latest deadline, then latest
+arrival — if it ranks strictly below the incoming request. The victim's
+computed K/V chain (prompt, or prompt + emitted stream) is re-registered
+in the prefix cache so its resume is a cache hit, its blocks go back
+through the refcounted allocator, and it requeues at the head of the
+waiting line behind the request that displaced it. Greedy resume is
+exact: chunked prefill replays only the uncached tail of the chain and
+the stream continues from its recorded last token.
+
+``speculative=True`` replaces the per-step single-token decode with
+draft-verify speculative decoding: a :class:`repro_torch.serve.engine
+.DraftEngine` (e.g. the pod's distilled student) proposes up to
+``draft_k`` greedy tokens per lane (``draft_k + 1`` batched draft
+forwards, so the draft pools stay stream-complete even on a full accept),
+then ONE batched target forward scores every draft position
+(:meth:`PagedEngine.verify`, whose attention is one launch of the
+batched verify kernel). Greedy exact-match acceptance emits the matched
+prefix plus the target's own next token; the rejected tail's K/V rows
+are rolled back bitwise (:func:`repro_torch.serve.kvcache.gather_rows`
+snapshot before the verify append, :func:`repro_torch.serve.kvcache
+.scatter_rows` restore after) and the lane's context rewinds to the
+accepted length. Lanes near completion shrink their window to the tokens
+they may still emit, which keeps every append inside the blocks reserved
+at admission. With float32 params the streams are bitwise those of plain
+greedy decode (every emitted token is the target's argmax given exactly
+the prefix before it, and the verify kernel computes each float32 row in
+the decode kernel's order); in bf16 the verify's k+1-row products round
+differently from decode's one-row ones, so the streams can differ.
+
+Host state: every array the scheduler hands to the engine is copied to
+the device before the launch that reads it (the engine's ``_to_device``
+makes a fresh tensor, never a view of the numpy buffer), so the
+scheduler may mutate ``tables``/``ctx``/``pending_tok`` right after a
+call.
 
 Determinism: greedy decoding makes the token streams a pure function of
 (params, prompts). Temperature sampling draws from one
@@ -39,14 +74,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve import kvcache as KC
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import DraftEngine, PagedEngine, _to_device
 
 _POLICIES = ("continuous", "rebatch")
 _PREFILL_MODES = ("chunked", "monolithic")
@@ -101,12 +136,9 @@ class ContinuousScheduler:
                  max_inflight_blocks: Optional[int] = None,
                  sampling: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, tracer=None, metrics=None,
-                 speculative: bool = False,
+                 speculative: bool = False, draft_k: int = 4,
+                 draft_params=None,
                  preemption: Optional[bool] = None):
-        if speculative or preemption:
-            raise NotImplementedError(
-                "speculative decoding and preemption come with the "
-                "speculative-decoding slice of the port")
         if tracer is not None:
             raise NotImplementedError(
                 "tracing comes with the observability slice of the port")
@@ -121,6 +153,20 @@ class ContinuousScheduler:
             raise ValueError(
                 "prefix_cache requires prefill='chunked' (monolithic "
                 "write_prefill would clobber shared blocks)")
+        if speculative and sampling != "greedy":
+            raise ValueError(
+                "speculative decoding is defined by greedy exact-match "
+                "acceptance; sampling must be 'greedy'")
+        if preemption is None:
+            # A lane's draft window is funded out of its admission
+            # reservation, so speculative mode leans on preemption for
+            # pool pressure; chunked prefill is what makes a preempted
+            # lane's resume replay only the uncached tail.
+            preemption = speculative and prefill == "chunked"
+        if preemption and prefill != "chunked":
+            raise ValueError(
+                "preemption requires prefill='chunked' (a resumed chain "
+                "can exceed the monolithic prefill bucket)")
         self.engine = engine
         self.params = params
         self.policy = policy
@@ -137,6 +183,16 @@ class ContinuousScheduler:
         self.sampler = engine.make_sampler(sampling, temperature)
         self.generator = torch.Generator(device=engine.device)
         self.generator.manual_seed(seed)
+        self.speculative = bool(speculative)
+        self.preemption = bool(preemption)
+        self.draft: Optional[DraftEngine] = None
+        if self.speculative:
+            # No draft model supplied -> self-draft with the target
+            # weights (acceptance 1.0 in float32; smokes and plumbing).
+            self.draft = DraftEngine(
+                engine, params if draft_params is None else draft_params,
+                draft_k=draft_k)
+        self.draft_k = int(draft_k)
 
         self.pools = engine.init_pools()
         self.tables = np.zeros((self.slots, self.spec.max_blocks_per_req),
@@ -147,6 +203,10 @@ class ContinuousScheduler:
         self.blocks: List[Optional[List[int]]] = [None] * self.slots
         self.prefill_pos = np.zeros(self.slots, np.int32)
         self.prefill_done = np.zeros(self.slots, bool)
+        # per-slot prefill token chain: the prompt, or — for a request
+        # resumed after preemption — prompt + the emitted stream whose
+        # K/V the lane had already computed (all but the pending token)
+        self._chain: List[Optional[np.ndarray]] = [None] * self.slots
         self._prefill_queue: Deque[int] = collections.deque()
         self.waiting: Deque[ServeRequest] = collections.deque()
         self.finished: List[ServeRequest] = []
@@ -155,6 +215,11 @@ class ContinuousScheduler:
         self.prefills_run = 0            # monolithic full prefills
         self.prefill_chunks_run = 0
         self.total_new_tokens = 0
+        self.spec_steps_run = 0
+        self.draft_forwards_run = 0
+        self.proposed_drafts = 0         # draft tokens verify could use
+        self.accepted_drafts = 0
+        self.preemptions = 0
         # per-step cost stats for the loadgen's sim clock
         self.last_stats: Dict[str, int] = {}
         # requests stamped (first token / done) during the current step;
@@ -163,6 +228,23 @@ class ContinuousScheduler:
         # always-on registry (host-side dict updates only): the report
         # reads pool-occupancy stats from it
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # register the speculative instruments eagerly so a spec
+        # scheduler's snapshot always carries them, samples or not
+        if self.speculative:
+            self._accepted_hist()
+        if self.preemption:
+            self._preempt_counter()
+
+    def _accepted_hist(self):
+        return self.metrics.histogram(
+            "serve_spec_accepted_len",
+            "accepted draft tokens per lane per speculative step",
+            buckets=tuple(float(i) for i in range(self.draft_k + 1)))
+
+    def _preempt_counter(self):
+        return self.metrics.counter(
+            "serve_preemptions",
+            "live lanes preempted to fund a higher-priority admission")
 
     # ---- bookkeeping --------------------------------------------------
     @property
@@ -201,6 +283,7 @@ class ContinuousScheduler:
         self.pending_tok[slot] = 0
         self.prefill_pos[slot] = 0
         self.prefill_done[slot] = False
+        self._chain[slot] = None
 
     # ---- admission ----------------------------------------------------
     def _try_alloc(self, n: int) -> Optional[List[int]]:
@@ -218,6 +301,68 @@ class ContinuousScheduler:
             return None
         return self.allocator.alloc(n)
 
+    @staticmethod
+    def _priority(req: ServeRequest):
+        """Scheduling priority key; LARGER sorts lower-priority (latest
+        deadline, then latest arrival, then highest rid)."""
+        return (req.deadline_s, req.arrival_s, req.rid)
+
+    def _pick_victim(self, incoming: ServeRequest) -> Optional[int]:
+        """Lowest-priority live lane ranking strictly below ``incoming``
+        (a preempted request can never preempt its displacer back, so
+        admission cannot thrash)."""
+        worst_slot = None
+        worst = None
+        for slot in range(self.slots):
+            r = self.active[slot]
+            if r is None:
+                continue
+            if worst is None or self._priority(r) > self._priority(worst):
+                worst, worst_slot = r, slot
+        if worst is None or self._priority(worst) <= self._priority(incoming):
+            return None
+        return worst_slot
+
+    @staticmethod
+    def _full_chain(req: ServeRequest) -> np.ndarray:
+        """Prompt + every emitted token but the pending one: the chain a
+        resumed request prefills (the whole prompt before its first)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if not req.tokens:
+            return prompt
+        return np.concatenate([prompt,
+                               np.asarray(req.tokens[:-1], np.int32)])
+
+    def _computed_chain(self, slot: int) -> np.ndarray:
+        """The token chain whose K/V the lane holds: the prefilled prefix
+        of its chain, or — once decoding — every emitted token except the
+        pending one (its K/V is written by the NEXT forward)."""
+        if not self.prefill_done[slot]:
+            return np.asarray(self._chain[slot],
+                              np.int32)[:int(self.prefill_pos[slot])]
+        return self._full_chain(self.active[slot])
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a live lane to fund a higher-priority admission.
+
+        The lane's computed chain is re-registered in the prefix cache
+        (so its resume replays only the uncached tail), its blocks are
+        released through the refcounted allocator — registered blocks
+        survive on the registry's reference — and the request requeues
+        at the head of the waiting line."""
+        req = self.active[slot]
+        if self.prefix is not None:
+            chain = self._computed_chain(slot)
+            if len(chain) >= self.spec.block_size:
+                self.prefix.insert(chain, self.tables[slot])
+        self.preemptions += 1
+        self._preempt_counter().inc()
+        self.allocator.release(self.blocks[slot])
+        self._prefill_queue = collections.deque(
+            s for s in self._prefill_queue if s != slot)
+        self._clear_slot(slot)
+        self.waiting.appendleft(req)
+
     def _admit(self, t: float) -> None:
         """Reserve lanes + blocks for waiting requests (bookkeeping only —
         prompt compute happens one prefill unit per :meth:`step`)."""
@@ -227,16 +372,30 @@ class ContinuousScheduler:
             if self.active[slot] is not None or not self.waiting:
                 continue
             req = self.waiting[0]
-            prompt = np.asarray(req.prompt, np.int32)
+            # A request resumed after preemption prefills its full
+            # computed chain (prompt + emitted stream minus the pending
+            # token); greedy replay of the tail is exact.
+            chain = self._full_chain(req)
             need = self.spec.blocks_needed(len(req.prompt)
                                            + req.max_new_tokens)
             shared: List[int] = []
             cow_src: Optional[int] = None
             resume = 0
             if self.prefix is not None:
-                shared, cow_src, resume = self.prefix.match(prompt)
+                shared, cow_src, resume = self.prefix.match(chain)
             fresh_need = need - len(shared)
             fresh = self._try_alloc(fresh_need)
+            if fresh is None and self.preemption:
+                # Pop the incoming request first so preempted victims
+                # requeue BEHIND it at the head of the line.
+                self.waiting.popleft()
+                while fresh is None:
+                    victim = self._pick_victim(req)
+                    if victim is None:
+                        break
+                    self._preempt(victim)
+                    fresh = self._try_alloc(fresh_need)
+                self.waiting.appendleft(req)
             if fresh is None:
                 # Undo the prefix refs and keep FIFO order (don't starve
                 # the head by admitting a smaller request behind it).
@@ -246,10 +405,12 @@ class ContinuousScheduler:
                 break
             self.waiting.popleft()
             if cow_src is not None:
-                # Whole prompt was cached: clone the last shared block so
+                # Whole chain was cached: clone the last shared block so
                 # the final-token recompute writes a private copy.
                 self.pools = self.engine.copy_block(self.pools, cow_src,
                                                     fresh[0])
+                if self.draft is not None:
+                    self.draft.copy_block(cow_src, fresh[0])
                 self.allocator.release([cow_src])
             if req.t_admit is None:
                 req.t_admit = t
@@ -261,29 +422,38 @@ class ContinuousScheduler:
             self.pending_tok[slot] = 0
             self.prefill_pos[slot] = resume
             self.prefill_done[slot] = False
+            self._chain[slot] = chain
             self._prefill_queue.append(slot)
 
     # ---- prefill work -------------------------------------------------
     def _finish_prefill(self, slot: int, logits, t: float) -> None:
         req = self.active[slot]
-        first = int(self.sampler(logits, self.generator)[0])
-        req.tokens.append(first)
-        req.t_first_token = t
-        self.step_events.append(req)
-        self.total_new_tokens += 1
-        self.ctx[slot] = len(req.prompt)
+        chain = self._chain[slot]
+        if req.tokens:
+            # Preemption resume: the chain's last-token logits reproduce
+            # the already-recorded pending token (greedy replay is
+            # exact); pin it rather than re-emitting into the stream.
+            first = int(req.tokens[-1])
+        else:
+            first = int(self.sampler(logits, self.generator)[0])
+            req.tokens.append(first)
+            req.t_first_token = t
+            self.step_events.append(req)
+            self.total_new_tokens += 1
+        self.ctx[slot] = len(chain)
         self.pending_tok[slot] = first
         self.prefill_done[slot] = True
         if self.prefix is not None:
-            self.prefix.insert(np.asarray(req.prompt, np.int32),
-                               self.tables[slot])
+            self.prefix.insert(chain, self.tables[slot])
         if len(req.tokens) >= req.max_new_tokens:
             self._retire(slot, t)
 
     def _run_prefill(self, t: float) -> None:
         """Run AT MOST ONE prefill unit: the oldest admitted lane still
         prefilling gets one chunk (chunked) or its whole bucketed prefill
-        (monolithic)."""
+        (monolithic). In speculative mode every unit is mirrored through
+        the draft engine (same chunk, draft params, draft pools) so the
+        draft cache tracks the target's logical layout."""
         while self._prefill_queue and (
                 self.active[self._prefill_queue[0]] is None
                 or self.prefill_done[self._prefill_queue[0]]):
@@ -291,13 +461,17 @@ class ContinuousScheduler:
         if not self._prefill_queue:
             return
         slot = self._prefill_queue[0]
-        prompt = np.asarray(self.active[slot].prompt, np.int32)
-        plen = len(prompt)
+        chain = self._chain[slot]
+        plen = len(chain)
         if self.prefill_mode == "monolithic":
-            toks, length = self.engine.pad_prompt(prompt)
+            toks, length = self.engine.pad_prompt(chain)
             logits, k, v = self.engine.prefill(self.params, toks, length)
             self.pools = self.engine.write_prefill(self.pools, k, v,
                                                    self.tables[slot])
+            if self.draft is not None:
+                self.draft.prefill(toks, length)
+                self.draft.write_prefill(self.tables[slot])
+                self._add_stat("draft_forwards", 1)
             self.prefills_run += 1
             self.prefill_pos[slot] = plen
             mc = self.engine.max_context
@@ -311,9 +485,12 @@ class ContinuousScheduler:
         pos = int(self.prefill_pos[slot])
         clen = min(c, plen - pos)
         buf = np.zeros(c, np.int32)
-        buf[:clen] = prompt[pos:pos + clen]
+        buf[:clen] = chain[pos:pos + clen]
         logits, self.pools = self.engine.prefill_chunk(
             self.params, self.pools, buf, self.tables[slot], pos, clen)
+        if self.draft is not None:
+            self.draft.prefill_chunk(buf, self.tables[slot], pos, clen)
+            self._add_stat("draft_forwards", 1)
         self.prefill_chunks_run += 1
         self.prefill_pos[slot] = pos + clen
         self.last_stats["prefill_padded_tokens"] = c
@@ -339,6 +516,10 @@ class ContinuousScheduler:
         if not ready.any():
             self._sample_metrics(0)
             return 0
+        if self.speculative:
+            emitted = self._spec_step(ready, t)
+            self._sample_metrics(emitted)
+            return emitted
         # Lanes still prefilling are masked to the dead-lane contract so
         # the fused decode never writes into their (possibly shared)
         # blocks: table 0 -> null block, ctx 0, token 0. The engine
@@ -363,6 +544,110 @@ class ContinuousScheduler:
                 self._retire(slot, t)
         self._sample_metrics(emitted)
         return emitted
+
+    def _add_stat(self, key: str, n: int) -> None:
+        self.last_stats[key] = self.last_stats.get(key, 0) + n
+
+    def _spec_step(self, ready: np.ndarray, t: float) -> int:
+        """One draft-verify speculative step over every ready lane.
+
+        Drafts up to ``draft_k`` greedy tokens per lane through the draft
+        engine, verifies all of them in ONE batched target forward
+        (:meth:`PagedEngine.verify`), emits the exact-match prefix plus
+        the target's own next token, and rolls the rejected tail's K/V
+        back bitwise. Per-lane windows shrink to the tokens a lane may
+        still emit, so appends never leave the blocks reserved at
+        admission."""
+        k = self.draft_k
+        c = k + 1
+        bs = self.spec.block_size
+        dev = self.engine.device
+        remaining = np.array(
+            [self.active[s].max_new_tokens - len(self.active[s].tokens)
+             if ready[s] else 0 for s in range(self.slots)], np.int32)
+        window = np.minimum(c, remaining)               # [slots]
+        live = window > 0
+        dec_tables = np.where(live[:, None], self.tables, 0).astype(np.int32)
+        ctx = np.where(live, self.ctx, 0).astype(np.int32)
+        pend = np.where(live, self.pending_tok, 0).astype(np.int32)
+
+        drafts = self.draft.propose(pend, dec_tables, ctx, window)
+        self.draft_forwards_run += k + 1
+        self._add_stat("draft_forwards", k + 1)
+
+        # rollback snapshot of every pool row the verify append may touch
+        cols = np.arange(c, dtype=np.int32)[None, :]
+        positions = ctx[:, None] + cols                 # [slots, C]
+        valid = cols < window[:, None]
+        safe_pos = np.where(valid, positions, 0)
+        phys = np.take_along_axis(dec_tables, safe_pos // bs, axis=1)
+        phys = np.where(valid, phys, 0).astype(np.int32)
+        off = np.where(valid, safe_pos % bs, 0).astype(np.int32)
+        saved = KC.gather_rows(self.pools, _to_device(phys.reshape(-1), dev),
+                               _to_device(off.reshape(-1), dev))
+
+        tokens = np.concatenate([pend[:, None], drafts], axis=1)
+        logits, self.pools = self.engine.verify(
+            self.params, self.pools, tokens, dec_tables, ctx, window)
+        self.decode_steps_run += 1
+        self.spec_steps_run += 1
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+        # greedy exact-match acceptance (pure; mutations follow rollback)
+        accepted = np.zeros(self.slots, np.int32)
+        for slot in np.flatnonzero(live):
+            w = int(window[slot])
+            a = 0
+            while a < w - 1 and greedy[slot, a] == drafts[slot, a]:
+                a += 1
+            accepted[slot] = a
+
+        # roll the rejected tail back to the never-drafted pool state
+        restore = valid & (cols > accepted[:, None])
+        if restore.any():
+            r_phys = np.where(restore, phys, 0).reshape(-1)
+            r_off = np.where(restore, off, 0).reshape(-1)
+            self.pools = KC.scatter_rows(self.pools, saved,
+                                         _to_device(r_phys, dev),
+                                         _to_device(r_off, dev))
+
+        hist = self._accepted_hist()
+        emitted = 0
+        for slot in np.flatnonzero(live):
+            req = self.active[slot]
+            w = int(window[slot])
+            a = int(accepted[slot])
+            out = [int(x) for x in drafts[slot, :a]] + [int(greedy[slot, a])]
+            req.tokens.extend(out)
+            self.ctx[slot] = int(ctx[slot]) + a + 1
+            self.pending_tok[slot] = out[-1]
+            self.total_new_tokens += len(out)
+            emitted += len(out)
+            self.proposed_drafts += w - 1
+            self.accepted_drafts += a
+            hist.observe(float(a))
+            if len(req.tokens) >= req.max_new_tokens:
+                self._retire(slot, t)
+
+        self._add_stat("verify_tokens", int(window.sum()))
+        self._add_stat("verify_attn_mac", int(sum(
+            int(w) * (int(cx) + int(w)) for w, cx in zip(window, ctx)
+            if w > 0)))
+        return emitted
+
+    def run_to_completion(self, requests: Sequence[ServeRequest],
+                          max_steps: int = 100_000) -> List[ServeRequest]:
+        """Convenience driver: submit everything at t=0 and step until
+        drained (the loadgen drives arrivals through real event time)."""
+        for r in requests:
+            self.submit(r)
+        steps = 0
+        while not self.idle:
+            self.step(float(steps))
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("scheduler failed to drain")
+        return self.finished
 
     def _sample_metrics(self, emitted: int) -> None:
         """Per-step registry samples (host dicts only): pool occupancy +

@@ -788,3 +788,117 @@ def test_kv_append_kernel_bitwise(dev, dtype, mode):
                 a, b_ = a[live], b_[live]
                 bits = torch.uint8 if a.dtype == torch.int8 else torch.int32
                 assert torch.equal(a.view(bits), b_.view(bits))
+
+
+# ------------------------------------------- the flash backward preprocess
+PRE_ROWS = [(4 * 16 * 1024, "training"), (4 * 16 * 1032, "distillation"),
+            (999, "ragged"), (1, "one row")]
+
+
+@pytest.mark.parametrize("rows,case", PRE_ROWS, ids=[c for _, c in PRE_ROWS])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_preprocess_vec_kernel(dev, dtype, d, rows, case):
+    """The 16-byte-load kernel (route "vec", every launch by default):
+    each row of delta within 13 * 2^-24 * sum_d |O dO| + 1e-30 of the
+    float64 sum (at most 12 roundings on a product's way), as close to
+    the one-warp-a-row kernel, and bitwise repeatable."""
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    scale = 10.0 ** (torch.rand((rows, 1), generator=g, device=dev) * 9 - 6)
+    o, do = (torch.randn((1, 1, rows, d), generator=g, device=dev)
+             * scale.sqrt() for _ in "od")
+    o, do = o.to(dtype), do.to(dtype)
+    before = ops.route_counts()["flash_attention_bwd_preprocess"]
+    got = ops.flash_attention_bwd_preprocess(o, do)
+    again = ops.flash_attention_bwd_preprocess(o, do)
+    old = ops._preprocess_card(o, do, "simt")
+    torch.cuda.synchronize()
+    assert ops.route_counts()["flash_attention_bwd_preprocess"] == {
+        "vec": before["vec"] + 2, "simt": before["simt"] + 1}
+    assert torch.equal(got, again)
+    prod = o.double() * do.double()
+    exact, mag = prod.sum(-1), prod.abs().sum(-1)
+    bound = 13 * 2.0 ** -24 * mag + 1e-30
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((got.double() - old.double()).abs() <= 2 * bound).all())
+
+
+# ------------------------------------------------- the speculative verify
+#: lanes: dead (window 0), a full window of 5, a partial one across a
+#: block boundary, a window at ctx 0, a long context
+VERIFY_CTX = [0, 47, 30, 0, 290]
+VERIFY_WIN = [0, 5, 3, 5, 5]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,atol", CASES, ids=IDS)
+def test_paged_verify_kernel(dev, q_dtype, kv_dtype, atol):
+    """One launch for all lanes on the route ``ops.paged_route`` names for
+    prefill: against the plain version (bf16 each row within 2^-7 of its
+    largest |value|, float32 within 1e-5), a dead lane zeros; float32
+    rows bitwise the paged decode kernel's at each position (the
+    speculative contract)."""
+    rng = np.random.default_rng(3)
+    hq, hkv, d, bs, c = 16, 8, 64, 16, 5
+    ctx = np.array(VERIFY_CTX, np.int32)
+    win = np.array(VERIFY_WIN, np.int32)
+    tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, hkv, bs, d,
+                                  list(ctx + win))
+    q = torch.tensor(rng.standard_normal((len(ctx), hq, c, d)),
+                     dtype=q_dtype, device=dev)
+    tc, tw = (torch.tensor(a, device=dev) for a in (ctx, win))
+    kw = dict(k_scales=ks, v_scales=vs)
+    route = ops.paged_route("prefill", q_dtype, kv_dtype, d, bs)
+    before = ops.route_counts()["paged_verify_attention"]
+    got = ops.paged_verify_attention(q, k, v, tables, tc, tw, **kw)
+    again = ops.paged_verify_attention(q, k, v, tables, tc, tw, **kw)
+    torch.cuda.synchronize()
+    assert ops.route_counts()["paged_verify_attention"] == {
+        **before, route: before[route] + 2}
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    assert not got[0].any()
+    want = ref.paged_verify_attention_ref(q.float(), k, v, tables, tc, tw,
+                                          **kw)
+    for b, w in enumerate(win):
+        if w == 0:
+            continue                # the dead lane: zeros, checked above
+        if q_dtype == torch.bfloat16:
+            _rows_within(got[b, :, :w], want[b, :, :w], PAGED_RTOL["prefill"])
+        else:
+            err = (got[b, :, :w] - want[b, :, :w]).abs()
+            assert float(err.max()) <= atol
+    if q_dtype == torch.float32:
+        for col in range(c):
+            live = win > col
+            seen = torch.tensor(np.where(live, ctx + col + 1, 0)
+                                .astype(np.int32), device=dev)
+            dec = ops.paged_decode_attention(q[:, :, col].contiguous(), k, v,
+                                             tables, seen, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[live, :, col], dec[live]), col
+
+
+@pytest.mark.parametrize("cache", ["fp32", "int8"])
+def test_speculative_streams_bitwise_on_the_card(dev, cache):
+    """Reduced flad-adllm in float32 on the card: self-drafted and
+    randomly drafted speculative streams bitwise those of plain decode."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+    from repro_torch.serve import generate_pod_requests, serve_continuous
+    cfg = reduced(get_config("flad-adllm")).replace(param_dtype="float32")
+    params = lm.init(cfg, seed=0, device=dev)
+    reqs = generate_pod_requests(
+        "nano*1,agx*1", num_requests=6, pods=2, template_len=8,
+        max_suffix=4, seed=3, short_new=(3, 6), long_new=(8, 12),
+        long_frac=0.4, vocab_size=cfg.vocab_size)
+    kw = dict(params=params, slots=2, block_size=16, max_context=16,
+              prefill="chunked", prefill_chunk=4, prefix_cache=True,
+              cache=cache, requests=reqs, log_fn=None, device=dev)
+    base = serve_continuous(cfg, **kw)
+    for draft in (None, lm.init(cfg, seed=7, device=dev)):
+        before = ops.launch_counts()["paged_verify_attention"]
+        spec = serve_continuous(cfg, speculative=True, draft_k=3,
+                                draft_params=draft, **kw)
+        assert spec["sequences"] == base["sequences"]
+        assert ops.launch_counts()["paged_verify_attention"] - before == \
+            2 * cfg.num_layers * spec["spec_steps"]

@@ -141,13 +141,17 @@ def test_new_wrappers_never_fall_back():
             *[torch.zeros((2, 3, 4, 1), device=m) for _ in "kv"],
             *[torch.zeros((2, 5, 32), device=m) for _ in "kv"],
             *[torch.zeros(5, dtype=torch.int64, device=m) for _ in "po"]),
+        lambda: ops.paged_verify_attention(
+            q, kv, kv, torch.zeros((1, 3), dtype=torch.int32,
+                                   device=m),
+            *[torch.zeros(1, dtype=torch.int32, device=m) for _ in "cl"]),
     ]
     before = ops.launch_counts()
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     assert ops.launch_counts() == before
-    assert len(ops.KERNELS) == 11
+    assert len(ops.KERNELS) == 12
 
 
 def test_wrappers_check_their_inputs():

@@ -76,7 +76,8 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
     args = build_parser().parse_args([])
-    assert args.device == "cuda" and args.scheduler == "continuous"
+    # the reference's launcher defaults to the legacy scheduler
+    assert args.device == "cuda" and args.scheduler == "legacy"
 
 
 def test_training_entry_points_default_to_the_card():

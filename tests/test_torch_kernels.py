@@ -1,14 +1,18 @@
 """The port's kernel wrappers on the CPU (their plain PyTorch versions)
 against the reference's Pallas kernels in interpret mode, on the same
 numpy inputs: paged decode and chunked paged prefill attention (atol 1e-5,
-float32 math on both sides) and the int8 quantizer (bitwise)."""
+float32 math on both sides) and the int8 quantizer (bitwise); and every
+ctypes binding against the C entry point it calls."""
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 ATOL = 1e-5
 
@@ -207,3 +211,22 @@ def test_wrappers_check_their_inputs(bad):
                   v_scales=torch.ones(k.shape[:3] + (1,)))
     with pytest.raises(ValueError):
         ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+
+
+#: C parameter type -> the ctypes type its binding must declare
+_CTYPES = {"ptr": ctypes.c_void_p, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float, "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("stem", list(build.SIGNATURES))
+def test_binding_matches_the_entry_point(stem):
+    """Each library's ctypes argtypes match its extern "C" entry point,
+    parameter by parameter (a wrong one would pass garbage to the
+    launch without an error)."""
+    name, argtypes = build.SIGNATURES[stem]
+    src = (build.CSRC / f"{stem}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S)
+    assert m, f"no entry point {name} in csrc/{stem}.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    kinds = ["ptr" if "*" in p else p.rsplit(" ", 1)[0] for p in params]
+    assert [_CTYPES[k] for k in kinds] == list(argtypes), params

@@ -292,14 +292,15 @@ def test_later_slices_raise(setup):
     _, cfg, _, tp = setup
     spec = PagedCacheSpec.for_requests(2, 16, block_size=4)
     eng = PagedEngine(cfg, spec, max_context=8, slots=2, device="cpu")
-    for kw in (dict(speculative=True), dict(preemption=True),
-               dict(tracer=object())):
-        with pytest.raises(NotImplementedError):
-            ContinuousScheduler(eng, tp, **kw)
+    # speculative decoding and preemption are ported
+    # (tests/test_torch_spec.py); tracing is not
+    with pytest.raises(NotImplementedError):
+        ContinuousScheduler(eng, tp, tracer=object())
     with pytest.raises(NotImplementedError, match="slice"):
         serve_continuous(cfg, params=tp, device="cpu", trace="t.json")
     from repro_torch.launch import serve as launch
-    for argv in (["--speculative"], ["--trace", "t.json"]):
+    for argv in (["--trace", "t.json"],
+                 ["--scheduler", "continuous", "--trace", "t.json"]):
         with pytest.raises(NotImplementedError, match="slice"):
             launch.main(argv + ["--device", "cpu"])
     # cache-free forward runs the flash-attention wrapper, which has no
@@ -311,7 +312,7 @@ def test_later_slices_raise(setup):
 
 def test_launcher_serves_on_cpu():
     from repro_torch.launch import serve as launch
-    rep = launch.main(["--device", "cpu", "--requests", "2", "--slots", "2",
-                       "--cache", "int8"])
+    rep = launch.main(["--device", "cpu", "--scheduler", "continuous",
+                       "--requests", "2", "--slots", "2", "--cache", "int8"])
     assert rep["requests"] == 2 and rep["device"] == "cpu"
     assert len(rep["sequences"]) == 2
