@@ -7,11 +7,14 @@ runs on a machine that has no JAX. Every entry point takes an explicit
 ``device`` and defaults to ``"cuda"``; the tests pass ``device="cpu"``,
 where each hand-written kernel's wrapper runs its plain PyTorch version.
 
-Ported so far: for the dense decoder family, the continuous-batching
-serving path (:func:`repro_torch.serve.serve_continuous`), hierarchical
-FL training (``hier_fl``) and federated LoRA distillation
-(``distill_fl``) through :class:`repro_torch.api.Session`; for both the
-dense decoder and the xLSTM, serving with the legacy static-batch
+Ported so far: FHDP, the paper's pipelined FL training, of FLAD's
+vision encoder (``pipeline`` and ``fl_pipeline`` over a pod x data x
+model mesh whose ranks all run on the one card, the default of
+:class:`repro_torch.api.Session`) and the ``tensor`` baseline; for the
+dense decoder family, the continuous-batching serving path
+(:func:`repro_torch.serve.serve_continuous`), hierarchical FL training
+(``hier_fl``) and federated LoRA distillation (``distill_fl``); for both
+the dense decoder and the xLSTM, serving with the legacy static-batch
 scheduler (``Session.serve``). They are carried by ten hand-written CUDA
 kernels in :mod:`repro_torch.kernels` (paged decode and prefill
 attention, int8 quantize and dequantize, the flash-attention forward and

@@ -1,15 +1,21 @@
 """``Session`` — the port's way to stand up FLAD training (port of
 ``repro/api/session.py``).
 
-A Session composes a model config (``arch``; the CPU-smoke reduced
-variant unless ``full=True``), an input shape, a registered round or
-distillation :class:`~repro_torch.api.strategies.Strategy` and
-:class:`~repro_torch.train.loop.LoopHooks`, on one ``device`` (default
-``"cuda"``; the reference's device mesh has no counterpart on one card)::
+A Session composes a model config (``arch``, default ``flad-vision``;
+the CPU-smoke reduced variant unless ``full=True``), an input shape, a
+:class:`~repro_torch.api.mesh.MeshSpec` (default data 2 x model 4), a
+registered :class:`~repro_torch.api.strategies.Strategy` (default
+``pipeline``, FHDP) and :class:`~repro_torch.train.loop.LoopHooks`, on
+one ``device`` (default ``"cuda"``): the mesh's ranks all run there::
 
     from repro_torch.api import Session
+    out = Session().run(50)                   # FHDP on reduced flad-vision
     out = Session("flad-adllm", strategy="hier_fl", codec="int8",
                   shape="1024x4", full=True).run(2)
+
+The defaults are the reference's: with no arguments both Sessions train
+reduced flad-vision with the ``pipeline`` strategy on a (2, 4) mesh, 2
+sequences a rank.
 
 ``Session.serve`` serves the session's model: the legacy static-batch
 scheduler (:func:`repro_torch.api.serving.serve_requests`) or the
@@ -24,6 +30,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.api.mesh import Mesh, MeshSpec
 from repro_torch.api.strategies import Strategy, get_strategy
 from repro_torch.config import INPUT_SHAPES, ModelConfig, ShapeConfig
 
@@ -48,18 +55,22 @@ def resolve_shape(shape: Union[ShapeConfig, str, None], *,
 
 
 class Session:
-    """One FLAD workload: config x shape x strategy x hooks on a device."""
+    """One FLAD workload: config x shape x mesh x strategy x hooks on a
+    device. ``mesh``: a MeshSpec, '2,4'-style text or dims (None: the
+    default (2, 4))."""
 
     def __init__(self, arch: Optional[str] = None, *,
                  cfg: Optional[ModelConfig] = None, full: bool = False,
-                 shape: Union[ShapeConfig, str, None] = None,
-                 strategy: Union[str, Strategy] = "hier_fl",
+                 shape: Union[ShapeConfig, str, None] = None, mesh=None,
+                 strategy: Union[str, Strategy] = "pipeline",
                  learning_rate: float = 1e-3, seed: int = 0, hooks=None,
                  device="cuda", **strategy_options):
         if cfg is None:
-            cfg = load_config(arch or "flad-adllm", full=full)
+            cfg = load_config(arch or "flad-vision", full=full)
         self.cfg = cfg
         self.device = torch.device(device)
+        self._mesh: Optional[Mesh] = None
+        self.mesh_spec = MeshSpec.parse(mesh)
         self.seed = seed
         self.hooks = hooks
         if isinstance(strategy, Strategy):
@@ -73,27 +84,30 @@ class Session:
             self.strategy = get_strategy(strategy,
                                          learning_rate=learning_rate,
                                          **strategy_options)
-        if self.strategy.loop not in ("round", "distill"):
-            raise NotImplementedError(
-                f"{self.strategy.name!r} runs a {self.strategy.loop!r} "
-                f"loop; the port drives round and distill loops only")
-        #: default shape: 128-token sequences, 2 per client step
-        self.shape = resolve_shape(shape) or ShapeConfig("session", 128, 2,
-                                                         "train")
+        #: default shape: 128-token sequences, 2 per mesh rank
+        self.shape = resolve_shape(shape) or ShapeConfig(
+            "session", 128, 2 * self.mesh_spec.size, "train")
         self._built: Optional[Tuple[Callable, Any]] = None
         self.state: Optional[Tuple[Any, Any]] = None
         self.history: list = []
 
+    @property
+    def mesh(self) -> Mesh:
+        """The session's mesh on its device (built once)."""
+        if self._mesh is None:
+            self._mesh = self.mesh_spec.build(self.device)
+        return self._mesh
+
     def build(self, *, init: bool = True
               ) -> Tuple[Callable, Optional[Tuple[Any, Any]]]:
-        """(step_fn, state): the strategy's round function and its state
-        on this session's device. Cached; ``init=False`` skips the state
-        (the caller supplies its own)."""
+        """(step_fn, state): the strategy's step (or round) function and
+        its state on this session's device. Cached; ``init=False`` skips
+        the state (the caller supplies its own)."""
         if self._built is None:
-            step = self.strategy.make_step(self.cfg, self.shape, self.device)
+            step = self.strategy.make_step(self.cfg, self.shape, self.mesh)
             self._built = (step, None)
         if init and self._built[1] is None:
-            state = self.strategy.init(self.cfg, self.shape, self.device,
+            state = self.strategy.init(self.cfg, self.shape, self.mesh,
                                        self.seed)
             self._built = (self._built[0], state)
             self.state = state
@@ -107,8 +121,8 @@ class Session:
         return self.strategy.merge_params(state, self.cfg)
 
     def default_batches(self, salt: int = 1) -> Iterator:
-        """Endless synthetic round batches from a generator seeded with
-        ``seed + salt`` on the session's device."""
+        """Endless synthetic step (or round) batches from a generator
+        seeded with ``seed + salt`` on the session's device."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + salt)
         while True:
@@ -116,19 +130,21 @@ class Session:
 
     def run(self, steps: int, *, state=None, batches=None, hooks=None,
             trace=None, metrics=None, profile=None) -> Dict:
-        """Run ``steps`` FL rounds and return the loop output.
+        """Train for ``steps`` steps (``train_loop``), or FL rounds for
+        round strategies (``fl_loop``), and return the loop output.
 
-        ``state``: (client_params, client_opt) to start from instead of
-        the strategy's init (for ``distill_fl``, client_params is
-        ``{"base", "factors"}``: the loop carries only the factors and
-        hands the frozen base to every round as the teacher);
-        ``batches``: a ``fn(round_idx) -> round batch`` or an iterable of
-        round batches (default: synthetic);
+        ``state``: (params, opt) to start from instead of the strategy's
+        init (for ``distill_fl``, params is ``{"base", "factors"}``: the
+        loop carries only the factors and hands the frozen base to every
+        round as the teacher);
+        ``batches``: an iterable of step batches; for round strategies a
+        ``fn(round_idx) -> round batch`` or an iterable of round batches
+        (default: synthetic);
         ``metrics``: a :class:`repro_torch.obs.MetricsRegistry` or a path
         that collects every logged round's scalar metrics
         (``out["metrics_path"]`` when a path)."""
         from repro_torch.obs import MetricsRegistry
-        from repro_torch.train.loop import LoopHooks, fl_loop
+        from repro_torch.train.loop import LoopHooks, fl_loop, train_loop
         for name, arg in (("trace", trace), ("profile", profile)):
             if arg is not None:
                 raise NotImplementedError(
@@ -141,9 +157,18 @@ class Session:
         step, init_state = self.build(init=state is None)
         if state is not None:
             init_state = state
-        hooks = hooks or self.hooks or LoopHooks(log_every=1)
+        hooks = hooks or self.hooks or (
+            LoopHooks() if self.strategy.loop == "step"
+            else LoopHooks(log_every=1))
         if registry is not None and hooks.metrics is None:
             hooks = dataclasses.replace(hooks, metrics=registry)
+        params, opt = init_state
+        if self.strategy.loop == "step":
+            it = iter(batches) if batches is not None \
+                else self.default_batches()
+            out = train_loop(step, params, opt, it, steps=steps, hooks=hooks)
+            return self._finish(step, (out["params"], out["opt_state"]),
+                                out, metrics_path, registry)
         if batches is None:
             it = self.default_batches()
             round_fn = lambda r: next(it)                # noqa: E731
@@ -151,7 +176,6 @@ class Session:
             round_fn = batches
         else:
             round_fn = lambda r, _it=iter(batches): next(_it)  # noqa: E731
-        params, opt = init_state
         if self.strategy.loop == "distill":
             base = params["base"]
             out = fl_loop(step, params["factors"], opt, round_fn,
@@ -161,7 +185,11 @@ class Session:
         else:
             out = fl_loop(step, params, opt, round_fn, rounds=steps,
                           hooks=hooks)
-        self.state = (out["client_params"], out["client_opt"])
+        return self._finish(step, (out["client_params"], out["client_opt"]),
+                            out, metrics_path, registry)
+
+    def _finish(self, step, state, out, metrics_path, registry):
+        self.state = state
         self._built = (step, self.state)
         self.history.extend(out["history"])
         if metrics_path is not None:

@@ -2,19 +2,23 @@
 
 A :class:`Strategy` owns what an execution mode needs:
 
-  * ``init(cfg, shape, device, seed) -> (params_like, opt_like)`` —
-    trainable state in the strategy's layout on ``device``;
-  * ``make_step(cfg, shape, device) -> step`` — ``(params, opt, batch) ->
+  * ``init(cfg, shape, mesh, seed) -> (params_like, opt_like)`` —
+    trainable state in the strategy's layout on ``mesh.device``;
+  * ``make_step(cfg, shape, mesh) -> step`` — ``(params, opt, batch) ->
     (params, opt, metrics)``, a whole FL round for round strategies;
   * :meth:`Strategy.merge_params`, the flat model params of a state.
 
-The reference takes a device mesh where this port takes one ``device``:
-the port runs on one card. Ported: ``fedavg`` (flat FedAvg rounds over
+The port runs on one card: every strategy takes the session's one-device
+:class:`repro_torch.api.mesh.Mesh`, whose ``device`` holds the state; the
+FHDP strategies also shape their columns and stages by its axes. Ported: ``tensor`` (the single-model baseline step),
+``pipeline`` (FHDP: FL columns x pipeline stages), ``fl_pipeline``
+(FedAvg rounds of FHDP local steps), ``fedavg`` (flat FedAvg rounds over
 client-stacked params), ``hier_fl`` (the same rounds over the explicit
 vehicle -> edge -> cloud fabric of :mod:`repro_torch.comm`) and
 ``distill_fl`` (per-pod LoRA students distilled from a frozen AD-LLM,
 adapter deltas on the fabric). The reference's other strategies raise
-``NotImplementedError`` by name.
+``NotImplementedError`` by name; so do the sharding specs
+(``param_specs``), which only shape a lowering.
 """
 from __future__ import annotations
 
@@ -30,8 +34,11 @@ from repro_torch.configs.common import concrete_batch
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
 
 #: strategies of the reference that later slices of the port bring
-LATER = ("tensor", "pipeline", "swift_pipeline", "fl_pipeline",
-         "async_hier_fl")
+LATER = ("swift_pipeline", "async_hier_fl")
+
+_SPECS_LATER = ("sharding specs only shape a lowering for a multi-device "
+                "mesh; they come with the dry-run slice of the port (A8 in "
+                "ROADMAP.md)")
 
 
 def register_strategy(name: str) -> Callable[[type], type]:
@@ -70,22 +77,26 @@ class Strategy(abc.ABC):
     """One way to realize FLAD training (see module docstring)."""
 
     name: str = ""
-    #: which loop Session.run runs ("round" -> fl_loop; "distill" ->
-    #: fl_loop with the frozen base as the teacher)
+    #: which loop Session.run runs ("step" -> train_loop; "round" ->
+    #: fl_loop; "distill" -> fl_loop with the frozen base as the teacher)
     loop: str = "round"
 
     def __init__(self, *, learning_rate: float = 1e-3):
         self.learning_rate = learning_rate
 
     @abc.abstractmethod
-    def init(self, cfg: ModelConfig, shape: ShapeConfig, device, seed: int
+    def init(self, cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int
              ) -> Tuple[Any, Any]:
         """Materialize (params_like, opt_like) in this strategy's layout."""
 
     @abc.abstractmethod
-    def make_step(self, cfg: ModelConfig, shape: ShapeConfig, device
+    def make_step(self, cfg: ModelConfig, shape: ShapeConfig, mesh
                   ) -> Callable:
         """(params, opt, batch) -> (params, opt, metrics)."""
+
+    def param_specs(self, cfg: ModelConfig, mesh):
+        """PartitionSpec tree of the reference's layout: not on one card."""
+        raise NotImplementedError(f"{self.name}: {_SPECS_LATER}")
 
     def merge_params(self, state, cfg: Optional[ModelConfig] = None):
         """Collapse strategy state to flat model params."""
@@ -96,6 +107,117 @@ class Strategy(abc.ABC):
                       gen: torch.Generator):
         """One synthetic batch matching ``make_step``'s input, drawn from
         ``gen``."""
+
+
+@register_strategy("tensor")
+class TensorStrategy(Strategy):
+    """The single-model baseline (the reference's SPMD data/tensor-parallel
+    step, FedSGD by the implicit gradient mean): one model, one Adam."""
+
+    loop = "step"
+
+    def __init__(self, *, learning_rate: float = 1e-3, remat: bool = True,
+                 grad_accum: int = 1):
+        super().__init__(learning_rate=learning_rate)
+        self.remat = remat
+        self.grad_accum = grad_accum
+
+    def _optimizer(self):
+        from repro_torch.train.optimizer import Adam
+        return Adam(lr=self.learning_rate)
+
+    def init(self, cfg, shape, mesh, seed):
+        from repro_torch.models.registry import build_model
+        from repro_torch.tree import tree_map
+        params = tree_map(torch.Tensor.detach, build_model(cfg).init(
+            seed=seed, device=mesh.device).to_dict())
+        return params, self._optimizer().init(params)
+
+    def make_step(self, cfg, shape, mesh):
+        from repro_torch.core.steps import make_train_step
+        return make_train_step(cfg, shape, self._optimizer(),
+                               remat=self.remat, grad_accum=self.grad_accum)
+
+    def default_batch(self, cfg, shape, gen):
+        return concrete_batch(cfg, shape, gen)
+
+
+@register_strategy("pipeline")
+class PipelineStrategy(Strategy):
+    """FHDP: FL columns (pod x data) x pipeline stages (model), on the
+    session's one-device mesh (:mod:`repro_torch.core.pipeline`)."""
+
+    loop = "step"
+
+    def __init__(self, *, learning_rate: float = 1e-3, remat: bool = True,
+                 templates: Optional[Dict] = None,
+                 microbatches: Optional[int] = None):
+        super().__init__(learning_rate=learning_rate)
+        self.remat = remat
+        self.templates = templates
+        self.microbatches = microbatches
+        self.helpers: Optional[Dict] = None
+
+    def resolve_templates(self, cfg, mesh) -> Dict:
+        """Stage templates are shared by init and make_step — pin them."""
+        if self.templates is None:
+            from repro_torch.core import pipeline as pl
+            self.templates = pl.make_templates(cfg, mesh.shape["model"])
+        return self.templates
+
+    def init(self, cfg, shape, mesh, seed):
+        from repro_torch.core.fhdp import init_fhdp
+        pp, opt, self.templates = init_fhdp(
+            cfg, mesh, seed, templates=self.resolve_templates(cfg, mesh))
+        return pp, opt
+
+    def make_step(self, cfg, shape, mesh):
+        from repro_torch.core import pipeline as pl
+        step, self.helpers = pl.make_fhdp_train_step(
+            cfg, shape, mesh, learning_rate=self.learning_rate,
+            remat=self.remat, templates=self.resolve_templates(cfg, mesh),
+            microbatches=self.microbatches)
+        return step
+
+    def merge_params(self, state, cfg=None):
+        from repro_torch.core import pipeline as pl
+        return pl.merge_stage_params(state[0], self.templates)
+
+    def default_batch(self, cfg, shape, gen):
+        return concrete_batch(cfg, shape, gen)
+
+
+@register_strategy("fl_pipeline")
+class FLPipelineStrategy(PipelineStrategy):
+    """FedAvg rounds of FHDP-pipelined local steps (paper Fig. 1)."""
+
+    loop = "round"
+
+    def __init__(self, *, learning_rate: float = 1e-3, local_steps: int = 1,
+                 remat: bool = True, templates: Optional[Dict] = None,
+                 microbatches: Optional[int] = None):
+        super().__init__(learning_rate=learning_rate, remat=remat,
+                         templates=templates, microbatches=microbatches)
+        self.local_steps = local_steps
+
+    def init(self, cfg, shape, mesh, seed):
+        from repro_torch.core.fhdp import init_fhdp
+        pp, opt, self.templates = init_fhdp(
+            cfg, mesh, seed, templates=self.resolve_templates(cfg, mesh),
+            fed_sgd=False)
+        return pp, opt
+
+    def make_step(self, cfg, shape, mesh):
+        from repro_torch.core.fhdp import make_fl_pipeline_round
+        fl_round, self.helpers = make_fl_pipeline_round(
+            cfg, shape, mesh, local_steps=self.local_steps,
+            learning_rate=self.learning_rate, remat=self.remat,
+            templates=self.resolve_templates(cfg, mesh),
+            microbatches=self.microbatches)
+        return fl_round
+
+    def default_batch(self, cfg, shape, gen):
+        return concrete_batch(cfg, shape, gen, lead=(self.local_steps,))
 
 
 @register_strategy("fedavg")
@@ -125,16 +247,17 @@ class FedAvgStrategy(Strategy):
                 "derive the client count from")
         return self.clients
 
-    def init(self, cfg, shape, device, seed):
+    def init(self, cfg, shape, mesh, seed):
         from repro_torch.core.fedavg import stack_clients
         from repro_torch.models.lm import init
+        device = mesh.device
         params0 = init(cfg, seed=seed, device=device).to_dict()
         cp = stack_clients(params0, self.n_clients())
         return cp, self._optimizer().init(cp)._replace(
             step=torch.zeros((self.n_clients(),), dtype=torch.int32,
                              device=device))
 
-    def make_step(self, cfg, shape, device):
+    def make_step(self, cfg, shape, mesh):
         from repro_torch.core.fedavg import make_fl_round
         return make_fl_round(cfg, shape, self._optimizer(),
                              local_steps=self.local_steps, remat=self.remat,
@@ -232,14 +355,14 @@ class HierFLStrategy(FedAvgStrategy):
             stats["staleness"] = None
         return stats
 
-    def init(self, cfg, shape, device, seed):
+    def init(self, cfg, shape, mesh, seed):
         from repro_torch.comm.codecs import GeneratorBits
-        state = super().init(cfg, shape, device, seed)
+        state = super().init(cfg, shape, mesh, seed)
         self._residual = None           # fresh error-feedback state
         self._round = 0
         # the codec's rounding stream derives from the init seed, so a
         # re-init restarts it
-        self._bits = GeneratorBits(seed + 1, device)
+        self._bits = GeneratorBits(seed + 1, mesh.device)
         return state
 
     def _wire_metrics(self, cfg) -> Dict:
@@ -264,7 +387,7 @@ class HierFLStrategy(FedAvgStrategy):
         return lambda leaf, client, shp: self.codec_bits(r, leaf, client,
                                                          shp)
 
-    def make_step(self, cfg, shape, device):
+    def make_step(self, cfg, shape, mesh):
         from repro_torch.comm.codecs import zero_residual
         from repro_torch.comm.hierarchy import make_hier_round
 
@@ -278,7 +401,7 @@ class HierFLStrategy(FedAvgStrategy):
         def round_fn(client_params, client_opt, batches):
             if self._residual is None:
                 self._residual = zero_residual(client_params)
-            bits = self._round_bits(device)
+            bits = self._round_bits(mesh.device)
             client_params, client_opt, metrics, self._residual = \
                 hier_round(client_params, client_opt, batches,
                            self._residual, bits)
@@ -421,7 +544,7 @@ class DistillFLStrategy(HierFLStrategy):
                          self.lora_cfg)
 
     # ---- strategy protocol ------------------------------------------------
-    def init(self, cfg, shape, device, seed):
+    def init(self, cfg, shape, mesh, seed):
         """Base from ``seed`` (warmed up), factors from ``seed + 2``, the
         codec's bits from ``seed + 1``."""
         from repro_torch.comm.codecs import GeneratorBits
@@ -430,6 +553,7 @@ class DistillFLStrategy(HierFLStrategy):
         from repro_torch.distill.federated import warmup_base
         from repro_torch.distill.lora import init_lora
         acfg = self.adllm_cfg(cfg)
+        device = mesh.device
         base = init_adllm(acfg, seed=seed, device=device)
         if self.warmup_steps:
             warm = [{k: torch.as_tensor(v, device=device)
@@ -449,7 +573,7 @@ class DistillFLStrategy(HierFLStrategy):
         self._bits = GeneratorBits(seed + 1, device)
         return {"base": base, "factors": cf}, opt
 
-    def make_step(self, cfg, shape, device):
+    def make_step(self, cfg, shape, mesh):
         from repro_torch.comm.codecs import zero_residual
         from repro_torch.distill.federated import make_distill_round
 
@@ -464,7 +588,7 @@ class DistillFLStrategy(HierFLStrategy):
         def round_fn(client_factors, client_opt, batches, base):
             if self._residual is None:
                 self._residual = zero_residual(client_factors)
-            bits = self._round_bits(device)
+            bits = self._round_bits(mesh.device)
             client_factors, client_opt, metrics, self._residual = \
                 distill_round(client_factors, client_opt, batches, base,
                               self._residual, bits)

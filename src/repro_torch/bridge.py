@@ -20,6 +20,15 @@ is not adapted; the port's holds the adapted leaves only, so
 empty, and :func:`factors_to_reference` puts them back. The AD-LLM's
 params (``projector``, ``wp_head``) are ordinary nested dicts.
 
+The FHDP pipeline's stage container (``{"shared", "stacks", "masks"}``)
+crosses through :func:`tree_from_numpy` and :func:`tree_to_numpy` too,
+its bool masks included; its ZeRO-2 Adam state crosses through
+:func:`zero2_from_numpy` and :func:`zero2_to_numpy`, in the reference's
+global layouts (stacks ``[S, D, n]``, the rest ``[D, n]``). Where each
+(pod, data) column keeps its own moments (local steps on a mesh with
+pods) the port holds all ``pods * D`` columns on that axis; the
+reference holds pod p's on pod p's devices and shows pod 0's.
+
 bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
 own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses), so a bfloat16 leaf goes in through
@@ -36,6 +45,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import AdamState
+from repro_torch.tree import tree_map
 
 
 def _leaf_to_torch(arr, device) -> torch.Tensor:
@@ -66,6 +76,28 @@ def fl_state_from_numpy(client_params: dict, step, m: dict, v: dict,
     return (tree_from_numpy(client_params, device),
             AdamState(_leaf_to_torch(step, torch.device(device)),
                       tree_from_numpy(m, device), tree_from_numpy(v, device)))
+
+
+def zero2_from_numpy(opt: dict, device="cuda", *, pods: int = 1) -> dict:
+    """The reference's FHDP Adam state ``{"step", "m", "v"}`` (numpy) as
+    the port's; ``pods`` > 1 gives every pod the moments the reference
+    shows (pod 0's), for state whose moments are whole per column."""
+    def widen(x):
+        x = np.asarray(x)
+        return np.concatenate([x] * pods, axis=-2) if pods > 1 else x
+
+    return {"step": _leaf_to_torch(opt["step"], torch.device(device)),
+            "m": tree_from_numpy(tree_map(widen, opt["m"]), device),
+            "v": tree_from_numpy(tree_map(widen, opt["v"]), device)}
+
+
+def zero2_to_numpy(opt: dict, data_size: int) -> dict:
+    """The port's FHDP Adam state as the reference's arrays read back:
+    the first ``data_size`` columns (pod 0's) of each moment."""
+    cut = lambda x: x[..., :data_size, :]                 # noqa: E731
+    return {"step": tree_to_numpy(opt["step"]),
+            "m": tree_map(cut, tree_to_numpy(opt["m"])),
+            "v": tree_map(cut, tree_to_numpy(opt["v"]))}
 
 
 def params_from_numpy(tree: dict, device="cuda", *,

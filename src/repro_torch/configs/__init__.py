@@ -8,7 +8,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.configs.common import reduced  # noqa: F401
 
 #: architectures ported so far (the reference registers twelve)
-ARCH_IDS = ["flad_adllm", "xlstm_350m"]
+ARCH_IDS = ["flad_adllm", "flad_vision", "xlstm_350m"]
 
 
 def _canon(name: str) -> str:

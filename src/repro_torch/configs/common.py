@@ -1,6 +1,6 @@
 """Shared config helpers (port of ``repro.configs.common``): the reduced
-smoke variant, the effective attention window, and the dense family's
-input specs and random batches."""
+smoke variant, the effective attention window, and the input specs and
+random batches of the dense and vision families."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,24 +14,31 @@ from repro_torch.config import LONG_CONTEXT_WINDOW, ModelConfig, ShapeConfig
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model 128, tiny
     vocab, float32 — the same shrink the reference applies (an xLSTM
-    keeps 4 KV heads and puts an sLSTM block every 2 layers)."""
-    if cfg.family not in ("dense", "ssm"):
+    keeps 4 KV heads and puts an sLSTM block every 2 layers; the vision
+    encoder takes 32-wide features and keeps its waypoints, light classes
+    and 128 tokens a modality)."""
+    if cfg.family not in ("dense", "ssm", "vision"):
         raise NotImplementedError(
-            f"the port covers the dense and ssm families so far, not "
-            f"{cfg.family!r}")
+            f"the port covers the dense, ssm and vision families so far, "
+            f"not {cfg.family!r}")
     kw = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
               head_dim=32, d_ff=256, vocab_size=512, param_dtype="float32",
               q_chunk=64, kv_chunk=64)
     if cfg.family == "ssm":
         kw["num_kv_heads"] = 4
         kw["ssm"] = dataclasses.replace(cfg.ssm, slstm_every=2)
+    if cfg.family == "vision":
+        kw["prefix_dim"] = 32
+        kw["num_waypoints"] = cfg.num_waypoints
+        kw["num_light_classes"] = cfg.num_light_classes
     return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vision"):
         raise NotImplementedError(
-            f"the port covers the dense family so far, not {cfg.family!r}")
+            f"the port's input specs cover the dense and vision families "
+            f"so far, not {cfg.family!r}")
 
 
 def effective_window(cfg: ModelConfig, shape: ShapeConfig):
@@ -45,9 +52,17 @@ def effective_window(cfg: ModelConfig, shape: ShapeConfig):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Batch leaves as {name: (shape, dtype)} for train/prefill steps of
-    the dense family (decode: one token per row)."""
-    _check_dense(cfg)
+    the dense family (decode: one token per row) and the vision encoder
+    (rgb and lidar features, waypoint and light labels; ``seq_len`` does
+    not apply)."""
+    _check_family(cfg)
     b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "vision":
+        p = cfg.prefix_tokens or 64
+        return {"rgb": ((b, p, cfg.prefix_dim), torch.float32),
+                "lidar": ((b, p, cfg.prefix_dim), torch.float32),
+                "waypoints": ((b, cfg.num_waypoints, 2), torch.float32),
+                "light": ((b,), torch.int32)}
     if shape.is_decode:
         return {"tokens": ((b, 1), torch.int32)}
     return {"tokens": ((b, s), torch.int32), "labels": ((b, s), torch.int32)}
@@ -56,12 +71,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
 def concrete_batch(cfg: ModelConfig, shape: ShapeConfig,
                    gen: torch.Generator, lead: Tuple[int, ...] = ()) -> dict:
     """A random batch matching :func:`input_specs`, drawn from ``gen`` on
-    its device; ``lead`` prepends axes (clients, local steps). The
-    reference draws from a JAX key: the streams differ, so tests that
-    compare the packages feed both the same numpy batch instead."""
+    its device; ``lead`` prepends axes (clients, local steps): integer
+    leaves uniform below the vocabulary (``light`` below the light
+    classes), float leaves standard normal. The reference draws from a
+    JAX key: the streams differ, so tests that compare the packages feed
+    both the same numpy batch instead."""
     out = {}
     for name, (shp, dtype) in input_specs(cfg, shape).items():
-        out[name] = torch.randint(0, max(cfg.vocab_size, 2), lead + shp,
-                                  generator=gen, dtype=dtype,
-                                  device=gen.device)
+        if dtype.is_floating_point:
+            out[name] = torch.randn(lead + shp, generator=gen, dtype=dtype,
+                                    device=gen.device)
+            continue
+        hi = cfg.num_light_classes if name == "light" else cfg.vocab_size
+        out[name] = torch.randint(0, max(hi, 2), lead + shp, generator=gen,
+                                  dtype=dtype, device=gen.device)
     return out

@@ -24,26 +24,49 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     metrics). ``params`` is a nested dict of tensors; the step leaves it
     unchanged and returns new ones. ``remat`` recomputes each block's
     activations in the backward pass (the reference's ``jax.checkpoint``
-    per block), which runs its attention forward a second time."""
-    if grad_accum > 1:
-        raise NotImplementedError(
-            "gradient accumulation (grad_accum > 1) is not ported yet")
+    per block), which runs its attention forward a second time.
+
+    ``grad_accum > 1`` splits the batch into that many microbatches (the
+    leading axis, in order) and accumulates their gradients in float32,
+    each divided by ``grad_accum``, before one optimizer update; the loss
+    and every metric are the microbatches' mean."""
     model = build_model(cfg)
     opt = optimizer or Adam()
     window = effective_window(cfg, shape)
 
-    def train_step(params, opt_state, batch):
-        flat, spec = flatten(params)
-        live = [p.detach().requires_grad_(True) for p in flat]
+    def grads_of(live, spec, batch):
         with torch.enable_grad():
             loss, metrics = model.loss(unflatten(spec, live), batch,
                                        window=window, remat=remat)
             grads = torch.autograd.grad(loss, live)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    def train_step(params, opt_state, batch):
+        flat, spec = flatten(params)
+        live = [p.detach().requires_grad_(True) for p in flat]
+        if grad_accum <= 1:
+            loss, metrics, grads = grads_of(live, spec, batch)
+        else:
+            a = grad_accum
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in flat]
+            losses, mets = [], []
+            for i in range(a):
+                mb = {k: v.reshape((a, v.shape[0] // a) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss_i, met_i, g = grads_of(live, spec, mb)
+                acc = [x + gi.float() / a for x, gi in zip(acc, g)]
+                losses.append(loss_i)
+                mets.append(met_i)
+            grads = acc
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mets]).float().mean()
+                       for k in mets[0]}
         params, opt_state = opt.update(
             unflatten(spec, list(grads)), opt_state,
             unflatten(spec, [p.detach() for p in flat]))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, dict(metrics, loss=loss.detach())
+        return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
 

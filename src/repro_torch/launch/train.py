@@ -1,11 +1,19 @@
 """Training launcher of the port — a thin CLI over
-:class:`repro_torch.api.Session` for the ``hier_fl`` and ``distill_fl``
-strategies.
+:class:`repro_torch.api.Session`.
 
-The reference's flags for those two, plus ``--device`` (default
-``cuda``). Other strategies, edge backups, checkpoints and tracing come
-with later slices of the port.
+The reference's flags for the ``tensor``, ``pipeline``, ``fedavg``,
+``fl_pipeline``, ``hier_fl`` and ``distill_fl`` strategies, with its
+defaults (``--arch flad-vision --strategy pipeline --mesh 2,4``: FHDP,
+the paper's system), plus ``--device`` (default ``cuda``; the mesh's
+ranks all run on that one device). The reference's launcher also keeps
+an edge backup every 10 steps; edge backups and checkpoints come with
+the recovery slice (A3 in ROADMAP.md), as do ``--fleet``/``--depart``
+(``swift_pipeline``); the async strategy and tracing come later still.
+Until A3 this launcher passes no backup.
 
+  python -m repro_torch.launch.train --device cpu --steps 2
+  python -m repro_torch.launch.train --arch flad-vision --full \\
+      --strategy pipeline --mesh 2,4 --steps 4
   python -m repro_torch.launch.train --arch flad-adllm --full \\
       --strategy hier_fl --topology 2@nano*2,agx*2 --codec int8 \\
       --local-steps 2 --steps 2 --shape 1024x4
@@ -19,14 +27,17 @@ import argparse
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="flad-adllm")
+    ap.add_argument("--arch", default="flad-vision")
     ap.add_argument("--shape", default=None, help="named shape or 'SEQxBATCH'")
-    ap.add_argument("--strategy", default="hier_fl",
-                    choices=["hier_fl", "distill_fl"])
-    ap.add_argument("--steps", type=int, default=50, help="FL rounds")
+    ap.add_argument("--strategy", default="pipeline",
+                    choices=["tensor", "pipeline", "fedavg", "fl_pipeline",
+                             "hier_fl", "distill_fl"])
+    ap.add_argument("--steps", type=int, default=50,
+                    help="train steps (FL strategies: rounds)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--local-steps", type=int, default=1,
-                    help="local steps per FL round")
+                    help="local steps per FL round (fedavg/fl_pipeline/"
+                         "hier_fl/distill_fl)")
     ap.add_argument("--topology", default="2@nano*2,agx*2",
                     help="vehicle->edge->cloud topology 'E@FLEET', e.g. "
                          "'2@nano*2,agx*2' = 2 edge pods over that fleet")
@@ -47,6 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--distill-warmup", type=int, default=20,
                     help="distill_fl: supervised warmup steps for the "
                          "frozen AD-LLM teacher")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="the reference forces N host devices; here N "
+                         "below the mesh's size raises, as there")
+    ap.add_argument("--mesh", default="2,4",
+                    help="data,model (or pod,data,model)")
     ap.add_argument("--full", action="store_true",
                     help="use the full published config")
     ap.add_argument("--metrics", default=None, metavar="PATH",
@@ -60,16 +76,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from repro_torch.api import LoopHooks, Session
-    options = dict(local_steps=args.local_steps, topology=args.topology,
-                   codec=args.codec, async_decay=args.async_decay)
+    from repro_torch.api import LoopHooks, MeshSpec, Session
+    mesh = MeshSpec.parse(args.mesh, devices=args.devices or None)
+    options = {}
+    fl = args.strategy in ("fedavg", "fl_pipeline", "hier_fl", "distill_fl")
+    if fl:
+        options["local_steps"] = args.local_steps
+    if args.strategy == "fedavg":
+        # the reference derives the clients from the mesh's FL axes
+        options["clients"] = mesh.fl_clients
+    if args.strategy in ("hier_fl", "distill_fl"):
+        options.update(topology=args.topology, codec=args.codec,
+                       async_decay=args.async_decay)
     if args.strategy == "distill_fl":
         options.update(lora_rank=args.lora_rank, kd_weight=args.kd_weight,
                        mix=args.mix, warmup_steps=args.distill_warmup)
     session = Session(
-        args.arch, full=args.full, shape=args.shape, strategy=args.strategy,
-        learning_rate=args.lr, seed=args.seed, device=args.device,
-        hooks=LoopHooks(log_every=1), **options)
+        args.arch, full=args.full, shape=args.shape, mesh=mesh,
+        strategy=args.strategy, learning_rate=args.lr, seed=args.seed,
+        device=args.device, hooks=LoopHooks(log_every=1 if fl else 10),
+        **options)
     out = session.run(args.steps, metrics=args.metrics)
     last = out["history"][-1]
     print(f"[train] done: {last}")

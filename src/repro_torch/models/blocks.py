@@ -71,7 +71,9 @@ def rope(x, positions, theta: float):
 
 # ------------------------------------------------------------ attention ----
 def init_attention(gen, cfg: ModelConfig, device,
-                   lead: Tuple[int, ...] = ()) -> dict:
+                   lead: Tuple[int, ...] = (), cross: bool = False) -> dict:
+    """Projections of one attention block; ``cross`` (cross-attention)
+    leaves out the QKV bias and the qk-norm scales, as the reference."""
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.dtype
@@ -82,10 +84,10 @@ def init_attention(gen, cfg: ModelConfig, device,
         "wo": _normal(gen, lead + (nq * hd, d), (nq * hd) ** -0.5, dt,
                       device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
             p[name] = torch.zeros(lead + (n * hd,), dtype=dt, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(lead + (hd,), dtype=dt, device=device)
         p["k_norm"] = torch.ones(lead + (hd,), dtype=dt, device=device)
     return p
@@ -167,10 +169,12 @@ def _contiguous_positions(positions) -> bool:
 
 
 def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
-              window: Optional[int] = None,
+              causal: bool = True, window: Optional[int] = None,
+              cross_kv=None, cross_pos=None,
               positions_contiguous: Optional[bool] = None, lora=None,
               lora_scale: float = 1.0):
-    """Causal self-attention, with or without a contiguous KV cache.
+    """Self-attention (causal unless ``causal=False``), with or without a
+    contiguous KV cache, or cross-attention.
 
     With ``cache`` the new K/V rows are written into it in place (see
     :func:`update_kv_cache`) and :func:`dense_mha` runs over the whole
@@ -181,6 +185,10 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
     ``attn_block_q/k``), which runs the kernels on the card and their
     plain versions on the CPU. Anything else takes :func:`dense_mha` on
     the CPU and raises on the card.
+    ``cross_kv`` = (k, v) [B, Hkv, Skv, D] at key positions ``cross_pos``
+    makes it cross-attention: the queries get no rope, and
+    :func:`dense_mha` runs on every device, as the reference never hands
+    cross-attention to its kernel.
     ``positions_contiguous`` vouches for the layout (None checks the
     values); ``rot`` passes precomputed :func:`rope_tables` for
     ``positions``. ``lora``: optional factor subtree of this block's
@@ -190,25 +198,38 @@ def attention(p, x, cfg: ModelConfig, *, positions, cache=None, rot=None,
     b, s, _ = x.shape
     nq, hd = cfg.num_heads, cfg.hd
     scale = hd ** -0.5
+    q_pos = positions if positions.dim() == 1 else positions[0]
+    if cross_kv is not None:
+        q = _adapted_matmul(p, "wq", x, lora, lora_scale)
+        if "bq" in p:
+            q = q + p["bq"]
+        q = _split_heads(q, nq, hd)
+        if "q_norm" in p:
+            q = _head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k, v = cross_kv
+        o = dense_mha(q, k, v, scale=scale, q_pos=q_pos, kv_pos=cross_pos,
+                      causal=causal, window=window)
+        o = o.transpose(1, 2).reshape(b, s, nq * hd)
+        return _adapted_matmul(p, "wo", o, lora, lora_scale).to(x.dtype), \
+            cache
     if rot is None:
         rot = rope_tables(positions, hd, cfg.rope_theta)
     q, k, v = qkv(p, x, cfg, rot, lora, lora_scale)
-    q_pos = positions if positions.dim() == 1 else positions[0]
     if cache is not None:
         k, v, kv_pos, cache = update_kv_cache(cache, k, v, positions)
         o = dense_mha(q, k, v, scale=scale, q_pos=q_pos, kv_pos=kv_pos,
-                      causal=True, window=window)
+                      causal=causal, window=window)
     else:
         if positions_contiguous is None:
             positions_contiguous = _contiguous_positions(positions)
         if positions_contiguous and hd in ops.HEAD_DIMS:
             o = ops.flash_attention_ad(
-                q.contiguous(), k.contiguous(), v.contiguous(), scale, True,
-                window, k.shape[2] - s, block_q=cfg.attn_block_q,
+                q.contiguous(), k.contiguous(), v.contiguous(), scale,
+                causal, window, k.shape[2] - s, block_q=cfg.attn_block_q,
                 block_k=cfg.attn_block_k)
         elif x.device.type == "cpu":
             o = dense_mha(q, k, v, scale=scale, q_pos=q_pos, kv_pos=q_pos,
-                          causal=True, window=window)
+                          causal=causal, window=window)
         else:
             raise NotImplementedError(
                 f"cache-free attention on {x.device} runs the flash "

@@ -1,6 +1,6 @@
-"""Uniform model interface (port of ``repro/models/registry.py``, dense and
-ssm families): ``build_model(cfg)`` returns a :class:`Model` whose
-members are plain functions, as the reference's.
+"""Uniform model interface (port of ``repro/models/registry.py``, dense,
+ssm and vision families): ``build_model(cfg)`` returns a :class:`Model`
+whose members are plain functions, as the reference's.
 
 The dense ``loss`` is the reference's ``_build_lm`` loss — the decoder's
 final hidden states into the chunked cross-entropy, never materializing
@@ -8,7 +8,10 @@ the [B, S, V] logits; its ``prefill``/``decode_step`` run the
 contiguous-cache forward (plain attention over the cache, as the
 reference runs XLA there). The ssm family is the xLSTM: ``prefill`` runs
 the mLSTM's chunkwise kernel, ``decode_step`` the cells' one-token steps;
-its training waits for a later slice.
+its training waits for a later slice. The vision family is FLAD's vision
+encoder (:mod:`repro_torch.models.vision_encoder`): its ``loss`` trains
+it; it has no decode path, and ``prefill``/``decode_step`` raise, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import lm, xlstm
+from repro_torch.models import lm, vision_encoder, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +101,23 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
     return Model(cfg, init, loss, init_state, prefill, decode_step)
 
 
-FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm}
+# ------------------------------------------------------------- vision ----
+def _build_vision(cfg: ModelConfig) -> Model:
+    def init(seed: int = 0, device="cuda"):
+        return vision_encoder.init(cfg, seed=seed, device=device)
+
+    def loss(params, batch, *, remat=True, window=None):
+        return vision_encoder.loss_fn(params, cfg, batch)
+
+    def unsupported(*a, **k):
+        raise NotImplementedError("vision encoder has no decode path")
+
+    return Model(cfg, init, loss, lambda *a, **k: {}, unsupported,
+                 unsupported)
+
+
+FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm,
+            "vision": _build_vision}
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,8 +1,9 @@
-"""Host-side FL loop (port of ``repro/train/loop.py``: ``LoopHooks`` and
-``fl_loop``).
+"""Host-side training loops (port of ``repro/train/loop.py``:
+``LoopHooks``, ``train_loop`` and ``fl_loop``).
 
-``fl_loop`` drives FL rounds over client-stacked state; ``LoopHooks``
-holds the loop's side effects. History entries keep scalar metrics as
+``train_loop`` drives any (params, opt, batch) -> (params, opt, metrics)
+step; ``fl_loop`` drives FL rounds over client-stacked state;
+``LoopHooks`` holds the loops' side effects. History entries keep scalar metrics as
 floats and per-client metrics whole under a ``per_client/`` prefix.
 Edge backups, checkpoints, live repartitioning and tracing come with
 later slices of the port: their hooks raise if they are set.
@@ -72,6 +73,30 @@ class LoopHooks:
 
     def should_log(self, i: int) -> bool:
         return (i + 1) % self.log_every == 0 or i == 0
+
+
+def train_loop(step_fn: Callable, params, opt_state, batch_iter, *,
+               steps: int, hooks: Optional[LoopHooks] = None) -> Dict:
+    """``steps`` steps of ``step_fn`` over batches from ``batch_iter``; the
+    default cadence logs the first step and every tenth."""
+    hooks = hooks or LoopHooks()
+    hooks.check_ported()
+    hist = []
+    t0 = time.time()
+    for i in range(steps):
+        batch = next(batch_iter)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if hooks.should_log(i):
+            m, per_client = _split_metrics(metrics)
+            if hooks.metrics is not None:
+                hooks.metrics.publish_scalars(m)
+            hist.append(dict(m, **per_client, step=i + 1,
+                             t_wall_s=time.time() - t0))
+            rate = (i + 1) / (time.time() - t0)
+            hooks.log_fn(f"[train] step {i+1:5d} "
+                         + _fmt_metrics(m, per_client)
+                         + f" ({rate:.2f} it/s)")
+    return {"params": params, "opt_state": opt_state, "history": hist}
 
 
 def fl_loop(fl_round: Callable, client_params, client_opt,

@@ -418,7 +418,8 @@ def test_session_distill_fl_matches_reference(reference, monkeypatch):
 
 
 def test_launcher_distill_fl_on_cpu(capsys):
-    out = launch.main(["--strategy", "distill_fl", "--topology", TOPO,
+    out = launch.main(["--arch", "flad-adllm", "--strategy", "distill_fl",
+                       "--topology", TOPO,
                        "--codec", "int8", "--local-steps", "2", "--steps",
                        "2", "--shape", "16x8", "--distill-warmup", "2",
                        "--device", "cpu"])

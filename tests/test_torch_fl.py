@@ -234,8 +234,9 @@ def test_topology_and_aggregation_match_reference():
 
 
 def test_strategy_registry():
-    assert available_strategies() == ("distill_fl", "fedavg", "hier_fl")
-    for name in ("pipeline", "async_hier_fl", "fl_pipeline"):
+    assert available_strategies() == ("distill_fl", "fedavg", "fl_pipeline",
+                                      "hier_fl", "pipeline", "tensor")
+    for name in ("swift_pipeline", "async_hier_fl"):
         with pytest.raises(NotImplementedError, match="later slice"):
             get_strategy(name)
     with pytest.raises(ValueError, match="unknown strategy"):
@@ -244,13 +245,14 @@ def test_strategy_registry():
         get_strategy("hier_fl", async_deadline=1.0)
     s = get_strategy("hier_fl", topology=TOPO, codec="int8",
                      async_decay=0.5)
-    stats = s._round_stats(Session(device="cpu").cfg)
+    hier = dict(arch="flad-adllm", strategy="hier_fl", device="cpu")
+    stats = s._round_stats(Session(**hier).cfg)
     assert stats["staleness"].shape == (2,)
     assert (stats["staleness"] > 0).all() and (stats["staleness"] <= 1).all()
     with pytest.raises(NotImplementedError, match="later slice"):
-        Session(device="cpu", hooks=LoopHooks(backup=object())).run(1)
+        Session(**hier, hooks=LoopHooks(backup=object())).run(1)
     with pytest.raises(NotImplementedError, match="observability"):
-        Session(device="cpu").run(1, trace="t.json")
+        Session(**hier).run(1, trace="t.json")
 
 
 def _quiet(hooks_cls):
@@ -260,7 +262,7 @@ def _quiet(hooks_cls):
 def test_identity_codec_round_is_flat_fedavg():
     """With the lossless codec and uniform weights the fabric round is
     the flat FedAvg round (port only, no JAX)."""
-    kw = dict(shape="32x2", local_steps=2, device="cpu")
+    kw = dict(arch="flad-adllm", shape="32x2", local_steps=2, device="cpu")
     hier = Session(strategy="hier_fl", topology=TOPO, codec="none", **kw)
     flat = Session(strategy="fedavg", clients=C, **kw)
     seen = []

@@ -55,6 +55,8 @@ def test_importing_the_port_loads_neither():
             "repro_torch.bridge, repro_torch.kernels.build, "
             "repro_torch.api, repro_torch.launch.train, repro_torch.comm, "
             "repro_torch.core.steps, repro_torch.core.fedavg, "
+            "repro_torch.core.pipeline, repro_torch.core.fhdp, "
+            "repro_torch.api.mesh, repro_torch.models.vision_encoder, "
             "repro_torch.train.loop, repro_torch.models.registry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -89,5 +91,6 @@ def test_training_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
     args = build_parser().parse_args([])
-    assert args.device == "cuda" and args.strategy == "hier_fl"
-    assert args.arch == "flad-adllm"
+    # the reference's launcher defaults: FHDP on flad-vision, mesh 2,4
+    assert args.device == "cuda" and args.strategy == "pipeline"
+    assert args.arch == "flad-vision" and args.mesh == "2,4"

@@ -110,7 +110,8 @@ def test_session_serve_argument_checks(distilled):
         ses.serve(scheduler="continuous", draft_pod=0, log_fn=None)
     with pytest.raises(ValueError, match="out of range"):
         ses.serve(pod=5, **SERVE)
-    tensor = Session("flad-adllm", device="cpu")    # hier_fl: no pod view
+    tensor = Session("flad-adllm", strategy="hier_fl",
+                     device="cpu")                  # hier_fl: no pod view
     with pytest.raises(ValueError, match="per-pod"):
         tensor.serve(pod=0, **SERVE)
     with pytest.raises(ValueError, match="draft"):

@@ -159,7 +159,8 @@ def test_attention_gate_raises_off_the_cpu():
 
 def test_train_launcher_runs_on_cpu(capsys):
     from repro_torch.launch import train as launch
-    out = launch.main(["--device", "cpu", "--steps", "2", "--local-steps",
+    out = launch.main(["--arch", "flad-adllm", "--strategy", "hier_fl",
+                       "--device", "cpu", "--steps", "2", "--local-steps",
                        "1", "--shape", "32x2", "--codec", "int8"])
     last = out["history"][-1]
     assert last["round"] == 2

@@ -221,7 +221,7 @@ def test_launcher_serves_legacy_on_cpu(arch):
 
 
 def test_later_parts_of_serving_raise():
-    session = Session("xlstm-350m", device="cpu")
+    session = Session("xlstm-350m", strategy="hier_fl", device="cpu")
     with pytest.raises(NotImplementedError, match="observability"):
         session.serve(trace="t.json")
     # per-pod and speculative serving are ported; here they refuse as the
