@@ -7,12 +7,13 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the nineteen hand-written kernel libraries from
+  2. builds the twenty-one hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the six tensor-core libraries'
-     (flash forward, dK/dV, dQ; LoRA matmul; paged prefill; chunkwise
-     mLSTM) SASS holds HGMMA (wgmma) instructions and prints their
-     registers, spills and shared memory;
+     prints the build time; checks that the eight tensor-core libraries'
+     (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward and
+     dK/dV; LoRA matmul; paged prefill; chunkwise mLSTM) SASS holds HGMMA
+     (wgmma) instructions and prints their registers, spills and shared
+     memory;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
@@ -30,10 +31,13 @@ In order, it
      replaced), the flash-attention forward and its three backward
      kernels at the training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in
      bf16 (the forward, dK/dV and dQ on their tensor-core kernels) and
-     float32 (all four on the SIMT kernels) with ragged, offset and
-     windowed cases and the distillation path's 1032 rows, and in
-     float32 at the FHDP step's shape (non-causal, B 2, Hq = Hkv 12, S
-     256, D 64, beside float32 SDPA), the
+     float32 (the forward and dK/dV on their 3xTF32 wgmma kernels, timed
+     in turns beside the SIMT kernels they replaced; dQ on its SIMT
+     kernel) with ragged, offset and windowed cases and the distillation
+     path's 1032 rows, and in float32 at the FHDP step's shape
+     (non-causal, B 2, Hq = Hkv 12, S 256, D 64, beside float32 SDPA and
+     the replaced SIMT kernels, with bounds on the CUDA cores and at
+     3xTF32), the
      backward's preprocess on its 16-byte-load kernel row by row at
      every (dtype, D) with ragged and grid-stride row counts, timed in
      turns beside the one-warp-a-row kernel it replaced and torch.bmm
@@ -92,7 +96,8 @@ In order, it
      (2, 4) mesh (2 FL columns x 4 stages, all on the card), 16 samples
      a step, lr 1e-3: 8 steps on one batch (the reference's descent
      check), the first loss held to the flat model's, the exact flash
-     launches (float32, all on the SIMT route; the preprocess on vec);
+     launches (float32: the forward and dK/dV on the 3xTF32 route, dQ on
+     SIMT, the preprocess on vec);
      the same Session from the reference trajectory's start (the port's
      CPU init, numpy batches), 4 steps on fresh batches and 8 on one,
      each loss against the reference's full-width CPU run; one step
@@ -203,6 +208,19 @@ TC_KERNELS = {
     "lora_matmul": ("lora_matmul_tc", "lora_matmul_tc_smem", (8,),
                     "lora_wgmma_kernel", "lora_mma_kernel"),
 }
+# the flash wrappers' float32 route at head_dim 64 (route tf32x3: 3xTF32
+# wgmma, every float32 path's forward and dK/dV): (library, its
+# shared-memory query, profiler name); TC_KERNELS' last names are the
+# SIMT kernels the other float32 launches (dQ, head_dims 32 and 128) take
+TF32_KERNELS = {
+    "flash_attention": ("flash_fwd_tf32", "flash_attention_fwd_tf32_smem",
+                        "flash_fwd_tf32_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_tf32",
+                                "flash_attention_bwd_dkv_tf32_smem",
+                                "flash_bwd_dkv_tf32_kernel"),
+}
+TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3   # three tf32 passes a product
 # the paged wrappers' Hopper libraries: (stem, profiler name, runs wgmma)
 PAGED_LIBS = {"paged_decode_attention": ("paged_decode_tma",
                                          "paged_decode_tma_kernel", False),
@@ -311,7 +329,6 @@ VERIFY_WIN = [0, 5, 5, 5, 3, 5, 1, 5]
 VERIFY_RTOL_F32 = 1e-5
 SPEC_LIBRARY_NOTE = ("no single PyTorch call attends every lane's draft "
                      "window through its block table")
-TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 # tf32 passes of the wgmma mLSTM's products: 3xTF32 for float32 inputs;
 # bf16 inputs are exact in tf32, so their products need two (S one)
 MLSTM_TC_PASSES = {"float32": 3, "bfloat16": 2}
@@ -366,10 +383,17 @@ VISION_LOSS_RTOL = 1e-5          # pipelined vs flat model, float32
 VISION_MOMENT_RTOL = 1e-5
 VISION_NEAR_EPS = 1e-6
 VISION_PARAM_ATOL = 1e-5
-SIMT_NAMES = {"flash_attention": "flash_fwd_kernel",
-              "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
-              "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
-              PRE: PRE_NAMES["vec"]}
+# the FHDP step's float32 flash launches: each wrapper's route and its
+# kernel's profiler name (the forward and dK/dV on 3xTF32 wgmma, dQ on
+# the SIMT kernel, the preprocess on its vec kernel)
+VISION_ROUTES = {"flash_attention": "tf32x3",
+                 "flash_attention_bwd_dkv": "tf32x3",
+                 "flash_attention_bwd_dq": "simt", PRE: "vec"}
+VISION_NAMES = {"flash_attention": TF32_KERNELS["flash_attention"][2],
+                "flash_attention_bwd_dkv":
+                    TF32_KERNELS["flash_attention_bwd_dkv"][2],
+                "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                PRE: PRE_NAMES["vec"]}
 
 
 def check(cond, msg):
@@ -476,6 +500,18 @@ def timings(kernel_fn, plain_fn, match):
             call)
 
 
+def in_turns(new_fn, old_fn, new_match, old_match):
+    """(new ms, old ms): two kernels on the same inputs timed by device_ms
+    (cold L2) in turns, new, old, old, new, each the mean of its two
+    runs, so that a drift of the card's clock during the four falls on
+    both alike."""
+    new = device_ms(new_fn, new_match)
+    old = device_ms(old_fn, old_match)
+    old = (old + device_ms(old_fn, old_match)) / 2
+    new = (new + device_ms(new_fn, new_match)) / 2
+    return new, old
+
+
 def bound(nbytes, flops, flops_rate):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_rate * 1e3
@@ -525,7 +561,7 @@ def flash_split(rows):
     (ms, count, name), by profiler name."""
     names = [TC_KERNELS[n][3] for n in FLASH_NAMES if n in TC_KERNELS] + [
         f"{stem}_kernel" for stem in FLASH_NAMES.values()] + [
-        PRE_NAMES["vec"]]
+        t[2] for t in TF32_KERNELS.values()] + [PRE_NAMES["vec"]]
     split = {n: sum(r[0] for r in rows if n in r[2]) for n in names}
     split = {n: t for n, t in split.items() if t > 0}
     return sum(split.values()), split
@@ -1319,9 +1355,11 @@ def flash_checks(torch, dev):
     """The flash forward and the three backward kernels against their
     plain versions (bf16 and float32; causal, ragged, offset, window, the
     distillation path's 1032 rows), the backward bitwise equal across two
-    runs, every bf16 forward, dK/dV and dQ launch on the tensor-core route
-    and every float32 one on the SIMT route; timings at the causal training
-    shape. Returns the kernels' JSON rows (bf16, the main path's dtype,
+    runs, every bf16 forward, dK/dV and dQ launch on the tensor-core route,
+    every float32 forward and dK/dV launch on the 3xTF32 route and every
+    float32 dQ on the SIMT route; timings at the causal training shape (the
+    float32 forward and dK/dV beside the SIMT kernels they replaced, in
+    turns). Returns the kernels' JSON rows (bf16, the main path's dtype,
     with the float32 kernels' times beside)."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
@@ -1376,13 +1414,13 @@ def flash_checks(torch, dev):
             del o, lse, ro, rlse, rdk, rdv, rdq, again
         # one forward and two dK/dV and dQ launches a case (the direct
         # call and flash_attention_bwd's), all on this dtype's route
-        route = "wgmma" if dtype == torch.bfloat16 else "simt"
         grew = {fn: {r: n - routes0[fn][r] for r, n in c.items()}
                 for fn, c in ops.route_counts().items()}
         want = {fn: dict.fromkeys(c, 0) for fn, c in grew.items()}
-        want["flash_attention"][route] = len(FLASH_CASES)
-        want["flash_attention_bwd_dkv"][route] = 2 * len(FLASH_CASES)
-        want["flash_attention_bwd_dq"][route] = 2 * len(FLASH_CASES)
+        for fn, kind, n in (("flash_attention", "fwd", 1),
+                            ("flash_attention_bwd_dkv", "dkv", 2),
+                            ("flash_attention_bwd_dq", "dq", 2)):
+            want[fn][ops.flash_route(kind, dtype, D)] = n * len(FLASH_CASES)
         # and two preprocess launches, both on its vec kernel
         want[PRE]["vec"] = 2 * len(FLASH_CASES)
         check(grew == want, f"flash {name}: launches by route {grew} != "
@@ -1408,6 +1446,8 @@ def flash_checks(torch, dev):
         for n in FLASH_NAMES:
             if n in TC_KERNELS:
                 match[n] = TC_KERNELS[n][3 if esz == 2 else 4]
+            if esz == 4 and n in TF32_KERNELS:
+                match[n] = TF32_KERNELS[n][2]
         runs = {
             "flash_attention": (
                 lambda: ops.flash_attention(q, k, v, return_lse=True),
@@ -1435,19 +1475,33 @@ def flash_checks(torch, dev):
             "flash_attention_bwd_dq": ((3 * nq + 2 * nkv) * esz + 8 * stat,
                                        6 * D * pairs),
         }
+        old = {   # float32: the SIMT kernels the 3xTF32 ones replaced
+            "flash_attention": lambda: ops._flash_fwd_card(
+                q, k, v, scale=sc, causal=True, window=None, q_offset=0,
+                return_lse=True, route="simt"),
+            "flash_attention_bwd_dkv": lambda: ops._flash_dkv_card(
+                q, k, v, do, lse, delta, scale=sc, causal=True, window=None,
+                q_offset=0, route="simt")}
         for name, (kfn, pfn, lib) in runs.items():
             ms, plain, call = timings(kfn, pfn, match[name])
             b_ms, b_by = bound(*work[name], rate)
+            simt = ""
+            if esz == 4 and name in TF32_KERNELS:
+                ms, simt_ms = in_turns(kfn, old[name], match[name],
+                                       TC_KERNELS[name][4])
+                simt = f" (the SIMT kernel it replaced {simt_ms:.5f} ms)"
             print(f"[kernel] {name} {'bf16' if esz == 2 else 'f32'} causal "
                   f"B{B} Hq{HQ} Hkv{HKV} S{S} D{D} ({match[name]}): "
-                  f"device: kernel {ms:.5f} ms ({work[name][1] / ms / 1e9:.1f}"
-                  f" TFLOP/s of needed work), plain {plain:.5f} ms, library "
+                  f"device: kernel {ms:.5f} ms{simt} ("
+                  f"{work[name][1] / ms / 1e9:.1f} TFLOP/s of needed work), "
+                  f"plain {plain:.5f} ms, library "
                   f"{lib if lib is None else round(lib, 5)} ms; bound "
                   f"{b_ms:.5f} ms ({b_by}); host clock per call "
                   f"{call:.5f} ms")
             src = f"src/repro_torch/kernels/csrc/{match[name][:-7]}.cu"
             if esz == 4:
-                f32_ms[name] = (ms, plain, lib, b_ms, src)
+                f32_ms[name] = (ms, plain, lib, b_ms, src,
+                                simt_ms if simt else None)
                 continue
             key = {"flash_attention": "fwd",
                    "flash_attention_bwd_dkv": "dkv",
@@ -1468,7 +1522,7 @@ def flash_checks(torch, dev):
                              "work)"),
                 f32_ms=f32_ms[name][0], f32_plain_ms=f32_ms[name][1],
                 f32_library_ms=f32_ms[name][2], f32_bound_ms=f32_ms[name][3],
-                f32_source=f32_ms[name][4])
+                f32_source=f32_ms[name][4], f32_simt_ms=f32_ms[name][5])
         del q, k, v, do, o, lse, delta, ql, kl, vl, lo
     # the preprocess is timed in preprocess_checks; its largest error here
     rows[PRE] = dict(max_abs_err=errs["pre"])
@@ -1651,6 +1705,21 @@ def tc_report():
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread "
               f"at launch, spill stores + loads {spills or 'not rebuilt'} "
               f"bytes; {smem} bytes of dynamic shared memory a CTA")
+    for name, (stem, smem_fn, kname) in TF32_KERNELS.items():
+        hgmma, regs, spills = _lib_report(stem)
+        check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
+        rep = build.build_report[stem]
+        smem = getattr(ctypes.CDLL(rep["path"]), smem_fn)()
+        serial = rep["log"].count("serialized")
+        out[f"{name}/tf32x3"] = dict(hgmma=hgmma, registers=regs,
+                                     spill_bytes=spills,
+                                     dynamic_smem_bytes=smem,
+                                     serialized_wgmma=serial)
+        print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA instructions in "
+              f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
+              f"spill stores + loads {spills or 'not rebuilt'} bytes; "
+              f"{smem} bytes of dynamic shared memory a CTA; serialized "
+              f"wgmma warnings {serial}")
     for name, (stem, kname, wgmma) in PAGED_LIBS.items():
         if stem not in build.build_report:
             continue
@@ -2446,12 +2515,16 @@ def vision_flash_checks(torch, dev):
     """The four flash kernels at the FHDP step's attention shape (float32,
     non-causal, B 2, Hq = Hkv 12, S 256, D 64): each against its plain
     version (the forward's o and lse, delta, dK, dV, dQ; float32
-    tolerances as flash_checks), every launch on the float32 SIMT route
-    (the preprocess on its vec kernel); then each timed (cold L2) beside
-    its plain version, its bound and scaled_dot_product_attention in
-    float32 (forward; the whole backward; the preprocess against one
-    torch.bmm, as preprocess_checks). Returns per-kernel JSON keys
-    ``vision_f32_*``."""
+    tolerances as flash_checks), every launch on its route
+    (``VISION_ROUTES``: the forward and dK/dV on 3xTF32 wgmma, dQ on SIMT,
+    the preprocess on its vec kernel), the replaced SIMT forward and dK/dV
+    against their plain versions too; then each timed (cold L2) beside its
+    plain version, its bounds (float32 on the CUDA cores; for the 3xTF32
+    kernels also three tf32 passes on the tensor cores) and
+    scaled_dot_product_attention in float32 (forward; the whole backward;
+    the preprocess against one torch.bmm, as preprocess_checks), the
+    3xTF32 forward and dK/dV in turns with the SIMT kernels they replaced.
+    Returns per-kernel JSON keys ``vision_f32_*``."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(21)
@@ -2459,11 +2532,18 @@ def vision_flash_checks(torch, dev):
                    for _ in range(4))
     sc = D ** -0.5
     kw = dict(causal=False)
+    card = dict(scale=sc, causal=False, window=None, q_offset=0)
     routes0 = ops.route_counts()
     o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     delta = ops.flash_attention_bwd_preprocess(o, do)
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    grew = {fn: {r: n - routes0[fn][r] for r, n in c.items()}
+            for fn, c in ops.route_counts().items() if fn in VISION_ROUTES}
+    so, slse = ops._flash_fwd_card(q, k, v, return_lse=True, route="simt",
+                                   **card)
+    sdk, sdv = ops._flash_dkv_card(q, k, v, do, lse, delta, route="simt",
+                                   **card)
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=sc, **kw)
@@ -2471,26 +2551,33 @@ def vision_flash_checks(torch, dev):
                                          **kw)
     rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
     torch.cuda.synchronize()
-    errs = {}
+    errs, simt_errs = {}, {}
     for name, label, got, want, tol in (
             ("flash_attention", "o", o, ro, FLASH_ATOL_F32),
             ("flash_attention", "lse", lse, rlse, FLASH_ATOL_F32),
             (PRE, "delta", delta, rdelta, FLASH_ATOL_F32),
             ("flash_attention_bwd_dkv", "dk", dk, rdk, FLASH_GRAD_ATOL_F32),
             ("flash_attention_bwd_dkv", "dv", dv, rdv, FLASH_GRAD_ATOL_F32),
-            ("flash_attention_bwd_dq", "dq", dq, rdq, FLASH_GRAD_ATOL_F32)):
+            ("flash_attention_bwd_dq", "dq", dq, rdq, FLASH_GRAD_ATOL_F32),
+            ("simt flash_attention", "o", so, ro, FLASH_ATOL_F32),
+            ("simt flash_attention", "lse", slse, rlse, FLASH_ATOL_F32),
+            ("simt flash_attention_bwd_dkv", "dk", sdk, rdk,
+             FLASH_GRAD_ATOL_F32),
+            ("simt flash_attention_bwd_dkv", "dv", sdv, rdv,
+             FLASH_GRAD_ATOL_F32)):
         err = _err(got, want)
         check(bool(torch.isfinite(got).all()) and err <= tol,
-              f"flash f32 vision {label}: max err {err:.3e} > {tol:.3e}")
-        errs[name] = max(errs.get(name, 0.0), err)
-    grew = {fn: {r: n - routes0[fn][r] for r, n in c.items()}
-            for fn, c in ops.route_counts().items() if fn in SIMT_NAMES}
+              f"flash f32 vision {name} {label}: max err {err:.3e} > "
+              f"{tol:.3e}")
+        into = simt_errs if name.startswith("simt ") else errs
+        key = name.removeprefix("simt ")
+        into[key] = max(into.get(key, 0.0), err)
     want = {fn: {r: 0 for r in c} for fn, c in grew.items()}
-    for fn in ("flash_attention", "flash_attention_bwd_dkv",
-               "flash_attention_bwd_dq"):
-        want[fn]["simt"] = 1
-    want[PRE]["vec"] = 1
+    for fn, route in VISION_ROUTES.items():
+        want[fn][route] = 1
     check(grew == want, f"flash f32 vision: launches by route {grew}")
+    print(f"[kernel] flash f32 vision: launches by route {grew}; max err "
+          f"vs plain {errs}; the replaced SIMT kernels' {simt_errs}")
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl)
     lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
@@ -2523,14 +2610,32 @@ def vision_flash_checks(torch, dev):
                                                    scale=sc, **kw),
             lib_bwd, 4 * (5 * nq + 2 * stat), 6 * D * pairs),
     }
+    old = {   # the SIMT kernels the 3xTF32 ones replaced, same inputs
+        "flash_attention": lambda: ops._flash_fwd_card(
+            q, k, v, return_lse=True, route="simt", **card),
+        "flash_attention_bwd_dkv": lambda: ops._flash_dkv_card(
+            q, k, v, do, lse, delta, route="simt", **card)}
     rows = {}
     for name, (kfn, pfn, lib, nbytes, ops_) in runs.items():
-        ms, plain, call = timings(kfn, pfn, SIMT_NAMES[name])
+        ms, plain, call = timings(kfn, pfn, VISION_NAMES[name])
         b_ms, b_by = bound(nbytes, ops_, F32_FLOPS_PER_S)
+        extra, note = {}, ""
+        if name in TF32_KERNELS:
+            ms, simt_ms = in_turns(kfn, old[name], VISION_NAMES[name],
+                                   TC_KERNELS[name][4])
+            t_ms, t_by = bound(nbytes, ops_, TF32X3_FLOPS_PER_S)
+            extra = {"vision_f32_simt_ms": simt_ms,
+                     "vision_f32_simt_max_abs_err": simt_errs[name],
+                     "vision_f32_bound_tf32x3_ms": t_ms,
+                     "vision_f32_bound_tf32x3_by": t_by,
+                     "vision_f32_route": "tf32x3"}
+            note = (f" (the SIMT kernel it replaced {simt_ms:.5f} ms, in "
+                    f"turns); bound at 3xTF32 {t_ms:.5f} ms ({t_by}, "
+                    f"{100 * t_ms / ms:.1f}% of it)")
         print(f"[kernel] {name} f32 vision (B{VMB} Hq{VH} Hkv{VH} S{VS} D{D},"
-              f" non-causal; {SIMT_NAMES[name]}): device: kernel {ms:.5f} "
-              f"ms ({ops_ / ms / 1e9:.2f} TFLOP/s), plain {plain:.5f} ms, "
-              f"library {lib:.5f} ms; bound "
+              f" non-causal; {VISION_NAMES[name]}): device: kernel {ms:.5f} "
+              f"ms ({ops_ / ms / 1e9:.2f} TFLOP/s){note}, plain {plain:.5f} "
+              f"ms, library {lib:.5f} ms; bound on the CUDA cores "
               f"{b_ms:.5f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it); host "
               f"clock per call {call:.5f} ms")
         rows[name] = {"vision_f32_ms": ms, "vision_f32_plain_ms": plain,
@@ -2538,8 +2643,10 @@ def vision_flash_checks(torch, dev):
                       "vision_f32_bound_ms": b_ms,
                       "vision_f32_bound_by": b_by,
                       "vision_f32_max_abs_err": errs[name],
+                      "vision_f32_route": VISION_ROUTES[name],
                       "vision_f32_shape": f"B {VMB}, Hq = Hkv {VH}, S {VS}, "
-                                          f"D {D}, float32, non-causal"}
+                                          f"D {D}, float32, non-causal",
+                      **extra}
     rows["flash_attention"]["vision_f32_library_call"] = (
         "F.scaled_dot_product_attention, float32, non-causal, forward")
     rows[PRE]["vision_f32_library_call"] = (
@@ -2567,8 +2674,8 @@ def _check_vision_launches(ops, counts, want, path):
     check(counts == full, f"{path}: launches {counts} != {full}")
     routes = ops.route_counts()
     for fn, n in want.items():
-        fast = "vec" if fn == PRE else "simt"
-        check(routes[fn] == {**{r: 0 for r in routes[fn]}, fast: n},
+        route = VISION_ROUTES[fn]
+        check(routes[fn] == {**{r: 0 for r in routes[fn]}, route: n},
               f"{path}: {fn} launches by route {routes[fn]}")
     return {fn: dict(routes[fn]) for fn in want}
 
@@ -2663,7 +2770,7 @@ def profile_vision_step(torch, step, state, batch, steps=3):
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in rows)
     split = {n: sum(r[0] for r in rows if n in r[2])
-             for n in SIMT_NAMES.values()}
+             for n in VISION_NAMES.values()}
     flash = sum(split.values())
     bs = VISION_GEOMETRY[0] * VISION_GEOMETRY[1] * VISION_GEOMETRY[2]
     print(f"[profile] FHDP step, flad-vision full width, {bs} samples on a "
@@ -2740,8 +2847,9 @@ def vision_main_path(torch, dev):
     pipelined steps on one batch, a (2, 4) mesh), then the same Session
     from the reference trajectory's start on its fresh and repeated
     batches, then one fl_pipeline round of 2 local steps. Checks the
-    first loss against the flat model's, the exact flash launches (all
-    float32 on the SIMT route; the preprocess on vec), the losses
+    first loss against the flat model's, the exact flash launches (the
+    float32 forward and dK/dV on tf32x3, dQ on simt, the preprocess on
+    vec: ``VISION_ROUTES``), the losses
     against the reference's, one step through the kernels against plain
     attention and the round's merged params' shapes; reports whether the
     8 steps descended."""
@@ -3731,7 +3839,8 @@ def main():
     for name, extra in vision_flash_checks(torch, dev).items():
         kernels[name].update(extra)
     check(all(kernels[n]["vision_f32_library_ms"] is not None
-              for n in SIMT_NAMES), "a flash row lacks its FHDP-shape times")
+              for n in VISION_NAMES), "a flash row lacks its FHDP-shape "
+          "times")
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
     kernels["lora_matmul"] = lora_checks(torch, dev)
     kernels["mlstm_chunked"] = mlstm_checks(torch, dev)
@@ -3828,6 +3937,8 @@ def main():
                 r: train_routes[name][r] + distill_routes[name][r]
                 + vision_routes.get(name, {}).get(r, 0)
                 for r in train_routes[name]}, "build": tc[name]}
+        if name in TF32_KERNELS:
+            extra["build_tf32x3"] = tc[f"{name}/tf32x3"]
         if name in PAGED_LIBS:
             extra = {"launches_by_route": {
                 r: serve_routes[name][r] + spec_routes[name][r]

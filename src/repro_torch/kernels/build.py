@@ -48,6 +48,8 @@ SIGNATURES = {
                   [_I] + [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_fwd_tc": ("flash_attention_fwd_tc",
                      [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_fwd_tf32": ("flash_attention_fwd_tf32",
+                       [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_preprocess": ("flash_attention_bwd_preprocess",
                              [_I] + [_P] * 3 + [_I, _I, _P]),
     "flash_bwd_preprocess_vec": ("flash_attention_bwd_preprocess_vec",
@@ -56,6 +58,8 @@ SIGNATURES = {
                       [_I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dkv_tc": ("flash_attention_bwd_dkv_tc",
                          [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_bwd_dkv_tf32": ("flash_attention_bwd_dkv_tf32",
+                           [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq": ("flash_attention_bwd_dq",
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq_tc": ("flash_attention_bwd_dq_tc",

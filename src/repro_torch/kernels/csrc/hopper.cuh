@@ -1,7 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu, flash_bwd_dq_tc.cu,
-// lora_matmul_tc.cu): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors and warpgroup MMAs (wgmma), as PTX.
+// lora_matmul_tc.cu, mlstm_chunked_tc.cu, flash_fwd_tf32.cu,
+// flash_bwd_dkv_tf32.cu): mbarriers, TMA tile loads, cp.async copies,
+// shared-memory matrix descriptors and warpgroup MMAs (wgmma), as PTX; and
+// the 3xTF32 float32 products (the section "3xTF32" below states their
+// own conventions).
 //
 // Conventions, all for bf16 tiles of 64-element (128-byte) rows:
 //   * TMA writes a tile into shared memory with the 128-byte swizzle, so a
@@ -100,6 +103,12 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads') over `threads`
+// threads, a multiple of 32: one warpgroup syncs without the others.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // Make this thread's ordinary shared-memory stores visible to the async
@@ -332,6 +341,244 @@ __device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// -------------------------------------------------------------- cp.async
+// 16 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4 bytes global -> shared, asynchronously; zero when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- 3xTF32
+// Float32 products on the tensor cores. Every float32 operand x splits
+// with round-to-nearest into tf32 parts big = rna(x) and small =
+// rna(x - big) (x - big is exact), and a product is small.big + big.small
+// + big.big, accumulated in float32 by wgmma: the error is at float32's
+// own level, where one tf32 pass is about a thousand times worse. An
+// operand that is exact in tf32 (bf16) has no small part, and its passes
+// are dropped. The tensor cores' float32 accumulation truncates (each
+// wgmma's sum rounds toward zero), so a product issues its small passes
+// first, while the sum is still small, and a long sum (a flash
+// kernel's dK, dV or O over many tiles) is not left in one accumulator:
+// each tile's product starts from zero and is added in float32 on the
+// CUDA cores.
+//
+// Conventions:
+//   * tf32 wgmma reads both shared-memory operands K-major and has no
+//     transpose bit: an operand that a product contracts over its rows is
+//     stored transposed by the pass that splits it;
+//   * an operand tile is [rows][32] floats: 128-byte rows with the
+//     128-byte swizzle (st_chunk), 1024-byte aligned, described with
+//     SBO = 1024 (8 rows) and advanced 32 bytes per 8-deep k step; a K of
+//     64 is two such tiles (tf32_kdesc);
+//   * a register-A fragment of one 8-deep k step (tf32_frag) takes
+//     columns 8 kk .. 8 kk + 7 of a 64 x N accumulator fragment: thread t
+//     of a quad holds columns 2t and 2t + 1 there, which the fragment's
+//     layout puts in k slots t and t + 4. So the B operand that multiplies
+//     an accumulator's values stores its k rows permuted inside each
+//     8-group: slots 0-3 hold rows 0, 2, 4, 6 and slots 4-7 rows 1, 3, 5,
+//     7 (a 16-byte chunk 2g + p of a B row holds rows 8g + p + {0, 2, 4,
+//     6}).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both tf32 (small exact: x - big is exact).
+__device__ __forceinline__ void tf32_split(float x, float& big,
+                                           float& small) {
+  big = __uint_as_float(tf32_rna(x));
+  small = __uint_as_float(tf32_rna(x - big));
+}
+
+__device__ __forceinline__ void tf32_split4(float4 x, float4& big,
+                                            float4& small) {
+  tf32_split(x.x, big.x, small.x);
+  tf32_split(x.y, big.y, small.y);
+  tf32_split(x.z, big.z, small.z);
+  tf32_split(x.w, big.w, small.w);
+}
+
+// The chunk swizzle of row r of a raw float32 tile (rows of 64 floats,
+// as copied): chunk c of row r is kept at chunk c ^ raw_chunk_swz(r). A
+// pass that writes a transposed operand in the permuted k order reads
+// chunk c of rows 8g + p + 2i for eight (g, p) at a time (g < 4, p < 2):
+// the swizzle puts those eight on different bank groups, where rows of
+// 256 bytes would put them all on one.
+__device__ __forceinline__ int raw_chunk_swz(int r) {
+  return ((r >> 3) & 3) | ((r & 1) << 2);
+}
+
+// Store 16-byte chunk c (columns 4c..4c+3) of row `row` of a swizzled
+// operand tile with 128-byte rows.
+__device__ __forceinline__ void st_chunk(void* tile, int row, int c,
+                                         float4 v) {
+  *reinterpret_cast<float4*>(reinterpret_cast<char*>(tile) + row * 128 +
+                             ((c ^ (row & 7)) << 4)) = v;
+}
+
+// D[64 x 32] += A[64 x 8] B[8 x 32], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], A in registers (a tf32 fragment), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Descriptor of k step kk (8 deep) of a K-major operand whose K = 64 is
+// two 32-wide tiles `t0` and `t1`, starting `row` rows in.
+__device__ __forceinline__ uint64_t tf32_kdesc(const void* t0,
+                                               const void* t1, int kk,
+                                               int row) {
+  const char* base = reinterpret_cast<const char*>(kk < 4 ? t0 : t1);
+  return desc_sw128(base + row * 128) + 2 * (kk & 3);
+}
+
+// 3xTF32 (or, with an exact A or B, two or one passes) over a 64-deep
+// contraction: D += A B^T with A [64][64] in tiles (a0, a1 | as0, as1)
+// and B rows [brow, brow + 32) of (b0, b1 | bs0, bs1); the small passes
+// of every k step first, then the big ones. (In the mLSTM, skipping the
+// steps a short chunk or the causal mask leaves zero was measured slower:
+// the branch costs more than the products it saves.)
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void tf32x3_k64_n32(
+    float (&d)[16], const void* a0, const void* a1, const void* as0,
+    const void* as1, const void* b0, const void* b1, const void* bs0,
+    const void* bs1, int brow) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (!kExactA)
+      wgmma_tf32_n32(d, tf32_kdesc(as0, as1, kk, 0),
+                     tf32_kdesc(b0, b1, kk, brow));
+    if (!kExactB)
+      wgmma_tf32_n32(d, tf32_kdesc(a0, a1, kk, 0),
+                     tf32_kdesc(bs0, bs1, kk, brow));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_n32(d, tf32_kdesc(a0, a1, kk, 0),
+                   tf32_kdesc(b0, b1, kk, brow));
+}
+
+// 3xTF32 over a 64-deep contraction, 64 columns: D += A B^T with A and B
+// [64][64] each in tiles (x0, x1 | xs0, xs1), small passes first.
+__device__ __forceinline__ void tf32x3_k64_n64(
+    float (&d)[32], const void* a0, const void* a1, const void* as0,
+    const void* as1, const void* b0, const void* b1, const void* bs0,
+    const void* bs1) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_tf32_n64(d, tf32_kdesc(as0, as1, kk, 0), tf32_kdesc(b0, b1, kk, 0));
+    wgmma_tf32_n64(d, tf32_kdesc(a0, a1, kk, 0), tf32_kdesc(bs0, bs1, kk, 0));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_n64(d, tf32_kdesc(a0, a1, kk, 0), tf32_kdesc(b0, b1, kk, 0));
+}
+
+// The big and small register-A fragments of k step kk (columns 8 kk ..
+// 8 kk + 7) of a 64 x N float32 accumulator fragment x, split on the fly:
+// registers {0, 1, 2, 3} take x[4 kk + {0, 2, 1, 3}] (rows r and r + 8 at
+// column 2t, then at 2t + 1: k slots t and t + 4).
+template <int N>
+__device__ __forceinline__ void tf32_frag(const float (&x)[N], int kk,
+                                          uint32_t (&big)[4],
+                                          uint32_t (&small)[4]) {
+  const int o[4] = {0, 2, 1, 3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float hi, lo;
+    tf32_split(x[4 * kk + o[i]], hi, lo);
+    big[i] = __float_as_uint(hi);
+    small[i] = __float_as_uint(lo);
+  }
+}
+
+// 3xTF32 over K k steps with A in registers: D += A B, A's big and small
+// fragments a k step, B K-major in tiles (b0, b1 | bs0, bs1) (32 deep
+// each; a B of K <= 4 steps passes its one tile twice); small passes
+// first.
+template <int K>
+__device__ __forceinline__ void tf32x3_rs_n64(float (&d)[32],
+                                              const uint32_t (&big)[K][4],
+                                              const uint32_t (&small)[K][4],
+                                              const void* b0, const void* b1,
+                                              const void* bs0,
+                                              const void* bs1) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    wgmma_tf32_rs_n64(d, small[kk], tf32_kdesc(b0, b1, kk, 0));
+    wgmma_tf32_rs_n64(d, big[kk], tf32_kdesc(bs0, bs1, kk, 0));
+  }
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    wgmma_tf32_rs_n64(d, big[kk], tf32_kdesc(b0, b1, kk, 0));
 }
 
 }  // namespace hopper

@@ -24,7 +24,8 @@
 // a thousand times worse). A bf16 operand is exact in tf32, its small part
 // is 0 and its passes are dropped: S = q k^T is one pass for bf16 inputs,
 // C q, P v and the update two. Gates, scans, P = S o D, den and h are
-// float32 on the CUDA cores.
+// float32 on the CUDA cores. The split, the swizzled stores and the tf32
+// wgmmas are hopper.cuh's, shared with the float32 flash kernels.
 //
 // The design:
 //   * A cluster of DH / 64 CTAs (the portable eight at DH 512) serves one
@@ -125,42 +126,6 @@ struct Smem {
   long long clk[kProfPhases];   // thread 0's phase clocks, when timed
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, both tf32 (small exact: x - big is exact).
-__device__ __forceinline__ void split(float x, float& big, float& small) {
-  big = __uint_as_float(tf32_rna(x));
-  small = __uint_as_float(tf32_rna(x - big));
-}
-
-// Store 16-byte chunk c (columns 4c..4c+3) of row `row` of a swizzled
-// operand tile with 128-byte rows.
-__device__ __forceinline__ void st_chunk(void* tile, int row, int c,
-                                         float4 v) {
-  *reinterpret_cast<float4*>(reinterpret_cast<char*>(tile) + row * 128 +
-                             ((c ^ (row & 7)) << 4)) = v;
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -208,7 +173,7 @@ __device__ __forceinline__ void put_perm(const T* raw, int row, int grp,
   }
   float b[8], s[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) split(x[i], b[i], s[i]);
+  for (int i = 0; i < 8; ++i) tf32_split(x[i], b[i], s[i]);
   st_chunk(&big, row, 2 * grp, make_float4(b[0], b[2], b[4], b[6]));
   st_chunk(&big, row, 2 * grp + 1, make_float4(b[1], b[3], b[5], b[7]));
   st_chunk(&small, row, 2 * grp, make_float4(s[0], s[2], s[4], s[6]));
@@ -225,76 +190,9 @@ __device__ __forceinline__ void put4(float a, float b, float c, float d,
     return;
   }
   float4 hi, lo;
-  split(a, hi.x, lo.x);
-  split(b, hi.y, lo.y);
-  split(c, hi.z, lo.z);
-  split(d, hi.w, lo.w);
+  tf32_split4(make_float4(a, b, c, d), hi, lo);
   st_chunk(big, row, chunk, hi);
   st_chunk(small, row, chunk, lo);
-}
-
-// -------------------------------------------------------- tf32 wgmma
-// D[64 x 32] += A[64 x 8] B[8 x 32], both K-major in shared memory.
-__device__ __forceinline__ void mma_n32(float (&d)[16], uint64_t da,
-                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 8] B[8 x 64], A in registers (tf32 fragment), B
-// K-major in shared memory.
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Descriptor of k step kk (8 deep) of a K-major operand whose K = 64 is
-// two 32-wide tiles `t0` and `t1`, starting `row` rows in.
-__device__ __forceinline__ uint64_t kdesc(const void* t0, const void* t1,
-                                          int kk, int row) {
-  const char* base = reinterpret_cast<const char*>(kk < 4 ? t0 : t1);
-  return desc_sw128(base + row * 128) + 2 * (kk & 3);
-}
-
-// 3xTF32 (or, with an exact A or B, two or one passes) over a 64-deep
-// contraction: D += A B^T with A [64][64] in tiles (a0, a1 | as0, as1)
-// and B rows [brow, brow + 32) of (b0, b1 | bs0, bs1). (Skipping the
-// steps a short chunk or the causal mask leaves zero was measured slower:
-// the branch costs more than the products it saves.)
-template <bool kExactA, bool kExactB>
-__device__ __forceinline__ void mma3_k64_n32(
-    float (&d)[16], const void* a0, const void* a1, const void* as0,
-    const void* as1, const void* b0, const void* b1, const void* bs0,
-    const void* bs1, int brow) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t da = kdesc(a0, a1, kk, 0), db = kdesc(b0, b1, kk, brow);
-    if (!kExactA) mma_n32(d, kdesc(as0, as1, kk, 0), db);
-    if (!kExactB) mma_n32(d, da, kdesc(bs0, bs1, kk, brow));
-    mma_n32(d, da, db);
-  }
 }
 
 // ------------------------------------------------- cluster (DSMEM)
@@ -598,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlstm_tc_kernel(
 #pragma unroll
       for (int k = 0; k < 16; ++k) sp[k] = 0.f;
       wgmma_fence();
-      mma3_k64_n32<X, X>(sp, &s.ops[0], &s.ops[1], &s.ops[2], &s.ops[3],
+      tf32x3_k64_n32<X, X>(sp, &s.ops[0], &s.ops[1], &s.ops[2], &s.ops[3],
                          &s.ops[4], &s.ops[5], &s.ops[6], &s.ops[7], 32 * g);
       wgmma_commit();
       wgmma_wait<0>();
@@ -641,24 +539,17 @@ __global__ void __launch_bounds__(kThreads, 1) mlstm_tc_kernel(
       for (int k2 = 0; k2 < 4; k2 += 2) {
         uint32_t ab[2][4], as[2][4];
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int b0 = 4 * (k2 + kk);
-          const int o[4] = {b0, b0 + 2, b0 + 1, b0 + 3};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float hi, lo;
-            split(c[sl][o[q]], hi, lo);
-            ab[kk][q] = __float_as_uint(hi);
-            as[kk][q] = __float_as_uint(lo);
-          }
-        }
+        for (int kk = 0; kk < 2; ++kk)
+          tf32_frag(c[sl], k2 + kk, ab[kk], as[kk]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           const uint64_t db = desc_sw128(&big) + 2 * (k2 + kk);
-          mma_rs_n64(cq, as[kk], db);
-          if (!X) mma_rs_n64(cq, ab[kk], desc_sw128(&sml) + 2 * (k2 + kk));
-          mma_rs_n64(cq, ab[kk], db);
+          wgmma_tf32_rs_n64(cq, as[kk], db);
+          if (!X)
+            wgmma_tf32_rs_n64(cq, ab[kk],
+                              desc_sw128(&sml) + 2 * (k2 + kk));
+          wgmma_tf32_rs_n64(cq, ab[kk], db);
         }
       }
       wgmma_commit();
@@ -753,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlstm_tc_kernel(
         hv[k] = s.inter[t] * sum;
       }
       wgmma_fence();
-      mma3_k64_n32<X, false>(hv, &s.vt[0], &s.vt[1], &s.vt[2], &s.vt[3],
+      tf32x3_k64_n32<X, false>(hv, &s.vt[0], &s.vt[1], &s.vt[2], &s.vt[3],
                              &s.ops[0], &s.ops[1], &s.ops[2], &s.ops[3],
                              32 * g);
       wgmma_commit();
@@ -794,7 +685,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlstm_tc_kernel(
 #pragma unroll
       for (int k = 0; k < 16; ++k) c[sl][k] *= carry;
       wgmma_fence();
-      mma3_k64_n32<X, false>(c[sl], &s.vt[0], &s.vt[1], &s.vt[2], &s.vt[3],
+      tf32x3_k64_n32<X, false>(c[sl], &s.vt[0], &s.vt[1], &s.vt[2], &s.vt[3],
                              &wk[0], &wk[1], &wk[2], &wk[3], 0);
       wgmma_commit();
       lap(13);

@@ -12,9 +12,12 @@ Dispatch is by the device of the tensors and nothing else:
 Every wrapper checks device, dtype, shape and contiguity on both routes,
 and carries a plain integer ``launches`` that counts its kernel launches
 (plain-version calls do not count). The flash forward, dK/dV and dQ
-wrappers have two kernels behind them, chosen by dtype: bf16 at
-head_dim 64 goes to a tensor-core kernel (wgmma on TMA-fed tiles),
-float32 and the other widths to a SIMT kernel. The LoRA matmul sends
+wrappers choose their kernel by dtype and head width
+(:func:`flash_route`): bf16 at head_dim 64 goes to a tensor-core kernel
+(wgmma on TMA-fed tiles); float32 at head_dim 64 to a 3xTF32 wgmma
+kernel for the forward and dK/dV ("tf32x3": every product three tf32
+passes, float32's own error); the rest, float32 dQ included, to a SIMT
+kernel. The LoRA matmul sends
 bf16 operands that TMA can describe to a wgmma kernel and the rest to
 its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
 and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
@@ -537,7 +540,9 @@ def dequantize_int8(q, scale):
 #: threads a SIMT flash CTA may have: the kernels take up to 214
 #: registers a thread (ptxas), and the SM's 64K registers hold 256 such
 SIMT_THREADS = 256
-TC_HEAD_DIM = 64              #: head_dim of the bf16 tensor-core kernels
+TC_HEAD_DIM = 64              #: head_dim of the tensor-core flash kernels
+#: the flash kernels with a float32 3xTF32 wgmma route at head_dim 64
+TF32_FLASH = ("fwd", "dkv")
 
 
 def _check_qkv(q, k, v):
@@ -583,11 +588,29 @@ def _simt_tiles(block_q, block_k, sq, skv, d):
     return bq, bk
 
 
-def _tc_route(q) -> bool:
-    """True for the tensor-core (wgmma) kernels: bf16 at head_dim
-    :data:`TC_HEAD_DIM`. float32, and bf16 at another head_dim, take the
-    SIMT kernels."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == TC_HEAD_DIM
+@functools.lru_cache(maxsize=64)
+def flash_route(kind: str, dtype, head_dim: int) -> str:
+    """The kernel a card launch of flash ``kind`` ("fwd", "dkv" or "dq")
+    takes: at head_dim :data:`TC_HEAD_DIM`, bf16 the tensor-core kernel
+    (``csrc/flash_*_tc.cu``, route "wgmma") and float32 the forward's and
+    dK/dV's 3xTF32 wgmma kernel (``csrc/flash_fwd_tf32.cu``,
+    ``csrc/flash_bwd_dkv_tf32.cu``, route "tf32x3"); everything else
+    (head_dims 32 and 128, float32 dQ) the SIMT kernel
+    (``csrc/flash_{fwd,bwd_dkv,bwd_dq}.cu``, route "simt")."""
+    if head_dim == TC_HEAD_DIM and dtype == torch.bfloat16:
+        return "wgmma"
+    if head_dim == TC_HEAD_DIM and dtype == torch.float32 and (
+            kind in TF32_FLASH):
+        return "tf32x3"
+    return "simt"
+
+
+def _flash_pick(kind, route, q):
+    best = flash_route(kind, q.dtype, q.shape[-1])
+    route = route or best
+    _require(route in (best, "simt"), f"flash {kind}: route {route!r} "
+             f"cannot take these operands (it takes {best!r} or 'simt')")
+    return route
 
 
 def _card_dtype(t) -> int:
@@ -606,10 +629,11 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     Returns o [B, Hq, Sq, D] in q's dtype (and the float32 row logsumexp
     [B, Hq, Sq] with ``return_lse``).
 
-    On the card, dispatch is by dtype and head width: bf16 at head_dim 64
-    launches the tensor-core kernel (``csrc/flash_fwd_tc.cu``: wgmma on
-    TMA-fed tiles, its own 64 x 64 tiles, p rounded to bf16 for p.v);
-    float32, and bf16 at another head_dim, launch the SIMT kernel
+    On the card the kernel follows :func:`flash_route`: bf16 at head_dim
+    64 launches ``csrc/flash_fwd_tc.cu`` (wgmma on TMA-fed tiles, its own
+    64 x 64 tiles, p rounded to bf16 for p.v); float32 at head_dim 64
+    ``csrc/flash_fwd_tf32.cu`` (3xTF32 wgmma, its own 64 x 64 tiles, the
+    softmax in float32); the other head_dims the SIMT kernel
     (``csrc/flash_fwd.cu``, all float32), whose query and KV tiles
     ``block_q``/``block_k`` set. ``flash_attention.routes`` counts the
     launches of each."""
@@ -621,19 +645,35 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, q_offset=q_offset,
                                        return_lse=return_lse)
+    return _flash_fwd_card(q, k, v, scale=scale, causal=causal,
+                           window=window, q_offset=q_offset,
+                           block_q=block_q, block_k=block_k,
+                           return_lse=return_lse)
+
+
+def _flash_fwd_card(q, k, v, *, scale, causal, window, q_offset,
+                    block_q=128, block_k=128, return_lse=False,
+                    route: Optional[str] = None):
+    """The card launch of :func:`flash_attention` (inputs already checked
+    and normalized) on ``route``: :func:`flash_route`'s choice by default,
+    "simt" to time the SIMT kernel on the same inputs."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     code = _card_dtype(q)
+    route = _flash_pick("fwd", route, q)
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     mask = (int(causal), window or 0, q_offset)
-    if _tc_route(q):
-        _aligned(q=q, k=k, v=v)       # TMA reads from 16-byte aligned bases
-        route, err = "wgmma", build.load("flash_fwd_tc")(
+    if route != "simt":
+        _aligned(q=q, k=k, v=v)       # 16-byte copies from the bases
+        stem = {"wgmma": "flash_fwd_tc", "tf32x3": "flash_fwd_tf32"}[route]
+        err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv, sq,
             skv, scale, *mask, _stream(q))
     else:
         bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
-        route, err = "simt", build.load("flash_fwd")(
+        err = build.load("flash_fwd")(
             code, _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv,
             sq, skv, d, bq, bk, scale, *mask, _stream(q))
     _raise_on(err, f"flash_attention ({route})")
@@ -702,11 +742,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale=None,
     its lse, the cotangent ``do`` and ``delta``; each KV head sums its
     query group. Deterministic: no atomics.
 
-    On the card, bf16 at head_dim 64 launches the tensor-core kernel
-    (``csrc/flash_bwd_dkv_tc.cu``: all four products on wgmma in the
-    transposed frame, p and dS rounded to bf16 for the dV and dK products,
-    its own tiles); float32, and bf16 at another head_dim, the SIMT
-    kernel (``csrc/flash_bwd_dkv.cu``, all float32, tiles from
+    On the card the kernel follows :func:`flash_route`: bf16 at head_dim
+    64 launches ``csrc/flash_bwd_dkv_tc.cu`` (all four products on wgmma
+    in the transposed frame, p and dS rounded to bf16 for the dV and dK
+    products, its own tiles); float32 at head_dim 64
+    ``csrc/flash_bwd_dkv_tf32.cu`` (the same frame, every product 3xTF32,
+    p and dS float32, its own tiles); the other head_dims the SIMT kernel
+    (``csrc/flash_bwd_dkv.cu``, all float32, tiles from
     ``block_q``/``block_k``). ``flash_attention_bwd_dkv.routes`` counts the
     launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
@@ -717,18 +759,34 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale=None,
         return ref.flash_attention_bwd_dkv_ref(
             q, k, v, do, lse, delta, scale=scale, causal=causal,
             window=window, q_offset=q_offset)
+    return _flash_dkv_card(q, k, v, do, lse, delta, scale=scale,
+                           causal=causal, window=window, q_offset=q_offset,
+                           block_q=block_q, block_k=block_k)
+
+
+def _flash_dkv_card(q, k, v, do, lse, delta, *, scale, causal, window,
+                    q_offset, block_q=128, block_k=128,
+                    route: Optional[str] = None):
+    """The card launch of :func:`flash_attention_bwd_dkv` (inputs already
+    checked and normalized) on ``route``: :func:`flash_route`'s choice by
+    default, "simt" to time the SIMT kernel on the same inputs."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     code = _card_dtype(q)
+    route = _flash_pick("dkv", route, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     mask = (int(causal), window or 0, q_offset)
-    if _tc_route(q):
+    if route != "simt":
         _aligned(q=q, k=k, v=v, do=do)
-        route, err = "wgmma", build.load("flash_bwd_dkv_tc")(
+        stem = {"wgmma": "flash_bwd_dkv_tc",
+                "tf32x3": "flash_bwd_dkv_tf32"}[route]
+        err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, scale, *mask,
             _stream(q))
     else:
         bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
-        route, err = "simt", build.load("flash_bwd_dkv")(
+        err = build.load("flash_bwd_dkv")(
             code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
             _ptr(delta), _ptr(dk), _ptr(dv), b, hq, hkv, sq, skv, d, bq, bk,
             scale, *mask, _stream(q))
@@ -745,12 +803,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     """dQ [B, Hq, Sq, D] in q's dtype from the same inputs as
     :func:`flash_attention_bwd_dkv`. Deterministic: no atomics.
 
-    On the card, bf16 at head_dim 64 launches the tensor-core kernel
-    (``csrc/flash_bwd_dq_tc.cu``: S, dP and dQ on wgmma, dS rounded to
-    bf16 for the dQ product, its own tiles); float32, and bf16 at another
-    head_dim, the SIMT kernel (``csrc/flash_bwd_dq.cu``, all float32,
-    tiles from ``block_q``/``block_k``). ``flash_attention_bwd_dq.routes``
-    counts the launches of each."""
+    On the card the kernel follows :func:`flash_route`: bf16 at head_dim
+    64 launches the tensor-core kernel (``csrc/flash_bwd_dq_tc.cu``: S, dP
+    and dQ on wgmma, dS rounded to bf16 for the dQ product, its own
+    tiles); float32, and bf16 at another head_dim, the SIMT kernel
+    (``csrc/flash_bwd_dq.cu``, all float32, tiles from
+    ``block_q``/``block_k``). ``flash_attention_bwd_dq.routes`` counts the
+    launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
     scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
@@ -762,7 +821,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     code = _card_dtype(q)
     dq = torch.empty_like(q)
     mask = (int(causal), window or 0, q_offset)
-    if _tc_route(q):
+    if flash_route("dq", q.dtype, d) == "wgmma":
         _aligned(q=q, k=k, v=v, do=do)
         route, err = "wgmma", build.load("flash_bwd_dq_tc")(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
@@ -1048,13 +1107,16 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
            flash_attention_bwd_dq, lora_matmul, mlstm_chunked)
 #: wrappers with two kernels behind them -> the route key of the Hopper
 #: kernel; each launch is counted by route too: that key, or "simt" for
-#: the other kernel (for the LoRA matmul its mma.sync / float32 kernel)
+#: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
+#: the flash forward and dK/dV count their float32 3xTF32 kernel's
+#: launches as "tf32x3" beside them (:data:`TF32_ROUTED`)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
           paged_verify_attention: PAGED_ROUTES["prefill"],
           mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec"}
+TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
@@ -1062,6 +1124,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn, fast in ROUTED.items():
         fn.routes = {fast: 0, "simt": 0}
+    for fn in TF32_ROUTED:
+        fn.routes["tf32x3"] = 0
 
 
 reset_launch_counts()
@@ -1072,5 +1136,6 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers."""
+    """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
+    (and "tf32x3": n for the flash forward and dK/dV)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

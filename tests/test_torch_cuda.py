@@ -15,7 +15,8 @@ prefill (whose wgmma route also rounds P to bfloat16), and all within
 2e-2; on the route ``ops.paged_route`` names, bitwise repeatable;
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
 it), on the tensor-core route (head_dim 64, wgmma) as on the SIMT one,
-whose route counts each test checks; the quantizer, the dequantizer and
+and float32 at head_dim 64 on the 3xTF32 route (tf32x3) at the float32
+limits, whose route counts each test checks; the quantizer, the dequantizer and
 the fused int8 K/V append bitwise (the append outside the null block);
 the flash backward and the wgmma mLSTM bitwise equal across runs (no
 atomics); the mLSTM kernels' (wgmma and SIMT) float32 h within 5e-5 of
@@ -333,9 +334,15 @@ def test_flash_kernels_match_plain(dev, dtype, case):
     for name in ("flash_attention", "flash_attention_bwd_preprocess",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name] == before[name] + 1
-    route = "wgmma" if dtype == torch.bfloat16 else "simt"
-    for name in ("flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    # float32 at head_dim 64: the forward and dK/dV on 3xTF32 wgmma
+    # (tf32x3), dQ on the SIMT kernel
+    want = ({"fwd": "wgmma", "dkv": "wgmma", "dq": "wgmma"}
+            if dtype == torch.bfloat16 else
+            {"fwd": "tf32x3", "dkv": "tf32x3", "dq": "simt"})
+    for name, kind in (("flash_attention", "fwd"),
+                       ("flash_attention_bwd_dkv", "dkv"),
+                       ("flash_attention_bwd_dq", "dq")):
+        route = want[kind]
         assert ops.route_counts()[name][route] == routes[name][route] + 1
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     sc = q.shape[-1] ** -0.5
@@ -405,8 +412,8 @@ def test_flash_tensor_core_route_at_tile_edges(dev, case):
     after = ops.route_counts()
     for name, n in (("flash_attention", 1), ("flash_attention_bwd_dkv", 2),
                     ("flash_attention_bwd_dq", 1)):
-        assert after[name] == {"wgmma": before[name]["wgmma"] + n,
-                               "simt": before[name]["simt"]}, name
+        assert after[name] == {**before[name],
+                               "wgmma": before[name]["wgmma"] + n}, name
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -433,7 +440,7 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     after = ops.route_counts()
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
-        assert after[name] == {"wgmma": before[name]["wgmma"],
+        assert after[name] == {**before[name],
                                "simt": before[name]["simt"] + 1}
     ro = ref.flash_attention_ref(q, k, v)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -445,13 +452,16 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
         _flash_close(label, got, want, torch.bfloat16)
 
 
-def test_flash_tensor_core_route_needs_aligned_inputs(dev):
-    """TMA reads from 16-byte aligned bases: a contiguous bf16 tensor two
-    bytes off raises, and nothing is launched."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_tensor_core_route_needs_aligned_inputs(dev, dtype):
+    """TMA (bf16) and cp.async (float32, 3xTF32) read 16 bytes at a time
+    from the bases: a contiguous tensor one element off raises, and
+    nothing is launched."""
     n = 2 * 4 * 64 * 64
-    q = torch.zeros(n + 1, dtype=torch.bfloat16, device=dev)[1:].view(
+    q = torch.zeros(n + 1, dtype=dtype, device=dev)[1:].view(
         1, 4, 64 * 2, 64)
-    k = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 2, 128, 64), dtype=dtype, device=dev)
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(q, k, k)
@@ -471,6 +481,131 @@ def test_flash_backward_is_bitwise_repeatable(dev):
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name]["wgmma"] == before[name]["wgmma"] + 2, name
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", TC_EDGES)
+def test_flash_tf32_route_at_tile_edges(dev, case):
+    """float32 at head_dim 64 launches the 3xTF32 forward and dK/dV
+    kernels (route tf32x3) and the SIMT dQ, at the tile edges of
+    ``TC_EDGES`` (one row, ragged Sq and Skv, Sq < Skv with an offset, a
+    window, GQA groups of 1 to 4), within the float32 limits of the plain
+    versions; dK/dV bitwise repeatable."""
+    sq, skv, kw, hq, hkv = TC_EDGES[case]
+    q, k, v, do = _flash(dev, torch.float32, sq, skv, seed=5, b=1, hq=hq,
+                         hkv=hkv)
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name, route, n in (("flash_attention", "tf32x3", 1),
+                           ("flash_attention_bwd_dkv", "tf32x3", 2),
+                           ("flash_attention_bwd_dq", "simt", 1)):
+        assert after[name] == {**before[name],
+                               route: before[name][route] + n}, name
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=64 ** -0.5, **kw)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                         scale=64 ** -0.5, **kw)
+    for label, got, want in (("o", o, ro), ("lse", lse, rlse),
+                             ("dk", dk, rdk), ("dv", dv, rdv),
+                             ("dq", dq, rdq)):
+        _flash_close(label, got, want, torch.float32)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_f32_at_other_head_dims_takes_the_simt_route(dev, d):
+    """The 3xTF32 kernels take head_dim 64 only: float32 at 32 and 128
+    launches the SIMT forward, dK/dV and dQ."""
+    q, k, v, do = _flash(dev, torch.float32, 96, 96, seed=6, d=d)
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert after[name] == {**before[name],
+                               "simt": before[name]["simt"] + 1}
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=d ** -0.5)
+    for label, got, want in (("o", o, ref.flash_attention_ref(q, k, v)),
+                             ("dk", dk, rdk), ("dv", dv, rdv)):
+        _flash_close(label, got, want, torch.float32)
+
+
+def test_flash_tf32_dkv_is_bitwise_repeatable(dev):
+    """The 3xTF32 dK/dV walks heads and tiles in a fixed order with no
+    atomics: two runs equal bit for bit, at a causal GQA shape."""
+    q, k, v, do = _flash(dev, torch.float32, 300, 300, seed=7)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    before = ops.route_counts()["flash_attention_bwd_dkv"]["tf32x3"]
+    first = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (ops.route_counts()["flash_attention_bwd_dkv"]["tf32x3"]
+            == before + 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_f32_rows_that_see_no_key(dev):
+    """With q_offset 60 and a window of 8 over 64 keys, query rows 11 and
+    later see no key: both float32 routes give o = 0 and lse = -1e30
+    there, the same lse as each other everywhere within 1e-5, and dK/dV
+    within the gradient limit of each other."""
+    q, k, v, do = _flash(dev, torch.float32, 64, 64, seed=8)
+    kw = dict(scale=64 ** -0.5, causal=True, window=8, q_offset=60)
+    o, lse = ops._flash_fwd_card(q, k, v, return_lse=True, **kw)
+    so, slse = ops._flash_fwd_card(q, k, v, return_lse=True, route="simt",
+                                   **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dkv = ops._flash_dkv_card(q, k, v, do, lse, delta, **kw)
+    sdkv = ops._flash_dkv_card(q, k, v, do, lse, delta, route="simt", **kw)
+    torch.cuda.synchronize()
+    for got in (o, so):
+        assert not got[:, :, 11:].any() and bool(got[:, :, :11].abs().gt(0)
+                                                  .all())
+    for got in (lse, slse):
+        assert bool((got[:, :, 11:] == -1e30).all())
+    _flash_close("o", o, so, torch.float32)
+    _flash_close("lse", lse, slse, torch.float32)
+    for a, b in zip(dkv, sdkv):
+        _flash_close("dk", a, b, torch.float32)
+
+
+def test_flash_autograd_under_checkpoint_runs_the_tf32_kernels(dev):
+    """The autograd Function under torch.utils.checkpoint (the FHDP
+    step's per-layer remat): the forward twice and dK/dV once on tf32x3,
+    dQ on simt, the gradients within the float32 limit of plain
+    attention's."""
+    q, k, v, do = _flash(dev, torch.float32, 256, 256, seed=9, hq=4,
+                         hkv=4)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = ops.route_counts()
+    o = torch.utils.checkpoint.checkpoint(
+        lambda a, b, c: ops.flash_attention_ad(a, b, c, causal=False),
+        q, k, v, use_reentrant=False)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name, route, n in (("flash_attention", "tf32x3", 2),
+                           ("flash_attention_bwd_dkv", "tf32x3", 1),
+                           ("flash_attention_bwd_dq", "simt", 1)):
+        assert after[name] == {**before[name],
+                               route: before[name][route] + n}, name
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v,
+                                                       causal=False),
+                               (q, k, v), do)
+    for a, b in zip(grads, want):
+        assert float((a - b).abs().max()) <= 2e-5
 
 
 def test_flash_autograd_runs_the_kernels(dev):

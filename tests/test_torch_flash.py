@@ -17,13 +17,15 @@ from repro_torch.kernels import ops, ref
 
 ATOL = 1e-5
 
-#: (Sq, Skv, mask options): causal, windowed, q_offset > 0 (Sq < Skv), and
-#: a ragged length that is no multiple of the 16-row tiles
+#: (Sq, Skv, mask options): causal, windowed, q_offset > 0 (Sq < Skv), a
+#: ragged length that is no multiple of the 16-row tiles, and no mask at
+#: all (the FHDP step's attention) with Sq < Skv
 CASES = {
     "causal": (64, 64, dict(causal=True)),
     "window": (48, 48, dict(causal=True, window=9)),
     "offset": (40, 64, dict(causal=True, q_offset=24)),
     "ragged": (37, 37, dict(causal=True)),
+    "noncausal": (40, 64, dict(causal=False)),
 }
 
 
