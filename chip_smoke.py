@@ -7,11 +7,11 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-one hand-written kernel libraries from
+  2. builds the twenty-two hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the eight tensor-core libraries'
-     (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward and
-     dK/dV; LoRA matmul; paged prefill; chunkwise mLSTM) SASS holds HGMMA
+     prints the build time; checks that the nine tensor-core libraries'
+     (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward, dK/dV
+     and dQ; LoRA matmul; paged prefill; chunkwise mLSTM) SASS holds HGMMA
      (wgmma) instructions and prints their registers, spills and shared
      memory;
   3. holds each kernel against its plain PyTorch version on the card and
@@ -31,9 +31,9 @@ In order, it
      replaced), the flash-attention forward and its three backward
      kernels at the training shape (B 4, Hq 16, Hkv 8, S 1024, D 64) in
      bf16 (the forward, dK/dV and dQ on their tensor-core kernels) and
-     float32 (the forward and dK/dV on their 3xTF32 wgmma kernels, timed
-     in turns beside the SIMT kernels they replaced; dQ on its SIMT
-     kernel) with ragged, offset and windowed cases and the distillation
+     float32 (the forward, dK/dV and dQ on their 3xTF32 wgmma kernels,
+     timed in turns beside the SIMT kernels they replaced) with ragged,
+     offset and windowed cases and the distillation
      path's 1032 rows, and in float32 at the FHDP step's shape
      (non-causal, B 2, Hq = Hkv 12, S 256, D 64, beside float32 SDPA and
      the replaced SIMT kernels, with bounds on the CUDA cores and at
@@ -96,8 +96,8 @@ In order, it
      (2, 4) mesh (2 FL columns x 4 stages, all on the card), 16 samples
      a step, lr 1e-3: 8 steps on one batch (the reference's descent
      check), the first loss held to the flat model's, the exact flash
-     launches (float32: the forward and dK/dV on the 3xTF32 route, dQ on
-     SIMT, the preprocess on vec);
+     launches (float32: the forward, dK/dV and dQ on the 3xTF32 route,
+     the preprocess on vec);
      the same Session from the reference trajectory's start (the port's
      CPU init, numpy batches), 4 steps on fresh batches and 8 on one,
      each loss against the reference's full-width CPU run; one step
@@ -209,15 +209,18 @@ TC_KERNELS = {
                     "lora_wgmma_kernel", "lora_mma_kernel"),
 }
 # the flash wrappers' float32 route at head_dim 64 (route tf32x3: 3xTF32
-# wgmma, every float32 path's forward and dK/dV): (library, its
+# wgmma, every float32 path's forward, dK/dV and dQ): (library, its
 # shared-memory query, profiler name); TC_KERNELS' last names are the
-# SIMT kernels the other float32 launches (dQ, head_dims 32 and 128) take
+# SIMT kernels the other float32 launches (head_dims 32 and 128) take
 TF32_KERNELS = {
     "flash_attention": ("flash_fwd_tf32", "flash_attention_fwd_tf32_smem",
                         "flash_fwd_tf32_kernel"),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_tf32",
                                 "flash_attention_bwd_dkv_tf32_smem",
                                 "flash_bwd_dkv_tf32_kernel"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_tf32",
+                               "flash_attention_bwd_dq_tf32_smem",
+                               "flash_bwd_dq_tf32_kernel"),
 }
 TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3   # three tf32 passes a product
@@ -384,15 +387,12 @@ VISION_MOMENT_RTOL = 1e-5
 VISION_NEAR_EPS = 1e-6
 VISION_PARAM_ATOL = 1e-5
 # the FHDP step's float32 flash launches: each wrapper's route and its
-# kernel's profiler name (the forward and dK/dV on 3xTF32 wgmma, dQ on
-# the SIMT kernel, the preprocess on its vec kernel)
+# kernel's profiler name (the forward, dK/dV and dQ on 3xTF32 wgmma, the
+# preprocess on its vec kernel)
 VISION_ROUTES = {"flash_attention": "tf32x3",
                  "flash_attention_bwd_dkv": "tf32x3",
-                 "flash_attention_bwd_dq": "simt", PRE: "vec"}
-VISION_NAMES = {"flash_attention": TF32_KERNELS["flash_attention"][2],
-                "flash_attention_bwd_dkv":
-                    TF32_KERNELS["flash_attention_bwd_dkv"][2],
-                "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_attention_bwd_dq": "tf32x3", PRE: "vec"}
+VISION_NAMES = {**{fn: t[2] for fn, t in TF32_KERNELS.items()},
                 PRE: PRE_NAMES["vec"]}
 
 
@@ -1356,11 +1356,10 @@ def flash_checks(torch, dev):
     plain versions (bf16 and float32; causal, ragged, offset, window, the
     distillation path's 1032 rows), the backward bitwise equal across two
     runs, every bf16 forward, dK/dV and dQ launch on the tensor-core route,
-    every float32 forward and dK/dV launch on the 3xTF32 route and every
-    float32 dQ on the SIMT route; timings at the causal training shape (the
-    float32 forward and dK/dV beside the SIMT kernels they replaced, in
-    turns). Returns the kernels' JSON rows (bf16, the main path's dtype,
-    with the float32 kernels' times beside)."""
+    every float32 one on the 3xTF32 route; timings at the causal training
+    shape (the float32 forward, dK/dV and dQ beside the SIMT kernels they
+    replaced, in turns). Returns the kernels' JSON rows (bf16, the main
+    path's dtype, with the float32 kernels' times beside)."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     errs = {k: 0.0 for k in ("fwd", "pre", "dkv", "dq")}
@@ -1480,6 +1479,9 @@ def flash_checks(torch, dev):
                 q, k, v, scale=sc, causal=True, window=None, q_offset=0,
                 return_lse=True, route="simt"),
             "flash_attention_bwd_dkv": lambda: ops._flash_dkv_card(
+                q, k, v, do, lse, delta, scale=sc, causal=True, window=None,
+                q_offset=0, route="simt"),
+            "flash_attention_bwd_dq": lambda: ops._flash_dq_card(
                 q, k, v, do, lse, delta, scale=sc, causal=True, window=None,
                 q_offset=0, route="simt")}
         for name, (kfn, pfn, lib) in runs.items():
@@ -2516,14 +2518,14 @@ def vision_flash_checks(torch, dev):
     non-causal, B 2, Hq = Hkv 12, S 256, D 64): each against its plain
     version (the forward's o and lse, delta, dK, dV, dQ; float32
     tolerances as flash_checks), every launch on its route
-    (``VISION_ROUTES``: the forward and dK/dV on 3xTF32 wgmma, dQ on SIMT,
-    the preprocess on its vec kernel), the replaced SIMT forward and dK/dV
+    (``VISION_ROUTES``: the forward, dK/dV and dQ on 3xTF32 wgmma, the
+    preprocess on its vec kernel), the replaced SIMT forward, dK/dV and dQ
     against their plain versions too; then each timed (cold L2) beside its
     plain version, its bounds (float32 on the CUDA cores; for the 3xTF32
     kernels also three tf32 passes on the tensor cores) and
     scaled_dot_product_attention in float32 (forward; the whole backward;
     the preprocess against one torch.bmm, as preprocess_checks), the
-    3xTF32 forward and dK/dV in turns with the SIMT kernels they replaced.
+    3xTF32 kernels in turns with the SIMT kernels they replaced.
     Returns per-kernel JSON keys ``vision_f32_*``."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
@@ -2544,6 +2546,7 @@ def vision_flash_checks(torch, dev):
                                    **card)
     sdk, sdv = ops._flash_dkv_card(q, k, v, do, lse, delta, route="simt",
                                    **card)
+    sdq = ops._flash_dq_card(q, k, v, do, lse, delta, route="simt", **card)
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=sc, **kw)
@@ -2564,6 +2567,8 @@ def vision_flash_checks(torch, dev):
             ("simt flash_attention_bwd_dkv", "dk", sdk, rdk,
              FLASH_GRAD_ATOL_F32),
             ("simt flash_attention_bwd_dkv", "dv", sdv, rdv,
+             FLASH_GRAD_ATOL_F32),
+            ("simt flash_attention_bwd_dq", "dq", sdq, rdq,
              FLASH_GRAD_ATOL_F32)):
         err = _err(got, want)
         check(bool(torch.isfinite(got).all()) and err <= tol,
@@ -2614,6 +2619,8 @@ def vision_flash_checks(torch, dev):
         "flash_attention": lambda: ops._flash_fwd_card(
             q, k, v, return_lse=True, route="simt", **card),
         "flash_attention_bwd_dkv": lambda: ops._flash_dkv_card(
+            q, k, v, do, lse, delta, route="simt", **card),
+        "flash_attention_bwd_dq": lambda: ops._flash_dq_card(
             q, k, v, do, lse, delta, route="simt", **card)}
     rows = {}
     for name, (kfn, pfn, lib, nbytes, ops_) in runs.items():
@@ -2848,8 +2855,8 @@ def vision_main_path(torch, dev):
     from the reference trajectory's start on its fresh and repeated
     batches, then one fl_pipeline round of 2 local steps. Checks the
     first loss against the flat model's, the exact flash launches (the
-    float32 forward and dK/dV on tf32x3, dQ on simt, the preprocess on
-    vec: ``VISION_ROUTES``), the losses
+    float32 forward, dK/dV and dQ on tf32x3, the preprocess on vec:
+    ``VISION_ROUTES``), the losses
     against the reference's, one step through the kernels against plain
     attention and the round's merged params' shapes; reports whether the
     8 steps descended."""

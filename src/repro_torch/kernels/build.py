@@ -64,6 +64,8 @@ SIGNATURES = {
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq_tc": ("flash_attention_bwd_dq_tc",
                         [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_bwd_dq_tf32": ("flash_attention_bwd_dq_tf32",
+                          [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),
     "lora_matmul_tc": ("lora_matmul_tc",
                        [_P] * 5 + [_I] * 10 + [_F, _P]),

@@ -152,70 +152,6 @@ __device__ __forceinline__ void load_tile(Raw& r, const float* q,
     cp_async4(&r.delta[e], delta + off, ok);
 }
 
-// A raw [32][64] tile of one tensor into its operand tiles, by the
-// warpgroup's thread l, in two passes that each meet no bank conflict:
-// as stored into t (eight neighbouring threads take eight chunks of a
-// row), then transposed into tt (row d = 4c + e, chunk gp = 2g + p holds
-// rows 8g + p + {0, 2, 4, 6}: the permuted k order; eight neighbouring
-// threads take the eight chunks gp of the same rows d, and
-// raw_chunk_swz spreads their reads). The second pass splits again what
-// it reads.
-__device__ __forceinline__ void put(const float* raw, Half* t, Tile* tt,
-                                    int l) {
-#pragma unroll
-  for (int u = l; u < BQ * 16; u += kWG) {
-    const int r = u >> 4, c = u & 15;
-    float4 b, s;
-    tf32_split4(*reinterpret_cast<const float4*>(raw + r * D +
-                                                 4 * (c ^ raw_chunk_swz(r))),
-                b, s);
-    st_chunk(&t[c >> 3], r, c & 7, b);
-    st_chunk(&t[2 + (c >> 3)], r, c & 7, s);
-  }
-  const int gp = l & 7, c = l >> 3;
-  const int rb = 8 * (gp >> 1) + (gp & 1);
-  float4 b[4], s[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    tf32_split4(*reinterpret_cast<const float4*>(
-                    raw + (rb + 2 * e) * D +
-                    4 * (c ^ raw_chunk_swz(rb + 2 * e))),
-                b[e], s[e]);
-  st_chunk(&tt[0], 4 * c, gp, make_float4(b[0].x, b[1].x, b[2].x, b[3].x));
-  st_chunk(&tt[0], 4 * c + 1, gp,
-           make_float4(b[0].y, b[1].y, b[2].y, b[3].y));
-  st_chunk(&tt[0], 4 * c + 2, gp,
-           make_float4(b[0].z, b[1].z, b[2].z, b[3].z));
-  st_chunk(&tt[0], 4 * c + 3, gp,
-           make_float4(b[0].w, b[1].w, b[2].w, b[3].w));
-  st_chunk(&tt[1], 4 * c, gp, make_float4(s[0].x, s[1].x, s[2].x, s[3].x));
-  st_chunk(&tt[1], 4 * c + 1, gp,
-           make_float4(s[0].y, s[1].y, s[2].y, s[3].y));
-  st_chunk(&tt[1], 4 * c + 2, gp,
-           make_float4(s[0].z, s[1].z, s[2].z, s[3].z));
-  st_chunk(&tt[1], 4 * c + 3, gp,
-           make_float4(s[0].w, s[1].w, s[2].w, s[3].w));
-}
-
-// Rows k_lo .. k_lo + 63 of a [Skv, 64] plane into big (t[0], t[1]) and
-// small (t[2], t[3]) operand tiles as stored; rows past Skv are zeros.
-__device__ __forceinline__ void put_keys(const float* plane, int k_lo,
-                                         int Skv, Tile* t) {
-#pragma unroll
-  for (int u = threadIdx.x; u < BK * 16; u += kThreads) {
-    const int r = u >> 4, c = u & 15;
-    const float4 x =
-        k_lo + r < Skv
-            ? __ldg(reinterpret_cast<const float4*>(
-                  plane + (size_t)(k_lo + r) * D + 4 * c))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b, s;
-    tf32_split4(x, b, s);
-    st_chunk(&t[c >> 3], r, c & 7, b);
-    st_chunk(&t[2 + (c >> 3)], r, c & 7, s);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -255,8 +191,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   if (wg < w.n_tiles) load_tile(raw, q, dout, lse, delta, w, wg, Sq, l);
   cp_commit();
   const size_t kplane = (size_t)kvplane * Skv * D;
-  put_keys(k + kplane, k_lo, Skv, s.k);
-  put_keys(v + kplane, k_lo, Skv, s.v);
+  tf32_stage64<kThreads>(k + kplane, k_lo, Skv, s.k);
+  tf32_stage64<kThreads>(v + kplane, k_lo, Skv, s.v);
   __syncthreads();
 
   float dka[32], dva[32];
@@ -266,8 +202,10 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   for (int i = wg; i < w.n_tiles; i += 2) {
     cp_wait<0>();               // this thread's copies of tile i are in
     bar_sync(bar, kWG);         // everyone's; every warp is done with st
-    put(raw.q, st.q, st.qt, l);
-    put(raw.dout, st.dout, st.dot, l);
+    tf32_split_rows32(raw.q, st.q, l);
+    tf32_split_cols32(raw.q, st.qt, l);
+    tf32_split_rows32(raw.dout, st.dout, l);
+    tf32_split_cols32(raw.dout, st.dot, l);
     if (l < BQ) {
       lse2[l] = raw.lse[l] * kLog2e;
       dl[l] = raw.delta[l];

@@ -215,20 +215,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     load_rows(raw.t.v, vp, (kt0 + wg) * BK, Skv, l);
   }
   cp_commit();
-  const float* qp = q + (size_t)qplane * Sq * D;
-#pragma unroll
-  for (int u = threadIdx.x; u < BQ * 16; u += kThreads) {
-    const int r = u >> 4, c = u & 15;
-    const float4 x =
-        q_lo + r < Sq
-            ? __ldg(reinterpret_cast<const float4*>(
-                  qp + (size_t)(q_lo + r) * D + 4 * c))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b, sm;
-    tf32_split4(x, b, sm);
-    st_chunk(&s.q[c >> 3], r, c & 7, b);
-    st_chunk(&s.q[2 + (c >> 3)], r, c & 7, sm);
-  }
+  tf32_stage64<kThreads>(q + (size_t)qplane * Sq * D, q_lo, Sq, s.q);
   __syncthreads();
 
   // O = sum over tiles of P V, rescaled: each tile's P V starts from zero

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu, flash_bwd_dq_tc.cu,
 // lora_matmul_tc.cu, mlstm_chunked_tc.cu, flash_fwd_tf32.cu,
-// flash_bwd_dkv_tf32.cu): mbarriers, TMA tile loads, cp.async copies,
-// shared-memory matrix descriptors and warpgroup MMAs (wgmma), as PTX; and
-// the 3xTF32 float32 products (the section "3xTF32" below states their
-// own conventions).
+// flash_bwd_dkv_tf32.cu, flash_bwd_dq_tf32.cu): mbarriers, TMA tile
+// loads, cp.async copies, shared-memory matrix descriptors and warpgroup
+// MMAs (wgmma), as PTX; and the 3xTF32 float32 products (the section
+// "3xTF32" below states their own conventions).
 //
 // Conventions, all for bf16 tiles of 64-element (128-byte) rows:
 //   * TMA writes a tile into shared memory with the 128-byte swizzle, so a
@@ -434,6 +434,81 @@ __device__ __forceinline__ void st_chunk(void* tile, int row, int c,
                                          float4 v) {
   *reinterpret_cast<float4*>(reinterpret_cast<char*>(tile) + row * 128 +
                              ((c ^ (row & 7)) << 4)) = v;
+}
+
+// Rows lo .. lo + 63 of a [S, 64] float32 plane into big (t[0], t[1]:
+// columns 0-31, 32-63) and small (t[2], t[3]) [64][32] operand tiles as
+// stored, by all kThreads threads of the CTA; rows past S are zeros.
+// Eight neighbouring threads take one row's eight chunks of a tile: no
+// bank conflict.
+template <int kThreads, class T>
+__device__ __forceinline__ void tf32_stage64(const float* plane, int lo,
+                                             int S, T* t) {
+#pragma unroll
+  for (int u = threadIdx.x; u < 64 * 16; u += kThreads) {
+    const int r = u >> 4, c = u & 15;
+    const float4 x =
+        lo + r < S ? __ldg(reinterpret_cast<const float4*>(
+                         plane + (size_t)(lo + r) * 64 + 4 * c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 b, s;
+    tf32_split4(x, b, s);
+    st_chunk(&t[c >> 3], r, c & 7, b);
+    st_chunk(&t[2 + (c >> 3)], r, c & 7, s);
+  }
+}
+
+// A raw [32][64] float32 tile (as copied: chunks swizzled by
+// raw_chunk_swz) into big (t[0], t[1]) and small (t[2], t[3]) [32][32]
+// operand tiles as stored, by thread l of a warpgroup: eight neighbouring
+// threads take eight chunks of a row, no bank conflict on either side.
+template <class T>
+__device__ __forceinline__ void tf32_split_rows32(const float* raw, T* t,
+                                                  int l) {
+#pragma unroll
+  for (int u = l; u < 32 * 16; u += 128) {
+    const int r = u >> 4, c = u & 15;
+    float4 b, s;
+    tf32_split4(*reinterpret_cast<const float4*>(raw + r * 64 +
+                                                 4 * (c ^ raw_chunk_swz(r))),
+                b, s);
+    st_chunk(&t[c >> 3], r, c & 7, b);
+    st_chunk(&t[2 + (c >> 3)], r, c & 7, s);
+  }
+}
+
+// The same raw tile transposed into big tt[0] and small tt[1] [64][32]
+// operand tiles, by thread l of a warpgroup: row d = 4c + e, chunk gp =
+// 2g + p holds raw rows 8g + p + {0, 2, 4, 6}, the register fragment's k
+// order. Eight neighbouring threads take the eight chunks gp of the same
+// rows d: the stores meet no bank conflict, and raw_chunk_swz spreads
+// the reads.
+template <class T>
+__device__ __forceinline__ void tf32_split_cols32(const float* raw, T* tt,
+                                                  int l) {
+  const int gp = l & 7, c = l >> 3;
+  const int rb = 8 * (gp >> 1) + (gp & 1);
+  float4 b[4], s[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    tf32_split4(*reinterpret_cast<const float4*>(
+                    raw + (rb + 2 * e) * 64 +
+                    4 * (c ^ raw_chunk_swz(rb + 2 * e))),
+                b[e], s[e]);
+  st_chunk(&tt[0], 4 * c, gp, make_float4(b[0].x, b[1].x, b[2].x, b[3].x));
+  st_chunk(&tt[0], 4 * c + 1, gp,
+           make_float4(b[0].y, b[1].y, b[2].y, b[3].y));
+  st_chunk(&tt[0], 4 * c + 2, gp,
+           make_float4(b[0].z, b[1].z, b[2].z, b[3].z));
+  st_chunk(&tt[0], 4 * c + 3, gp,
+           make_float4(b[0].w, b[1].w, b[2].w, b[3].w));
+  st_chunk(&tt[1], 4 * c, gp, make_float4(s[0].x, s[1].x, s[2].x, s[3].x));
+  st_chunk(&tt[1], 4 * c + 1, gp,
+           make_float4(s[0].y, s[1].y, s[2].y, s[3].y));
+  st_chunk(&tt[1], 4 * c + 2, gp,
+           make_float4(s[0].z, s[1].z, s[2].z, s[3].z));
+  st_chunk(&tt[1], 4 * c + 3, gp,
+           make_float4(s[0].w, s[1].w, s[2].w, s[3].w));
 }
 
 // D[64 x 32] += A[64 x 8] B[8 x 32], both K-major in shared memory.

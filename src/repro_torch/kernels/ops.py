@@ -15,9 +15,8 @@ and carries a plain integer ``launches`` that counts its kernel launches
 wrappers choose their kernel by dtype and head width
 (:func:`flash_route`): bf16 at head_dim 64 goes to a tensor-core kernel
 (wgmma on TMA-fed tiles); float32 at head_dim 64 to a 3xTF32 wgmma
-kernel for the forward and dK/dV ("tf32x3": every product three tf32
-passes, float32's own error); the rest, float32 dQ included, to a SIMT
-kernel. The LoRA matmul sends
+kernel ("tf32x3": every product three tf32 passes, float32's own
+error); head_dims 32 and 128 to a SIMT kernel. The LoRA matmul sends
 bf16 operands that TMA can describe to a wgmma kernel and the rest to
 its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
 and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
@@ -542,7 +541,7 @@ def dequantize_int8(q, scale):
 SIMT_THREADS = 256
 TC_HEAD_DIM = 64              #: head_dim of the tensor-core flash kernels
 #: the flash kernels with a float32 3xTF32 wgmma route at head_dim 64
-TF32_FLASH = ("fwd", "dkv")
+TF32_FLASH = ("fwd", "dkv", "dq")
 
 
 def _check_qkv(q, k, v):
@@ -592,10 +591,9 @@ def _simt_tiles(block_q, block_k, sq, skv, d):
 def flash_route(kind: str, dtype, head_dim: int) -> str:
     """The kernel a card launch of flash ``kind`` ("fwd", "dkv" or "dq")
     takes: at head_dim :data:`TC_HEAD_DIM`, bf16 the tensor-core kernel
-    (``csrc/flash_*_tc.cu``, route "wgmma") and float32 the forward's and
-    dK/dV's 3xTF32 wgmma kernel (``csrc/flash_fwd_tf32.cu``,
-    ``csrc/flash_bwd_dkv_tf32.cu``, route "tf32x3"); everything else
-    (head_dims 32 and 128, float32 dQ) the SIMT kernel
+    (``csrc/flash_*_tc.cu``, route "wgmma") and float32 the 3xTF32 wgmma
+    kernel (``csrc/flash_{fwd,bwd_dkv,bwd_dq}_tf32.cu``, route "tf32x3");
+    head_dims 32 and 128 the SIMT kernel
     (``csrc/flash_{fwd,bwd_dkv,bwd_dq}.cu``, route "simt")."""
     if head_dim == TC_HEAD_DIM and dtype == torch.bfloat16:
         return "wgmma"
@@ -806,10 +804,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     On the card the kernel follows :func:`flash_route`: bf16 at head_dim
     64 launches the tensor-core kernel (``csrc/flash_bwd_dq_tc.cu``: S, dP
     and dQ on wgmma, dS rounded to bf16 for the dQ product, its own
-    tiles); float32, and bf16 at another head_dim, the SIMT kernel
-    (``csrc/flash_bwd_dq.cu``, all float32, tiles from
-    ``block_q``/``block_k``). ``flash_attention_bwd_dq.routes`` counts the
-    launches of each."""
+    tiles); float32 at head_dim 64 ``csrc/flash_bwd_dq_tf32.cu`` (the same
+    three products, every one 3xTF32, dS float32, its own tiles); the
+    other head_dims the SIMT kernel (``csrc/flash_bwd_dq.cu``, all
+    float32, tiles from ``block_q``/``block_k``).
+    ``flash_attention_bwd_dq.routes`` counts the launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
     scale, window, q_offset = _attn_args(
         scale=scale, window=window, q_offset=q_offset, block_q=block_q,
@@ -818,17 +817,33 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
         return ref.flash_attention_bwd_dq_ref(
             q, k, v, do, lse, delta, scale=scale, causal=causal,
             window=window, q_offset=q_offset)
+    return _flash_dq_card(q, k, v, do, lse, delta, scale=scale,
+                          causal=causal, window=window, q_offset=q_offset,
+                          block_q=block_q, block_k=block_k)
+
+
+def _flash_dq_card(q, k, v, do, lse, delta, *, scale, causal, window,
+                   q_offset, block_q=128, block_k=128,
+                   route: Optional[str] = None):
+    """The card launch of :func:`flash_attention_bwd_dq` (inputs already
+    checked and normalized) on ``route``: :func:`flash_route`'s choice by
+    default, "simt" to time the SIMT kernel on the same inputs."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     code = _card_dtype(q)
+    route = _flash_pick("dq", route, q)
     dq = torch.empty_like(q)
     mask = (int(causal), window or 0, q_offset)
-    if flash_route("dq", q.dtype, d) == "wgmma":
+    if route != "simt":
         _aligned(q=q, k=k, v=v, do=do)
-        route, err = "wgmma", build.load("flash_bwd_dq_tc")(
+        stem = {"wgmma": "flash_bwd_dq_tc",
+                "tf32x3": "flash_bwd_dq_tf32"}[route]
+        err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(dq), b, hq, hkv, sq, skv, scale, *mask, _stream(q))
     else:
         bq, bk = _simt_tiles(block_q, block_k, sq, skv, d)
-        route, err = "simt", build.load("flash_bwd_dq")(
+        err = build.load("flash_bwd_dq")(
             code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
             _ptr(delta), _ptr(dq), b, hq, hkv, sq, skv, d, bq, bk, scale,
             *mask, _stream(q))
@@ -1108,15 +1123,16 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: wrappers with two kernels behind them -> the route key of the Hopper
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
-#: the flash forward and dK/dV count their float32 3xTF32 kernel's
-#: launches as "tf32x3" beside them (:data:`TF32_ROUTED`)
+#: the three flash kernels count their float32 3xTF32 kernel's launches
+#: as "tf32x3" beside them (:data:`TF32_ROUTED`)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
           paged_verify_attention: PAGED_ROUTES["prefill"],
           mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec"}
-TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv)
+TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq)
 
 
 def reset_launch_counts() -> None:
@@ -1137,5 +1153,5 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
-    (and "tf32x3": n for the flash forward and dK/dV)."""
+    (and "tf32x3": n for the flash forward, dK/dV and dQ)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -334,11 +334,11 @@ def test_flash_kernels_match_plain(dev, dtype, case):
     for name in ("flash_attention", "flash_attention_bwd_preprocess",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name] == before[name] + 1
-    # float32 at head_dim 64: the forward and dK/dV on 3xTF32 wgmma
-    # (tf32x3), dQ on the SIMT kernel
+    # float32 at head_dim 64: the forward, dK/dV and dQ on 3xTF32 wgmma
+    # (tf32x3)
     want = ({"fwd": "wgmma", "dkv": "wgmma", "dq": "wgmma"}
             if dtype == torch.bfloat16 else
-            {"fwd": "tf32x3", "dkv": "tf32x3", "dq": "simt"})
+            {"fwd": "tf32x3", "dkv": "tf32x3", "dq": "tf32x3"})
     for name, kind in (("flash_attention", "fwd"),
                        ("flash_attention_bwd_dkv", "dkv"),
                        ("flash_attention_bwd_dq", "dq")):
@@ -485,11 +485,11 @@ def test_flash_backward_is_bitwise_repeatable(dev):
 
 @pytest.mark.parametrize("case", TC_EDGES)
 def test_flash_tf32_route_at_tile_edges(dev, case):
-    """float32 at head_dim 64 launches the 3xTF32 forward and dK/dV
-    kernels (route tf32x3) and the SIMT dQ, at the tile edges of
-    ``TC_EDGES`` (one row, ragged Sq and Skv, Sq < Skv with an offset, a
-    window, GQA groups of 1 to 4), within the float32 limits of the plain
-    versions; dK/dV bitwise repeatable."""
+    """float32 at head_dim 64 launches the 3xTF32 forward, dK/dV and dQ
+    kernels (route tf32x3), at the tile edges of ``TC_EDGES`` (one row,
+    ragged Sq and Skv, Sq < Skv with an offset, a window, GQA groups of 1
+    to 4), within the float32 limits of the plain versions; dK/dV and dQ
+    bitwise repeatable."""
     sq, skv, kw, hq, hkv = TC_EDGES[case]
     q, k, v, do = _flash(dev, torch.float32, sq, skv, seed=5, b=1, hq=hq,
                          hkv=hkv)
@@ -499,14 +499,16 @@ def test_flash_tf32_route_at_tile_edges(dev, case):
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq_again = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     after = ops.route_counts()
     for name, route, n in (("flash_attention", "tf32x3", 1),
                            ("flash_attention_bwd_dkv", "tf32x3", 2),
-                           ("flash_attention_bwd_dq", "simt", 1)):
+                           ("flash_attention_bwd_dq", "tf32x3", 2)):
         assert after[name] == {**before[name],
                                route: before[name][route] + n}, name
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    assert torch.equal(dq, dq_again)
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=64 ** -0.5, **kw)
@@ -556,11 +558,33 @@ def test_flash_tf32_dkv_is_bitwise_repeatable(dev):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_flash_f32_simt_dq_still_matches_plain(dev):
+    """The SIMT dQ that the 3xTF32 one replaced at head_dim 64 stays
+    reachable (``_flash_dq_card(route="simt")``, how chip_smoke.py times
+    it beside the new one): within the float32 limit of the plain
+    version, counted on its own route, at a causal GQA shape."""
+    q, k, v, do = _flash(dev, torch.float32, 300, 300, seed=10)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    kw = dict(scale=64 ** -0.5, causal=True, window=None, q_offset=0)
+    before = ops.route_counts()["flash_attention_bwd_dq"]
+    sdq = ops._flash_dq_card(q, k, v, do, lse, delta, route="simt", **kw)
+    dq = ops._flash_dq_card(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert ops.route_counts()["flash_attention_bwd_dq"] == {
+        **before, "simt": before["simt"] + 1,
+        "tf32x3": before["tf32x3"] + 1}
+    want = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    _flash_close("dq", sdq, want, torch.float32)
+    _flash_close("dq", dq, want, torch.float32)
+
+
 def test_flash_f32_rows_that_see_no_key(dev):
     """With q_offset 60 and a window of 8 over 64 keys, query rows 11 and
     later see no key: both float32 routes give o = 0 and lse = -1e30
-    there, the same lse as each other everywhere within 1e-5, and dK/dV
-    within the gradient limit of each other."""
+    there, the same lse as each other everywhere within 1e-5, dK/dV
+    within the gradient limit of each other, and dQ = 0 there and within
+    that limit elsewhere."""
     q, k, v, do = _flash(dev, torch.float32, 64, 64, seed=8)
     kw = dict(scale=64 ** -0.5, causal=True, window=8, q_offset=60)
     o, lse = ops._flash_fwd_card(q, k, v, return_lse=True, **kw)
@@ -569,7 +593,12 @@ def test_flash_f32_rows_that_see_no_key(dev):
     delta = ops.flash_attention_bwd_preprocess(o, do)
     dkv = ops._flash_dkv_card(q, k, v, do, lse, delta, **kw)
     sdkv = ops._flash_dkv_card(q, k, v, do, lse, delta, route="simt", **kw)
+    dq = ops._flash_dq_card(q, k, v, do, lse, delta, **kw)
+    sdq = ops._flash_dq_card(q, k, v, do, lse, delta, route="simt", **kw)
     torch.cuda.synchronize()
+    for got in (dq, sdq):
+        assert not got[:, :, 11:].any()
+    _flash_close("dq", dq, sdq, torch.float32)
     for got in (o, so):
         assert not got[:, :, 11:].any() and bool(got[:, :, :11].abs().gt(0)
                                                   .all())
@@ -583,9 +612,8 @@ def test_flash_f32_rows_that_see_no_key(dev):
 
 def test_flash_autograd_under_checkpoint_runs_the_tf32_kernels(dev):
     """The autograd Function under torch.utils.checkpoint (the FHDP
-    step's per-layer remat): the forward twice and dK/dV once on tf32x3,
-    dQ on simt, the gradients within the float32 limit of plain
-    attention's."""
+    step's per-layer remat): the forward twice and dK/dV and dQ once on
+    tf32x3, the gradients within the float32 limit of plain attention's."""
     q, k, v, do = _flash(dev, torch.float32, 256, 256, seed=9, hq=4,
                          hkv=4)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -598,7 +626,7 @@ def test_flash_autograd_under_checkpoint_runs_the_tf32_kernels(dev):
     after = ops.route_counts()
     for name, route, n in (("flash_attention", "tf32x3", 2),
                            ("flash_attention_bwd_dkv", "tf32x3", 1),
-                           ("flash_attention_bwd_dq", "simt", 1)):
+                           ("flash_attention_bwd_dq", "tf32x3", 1)):
         assert after[name] == {**before[name],
                                route: before[name][route] + n}, name
     want = torch.autograd.grad(ref.flash_attention_ref(q, k, v,

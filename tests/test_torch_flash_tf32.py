@@ -1,8 +1,9 @@
 """The float32 flash kernels' 3xTF32 arithmetic, emulated on the CPU.
 
-``csrc/flash_fwd_tf32.cu`` and ``csrc/flash_bwd_dkv_tf32.cu`` run every
-product of the float32 flash forward and dK/dV on wgmma in tf32 with
-float32 accumulation, as 3xTF32: each float32 operand x splits with
+``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_dkv_tf32.cu`` and
+``csrc/flash_bwd_dq_tf32.cu`` run every product of the float32 flash
+forward, dK/dV and dQ on wgmma in tf32 with float32 accumulation, as
+3xTF32: each float32 operand x splits with
 round-to-nearest (ties away, ``cvt.rna.tf32.f32``) into big = rna(x) and
 small = rna(x - big), and a product is small.big + big.small + big.big.
 The forward walks 64-row query tiles over the live 64-key tiles, the
@@ -15,11 +16,16 @@ dK/dV works in the transposed frame, 64 keys a CTA, 32-row query tiles
 over the GQA group's heads, again the even and the odd tiles of the
 walk in two sums added at the end: S^T = K Q^T, dP^T = V dO^T, P^T =
 2^(S^T scale log2 e - lse log2 e) (0 where masked), dS^T = P^T (dP^T -
-delta) scale, dV += P^T dO, dK += dS^T Q. P, P^T and dS^T are split on
-the fly as register A operands, whose k slots hold the accumulator's
-columns in the order of the wgmma fragment; the B operand they multiply
-(V^T, dO^T, Q^T) is stored with its rows permuted to match.
-:func:`fwd_emulated` and :func:`dkv_emulated` do exactly that, with the
+delta) scale, dV += P^T dO, dK += dS^T Q. dQ is dK/dV's mirror image:
+64 query rows a CTA over the live 32-key tiles of their KV head, the
+even and the odd tiles in two sums added at the end: S = Q K^T, dP =
+dO V^T, P = 2^(S scale log2 e - lse log2 e) (0 where masked), dS = P (dP
+- delta) scale, dQ += dS K. P, P^T, dS^T and dS are split on the fly as
+register A operands, whose k slots hold the accumulator's columns in the
+order of the wgmma fragment; the B operand they multiply (V^T, dO^T,
+Q^T, K^T) is stored with its rows permuted to match.
+:func:`fwd_emulated`, :func:`dkv_emulated` and :func:`dq_emulated` do
+exactly that, with the
 tf32 rounding as bit arithmetic on float32 tensors and each register-A
 product taken slot by slot through both layouts. (The emulation rounds
 each float32 sum to nearest; the tensor cores truncate theirs, which is
@@ -27,7 +33,7 @@ why the kernels add each tile's products in float32 and why the card
 checks, not these, hold that part.)
 
 Held to the card checks' limits (``chip_smoke.py``): o and lse within
-1e-5 (``FLASH_ATOL_F32``), dK and dV within 2e-5
+1e-5 (``FLASH_ATOL_F32``), dK, dV and dQ within 2e-5
 (``FLASH_GRAD_ATOL_F32``), against the float32 plain versions at the
 FHDP step's shape (S 256, D 64, non-causal; B and H cut to 1 x 2) and
 at causal GQA, ragged, window and q_offset cases, and against the
@@ -49,6 +55,7 @@ ATOL, GRAD_ATOL = 1e-5, 2e-5       # chip_smoke.py's FLASH_*ATOL_F32
 NEG = -1e30                        # flash_attention.cuh's kNegInf
 BQ_FWD, BK_FWD = 64, 64            # flash_fwd_tf32.cu's tiles
 BK_BWD, BQ_BWD = 64, 32            # flash_bwd_dkv_tf32.cu's tiles
+BQ_DQ, BK_DQ = 64, 32              # flash_bwd_dq_tf32.cu's tiles
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
 
@@ -267,6 +274,47 @@ def dkv_emulated(q, k, v, do, lse, delta, *, scale, causal=True,
     return dk, dv
 
 
+def dq_emulated(q, k, v, do, lse, delta, *, scale, causal=True,
+                window=None, q_offset=0, passes=3, b_rows=None):
+    """flash_bwd_dq_tf32.cu: dq for the forward's inputs, its lse, dO and
+    delta, all float32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    scale = torch.tensor(scale, dtype=torch.float32)
+    lse2 = lse * LOG2E
+    dq = torch.zeros_like(q)
+    for q_lo in range(0, sq, BQ_DQ):
+        qt, dot = _rows(q, q_lo, BQ_DQ), _rows(do, q_lo, BQ_DQ)
+        rows = torch.arange(q_lo, q_lo + BQ_DQ)
+        cols = slice(q_lo, q_lo + BQ_DQ)
+        pad = BQ_DQ - lse2[..., cols].shape[-1]
+        l2 = torch.nn.functional.pad(lse2[..., cols], (0, pad))
+        dl = torch.nn.functional.pad(delta[..., cols], (0, pad))
+        kb, ke = _live_keys(q_lo, min(sq, q_lo + BQ_DQ) - 1, skv, causal,
+                            window, q_offset)
+        # each warpgroup's sum: tiles j = wg, wg + 2, ...
+        acc = [torch.zeros((b, hq, BQ_DQ, d)) for _ in range(2)]
+        kt0 = kb // BK_DQ
+        n = -(-ke // BK_DQ) - kt0 if ke > kb else 0
+        for j in range(n):
+            key0 = (kt0 + j) * BK_DQ
+            kt, vt = _rows(kx, key0, BK_DQ), _rows(vx, key0, BK_DQ)
+            s = mm(qt, kt.transpose(-1, -2), passes)
+            dp = mm(dot, vt.transpose(-1, -2), passes)
+            ok = _visible(rows, torch.arange(key0, key0 + BK_DQ), skv,
+                          causal, window, q_offset)
+            ok = ok & (rows < sq)[:, None]
+            p = torch.where(ok, torch.exp2(s * sl2 - l2[..., None]), 0.0)
+            ds = p * (dp - dl[..., None]) * scale
+            acc[j % 2] = acc[j % 2] + mm_slots(ds, kt, passes, b_rows)
+        keep = min(BQ_DQ, sq - q_lo)
+        dq[:, :, q_lo:q_lo + keep] = (acc[0] + acc[1])[:, :, :keep]
+    return dq
+
+
 # ----------------------------------------------------------------- tests
 def _inputs(seed, b, hq, hkv, sq, skv, d=64):
     rng = np.random.default_rng(seed)
@@ -287,6 +335,11 @@ def _plain(q, k, v, do, kw):
     dk, dv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                              scale=sc, **kw)
     return o, lse, delta, dk, dv
+
+
+def _plain_dq(q, k, v, do, lse, delta, kw):
+    return ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                          scale=q.shape[-1] ** -0.5, **kw)
 
 
 def test_register_fragment_and_b_layout_agree():
@@ -322,6 +375,17 @@ def test_dkv_emulation_meets_the_card_limits(case):
     assert _err(edv, dv) <= GRAD_ATOL, _err(edv, dv)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_dq_emulation_meets_the_card_limits(case):
+    b, hq, hkv, sq, skv, kw = CASES[case]
+    q, k, v, do = _inputs(6, b, hq, hkv, sq, skv)
+    _, lse, delta, _, _ = _plain(q, k, v, do, kw)
+    dq = _plain_dq(q, k, v, do, lse, delta, kw)
+    edq = dq_emulated(q, k, v, do, lse, delta, scale=64 ** -0.5, **kw)
+    assert torch.isfinite(edq).all()
+    assert _err(edq, dq) <= GRAD_ATOL, _err(edq, dq)
+
+
 def test_rows_that_see_no_key():
     """A window past the last key: with q_offset 60 and window 8, query
     rows 11 and later see no key. o = 0 and lse = -1e30 there, as on the
@@ -335,17 +399,20 @@ def test_rows_that_see_no_key():
     assert _err(eo, o) <= ATOL and _err(elo, lse) <= ATOL
     edk, edv = dkv_emulated(q, k, v, do, lse, delta, scale=0.125, **kw)
     assert _err(edk, dk) <= GRAD_ATOL and _err(edv, dv) <= GRAD_ATOL
+    edq = dq_emulated(q, k, v, do, lse, delta, scale=0.125, **kw)
+    assert not edq[:, :, 11:].any()
+    assert _err(edq, _plain_dq(q, k, v, do, lse, delta, kw)) <= GRAD_ATOL
 
 
 def test_emulation_matches_the_pallas_kernels():
     """At a small non-causal D-64 shape, against the reference's Pallas
-    forward and dK/dV in interpret mode (float32 on both sides)."""
+    forward, dK/dV and dQ in interpret mode (float32 on both sides)."""
     q, k, v, do = _inputs(4, 1, 2, 1, 40, 72)
     kw = dict(causal=False)
     npy = [t.numpy() for t in (q, k, v, do)]
     jo, jlse = jfa.flash_attention(*npy[:3], block_q=16, block_k=16,
                                    return_lse=True, interpret=True, **kw)
-    _, jdk, jdv = jfa.flash_attention_bwd(*npy[:3], jo, jlse, npy[3],
+    jdq, jdk, jdv = jfa.flash_attention_bwd(*npy[:3], jo, jlse, npy[3],
                                           block_q=16, block_k=16,
                                           interpret=True, **kw)
     eo, elo = fwd_emulated(q, k, v, scale=0.125, **kw)
@@ -359,6 +426,9 @@ def test_emulation_matches_the_pallas_kernels():
     np.testing.assert_allclose(edk.numpy(), np.asarray(jdk), rtol=0,
                                atol=GRAD_ATOL)
     np.testing.assert_allclose(edv.numpy(), np.asarray(jdv), rtol=0,
+                               atol=GRAD_ATOL)
+    edq = dq_emulated(q, k, v, do, lse, delta, scale=0.125, **kw)
+    np.testing.assert_allclose(edq.numpy(), np.asarray(jdq), rtol=0,
                                atol=GRAD_ATOL)
 
 
@@ -376,6 +446,8 @@ def test_a_cheaper_or_misordered_kernel_breaks_the_limits(fault):
     eo, _ = fwd_emulated(q, k, v, scale=0.125, **kw, **bad)
     edk, edv = dkv_emulated(q, k, v, do, lse, delta, scale=0.125, **kw,
                             **bad)
+    edq = dq_emulated(q, k, v, do, lse, delta, scale=0.125, **kw, **bad)
     assert _err(eo, o) > ATOL
     assert max(_err(edk, dk), _err(edv, dv)) > GRAD_ATOL
+    assert _err(edq, _plain_dq(q, k, v, do, lse, delta, kw)) > GRAD_ATOL
     assert math.isfinite(_err(eo, o))
