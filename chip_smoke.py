@@ -106,6 +106,19 @@ In order, it
      whose merged params have the flat model's shapes; reports whether
      the 8 steps on one batch descended (at this lr the reference's
      loss rises there too);
+ 8c. trains flad-vision at full width by SWIFT-scheduled FHDP with a live
+     template switch: the swift_pipeline strategy over a five-vehicle
+     fleet (template (4, 4, 3, 1)), from the reference trajectory's
+     start, 4 steps with vehicle 0 departing after step index 1
+     (template (4, 3, 3, 2): merged, restaged, the step rebuilt, Adam's
+     moments restarted), an edge backup and a checkpoint every 2 steps;
+     checks the templates, the restage bitwise, the shrunken fleet, the
+     exact flash launches by route, each loss against the reference's
+     full-width CPU run of the same departure, the checkpoint (sidecar,
+     params bitwise) and the latest backup restaged under the balanced
+     template; reports the switch's, the backups' and the checkpoint's
+     times and the step before and after; trains a DQN policy on the
+     card (20 episodes) and runs SWIFT with it;
   9. serves xlstm-350m at full width and depth (bf16, random weights from
      a seed) through the serving launcher's legacy static-batch scheduler
      (Session.serve): 3 request batches of 8 x 512-token prompts and 32
@@ -122,7 +135,8 @@ With --paged it stops after the build and the paged kernels' checks
 and the fused int8 append's checks, with --spec after the build, the
 verify's and the preprocess's checks, the serving path and step 4b,
 with --vision after the build, the flash kernels at the FHDP shape and
-step 8b; none prints a result line.
+step 8b, with --swift after the build and step 8c; none prints a result
+line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -394,6 +408,35 @@ VISION_ROUTES = {"flash_attention": "tf32x3",
                  "flash_attention_bwd_dq": "tf32x3", PRE: "vec"}
 VISION_NAMES = {**{fn: t[2] for fn, t in TF32_KERNELS.items()},
                 PRE: PRE_NAMES["vec"]}
+# The swift phase: flad-vision at full width under the swift_pipeline
+# strategy (SWIFT's templates, pre-generated departure templates) on the
+# (2, 4) mesh, at the Session's lr and 16 samples, over a fleet of five
+# vehicles (Jetson Nano compute and link) whose memories, in units of one
+# flad-vision unit's training footprint at seq_len 512 (94387200 B, the
+# strategy's default), force SWIFT to span four of them: template (4, 4,
+# 3, 1) headed by vehicle 0, and after vehicle 0 departs (4, 3, 3, 2).
+# The launcher's default fleet, nano*4,agx*2, fits the whole model on one
+# vehicle, so a departure there never changes the template.
+SWIFT_SESSION = dict(VISION_SESSION, strategy="swift_pipeline", seq_len=512)
+SWIFT_FLEET = dict(cmp=0.472e12, com=0.125e9, mem=(4.5, 4.5, 3.5, 3.5, 3.5),
+                   stb=(0.9, 0.8, 0.7, 0.6, 0.5))
+SWIFT_STEPS, SWIFT_DEPART = 4, {1: 0}    # vehicle 0 leaves after step 1
+SWIFT_TEMPLATES = ((4, 4, 3, 1), (4, 3, 3, 2))
+SWIFT_BACKUP_EVERY, SWIFT_CKPT_EVERY = 2, 2
+SWIFT_DQN_EPISODES = 20
+# Both packages' swift_pipeline Session at full width on the CPU, from
+# the port's init with seed 0 (torch's CPU generator) bridged to the
+# reference, on numpy batches from seed 31 (numpy_vision_batches), each
+# with a Repartitioner departing SWIFT_DEPART:
+# ``PYTHONPATH=src python tests/test_torch_trajectory.py --full --swift``
+# gives the reference's losses below, and the port's CPU run within
+# 1.0e-7, 3.6e-6, 4.1e-6 and 3.4e-5 of them, so all four steps are held
+# to VISION_REF_RTOL. The first three equal the "fresh" trajectory's (the
+# template changes no arithmetic); the fourth is the first step on the
+# restarted moments, whose bias correction continues from step 3.
+SWIFT_REF_SEED = 31
+SWIFT_REF_LOSSES = (2.279392, 10.733290, 9.164496, 14.160181)
+SWIFT_REF_GATED = 4               # steps held to VISION_REF_RTOL
 
 
 def check(cond, msg):
@@ -2752,7 +2795,8 @@ def vision_step_vs_plain(torch, step, pp, opt, batch, lr):
     return abs(lk - lp), worst_m, worst, near
 
 
-def profile_vision_step(torch, step, state, batch, steps=3):
+def profile_vision_step(torch, step, state, batch, steps=3,
+                        label="FHDP step"):
     """Wall time, samples/s, device busy and idle share, the flash
     kernels' share and peak memory of a warm FHDP step at full width."""
     from torch.profiler import ProfilerActivity, profile
@@ -2780,7 +2824,7 @@ def profile_vision_step(torch, step, state, batch, steps=3):
              for n in VISION_NAMES.values()}
     flash = sum(split.values())
     bs = VISION_GEOMETRY[0] * VISION_GEOMETRY[1] * VISION_GEOMETRY[2]
-    print(f"[profile] FHDP step, flad-vision full width, {bs} samples on a "
+    print(f"[profile] {label}, flad-vision full width, {bs} samples on a "
           f"(2, 4) mesh: wall {wall:.3f} ms, {bs / wall * 1e3:.1f} "
           f"samples/s, device busy {busy:.3f} ms (idle "
           f"{100 * max(0.0, 1 - busy / wall):.1f}%), {n_ops} device "
@@ -2972,6 +3016,270 @@ def vision_main_path(torch, dev):
                                       "param_diff", "near_eps"), cmp)),
                    **prof)
     return launches, by_route, summary
+
+
+def swift_fleet(unit_cap):
+    """``SWIFT_FLEET`` as the strategy's spec dicts."""
+    f = SWIFT_FLEET
+    return [dict(cmp=f["cmp"], com=f["com"], mem=m * unit_cap, stb=st)
+            for m, st in zip(f["mem"], f["stb"])]
+
+
+def swift_policy(torch, dev, vehicles, units):
+    """SWIFT's phase-2 policy: a double DQN trained on the card for
+    ``SWIFT_DQN_EPISODES`` episodes over the fleet, then one ``swift``
+    run with it. Every essential pipeline must cover every unit; returns
+    how many came from the policy and how many from the greedy
+    fallback, and the times."""
+    from repro_torch.sched.costmodel import CostParams
+    from repro_torch.sched.swift import (dqn_pipeline, swift, train_policy,
+                                         window_fleet)
+    cp = CostParams()
+    t0 = time.perf_counter()
+    agent = train_policy(lambda: (vehicles, units),
+                         episodes=SWIFT_DQN_EPISODES, seed=0, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(agent.online["w1"].device.type == "cuda" and agent.replay.n > 0,
+          "the DQN did not train on the card")
+    res = swift(vehicles, units, agent=agent, cp=cp)
+    head = res.initial.path[0].vid if res.initial is not None else None
+    from_policy = fallback = 0
+    for vid, pipe in res.essential.items():
+        check(sum(len(part) for part in pipe.partition) == len(units),
+              f"essential pipeline of vehicle {vid} covers "
+              f"{pipe.template()} of {len(units)} units")
+        if vid == head:
+            continue
+        idx = next(i for i, v in enumerate(vehicles) if v.vid == vid)
+        win, h = window_fleet(vehicles, idx)
+        mine = dqn_pipeline(agent, win, units, cp, head=h)
+        if mine is not None and mine.template() == pipe.template() and \
+                [v.vid for v in mine.path] == [v.vid for v in pipe.path]:
+            from_policy += 1
+        else:
+            fallback += 1
+    # learn() updates once the replay holds a batch
+    updates = max(0, agent.replay.n - agent.cfg.batch + 1)
+    print(f"[swift] DQN: {SWIFT_DQN_EPISODES} episodes on the card in "
+          f"{train_s:.2f} s ({agent.replay.n} transitions, {updates} Adam "
+          f"updates of batch {agent.cfg.batch}); swift(agent=) in "
+          f"{res.phase1_s * 1e3:.3f} + {res.phase2_s * 1e3:.3f} ms: "
+          f"{len(res.essential)} essential pipelines, each over "
+          f"{len(units)} units ({from_policy} from the policy, {fallback} "
+          f"from the greedy fallback, 1 the phase-1 pipeline); templates "
+          + ", ".join(f"{vid}: {p.template()}"
+                      for vid, p in sorted(res.essential.items())))
+    return dict(episodes=SWIFT_DQN_EPISODES, train_s=train_s,
+                transitions=agent.replay.n, updates=updates,
+                from_policy=from_policy,
+                fallback=fallback, phase1_s=res.phase1_s,
+                phase2_s=res.phase2_s,
+                templates={str(k): list(p.template())
+                           for k, p in res.essential.items()})
+
+
+def swift_main_path(torch, dev):
+    """SWIFT-scheduled FHDP with a live template switch, at full width:
+    the ported Session under ``swift_pipeline`` over ``SWIFT_FLEET`` at
+    its own lr, from the reference trajectory's start (the port's init on
+    the CPU, moved to the card; numpy batches), ``SWIFT_STEPS`` steps
+    with a Repartitioner departing vehicle 0 after step index 1, an edge
+    backup every 2 steps and a checkpoint every 2. Checks the templates
+    (4, 4, 3, 1) -> (4, 3, 3, 2), the restage bitwise, the shrunken fleet,
+    the exact flash launches by route, the first loss against the flat
+    model's and every loss against the reference's, the step-4 checkpoint
+    (its sidecar and the params bitwise) and the latest backup restaged
+    under the balanced template; then trains a DQN policy on the card and
+    runs SWIFT with it."""
+    import tempfile
+
+    from repro_torch.api import LoopHooks, MeshSpec, Session
+    from repro_torch.api.session import load_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.fhdp import init_fhdp
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.recovery.backup import EdgeBackup, restage
+    from repro_torch.recovery.recover import Repartitioner
+    from repro_torch.sched.costmodel import model_units
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import leaves, tree_map
+    t0 = time.perf_counter()
+    units = model_units(load_config("flad-vision", full=True),
+                        seq_len=SWIFT_SESSION["seq_len"])
+    ses = Session(**SWIFT_SESSION, fleet=swift_fleet(units[0].cap),
+                  device=dev)
+    cfg, strat = ses.cfg, ses.strategy
+    tmpl = strat.resolve_templates(cfg, ses.mesh)
+    vehicles = list(strat.vehicles)
+    res = strat.swift_result
+    check(tmpl == {"blocks": SWIFT_TEMPLATES[0]}
+          and sum(tmpl["blocks"]) == cfg.num_layers,
+          f"swift template {tmpl}, want {SWIFT_TEMPLATES[0]}")
+    check(ses.shape.global_batch == 16 and strat.learning_rate == 1e-3,
+          f"swift batch {ses.shape.global_batch}, lr "
+          f"{strat.learning_rate}")
+    print(f"[swift] {cfg.name} full width over {len(vehicles)} vehicles "
+          f"(unit {units[0].cap:.0f} B, memories {SWIFT_FLEET['mem']} "
+          f"units): SWIFT phase 1 {res.phase1_s * 1e3:.3f} ms, phase 2 "
+          f"{res.phase2_s * 1e3:.3f} ms; active template {tmpl['blocks']} "
+          f"on vehicles {[v.vid for v in strat.active_pipeline.path]}; "
+          f"departure templates " + ", ".join(
+              f"{vid}: {p.template() if p else None}" for vid, p in
+              strat.template_set.on_departure.items()))
+    pp, opt, _ = init_fhdp(cfg, MeshSpec((2, 4)).build("cpu"), ses.seed,
+                           templates=tmpl)
+    state = tuple(tree_map(lambda t: t.to(dev), x) for x in (pp, opt))
+    del pp, opt
+    drawn = numpy_vision_batches(cfg, SWIFT_STEPS, SWIFT_REF_SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in drawn]
+    with torch.no_grad():
+        flat = float(build_model(cfg).loss(
+            strat.merge_params(state, cfg), batches[0])[0])
+    start = tree_map(torch.clone, state[0])
+    step0, _ = ses.build(init=False)
+    h = strat.helpers
+    geom = (h["microbatches"], h["mb"], h["columns"])
+    check(geom == VISION_GEOMETRY, f"swift geometry {geom}")
+    torch.cuda.synchronize()
+    print(f"[swift] set up in {time.perf_counter() - t0:.1f} s")
+
+    tmpdir = tempfile.TemporaryDirectory(prefix="swift_ckpt_")
+    path = str(Path(tmpdir.name) / "swift")
+    rep = Repartitioner(ses, dict(SWIFT_DEPART))
+    backup = EdgeBackup(interval=SWIFT_BACKUP_EVERY)
+    hooks = LoopHooks(log_every=1, log_fn=lambda *a, **k: None,
+                      backup=backup, checkpoint_path=path,
+                      checkpoint_every=SWIFT_CKPT_EVERY, repartition=rep)
+    # the main path: counts from zero just before the run, read just after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ses.run(SWIFT_STEPS, state=state, batches=batches, hooks=hooks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _vision_launches(cfg, SWIFT_STEPS, geom[2], geom[0])
+    routes = _check_vision_launches(ops, counts, want, "swift pipeline")
+    del state
+
+    # the switch
+    check(len(rep.events) == 1, f"{len(rep.events)} repartition events")
+    ev = rep.events[0]
+    check(ev.old_template == {"blocks": SWIFT_TEMPLATES[0]}
+          and ev.new_template == {"blocks": SWIFT_TEMPLATES[1]}
+          and all(sum(t["blocks"]) == cfg.num_layers
+                  for t in (ev.old_template, ev.new_template)),
+          f"swift templates {ev.old_template} -> {ev.new_template}")
+    check(ev.params_identical, "the restage changed the merged params")
+    check([v.vid for v in strat.vehicles] == [v.vid for v in vehicles
+                                              if v.vid != ev.vid]
+          and ev.vid == SWIFT_DEPART[1],
+          f"fleet after the departure {[v.vid for v in strat.vehicles]}")
+    check({k: tuple(v) for k, v in strat.templates.items()}
+          == ev.new_template, f"strategy templates {strat.templates}")
+    check(ses._built[0] is out["step_fn"] and out["step_fn"] is not step0,
+          "the session did not keep the rebuilt step")
+    # the losses
+    losses = [e["loss"] for e in out["history"]]
+    check(len(losses) == SWIFT_STEPS and all(np.isfinite(losses)),
+          f"swift losses {losses}")
+    check(abs(losses[0] - flat) <= VISION_LOSS_RTOL * abs(flat),
+          f"swift first loss {losses[0]} vs the flat model's {flat}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(losses, SWIFT_REF_LOSSES)]
+    n = SWIFT_REF_GATED
+    check(max(rel[:n]) <= VISION_REF_RTOL,
+          f"swift losses {losses} leave the reference's {SWIFT_REF_LOSSES}")
+    print(f"[swift] {SWIFT_STEPS} steps in {wall:.2f} s, vehicle "
+          f"{ev.vid} departed after step index {ev.step}: template "
+          f"{ev.old_template['blocks']} -> {ev.new_template['blocks']}, "
+          f"params identical {ev.params_identical}; lookup "
+          f"{ev.lookup_s * 1e3:.3f} ms, restage {ev.restage_s * 1e3:.3f} "
+          f"ms, rebuild {ev.rebuild_s * 1e3:.3f} ms (switch "
+          f"{ev.total_s * 1e3:.3f} ms), template refresh "
+          f"{ev.refresh_s * 1e3:.3f} ms, {ev.moved_bytes:.0f} B to "
+          f"redistribute; losses " + ", ".join(f"{x:.6f}" for x in losses)
+          + "; the reference's " + ", ".join(
+              f"{x:.6f}" for x in SWIFT_REF_LOSSES)
+          + "; |diff| / |reference| " + ", ".join(f"{x:.2e}" for x in rel)
+          + f" (the first {n} held to {VISION_REF_RTOL}); first vs the "
+          f"flat model's {flat:.6f} (|diff| {abs(losses[0] - flat):.2e}); "
+          f"launches {want}, by route {routes}")
+
+    # the checkpoint of step 4: its sidecar, and the params bitwise
+    final = ses.state
+    meta = ckpt.load_meta(path)
+    check(meta == {"strategy": "swift_pipeline", "arch": cfg.name,
+                   "templates": {"blocks": list(SWIFT_TEMPLATES[1])}},
+          f"checkpoint sidecar {meta}")
+    t0 = time.perf_counter()
+    restored, at = ckpt.load(path, tree_map(lambda t: t.to("meta"),
+                                            final[0]), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(at == SWIFT_STEPS and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(leaves(restored), leaves(final[0]))),
+          "the step-4 checkpoint does not load back bitwise")
+    del restored
+    t0 = time.perf_counter()
+    ckpt.save(path + "_timed", final[0], step=SWIFT_STEPS,
+              meta=ses._checkpoint_meta())
+    save_s = time.perf_counter() - t0
+    ckpt_mb = Path(path + ".npz").stat().st_size / 1e6
+    tmpdir.cleanup()
+    # the latest backup restages under the balanced template, bitwise
+    snap = backup.latest
+    check(snap is not None and snap.step == SWIFT_STEPS - 2
+          and backup.backups_taken == SWIFT_STEPS // SWIFT_BACKUP_EVERY,
+          f"backups {backup.backups_taken}, latest "
+          f"{None if snap is None else snap.step}")
+    balanced = pl.make_templates(cfg, ses.mesh.shape["model"])
+    t0 = time.perf_counter()
+    back = pl.merge_stage_params(restage(snap.tree, cfg, balanced,
+                                         ses.mesh), balanced)
+    torch.cuda.synchronize()
+    restage_s = time.perf_counter() - t0
+    check(all(a.device.type == dev.type and torch.equal(a.cpu(), b)
+              for a, b in zip(leaves(back), leaves(snap.tree))),
+          "the backup does not restage under the balanced template bitwise")
+    del back
+    backup_mb = sum(t.numel() * t.element_size()
+                    for t in leaves(snap.tree)) / 1e6
+    print(f"[swift] checkpoint of step {at}: sidecar {meta['templates']}, "
+          f"{ckpt_mb:.1f} MB, loads back bitwise in {load_s:.3f} s (a save "
+          f"of the final state {save_s:.3f} s); edge backups "
+          f"{backup.backups_taken} of {backup_mb:.1f} MB each in "
+          + ", ".join(f"{x:.3f}" for x in backup.seconds)
+          + f" s; the latest (step index {snap.step}) restages under "
+          f"{balanced['blocks']} and merges back bitwise in "
+          f"{restage_s:.3f} s")
+
+    # the step before and after the switch, warm, from the start and the
+    # final state
+    before = profile_vision_step(
+        torch, step0, [start, pl.zero2_init(start, 2)], batches[0],
+        steps=2, label=f"swift step under {SWIFT_TEMPLATES[0]}")
+    del start
+    after = profile_vision_step(
+        torch, out["step_fn"], [final[0], final[1]], batches[0], steps=2,
+        label=f"swift step under {SWIFT_TEMPLATES[1]}")
+    del out, final, ses
+    torch.cuda.empty_cache()
+
+    dqn = swift_policy(torch, dev, vehicles, units)
+    summary = dict(steps=SWIFT_STEPS, wall_s=wall, losses=losses,
+                   reference=list(SWIFT_REF_LOSSES), rel=rel,
+                   flat_loss=flat, templates=[list(t) for t in
+                                              SWIFT_TEMPLATES],
+                   event={k: v for k, v in ev.as_dict().items()},
+                   swift_phase1_s=res.phase1_s, swift_phase2_s=res.phase2_s,
+                   backup_s=list(backup.seconds), backup_mb=backup_mb,
+                   checkpoint_save_s=save_s, checkpoint_load_s=load_s,
+                   checkpoint_mb=ckpt_mb, restage_balanced_s=restage_s,
+                   step_before=before, step_after=after, dqn=dqn)
+    return want, routes, summary
 
 
 # ------------------------------------------------------------------ mLSTM
@@ -3829,6 +4137,12 @@ def main():
         print("chip_smoke --vision: the float32 flash kernels at the FHDP "
               "shape and the FHDP phase only; no result line")
         return 0
+    if "--swift" in sys.argv[1:]:
+        launches, by_route, summary = swift_main_path(torch, dev)
+        print(json.dumps({"launches": launches, "by_route": by_route,
+                          "swift": summary}))
+        print("chip_smoke --swift: the SWIFT phase only; no result line")
+        return 0
     if "--mlstm" in sys.argv[1:]:
         rows = {"mlstm_chunked": mlstm_checks(torch, dev),
                 "quantize_kv_append": append_checks(torch, cfg, dev)}
@@ -3917,6 +4231,10 @@ def main():
     vision_launches, vision_routes, vision_summary = vision_main_path(
         torch, dev)
 
+    # 8c. SWIFT-scheduled FHDP with a live template switch
+    swift_launches, swift_routes, swift_summary = swift_main_path(torch,
+                                                                  dev)
+
     # 9. the xLSTM serving path: xlstm-350m through the legacy scheduler
     xcfg = get_config("xlstm-350m")
     xlstm_launches, _, xlstm_routes = xlstm_main_path(torch, xcfg, dev)
@@ -3933,7 +4251,8 @@ def main():
                    "train": train_launches[name],
                    "distill": distill_launches[name],
                    "xlstm_serve": xlstm_launches[name],
-                   "vision": vision_launches.get(name, 0)}
+                   "vision": vision_launches.get(name, 0),
+                   "swift": swift_launches.get(name, 0)}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "
@@ -3943,6 +4262,7 @@ def main():
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]
                 + vision_routes.get(name, {}).get(r, 0)
+                + swift_routes.get(name, {}).get(r, 0)
                 for r in train_routes[name]}, "build": tc[name]}
         if name in TF32_KERNELS:
             extra["build_tf32x3"] = tc[f"{name}/tf32x3"]
@@ -3955,9 +4275,11 @@ def main():
         if name == PRE:
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]
-                + vision_routes[name][r] for r in train_routes[name]}}
+                + vision_routes[name][r] + swift_routes[name][r]
+                for r in train_routes[name]}}
         if name == "flash_attention":
             extra["fhdp_phase"] = vision_summary
+            extra["swift_phase"] = swift_summary
         if name == "quantize_int8":
             extra = {"train_launches_by_leaf": codec_by_leaf}
         if name == "paged_verify_attention":

@@ -1,6 +1,7 @@
 """repro_torch.api — the Session, Strategy and mesh layer of the port
 (port of ``repro.api``): ``Session(...).run`` runs the step strategies
-(``pipeline``, FHDP, and ``tensor``) and the round strategies
+(``pipeline``, FHDP; ``swift_pipeline``, FHDP under SWIFT's templates
+with live repartitioning; ``tensor``) and the round strategies
 (``fl_pipeline``, ``hier_fl`` and its base ``fedavg``, ``distill_fl``)
 on one device, and ``Session(...).serve`` serves the model with the
 legacy or the continuous scheduler."""

@@ -5,13 +5,18 @@ A Session composes a model config (``arch``, default ``flad-vision``;
 the CPU-smoke reduced variant unless ``full=True``), an input shape, a
 :class:`~repro_torch.api.mesh.MeshSpec` (default data 2 x model 4), a
 registered :class:`~repro_torch.api.strategies.Strategy` (default
-``pipeline``, FHDP) and :class:`~repro_torch.train.loop.LoopHooks`, on
-one ``device`` (default ``"cuda"``): the mesh's ranks all run there::
+``pipeline``, FHDP) and :class:`~repro_torch.train.loop.LoopHooks` (log,
+edge backup, checkpoint, live repartition), on one ``device`` (default
+``"cuda"``): the mesh's ranks all run there::
 
     from repro_torch.api import Session
     out = Session().run(50)                   # FHDP on reduced flad-vision
     out = Session("flad-adllm", strategy="hier_fl", codec="int8",
                   shape="1024x4", full=True).run(2)
+    from repro_torch.recovery.recover import Repartitioner
+    ses = Session(strategy="swift_pipeline", mesh="2,2")   # SWIFT templates
+    ses.build()         # vehicle 0 leaves after step index 1:
+    ses.run(4, hooks=LoopHooks(repartition=Repartitioner(ses, {1: 0})))
 
 The defaults are the reference's: with no arguments both Sessions train
 reduced flad-vision with the ``pipeline`` strategy on a (2, 4) mesh, 2
@@ -113,6 +118,34 @@ class Session:
             self.state = state
         return self._built
 
+    def rebuild(self, *, templates=None, state=None) -> Callable:
+        """Drop the cached step and rebuild it — the runtime half of live
+        dynamic repartitioning. ``templates`` replaces a template-bearing
+        strategy's stage templates first; ``state`` becomes the session
+        state (default: keep the current state — the session is never
+        silently re-initialized)."""
+        if templates is not None:
+            if not hasattr(self.strategy, "templates"):
+                raise ValueError(
+                    f"strategy {self.strategy.name!r} has no stage "
+                    f"templates to replace")
+            self.strategy.templates = {k: tuple(v)
+                                       for k, v in templates.items()}
+        step = self.strategy.make_step(self.cfg, self.shape, self.mesh)
+        if state is not None:
+            self.state = state
+        self._built = (step, self.state)
+        return step
+
+    def _checkpoint_meta(self) -> dict:
+        """Sidecar metadata for checkpoints: enough to restage the raw
+        (stage/client-stacked) container later."""
+        meta = {"strategy": self.strategy.name, "arch": self.cfg.name}
+        templates = getattr(self.strategy, "templates", None)
+        if templates:
+            meta["templates"] = {k: list(v) for k, v in templates.items()}
+        return meta
+
     def merged_params(self, state=None):
         """Flat model params view of the current (or given) state."""
         state = state if state is not None else self.state
@@ -142,7 +175,13 @@ class Session:
         (default: synthetic);
         ``metrics``: a :class:`repro_torch.obs.MetricsRegistry` or a path
         that collects every logged round's scalar metrics
-        (``out["metrics_path"]`` when a path)."""
+        (``out["metrics_path"]`` when a path).
+
+        An edge backup in ``hooks`` snapshots the merged flat params
+        unless the hooks name a ``backup_view``; checkpoints get
+        :meth:`_checkpoint_meta` as their sidecar unless the hooks name a
+        ``checkpoint_meta``. A repartition hook may swap the step
+        mid-run; the session keeps the swapped one."""
         from repro_torch.obs import MetricsRegistry
         from repro_torch.train.loop import LoopHooks, fl_loop, train_loop
         for name, arg in (("trace", trace), ("profile", profile)):
@@ -160,6 +199,17 @@ class Session:
         hooks = hooks or self.hooks or (
             LoopHooks() if self.strategy.loop == "step"
             else LoopHooks(log_every=1))
+        if hooks.backup is not None and hooks.backup_view is None:
+            # default the edge snapshot to the merged flat model, the form
+            # recovery's restage() redeploys under a new template
+            hooks = dataclasses.replace(
+                hooks, backup_view=lambda p: self.strategy.merge_params(
+                    (p, None), self.cfg))
+        if hooks.checkpoint_path and hooks.checkpoint_meta is None:
+            # record the live layout next to structured checkpoints (bound
+            # method, so a mid-run repartition is reflected at save time)
+            hooks = dataclasses.replace(
+                hooks, checkpoint_meta=self._checkpoint_meta)
         if registry is not None and hooks.metrics is None:
             hooks = dataclasses.replace(hooks, metrics=registry)
         params, opt = init_state
@@ -167,7 +217,8 @@ class Session:
             it = iter(batches) if batches is not None \
                 else self.default_batches()
             out = train_loop(step, params, opt, it, steps=steps, hooks=hooks)
-            return self._finish(step, (out["params"], out["opt_state"]),
+            return self._finish(out["step_fn"],
+                                (out["params"], out["opt_state"]),
                                 out, metrics_path, registry)
         if batches is None:
             it = self.default_batches()
@@ -185,7 +236,8 @@ class Session:
         else:
             out = fl_loop(step, params, opt, round_fn, rounds=steps,
                           hooks=hooks)
-        return self._finish(step, (out["client_params"], out["client_opt"]),
+        return self._finish(out["step_fn"],
+                            (out["client_params"], out["client_opt"]),
                             out, metrics_path, registry)
 
     def _finish(self, step, state, out, metrics_path, registry):

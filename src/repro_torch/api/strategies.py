@@ -11,14 +11,17 @@ A :class:`Strategy` owns what an execution mode needs:
 The port runs on one card: every strategy takes the session's one-device
 :class:`repro_torch.api.mesh.Mesh`, whose ``device`` holds the state; the
 FHDP strategies also shape their columns and stages by its axes. Ported: ``tensor`` (the single-model baseline step),
-``pipeline`` (FHDP: FL columns x pipeline stages), ``fl_pipeline``
-(FedAvg rounds of FHDP local steps), ``fedavg`` (flat FedAvg rounds over
-client-stacked params), ``hier_fl`` (the same rounds over the explicit
-vehicle -> edge -> cloud fabric of :mod:`repro_torch.comm`) and
-``distill_fl`` (per-pod LoRA students distilled from a frozen AD-LLM,
-adapter deltas on the fabric). The reference's other strategies raise
-``NotImplementedError`` by name; so do the sharding specs
-(``param_specs``), which only shape a lowering.
+``pipeline`` (FHDP: FL columns x pipeline stages), ``swift_pipeline``
+(FHDP whose stage templates come from the SWIFT scheduler over a
+declared heterogeneous fleet, with pre-generated departure templates for
+live repartitioning), ``fl_pipeline`` (FedAvg rounds of FHDP local
+steps), ``fedavg`` (flat FedAvg rounds over client-stacked params),
+``hier_fl`` (the same rounds over the explicit vehicle -> edge -> cloud
+fabric of :mod:`repro_torch.comm`) and ``distill_fl`` (per-pod LoRA
+students distilled from a frozen AD-LLM, adapter deltas on the fabric).
+The reference's ``async_hier_fl`` raises ``NotImplementedError`` by
+name; so do the sharding specs (``param_specs``), which only shape a
+lowering.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.configs.common import concrete_batch
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
 
 #: strategies of the reference that later slices of the port bring
-LATER = ("swift_pipeline", "async_hier_fl")
+LATER = ("async_hier_fl",)
 
 _SPECS_LATER = ("sharding specs only shape a lowering for a multi-device "
                 "mesh; they come with the dry-run slice of the port (A8 in "
@@ -185,6 +188,148 @@ class PipelineStrategy(Strategy):
 
     def default_batch(self, cfg, shape, gen):
         return concrete_batch(cfg, shape, gen)
+
+
+@register_strategy("swift_pipeline")
+class SwiftPipelineStrategy(PipelineStrategy):
+    """FHDP with SWIFT-scheduled stage templates + live repartitioning.
+
+    Closes the scheduler -> runtime loop: model units come from the cost
+    model (:func:`repro_torch.sched.costmodel.model_units`), SWIFT
+    schedules the declared heterogeneous ``fleet`` over them, the winning
+    pipeline is bridged to a per-stack stage template for the FHDP step,
+    and departure templates are pre-generated (paper §4.2) so a mid-run
+    vehicle departure swaps templates via
+    :class:`repro_torch.recovery.recover.Repartitioner` instead of
+    replanning.
+
+    ``fleet``: "nano*4,agx*2"-style preset string, spec dicts, or
+    :class:`~repro_torch.sched.costmodel.Vehicle` list (see
+    ``parse_fleet``). ``agent``: an optional trained
+    :class:`~repro_torch.sched.dqn.DoubleDQN` for SWIFT's phase 2.
+    """
+
+    loop = "step"
+
+    def __init__(self, *, learning_rate: float = 1e-3, remat: bool = True,
+                 microbatches: Optional[int] = None,
+                 fleet="nano*4,agx*2", seq_len: int = 512,
+                 cost=None, agent=None):
+        super().__init__(learning_rate=learning_rate, remat=remat,
+                         templates=None, microbatches=microbatches)
+        from repro_torch.sched.costmodel import CostParams, parse_fleet
+        self.vehicles = parse_fleet(fleet)
+        self.seq_len = seq_len
+        self.cost = cost or CostParams()
+        self.agent = agent
+        self.units = None
+        self.swift_result = None
+        self.active_pipeline = None
+        self.template_set = None
+        self._cfg = None
+        self._stages: Optional[int] = None
+
+    # ---- scheduling -------------------------------------------------------
+    def schedule(self, cfg: ModelConfig, stages: int):
+        """Run SWIFT once over (fleet x model units) and pre-generate the
+        departure templates; cached for the strategy's lifetime."""
+        if self.swift_result is not None:
+            return self.swift_result
+        from repro_torch.core.pipeline import get_adapter
+        from repro_torch.recovery.templates import TemplateSet, pregenerate
+        from repro_torch.sched.costmodel import model_units
+        from repro_torch.sched.swift import swift, units_to_layer_template
+        self._cfg, self._stages = cfg, stages
+        n_units = sum(get_adapter(cfg).counts(cfg).values())
+        self.units = model_units(cfg, seq_len=self.seq_len,
+                                 num_units=n_units)
+        self.swift_result = swift(self.vehicles, self.units,
+                                  agent=self.agent, cp=self.cost)
+        candidates = [self.swift_result.initial] \
+            + list(self.swift_result.essential.values())
+        feasible = []
+        for pipe in candidates:
+            if pipe is None:
+                continue
+            try:
+                units_to_layer_template(pipe, stages)
+            except ValueError:
+                continue        # cannot fold onto this SPMD width
+            feasible.append(pipe)
+        if not feasible:
+            raise ValueError(
+                f"SWIFT found no pipeline for {len(self.vehicles)} vehicles "
+                f"x {len(self.units)} units that maps onto {stages} SPMD "
+                f"stages; grow the fleet's memory or the mesh's model axis")
+        self.active_pipeline = min(feasible, key=lambda p: p.time)
+        try:
+            ts = pregenerate(
+                self.vehicles, self.units, self.cost, agent=self.agent,
+                active=self.active_pipeline)
+            on_dep = self._foldable_only(ts.on_departure)
+        except ValueError:
+            on_dep = {}
+        self.template_set = TemplateSet(self.active_pipeline, on_dep)
+        return self.swift_result
+
+    def _foldable_only(self, on_departure):
+        """Drop (-> None) departure pipelines that cannot fold onto the
+        SPMD width now, so an unrecoverable departure is reported as 'no
+        feasible template' up front instead of failing mid-training."""
+        from repro_torch.sched.swift import units_to_layer_template
+        out = {}
+        for vid, pipe in on_departure.items():
+            if pipe is not None:
+                try:
+                    units_to_layer_template(pipe, self._stages)
+                except ValueError:
+                    pipe = None
+            out[vid] = pipe
+        return out
+
+    def resolve_templates(self, cfg, mesh) -> Dict:
+        if self.templates is None:
+            from repro_torch.core.pipeline import template_from_sequence
+            from repro_torch.sched.swift import units_to_layer_template
+            stages = mesh.shape["model"]
+            self.schedule(cfg, stages)
+            seq = units_to_layer_template(self.active_pipeline, stages)
+            self.templates = template_from_sequence(cfg, seq)
+        return self.templates
+
+    # ---- live-repartition protocol (recovery.recover.Repartitioner) -------
+    def departure_template(self, vid: int):
+        """(per-stack templates, pipeline) pre-generated for ``vid``'s
+        departure — the paper's template lookup, no replanning."""
+        if self.template_set is None:
+            raise RuntimeError("schedule() has not run; build the session "
+                               "(resolve_templates) first")
+        pipe = self.template_set.on_departure.get(vid)
+        if pipe is None:
+            raise ValueError(
+                f"no feasible pre-generated template for the departure of "
+                f"vehicle {vid} (remaining fleet cannot host the model)")
+        from repro_torch.core.pipeline import template_from_sequence
+        from repro_torch.sched.swift import units_to_layer_template
+        seq = units_to_layer_template(pipe, self._stages)
+        return template_from_sequence(self._cfg, seq), pipe
+
+    def adopt_departure(self, vid: int, pipe) -> None:
+        """Commit a departure: shrink the fleet, promote ``pipe`` to
+        active, and refresh the preventive templates for the remaining
+        fleet (the paper's concurrent template regeneration)."""
+        from repro_torch.recovery.templates import TemplateSet, pregenerate
+        self.vehicles = [v for v in self.vehicles if v.vid != vid]
+        self.active_pipeline = pipe
+        on_dep = {}
+        if len(self.vehicles) >= 2:
+            try:
+                on_dep = self._foldable_only(
+                    pregenerate(self.vehicles, self.units, self.cost,
+                                agent=self.agent, active=pipe).on_departure)
+            except ValueError:
+                on_dep = {}
+        self.template_set = TemplateSet(pipe, on_dep)
 
 
 @register_strategy("fl_pipeline")

@@ -29,6 +29,11 @@ global layouts (stacks ``[S, D, n]``, the rest ``[D, n]``). Where each
 pods) the port holds all ``pods * D`` columns on that axis; the
 reference holds pod p's on pod p's devices and shows pod 0's.
 
+The SWIFT scheduler's Q-net (the reference's ``DoubleDQN.online`` and
+``.target``, dicts of float32 arrays) crosses through
+:func:`dqn_from_numpy` and :func:`dqn_to_numpy`, so both packages' agents
+start from the same weights.
+
 bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
 own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses), so a bfloat16 leaf goes in through
@@ -139,3 +144,20 @@ def params_to_numpy(module: LM) -> dict:
     """The port's parameters as the reference's nested dict of numpy
     arrays (bfloat16 leaves as their ``uint16`` bit patterns)."""
     return tree_to_numpy(module.to_dict())
+
+
+def dqn_from_numpy(agent, online: dict, target: Optional[dict] = None):
+    """Give the port's :class:`repro_torch.sched.dqn.DoubleDQN` the
+    reference agent's Q-net params (numpy; ``target`` defaults to a copy
+    of ``online``) on the agent's device; its Adam state restarts, as a
+    fresh agent's. Returns the agent."""
+    agent.set_params(tree_from_numpy(online, agent.device),
+                     None if target is None
+                     else tree_from_numpy(target, agent.device))
+    return agent
+
+
+def dqn_to_numpy(agent):
+    """(online, target) Q-net params of the port's agent as the
+    reference's dicts of numpy arrays."""
+    return tree_to_numpy(agent.online), tree_to_numpy(agent.target)

@@ -57,7 +57,10 @@ def test_importing_the_port_loads_neither():
             "repro_torch.core.steps, repro_torch.core.fedavg, "
             "repro_torch.core.pipeline, repro_torch.core.fhdp, "
             "repro_torch.api.mesh, repro_torch.models.vision_encoder, "
-            "repro_torch.train.loop, repro_torch.models.registry; "
+            "repro_torch.train.loop, repro_torch.models.registry, "
+            "repro_torch.sched.swift, repro_torch.sched.clustering, "
+            "repro_torch.recovery.recover, repro_torch.recovery.failures, "
+            "repro_torch.train.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

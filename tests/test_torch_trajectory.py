@@ -15,6 +15,16 @@ steps on fresh batches and eight on one batch repeated (the reference's
 own descent check, ``tests/test_pipeline.py``)::
 
     PYTHONPATH=src python tests/test_torch_trajectory.py --full
+
+With ``--swift`` it prints instead both packages' losses of the run
+``chip_smoke.py``'s swift phase makes (``swift_trajectories``): the
+``swift_pipeline`` strategy over the five-vehicle fleet ``SWIFT_FLEET``
+(template (4, 4, 3, 1) at full width), 4 steps on fresh batches from the
+port's init, and vehicle 0 departing after step index 1 through each
+package's ``Repartitioner`` (template (4, 3, 3, 2), Adam moments
+restarted, the step count carried)::
+
+    PYTHONPATH=src python tests/test_torch_trajectory.py --full --swift
 """
 import os
 import sys
@@ -45,6 +55,12 @@ from repro_torch.core import pipeline as pl  # noqa: E402
 LR = 1e-3              # the Session's default
 BATCH = 16             # 2 sequences a rank of the (2, 4) mesh
 FIRST_RTOL, LATER_RTOL = 1e-5, 1e-4
+#: chip_smoke.py's swift phase: vehicle memories in units of one
+#: full-width flad-vision unit's training footprint at seq_len 512 (the
+#: strategy's default), stabilities, the steps and the departure
+SWIFT_FLEET = dict(cmp=0.472e12, com=0.125e9, mem=(4.5, 4.5, 3.5, 3.5, 3.5),
+                   stb=(0.9, 0.8, 0.7, 0.6, 0.5))
+SWIFT_STEPS, SWIFT_DEPART, SWIFT_SEED = 4, {1: 0}, 31
 
 
 def numpy_batches(cfg, n, seed):
@@ -105,6 +121,58 @@ def trajectories(jstep, batches, *, full=False, seed=0):
     return want, got
 
 
+def swift_fleet(unit_cap):
+    """``SWIFT_FLEET`` as spec dicts for a unit of ``unit_cap`` bytes."""
+    f = SWIFT_FLEET
+    return [dict(cmp=f["cmp"], com=f["com"], mem=m * unit_cap, stb=s)
+            for m, s in zip(f["mem"], f["stb"])]
+
+
+def swift_trajectories(jmesh, *, full=False, seed=0):
+    """(reference losses, port losses, reference event, port event) of
+    the swift departure run: both packages' ``swift_pipeline`` Session at
+    lr LR over ``swift_fleet``, from the port's init with ``seed`` (its
+    CPU generator, bridged to the reference) on ``SWIFT_STEPS`` numpy
+    batches from ``SWIFT_SEED``, each with a ``Repartitioner`` departing
+    ``SWIFT_DEPART``."""
+    from repro.api import LoopHooks as JLoopHooks
+    from repro.api import Session as JSession
+    from repro.recovery.recover import Repartitioner as JRepartitioner
+    from repro_torch.api import LoopHooks, Session
+    from repro_torch.recovery.recover import Repartitioner
+    from repro_torch.sched.costmodel import model_units
+    cfg, jcfg = configs(full)
+    fleet = swift_fleet(model_units(cfg, seq_len=512)[0].cap)
+    quiet = dict(log_every=1, log_fn=lambda *a, **k: None)
+    batches = numpy_batches(cfg, SWIFT_STEPS, SWIFT_SEED)
+    ses = Session(cfg=cfg, strategy="swift_pipeline", mesh="2,4",
+                  shape=ShapeConfig("t", 1, BATCH, "train"),
+                  learning_rate=LR, fleet=fleet, device="cpu")
+    tmpl = ses.strategy.resolve_templates(cfg, ses.mesh)
+    pp, opt, _ = init_fhdp(cfg, ses.mesh, seed, templates=tmpl)
+    jses = JSession(cfg=jcfg, strategy="swift_pipeline", mesh=jmesh,
+                    shape=JShape("t", 1, BATCH, "train"), learning_rate=LR,
+                    fleet=fleet)
+    jrep = JRepartitioner(jses, dict(SWIFT_DEPART), log_fn=None)
+    jout = jses.run(
+        SWIFT_STEPS, state=(jax.tree.map(jnp.asarray,
+                                         bridge.tree_to_numpy(pp)),
+                            jax.tree.map(jnp.asarray,
+                                         bridge.zero2_to_numpy(opt, 2))),
+        batches=[{k: jnp.asarray(v) for k, v in b.items()}
+                 for b in batches],
+        hooks=JLoopHooks(repartition=jrep, **quiet))
+    want = [h["loss"] for h in jout["history"]]
+    del jout, jses
+    rep = Repartitioner(ses, dict(SWIFT_DEPART), log_fn=None)
+    out = ses.run(SWIFT_STEPS, state=(pp, opt),
+                  batches=[{k: torch.from_numpy(v) for k, v in b.items()}
+                           for b in batches],
+                  hooks=LoopHooks(repartition=rep, **quiet))
+    got = [h["loss"] for h in out["history"]]
+    return want, got, jrep.events[0], rep.events[0]
+
+
 def assert_same_trajectory(want, got):
     for i, (w, g) in enumerate(zip(want, got)):
         tol = FIRST_RTOL if i == 0 else LATER_RTOL
@@ -138,9 +206,24 @@ def main(argv):
     from repro.launch.mesh import make_test_mesh
     jax.config.update("jax_default_matmul_precision", "highest")
     torch.set_num_threads(os.cpu_count() or 1)
-    jstep = reference_step(make_test_mesh(data=2, model=4), full)
+    jmesh = make_test_mesh(data=2, model=4)
     cfg = configs(full)[0]
     width = f"{cfg.num_layers} layers, d_model {cfg.d_model}"
+    if "--swift" in argv:
+        want, got, jev, ev = swift_trajectories(jmesh, full=full)
+        print(f"[trajectory] flad-vision ({width}), lr {LR}, swift_pipeline"
+              f" over {SWIFT_FLEET}, {SWIFT_STEPS} steps on fresh batches "
+              f"(seed {SWIFT_SEED}), departure {SWIFT_DEPART}:")
+        print(f"  templates: reference {jev.old_template} -> "
+              f"{jev.new_template}, port {ev.old_template} -> "
+              f"{ev.new_template}; params identical: reference "
+              f"{jev.params_identical}, port {ev.params_identical}")
+        print("  reference: " + ", ".join(f"{x:.6f}" for x in want))
+        print("  port:      " + ", ".join(f"{x:.6f}" for x in got))
+        print("  |port - reference| / |reference|: " + ", ".join(
+            f"{abs(g - w) / abs(w):.3e}" for g, w in zip(got, want)))
+        return
+    jstep = reference_step(jmesh, full)
     for label, batches in (
             ("4 steps, a fresh batch each", numpy_batches(cfg, 4, 31)),
             ("8 steps on one batch", numpy_batches(cfg, 1, 32) * 8)):
