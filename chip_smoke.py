@@ -21,9 +21,12 @@ In order, it
      paged ones also at 4096 keys and at ctx 1, each beside the SIMT
      kernel it replaced and a gather + SDPA composition, the batched
      speculative verify (one launch for 8 lanes' draft windows, bf16 on
-     the wgmma prefill kernel, float32 on the SIMT one with every row
-     bitwise the decode kernel's; beside the reference's per-lane
-     prefill launches and a gather + SDPA composition), quantize_int8
+     the wgmma prefill kernel with P in two bf16 parts, every row within
+     a bf16 ulp of the decode kernel's, beside the same kernel with P
+     rounded once, in turns; float32 on the SIMT one with every row
+     bitwise the decode kernel's, beside its bound; beside the
+     reference's per-lane prefill launches and a gather + SDPA
+     composition), quantize_int8
      at the codec's shapes (one client's embedding and ffn.wi deltas,
      256000 and 524288 rows, beside the bytes bound; the old 128-row
      serving shape kept as history), the int8
@@ -57,14 +60,23 @@ In order, it
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
      kernels' launch counts (every paged launch on its Hopper route,
-     every int8 append one fused launch, no quantize_int8); profiles a
-     decode step with each cache; and holds the paged path against the
-     contiguous-cache forward (plain attention);
+     every int8 append one fused launch, no quantize_int8); serves the
+     trace again with its final warm pass traced (repro_torch.obs) into
+     chiprun_out/chip_smoke/serve_trace.json: streams bitwise the
+     untraced run's, the file valid; profiles a decode step with each
+     cache; and holds the paged path against the contiguous-cache
+     forward (plain attention);
  4b. serves the same trace with speculative decoding (draft_k 4): float32
      params with fp32 and int8 caches, each with a self-draft and a random
      draft, streams gated bitwise equal to plain decode's with exact launch
      counts (every verify one launch a layer and step); bf16 self-drafted,
-     reported (acceptance, tokens/s, tokens equal to plain decode); one
+     reported (acceptance, tokens/s, tokens equal to plain decode) with
+     the verify's P split and, in the same call, rounded once and with
+     every row through the decode kernel's arithmetic (a probe); where a
+     bf16 stream still parts from plain decode, a probe at its first
+     differing token compares the verify's row with the decode step
+     layer by layer, under both, and names the first operation where
+     they part; one
      float32 preemption run whose streams equal the unpressured run's;
   5. trains flad-adllm at full width and depth through the training
      launcher: two hier_fl rounds of 4 clients (2 edge pods), 2 local
@@ -74,6 +86,18 @@ In order, it
      losses, moved params and the wire
      metrics against
      the topology's formulas;
+ 5b. runs async_hier_fl (the event-driven engine) on the same model and
+     fabric: with no clock, one merge bitwise one hier_fl round from the
+     same state, batches and codec bits; with the merge clock at half the
+     sync merge's simulated time, compute jitter 0.2 and DTMC pod
+     migrations, 4 merges traced into chiprun_out/chip_smoke/
+     async_trace.json (a merge of fewer than 4 vehicles, a migration, the
+     trace valid, an untraced rerun bitwise the same params and event
+     log), exact launches from the engine's waves (every vehicle a wave
+     trains: 2 local steps x 16 layers a flash kernel, one quantize and
+     one dequantize a leaf); one more merge under profiled(), whose
+     exported trace names the flash and codec kernels, with the device's
+     busy and idle share;
   6. runs one float32 local train step through the kernels and through
      plain attention and compares the loss, the grads and the updated
      params; profiles one bf16 local step and its flash kernels' share;
@@ -133,10 +157,12 @@ In order, it
 With --paged it stops after the build and the paged kernels' checks
 (step 3's first part), with --mlstm after the build, the mLSTM kernels'
 and the fused int8 append's checks, with --spec after the build, the
-verify's and the preprocess's checks, the serving path and step 4b,
+verify's and the preprocess's checks, the serving path, its traced pass
+and step 4b,
 with --vision after the build, the flash kernels at the FHDP shape and
-step 8b, with --swift after the build and step 8c; none prints a result
-line.
+step 8b, with --swift after the build and step 8c, with --async after
+the build and step 5b; none prints a result line. The trace files go to
+chiprun_out/chip_smoke/ under the checkout.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It also exits non-zero when torch sees no CUDA device, and
@@ -344,6 +370,24 @@ VERIFY_WIN = [0, 5, 5, 5, 3, 5, 1, 5]
 # the verify's float32 rows vs the float32 plain version: 1e-5 of each
 # row's largest |value| (both sides float32, in different orders)
 VERIFY_RTOL_F32 = 1e-5
+# step 5b, async_hier_fl: merges, the compute jitter, and the mobility
+# grid of the reference's busiest engine test (5 x 5 cells, radius 1),
+# whose first seed moves a vehicle between pods within 4 merges here
+ASYNC_MERGES = 4
+ASYNC_JITTER = 0.2
+ASYNC_MOBILITY = dict(size=5, radius=1, seed=0)
+# where the phases write their trace files (inside the checkout, ignored)
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+# the verify's bf16 rows vs the paged decode kernel's rows at the same
+# positions: both keep P to float32 precision (the verify as two bf16
+# parts), so they differ by the order of their sums and P's split only.
+# The gate: every element within one bf16 ulp plus the two kernels'
+# worst-case float32 gap (ref.verify_decode_gap_bound, derived from their
+# accumulation orders). The elements more than VERIFY_ULPS apart, the
+# largest ulp distance and the bitwise shares are reported beside it;
+# with P split fewer elements must lie past one ulp than with P rounded
+# once (the kernel before the split)
+VERIFY_ULPS = 1
 SPEC_LIBRARY_NOTE = ("no single PyTorch call attends every lane's draft "
                      "window through its block table")
 # tf32 passes of the wgmma mLSTM's products: 3xTF32 for float32 inputs;
@@ -953,6 +997,85 @@ def _verify_composition(torch, q, k, v, ks, vs, tables, ctx, win, scale):
         scale=scale, enable_gqa=True)
 
 
+def _bf16_ulps(torch, a, b):
+    """bf16 ulps between two bf16 tensors: their bit patterns as ordered
+    integers (sign-magnitude to two's complement), subtracted."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def verify_vs_decode(torch, ops, q, k, v, tables, ctx_np, win_np, kw,
+                     outs, bound=None):
+    """Each live row of the verify outputs ``outs`` ({name: [B, Hq, C,
+    D]}) against the paged decode kernel's output for the same query row
+    over the same keys (lane b's row c sees positions < ctx[b] + c + 1).
+    ``bound`` (bf16: ref.verify_decode_gap_bound of the inputs, float64
+    [B, Hq, C, D]): how far the two kernels' float32 values may lie apart.
+    Returns {name: dict(rows bitwise equal, rows, elements bitwise equal,
+    elements, largest distance in bf16 ulps (float32: |difference|),
+    elements more than one ulp apart, the largest |difference| of those
+    over its row's largest |decode value|; bf16 also the elements farther
+    than one ulp + the bound and the largest share of the bound taken
+    beyond one ulp)}."""
+    dev = q.device
+    c = q.shape[2]
+    stats = {name: dict(bitwise_rows=0, rows=0, bitwise_elements=0,
+                        elements=0, max_ulps=0.0, over_1_ulp=0,
+                        over_1_ulp_rel=0.0, over_bound=0, bound_use=0.0)
+             for name in outs}
+    for col in range(c):
+        on = win_np > col
+        if not on.any():
+            continue
+        seen = torch.tensor(np.where(on, ctx_np + col + 1, 0)
+                            .astype(np.int32), device=dev)
+        dec = ops.paged_decode_attention(q[:, :, col].contiguous(), k, v,
+                                         tables, seen, **kw)
+        torch.cuda.synchronize()
+        sel = torch.tensor(on, device=dev)
+        for name, out in outs.items():
+            row, want = out[:, :, col][sel], dec[sel]
+            st = stats[name]
+            st["bitwise_rows"] += int((row == want).all(-1).sum())
+            st["rows"] += int(row.shape[0] * row.shape[1])
+            st["bitwise_elements"] += int((row == want).sum())
+            st["elements"] += int(row.numel())
+            if q.dtype != torch.bfloat16:
+                st["max_ulps"] = max(st["max_ulps"],
+                                     float((row - want).abs().max()))
+                continue
+            ulps = _bf16_ulps(torch, row, want)
+            st["max_ulps"] = max(st["max_ulps"], float(ulps.max()))
+            far = ulps > 1
+            st["over_1_ulp"] += int(far.sum())
+            gap = (row.double() - want.double()).abs()
+            if far.any():
+                rel = gap / want.double().abs().amax(-1, keepdim=True)
+                st["over_1_ulp_rel"] = max(st["over_1_ulp_rel"],
+                                           float(rel[far].max()))
+            mag = torch.maximum(row.double().abs(), want.double().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(
+                mag.clamp_min(2.0 ** -126))) - 7)
+            past = (gap - ulp).clamp_min(0)
+            use = torch.where(past > 0, past / bound[:, :, col][sel], 0.0)
+            st["over_bound"] += int((use > 1).sum())
+            st["bound_use"] = max(st["bound_use"], float(use.max()))
+    return stats
+
+
+def _verify_launch(ops, route, q, k, v, tables, ctx, win, scale, ks, vs,
+                   split_p):
+    """One launch of the verify's wgmma kernel, counted nowhere: P split
+    in two bf16 parts (the route's arithmetic) or rounded once to bf16
+    (the kernel before the split, a prefill chunk's), to time and compare
+    the two on the same inputs."""
+    return ops._prefill_launch(route, q, k, v, tables, ctx, win, 0, 0,
+                               scale, ks, vs, "paged_verify_attention",
+                               split_p=split_p)
+
+
 def verify_checks(torch, cfg, dev):
     """The batched speculative verify (``ops.paged_verify_attention``, one
     launch for all lanes) at the serving shape: 8 lanes with draft windows
@@ -960,14 +1083,20 @@ def verify_checks(torch, cfg, dev):
     dead lane, partial windows), bf16 and int8 pools under bf16 q (the
     wgmma route) and float32 and int8 pools under float32 q (the SIMT
     route), a NaN-poisoned null block. Each against the float32 plain
-    version row by row (bf16: the paged prefill's 2^-7 of a row's largest
-    |value| + 1e-5; float32: 1e-5 of it), a dead lane exactly zero, two
-    calls bitwise equal, one launch a call on the route paged_route names;
-    every float32 row bitwise equal to the paged decode kernel's at its
-    position (the speculative contract). Timed (bf16 q, cold L2) beside
-    the plain version, the gather + SDPA composition and the per-lane
-    loop of paged prefill launches the reference makes. Returns its JSON
-    row."""
+    version row by row (bf16: 2^-8 of a row's largest |value| + 1e-5, the
+    decode kernel's bound, since the verify carries P in two bf16 parts;
+    float32: 1e-5 of it), a dead lane exactly zero, two calls bitwise
+    equal, one launch a call on the route paged_route names; every row
+    against the paged decode kernel's at its position (verify_vs_decode):
+    float32 rows bitwise (the speculative contract), bf16 elements within
+    one bf16 ulp plus the kernels' derived float32 gap bound, fewer past
+    VERIFY_ULPS ulp than with P rounded once (the kernel before the
+    split), the shares of bitwise-equal rows and elements reported for
+    both. Timed (cold L2) beside the plain version, the gather + SDPA
+    composition and the per-lane loop of paged prefill launches the
+    reference makes; bf16 q also in turns against the kernel with P
+    rounded once, float32 q (the SIMT route) beside its CUDA-core bound.
+    Returns its JSON row."""
     from repro_torch.kernels import ops, ref
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     scale = d ** -0.5
@@ -980,10 +1109,16 @@ def verify_checks(torch, cfg, dev):
     ctx = torch.tensor(ctx_np, dtype=torch.int32, device=dev)
     win = torch.tensor(win_np, dtype=torch.int32, device=dev)
     live = [(b, w) for b, w in enumerate(VERIFY_WIN) if w > 0]
-    rows, errs = {}, {}
+    keys = sum(int(cx) + int(w) for cx, w in zip(VERIFY_CTX, VERIFY_WIN)
+               if w > 0)
+    flops = 4 * hq * d * sum(cx + j + 1 for cx, w in
+                             zip(VERIFY_CTX, VERIFY_WIN) for j in range(w))
+    wgmma_name = PAGED_LIBS["paged_prefill_attention"][1]
+    rows, errs, vs_decode = {}, {}, {}
     for q_name, q_dtype in (("bf16", torch.bfloat16),
                             ("f32", torch.float32)):
         q = torch.randn((SLOTS, hq, c, d), device=dev).to(q_dtype)
+        qsz = 2 if q_dtype == torch.bfloat16 else 4
         for kv_name, kv_dtype in ((q_name, q_dtype), ("int8", torch.int8)):
             label = f"verify {q_name} q, {kv_name} pools"
             k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, nb + 1, 5, dev)
@@ -1003,7 +1138,7 @@ def verify_checks(torch, cfg, dev):
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
             check(not bool(got[0].any()), f"{label}: the dead lane is not "
                   "exactly 0")
-            rtol = (PAGED_RTOL["prefill"] if q_dtype == torch.bfloat16
+            rtol = (PAGED_RTOL["decode"] if q_dtype == torch.bfloat16
                     else VERIFY_RTOL_F32)
             atol = PAGED_ROW_ATOL if q_dtype == torch.bfloat16 else 0.0
             err, use = 0.0, 0.0
@@ -1015,38 +1150,69 @@ def verify_checks(torch, cfg, dev):
                 use = max(use, float((diff / tol).max()))
             check(use <= 1.0, f"{label}: a row's error is {use:.3f} of its "
                   f"bound ({rtol:.3e} of its largest |value| + {atol})")
-            # each row against the paged decode kernel at its position
-            same = total = 0
-            for col in range(c):
-                on = win_np > col
-                seen = torch.tensor(np.where(on, ctx_np + col + 1, 0)
-                                    .astype(np.int32), device=dev)
-                dec = ops.paged_decode_attention(
-                    q[:, :, col].contiguous(), k, v, tables, seen, **kw)
-                torch.cuda.synchronize()
-                sel = torch.tensor(on, device=dev)
-                eq = (got[:, :, col] == dec).all(-1)[sel]
-                same += int(eq.sum())
-                total += int(eq.numel())
+            # each row against the paged decode kernel at its position;
+            # bf16 also with P rounded once (the verify before the split)
+            outs, gap = {"verify": got}, None
+            if q_dtype == torch.bfloat16:
+                outs["P rounded once"] = _verify_launch(
+                    ops, route, *args, scale, ks, vs, split_p=False)
+                gap = ref.verify_decode_gap_bound(*args, **kw)
+            cmp = verify_vs_decode(torch, ops, q, k, v, tables, ctx_np,
+                                   win_np, kw, outs, gap)
+            print(f"[kernel] paged_verify_attention {label} vs the paged "
+                  f"decode kernel: {json.dumps(cmp)}")
+            st = cmp["verify"]
             if q_dtype == torch.float32:
-                check(same == total, f"{label}: {total - same} of {total} "
-                      "rows differ from the paged decode kernel's")
+                check(st["bitwise_rows"] == st["rows"],
+                      f"{label}: {st['rows'] - st['bitwise_rows']} of "
+                      f"{st['rows']} rows differ from the paged decode "
+                      "kernel's")
+            else:
+                once = cmp["P rounded once"]
+                check(st["over_bound"] == 0,
+                      f"{label}: {st['over_bound']} elements farther from "
+                      f"the paged decode kernel's than one bf16 ulp + the "
+                      f"kernels' float32 gap bound (beyond the ulp, "
+                      f"{st['bound_use']:.3f} of it)")
+                check(st["over_1_ulp"] < once["over_1_ulp"],
+                      f"{label}: with P split {st['over_1_ulp']} elements "
+                      f"lie more than {VERIFY_ULPS} bf16 ulp from the "
+                      f"decode kernel's, with P rounded once "
+                      f"{once['over_1_ulp']}")
+                vs_decode[kv_name] = cmp
             errs[(q_name, kv_name)] = err
             msg = (f"[kernel] paged_verify_attention {label} ({SLOTS} lanes, "
                    f"windows {VERIFY_WIN} at ctx {VERIFY_CTX}, route "
                    f"{route}): max|err| {err:.3e}, worst row at {use:.3f} "
-                   f"of its bound; rows bitwise the decode kernel's "
-                   f"{same}/{total}; bitwise repeatable")
+                   f"of its bound; rows vs the decode kernel's: " + "; ".join(
+                       f"{name} {x['bitwise_rows']}/{x['rows']} bitwise, at "
+                       f"most {x['max_ulps']:.4g} "
+                       f"{'ulps' if q_dtype == torch.bfloat16 else 'apart'}"
+                       for name, x in cmp.items())
+                   + "; bitwise repeatable")
+            del outs, gap
+            esz = {torch.bfloat16: 2, torch.int8: 1,
+                   torch.float32: 4}[kv_dtype]
+            nbytes = (2 * SLOTS * hq * c * d * qsz + tables.numel() * 4
+                      + 2 * SLOTS * 4
+                      + 2 * keys * hkv * (d * esz + (4 if esz == 1 else 0)))
             if q_dtype == torch.bfloat16:
                 lanes = [b for b, _ in live]
                 per_lane = lambda: [ops.paged_prefill_attention(
                     q[b], k, v, tables[b], VERIFY_CTX[b],
                     VERIFY_CTX[b] + VERIFY_WIN[b], **kw) for b in lanes]
-                name = PAGED_LIBS["paged_prefill_attention"][1]
+                split_ms, unsplit_ms = in_turns(
+                    lambda: _verify_launch(ops, route, *args, scale, ks, vs,
+                                           split_p=True),
+                    lambda: _verify_launch(ops, route, *args, scale, ks, vs,
+                                           split_p=False),
+                    wgmma_name, wgmma_name)
                 r = dict(
                     ms=device_ms(lambda: ops.paged_verify_attention(
-                        *args, **kw), name),
-                    per_lane_ms=device_ms(per_lane, name),
+                        *args, **kw), wgmma_name),
+                    split_ms_in_turns=split_ms,
+                    p_rounded_once_ms_in_turns=unsplit_ms,
+                    per_lane_ms=device_ms(per_lane, wgmma_name),
                     plain_ms=device_ms(lambda: ref.paged_verify_attention_ref(
                         *args, **kw), None, iters=20),
                     composition_ms=device_ms(lambda: _verify_composition(
@@ -1055,27 +1221,32 @@ def verify_checks(torch, cfg, dev):
                     call_ms=time_ms(lambda: ops.paged_verify_attention(
                         *args, **kw)),
                     per_lane_call_ms=time_ms(per_lane))
-                keys = sum(int(cx) + int(w) for cx, w in
-                           zip(VERIFY_CTX, VERIFY_WIN) if w > 0)
-                esz = 2 if kv_dtype == torch.bfloat16 else 1
-                nbytes = (2 * SLOTS * hq * c * d * 2 + tables.numel() * 4
-                          + 2 * SLOTS * 4
-                          + 2 * keys * hkv * (d * esz
-                                              + (4 if esz == 1 else 0)))
-                flops = 4 * hq * d * sum(cx + j + 1 for cx, w in
-                                         zip(VERIFY_CTX, VERIFY_WIN)
-                                         for j in range(w))
                 r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
                                                      BF16_FLOPS_PER_S)
                 rows[kv_name] = r
-                msg += (f"; device: kernel {r['ms']:.5f} ms (one launch), "
-                        f"the reference's per-lane prefill launches "
+                msg += (f"; device: kernel {r['ms']:.5f} ms (one launch); "
+                        f"in turns P split {split_ms:.5f} ms against P "
+                        f"rounded once {unsplit_ms:.5f} ms; the "
+                        f"reference's per-lane prefill launches "
                         f"({len(lanes)}) {r['per_lane_ms']:.5f} ms, plain "
                         f"{r['plain_ms']:.5f} ms, composition (gather + "
                         f"SDPA) {r['composition_ms']:.5f} ms; bound "
                         f"{r['bound_ms']:.5f} ms ({r['bound_by']}); host "
                         f"clock per call {r['call_ms']:.5f} ms, per-lane "
                         f"loop {r['per_lane_call_ms']:.5f} ms")
+            else:
+                simt_name = "paged_prefill_kernel"
+                r = dict(ms=device_ms(lambda: ops.paged_verify_attention(
+                    *args, **kw), simt_name),
+                    plain_ms=device_ms(lambda: ref.paged_verify_attention_ref(
+                        *args, **kw), None, iters=20))
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                     F32_FLOPS_PER_S)
+                rows[f"f32_{kv_name}"] = r
+                msg += (f"; device (SIMT route): kernel {r['ms']:.5f} ms, "
+                        f"plain {r['plain_ms']:.5f} ms; bound "
+                        f"{r['bound_ms']:.5f} ms ({r['bound_by']}, float32 "
+                        f"on the CUDA cores)")
             print(msg)
             del k, v, ks, vs, got, again, want
     head = rows["bf16"]
@@ -1087,13 +1258,20 @@ def verify_checks(torch, cfg, dev):
                 library_ms=None, library_call=SPEC_LIBRARY_NOTE,
                 composition_call=COMPOSITION_NOTE,
                 headline=f"{SLOTS} lanes, windows {VERIFY_WIN}, bf16",
-                **{k: head[k] for k in ("ms", "per_lane_ms", "plain_ms",
+                vs_decode=vs_decode,
+                **{k: head[k] for k in ("ms", "split_ms_in_turns",
+                                        "p_rounded_once_ms_in_turns",
+                                        "per_lane_ms", "plain_ms",
                                         "composition_ms", "call_ms",
                                         "per_lane_call_ms", "bound_ms",
                                         "bound_by")},
                 **{f"int8_{k}": rows["int8"][k] for k in (
-                    "ms", "per_lane_ms", "plain_ms", "composition_ms",
-                    "bound_ms")})
+                    "ms", "split_ms_in_turns", "p_rounded_once_ms_in_turns",
+                    "per_lane_ms", "plain_ms", "composition_ms",
+                    "bound_ms")},
+                **{f"{name}_{k}": rows[name][k] for name in ("f32_f32",
+                                                             "f32_int8")
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
 def _paged_row(rows, errs, src, simt_src, line):
@@ -2133,6 +2311,274 @@ def train_main_path(torch, cfg, dev):
     del out, merged, init
     torch.cuda.empty_cache()
     return counts, peak, routes, by_leaf
+
+
+def _async_inputs(torch, dev, vocab, shape):
+    """(codec bits, round batches) shared by the hier_fl and async runs:
+    the words of round/wave r, leaf i, client c from a generator seeded by
+    (r, i, c), so both strategies get the same words however they order
+    their draws; round/wave r's [C, E, B, S] batch from one seeded by r."""
+    def bits(r, leaf, client, shp):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed((r * 1000 + leaf) * 100 + client + 7)
+        return torch.randint(-2 ** 31, 2 ** 31, tuple(shp), generator=gen,
+                             dtype=torch.int32, device=dev).view(
+                                 torch.uint32)
+
+    def batch(r):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1000 + r)
+        return {k: torch.randint(0, vocab, (CLIENTS, LOCAL_STEPS,
+                                            shape.global_batch,
+                                            shape.seq_len), generator=gen,
+                                 dtype=torch.int32, device=dev)
+                for k in ("tokens", "labels")}
+    return bits, batch
+
+
+def _free(torch):
+    """Collect dropped sessions' cycles, then return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _trace_kernels(path):
+    """{name: launches} of the device kernels in a torch.profiler Chrome
+    trace, and (busy us, span us): the kernels' summed durations and the
+    time from the first kernel's start to the last one's end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    names = {}
+    for e in kern:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    if not kern:
+        return names, 0.0, 0.0
+    busy = sum(float(e["dur"]) for e in kern)
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in kern)
+            - min(float(e["ts"]) for e in kern))
+    return names, busy, span
+
+
+def async_main_path(torch, cfg, dev, shape=None):
+    """Step 5b: async_hier_fl of flad-adllm at full width and depth, int8
+    uplinks over TOPOLOGY, LOCAL_STEPS local steps of B x S tokens:
+      * sync: clock=None, one merge from the state a hier_fl Session
+        inits; its global params must equal one hier_fl round's from the
+        same state, batches and codec bits, bitwise;
+      * async: the merge clock at half the sync run's simulated merge
+        time, compute jitter ASYNC_JITTER, a mobility step every half
+        clock on ASYNC_MOBILITY's grid, ASYNC_MERGES merges traced into
+        OUT/async_trace.json: at least one merge of fewer than CLIENTS
+        vehicles, at least one pod migration, the trace valid; an
+        untraced rerun's params and event log bitwise the traced run's;
+      * profile: one more merge under profiled(ProfileOptions(...)),
+        whose exported trace must name the flash and codec kernels; its
+        device busy and idle share.
+    Each run's launches are exact: every vehicle a wave trains runs
+    LOCAL_STEPS steps of the model's layers, one launch of each flash
+    kernel a layer and step (all on the wgmma route, the preprocess on
+    vec), and one quantize and one dequantize a leaf. Returns (launches
+    summed over the async runs, flash launches by route, summary)."""
+    from repro_torch.api import LoopHooks, Session
+    from repro_torch.comm.events import MobilitySpec
+    from repro_torch.config import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import ProfileOptions
+    from repro_torch.obs.validate import validate_file
+    from repro_torch.tree import leaves
+    shape = shape or ShapeConfig("cli", S, B, "train")
+    OUT.mkdir(parents=True, exist_ok=True)
+    n_leaves = len(_leaf_sizes(torch, cfg))
+    bits, batch = _async_inputs(torch, dev, cfg.vocab_size, shape)
+    quiet = LoopHooks(log_every=1, log_fn=lambda *a, **k: None)
+    common = dict(cfg=cfg, shape=shape, topology=TOPOLOGY, codec="int8",
+                  local_steps=LOCAL_STEPS, device=dev, codec_bits=bits)
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    routes = {fn: dict.fromkeys(ops.route_counts()[fn], 0)
+              for fn in (*TC_KERNELS, PRE)}
+    flash = (*FLASH_NAMES,)
+
+    def counted(ses, label, fn):
+        """Run fn() with the counts from zero; check them against the
+        engine's waves; add them to the totals."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        trained = sum(map(len, ses.strategy.engine.wave_members))
+        want = dict.fromkeys(counts, 0)
+        want.update({f: trained * LOCAL_STEPS * cfg.num_layers
+                     for f in flash})
+        want.update(quantize_int8=trained * n_leaves,
+                    dequantize_int8=trained * n_leaves)
+        check(counts == want, f"async {label}: launches {counts} != {want} "
+              f"({trained} trained vehicles)")
+        by_route = check_routes(ops, counts, f"async {label}",
+                                (*TC_KERNELS, PRE))
+        for fn_name in routes:
+            for r, n in by_route[fn_name].items():
+                routes[fn_name][r] += n
+        for name in totals:
+            totals[name] += counts[name]
+        return out, wall, trained
+
+    # sync: one hier_fl round, then the engine with no clock
+    hier = Session(strategy="hier_fl", **common)
+    _, state0 = hier.build()
+    hier.run(1, state=state0, batches=batch, hooks=quiet)
+    want = [x[0].clone() for x in leaves(hier.state[0])]
+    del hier
+    _free(torch)
+    ses = Session(strategy="async_hier_fl", **common)
+    out, sync_wall, _ = counted(ses, "sync", lambda: ses.run(
+        1, state=state0, batches=batch, hooks=quiet))
+    t_sync = out["sim_time_s"]
+    got = leaves(ses.merged_params())
+    check(ses.strategy.engine.wave_members == [tuple(range(CLIENTS))],
+          f"sync waves {ses.strategy.engine.wave_members}")
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    check(same == len(want), f"sync async_hier_fl: {len(want) - same} of "
+          f"{len(want)} leaves differ from one hier_fl round's")
+    print(f"[async] sync (clock=None): 1 merge at sim {t_sync:.4f} s in "
+          f"{sync_wall:.2f} s wall; global params bitwise one hier_fl "
+          f"round's ({same}/{len(want)} leaves)")
+    del ses, out, got, want
+    _free(torch)
+
+    # async: a clock, jitter, migrations; traced, then untraced
+    clock = 0.5 * t_sync
+    opts = dict(clock=clock, compute_jitter=ASYNC_JITTER,
+                migrate_every=0.5 * clock,
+                mobility=MobilitySpec(**ASYNC_MOBILITY))
+    path = str(OUT / "async_trace.json")
+    runs = []
+    for trace in (path, None):
+        torch.cuda.reset_peak_memory_stats()
+        ses = Session(strategy="async_hier_fl", **common, **opts)
+        out, wall, trained = counted(
+            ses, "traced" if trace else "untraced", lambda: ses.run(
+                ASYNC_MERGES, state=state0, batches=batch, hooks=quiet,
+                trace=trace))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs.append((ses if trace is None else None, out, wall, trained,
+                     peak, [x.clone() for x in leaves(ses.merged_params())]))
+        if trace is not None:
+            del ses, out
+            _free(torch)
+    (_, o1, wall, trained, peak, p1), (ses, o2, wall2, _, _, p2) = runs
+    del runs
+    check(o1["event_log"] == o2["event_log"], "async: the untraced rerun's "
+          "event log differs from the traced run's")
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(p1, p2))
+    check(same == len(p1), f"async: {len(p1) - same} leaves of the "
+          "untraced rerun differ from the traced run's")
+    errors = validate_file(path)
+    check(not errors, f"async trace: {errors[:3]}")
+    hist = o1["history"]
+    vehicles = [int(h["n_vehicles"]) for h in hist]
+    kinds = [e[0] for e in o1["event_log"]]
+    check(o1["merges"] == ASYNC_MERGES, f"merges {o1['merges']}")
+    check(min(vehicles) < CLIENTS, f"every merge covered all vehicles: "
+          f"{vehicles}")
+    check("pod_migration" in kinds, "no pod migration in the async run")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in p1),
+          "non-finite global params")
+    with open(path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    waves = [len(m) for m in ses.strategy.engine.wave_members]
+    summary = dict(
+        sync_sim_s=t_sync, sync_wall_s=sync_wall, clock_s=clock,
+        merges=o1["merges"], vehicles_a_merge=vehicles,
+        staleness_mean=[h["staleness_mean"] for h in hist],
+        lag_max=[h["lag_max"] for h in hist],
+        sim_time_s=o1["sim_time_s"], wall_s=wall, rerun_wall_s=wall2,
+        waves=waves, trained_vehicles=trained,
+        migrations=kinds.count("pod_migration"),
+        edge_flushes=kinds.count("edge_flush"), events=len(kinds),
+        trace_events=n_events, peak_gib=peak)
+    print(f"[async] clock {clock:.4f} s, jitter {ASYNC_JITTER}, mobility "
+          f"every {0.5 * clock:.4f} s on {ASYNC_MOBILITY}: {o1['merges']} "
+          f"merges of {vehicles} vehicles, observed staleness (mean a "
+          f"merge) {summary['staleness_mean']}, lag {summary['lag_max']}, "
+          f"{summary['migrations']} pod migration(s), "
+          f"{summary['edge_flushes']} edge flushes; waves {waves} "
+          f"({trained} vehicle trainings); sim {o1['sim_time_s']:.4f} s in "
+          f"{wall:.2f} s wall (untraced rerun {wall2:.2f} s, bitwise the "
+          f"same params and event log); peak device memory {peak:.2f} GiB; "
+          f"trace {path}: {n_events} events, valid")
+    del o1, o2, p1, p2
+    _free(torch)
+
+    # one more merge under the profiler
+    opts_p = ProfileOptions(trace_dir=str(OUT / "async_profile"))
+    out, pwall, ptrained = counted(ses, "profiled", lambda: ses.run(
+        1, batches=batch, hooks=quiet, profile=opts_p))
+    names, busy, span = _trace_kernels(out["profile_path"])
+    need = [TC_KERNELS[f][3] for f in TC_KERNELS if f != "lora_matmul"] + [
+        PRE_NAMES["vec"], "quantize_int8_kernel", "dequantize_int8_kernel"]
+    missing = [n for n in need if not any(n in k for k in names)]
+    check(not missing, f"the profiled merge's trace names none of "
+          f"{missing}")
+    summary.update(profile_path=out["profile_path"], profile_wall_s=pwall,
+                   profile_trained=ptrained, device_busy_ms=busy / 1e3,
+                   device_span_ms=span / 1e3,
+                   idle_share=1.0 - busy / span if span else 1.0,
+                   profile_kernels={n: c for n, c in names.items()
+                                    if any(x in n for x in need)})
+    print(f"[async] profiled merge ({ptrained} vehicle trainings, "
+          f"{out['merges']} merge): {pwall:.2f} s wall under the profiler; "
+          f"device busy {busy / 1e3:.3f} ms of the {span / 1e3:.3f} ms from "
+          f"its first kernel to its last (idle "
+          f"{100 * summary['idle_share']:.1f}%); {out['profile_path']} "
+          f"names " + ", ".join(f"{n} x{c}" for n, c in
+                                summary["profile_kernels"].items()))
+    del ses, out, state0
+    _free(torch)
+    return totals, routes, summary
+
+
+def traced_serving(torch, cfg, params, dev, plain):
+    """The serving path's fleet trace (bf16 cache) with its final warm
+    pass traced into OUT/serve_trace.json: the streams must equal the
+    untraced run's (``plain``) bitwise, the launches the untraced run's
+    formula, the file must validate, with one queued and one decode span a
+    request. Returns (launch counts, summary)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs.validate import validate_file
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = str(OUT / "serve_trace.json")
+    ops.reset_launch_counts()
+    rep = _serve_trace(cfg, params, dev, "fp32", trace=path)
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    want = dict.fromkeys(counts, 0)
+    want.update(paged_decode_attention=2 * L * rep["decode_steps"],
+                paged_prefill_attention=2 * L * rep["prefill_chunks"])
+    check(counts == want, f"traced serving: launches {counts} != {want}")
+    check(rep["sequences"] == plain["sequences"], "traced serving: the "
+          "streams differ from the untraced run's")
+    errors = validate_file(path)
+    check(not errors, f"serve trace: {errors[:3]}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    check(spans.get("queued") == spans.get("decode") == rep["requests"],
+          f"serve trace spans {spans}")
+    summary = dict(path=path, events=len(events), spans=spans,
+                   warm_tokens_per_s=rep["warm_tokens_per_s"],
+                   untraced_warm_tokens_per_s=plain["warm_tokens_per_s"])
+    print(f"[serve] traced warm pass (bf16 cache): streams bitwise the "
+          f"untraced run's, {len(events)} trace events ({spans}), valid; "
+          f"warm {rep['warm_tokens_per_s']:.1f} tok/s traced against "
+          f"{plain['warm_tokens_per_s']:.1f} untraced; launches {counts}")
+    return counts, summary
 
 
 def _factor_sizes(torch, cfg):
@@ -3778,7 +4224,10 @@ def spec_main_path(torch, cfg, params, dev, plain):
         reported (acceptance, tokens/s, stream tokens equal to plain
         decode's from ``plain``), not gated on equality: the verify's
         k+1-row products round differently from decode's one-row ones;
-        every paged launch on its Hopper route;
+        every paged launch on its Hopper route; then the same runs with
+        the verify swapped for two probes, P rounded once (the verify
+        before the split) and every row through the decode kernel,
+        reported alone: their launches are in no count returned;
       * a preemption run (float32, a tight block cap, a later request
         with a tighter deadline) whose streams equal the run without
         preemption.
@@ -3794,6 +4243,8 @@ def spec_main_path(torch, cfg, params, dev, plain):
     summary = {}
 
     def run(c, p, cache, route, **kw):
+        """One run of the main path: its counts added to the totals and,
+        speculative, gated exactly."""
         ops.reset_launch_counts()
         rep = _serve_trace(c, p, dev, cache, **kw)
         counts = ops.launch_counts()
@@ -3861,28 +4312,51 @@ def spec_main_path(torch, cfg, params, dev, plain):
     del rand32
     torch.cuda.empty_cache()
 
-    # bf16, the serving path's params: reported
+    # bf16, the serving path's params: the main path (the verify with P
+    # split), then two probes, each with ops.paged_verify_attention
+    # swapped for a stand-in that counts nothing: P rounded once (the
+    # verify before the split) and every window row through the decode
+    # kernel's arithmetic. A probe's launches stay out of the totals.
+    route = ops.paged_route("prefill", torch.bfloat16, torch.bfloat16,
+                            cfg.hd, BLOCK)
+    probes = {"before": _verify_p_rounded_once(ops, route),
+              "rows by decode": _verify_by_decode(torch, ops)}
+    first = None
     for cache in ("fp32", "int8"):
-        rep, counts = run(cfg, params, cache, "fast",
-                          speculative=True, draft_k=SPEC_K)
         want = plain[cache]["sequences"]
-        eq = _equal_tokens(rep["sequences"], want)
         n = sum(len(x) for x in want.values())
-        key = f"bfloat16 cache={cache} draft=self"
-        summary[key] = dict(acceptance=rep["acceptance_rate"],
-                            equal_tokens=eq, tokens=n,
-                            spec_steps=rep["spec_steps"],
-                            warm_tokens_per_s=rep["warm_tokens_per_s"],
-                            plain_warm_tokens_per_s=plain[cache][
-                                "warm_tokens_per_s"],
-                            preemptions=rep["preemptions"])
-        print(f"[spec] {key}: acceptance {rep['acceptance_rate']:.4f} "
-              f"({rep['accepted_drafts']}/{rep['proposed_drafts']}), "
-              f"{rep['spec_steps']} spec steps, warm "
-              f"{rep['warm_tokens_per_s']:.1f} tok/s (plain decode "
-              f"{plain[cache]['warm_tokens_per_s']:.1f}); streams vs plain "
-              f"decode {eq}/{n} tokens equal (bf16: reported, not gated); "
-              f"launches {counts}")
+        for when in ("after", *probes):
+            if when == "after":
+                rep, counts = run(cfg, params, cache, "fast",
+                                  speculative=True, draft_k=SPEC_K)
+            else:
+                rep, counts = _probe_run(torch, ops, probes[when], cfg,
+                                         params, dev, cache)
+            eq = _equal_tokens(rep["sequences"], want)
+            key = f"bfloat16 cache={cache} draft=self {when}"
+            summary[key] = dict(acceptance=rep["acceptance_rate"],
+                                equal_tokens=eq, tokens=n,
+                                spec_steps=rep["spec_steps"],
+                                warm_tokens_per_s=rep["warm_tokens_per_s"],
+                                plain_warm_tokens_per_s=plain[cache][
+                                    "warm_tokens_per_s"],
+                                preemptions=rep["preemptions"])
+            print(f"[spec] {key}: acceptance "
+                  f"{rep['acceptance_rate']:.4f} ({rep['accepted_drafts']}/"
+                  f"{rep['proposed_drafts']}), {rep['spec_steps']} spec "
+                  f"steps, warm {rep['warm_tokens_per_s']:.1f} tok/s (plain "
+                  f"decode {plain[cache]['warm_tokens_per_s']:.1f}); streams "
+                  f"vs plain decode {eq}/{n} tokens equal (bf16: reported, "
+                  f"not gated); launches {counts}"
+                  + ("" if when == "after" else " (a probe: not the main "
+                     "path's, counted nowhere)"))
+            if when == "after" and first is None and eq < n:
+                first = _first_difference(rep["sequences"], want, cache)
+    if first is not None:
+        summary["bf16 first difference"] = spec_probe(
+            torch, cfg, params, dev, first,
+            {"after": ops.paged_verify_attention,
+             "rows by decode": probes["rows by decode"]})
 
     summary["preemption"] = preemption_run(torch, c32, p32, dev)
     del p32
@@ -3890,6 +4364,198 @@ def spec_main_path(torch, cfg, params, dev, plain):
     check(totals["paged_verify_attention"] > 0,
           "the speculative runs never launched the verify kernel")
     return totals, spec_routes, summary
+
+
+def _probe_run(torch, ops, verify, cfg, params, dev, cache):
+    """The bf16 self-drafted speculative run with
+    ``ops.paged_verify_attention`` swapped for ``verify``. Returns (the
+    run's report, the counts it left: its stand-in's launches are in no
+    count)."""
+    wrapper = ops.paged_verify_attention
+    ops.reset_launch_counts()
+    ops.paged_verify_attention = verify
+    try:
+        rep = _serve_trace(cfg, params, dev, cache, speculative=True,
+                           draft_k=SPEC_K)
+    finally:
+        ops.paged_verify_attention = wrapper
+    return rep, ops.launch_counts()
+
+
+def _verify_p_rounded_once(ops, route):
+    """A stand-in for ``ops.paged_verify_attention`` (bf16 q, the wgmma
+    route) with P rounded once to bf16 before P V, the verify before the
+    split; it counts nothing."""
+    def verify(q, k, v, tables, ctx, win, *, scale=None, k_scales=None,
+               v_scales=None):
+        return _verify_launch(ops, route, q, k, v, tables, ctx, win,
+                              scale if scale is not None
+                              else q.shape[-1] ** -0.5, k_scales, v_scales,
+                              split_p=False)
+    return verify
+
+
+def _verify_by_decode(torch, ops):
+    """A stand-in for ``ops.paged_verify_attention`` (a probe, counting
+    nothing) that computes every window row with the paged decode
+    kernel's arithmetic: one launch of the TMA decode kernel over the B x
+    C (lane, row) pairs, row c of lane b seeing ctx[b] + c + 1 keys
+    through lane b's table, the keys split as for B lanes (the plan the
+    serving path's decode step takes)."""
+    def verify(q, k, v, tables, ctx, win, *, scale=None, k_scales=None,
+               v_scales=None):
+        b, hq, c, d = q.shape
+        scale = scale if scale is not None else d ** -0.5
+        qd = q.transpose(1, 2).reshape(b * c, hq, d).contiguous()
+        td = tables.repeat_interleave(c, dim=0).contiguous()
+        cols = torch.arange(c, dtype=torch.int32, device=q.device)
+        seen = torch.where(cols[None] < win[:, None],
+                           ctx[:, None] + cols[None] + 1, 0)
+        seen = seen.reshape(-1).to(torch.int32).contiguous()
+        out = torch.empty_like(qd)
+        err = ops._decode_tma_launch(qd, k, v, td, seen, scale, k_scales,
+                                     v_scales, out, b)
+        check(err == 0, f"the decode kernel over verify rows: error {err}")
+        return out.reshape(b, c, hq, d).transpose(1, 2).contiguous()
+    return verify
+
+
+def _first_difference(got, want, cache):
+    """(cache, rid, index, want's stream) of the first stream token of
+    ``got`` that differs from ``want`` (the lowest rid with one)."""
+    for rid in sorted(want):
+        for j, (a, b) in enumerate(zip(got[rid], want[rid])):
+            if a != b:
+                return cache, rid, j, list(want[rid])
+    return None
+
+
+def spec_probe(torch, cfg, params, dev, first, variants):
+    """Where a bf16 verify row and the decode step part, at the position
+    of a stream's first differing token, under the serving path's shapes
+    (SLOTS lanes, the other lanes dead, so every product has the rows it
+    has there: SLOTS for decode, SLOTS x (SPEC_K + 1) for the verify):
+    the request's prompt and plain stream up to that token are prefilled
+    by chunks into lane 0's pools; then the pending token's decode step
+    and a verify window starting at the same position (the pending token
+    and the plain stream's next tokens) run on the same pools, each
+    layer's intermediates recorded for lane 0's row at that position (row
+    0 of the window, which attends the same keys as the decode step).
+    ``variants``: {name: ops.paged_verify_attention or a stand-in for it}
+    to probe each verify arithmetic (the route, rows through the decode
+    kernel). Prints
+    and returns, for each, layer by layer and operation by operation,
+    whether the two are bitwise equal and how far apart, and names the
+    first operation where they part."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks as B
+    from repro_torch.serve import (PagedCacheSpec, PagedEngine,
+                                   generate_fleet_requests)
+    from repro_torch.serve import kvcache as KC
+    cache, rid, j, plain = first
+    reqs = {r.rid: r for r in generate_fleet_requests(
+        TRACE["fleet"], num_requests=TRACE["num_requests"],
+        max_prompt=TRACE["max_prompt"], seed=TRACE["seed"], deadline_s=4.0,
+        vocab_size=cfg.vocab_size)}
+    stream = list(reqs[rid].prompt) + list(plain)
+    pos = len(reqs[rid].prompt) + j - 1       # the pending token's position
+    c = SPEC_K + 1
+    window = np.zeros((SLOTS, c), np.int32)
+    live = stream[pos:pos + c]
+    window[0, :len(live)] = live
+    spec = PagedCacheSpec.for_requests(SLOTS, max(len(stream) + c, 128),
+                                       block_size=BLOCK,
+                                       quantized=cache == "int8")
+    eng = PagedEngine(cfg, spec, max_context=128, slots=SLOTS, device=dev)
+    tables = np.zeros((SLOTS, spec.max_blocks_per_req), np.int32)
+    tables[0] = np.arange(1, spec.max_blocks_per_req + 1)
+    one = np.zeros(SLOTS, np.int32)
+    ctx, tok, win = one.copy(), one.copy(), one.copy()
+    ctx[0], tok[0], win[0] = pos, stream[pos], len(live)
+    names = ("ln1", "q", "k", "v", "attention", "wo + residual", "ln2",
+             "mlp", "block out")
+
+    def prefilled():
+        pools = eng.init_pools()
+        for lo in range(0, pos, CHUNK):
+            n = min(CHUNK, pos - lo)
+            buf = np.zeros(CHUNK, np.int32)
+            buf[:n] = stream[lo:lo + n]
+            _, pools = eng.prefill_chunk(params, pools, buf, tables[0], lo,
+                                         n)
+        return pools
+
+    def recorded(fn):
+        rec = []
+
+        def layer(lp, lpools, x, rot, phys, off, attend):
+            h = B.rms_norm(lp["ln1"], x, cfg.norm_eps)
+            q, k, v = B.qkv(lp["attn"], h, cfg, rot)
+            n_kv = cfg.num_kv_heads
+            KC.append_token(lpools, spec,
+                            k.transpose(0, 1).reshape(n_kv, -1, cfg.hd),
+                            v.transpose(0, 1).reshape(n_kv, -1, cfg.hd),
+                            phys, off)
+            o = attend(q, lpools)
+            x1 = x + (o @ lp["attn"]["wo"]).to(x.dtype)
+            hh = B.rms_norm(lp["ln2"], x1, cfg.norm_eps)
+            m = B.mlp(lp["ffn"], hh)
+            out = x1 + m
+            rec.append([t.clone() for t in (
+                h[0, 0], q[0, :, 0], k[0, :, 0], v[0, :, 0], o[0, 0],
+                x1[0, 0], hh[0, 0], m[0, 0], out[0, 0])])
+            return out
+
+        pools = prefilled()
+        eng._layer = layer
+        try:
+            logits = fn(pools)
+        finally:
+            del eng._layer
+        return rec, logits
+
+    dec, dlog = recorded(lambda pools: eng.decode(
+        params, pools, tok, tables, ctx)[0][0])
+    top = torch.topk(dlog.float(), 2).values
+    wrapper, out = ops.paged_verify_attention, {}
+    for vname, fn in variants.items():
+        ops.paged_verify_attention = fn
+        try:
+            ver, vlog = recorded(lambda pools: eng.verify(
+                params, pools, window, tables, ctx, win)[0][0, 0])
+        finally:
+            ops.paged_verify_attention = wrapper
+        torch.cuda.synchronize()
+        parts, first_op = [], None
+        for layer_i, (a, b) in enumerate(zip(dec, ver)):
+            for name, x, y in zip(names, a, b):
+                same = bool(torch.equal(x, y))
+                if not same and first_op is None:
+                    first_op = f"layer {layer_i} {name}"
+                if layer_i < 2 or not same:
+                    parts.append(f"L{layer_i} {name}: " + (
+                        "bitwise" if same else
+                        f"{float((x.float() - y.float()).abs().max()):.3e}"))
+        r = dict(first_op=first_op,
+                 logits_max_diff=float((dlog.float() - vlog.float())
+                                       .abs().max()),
+                 decode_argmax=int(dlog.argmax()),
+                 verify_argmax=int(vlog.argmax()),
+                 layers_bitwise=sum(all(torch.equal(x, y) for x, y in
+                                        zip(a, b))
+                                    for a, b in zip(dec, ver)))
+        out[vname] = r
+        print(f"[spec] bf16 probe, verify {vname} ({cache} cache, request "
+              f"{rid}, stream token {j}, position {pos}, {SLOTS} lanes): "
+              f"first operation where the verify's row parts from the "
+              f"decode step: {first_op}; {r['layers_bitwise']} of "
+              f"{len(dec)} layers bitwise; logits max|diff| "
+              f"{r['logits_max_diff']:.3e}, argmax decode "
+              f"{r['decode_argmax']} / verify {r['verify_argmax']} "
+              f"(decode's top-2 gap {float(top[0] - top[1]):.3e}); "
+              + ", ".join(parts[:40]))
+    return dict(cache=cache, rid=rid, token_index=j, position=pos,
+                decode_top2_gap=float(top[0] - top[1]), **out)
 
 
 def preemption_run(torch, cfg, params, dev):
@@ -4123,6 +4789,8 @@ def main():
                 PRE: preprocess_checks(torch, dev)}
         params = lm.init(cfg, seed=0, device=dev)
         _, reports, _ = serve_main_path(torch, cfg, params, dev)
+        rows["traced_serving"] = traced_serving(torch, cfg, params, dev,
+                                                reports["fp32"])[1]
         rows["speculative_phase"] = spec_main_path(torch, cfg, params, dev,
                                                    reports)[2]
         print(json.dumps(rows))
@@ -4136,6 +4804,13 @@ def main():
                           "by_route": by_route, "vision": summary}))
         print("chip_smoke --vision: the float32 flash kernels at the FHDP "
               "shape and the FHDP phase only; no result line")
+        return 0
+    if "--async" in sys.argv[1:]:
+        launches, by_route, summary = async_main_path(torch, cfg, dev)
+        print(json.dumps({"launches": launches, "by_route": by_route,
+                          "async": summary}))
+        print("chip_smoke --async: the async_hier_fl phase only; no result "
+              "line")
         return 0
     if "--swift" in sys.argv[1:]:
         launches, by_route, summary = swift_main_path(torch, dev)
@@ -4176,6 +4851,8 @@ def main():
           f" ({time.perf_counter() - t0:.1f} s to init)")
     launches, reports, serve_routes = serve_main_path(torch, cfg, params,
                                                       dev)
+    traced_launches, traced_summary = traced_serving(torch, cfg, params, dev,
+                                                     reports["fp32"])
     profile_decode(torch, cfg, params, dev, kernels=kernels)
 
     # 4b. paged path vs contiguous oracle, teacher-forced on served streams
@@ -4215,6 +4892,10 @@ def main():
     train_launches, _, train_routes, codec_by_leaf = train_main_path(
         torch, cfg, dev)
 
+    # 5b. event-driven async FL: sync equivalence, a clocked traced run
+    async_launches, async_routes, async_summary = async_main_path(
+        torch, cfg, dev)
+
     # 6. float32 step through kernels vs plain attention; a step's profile
     step_vs_plain(torch, cfg, dev)
     profile_local_step(torch, cfg, dev, kernels=kernels)
@@ -4247,8 +4928,10 @@ def main():
     rows = []
     for name, k in kernels.items():
         by_path = {"serve": launches[name],
+                   "serve_traced": traced_launches[name],
                    "spec_serve": spec_launches[name],
                    "train": train_launches[name],
+                   "async": async_launches[name],
                    "distill": distill_launches[name],
                    "xlstm_serve": xlstm_launches[name],
                    "vision": vision_launches.get(name, 0),
@@ -4263,23 +4946,27 @@ def main():
                 r: train_routes[name][r] + distill_routes[name][r]
                 + vision_routes.get(name, {}).get(r, 0)
                 + swift_routes.get(name, {}).get(r, 0)
+                + async_routes.get(name, {}).get(r, 0)
                 for r in train_routes[name]}, "build": tc[name]}
         if name in TF32_KERNELS:
             extra["build_tf32x3"] = tc[f"{name}/tf32x3"]
         if name in PAGED_LIBS:
             extra = {"launches_by_route": {
                 r: serve_routes[name][r] + spec_routes[name][r]
-                for r in serve_routes[name]}, "build": tc[name]}
+                for r in serve_routes[name]}, "build": tc[name],
+                "traced_serving": traced_summary}
         if name == "mlstm_chunked":
             extra = {"launches_by_route": xlstm_routes, "build": tc[name]}
         if name == PRE:
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]
                 + vision_routes[name][r] + swift_routes[name][r]
+                + async_routes[name][r]
                 for r in train_routes[name]}}
         if name == "flash_attention":
             extra["fhdp_phase"] = vision_summary
             extra["swift_phase"] = swift_summary
+            extra["async_phase"] = async_summary
         if name == "quantize_int8":
             extra = {"train_launches_by_leaf": codec_by_leaf}
         if name == "paged_verify_attention":

@@ -25,12 +25,15 @@ sequences a rank.
 ``Session.serve`` serves the session's model: the legacy static-batch
 scheduler (:func:`repro_torch.api.serving.serve_requests`) or the
 continuous-batching tier (:func:`repro_torch.serve.serve_continuous`);
-it needs no step of the session's strategy. Tracing (``trace=``) and
-profiling (``profile=``) come with the observability slice and raise.
+it needs no step of the session's strategy. ``run(trace=)`` records
+the event engine's sim-time spans (async strategies),
+``serve(trace=)`` the continuous scheduler's final warm pass, and
+``run(profile=)`` wraps the loop in a ``torch.profiler`` capture.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -163,8 +166,9 @@ class Session:
 
     def run(self, steps: int, *, state=None, batches=None, hooks=None,
             trace=None, metrics=None, profile=None) -> Dict:
-        """Train for ``steps`` steps (``train_loop``), or FL rounds for
-        round strategies (``fl_loop``), and return the loop output.
+        """Train for ``steps`` steps (``train_loop``), FL rounds for round
+        strategies (``fl_loop``), or cloud merges for the async strategy
+        (``async_fl_loop``), and return the loop output.
 
         ``state``: (params, opt) to start from instead of the strategy's
         init (for ``distill_fl``, params is ``{"base", "factors"}``: the
@@ -172,23 +176,32 @@ class Session:
         round as the teacher);
         ``batches``: an iterable of step batches; for round strategies a
         ``fn(round_idx) -> round batch`` or an iterable of round batches
-        (default: synthetic);
+        (default: synthetic; the async engine takes one a wave, so a
+        finite list is cycled);
+        ``trace``: a :class:`repro_torch.obs.Tracer` or a path — the event
+        engine's sim-time spans (async strategies only: the sim clock
+        lives there; a path is written when the loop returns,
+        ``out["trace_path"]``);
         ``metrics``: a :class:`repro_torch.obs.MetricsRegistry` or a path
-        that collects every logged round's scalar metrics
-        (``out["metrics_path"]`` when a path).
+        that collects every logged round's scalar metrics and the
+        engine's fabric counters (``out["metrics_path"]`` when a path);
+        ``profile``: a :class:`repro_torch.obs.ProfileOptions` — the loop
+        under a ``torch.profiler`` capture (``out["profile_path"]``).
+        All three default off and add no work when off.
 
         An edge backup in ``hooks`` snapshots the merged flat params
         unless the hooks name a ``backup_view``; checkpoints get
         :meth:`_checkpoint_meta` as their sidecar unless the hooks name a
         ``checkpoint_meta``. A repartition hook may swap the step
         mid-run; the session keeps the swapped one."""
-        from repro_torch.obs import MetricsRegistry
-        from repro_torch.train.loop import LoopHooks, fl_loop, train_loop
-        for name, arg in (("trace", trace), ("profile", profile)):
-            if arg is not None:
-                raise NotImplementedError(
-                    f"Session.run({name}=...) comes with the observability "
-                    f"slice of the port")
+        from repro_torch.obs import MetricsRegistry, profiled, resolve_tracer
+        from repro_torch.train.loop import LoopHooks, train_loop
+        tracer, trace_path = resolve_tracer(trace)
+        if tracer is not None and self.strategy.loop != "async":
+            raise ValueError(
+                f"trace= needs an async strategy (the event engine owns "
+                f"the simulated clock); {self.strategy.name!r} runs a "
+                f"{self.strategy.loop!r} loop — pass metrics= instead")
         if isinstance(metrics, str):
             registry, metrics_path = MetricsRegistry(), metrics
         else:
@@ -210,35 +223,57 @@ class Session:
             # method, so a mid-run repartition is reflected at save time)
             hooks = dataclasses.replace(
                 hooks, checkpoint_meta=self._checkpoint_meta)
+        if tracer is not None and hooks.tracer is None:
+            hooks = dataclasses.replace(hooks, tracer=tracer)
         if registry is not None and hooks.metrics is None:
             hooks = dataclasses.replace(hooks, metrics=registry)
         params, opt = init_state
-        if self.strategy.loop == "step":
-            it = iter(batches) if batches is not None \
-                else self.default_batches()
-            out = train_loop(step, params, opt, it, steps=steps, hooks=hooks)
-            return self._finish(out["step_fn"],
-                                (out["params"], out["opt_state"]),
-                                out, metrics_path, registry)
+        with profiled(profile):
+            if self.strategy.loop == "step":
+                it = iter(batches) if batches is not None \
+                    else self.default_batches()
+                out = train_loop(step, params, opt, it, steps=steps,
+                                 hooks=hooks)
+                state = (out["params"], out["opt_state"])
+            else:
+                out = self._run_rounds(step, params, opt, batches, steps,
+                                       hooks)
+                state = (out["client_params"], out["client_opt"])
+        if profile is not None and profile.trace_dir is not None:
+            out["profile_path"] = profile.path
+        if trace_path is not None:
+            out["trace_path"] = tracer.save(trace_path)
+        return self._finish(out["step_fn"], state, out, metrics_path,
+                            registry)
+
+    def _run_rounds(self, step, params, opt, batches, steps, hooks
+                    ) -> Dict:
+        """The round, distill and async loops of :meth:`run`."""
+        from repro_torch.train.loop import async_fl_loop, fl_loop
+        loop = self.strategy.loop
         if batches is None:
             it = self.default_batches()
             round_fn = lambda r: next(it)                # noqa: E731
         elif callable(batches):
             round_fn = batches
         else:
+            if loop == "async" and hasattr(batches, "__len__"):
+                # the event engine takes one batch a broadcast WAVE, and
+                # async waves outnumber cloud merges: cycle a finite list
+                batches = itertools.cycle(batches)
             round_fn = lambda r, _it=iter(batches): next(_it)  # noqa: E731
-        if self.strategy.loop == "distill":
+        if loop == "async":
+            return async_fl_loop(step, params, opt, round_fn, rounds=steps,
+                                 hooks=hooks)
+        if loop == "distill":
             base = params["base"]
             out = fl_loop(step, params["factors"], opt, round_fn,
                           rounds=steps, hooks=hooks, teacher=base)
             out["client_params"] = {"base": base,
                                     "factors": out["client_params"]}
-        else:
-            out = fl_loop(step, params, opt, round_fn, rounds=steps,
-                          hooks=hooks)
-        return self._finish(out["step_fn"],
-                            (out["client_params"], out["client_opt"]),
-                            out, metrics_path, registry)
+            return out
+        return fl_loop(step, params, opt, round_fn, rounds=steps,
+                       hooks=hooks)
 
     def _finish(self, step, state, out, metrics_path, registry):
         self.state = state
@@ -264,8 +299,10 @@ class Session:
         "continuous"``: the paged-KV continuous-batching tier
         (:func:`repro_torch.serve.serve_continuous`): ``requests`` is the
         trace length, ``batch`` the lanes, ``context`` the monolithic
-        prefill bucket; ``serve_options`` pass through. Tracing
-        (``trace=``) comes with a later slice of the port and raises.
+        prefill bucket; ``serve_options`` pass through. ``trace`` (a
+        :class:`repro_torch.obs.Tracer` or a path) records the final warm
+        pass's queue/lane spans on the simulated clock — continuous
+        scheduler only; the legacy loop has no sim clock.
 
         ``pod``: serve edge pod ``pod``'s personalized model — the
         strategy's ``pod_params`` view (``distill_fl``: the base weights
@@ -279,9 +316,6 @@ class Session:
         that pod's factors merged in, no second checkpoint
         (``distill_fl`` only). ``draft_k`` and ``preemption`` ride
         through ``serve_options``."""
-        if trace is not None:
-            raise NotImplementedError(
-                "tracing comes with the observability slice of the port")
         if pod is not None:
             if params is not None:
                 raise ValueError("pass either params or pod, not both")
@@ -319,9 +353,13 @@ class Session:
             return serve_continuous(self.cfg, params=params, seed=self.seed,
                                     slots=batch, max_context=context,
                                     num_requests=requests, sampling=sampling,
-                                    temperature=temperature,
+                                    temperature=temperature, trace=trace,
                                     device=self.device, log_fn=log_fn,
                                     **serve_options)
+        if trace is not None:
+            raise ValueError(
+                "trace= needs scheduler='continuous' (the legacy static "
+                "loop has no simulated clock to put spans on)")
         if scheduler != "legacy":
             raise ValueError(f"unknown scheduler {scheduler!r} "
                              "(legacy|continuous)")

@@ -17,15 +17,17 @@ declared heterogeneous fleet, with pre-generated departure templates for
 live repartitioning), ``fl_pipeline`` (FedAvg rounds of FHDP local
 steps), ``fedavg`` (flat FedAvg rounds over client-stacked params),
 ``hier_fl`` (the same rounds over the explicit vehicle -> edge -> cloud
-fabric of :mod:`repro_torch.comm`) and ``distill_fl`` (per-pod LoRA
-students distilled from a frozen AD-LLM, adapter deltas on the fabric).
-The reference's ``async_hier_fl`` raises ``NotImplementedError`` by
-name; so do the sharding specs (``param_specs``), which only shape a
-lowering.
+fabric of :mod:`repro_torch.comm`), ``async_hier_fl`` (that fabric
+driven by the discrete-event engine of :mod:`repro_torch.comm.events`)
+and ``distill_fl`` (per-pod LoRA students distilled from a frozen
+AD-LLM, adapter deltas on the fabric). The sharding specs
+(``param_specs``), which only shape a lowering, raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import abc
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import numpy as np
@@ -35,9 +37,6 @@ from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.configs.common import concrete_batch
 
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
-
-#: strategies of the reference that later slices of the port bring
-LATER = ("async_hier_fl",)
 
 _SPECS_LATER = ("sharding specs only shape a lowering for a multi-device "
                 "mesh; they come with the dry-run slice of the port (A8 in "
@@ -60,13 +59,8 @@ def available_strategies() -> Tuple[str, ...]:
 
 
 def get_strategy(name: str, **options) -> "Strategy":
-    """Instantiate a registered strategy; the reference's strategies that
-    are not ported yet raise NotImplementedError, unknown names
+    """Instantiate a registered strategy; unknown names raise
     ValueError."""
-    if name in LATER:
-        raise NotImplementedError(
-            f"strategy {name!r} comes with a later slice of the port "
-            f"(ported: {', '.join(available_strategies())})")
     try:
         cls = _REGISTRY[name]
     except KeyError:
@@ -81,7 +75,8 @@ class Strategy(abc.ABC):
 
     name: str = ""
     #: which loop Session.run runs ("step" -> train_loop; "round" ->
-    #: fl_loop; "distill" -> fl_loop with the frozen base as the teacher)
+    #: fl_loop; "distill" -> fl_loop with the frozen base as the teacher;
+    #: "async" -> async_fl_loop over the strategy's event engine)
     loop: str = "round"
 
     def __init__(self, *, learning_rate: float = 1e-3):
@@ -559,6 +554,109 @@ class HierFLStrategy(FedAvgStrategy):
         from repro_torch.core.fedavg import fedavg
         return fedavg(state[0], weights=self.client_weights,
                       topology=self.topology)
+
+
+@register_strategy("async_hier_fl")
+class AsyncHierFLStrategy(HierFLStrategy):
+    """Event-driven hierarchical FL (paper §3.1's parallelized
+    collaborative training): the fabric of ``hier_fl`` driven by the
+    discrete-event engine of :mod:`repro_torch.comm.events`.
+
+    ``clock``: the cloud's merge period in simulated seconds; ``None`` is
+    the infinite deadline, the synchronous case, bitwise ``hier_fl``
+    (same topology, codec, seed and bits, zero jitter, no migrations).
+    With a finite clock, edge pods flush partial aggregates instead of
+    waiting for stragglers and the cloud down-weights late commits by
+    ``decay ** observed_lag``. ``compute_flops`` sizes the per-vehicle
+    compute-time model (default: 6 x params x tokens of a local round);
+    ``compute_jitter`` adds up to that fraction of uniform slowdown per
+    (vehicle, wave). ``migrate_every`` turns on DTMC mobility: every
+    that many simulated seconds each vehicle takes a grid step and moves
+    to the nearest edge pod once it leaves its pod's comm radius.
+    ``codec_bits``: optional ``fn(wave, leaf, client, shape) -> uint32
+    tensor``, ``wave`` counted from 0 in each run; by default the bits
+    come from the strategy's generator stream, the one ``hier_fl`` draws
+    from, in the same order when every wave is the whole fleet.
+    """
+
+    loop = "async"
+
+    def __init__(self, *, learning_rate: float = 1e-3, local_steps: int = 1,
+                 remat: bool = False, topology="2@nano*2,agx*2",
+                 codec: str = "none",
+                 codec_options: Optional[Dict] = None,
+                 client_weights: Optional[Any] = None,
+                 clock: Optional[float] = None, decay: float = 0.5,
+                 flush_every: Optional[float] = None,
+                 compute_flops: Optional[float] = None,
+                 compute_jitter: float = 0.0,
+                 migrate_every: Optional[float] = None,
+                 mobility: Optional[Any] = None,
+                 codec_bits: Optional[Callable] = None,
+                 sim_seed: int = 0, seed: int = 0):
+        super().__init__(learning_rate=learning_rate,
+                         local_steps=local_steps, remat=remat,
+                         topology=topology, codec=codec,
+                         codec_options=codec_options,
+                         client_weights=client_weights,
+                         codec_bits=codec_bits, seed=seed)
+        self.clock = clock
+        self.decay = decay
+        self.flush_every = flush_every
+        self.compute_flops = compute_flops
+        self.compute_jitter = compute_jitter
+        self.migrate_every = migrate_every
+        self.mobility = mobility
+        self.sim_seed = sim_seed
+        self.engine = None
+
+    def make_step(self, cfg, shape, mesh):
+        from repro_torch.comm.codecs import tree_edge_nbytes, tree_nbytes
+        from repro_torch.comm.events import (AsyncHierFLEngine, ComputeModel,
+                                             HierFLProgram, MobilitySpec,
+                                             default_compute_flops)
+
+        self.comm_stats = self._round_stats(cfg)    # predicted, for info
+        program = HierFLProgram(cfg, shape, self._optimizer(), self.codec,
+                                remat=self.remat)
+        ptree = self._wire_tree(cfg)
+        flops = self.compute_flops if self.compute_flops is not None \
+            else default_compute_flops(cfg, shape, self.local_steps)
+        mobility = self.mobility
+        if mobility is None and self.migrate_every is not None:
+            mobility = MobilitySpec(seed=self.sim_seed)
+        # the engine reaches the strategy's bits through a weak reference:
+        # no strategy <-> engine cycle, so a dropped Session frees the
+        # engine's device state at once, not at the next garbage collection
+        self.engine = AsyncHierFLEngine(
+            self.topology, tree_nbytes(self.codec, ptree),
+            lambda m: tree_edge_nbytes(self.codec, ptree, m),
+            program=program,
+            compute=ComputeModel(flops=flops, jitter=self.compute_jitter),
+            client_weights=self.client_weights,
+            clock=self.clock, decay=self.decay,
+            flush_every=self.flush_every, mobility=mobility,
+            migrate_every=self.migrate_every, seed=self.sim_seed,
+            bits_fn=lambda w, _s=weakref.ref(self): _s()._wave_bits(
+                w, mesh.device))
+        return self.engine
+
+    def _wave_bits(self, wave: int, device):
+        """The codec's bits source of a run's wave ``wave``."""
+        from repro_torch.comm.codecs import GeneratorBits
+        if self._bits is None:
+            self._bits = GeneratorBits(self.seed, device)
+        if self.codec_bits is None:
+            return self._bits
+        return lambda leaf, client, shp: self.codec_bits(wave, leaf, client,
+                                                         shp)
+
+    def merge_params(self, state, cfg=None):
+        """The engine's global params once it has merged, else the
+        hierarchical mean of the client rows."""
+        if self.engine is not None and self.engine.version > 0:
+            return self.engine.global_params
+        return super().merge_params(state, cfg)
 
 
 @register_strategy("distill_fl")

@@ -32,7 +32,8 @@ reference holds pod p's on pod p's devices and shows pod 0's.
 The SWIFT scheduler's Q-net (the reference's ``DoubleDQN.online`` and
 ``.target``, dicts of float32 arrays) crosses through
 :func:`dqn_from_numpy` and :func:`dqn_to_numpy`, so both packages' agents
-start from the same weights.
+start from the same weights; the dwell-time regressor's params (the
+reference's ``init_wdr`` dict) cross through :func:`wdr_from_numpy`.
 
 bfloat16 crosses as its raw 16-bit words: numpy has no bfloat16 of its
 own (JAX's arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
@@ -161,3 +162,10 @@ def dqn_to_numpy(agent):
     """(online, target) Q-net params of the port's agent as the
     reference's dicts of numpy arrays."""
     return tree_to_numpy(agent.online), tree_to_numpy(agent.target)
+
+
+def wdr_from_numpy(params: dict, device="cuda"):
+    """The reference's WDR dwell regressor params (``init_wdr``'s dict,
+    as numpy) as the port's :class:`repro_torch.sched.dwell.WDR`."""
+    from repro_torch.sched.dwell import WDR
+    return WDR(tree_from_numpy(params, device))

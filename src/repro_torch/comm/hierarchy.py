@@ -9,8 +9,12 @@ personalized adapters). ``make_hier_round`` is the whole round the
 ``hier_fl`` strategy runs:
 local steps per client, the per-client codec roundtrip with error
 feedback, edge partial averages, the cloud merge and the broadcast.
-The event-time halves (``edge_commit`` per pod, ``cloud_merge_at`` on a
-clock) come with the async FL slice.
+
+The aggregation is also split into its event-time halves, which the
+discrete-event engine (:mod:`repro_torch.comm.events`) runs piecewise:
+per-pod :func:`edge_commit` (an edge partially averages whichever
+members have arrived) and clocked :func:`cloud_merge_at` (the cloud
+merges the commits it holds, with observed staleness multipliers).
 """
 from __future__ import annotations
 
@@ -22,6 +26,22 @@ import torch
 from repro_torch.comm.codecs import BitsSource, Codec, roundtrip_stacked
 from repro_torch.comm.topology import Topology
 from repro_torch.tree import leaves, tree_map
+
+
+def edge_commit(member_stacked, member_weights):
+    """One pod's partial aggregate: a member-stacked [M, ...] tree and [M]
+    weights -> (float32 partial-average tree, scalar total weight), the
+    per-pod piece of :func:`edge_aggregate` (the same operations, so a
+    pod's commit is bitwise its row of the edge tree)."""
+    first = leaves(member_stacked)[0]
+    wm = torch.as_tensor(member_weights, dtype=torch.float32).to(
+        first.device)
+
+    def part(x):
+        wb = wm.reshape((-1,) + (1,) * (x.dim() - 1))
+        return (x.float() * wb).sum(dim=0) / wm.sum()
+
+    return tree_map(part, member_stacked), wm.sum()
 
 
 def edge_aggregate(stacked, weights, topology: Topology, *,
@@ -73,6 +93,30 @@ def cloud_merge(edge_stacked, edge_weights, staleness=None):
                 ).to(x.dtype)
 
     return tree_map(merge, edge_stacked)
+
+
+def cloud_merge_at(global_params, partials, partial_weights,
+                   staleness=None):
+    """The clocked half of the split round: merge committed edge partials
+    (float32 trees from :func:`edge_commit`, with their scalar weights)
+    into the current global params; ``staleness``: optional
+    [len(partials)] multipliers from each commit's observed lag (1 =
+    landed within the current deadline window). Returns the new global
+    params, the merged delta applied on top of ``global_params``.
+
+    The partials stay float32 up to the merge, as in :func:`make_hier_round`
+    (the reference casts them to the params' dtype first, which rounds a
+    bfloat16 model's merged delta twice more; for float32 params the two
+    are the same), so with every commit of a round the merge is bitwise
+    the fused round's."""
+    edge_tree = tree_map(lambda g, *parts: torch.stack(parts),
+                         global_params, *partials)
+    device = leaves(global_params)[0].device
+    w = torch.stack([torch.as_tensor(x, dtype=torch.float32).to(device)
+                     for x in partial_weights])
+    merged = cloud_merge(edge_tree, w, staleness)
+    return tree_map(lambda g, d: (g.float() + d).to(g.dtype),
+                    global_params, merged)
 
 
 def pod_slice(stacked, topology: Topology):

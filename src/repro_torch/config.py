@@ -75,6 +75,57 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- parameter counting (the async engine's compute-time model) ----
+    def param_count(self) -> int:
+        d, hd = self.d_model, self.hd
+        nq, nkv = self.num_heads, self.num_kv_heads
+        V = self.vocab_size
+        emb = V * d
+        out = 0 if self.tie_embeddings else V * d
+
+        def attn_params() -> int:
+            p = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+            if self.qkv_bias:
+                p += (nq + 2 * nkv) * hd
+            if self.qk_norm:
+                p += 2 * hd
+            return p + 2 * d  # two RMSNorm vectors per block
+
+        def ffn_params() -> int:
+            if self.moe.num_experts:
+                e = self.moe.num_experts
+                return d * e + e * 3 * d * self.moe.d_expert
+            return 3 * d * self.d_ff  # SwiGLU
+
+        def mlstm_params() -> int:
+            di = self.ssm.expand * d
+            # in-proj (x,z), out-proj, q/k/v projections, gates, conv
+            return d * 2 * di + di * d + 3 * di * di + 2 * di + d
+
+        def block_params() -> int:
+            if self.family == "ssm":
+                return mlstm_params() + ffn_params() + 2 * d
+            if self.family == "hybrid":
+                return attn_params() + mlstm_params() + ffn_params()
+            return attn_params() + ffn_params()
+
+        n = self.num_layers * block_params() + emb + out + d
+        if self.family == "encdec":
+            # decoder blocks additionally carry cross-attention
+            n += self.dec_layers * (d * nq * hd + 2 * d * nkv * hd + nq * hd * d + d)
+        if self.prefix_tokens:
+            n += self.prefix_dim * d  # projector
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts)."""
+        if not self.moe.num_experts:
+            return self.param_count()
+        e, k = self.moe.num_experts, self.moe.top_k
+        full = self.param_count()
+        expert_p = self.num_layers * e * 3 * self.d_model * self.moe.d_expert
+        return full - expert_p + expert_p * k // e
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -41,7 +41,7 @@ SIGNATURES = {
     "paged_decode_tma": ("paged_decode_attention_tma",
                          [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
     "paged_prefill_tc": ("paged_prefill_attention_tc",
-                         [_I] + [_P] * 11 + [_I] * 11 + [_F, _P]),
+                         [_I] + [_P] * 11 + [_I] * 12 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
     "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",

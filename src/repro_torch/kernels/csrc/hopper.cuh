@@ -343,6 +343,24 @@ __device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
+// The same fragment split in two: hi = bf16(x) and lo = bf16(x - hi), so
+// that hi + lo carries x to about 2^-16 of itself where one bf16
+// rounding keeps 2^-9. A product then takes two passes, lo's first.
+__device__ __forceinline__ void pack_frag_split(uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4],
+                                                const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = pack_bf16(a - hf.x, b - hf.y);
+    }
+}
+
 // -------------------------------------------------------------- cp.async
 // 16 bytes global -> shared, asynchronously; zeros when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,

@@ -13,9 +13,21 @@
 // Numerics: S takes bf16 operands with float32 accumulation; int8 blocks
 // are converted to bf16 in shared memory (exact), K's row scale then
 // multiplies S's columns; the online softmax is float32 in the log2
-// domain; P (with V's row scale folded in for int8 pools) is rounded once
-// to bf16 for the P V product, which accumulates in float32; the row sum
-// l is taken from the float32 P without V's scale.
+// domain; the row sum l is taken from the float32 P without V's scale.
+// P (with V's row scale folded in for int8 pools) enters the P V product,
+// which accumulates in float32, in one of two ways (template kSplitP):
+//   * a prefill chunk rounds it once to bf16 (2^-9 of itself);
+//   * the batched verify splits it into bf16 hi = bf16(p) and lo =
+//     bf16(p - hi) and runs two products into the same accumulator, lo's
+//     first, carrying p to about 2^-16 of itself: the paged decode kernel,
+//     which computes the same rows one at a time, keeps P in float32 on
+//     the CUDA cores, as both of the reference's Pallas kernels do
+//     (dot(p, v.astype(float32))), so a verify row lands within a bf16
+//     ulp of the decode step's instead of a bf16 rounding of P away,
+//     but for elements that cancel toward 0, where the two kernels'
+//     orders of summation part them by a few ulps (the card checks hold
+//     them to ref.verify_decode_gap_bound). The second product doubles P V's tensor-core work, which the launch
+//     latency of the verify shape hides.
 //
 // What bounds it on an H100: the bytes of K/V read. At the serving shape
 // (a 16-row chunk of 16 query heads, up to 128 keys) the launch and the
@@ -94,7 +106,7 @@ __device__ __forceinline__ void int8_tile_to_bf16(const unsigned char* src,
   }
 }
 
-template <typename KVT>
+template <typename KVT, bool kSplitP>
 __global__ void __launch_bounds__(kPrefillThreads)
 paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -232,10 +244,18 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + part[hh];
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[x] *= corr[(x >> 1) & 1];
-    uint32_t pa[4][4];
-    pack_frag(pa, sc);
-    wgmma_fence();
-    mma_rs_k64(acc, pa, vt);
+    if constexpr (kSplitP) {
+      uint32_t ph[4][4], pl[4][4];
+      pack_frag_split(ph, pl, sc);
+      wgmma_fence();
+      mma_rs_k64(acc, pl, vt);
+      mma_rs_k64(acc, ph, vt);
+    } else {
+      uint32_t pa[4][4];
+      pack_frag(pa, sc);
+      wgmma_fence();
+      mma_rs_k64(acc, pa, vt);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -289,7 +309,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
 }
 
 // B lanes (lane_ctx / lane_len null for one prefill chunk, B = 1).
-template <typename KVT>
+template <typename KVT, bool kSplitP>
 static int launch(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* table,
                   const int* lane_ctx, const int* lane_len, void* out,
@@ -301,7 +321,7 @@ static int launch(const void* q, const void* k, const void* v,
                               bs);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(PrefillSmem<KVT>) + 1024;   // + alignment
-  auto kernel = paged_prefill_wgmma_kernel<KVT>;
+  auto kernel = paged_prefill_wgmma_kernel<KVT, kSplitP>;
   static bool opted_in = false;
   err = opt_in_smem(kernel, smem, &opted_in);
   if (err != cudaSuccess) return (int)err;
@@ -328,13 +348,15 @@ static int launch(const void* q, const void* k, const void* v,
 // min(ctx, T * bs) for one chunk, T * bs for lanes (their windows live on
 // the device); above one split, ws holds B * Hkv * tiles * nsplit * 64 *
 // 66 floats and counters B * Hkv * tiles int32 zeros (left zero), tiles =
-// ceil(Hq / Hkv * C / 64). Returns cudaGetLastError() of the launch.
+// ceil(Hq / Hkv * C / 64). split_p 1 carries P into P V as two bf16
+// parts (the verify's route), 0 rounds it once (a prefill chunk's).
+// Returns cudaGetLastError() of the launch.
 extern "C" int paged_prefill_attention_tc(
     int kv_dtype, const void* q, const void* k, const void* v,
     const float* ks, const float* vs, const int* tables, const int* lane_ctx,
     const int* lane_len, void* out, float* ws, int* counters, int B, int Hq,
     int Hkv, int NB, int bs, int T, int C, int q_offset, int ctx, int nsplit,
-    int split_keys, float scale, void* stream) {
+    int split_keys, int split_p, float scale, void* stream) {
   using namespace paged_tma;
   cudaStream_t st = (cudaStream_t)stream;
   const bool lanes = lane_ctx != nullptr;
@@ -344,16 +366,19 @@ extern "C" int paged_prefill_attention_tc(
                   nsplit <= MAX_SPLITS && KT % bs == 0 && keys > 0 &&
                   (long long)nsplit * split_keys >= keys &&
                   (long long)(nsplit - 1) * split_keys < keys &&
-                  (nsplit == 1 || (ws != nullptr && counters != nullptr));
+                  (nsplit == 1 || (ws != nullptr && counters != nullptr)) &&
+                  (split_p == 0 || split_p == 1);
   if (!ok) return (int)cudaErrorInvalidValue;
+#define PAGED_PREFILL_TC(KVT, SPLIT)                                        \
+  launch<KVT, SPLIT>(q, k, v, ks, vs, tables, lane_ctx, lane_len, out, ws, \
+                     counters, B, Hq, Hkv, NB, bs, T, C, q_offset, ctx,    \
+                     nsplit, split_keys, scale, st)
   if (kv_dtype == paged::kBF16 && bs % 8 == 0)
-    return launch<__nv_bfloat16>(q, k, v, ks, vs, tables, lane_ctx, lane_len,
-                                 out, ws, counters, B, Hq, Hkv, NB, bs, T, C,
-                                 q_offset, ctx, nsplit, split_keys, scale,
-                                 st);
+    return split_p ? PAGED_PREFILL_TC(__nv_bfloat16, true)
+                   : PAGED_PREFILL_TC(__nv_bfloat16, false);
   if (kv_dtype == paged::kI8 && bs % 16 == 0)
-    return launch<int8_t>(q, k, v, ks, vs, tables, lane_ctx, lane_len, out,
-                          ws, counters, B, Hq, Hkv, NB, bs, T, C, q_offset,
-                          ctx, nsplit, split_keys, scale, st);
+    return split_p ? PAGED_PREFILL_TC(int8_t, true)
+                   : PAGED_PREFILL_TC(int8_t, false);
+#undef PAGED_PREFILL_TC
   return (int)cudaErrorInvalidValue;
 }

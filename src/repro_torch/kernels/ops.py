@@ -256,19 +256,32 @@ def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
             _ptr(block_tables), _ptr(ctx_lens), _ptr(out), b, hq, hkv, nb,
             bs, d, t, scale, _stream(q))
     else:
-        stream = _stream(q)
-        nsplit, per = paged_splits(t * bs, b * hkv)
-        ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,
-                                 _partial_floats(hq // hkv, d))
-        err = build.load("paged_decode_tma")(
-            _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages),
-            _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
-            _ptr(block_tables), _ptr(ctx_lens), _ptr(out), _ptr(ws),
-            _ptr(ctr), b, hq, hkv, nb, bs, t, nsplit, per, scale, stream)
+        err = _decode_tma_launch(q, k_pages, v_pages, block_tables,
+                                 ctx_lens, scale, k_scales, v_scales, out, b)
     _raise_on(err, f"paged_decode_attention ({route})")
     paged_decode_attention.launches += 1
     paged_decode_attention.routes[route] += 1
     return out
+
+
+def _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens, scale,
+                       k_scales, v_scales, out, plan_lanes: int) -> int:
+    """One launch of ``csrc/paged_decode_tma.cu`` (inputs already
+    checked) over q's B lanes, its keys split by :func:`paged_splits` as
+    for ``plan_lanes`` lanes (a row's arithmetic depends on its lane's
+    keys and that plan only). Returns the kernel's error code."""
+    b, hq, d = q.shape
+    hkv, nb, bs, _ = k_pages.shape
+    t = block_tables.shape[1]
+    stream = _stream(q)
+    nsplit, per = paged_splits(t * bs, plan_lanes * hkv)
+    ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,
+                             _partial_floats(hq // hkv, d))
+    return build.load("paged_decode_tma")(
+        _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages), _ptr(v_pages),
+        _ptr(k_scales), _ptr(v_scales), _ptr(block_tables), _ptr(ctx_lens),
+        _ptr(out), _ptr(ws), _ptr(ctr), b, hq, hkv, nb, bs, t, nsplit, per,
+        scale, stream)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
@@ -316,19 +329,22 @@ def _paged_prefill(q, k_pages, v_pages, block_table, q_offset, ctx_len, *,
     route = _pick_route("prefill", route, q, k_pages, bs, d)
     out = _prefill_launch(route, q, k_pages, v_pages, block_table, None,
                           None, q_offset, ctx_len, scale, k_scales, v_scales,
-                          "paged_prefill_attention")
+                          "paged_prefill_attention", split_p=False)
     paged_prefill_attention.launches += 1
     paged_prefill_attention.routes[route] += 1
     return out
 
 
 def _prefill_launch(route, q, k_pages, v_pages, tables, lane_ctx, lane_len,
-                    q_offset, ctx_len, scale, k_scales, v_scales, name):
+                    q_offset, ctx_len, scale, k_scales, v_scales, name, *,
+                    split_p: bool):
     """One launch of the paged prefill kernel on ``route`` (inputs
     already checked): q [B, Hq, C, D] or one chunk's [Hq, C, D], tables
     [B, T] or [T]. Each lane's chunk is [lane_ctx[b], lane_ctx[b] +
     lane_len[b]) from the device, or [q_offset, ctx_len) when the lane
-    arrays are None. Raises on a failed launch; returns the output."""
+    arrays are None. ``split_p`` (the wgmma route): P enters P V as two
+    bf16 parts (hi, lo), else rounded once to bf16. Raises on a failed
+    launch; returns the output."""
     _aligned(k_pages=k_pages, v_pages=v_pages)
     hkv, nb, bs, d = k_pages.shape
     hq, c = q.shape[-3:-1]
@@ -351,7 +367,8 @@ def _prefill_launch(route, q, k_pages, v_pages, tables, lane_ctx, lane_len,
                                  _partial_floats(PREFILL_TILE, d))
         err = build.load("paged_prefill_tc")(
             _DTYPE_CODES[k_pages.dtype], *pools, _ptr(ws), _ptr(ctr), b, hq,
-            hkv, nb, bs, t, c, q_offset, ctx_len, nsplit, per, scale, stream)
+            hkv, nb, bs, t, c, q_offset, ctx_len, nsplit, per, int(split_p),
+            scale, stream)
     _raise_on(err, f"{name} ({route})")
     return out
 
@@ -375,11 +392,13 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     :func:`paged_prefill_attention`: bf16 q over bf16 or int8 pools at
     head_dim 64 on ``csrc/paged_prefill_tc.cu`` (route "wgmma"; keys
     split by :func:`paged_splits` of the table width, since the windows
-    live on the device), everything else on ``csrc/paged_prefill.cu``
-    ("simt"), where each float32 row is computed in the paged decode
-    kernel's order (the speculative contract: streams bitwise equal to
-    plain decode). ``paged_verify_attention.routes`` counts the launches
-    of each."""
+    live on the device; P enters P V as two bf16 parts, so it keeps
+    about 2^-16 of itself as the decode kernel's float32 P does, where a
+    prefill chunk rounds it once), everything else on
+    ``csrc/paged_prefill.cu`` ("simt"), where each float32 row is computed
+    in the paged decode kernel's order (the speculative contract: streams
+    bitwise equal to plain decode). ``paged_verify_attention.routes``
+    counts the launches of each."""
     _require(q.dim() == 4, "q must be [B, Hq, C, D]")
     hkv, bs, d = _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     b, hq, c, _ = q.shape
@@ -402,7 +421,7 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     route = paged_route("prefill", q.dtype, k_pages.dtype, d, bs)
     out = _prefill_launch(route, q, k_pages, v_pages, block_tables, ctx_lens,
                           chunk_lens, 0, 0, scale, k_scales, v_scales,
-                          "paged_verify_attention")
+                          "paged_verify_attention", split_p=True)
     paged_verify_attention.launches += 1
     paged_verify_attention.routes[route] += 1
     return out

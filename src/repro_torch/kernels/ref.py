@@ -130,6 +130,71 @@ def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     return o.reshape(b, hq, c, d).to(q.dtype)
 
 
+def verify_decode_gap_bound(q, k_pages, v_pages, block_tables, ctx_lens,
+                            chunk_lens, *, scale: Optional[float] = None,
+                            k_scales=None, v_scales=None):
+    """How far apart, at most, the float32 outputs of the bf16 verify
+    (``csrc/paged_prefill_tc.cu``, P split into two bf16 parts) and of
+    the paged decode kernel (``csrc/paged_decode_tma.cu``, P in float32)
+    can be for the same query row over the same keys, before each is
+    rounded to bf16. Arguments as :func:`paged_verify_attention_ref`.
+    Returns float64 [B, Hq, C, D]; rows at or past a lane's window are
+    meaningless.
+
+    With u = 2^-23 (one float32 rounding, truncation included, as the
+    tensor cores' sums do), s_j the row's exact logit in base 2 (scale *
+    log2(e) * q.k_j), A_j the same over |q| and |k_j|, m the row's
+    largest s_j and n the keys the row sees, each kernel computes, to
+    first order:
+      * s_j within (D + 4) u A_j (D products summed in some order, the
+        scale, int8's row scale, the fused subtraction of m) plus u |s_j
+        - m|; 2^(s_j - m) by ex2.approx within 2^-22 more, so each weight
+        p_j within rho_j = 2^((D + 4) u A_j + u |s_j - m|) (1 + 2^-22) - 1
+        of itself;
+      * the normalized weight w_j = p_j / l within rho_j + max rho + n u
+        (l is a sum of n weights; the running-max corrections multiply
+        acc and l alike and cancel);
+      * acc_i = sum_j p_j v_ji within n u (decode) or 2n u (the verify's
+        two passes) of sum_j p_j |v_ji|, and the verify's split P within
+        2^-16 of p_j (int8: of p_j times V's row scale);
+      * the split-K merges, the scale products and the final division
+        within 32 u of the output's sum_j w_j |v_ji|.
+    The two kernels' gap is the sum of both error budgets:
+      sum_j w_j |v_ji| (2 rho_j + 2 max rho + 2^-16 + (5n + 32) u)."""
+    b, hq, c, d = q.shape
+    hkv, _, bs, _ = k_pages.shape
+    g, t = hq // hkv, block_tables.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    u = 2.0 ** -23
+    base2 = scale * 1.4426950408889634
+    k = _gather_pages(k_pages, block_tables, k_scales).double()
+    v = _gather_pages(v_pages, block_tables, v_scales).double()
+    k = k.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    v = v.permute(1, 0, 2, 3, 4).reshape(b, hkv, t * bs, d)
+    kp = torch.arange(t * bs, device=q.device)
+    start = ctx_lens.long()[:, None]
+    end = start + chunk_lens.long()[:, None]
+    seen = (kp[None, :] < end)[:, None, :, None]                # [B,1,K,1]
+    k, v = (torch.where(seen, x, 0.0) for x in (k, v))    # the null block
+    qp = start + torch.arange(c, device=q.device)[None, :]
+    mask = ((kp[None, None, :] <= qp[:, :, None])
+            & (kp[None, None, :] < end[:, :, None]))[:, None, None]
+    qg = q.double().reshape(b, hkv, g, c, d)
+    s = torch.einsum("bhgcd,bhkd->bhgck", qg, k) * base2
+    a = torch.einsum("bhgcd,bhkd->bhgck", qg.abs(), k.abs()) * base2
+    s = torch.where(mask, s, -torch.inf)
+    m = s.amax(-1, keepdim=True).clamp_min(-1e300)
+    w = torch.where(mask, torch.exp2(s - m), 0.0)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-300)
+    gap = torch.where(mask, (d + 4) * u * a + u * (s - m).abs(), 0.0)
+    rho = torch.where(mask, torch.exp2(gap) * (1 + 2.0 ** -22) - 1, 0.0)
+    n = mask.sum(-1, keepdim=True).double()
+    per = (2 * rho + 2 * rho.amax(-1, keepdim=True) + 2.0 ** -16
+           + (5 * n + 32) * u)
+    out = torch.einsum("bhgck,bhkd->bhgcd", w * per, v.abs())
+    return out.reshape(b, hq, c, d)
+
+
 def quantize_int8_ref(x, bits):
     """Rowwise-absmax int8 stochastic quantization. x: [M, 128] float;
     bits: [M, 128] torch.uint32 raw random words. Returns (q int8

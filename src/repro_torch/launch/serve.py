@@ -7,14 +7,17 @@ legacy`` (the default, as the reference's) is the static-batch loop
 (``--batch`` prompts of ``--context`` tokens, ``--decode-steps`` decode
 steps, ``--requests`` batches), ``--scheduler continuous`` the paged
 continuous-batching tier, with draft-verify speculative decoding under
-``--speculative`` (``--draft-k`` drafts a lane a step, self-drafting).
-Tracing is a later slice and raises.
+``--speculative`` (``--draft-k`` drafts a lane a step, self-drafting),
+and ``--trace PATH`` writes the final warm pass's sim-time trace
+(continuous only, as the reference's).
 
   python -m repro_torch.launch.serve --arch xlstm-350m --full \\
       --batch 8 --context 512 --decode-steps 32
   python -m repro_torch.launch.serve --arch flad-adllm --full \\
       --scheduler continuous --slots 8 --block-size 16 --cache int8 \\
       --speculative --draft-k 4
+  python -m repro_torch.launch.serve --device cpu --scheduler continuous \\
+      --requests 3 --trace serve_trace.json
 """
 import argparse
 
@@ -59,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft tokens proposed per lane per step "
                          "(with --speculative)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="sim-time trace of the final warm pass (later "
-                         "slice)")
+                    help="write a Perfetto-loadable sim-time trace of "
+                         "the final warm pass to PATH (continuous)")
     ap.add_argument("--sampling", choices=("greedy", "temperature"),
                     default="greedy")
     ap.add_argument("--temperature", type=float, default=1.0)
@@ -85,19 +88,24 @@ def main(argv=None):
         kw = dict(block_size=args.block_size, cache=args.cache,
                   fleet=args.fleet, prefill=args.prefill,
                   prefill_chunk=args.prefill_chunk,
-                  prefix_cache=args.prefix_cache,
+                  prefix_cache=args.prefix_cache, trace=args.trace,
                   speculative=args.speculative)
         if args.speculative:
             kw["draft_k"] = args.draft_k
+    elif args.trace:
+        raise SystemExit("--trace requires --scheduler continuous")
     elif args.speculative:
         raise SystemExit("--speculative requires --scheduler continuous")
-    return session.serve(requests=args.requests,
-                         batch=args.slots or args.batch,
-                         context=args.context,
-                         decode_steps=args.decode_steps,
-                         scheduler=args.scheduler, sampling=args.sampling,
-                         temperature=args.temperature, trace=args.trace,
-                         **kw)
+    report = session.serve(requests=args.requests,
+                           batch=args.slots or args.batch,
+                           context=args.context,
+                           decode_steps=args.decode_steps,
+                           scheduler=args.scheduler, sampling=args.sampling,
+                           temperature=args.temperature, **kw)
+    if args.trace:
+        print(f"[serve] trace written to {report['trace_path']} "
+              f"(load at https://ui.perfetto.dev)")
+    return report
 
 
 if __name__ == "__main__":

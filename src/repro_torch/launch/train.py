@@ -2,15 +2,17 @@
 :class:`repro_torch.api.Session`.
 
 The reference's flags for the ``tensor``, ``pipeline``,
-``swift_pipeline``, ``fedavg``, ``fl_pipeline``, ``hier_fl`` and
-``distill_fl`` strategies, with its defaults (``--arch flad-vision
---strategy pipeline --mesh 2,4``: FHDP, the paper's system), plus
-``--device`` (default ``cuda``; the mesh's ranks all run on that one
-device). As the reference's, it keeps an edge backup every 10 steps,
-writes a checkpoint every 50 when ``--checkpoint PATH`` is given, and
-with ``--depart STEP:VID`` (``swift_pipeline`` only) departs vehicle VID
-after step STEP, a live template switch. The async strategy and tracing
-come with later slices.
+``swift_pipeline``, ``fedavg``, ``fl_pipeline``, ``hier_fl``,
+``async_hier_fl`` and ``distill_fl`` strategies, with its defaults
+(``--arch flad-vision --strategy pipeline --mesh 2,4``: FHDP, the
+paper's system), plus ``--device`` (default ``cuda``; the mesh's ranks
+all run on that one device). As the reference's, it keeps an edge backup
+every 10 steps, writes a checkpoint every 50 when ``--checkpoint PATH``
+is given, with ``--depart STEP:VID`` (``swift_pipeline`` only) departs
+vehicle VID after step STEP, a live template switch, and with ``--trace
+PATH`` (``async_hier_fl`` only) writes the event engine's sim-time
+trace; ``--async-clock``, ``--migrate-every`` and ``--compute-jitter``
+set the engine's merge clock, mobility and compute jitter.
 
   python -m repro_torch.launch.train --device cpu --steps 2
   python -m repro_torch.launch.train --device cpu \\
@@ -24,6 +26,10 @@ come with later slices.
       --strategy distill_fl --topology 2@nano*2,agx*2 --codec int8 \\
       --local-steps 2 --steps 2 --shape 1024x4 --lora-rank 4 \\
       --distill-warmup 2
+  python -m repro_torch.launch.train --device cpu --arch flad-adllm \\
+      --strategy async_hier_fl --codec int8 --local-steps 2 --steps 3 \\
+      --shape 64x2 --async-clock 0.05 --migrate-every 0.025 \\
+      --compute-jitter 0.2 --trace async_trace.json
 """
 import argparse
 
@@ -34,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", default=None, help="named shape or 'SEQxBATCH'")
     ap.add_argument("--strategy", default="pipeline",
                     choices=["tensor", "pipeline", "fedavg", "fl_pipeline",
-                             "swift_pipeline", "hier_fl", "distill_fl"])
+                             "swift_pipeline", "hier_fl", "async_hier_fl",
+                             "distill_fl"])
     ap.add_argument("--steps", type=int, default=50,
                     help="train steps (FL strategies: rounds)")
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -51,8 +58,21 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["none", "int8", "topk"],
                     help="uplink codec (update compression)")
     ap.add_argument("--async-decay", type=float, default=None,
-                    help="staleness decay per missed round deadline "
-                         "(enables the predicted-staleness merge)")
+                    help="hier_fl: staleness decay per missed round "
+                         "deadline (enables the predicted-staleness "
+                         "merge); async_hier_fl: the observed-staleness "
+                         "decay (default 0.5)")
+    ap.add_argument("--async-clock", type=float, default=None,
+                    help="async_hier_fl: cloud merge period in simulated "
+                         "seconds (default: infinite deadline — the "
+                         "synchronous special case)")
+    ap.add_argument("--migrate-every", type=float, default=None,
+                    help="async_hier_fl: simulated seconds per mobility "
+                         "step; vehicles migrate between edge pods when "
+                         "they leave their pod's comm radius")
+    ap.add_argument("--compute-jitter", type=float, default=0.0,
+                    help="async_hier_fl: per-(vehicle, wave) uniform "
+                         "compute slowdown fraction")
     ap.add_argument("--lora-rank", type=int, default=4,
                     help="distill_fl: LoRA rank of the per-pod adapters")
     ap.add_argument("--kd-weight", type=float, default=0.3,
@@ -77,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="write a checkpoint (.npz + .meta.json) to PATH "
                          "every 50 steps")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="async_hier_fl: write a Perfetto-loadable "
+                         "sim-time trace to PATH")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="write a metrics-registry snapshot (JSON) to PATH")
     ap.add_argument("--seed", type=int, default=0)
@@ -94,7 +117,8 @@ def main(argv=None):
     from repro_torch.recovery.backup import EdgeBackup
     mesh = MeshSpec.parse(args.mesh, devices=args.devices or None)
     options = {}
-    fl = args.strategy in ("fedavg", "fl_pipeline", "hier_fl", "distill_fl")
+    fl = args.strategy in ("fedavg", "fl_pipeline", "hier_fl",
+                           "async_hier_fl", "distill_fl")
     if fl:
         options["local_steps"] = args.local_steps
     if args.strategy == "fedavg":
@@ -105,6 +129,13 @@ def main(argv=None):
     if args.strategy in ("hier_fl", "distill_fl"):
         options.update(topology=args.topology, codec=args.codec,
                        async_decay=args.async_decay)
+    if args.strategy == "async_hier_fl":
+        options.update(topology=args.topology, codec=args.codec,
+                       clock=args.async_clock,
+                       migrate_every=args.migrate_every,
+                       compute_jitter=args.compute_jitter)
+        if args.async_decay is not None:
+            options["decay"] = args.async_decay
     if args.strategy == "distill_fl":
         options.update(lora_rank=args.lora_rank, kd_weight=args.kd_weight,
                        mix=args.mix, warmup_steps=args.distill_warmup)
@@ -125,9 +156,12 @@ def main(argv=None):
         session.hooks = dataclasses.replace(
             session.hooks,
             repartition=Repartitioner(session, {int(step_s): int(vid_s)}))
-    out = session.run(args.steps, metrics=args.metrics)
+    out = session.run(args.steps, trace=args.trace, metrics=args.metrics)
     last = out["history"][-1]
     print(f"[train] done: {last}")
+    if args.trace:
+        print(f"[train] trace written to {out['trace_path']} "
+              f"(load at https://ui.perfetto.dev)")
     if args.metrics:
         print(f"[train] metrics snapshot written to {out['metrics_path']}")
     out["session"] = session

@@ -143,16 +143,17 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
     to self-drafting with the target weights) and, under chunked
     prefill, block-level preemption (override with ``preemption``); its
     sim clock defaults to a :class:`SpecDecodeCostModel`, which charges
-    the draft forwards and the verify chunk. ``trace`` belongs to a later
-    slice of the port and raises.
+    the draft forwards and the verify chunk. ``trace`` (a
+    :class:`repro_torch.obs.Tracer` or a path) records the FINAL warm pass
+    — one steady pass, not the cold one with the kernel builds — as
+    sim-time queue/lane spans; a path is saved before returning.
 
     Returns the loadgen report plus both throughputs and the per-request
     token streams."""
     if cache not in ("fp32", "int8"):
         raise ValueError(f"cache must be fp32|int8, got {cache!r}")
-    if trace is not None:
-        raise NotImplementedError(
-            "tracing comes with the observability slice of the port")
+    from repro_torch.obs import resolve_tracer
+    tracer, trace_path = resolve_tracer(trace)
     if speculative and prefill_cost is None:
         # price draft forwards + the verify chunk instead of silently
         # charging k extra full target steps on the sim clock
@@ -184,20 +185,21 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
             long_new=long_new, long_frac=long_frac,
             vocab_size=cfg.vocab_size)
 
-    def fresh_scheduler():
+    def fresh_scheduler(tracer=None):
         return ContinuousScheduler(engine, params, policy=policy,
                                    prefill=prefill,
                                    prefill_chunk=prefill_chunk,
                                    prefix_cache=prefix_cache,
                                    sampling=sampling,
                                    temperature=temperature, seed=seed,
+                                   tracer=tracer,
                                    speculative=speculative, draft_k=draft_k,
                                    draft_params=draft_params,
                                    preemption=preemption)
 
-    def timed_pass():
+    def timed_pass(tracer=None):
         t0 = time.perf_counter()
-        sched = fresh_scheduler()
+        sched = fresh_scheduler(tracer)
         report = drive(sched, fresh_requests(), dt_step=dt_step,
                        prefill_cost=prefill_cost)
         _synchronize(device)
@@ -206,9 +208,12 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
     sched, _, cold_s = timed_pass()
     cold_toks = sched.total_new_tokens
     warm_s = float("inf")
-    for _ in range(max(1, warm_passes)):
-        sched, report, s = timed_pass()
+    n_warm = max(1, warm_passes)
+    for p in range(n_warm):
+        sched, report, s = timed_pass(tracer if p == n_warm - 1 else None)
         warm_s = min(warm_s, s)
+    if trace_path is not None:
+        tracer.save(trace_path)
 
     report.update({
         "policy": policy,
@@ -224,6 +229,8 @@ def serve_continuous(cfg: ModelConfig, *, params=None, seed: int = 0,
         / max(warm_s, 1e-9),
         "sequences": {r.rid: list(r.tokens) for r in sched.finished},
     })
+    if trace_path is not None:
+        report["trace_path"] = trace_path
     if log_fn:
         if speculative:
             log_fn(f"[serve:specdec] k={draft_k} "

@@ -219,6 +219,8 @@ def drive(scheduler: ContinuousScheduler,
                 r.t_first_token = t_end
             if r.t_done == t:
                 r.t_done = t_end
+        # deferred spans read the (now final) restamped timestamps
+        scheduler.flush_trace(t_end, cost_model=prefill_cost)
         t = t_end
         steps += 1
         if steps > max_steps:

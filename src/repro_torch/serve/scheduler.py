@@ -1,6 +1,5 @@
 """Continuous-batching scheduler over the paged engine (port of
-``repro/serve/scheduler.py`` without tracing, which comes with a later
-slice).
+``repro/serve/scheduler.py``).
 
 Requests occupy one of ``slots`` fixed batch lanes. Every decode step
 runs ONE fused forward over all lanes; the scheduler decides which
@@ -63,6 +62,15 @@ makes a fresh tensor, never a view of the numpy buffer), so the
 scheduler may mutate ``tables``/``ctx``/``pending_tok`` right after a
 call.
 
+Tracing: with a :class:`repro_torch.obs.Tracer` the scheduler emits the
+reference's sim-time spans — a queue track (admission waits), a specdec
+track (each speculative step's draft and verify) and one track per lane
+(prefill chunks, first tokens, decode spans, preemptions) — plus a KV
+block counter. Spans that end at a step's end, known only once the
+load generator has priced the step, are deferred and emitted by
+:meth:`ContinuousScheduler.flush_trace`. With no tracer no callback
+fires, and the streams are bitwise those of a traced run.
+
 Determinism: greedy decoding makes the token streams a pure function of
 (params, prompts). Temperature sampling draws from one
 ``torch.Generator`` seeded with ``seed`` on the engine's device, so a run
@@ -79,7 +87,9 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as T
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import kernel_cost_args
 from repro_torch.serve import kvcache as KC
 from repro_torch.serve.engine import DraftEngine, PagedEngine, _to_device
 
@@ -95,11 +105,19 @@ class ServeRequest:
     max_new_tokens: int
     arrival_s: float = 0.0
     deadline_s: float = math.inf
+    #: stable id echoed in every span this request produces in a trace
+    #: (defaults to ``rid``; callers multiplexing several traces can set
+    #: their own correlation id)
+    trace_id: Optional[int] = None
     # filled by the scheduler:
     tokens: List[int] = dataclasses.field(default_factory=list)
     t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
+
+    def __post_init__(self):
+        if self.trace_id is None:
+            self.trace_id = self.rid
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -139,9 +157,6 @@ class ContinuousScheduler:
                  speculative: bool = False, draft_k: int = 4,
                  draft_params=None,
                  preemption: Optional[bool] = None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracing comes with the observability slice of the port")
         if policy not in _POLICIES:
             raise ValueError(f"unknown policy {policy!r} ({_POLICIES})")
         if prefill not in _PREFILL_MODES:
@@ -225,6 +240,19 @@ class ContinuousScheduler:
         # requests stamped (first token / done) during the current step;
         # the loadgen finalizes their timestamps to the step's END time
         self.step_events: List[ServeRequest] = []
+        #: optional :class:`repro_torch.obs.Tracer`: queue/lane spans on
+        #: the sim clock; spans ending at the step's END are deferred as
+        #: callables and emitted by :meth:`flush_trace`. None -> no
+        #: callbacks, bitwise-identical streams.
+        self.tracer = tracer
+        if self.tracer is not None:
+            self.tracer.process(T.SERVE_PID, "serving", sort_index=2)
+            self.tracer.track(T.SERVE_PID, T.QUEUE_TID, "queue")
+            if self.speculative:
+                self.tracer.track(T.SERVE_PID, T.SPEC_TID, "specdec")
+            for s in range(self.slots):
+                self.tracer.track(T.SERVE_PID, T.lane_tid(s), f"lane {s}")
+        self._pending_trace: List = []
         # always-on registry (host-side dict updates only): the report
         # reads pool-occupancy stats from it
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -271,6 +299,18 @@ class ContinuousScheduler:
         req = self.active[slot]
         req.t_done = t
         self.step_events.append(req)
+        if self.tracer is not None:
+            def emit(t_end, cost_model, *, req=req, slot=slot):
+                t0 = (req.t_first_token if req.t_first_token is not None
+                      else req.t_done)
+                self.tracer.complete(
+                    "decode", t0, req.t_done, pid=T.SERVE_PID,
+                    tid=T.lane_tid(slot), cat="decode",
+                    args={"trace_id": req.trace_id, "rid": req.rid,
+                          "new_tokens": len(req.tokens),
+                          "latency_s": req.latency_s,
+                          "met_deadline": req.met_deadline})
+            self._pending_trace.append(emit)
         self.finished.append(req)
         self.allocator.release(self.blocks[slot])
         self._clear_slot(slot)
@@ -342,7 +382,7 @@ class ContinuousScheduler:
                               np.int32)[:int(self.prefill_pos[slot])]
         return self._full_chain(self.active[slot])
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, t: float) -> None:
         """Evict a live lane to fund a higher-priority admission.
 
         The lane's computed chain is re-registered in the prefix cache
@@ -357,6 +397,12 @@ class ContinuousScheduler:
                 self.prefix.insert(chain, self.tables[slot])
         self.preemptions += 1
         self._preempt_counter().inc()
+        if self.tracer is not None:
+            self.tracer.instant(
+                "preempted", t, pid=T.SERVE_PID, tid=T.lane_tid(slot),
+                cat="preempt",
+                args={"trace_id": req.trace_id, "rid": req.rid,
+                      "emitted_tokens": len(req.tokens)})
         self.allocator.release(self.blocks[slot])
         self._prefill_queue = collections.deque(
             s for s in self._prefill_queue if s != slot)
@@ -393,7 +439,7 @@ class ContinuousScheduler:
                     victim = self._pick_victim(req)
                     if victim is None:
                         break
-                    self._preempt(victim)
+                    self._preempt(victim, t)
                     fresh = self._try_alloc(fresh_need)
                 self.waiting.appendleft(req)
             if fresh is None:
@@ -414,6 +460,15 @@ class ContinuousScheduler:
                 self.allocator.release([cow_src])
             if req.t_admit is None:
                 req.t_admit = t
+            if self.tracer is not None:
+                self.tracer.complete(
+                    "queued", req.arrival_s, t, pid=T.SERVE_PID,
+                    tid=T.QUEUE_TID, cat="queue",
+                    args={"trace_id": req.trace_id, "rid": req.rid,
+                          "slot": slot, "prompt_tokens": len(req.prompt),
+                          "shared_blocks": len(shared),
+                          "resume_tokens": resume,
+                          "cow": cow_src is not None})
             self.active[slot] = req
             self.blocks[slot] = shared + fresh
             self.tables[slot] = 0
@@ -439,6 +494,14 @@ class ContinuousScheduler:
             req.tokens.append(first)
             req.t_first_token = t
             self.step_events.append(req)
+            if self.tracer is not None:
+                def emit(t_end, cost_model, *, req=req, slot=slot):
+                    self.tracer.instant(
+                        "first_token", req.t_first_token, pid=T.SERVE_PID,
+                        tid=T.lane_tid(slot), cat="ttft",
+                        args={"trace_id": req.trace_id, "rid": req.rid,
+                              "ttft_s": req.ttft_s})
+                self._pending_trace.append(emit)
             self.total_new_tokens += 1
         self.ctx[slot] = len(chain)
         self.pending_tok[slot] = first
@@ -461,6 +524,7 @@ class ContinuousScheduler:
         if not self._prefill_queue:
             return
         slot = self._prefill_queue[0]
+        req = self.active[slot]
         chain = self._chain[slot]
         plen = len(chain)
         if self.prefill_mode == "monolithic":
@@ -478,6 +542,9 @@ class ContinuousScheduler:
             self.last_stats["prefill_padded_tokens"] = mc
             self.last_stats["prefill_attn_mac"] = mc ** 2
             self.last_stats["prefill_wasted_tokens"] = mc - plen
+            if self.tracer is not None:
+                self._pending_prefill_span(
+                    "prefill", t, slot, req, 0, plen, mc, mc ** 2)
             self._prefill_queue.popleft()
             self._finish_prefill(slot, logits, t)
             return
@@ -496,9 +563,39 @@ class ContinuousScheduler:
         self.last_stats["prefill_padded_tokens"] = c
         self.last_stats["prefill_attn_mac"] = c * (pos + clen)
         self.last_stats["prefill_wasted_tokens"] = c - clen
+        if self.tracer is not None:
+            self._pending_prefill_span("prefill_chunk", t, slot, req,
+                                       pos, pos + clen, c, c * (pos + clen))
         if pos + clen == plen:
             self._prefill_queue.popleft()
             self._finish_prefill(slot, logits, t)
+
+    # ---- tracing (repro_torch.obs) ------------------------------------
+    def _pending_prefill_span(self, name: str, t0: float, slot: int, req,
+                              tok0: int, tok1: int, padded: int,
+                              mac: int) -> None:
+        """Defer a prefill span until the step's end is known."""
+        def emit(t_end, cost_model, *, name=name, t0=t0, slot=slot,
+                 req=req, tok0=tok0, tok1=tok1, padded=padded, mac=mac):
+            self.tracer.complete(
+                name, t0, t_end, pid=T.SERVE_PID, tid=T.lane_tid(slot),
+                cat="prefill",
+                args=dict(kernel_cost_args(padded_tokens=padded,
+                                           attn_mac=mac,
+                                           cost_model=cost_model),
+                          trace_id=req.trace_id, rid=req.rid,
+                          tokens=[tok0, tok1]))
+        self._pending_trace.append(emit)
+
+    def flush_trace(self, t_end: float, cost_model=None) -> None:
+        """Emit the step's deferred spans now that its sim-time end (and
+        optionally the :class:`repro_torch.serve.loadgen.PrefillCostModel`
+        that priced it) is known. The caller restamps ``step_events``
+        first, so request timestamps inside spans are final."""
+        if self._pending_trace:
+            for fn in self._pending_trace:
+                fn(t_end, cost_model)
+            self._pending_trace = []
 
     # ---- one step -----------------------------------------------------
     def step(self, t: float = 0.0) -> int:
@@ -514,11 +611,11 @@ class ContinuousScheduler:
         ready = np.array([self.active[i] is not None and self.prefill_done[i]
                           for i in range(self.slots)])
         if not ready.any():
-            self._sample_metrics(0)
+            self._sample_metrics(t, 0)
             return 0
         if self.speculative:
             emitted = self._spec_step(ready, t)
-            self._sample_metrics(emitted)
+            self._sample_metrics(t, emitted)
             return emitted
         # Lanes still prefilling are masked to the dead-lane contract so
         # the fused decode never writes into their (possibly shared)
@@ -542,7 +639,7 @@ class ContinuousScheduler:
             emitted += 1
             if len(req.tokens) >= req.max_new_tokens:
                 self._retire(slot, t)
-        self._sample_metrics(emitted)
+        self._sample_metrics(t, emitted)
         return emitted
 
     def _add_stat(self, key: str, n: int) -> None:
@@ -629,10 +726,28 @@ class ContinuousScheduler:
             if len(req.tokens) >= req.max_new_tokens:
                 self._retire(slot, t)
 
-        self._add_stat("verify_tokens", int(window.sum()))
-        self._add_stat("verify_attn_mac", int(sum(
-            int(w) * (int(cx) + int(w)) for w, cx in zip(window, ctx)
-            if w > 0)))
+        n_live = int(live.sum())
+        verify_tokens = int(window.sum())
+        verify_mac = int(sum(int(w) * (int(cx) + int(w))
+                             for w, cx in zip(window, ctx) if w > 0))
+        self._add_stat("verify_tokens", verify_tokens)
+        self._add_stat("verify_attn_mac", verify_mac)
+        if self.tracer is not None:
+            def emit_spec(t_end, cost_model, *, t0=t, n_live=n_live,
+                          verify_tokens=verify_tokens,
+                          verify_mac=verify_mac, emitted=emitted,
+                          acc=int(accepted.sum())):
+                mid = t0 + (t_end - t0) * 0.5
+                self.tracer.complete(
+                    "draft", t0, mid, pid=T.SERVE_PID, tid=T.SPEC_TID,
+                    cat="spec",
+                    args={"forwards": k + 1, "lanes": n_live})
+                self.tracer.complete(
+                    "verify", mid, t_end, pid=T.SERVE_PID, tid=T.SPEC_TID,
+                    cat="spec",
+                    args={"tokens": verify_tokens, "attn_mac": verify_mac,
+                          "accepted_drafts": acc, "emitted": emitted})
+            self._pending_trace.append(emit_spec)
         return emitted
 
     def run_to_completion(self, requests: Sequence[ServeRequest],
@@ -644,12 +759,14 @@ class ContinuousScheduler:
         steps = 0
         while not self.idle:
             self.step(float(steps))
+            # no cost model here: the step's end is the next integer tick
+            self.flush_trace(float(steps) + 1.0)
             steps += 1
             if steps > max_steps:
                 raise RuntimeError("scheduler failed to drain")
         return self.finished
 
-    def _sample_metrics(self, emitted: int) -> None:
+    def _sample_metrics(self, t: float, emitted: int) -> None:
         """Per-step registry samples (host dicts only): pool occupancy +
         its high-watermark, prefill waste, decode tokens, prefix hits."""
         m = self.metrics
@@ -676,3 +793,7 @@ class ContinuousScheduler:
             m.gauge("serve_prefix_misses",
                     "prefix-cache misses (cumulative)"
                     ).set(self.prefix.misses)
+        if self.tracer is not None:
+            self.tracer.counter("kv blocks", t,
+                                {"in_use": self.allocator.in_use},
+                                pid=T.SERVE_PID)

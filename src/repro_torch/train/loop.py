@@ -1,13 +1,15 @@
-"""Host-side training loops (port of ``repro/train/loop.py``:
-``LoopHooks``, ``train_loop`` and ``fl_loop``).
+"""Host-side training loops (port of ``repro/train/loop.py``).
 
 ``train_loop`` drives any (params, opt, batch) -> (params, opt, metrics)
 step; ``fl_loop`` drives FL rounds over client-stacked state;
+``async_fl_loop`` drives the discrete-event engine of
+:mod:`repro_torch.comm.events` — the loop pops timestamped events and
+the events drive the compute, inverting ``fl_loop``'s control flow.
 ``LoopHooks`` holds the loops' side effects: logging, the edge backup,
-checkpoints, a per-step callback and live repartitioning. History
-entries keep scalar metrics as floats and per-client metrics whole under
-a ``per_client/`` prefix. Sim-time tracing comes with the observability
-slice: its hook raises if it is set.
+checkpoints, per-step, per-round and per-event callbacks, live
+repartitioning, and the tracer and metrics registry. History entries
+keep scalar metrics as floats and per-client metrics whole under a
+``per_client/`` prefix.
 """
 from __future__ import annotations
 
@@ -20,12 +22,6 @@ import torch
 
 from repro_torch.recovery.backup import EdgeBackup
 from repro_torch.train.checkpoint import save as _save_checkpoint
-
-#: hooks of the reference that later slices of the port bring
-_LATER_HOOKS = {
-    "tracer": "sim-time tracing (observability slice)",
-}
-
 
 def _identity(tree):
     return tree
@@ -79,21 +75,22 @@ class LoopHooks:
     #: metrics carry ``comm_bytes_up``, ``comm_bytes_backhaul`` and
     #: ``sim_round_s`` from the topology's link models
     on_round: Optional[Callable] = None
+    #: event-time callback (event) -> None, fired for every event the
+    #: ``async_fl_loop`` engine pops (LocalStepDone / UplinkArrived /
+    #: BackhaulArrived / CloudDeadline / PodMigration / ...)
+    on_event: Optional[Callable] = None
     #: live dynamic repartitioning hook (paper §4.2 executed in-loop):
     #: (idx, step_fn, params, opt) -> None to keep going, or a replacement
     #: (step_fn, params, opt) after a template switch
     repartition: Optional[Callable] = None
+    #: optional :class:`repro_torch.obs.Tracer` — ``async_fl_loop`` hands
+    #: it to the event engine (sim-time spans per vehicle/edge/cloud
+    #: track); the wall-clock loops have no sim timeline and ignore it
     tracer: Optional[object] = None
     #: optional :class:`repro_torch.obs.MetricsRegistry`: every logged
-    #: round's scalar metrics are published into it
+    #: round's scalar metrics are published into it; ``async_fl_loop``
+    #: also hands it to the engine
     metrics: Optional[object] = None
-
-    def check_ported(self) -> None:
-        for name, what in _LATER_HOOKS.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"LoopHooks.{name}: {what} comes with a later slice of "
-                    f"the port")
 
     def after_step(self, i: int, params, metrics=None) -> None:
         if self.backup is not None:
@@ -126,7 +123,6 @@ def train_loop(step_fn: Callable, params, opt_state, batch_iter, *,
     """``steps`` steps of ``step_fn`` over batches from ``batch_iter``; the
     default cadence logs the first step and every tenth."""
     hooks = hooks or LoopHooks()
-    hooks.check_ported()
     hist = []
     t0 = time.time()
     for i in range(steps):
@@ -161,7 +157,6 @@ def fl_loop(fl_round: Callable, client_params, client_opt,
     ``fl_round(client_params, client_opt, batches, teacher)``; the loop
     carries only the trainable student side."""
     hooks = hooks or LoopHooks(log_every=1)
-    hooks.check_ported()
     extra = () if teacher is None else (teacher,)
     hist = []
     t0 = time.time()
@@ -185,3 +180,76 @@ def fl_loop(fl_round: Callable, client_params, client_opt,
             r, fl_round, client_params, client_opt)
     return {"client_params": client_params, "client_opt": client_opt,
             "history": hist, "step_fn": fl_round}
+
+
+def async_fl_loop(engine, client_params, client_opt,
+                  round_batches_fn: Callable, *, rounds: int,
+                  hooks: Optional[LoopHooks] = None,
+                  until_time: Optional[float] = None,
+                  max_events: int = 2_000_000) -> Dict:
+    """Drive an :class:`repro_torch.comm.events.AsyncHierFLEngine` until
+    ``rounds`` cloud merges (or simulated ``until_time``) have happened.
+
+    The loop pops timestamped events off the engine's priority queue and
+    each event drives the compute it stands for (a wave's local steps at
+    ``LocalStepDone``, a pod's partial aggregate at commit, the
+    staleness-weighted merge at ``CloudDeadline``).
+    ``round_batches_fn(wave_idx)`` supplies client-stacked batches like
+    ``fl_loop``'s ``round_batches_fn``; in the synchronous case (no merge
+    clock) waves and rounds coincide.
+
+    One history entry per cloud merge, on both clocks (``t_wall_s``,
+    ``t_sim_s``); ``hooks.on_event`` sees every event, ``hooks.on_round``
+    every merge."""
+    hooks = hooks or LoopHooks(log_every=1)
+    # observability rides in on the hooks: the engine owns the sim clock,
+    # so it (not this loop) emits the spans and fabric metrics
+    if hooks.tracer is not None and getattr(engine, "tracer", None) is None:
+        engine.tracer = hooks.tracer
+    if hooks.metrics is not None and getattr(engine, "metrics", None) is None:
+        engine.metrics = hooks.metrics
+    engine.reset(client_params, client_opt, round_batches_fn)
+    hist = []
+    merges = 0
+    t0 = time.time()
+    for _ in range(max_events):
+        if merges >= rounds:
+            break
+        if until_time is not None and engine.queue.peek_t() > until_time:
+            break
+        ev = engine.queue.pop()
+        if ev is None:
+            raise RuntimeError(
+                f"event queue drained after {merges} merges "
+                f"(wanted {rounds}) — the fabric deadlocked; with "
+                f"clock=None every pod must eventually hear from all "
+                f"its members")
+        rec = engine.handle(ev)
+        if hooks.on_event is not None:
+            hooks.on_event(ev)
+        if rec is None:
+            continue
+        hooks.after_step(merges, engine.client_params, rec)
+        if hooks.on_round is not None:
+            hooks.on_round(merges, rec)
+        if hooks.should_log(merges):
+            m, per_client = _split_metrics(rec)
+            if hooks.metrics is not None:
+                hooks.metrics.publish_scalars(m)
+            hist.append(dict(m, **per_client, round=merges + 1,
+                             t_wall_s=time.time() - t0,
+                             t_sim_s=float(engine.now)))
+            hooks.log_fn(f"[async-fl] merge {merges+1:4d} "
+                         f"t={engine.now:9.3f}s "
+                         + _fmt_metrics(m, per_client))
+        merges += 1
+    else:
+        raise RuntimeError(
+            f"async_fl_loop exceeded max_events={max_events} before "
+            f"{rounds} merges — runaway event schedule")
+    return {"client_params": engine.client_params,
+            "client_opt": engine.client_opt,
+            "global_params": engine.global_params,
+            "history": hist, "event_log": engine.event_log,
+            "sim_time_s": engine.now, "merges": merges,
+            "step_fn": engine}

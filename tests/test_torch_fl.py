@@ -234,11 +234,11 @@ def test_topology_and_aggregation_match_reference():
 
 
 def test_strategy_registry():
-    assert available_strategies() == ("distill_fl", "fedavg", "fl_pipeline",
-                                      "hier_fl", "pipeline",
-                                      "swift_pipeline", "tensor")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_strategy("async_hier_fl")
+    assert available_strategies() == ("async_hier_fl", "distill_fl",
+                                      "fedavg", "fl_pipeline", "hier_fl",
+                                      "pipeline", "swift_pipeline", "tensor")
+    asyn = get_strategy("async_hier_fl", topology=TOPO, clock=0.5)
+    assert asyn.loop == "async" and asyn.clock == 0.5
     with pytest.raises(ValueError, match="unknown strategy"):
         get_strategy("nope")
     with pytest.raises(ValueError, match="async_decay"):
@@ -249,9 +249,13 @@ def test_strategy_registry():
     stats = s._round_stats(Session(**hier).cfg)
     assert stats["staleness"].shape == (2,)
     assert (stats["staleness"] > 0).all() and (stats["staleness"] <= 1).all()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Session(**hier, hooks=LoopHooks(tracer=object())).run(1)
-    with pytest.raises(NotImplementedError, match="observability"):
+    # the wall-clock loops ignore a tracer hook, as the reference's; a
+    # trace= for a strategy without the event engine's clock raises its
+    # ValueError before anything runs
+    with pytest.raises(ValueError, match="async strategy"):
+        Session(**hier, hooks=LoopHooks(tracer=object())).run(
+            1, trace="t.json")
+    with pytest.raises(ValueError, match="async strategy"):
         Session(**hier).run(1, trace="t.json")
 
 

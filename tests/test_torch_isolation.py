@@ -60,7 +60,10 @@ def test_importing_the_port_loads_neither():
             "repro_torch.train.loop, repro_torch.models.registry, "
             "repro_torch.sched.swift, repro_torch.sched.clustering, "
             "repro_torch.recovery.recover, repro_torch.recovery.failures, "
-            "repro_torch.train.checkpoint; "
+            "repro_torch.train.checkpoint, repro_torch.obs.trace, "
+            "repro_torch.obs.validate, repro_torch.obs.profile, "
+            "repro_torch.sched.mobility, repro_torch.sched.dwell, "
+            "repro_torch.comm.events; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

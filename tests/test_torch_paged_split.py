@@ -14,7 +14,12 @@ of every tile, merged at the end; int8 K scales multiply the score and V
 scales fold into the probability. Prefill runs on wgmma: int8 blocks
 become bf16 (exact), K's scale multiplies S's columns, and P, with V's
 scale folded in, is rounded to bf16 before P V; the row sum takes the
-float32 P.
+float32 P. The batched verify runs the prefill kernel with P split into
+bf16 hi = bf16(p) and lo = bf16(p - hi), two products into one float32
+accumulator: here its rows land within one bf16 ulp of the decode
+emulation's at the same positions, where one rounding of P does not, and
+within ``ref.verify_decode_gap_bound`` (the card checks' gate, derived
+from the two kernels' accumulation orders), which a dropped key breaks.
 
 This file repeats that arithmetic step by step on inputs whose q, K and V
 are bf16 values held in float32 (the kernels' operands, exactly), with
@@ -170,9 +175,10 @@ def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale, drop=0):
 
 
 def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
-                     drop=0):
+                     drop=0, split_p=False):
     """paged_prefill_tc.cu's arithmetic: [Hq, C, D] float32 (rows past
-    chunk_len included); ``drop`` as :func:`decode_emulated`."""
+    chunk_len included); ``drop`` as :func:`decode_emulated`;
+    ``split_p``: P V as the verify route takes it, two bf16 parts."""
     hq, c, _ = q.shape
     hkv = k.shape[0]
     rows = hq // hkv * c
@@ -205,7 +211,10 @@ def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
                     corr = torch.exp2(m - m_new)
                     p = torch.exp2(s * scale_log2 - m_new[:, None])
                     l = l * corr + p.sum(1)
-                    pv = (p * vsc[None]).to(torch.bfloat16).float()
+                    pv = p * vsc[None]
+                    hi = pv.to(torch.bfloat16).float()
+                    pv = hi + (pv - hi).to(torch.bfloat16).float() \
+                        if split_p else hi
                     acc = acc * corr[:, None] + pv @ vr
                     m = m_new
                 parts.append((m, l, acc))
@@ -274,6 +283,73 @@ def test_prefill_split_emulation(group, int8):
             min(q_offset + chunk_len, tables.shape[1] * BS),
             hkv * -(-hq // hkv * C // ops.PREFILL_TILE))[0])
     assert splits == [1, 2, 2, 3]
+
+
+def _ulps(a, b):
+    """bf16 ulps between two bf16 tensors (as ordered integers)."""
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_split_p_verify_rows_within_a_bf16_ulp_of_decode(int8):
+    """A verify window of 5 rows (flad-adllm's GQA group 2, 2 KV heads)
+    at the end of a 900-key context: with P split, every bf16 row is
+    within one ulp of the decode emulation's row at its position; with P
+    rounded once (the route before the split) some rows are not."""
+    hq, hkv, c, q_offset = 4, 2, 5, 895
+    rng = np.random.default_rng(50 + int8)
+    tables, k, v, ks, vs = _inputs(rng, hkv, [q_offset + c], int8)
+    q = _bf16(rng, (hq, c, D))
+    dec = decode_emulated(
+        q.transpose(0, 1), k, v, ks, vs, tables.expand(c, -1),
+        torch.arange(q_offset + 1, q_offset + c + 1), D ** -0.5)
+    dec = dec.to(torch.bfloat16)
+    worst = {}
+    for split in (True, False):
+        got = prefill_emulated(q, k, v, ks, vs, tables[0], q_offset,
+                               q_offset + c, D ** -0.5, split_p=split)
+        ulps = _ulps(got.transpose(0, 1).to(torch.bfloat16), dec)
+        worst[split] = int(ulps.max())
+    assert worst[True] <= 1, worst
+    assert worst[False] > 1, worst
+
+
+def beyond_the_gap_bound(got, dec, bound):
+    """The largest share of ``bound`` (ref.verify_decode_gap_bound) that
+    |got - dec| (bf16 rows) takes beyond one bf16 ulp of the larger of
+    the two: above 1, an element lies farther from the decode kernel's
+    than the two kernels' arithmetic allows."""
+    g, w = got.double(), dec.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    past = ((g - w).abs() - ulp).clamp_min(0)
+    return float(torch.where(past > 0, past / bound, 0.0).max())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_verify_decode_gap_bound_holds_and_sees_a_dropped_key(int8):
+    """The 5-row window of the test above: the split verify's emulated
+    rows lie within the derived gap bound (plus one ulp) of the decode
+    emulation's, and leaving out split 0's last key breaks it."""
+    hq, hkv, c, q_offset = 4, 2, 5, 895
+    rng = np.random.default_rng(50 + int8)
+    tables, k, v, ks, vs = _inputs(rng, hkv, [q_offset + c], int8)
+    q = _bf16(rng, (hq, c, D))
+    dec = decode_emulated(
+        q.transpose(0, 1), k, v, ks, vs, tables.expand(c, -1),
+        torch.arange(q_offset + 1, q_offset + c + 1), D ** -0.5)
+    bound = ref.verify_decode_gap_bound(
+        q[None], k, v, tables, torch.tensor([q_offset], dtype=torch.int32),
+        torch.tensor([c], dtype=torch.int32), scale=D ** -0.5, k_scales=ks,
+        v_scales=vs)[0].transpose(0, 1)
+    use = [beyond_the_gap_bound(prefill_emulated(
+        q, k, v, ks, vs, tables[0], q_offset, q_offset + c, D ** -0.5,
+        split_p=True, drop=drop).transpose(0, 1).to(torch.bfloat16),
+        dec.to(torch.bfloat16), bound) for drop in (0, 1)]
+    assert use[0] <= 1.0 < use[1], use
 
 
 @pytest.mark.parametrize("case", ["empty-split", "all-empty", "one-split"])

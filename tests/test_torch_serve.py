@@ -288,21 +288,29 @@ def test_temperature_sampling_is_seeded(setup):
     assert runs[0] == runs[1] and runs[0] != runs[2]
 
 
-def test_later_slices_raise(setup):
+def test_later_slices_raise(setup, tmp_path):
     _, cfg, _, tp = setup
     spec = PagedCacheSpec.for_requests(2, 16, block_size=4)
     eng = PagedEngine(cfg, spec, max_context=8, slots=2, device="cpu")
-    # speculative decoding and preemption are ported
-    # (tests/test_torch_spec.py); tracing is not
-    with pytest.raises(NotImplementedError):
-        ContinuousScheduler(eng, tp, tracer=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        serve_continuous(cfg, params=tp, device="cpu", trace="t.json")
+    # speculative decoding, preemption (tests/test_torch_spec.py) and
+    # tracing (tests/test_torch_obs.py) are ported: the scheduler takes a
+    # tracer and names its tracks, the legacy launcher refuses --trace
+    # as the reference's does
+    from repro_torch.obs import Tracer
+    tr = Tracer()
+    ContinuousScheduler(eng, tp, tracer=tr)
+    assert [e["name"] for e in tr.events][:2] == ["process_name",
+                                                  "process_sort_index"]
+    path = str(tmp_path / "t.json")
+    rep = serve_continuous(cfg, params=tp, device="cpu", trace=path,
+                           num_requests=2, log_fn=None)
+    assert rep["trace_path"] == path
     from repro_torch.launch import serve as launch
-    for argv in (["--trace", "t.json"],
-                 ["--scheduler", "continuous", "--trace", "t.json"]):
-        with pytest.raises(NotImplementedError, match="slice"):
-            launch.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="continuous"):
+        launch.main(["--trace", "t.json", "--device", "cpu"])
+    rep = launch.main(["--scheduler", "continuous", "--trace", path,
+                       "--requests", "2", "--device", "cpu"])
+    assert rep["trace_path"] == path
     # cache-free forward runs the flash-attention wrapper, which has no
     # kernel and no plain version for a meta tensor
     with pytest.raises(RuntimeError, match="no kernel"):

@@ -222,7 +222,9 @@ def test_launcher_serves_legacy_on_cpu(arch):
 
 def test_later_parts_of_serving_raise():
     session = Session("xlstm-350m", strategy="hier_fl", device="cpu")
-    with pytest.raises(NotImplementedError, match="observability"):
+    # tracing is ported; the legacy loop has no sim clock, so it refuses
+    # a trace as the reference's does
+    with pytest.raises(ValueError, match="continuous"):
         session.serve(trace="t.json")
     # per-pod and speculative serving are ported; here they refuse as the
     # reference's do: hier_fl has no pod view, legacy cannot speculate
