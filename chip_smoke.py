@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-two hand-written kernel libraries from
+  2. builds the twenty-four hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
      prints the build time; checks that the nine tensor-core libraries'
      (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward, dK/dV
@@ -55,7 +55,12 @@ In order, it
      bf16 and DH-64 cases
      (the 3xTF32 wgmma kernel timed beside the SIMT kernel it replaced,
      both against the plain version and a float64 run, with both
-     kernels' phase splits);
+     kernels' phase splits), and the mLSTM's backward kernel pair at the
+     xLSTM training shape (B 4, NH 4, S 512, DH 512, float32, fresh
+     state) and at a ragged S with an initial state, against the plain
+     backward on the states the forward kernel saved, bitwise over two
+     launches, beside the forward with and without its state writes
+     (bitwise the same h and final state);
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -151,6 +156,18 @@ In order, it
      profiles a prefill and a
      decode step; holds a float32 prefill plus decode steps through the
      kernel against the same through the plain version;
+ 9b. trains xlstm-350m at full width and depth (24 layers, d_model 1024,
+     DH 512, vocab 50304, bf16, random weights from a seed) through the
+     training launcher: two hier_fl rounds over 2 vehicles (2@nano,agx),
+     2 local steps of 4 x 512 tokens, int8 uplinks; checks the exact
+     launch counts (the mLSTM forward on the wgmma route twice a layer and
+     step, the checkpoint's recompute included, the backward once, one
+     quantize and one dequantize a leaf, vehicle and round), finite
+     losses, moved params, the wire metrics against the topology's
+     formulas, peak memory; holds one float32 local step through the
+     kernels against the plain chunkwise mLSTM with autograd (loss,
+     grads, updated params, the flad-adllm step's limits); profiles a
+     warm bf16 local step;
  10. prints one JSON line describing every ported kernel, the card's
      name and power limit, and {"ok": true, "device": {...}} last.
 
@@ -161,7 +178,8 @@ verify's and the preprocess's checks, the serving path, its traced pass
 and step 4b,
 with --vision after the build, the flash kernels at the FHDP shape and
 step 8b, with --swift after the build and step 8c, with --async after
-the build and step 5b; none prints a result line. The trace files go to
+the build and step 5b, with --xlstm-train after the build, the mLSTM
+backward's checks and step 9b; none prints a result line. The trace files go to
 chiprun_out/chip_smoke/ under the checkout.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -321,6 +339,24 @@ MLSTM_H_RTOL_F32, MLSTM_STATE_RTOL = 5e-5, 1e-5
 # 256): logits within 1e-4 of the largest magnitude
 XLSTM_LOGIT_RTOL = 1e-4
 XLSTM_F32_STEPS = 4
+# the xLSTM training slice: xlstm-350m by hier_fl over 2 vehicles (flad-
+# adllm's 317 M params peak at 55.6-55.9 GiB over 4; xlstm-350m's 519 M
+# over 4 would need about 91 GiB), one per edge pod, 2 local steps of
+# 4 x 512 tokens, int8 uplinks, bf16 with random weights from a seed
+XT_TOPOLOGY, XT_CLIENTS, XT_B, XT_S = "2@nano,agx", 2, 4, 512
+XT_ARGV = ["--arch", "xlstm-350m", "--full", "--strategy", "hier_fl",
+           "--topology", XT_TOPOLOGY, "--codec", "int8", "--local-steps",
+           str(LOCAL_STEPS), "--steps", str(ROUNDS), "--shape",
+           f"{XT_S}x{XT_B}", "--device", "cuda"]
+# the mLSTM backward kernel against the plain backward on the same saved
+# states: each gradient within 1e-4 of its largest magnitude (float32 in
+# both, other summation orders; den = max(|n.q|, e^-m) divides and can
+# magnify them)
+MLSTM_BWD_RTOL = 1e-4
+MLSTM_BWD_NAME = "mlstm_bwd"      # both kernels: sweep and chunk
+MLSTM_BWD_LIBRARY_NOTE = ("no PyTorch call computes the chunkwise mLSTM's "
+                          "backward; the reference leaves it to XLA's "
+                          "autodiff")
 # the flash backward's preprocess, delta = rowsum(dO * O) in float32: its
 # vec kernel (csrc/flash_bwd_preprocess_vec.cu) on every path launch, the
 # one-warp-a-row kernel it replaced timed beside it in turns
@@ -4126,6 +4162,401 @@ def xlstm_f32_vs_plain(torch, cfg, dev):
     return drift, agree, total
 
 
+# ------------------------------------------------------- xLSTM training
+def _mlstm_bwd_work(b, nh, s, dh):
+    """(bytes, flops) of one backward: q, k, v, h, dh, the gates, the
+    saved states (each chunk's C, n, m and every step's m_t, qn_t) read
+    once, dq, dk, dv, dig, dlf written once; per (b, h) 8 S DH^2 flops
+    for the four products with a DH x DH matrix (dC's recursion, dnum C,
+    v dC', k dC'^T), 10 DH per causal pair inside a 64-step chunk for
+    its five [c, c] products (q k^T, dnum v^T, P^T dnum, dS k, dS^T q)
+    and 2 DH^2 a chunk for <C, dC'>."""
+    chunks = [min(MLSTM_CHUNK, s - t) for t in range(0, s, MLSTM_CHUNK)]
+    pairs = sum(c * (c + 1) // 2 for c in chunks)
+    k = len(chunks)
+    nbytes = b * nh * 4 * (8 * s * dh + 6 * s + k * (dh * dh + dh + 1))
+    flops = b * nh * (8 * s * dh * dh + 10 * dh * pairs + 2 * k * dh * dh)
+    return nbytes, flops
+
+
+def mlstm_bwd_checks(torch, dev):
+    """The mLSTM backward kernel (csrc/mlstm_chunked_bwd.cu) against the
+    plain backward on the card, on the states the forward kernel saved:
+    at the training shape (B 4, NH 4, S 512, DH 512, float32, the fresh
+    state a training forward starts from) and at a ragged S with an
+    initial state. Each case: every gradient within MLSTM_BWD_RTOL of its
+    largest magnitude, two launches bitwise equal, the forward with the
+    state writes giving h and the final state bitwise those without; cold
+    L2 device times of the kernel pair, the plain backward and the wgmma
+    forward with and without the state writes, beside the bound. Returns
+    the kernel's JSON row (the training shape as the headline)."""
+    from repro_torch.kernels import ops, ref
+    cases = [("path", XT_B, 4, XT_S, 512, "fresh"),
+             ("ragged S 333, initial state", 2, 4, 333, 512, "random")]
+    rows, max_err = {}, 0.0
+    for label, b, nh, s, dh, state in cases:
+        args, kw = _mlstm_inputs(torch, dev, b, nh, s, dh, torch.float32, 43,
+                                 state)
+        st = (kw.get("C0"), kw.get("n0"), kw.get("m0"))
+        g = torch.Generator(device=dev).manual_seed(44)
+        dh_ = torch.randn((b, nh, s, dh), generator=g, device=dev)
+        h0, fin0 = ops.mlstm_chunked(*args, **kw)
+        h, fin, states = ops.mlstm_chunked(*args, **kw, states=True)
+        torch.cuda.synchronize()
+        check(ops.mlstm_route(torch.float32, dh) == "wgmma",
+              f"mlstm bwd {label}: the forward is not on the wgmma route")
+        check(torch.equal(h, h0) and all(torch.equal(x, y)
+                                         for x, y in zip(fin, fin0)),
+              f"mlstm {label}: the forward with state writes is not "
+              f"bitwise the serving forward")
+        before = ops.mlstm_chunked_bwd.launches
+        got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+        again = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+        want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states,
+                                           chunk=MLSTM_CHUNK)
+        torch.cuda.synchronize()
+        check(ops.mlstm_chunked_bwd.launches == before + 2,
+              f"mlstm bwd {label}: launches not counted")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"mlstm bwd {label}: two launches differ")
+        errs = {}
+        for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
+            check(bool(torch.isfinite(x).all()),
+                  f"mlstm bwd {label} {name}: non-finite")
+            peak = float(y.abs().max())
+            err = _err(x, y)
+            errs[name] = err / peak
+            check(err <= MLSTM_BWD_RTOL * peak, f"mlstm bwd {label} {name}: "
+                  f"max err {err:.3e} > {MLSTM_BWD_RTOL * peak:.3e}")
+            max_err = max(max_err, err)
+        bwd_fn = (lambda: ops.mlstm_chunked_bwd(*args, h, dh_, states))
+        ms = device_ms(bwd_fn, MLSTM_BWD_NAME, iters=20)
+        plain = device_ms(lambda: ref.mlstm_chunkwise_bwd_ref(
+            *args, h, dh_, states, chunk=MLSTM_CHUNK), None, iters=5)
+        fwd = device_ms(lambda: ops._mlstm_card(*args, *st),
+                        MLSTM_NAMES["wgmma"], iters=20)
+        fwd_st = device_ms(lambda: ops._mlstm_card(*args, *st, states=True),
+                           MLSTM_NAMES["wgmma"], iters=20)
+        nbytes, flops = _mlstm_bwd_work(b, nh, s, dh)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           fwd_ms=fwd, fwd_states_ms=fwd_st, rel_err=errs,
+                           gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        print(f"[kernel] mlstm_chunked_bwd {label} (B {b}, NH {nh}, S {s}, "
+              f"DH {dh}, float32, initial state {state}): max|err| / largest"
+              f" |grad| vs the plain backward " + ", ".join(
+                  f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (rtol {MLSTM_BWD_RTOL}); two launches bitwise; device "
+              f"{ms:.5f} ms (sweep + chunk kernels), plain {plain:.5f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at "
+              f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB),"
+              f" {flops / ms / 1e9:.1f} TFLOP/s of needed work; the wgmma "
+              f"forward {fwd:.5f} ms, with the state writes {fwd_st:.5f} ms; "
+              f"forward with state writes bitwise the serving forward")
+        del args, kw, h, fin, states, got, again, want, h0, fin0, dh_
+        torch.cuda.empty_cache()
+    head = rows["path"]
+    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked_bwd.cu",
+                replaces="src/repro/models/recurrent.py:114 (no Pallas "
+                "kernel: XLA differentiates mlstm_chunk_body)",
+                max_abs_err=max_err, library_ms=None,
+                library_call=MLSTM_BWD_LIBRARY_NOTE,
+                headline=f"float32, B {XT_B}, NH 4, S {XT_S}, DH 512, fresh "
+                "state", **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "fwd_ms",
+                                                 "fwd_states_ms")},
+                cases=rows)
+
+
+def _xt_wire(cfg):
+    """(uplink bytes, backhaul bytes, sim round s) of one xLSTM round
+    from the topology's formulas: each vehicle sends every leaf as int8
+    codes plus a float32 scale a 128-wide row; 2 pods of one vehicle
+    each (nano, agx), each pod's partial average over the backhaul."""
+    from repro_torch.models import xlstm
+    from repro_torch.tree import leaves
+    sizes = [t.numel() for t in leaves(xlstm.abstract_params(cfg))]
+    per = sum(n + 4 * -(-n // 128) for n in sizes)
+    arrivals = [per / bps + per / BACKHAUL_BPS + BACKHAUL_S
+                for bps in (NANO_BPS, AGX_BPS)]
+    return XT_CLIENTS * per, 2 * per, max(arrivals), len(sizes)
+
+
+def xlstm_train_main_path(torch, cfg, dev):
+    """Two hier_fl rounds of xlstm-350m at full width through the
+    launcher; checks the exact launches (the mLSTM forward twice a layer
+    and step, the recompute of the checkpointed layer; the backward once;
+    one quantize and one dequantize a leaf, vehicle and round), finite
+    losses, moved params and the wire metrics. Returns (launch counts,
+    routes, summary)."""
+    import math
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models import xlstm
+    from repro_torch.tree import leaves
+    n_super, n_m = xlstm._layout(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launch.main(XT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    up, backhaul, sim, n_leaves = _xt_wire(cfg)
+    steps = ROUNDS * XT_CLIENTS * LOCAL_STEPS
+    want = dict.fromkeys(counts, 0)
+    want.update(mlstm_chunked=2 * steps * n_super * n_m,
+                mlstm_chunked_bwd=steps * n_super * n_m,
+                quantize_int8=ROUNDS * XT_CLIENTS * n_leaves,
+                dequantize_int8=ROUNDS * XT_CLIENTS * n_leaves)
+    check(counts == want, f"xlstm training launches {counts} != {want}")
+    routes = check_routes(ops, counts, "xlstm training",
+                          ("mlstm_chunked", "mlstm_chunked_bwd"))
+    hist = out["history"]
+    check(len(hist) == ROUNDS, "one history entry per round")
+    for h in hist:
+        check(bool(np.isfinite(h["per_client/loss"]).all()),
+              f"xlstm training: non-finite loss in round {h['round']}")
+        check(h["comm_bytes_up"] == up, f"xlstm comm_bytes_up "
+              f"{h['comm_bytes_up']} != {up}")
+        check(h["comm_bytes_backhaul"] == backhaul, f"xlstm "
+              f"comm_bytes_backhaul {h['comm_bytes_backhaul']} != {backhaul}")
+        check(math.isclose(h["sim_round_s"], sim, rel_tol=1e-12),
+              f"xlstm sim_round_s {h['sim_round_s']} != {sim}")
+    with torch.no_grad():
+        merged = leaves(out["session"].merged_params())
+        init = leaves(xlstm.init(cfg, seed=0, device=dev).to_dict())
+        moved = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(merged, init)]
+        check(all(bool(torch.isfinite(t).all()) for t in merged),
+              "xlstm training: non-finite global params")
+    names = _leaf_names(out["session"].merged_params())
+    # the bf16 norm scales stay (lr 1e-3 is under half a bf16 ulp at 1.0)
+    check(all(m > 0 for m, n in zip(moved, names)
+              if not n.split(".")[-1] in ("ln", "gn", "scale")),
+          f"an xlstm weight did not move: {dict(zip(names, moved))}")
+    losses = [float(np.mean(h["per_client/loss"])) for h in hist]
+    tokens = steps * XT_B * XT_S
+    print(f"[xlstm-train] {cfg.name} hier_fl {ROUNDS} rounds x {XT_CLIENTS} "
+          f"vehicles ({XT_TOPOLOGY}) x {LOCAL_STEPS} local steps at "
+          f"{XT_S}x{XT_B}, int8 uplinks, bf16: wall {wall:.1f} s incl. "
+          f"set-up ({tokens / wall:.0f} tokens/s); losses by round "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; peak device memory {peak:.2f} GiB; wire per round: up {up} "
+          f"B, backhaul {backhaul} B, sim {sim:.4f} s (the topology's "
+          f"formulas); launches {counts}; by route "
+          f"{ {k: routes[k] for k in ('mlstm_chunked', 'mlstm_chunked_bwd')} }"
+          f"; largest change per leaf " + ", ".join(
+              f"{n} {m:.2e}" for n, m in zip(names, moved)))
+    summary = dict(wall_s=wall, losses=losses, peak_gib=peak,
+                   comm_bytes_up=up, comm_bytes_backhaul=backhaul,
+                   sim_round_s=sim, launches=counts)
+    del out, merged, init
+    torch.cuda.empty_cache()
+    return counts, routes, summary
+
+
+def _plain_mlstm(ref, chunk=None):
+    """The plain chunkwise mLSTM with autograd (at the caller's chunk, or
+    at ``chunk``), in place of the forward and backward kernels."""
+    def mlstm_chunked(q, k, v, ig, lf, *, chunk=64, C0=None, n0=None,
+                      m0=None, _fixed=chunk):
+        return ref.mlstm_chunkwise_ref(q, k, v, ig, lf, chunk=_fixed or chunk,
+                                       C0=C0, n0=n0, m0=m0)
+    return mlstm_chunked
+
+
+def xlstm_step_vs_plain(torch, cfg, dev):
+    """One float32 local train step of xlstm-350m at full width (B 4, S
+    512), through the mLSTM kernels and through the plain chunkwise
+    version with autograd (at the path's chunk, 256): loss, grads and
+    updated params, held to the flad-adllm step's limits (STEP_LOSS_ATOL,
+    STEP_GRAD_RTOL, STEP_PARAM_ATOL).
+
+    What STEP_PARAM_ATOL holds differs from the flad-adllm step. Adam's
+    first step moves a param by u(g) = lr g / (|g| + eps), about lr
+    sign(g) (g after the global-norm clip), so a grad at float32 noise
+    moves it by up to 2 lr either
+    way; the flad-adllm step exempts |g| < NEAR_EPS, but here grads well
+    above that sit at the noise of their leaf's sums (the plain version
+    against itself at the kernels' chunk, 64, printed as the yardstick,
+    fails that rule too). So each updated param is held to STEP_PARAM_ATOL
+    beyond |u(g_kernel) - u(g_plain)|, the move its two grads explain,
+    which the grad check holds."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import Adam, global_norm
+    from repro_torch.tree import flatten, leaves, unflatten
+    c32 = cfg.replace(param_dtype="float32")
+    params = xlstm.init(c32, seed=1, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch = {k: torch.randint(0, cfg.vocab_size, (XT_B, XT_S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    opt = Adam(lr=1e-3)
+    flat, spec = flatten(params)
+    n_super, n_m = xlstm._layout(cfg)
+
+    def run():
+        """The local step as make_train_step takes it (the loss with
+        every layer checkpointed, its grads, one Adam update), keeping
+        the grads the update used."""
+        live = [p.detach().requires_grad_() for p in flat]
+        loss, _ = build_model(c32).loss(unflatten(spec, live), batch)
+        grads = torch.autograd.grad(loss, live)
+        new, _ = opt.update(unflatten(spec, list(grads)), opt.init(params),
+                            unflatten(spec, [p.detach() for p in flat]))
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, leaves(new)
+
+    def plain_grads(chunk):
+        live = [p.detach().requires_grad_() for p in flat]
+        saved = ops.mlstm_chunked_ad, ops.mlstm_chunked
+        ops.mlstm_chunked_ad = ops.mlstm_chunked = _plain_mlstm(ref, chunk)
+        try:
+            loss, _ = build_model(c32).loss(unflatten(spec, live), batch)
+            return torch.autograd.grad(loss, live)
+        finally:
+            ops.mlstm_chunked_ad, ops.mlstm_chunked = saved
+
+    ops.reset_launch_counts()
+    kernel = run()
+    counts = ops.launch_counts()
+    check(counts["mlstm_chunked"] == 2 * n_super * n_m
+          and counts["mlstm_chunked_bwd"] == n_super * n_m,
+          f"float32 xlstm step launches {counts}")
+    saved = ops.mlstm_chunked_ad, ops.mlstm_chunked
+    ops.mlstm_chunked_ad = ops.mlstm_chunked = _plain_mlstm(ref)
+    ops.reset_launch_counts()
+    try:
+        plain = run()
+    finally:
+        ops.mlstm_chunked_ad, ops.mlstm_chunked = saved
+    plain64 = plain_grads(MLSTM_CHUNK)
+    check(sum(ops.launch_counts().values()) == 0,
+          "the plain xlstm step launched a kernel")
+    dloss = abs(kernel[0] - plain[0])
+    check(dloss <= STEP_LOSS_ATOL, f"f32 xlstm step loss differs by {dloss}")
+    grad_rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(kernel[1], plain[1])]
+    names = _leaf_names(params)
+    check(max(grad_rel) <= STEP_GRAD_RTOL, f"f32 xlstm step grads differ: "
+          f"{dict(zip(names, grad_rel))}")
+    def clip(grads):
+        """The grads as Adam's global-norm clip hands them to the step."""
+        norm = float(global_norm(unflatten(spec, list(grads))))
+        scale = min(1.0, opt.grad_clip / (norm + 1e-9))
+        return [x * scale for x in grads]
+
+    def first_step(x):
+        return opt.lr * x / (x.abs() + opt.eps)
+
+    worst = worst_raw = 0.0
+    explained = 0
+    for a, b, ga, gb in zip(kernel[2], plain[2], clip(kernel[1]),
+                            clip(plain[1])):
+        d = (a - b).abs()
+        moved = (first_step(ga) - first_step(gb)).abs()
+        worst = max(worst, float((d - moved).max()))
+        worst_raw = max(worst_raw, float(d.max()))
+        explained += int((d > STEP_PARAM_ATOL).sum())
+    check(worst <= STEP_PARAM_ATOL, f"f32 xlstm step: updated params differ "
+          f"by {worst:.3e} > {STEP_PARAM_ATOL} beyond what their grads "
+          f"explain")
+
+    def first_step_apart(ga, gb):
+        """Params whose first Adam step lr g / (|g| + eps) differs by more
+        than STEP_PARAM_ATOL, off the |g| < NEAR_EPS ones (the flad-adllm
+        rule)."""
+        n = 0
+        for x, y in zip(ga, gb):
+            d = first_step(x) - first_step(y)
+            near = torch.minimum(x.abs(), y.abs()) < NEAR_EPS
+            n += int(((d.abs() > STEP_PARAM_ATOL) & ~near).sum())
+        return n
+
+    kernel_rule = first_step_apart(clip(kernel[1]), clip(plain[1]))
+    plain_rule = first_step_apart(clip(plain64), clip(plain[1]))
+    print(f"[xlstm-step] float32 local step of {cfg.name} ({XT_B}x{XT_S}), "
+          f"mLSTM kernels vs the plain chunkwise version with autograd: "
+          f"loss {kernel[0]:.6f} vs {plain[0]:.6f} (|diff| {dloss:.2e}, atol "
+          f"{STEP_LOSS_ATOL}); grads max |diff| / leaf max {max(grad_rel):.2e}"
+          f" (rtol {STEP_GRAD_RTOL}; worst leaf "
+          f"{names[int(np.argmax(grad_rel))]}); updated params max |diff| "
+          f"{worst:.2e} beyond the first-step move their grads explain "
+          f"(atol {STEP_PARAM_ATOL}), {worst_raw:.2e} raw, {explained} "
+          f"params over {STEP_PARAM_ATOL} raw; under the flad-adllm step's "
+          f"rule (|g| < "
+          f"{NEAR_EPS} exempt) {kernel_rule} params' first steps differ by "
+          f"more than {STEP_PARAM_ATOL}, and {plain_rule} between the plain "
+          f"version at chunk {MLSTM_CHUNK} and at 256; kernel launches "
+          f"{counts}")
+    del kernel, plain, params, flat, plain64
+    torch.cuda.empty_cache()
+    return dict(dloss=dloss, grad_rel=max(grad_rel), param_diff=worst,
+                param_diff_raw=worst_raw, params_apart_raw=explained,
+                flad_rule_apart=kernel_rule,
+                flad_rule_apart_plain_vs_plain=plain_rule)
+
+
+def profile_xlstm_step(torch, cfg, dev, steps=1):
+    """A warm bf16 local train step of xlstm-350m at full width (one
+    vehicle, 4 x 512 tokens): wall time, tokens/s, device busy and idle
+    share, top device ops, peak memory and the mLSTM kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.steps import make_train_step
+    from repro_torch.models import xlstm
+    from repro_torch.train.optimizer import Adam
+    params = xlstm.init(cfg, seed=2, device=dev).to_dict()
+    g = torch.Generator(device=dev).manual_seed(12)
+    batch = {k: torch.randint(0, cfg.vocab_size, (XT_B, XT_S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    opt = Adam(lr=1e-3)
+    step = make_train_step(cfg, ShapeConfig("cli", XT_S, XT_B, "train"), opt)
+    state = [params, opt.init(params)]
+
+    def run(n):
+        for _ in range(n):
+            state[0], state[1], _ = step(state[0], state[1], batch)
+        torch.cuda.synchronize()
+
+    run(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                   e.count // steps, e.key[:70])
+                  for e in prof.key_averages())[::-1]
+    busy = sum(r[0] for r in rows)
+    ops_per_step = sum(r[1] for r in rows)
+    fwd = sum(r[0] for r in rows if MLSTM_NAMES["wgmma"] in r[2])
+    bwd = sum(r[0] for r in rows if MLSTM_BWD_NAME in r[2])
+    idle = max(0.0, 1 - busy / wall)
+    print(f"[profile] bf16 xlstm local train step, {XT_B}x{XT_S} tokens: wall "
+          f"{wall:.3f} ms, {XT_B * XT_S / wall * 1e3:.0f} tokens/s, device "
+          f"busy {busy:.3f} ms (idle {100 * idle:.1f}%), {ops_per_step} device"
+          f" ops/step, peak memory {peak:.2f} GiB; mLSTM forward kernel "
+          f"{fwd:.3f} ms, backward kernels {bwd:.3f} ms "
+          f"({100 * (fwd + bwd) / busy:.1f}% of device time)")
+    for t, n, key in rows[:10]:
+        print(f"[profile]   {t:.4f} ms/step in {n:5d} x {key}")
+    del state, params
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle, peak_gib=peak,
+                ops=ops_per_step, mlstm_fwd_ms=fwd, mlstm_bwd_ms=bwd,
+                top=[(t, n, key) for t, n, key in rows[:10]])
+
+
 # --------------------------------------------------------------- main path
 def serve_main_path(torch, cfg, params, dev):
     """Serve a fleet trace with both cache modes; returns launch counts."""
@@ -4818,6 +5249,18 @@ def main():
                           "swift": summary}))
         print("chip_smoke --swift: the SWIFT phase only; no result line")
         return 0
+    if "--xlstm-train" in sys.argv[1:]:
+        xcfg = get_config("xlstm-350m")
+        row = mlstm_bwd_checks(torch, dev)
+        launches, routes, summary = xlstm_train_main_path(torch, xcfg, dev)
+        step = xlstm_step_vs_plain(torch, xcfg, dev)
+        prof = profile_xlstm_step(torch, xcfg, dev)
+        print(json.dumps({"mlstm_chunked_bwd": row, "launches": launches,
+                          "by_route": routes, "xlstm_train": summary,
+                          "step_vs_plain": step, "profile": prof}))
+        print("chip_smoke --xlstm-train: the mLSTM backward's checks and the "
+              "xLSTM training phases only; no result line")
+        return 0
     if "--mlstm" in sys.argv[1:]:
         rows = {"mlstm_chunked": mlstm_checks(torch, dev),
                 "quantize_kv_append": append_checks(torch, cfg, dev)}
@@ -4840,6 +5283,7 @@ def main():
     kernels["dequantize_int8"] = dequant_check(torch, cfg, dev)
     kernels["lora_matmul"] = lora_checks(torch, dev)
     kernels["mlstm_chunked"] = mlstm_checks(torch, dev)
+    kernels["mlstm_chunked_bwd"] = mlstm_bwd_checks(torch, dev)
 
     # 4. the main path: serve flad-adllm at full width and depth
     t0 = time.perf_counter()
@@ -4922,9 +5366,16 @@ def main():
     profile_xlstm(torch, xcfg, dev)
     xlstm_f32_vs_plain(torch, xcfg, dev)
 
+    # 9b. the xLSTM training path: xlstm-350m by hier_fl
+    xt_launches, xt_routes, xt_summary = xlstm_train_main_path(torch, xcfg,
+                                                               dev)
+    xt_step = xlstm_step_vs_plain(torch, xcfg, dev)
+    xt_profile = profile_xlstm_step(torch, xcfg, dev)
+
     # 10. one line per ported kernel
     print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}; "
-          f"mlstm_chunked's: {MLSTM_LIBRARY_NOTE}")
+          f"mlstm_chunked's: {MLSTM_LIBRARY_NOTE}; mlstm_chunked_bwd's: "
+          f"{MLSTM_BWD_LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
         by_path = {"serve": launches[name],
@@ -4934,6 +5385,7 @@ def main():
                    "async": async_launches[name],
                    "distill": distill_launches[name],
                    "xlstm_serve": xlstm_launches[name],
+                   "xlstm_train": xt_launches[name],
                    "vision": vision_launches.get(name, 0),
                    "swift": swift_launches.get(name, 0)}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
@@ -4956,7 +5408,14 @@ def main():
                 for r in serve_routes[name]}, "build": tc[name],
                 "traced_serving": traced_summary}
         if name == "mlstm_chunked":
-            extra = {"launches_by_route": xlstm_routes, "build": tc[name]}
+            extra = {"launches_by_route": {
+                r: xlstm_routes[r] + xt_routes[name][r]
+                for r in xlstm_routes}, "build": tc[name]}
+        if name == "mlstm_chunked_bwd":
+            extra = {"launches_by_route": xt_routes[name],
+                     "xlstm_train_phase": xt_summary,
+                     "xlstm_step_vs_plain": xt_step,
+                     "xlstm_step_profile": xt_profile}
         if name == PRE:
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]

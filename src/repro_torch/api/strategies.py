@@ -389,9 +389,9 @@ class FedAvgStrategy(Strategy):
 
     def init(self, cfg, shape, mesh, seed):
         from repro_torch.core.fedavg import stack_clients
-        from repro_torch.models.lm import init
+        from repro_torch.models.registry import build_model
         device = mesh.device
-        params0 = init(cfg, seed=seed, device=device).to_dict()
+        params0 = build_model(cfg).init(seed=seed, device=device).to_dict()
         cp = stack_clients(params0, self.n_clients())
         return cp, self._optimizer().init(cp)._replace(
             step=torch.zeros((self.n_clients(),), dtype=torch.int32,
@@ -469,7 +469,7 @@ class HierFLStrategy(FedAvgStrategy):
     def _wire_tree(self, cfg):
         """The tree whose bytes ride the uplink, on the meta device (full
         params here; ``distill_fl`` sends the LoRA factor tree)."""
-        from repro_torch.models.lm import abstract_params
+        from repro_torch.models.registry import abstract_params
         return abstract_params(cfg)
 
     def _round_stats(self, cfg) -> Dict:

@@ -35,10 +35,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vision"):
+    if cfg.family not in ("dense", "ssm", "vision"):
         raise NotImplementedError(
-            f"the port's input specs cover the dense and vision families "
-            f"so far, not {cfg.family!r}")
+            f"the port's input specs cover the dense, ssm and vision "
+            f"families so far, not {cfg.family!r}")
 
 
 def effective_window(cfg: ModelConfig, shape: ShapeConfig):
@@ -52,9 +52,9 @@ def effective_window(cfg: ModelConfig, shape: ShapeConfig):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Batch leaves as {name: (shape, dtype)} for train/prefill steps of
-    the dense family (decode: one token per row) and the vision encoder
-    (rgb and lidar features, waypoint and light labels; ``seq_len`` does
-    not apply)."""
+    the dense and ssm families (decode: one token per row) and the vision
+    encoder (rgb and lidar features, waypoint and light labels; ``seq_len``
+    does not apply)."""
     _check_family(cfg)
     b, s = shape.global_batch, shape.seq_len
     if cfg.family == "vision":

@@ -177,7 +177,8 @@ def _vision_loss(shared, x, batch, cfg):
 
 
 #: families of the reference whose pipeline adapters later slices bring
-_LATER_FAMILIES = {"ssm": "xLSTM training (A6)",
+_LATER_FAMILIES = {"ssm": "the ssm FHDP adapter (A6b: the reference's "
+                          "runs every mLSTM before every sLSTM)",
                    "hybrid": "the Hymba family (A7)",
                    "encdec": "the encoder-decoder family (A7)",
                    "moe": "the moe family (A7)", "vlm": "the vlm config (A7)"}

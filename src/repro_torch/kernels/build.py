@@ -70,9 +70,14 @@ SIGNATURES = {
     "lora_matmul_tc": ("lora_matmul_tc",
                        [_P] * 5 + [_I] * 10 + [_F, _P]),
     "mlstm_chunked": ("mlstm_chunked",
-                      [_I] + [_P] * 12 + [_I] * 4 + [_P, _P]),
+                      [_I] + [_P] * 12 + [_I] * 4 + [_P] * 5 + [_P, _P]),
     "mlstm_chunked_tc": ("mlstm_chunked_tc",
                          [_I] + [_P] * 12 + [_I] * 4 + [_P, _P]),
+    "mlstm_chunked_tc_save": ("mlstm_chunked_tc_save",
+                              [_I] + [_P] * 12 + [_I] * 4 + [_P] * 5
+                              + [_P, _P]),
+    "mlstm_chunked_bwd": ("mlstm_chunked_bwd",
+                          [_I] + [_P] * 19 + [_I] * 4 + [_P]),
     "kv_append_int8": ("kv_append_int8",
                        [_I] + [_P] * 9 + [_I] + [_L] * 4 + [_I] * 6 + [_P]),
 }

@@ -48,6 +48,15 @@
 // This is the "simt" route: mlstm_chunked_tc.cu (3xTF32 wgmma, S shared
 // across a cluster) takes DH 64, 128, 256 and 512.
 //
+// Saved states: with non-null `sC, sn, sm, smt, sqn` (all or none; the
+// training path's forward, ops._MlstmChunkedAD) the launch takes the kSave
+// instantiation, which also writes what the backward
+// (mlstm_chunked_bwd.cu) needs: each chunk's starting C, n and m, and
+// every step's m_t and signed qn_t = sum_j P_tj + inter_t q_t.n, whose
+// magnitude den_t takes. Serving passes null and runs the instantiation
+// without the stores; h and the final state are the same bitwise either
+// way.
+//
 // Phase clocks: with a non-null `prof`, thread 0 of every CTA adds the
 // clock64() cycles between the CTA barriers that separate its phases to
 // prof[kProfPhases] (loads, scans, S and C q, P, P v and h, update, all):
@@ -158,15 +167,16 @@ size_t smem_bytes(int Dh) {
          sizeof(float);
 }
 
-template <typename T>
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ ig,
     const float* __restrict__ lf, const float* __restrict__ C0,
     const float* __restrict__ n0, const float* __restrict__ m0,
     T* __restrict__ h, float* __restrict__ Cout, float* __restrict__ nout,
-    float* __restrict__ mout, int S, int Dh,
-    unsigned long long* __restrict__ prof) {
+    float* __restrict__ mout, int S, int Dh, float* __restrict__ sC,
+    float* __restrict__ sn, float* __restrict__ sm, float* __restrict__ smt,
+    float* __restrict__ sqn, unsigned long long* __restrict__ prof) {
   extern __shared__ float4 smem4[];
   float* Cs = reinterpret_cast<float*>(smem4);  // Cs[e][i] = C[r0 + i][e]
   float* T0 = Cs + (size_t)Dh * kLd;  // q^T tile, then P^T, then k tile
@@ -222,6 +232,19 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
     __syncthreads();
     lap(0);
     const float m_in = mst[0];
+    if (kSave) {              // the chunk's starting state, for the backward
+      const int K = (S + kC - 1) / kC, ci = t0 / kC;
+      float* Cst = sC + ((bh * K + ci) * Dh + r0) * Dh;
+      for (int idx = tid; idx < nr * Dh; idx += kThreads) {
+        const int i = idx / Dh, e = idx - i * Dh;
+        Cst[(size_t)i * Dh + e] = Cs[e * kLd + i];
+      }
+      if (blockIdx.x == 0) {
+        for (int e = tid; e < Dh; e += kThreads)
+          sn[(bh * K + ci) * Dh + e] = nv[e];
+        if (tid == 0) sm[bh * K + ci] = m_in;
+      }
+    }
     if (tid == 0) {       // the chunk's scans, in the reference's order
       float b = 0.f, M = -INFINITY;
       for (int t = 0; t < cl; ++t) {
@@ -312,8 +335,12 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
       if (t >= cl) continue;
       const float qnt = qnp[t] + qnp[kC + t] + qnp[2 * kC + t] +
                         qnp[3 * kC + t];
-      const float den =
-          fmaxf(fabsf(rs[a] + inter[t] * qnt), expf(-mt[t]));
+      const float qnv = rs[a] + inter[t] * qnt;
+      const float den = fmaxf(fabsf(qnv), expf(-mt[t]));
+      if (kSave && blockIdx.x == 0 && tx == 0) {
+        smt[bh * S + t0 + t] = mt[t];
+        sqn[bh * S + t0 + t] = qnv;
+      }
       T* hrow = h + (bh * S + t0 + t) * Dh + r0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
@@ -378,22 +405,35 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunked_kernel(
   }
 }
 
+template <typename T, bool kSave>
+int launch_as(const void* q, const void* k, const void* v, const float* ig,
+              const float* lf, const float* C0, const float* n0,
+              const float* m0, void* h, float* C, float* n, float* m, int B,
+              int NH, int S, int Dh, float* const* saved,
+              unsigned long long* prof, cudaStream_t st) {
+  const size_t smem = smem_bytes(Dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_chunked_kernel<T, kSave>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Dh + kR - 1) / kR, NH, B);
+  mlstm_chunked_kernel<T, kSave><<<grid, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, ig, lf, C0, n0, m0, (T*)h, C, n,
+      m, S, Dh, saved[0], saved[1], saved[2], saved[3], saved[4], prof);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* ig,
            const float* lf, const float* C0, const float* n0,
            const float* m0, void* h, float* C, float* n, float* m, int B,
-           int NH, int S, int Dh, unsigned long long* prof,
-           cudaStream_t st) {
-  const size_t smem = smem_bytes(Dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlstm_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Dh + kR - 1) / kR, NH, B);
-  mlstm_chunked_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, ig, lf, C0, n0, m0, (T*)h, C, n,
-      m, S, Dh, prof);
-  return (int)cudaGetLastError();
+           int NH, int S, int Dh, float* const* saved,
+           unsigned long long* prof, cudaStream_t st) {
+  if (saved[0] != nullptr)
+    return launch_as<T, true>(q, k, v, ig, lf, C0, n0, m0, h, C, n, m, B, NH,
+                              S, Dh, saved, prof, st);
+  return launch_as<T, false>(q, k, v, ig, lf, C0, n0, m0, h, C, n, m, B, NH,
+                             S, Dh, saved, prof, st);
 }
 
 }  // namespace mlstm
@@ -401,14 +441,17 @@ int launch(const void* q, const void* k, const void* v, const float* ig,
 // q, k, v: [B, NH, S, Dh] float32 or bf16 (dtype code), contiguous; ig,
 // lf: [B, NH, S] float32; C0 [B, NH, Dh, Dh], n0 [B, NH, Dh], m0 [B, NH]
 // float32, all three null or none; h: [B, NH, S, Dh] in q's dtype; C, n, m
-// as C0, n0, m0. 1 <= Dh <= 512, S >= 1. prof: null, or kProfPhases
-// uint64 counters the phase clocks are added to. Returns
-// cudaGetLastError().
+// as C0, n0, m0. 1 <= Dh <= 512, S >= 1. sC [B, NH, K, Dh, Dh], sn
+// [B, NH, K, Dh], sm [B, NH, K] (K = ceil(S / 64)), smt, sqn [B, NH, S]
+// float32: the states the backward takes, all null (serving) or none.
+// prof: null, or kProfPhases uint64 counters the phase clocks are added
+// to. Returns cudaGetLastError().
 extern "C" int mlstm_chunked(int dtype, const void* q, const void* k,
                              const void* v, const void* ig, const void* lf,
                              const void* C0, const void* n0, const void* m0,
                              void* h, void* C, void* n, void* m, int B,
-                             int NH, int S, int Dh, void* prof,
+                             int NH, int S, int Dh, void* sC, void* sn,
+                             void* sm, void* smt, void* sqn, void* prof,
                              void* stream) {
   using namespace mlstm;
   if (Dh < 1 || Dh > 512 || S < 1 || B < 1 || NH < 1)
@@ -419,11 +462,17 @@ extern "C" int mlstm_chunked(int dtype, const void* q, const void* k,
               *mm0 = (const float*)m0;
   float *c = (float*)C, *nn = (float*)n, *mm = (float*)m;
   unsigned long long* pr = (unsigned long long*)prof;
+  float* const saved[5] = {(float*)sC, (float*)sn, (float*)sm, (float*)smt,
+                           (float*)sqn};
+  if ((sC == nullptr) != (sn == nullptr) || (sC == nullptr) != (sm == nullptr)
+      || (sC == nullptr) != (smt == nullptr)
+      || (sC == nullptr) != (sqn == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
     return launch<float>(q, k, v, g, f, c0, nn0, mm0, h, c, nn, mm, B, NH, S,
-                         Dh, pr, st);
+                         Dh, saved, pr, st);
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(q, k, v, g, f, c0, nn0, mm0, h, c, nn, mm, B,
-                                 NH, S, Dh, pr, st);
+                                 NH, S, Dh, saved, pr, st);
   return (int)cudaErrorInvalidValue;
 }

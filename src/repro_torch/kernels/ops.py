@@ -27,7 +27,9 @@ cores, prefill on wgmma) and the rest to their SIMT kernels
 for all lanes. The chunkwise mLSTM sends float32 and bf16 at head widths
 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster shares S
 across a (b, h)'s CTAs, and other widths to its SIMT kernel
-(:func:`mlstm_route`). The flash backward's preprocess launches its
+(:func:`mlstm_route`); its backward (:func:`mlstm_chunked_bwd`, under
+the autograd Function of :func:`mlstm_chunked_ad`) is one SIMT kernel
+pair on the CUDA cores. The flash backward's preprocess launches its
 16-byte-load kernel on every call ("vec"); its one-warp-a-row kernel
 runs only when asked for ("simt"). Their ``routes`` dict counts the
 launches of each (:func:`route_counts`). The int8 KV cache's append is one fused launch
@@ -1041,6 +1043,7 @@ def lora_matmul_ad(x, w, a, b, *, scale: float = 1.0):
 # ------------------------------------------------------------------ mLSTM
 MLSTM_MAX_DH = 512            #: head widths mlstm_chunked.cu takes
 MLSTM_TC_DH = (64, 128, 256, 512)   #: widths mlstm_chunked_tc.cu takes
+MLSTM_CARD_CHUNK = 64         #: the kernels' chunk (kC of all three)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1056,12 +1059,16 @@ def mlstm_route(dtype, dh: int) -> str:
 
 
 def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
-                  m0=None):
+                  m0=None, states: bool = False):
     """Stabilized chunkwise mLSTM. q/k/v: [B, NH, S, DH] (k pre-scaled),
     all float32 or all bfloat16; ig/lf: [B, NH, S] float32; optional
     initial state C0 [B, NH, DH, DH], n0 [B, NH, DH], m0 [B, NH] float32
     (all three or none; none starts from C = 0, n = 0, m = -1e30).
-    Returns (h [B, NH, S, DH] in q's dtype, (C, n, m) float32).
+    Returns (h [B, NH, S, DH] in q's dtype, (C, n, m) float32), and with
+    ``states`` a third item: what :func:`mlstm_chunked_bwd` takes, as
+    :func:`repro_torch.kernels.ref.mlstm_chunkwise_ref` returns it (on the
+    card for the kernels' chunks of :data:`MLSTM_CARD_CHUNK`); h and the
+    final state are the same bitwise either way.
 
     The kernels walk the sequence in chunks of 64 steps, their own tiling,
     and take any S >= 1; :func:`mlstm_route` picks the kernel and
@@ -1100,17 +1107,18 @@ def mlstm_chunked(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
     extra = (C0, n0, m0) if given else ()
     if not _on_card(q, k, v, ig, lf, *extra):
         return ref.mlstm_chunkwise_ref(q, k, v, ig, lf, chunk=chunk, C0=C0,
-                                       n0=n0, m0=m0)
-    return _mlstm_card(q, k, v, ig, lf, C0, n0, m0)
+                                       n0=n0, m0=m0, states=states)
+    return _mlstm_card(q, k, v, ig, lf, C0, n0, m0, states=states)
 
 
 def _mlstm_card(q, k, v, ig, lf, C0=None, n0=None, m0=None, *, route=None,
-                prof=None):
+                prof=None, states: bool = False):
     """The card launch of :func:`mlstm_chunked` (inputs already checked)
     on ``route``: :func:`mlstm_route`'s choice by default, "simt" to time
     the SIMT kernel on the same inputs. ``prof``: a CUDA int64 tensor the
     kernel adds its phase clocks to (7 for the SIMT kernel, 6 for the
-    wgmma kernel; the sources list the phases)."""
+    wgmma kernel; the sources list the phases). ``states``: also write
+    and return the states the backward takes."""
     b, nh, s, dh = q.shape
     best = mlstm_route(q.dtype, dh)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -1123,14 +1131,139 @@ def _mlstm_card(q, k, v, ig, lf, C0=None, n0=None, m0=None, *, route=None,
     C = torch.empty((b, nh, dh, dh), **kw)
     n = torch.empty((b, nh, dh), **kw)
     m = torch.empty((b, nh), **kw)
+    saved = ()
+    if states:
+        nc = -(-s // MLSTM_CARD_CHUNK)
+        saved = (torch.empty((b, nh, nc, dh, dh), **kw),
+                 torch.empty((b, nh, nc, dh), **kw),
+                 torch.empty((b, nh, nc), **kw),
+                 torch.empty((b, nh, s), **kw), torch.empty((b, nh, s), **kw))
     args = (_DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(ig),
             _ptr(lf), _ptr(C0), _ptr(n0), _ptr(m0), _ptr(h), _ptr(C),
             _ptr(n), _ptr(m), b, nh, s, dh)
-    stem = "mlstm_chunked_tc" if route == "wgmma" else "mlstm_chunked"
-    err = build.load(stem)(*args, _ptr(prof), _stream(q))
+    # the wgmma kernel's state-writing instantiation is a library of its
+    # own (csrc/mlstm_chunked_tc_save.cu); the SIMT kernel takes the
+    # state pointers, null for serving
+    saved_ptrs = [_ptr(t) for t in saved] if states else [None] * 5
+    if route == "simt":
+        stem, extra = "mlstm_chunked", saved_ptrs
+    else:
+        stem = "mlstm_chunked_tc_save" if states else "mlstm_chunked_tc"
+        extra = saved_ptrs if states else []
+    err = build.load(stem)(*args, *extra, _ptr(prof), _stream(q))
     _raise_on(err, f"mlstm_chunked ({route})")
     mlstm_chunked.launches += 1
     mlstm_chunked.routes[route] += 1
+    if states:
+        return h, (C, n, m), saved
+    return h, (C, n, m)
+
+
+def mlstm_chunked_bwd(q, k, v, ig, lf, h, dh, states, *, chunk: int = 64):
+    """Gradients (dq, dk, dv [B, NH, S, DH], dig, dlf [B, NH, S], all
+    float32) of :func:`mlstm_chunked`'s h through its cotangent ``dh``,
+    from the ``states`` that ``mlstm_chunked(..., states=True)`` returned
+    on the same device; h and dh in q's dtype. No gradient reaches the
+    initial or final state.
+
+    On the card it launches ``csrc/mlstm_chunked_bwd.cu`` (a reverse
+    sweep carrying dC and dn, then every chunk in parallel; float32 on
+    the CUDA cores), the states being those of the kernels' chunks;
+    ``mlstm_chunked_bwd.launches`` counts its calls (one a call, for its
+    two kernels). On the CPU it runs
+    :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_ref` at ``chunk``,
+    the chunk the states were made with."""
+    _require(q.dim() == 4 and all(t.shape == q.shape
+                                  for t in (k, v, h, dh)),
+             "q, k, v, h and dh must be matching [B, NH, S, DH]")
+    b, nh, s, d = q.shape
+    _require(1 <= d <= MLSTM_MAX_DH, f"head_dim {d} not in [1, "
+             f"{MLSTM_MAX_DH}]")
+    _require(q.dtype in (torch.float32, torch.bfloat16)
+             and all(t.dtype == q.dtype for t in (k, v, h, dh)),
+             f"q, k, v, h, dh must share float32 or bfloat16, got "
+             f"{[t.dtype for t in (q, k, v, h, dh)]}")
+    for name, t in (("ig", ig), ("lf", lf)):
+        _require(t.dtype == torch.float32 and tuple(t.shape) == (b, nh, s),
+                 f"{name} must be float32 [B, NH, S]")
+    chunk = operator.index(chunk)
+    _require(chunk >= 1, f"chunk must be >= 1, got {chunk}")
+    on_card = _on_card(q, k, v, ig, lf, h, dh, *states)
+    nc = -(-s // (MLSTM_CARD_CHUNK if on_card else chunk))
+    shapes = ((b, nh, nc, d, d), (b, nh, nc, d), (b, nh, nc), (b, nh, s),
+              (b, nh, s))
+    _require(len(states) == 5 and all(
+        t.dtype == torch.float32 and tuple(t.shape) == shp
+        for t, shp in zip(states, shapes)),
+        f"states must be float32 {[list(x) for x in shapes]}, got "
+        f"{[(t.dtype, list(t.shape)) for t in states]}")
+    _contiguous(q=q, k=k, v=v, ig=ig, lf=lf, h=h, dh=dh,
+                **{f"states[{i}]": t for i, t in enumerate(states)})
+    if not on_card:
+        return ref.mlstm_chunkwise_bwd_ref(q, k, v, ig, lf, h, dh, states,
+                                           chunk=chunk)
+    kw = dict(dtype=torch.float32, device=q.device)
+    grads = (torch.empty((b, nh, s, d), **kw), torch.empty((b, nh, s, d),
+                                                           **kw),
+             torch.empty((b, nh, s, d), **kw), torch.empty((b, nh, s), **kw),
+             torch.empty((b, nh, s), **kw))
+    carried = (torch.empty(shapes[0], **kw), torch.empty(shapes[1], **kw))
+    err = build.load("mlstm_chunked_bwd")(
+        _DTYPE_CODES[q.dtype], *(_ptr(t) for t in (q, k, v, ig, lf, h, dh)),
+        *(_ptr(t) for t in states), *(_ptr(t) for t in grads),
+        *(_ptr(t) for t in carried), b, nh, s, d, _stream(q))
+    _raise_on(err, "mlstm_chunked_bwd")
+    mlstm_chunked_bwd.launches += 1
+    mlstm_chunked_bwd.routes["simt"] += 1
+    return grads
+
+
+class _MlstmChunkedAD(torch.autograd.Function):
+    """The forward kernel writing the states the backward needs; the
+    backward kernel (:func:`mlstm_chunked_bwd`) in the backward pass. On
+    the CPU both halves are the plain versions at the caller's chunk.
+
+    Only h carries a gradient. The final state (C, n, m) is returned as a
+    differentiable output so that a gradient reaching it raises instead of
+    being dropped; so does a gradient asked of the initial state."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ig, lf, C0, n0, m0, chunk):
+        h, (C, n, m), states = mlstm_chunked(q, k, v, ig, lf, chunk=chunk,
+                                             C0=C0, n0=n0, m0=m0, states=True)
+        ctx.save_for_backward(q, k, v, ig, lf, h, *states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        if dC is not None or dn is not None or dm is not None:
+            raise RuntimeError(
+                "mlstm_chunked_ad: no gradient flows through the final state "
+                "(C, n, m); the training path differentiates h only, as the "
+                "reference's loss does")
+        if any(ctx.needs_input_grad[5:8]):
+            raise RuntimeError("mlstm_chunked_ad: no gradient flows into "
+                               "the initial state (C0, n0, m0)")
+        if dh is None:
+            return (None,) * 9
+        q, k, v, ig, lf, h, *states = ctx.saved_tensors
+        dq, dk, dv, dig, dlf = mlstm_chunked_bwd(
+            q, k, v, ig, lf, h, dh.to(h.dtype).contiguous(), states,
+            chunk=ctx.chunk)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dig, dlf,
+                None, None, None, None)
+
+
+def mlstm_chunked_ad(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
+                     m0=None):
+    """Differentiable :func:`mlstm_chunked`: the forward kernel, saving
+    each chunk's state, and :func:`mlstm_chunked_bwd` in the backward
+    pass (the reference leaves the chunk body's gradient to XLA's
+    autodiff). Returns (h, (C, n, m)) as :func:`mlstm_chunked`."""
+    h, C, n, m = _MlstmChunkedAD.apply(q, k, v, ig, lf, C0, n0, m0,
+                                       operator.index(chunk))
     return h, (C, n, m)
 
 
@@ -1138,18 +1271,21 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
            paged_verify_attention, quantize_int8,
            quantize_kv_append, dequantize_int8, flash_attention,
            flash_attention_bwd_preprocess, flash_attention_bwd_dkv,
-           flash_attention_bwd_dq, lora_matmul, mlstm_chunked)
+           flash_attention_bwd_dq, lora_matmul, mlstm_chunked,
+           mlstm_chunked_bwd)
 #: wrappers with two kernels behind them -> the route key of the Hopper
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
 #: the three flash kernels count their float32 3xTF32 kernel's launches
-#: as "tf32x3" beside them (:data:`TF32_ROUTED`)
+#: as "tf32x3" beside them (:data:`TF32_ROUTED`); the mLSTM backward has
+#: one kernel, on the CUDA cores ("simt")
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
           paged_verify_attention: PAGED_ROUTES["prefill"],
-          mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec"}
+          mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec",
+          mlstm_chunked_bwd: "simt"}
 TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv,
                flash_attention_bwd_dq)
 

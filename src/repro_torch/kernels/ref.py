@@ -441,6 +441,13 @@ def mlstm_chunk_body(C, n, m, q, k, v, ig, lf):
     never taken, so its gradient is 0 and never inf * 0 = NaN (the
     reference exponentiates the whole matrix and masks afterwards: the
     same forward values, NaN gradients once an entry overflows)."""
+    return _mlstm_chunk(C, n, m, q, k, v, ig, lf)[:4]
+
+
+def _mlstm_chunk(C, n, m, q, k, v, ig, lf):
+    """:func:`mlstm_chunk_body`, also returning what the backward needs
+    of each step: m_t [B, NH, c] and qn_t [B, NH, c], the signed n_t.q_t
+    whose magnitude den_t = max(|qn_t|, e^{-m_t}) takes."""
     c = q.shape[2]
     b_ = torch.cumsum(lf, dim=-1)
     a_ = ig - b_
@@ -457,31 +464,142 @@ def mlstm_chunk_body(C, n, m, q, k, v, ig, lf):
         + inter[..., None] * torch.einsum("bhij,bhtj->bhti", C, q)
     n_t = torch.einsum("bhtj,bhjd->bhtd", D, k) \
         + inter[..., None] * n[..., None, :]
-    den = torch.maximum(torch.einsum("bhtd,bhtd->bht", n_t, q).abs(),
-                        torch.exp(-m_t))[..., None]
+    qn = torch.einsum("bhtd,bhtd->bht", n_t, q)
+    den = torch.maximum(qn.abs(), torch.exp(-m_t))[..., None]
     h = num / den
     w_k = torch.exp(b_[..., -1:] - b_ + ig - m_out[..., None])
     carry = torch.exp(m + b_[..., -1] - m_out)
     C_out = carry[..., None, None] * C \
         + torch.einsum("bhtd,bhte->bhde", v * w_k[..., None], k)
     n_out = carry[..., None] * n + torch.einsum("bhtd,bht->bhd", k, w_k)
-    return C_out, n_out, m_out, h
+    return C_out, n_out, m_out, h, m_t, qn
 
 
 def mlstm_chunkwise_ref(q, k, v, ig, lf, *, chunk: int = 64, C0=None,
-                        n0=None, m0=None):
+                        n0=None, m0=None, states: bool = False):
     """The chunked kernel's function, chunk by chunk: :func:`mlstm_chunk_body`
     over chunks of ``chunk`` steps, the last one shorter when ``chunk``
     does not divide S. Arguments and returns as :func:`mlstm_chunked_ref`;
-    q, k and v are read as float32."""
+    q, k and v are read as float32.
+
+    With ``states`` it also returns what :func:`mlstm_chunkwise_bwd_ref`
+    takes, as a third item: (Cs [B, NH, K, DH, DH], ns [B, NH, K, DH],
+    ms [B, NH, K]) — each of the K chunks' starting state — and (m_t,
+    qn_t) [B, NH, S] of every step. h and the final state are the same
+    bitwise either way."""
     C, n, m = _mlstm_init_state(q, C0, n0, m0)
     qf, kf, vf = q.float(), k.float(), v.float()
     igf, lff = ig.float(), lf.float()
-    hs = []
+    hs, saved = [], ([], [], [], [], [])
     for t0 in range(0, q.shape[2], chunk):
         sl = slice(t0, t0 + chunk)
-        C, n, m, h = mlstm_chunk_body(C, n, m, qf[:, :, sl], kf[:, :, sl],
-                                      vf[:, :, sl], igf[:, :, sl],
-                                      lff[:, :, sl])
+        if states:
+            for keep, x in zip(saved, (C, n, m)):
+                keep.append(x)
+        C, n, m, h, m_t, qn = _mlstm_chunk(
+            C, n, m, qf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
+            igf[:, :, sl], lff[:, :, sl])
         hs.append(h)
-    return torch.cat(hs, dim=2).to(q.dtype), (C, n, m)
+        if states:
+            saved[3].append(m_t)
+            saved[4].append(qn)
+    out = torch.cat(hs, dim=2).to(q.dtype)
+    if not states:
+        return out, (C, n, m)
+    return out, (C, n, m), (torch.stack(saved[0], 2),
+                            torch.stack(saved[1], 2),
+                            torch.stack(saved[2], 2),
+                            torch.cat(saved[3], 2), torch.cat(saved[4], 2))
+
+
+def _mlstm_chunk_bwd(C, n, m, q, k, v, ig, lf, m_t, qn, h, dh, dC, dn):
+    """One chunk's gradients with every stabilizer held constant (see
+    :func:`mlstm_chunkwise_bwd_ref`). C, n, m: the chunk's starting state;
+    m_t, qn: the forward's per-step values; h, dh: its output and the
+    output's cotangent; dC, dn: the cotangent of the chunk's final state.
+    Returns (dq, dk, dv, dig, dlf, dC_in, dn_in), float32."""
+    c = q.shape[2]
+    b_ = torch.cumsum(lf, dim=-1)
+    m_out = m_t[..., -1]
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    D = torch.exp(torch.where(
+        tri, b_[..., :, None] - b_[..., None, :] + ig[..., None, :]
+        - m_t[..., :, None], float("-inf")))
+    inter = torch.exp(m[..., None] + b_ - m_t)
+    w = torch.exp(b_[..., -1:] - b_ + ig - m_out[..., None])
+    carry = torch.exp(m + b_[..., -1] - m_out)
+    P = torch.einsum("bhtd,bhjd->bhtj", q, k) * D
+    floor = torch.exp(-m_t)
+    den = torch.maximum(qn.abs(), floor)
+    dnum = dh / den[..., None]
+    # den = max(|qn|, e^{-m}): the max splits a tie evenly and |x| takes
+    # slope +1 at 0, as JAX differentiates both
+    share = torch.where(qn.abs() > floor, 1.0,
+                        torch.where(qn.abs() == floor, 0.5, 0.0))
+    dqn = -(dh * h).sum(-1) / den * share * torch.where(qn >= 0, 1.0, -1.0)
+    dP = torch.where(tri, torch.einsum("bhti,bhji->bhtj", dnum, v)
+                     + dqn[..., None], 0.0)
+    dS = dP * D
+    dlogD = dP * P
+    Z = torch.einsum("bhje,bhie->bhji", k, dC)         # dC k_j
+    X = torch.einsum("bhti,bhie->bhte", dnum, C)       # C^T dnum_t
+    dv = torch.einsum("bhtj,bhti->bhji", P, dnum) + w[..., None] * Z
+    dk = torch.einsum("bhtj,bhte->bhje", dS, q) + w[..., None] * (
+        torch.einsum("bhji,bhie->bhje", v, dC) + dn[..., None, :])
+    dq = torch.einsum("bhtj,bhje->bhte", dS, k) + inter[..., None] * (
+        X + dqn[..., None] * n[..., None, :])
+    dinter = (X * q).sum(-1) + dqn * torch.einsum("bhe,bhte->bht", n, q)
+    dw = (v * Z).sum(-1) + torch.einsum("bhe,bhje->bhj", dn, k)
+    dcarry = (dC * C).sum((-2, -1)) + (dn * n).sum(-1)
+    gw = dw * w
+    db = dlogD.sum(-1) - dlogD.sum(-2) + dinter * inter - gw
+    db[..., -1] += gw.sum(-1) + dcarry * carry
+    dig = dlogD.sum(-2) + gw
+    dlf = db.flip(-1).cumsum(-1).flip(-1)
+    dC_in = carry[..., None, None] * dC + torch.einsum(
+        "bhti,bhte->bhie", inter[..., None] * dnum, q)
+    dn_in = carry[..., None] * dn + torch.einsum("bht,bhte->bhe",
+                                                 inter * dqn, q)
+    return dq, dk, dv, dig, dlf, dC_in, dn_in
+
+
+def mlstm_chunkwise_bwd_ref(q, k, v, ig, lf, h, dh, states, *,
+                            chunk: int = 64):
+    """Gradients (dq, dk, dv [B, NH, S, DH], dig, dlf [B, NH, S], float32)
+    of the chunkwise mLSTM's output h through its cotangent ``dh``, from
+    ``states`` as :func:`mlstm_chunkwise_ref` returns them for the same
+    ``chunk``; no gradient reaches the initial or final state.
+
+    Every stabilized quantity is its unstabilized value times e^{-m}
+    (C_k, num_t, n_t.q_t and den_t alike), so h_t = num_t^u / max(|(n.q)
+    _t^u|, 1) for any values of the m's: its derivative along every m is
+    0, and the gradient with the m's held constant is the true one.
+    Autodiff through cummax and maximum reaches the same value up to
+    rounding. So no gradient goes through the running max; the gates'
+    come through the logs of the decay D_tj = e^{b_t - b_j + i_j - m_t},
+    of inter_t = e^{m_in + b_t - m_t}, of w_j = e^{b_c - b_j + i_j - m_c}
+    and of the carry e^{m_in + b_c - m_c}, and dlf is the reverse cumsum
+    of db within each chunk (b restarts at every chunk). The chunks go in
+    reverse, carrying dC and dn; exp() of a masked (j > t) entry is never
+    taken."""
+    Cs, ns, ms, mts, qns = states
+    qf, kf, vf = q.float(), k.float(), v.float()
+    igf, lff = ig.float(), lf.float()
+    hf, dhf = h.float(), dh.float()
+    b, nh, s, dh_ = q.shape
+    dC = torch.zeros((b, nh, dh_, dh_), dtype=torch.float32, device=q.device)
+    dn = torch.zeros((b, nh, dh_), dtype=torch.float32, device=q.device)
+    out = [torch.empty((b, nh, s, dh_), dtype=torch.float32, device=q.device)
+           for _ in range(3)]
+    out += [torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+            for _ in range(2)]
+    for kk in reversed(range(-(-s // chunk))):
+        sl = slice(kk * chunk, kk * chunk + chunk)
+        *g, dC, dn = _mlstm_chunk_bwd(
+            Cs[:, :, kk], ns[:, :, kk], ms[:, :, kk], qf[:, :, sl],
+            kf[:, :, sl], vf[:, :, sl], igf[:, :, sl], lff[:, :, sl],
+            mts[:, :, sl], qns[:, :, sl], hf[:, :, sl], dhf[:, :, sl], dC,
+            dn)
+        for o, x in zip(out, g):
+            o[:, :, sl] = x
+    return tuple(out)

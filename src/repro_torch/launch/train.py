@@ -30,6 +30,16 @@ set the engine's merge clock, mobility and compute jitter.
       --strategy async_hier_fl --codec int8 --local-steps 2 --steps 3 \\
       --shape 64x2 --async-clock 0.05 --migrate-every 0.025 \\
       --compute-jitter 0.2 --trace async_trace.json
+  python -m repro_torch.launch.train --device cpu --arch xlstm-350m \\
+      --strategy hier_fl --shape 64x2 --steps 2
+  python -m repro_torch.launch.train --arch xlstm-350m --full \\
+      --strategy hier_fl --topology 2@nano,agx --codec int8 \\
+      --local-steps 2 --steps 2 --shape 512x4
+
+xlstm-350m trains with ``tensor``, ``fedavg``, ``hier_fl`` and
+``async_hier_fl`` (the mLSTM's forward and backward kernels);
+``distill_fl`` needs a dense AD-LLM config, and the FHDP strategies have
+no ssm adapter yet.
 """
 import argparse
 

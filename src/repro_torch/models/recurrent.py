@@ -10,9 +10,13 @@ Both cells expose, as in the reference:
 
 The mLSTM's sequence part runs through :func:`repro_torch.kernels.ops
 .mlstm_chunked`: the hand-written chunkwise kernel on the card, its plain
-chunkwise version on the CPU. The sLSTM is a true nonlinear recurrence
-(h_{t-1} feeds the gates through a matmul), which the reference leaves to
-XLA: here it is plain PyTorch, a Python loop over time steps.
+chunkwise version on the CPU; when autograd records it, through
+:func:`repro_torch.kernels.ops.mlstm_chunked_ad`, whose backward is the
+hand-written backward kernel (the reference differentiates the chunk body
+with XLA). The sLSTM is a true nonlinear recurrence (h_{t-1} feeds the
+gates through a matmul), which the reference leaves to XLA: here it is
+plain PyTorch, a Python loop over time steps, and autograd takes its
+backward.
 """
 from __future__ import annotations
 
@@ -163,13 +167,18 @@ def apply_mlstm_seq(p, x, cfg: ModelConfig, state=None, chunk: int = 256):
     :func:`repro_torch.kernels.ops.mlstm_chunked` call from the state's
     (C, n, m); ``chunk`` sets the plain route's chunk as the reference
     picks it (the largest divisor of S up to ``chunk``); the kernel
-    tiles the sequence its own way."""
+    tiles the sequence its own way. With grad enabled the call is
+    :func:`repro_torch.kernels.ops.mlstm_chunked_ad` (the forward kernel
+    saving each chunk's state, the backward kernel in the backward pass);
+    serving, under no_grad, runs the forward kernel alone."""
     b, s, _ = x.shape
     if state is None:
         state = init_mlstm_state(cfg, b, x.device)
     q, k, v, ig, lf, z, new_conv = _mlstm_qkvgates(
         p, x, cfg, conv_state=state["conv"])
-    h, (C, n, m) = ops.mlstm_chunked(
+    cell = ops.mlstm_chunked_ad if torch.is_grad_enabled() \
+        else ops.mlstm_chunked
+    h, (C, n, m) = cell(
         q, k, v, ig, lf, chunk=_chunk(s, chunk),
         C0=state["C"].contiguous(), n0=state["n"].contiguous(),
         m0=state["m"].contiguous())
@@ -235,7 +244,9 @@ def _slstm_step(p, x_t, st, cfg: ModelConfig):
 
 def apply_slstm_seq(p, x, cfg: ModelConfig, state=None):
     """x: [B, S, d] -> (y, final_state), one step at a time (the
-    reference's chunked scan only sets its backward's remat)."""
+    reference's chunked scan only sets its backward's remat; the port's
+    training checkpoints the whole layer, :func:`repro_torch.models.xlstm
+    .forward`). Autograd records the loop for the backward."""
     b, s, _ = x.shape
     if state is None:
         state = init_slstm_state(cfg, b, x.device)

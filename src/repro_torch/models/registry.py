@@ -6,9 +6,11 @@ The dense ``loss`` is the reference's ``_build_lm`` loss — the decoder's
 final hidden states into the chunked cross-entropy, never materializing
 the [B, S, V] logits; its ``prefill``/``decode_step`` run the
 contiguous-cache forward (plain attention over the cache, as the
-reference runs XLA there). The ssm family is the xLSTM: ``prefill`` runs
-the mLSTM's chunkwise kernel, ``decode_step`` the cells' one-token steps;
-its training waits for a later slice. The vision family is FLAD's vision
+reference runs XLA there). The ssm family is the xLSTM: its ``loss`` is
+the same chunked cross-entropy over ``xlstm.forward``'s hidden states
+(the mLSTM's forward and backward kernels, every layer checkpointed),
+``prefill`` runs the mLSTM's chunkwise kernel, ``decode_step`` the cells'
+one-token steps. The vision family is FLAD's vision
 encoder (:mod:`repro_torch.models.vision_encoder`): its ``loss`` trains
 it; it has no decode path, and ``prefill``/``decode_step`` raise, as the
 reference's.
@@ -80,10 +82,11 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
         return xlstm.init(cfg, seed=seed, device=device)
 
     def loss(params, batch, *, remat=True, window=None):
-        raise NotImplementedError(
-            "xLSTM training comes with a later slice of the port: the "
-            "mLSTM kernel has no backward yet (the reference differentiates "
-            "the chunk body through XLA)")
+        # every layer is checkpointed whatever ``remat`` says, as the
+        # reference's sequence form remats each one (xlstm.forward)
+        x, _, aux = xlstm.forward(params, cfg, batch["tokens"],
+                                  hidden_only=True)
+        return _hidden_ce(params, x, batch["labels"], aux)
 
     def init_state(batch: int, cache_len: int, device="cuda"):
         return xlstm.init_state(cfg, batch, device)
@@ -118,6 +121,14 @@ def _build_vision(cfg: ModelConfig) -> Model:
 
 FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm,
             "vision": _build_vision}
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of a dense or ssm config on the ``meta`` device
+    (shapes and dtypes only), as the reference's ``_abstract_init``."""
+    if cfg.family == "ssm":
+        return xlstm.abstract_params(cfg)
+    return lm.abstract_params(cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -7,10 +7,19 @@ slstm_every=8). Parameters and states are stacked [n_super, k, ...] as in
 the reference; where it scans them with ``lax.scan``, :func:`forward`
 walks per-layer views with Python loops (as :func:`repro_torch.models.lm
 .forward` does).
+
+Training (no states given, grad enabled) recomputes every mLSTM and sLSTM
+layer in the backward pass (``torch.utils.checkpoint``), as the
+reference's sequence form remats each mLSTM layer and the sLSTM's chunks
+whatever its ``remat`` says: one layer's saved chunk states (128 MiB at
+xlstm-350m's training shape, B 4, S 512) are alive at a time, not 21
+layers'. It keeps no recurrent states; the reference's loss discards
+them too.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
@@ -31,8 +40,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
     layer's parameters even when ``slstm_every`` is 1."""
     n_super, n_m = _layout(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return ParamTree({
         "embed": B.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg.dtype,
                                   device),
@@ -42,6 +53,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
         "head": B.init_linear(gen, cfg.d_model, cfg.vocab_size, cfg.dtype,
                               device),
     })
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes and dtypes, on the ``meta`` device."""
+    return init(cfg, device="meta").to_dict()
 
 
 def _stack(one: dict, reps) -> dict:
@@ -83,6 +99,24 @@ def _super_block(params, x, cfg: ModelConfig, states, step: bool):
     return x + y
 
 
+def _mlstm_layer(lp, x, cfg: ModelConfig):
+    return x + R.apply_mlstm_seq(lp, x, cfg)[0]
+
+
+def _slstm_layer(sp, x, cfg: ModelConfig):
+    return x + R.apply_slstm_seq(sp, x, cfg)[0]
+
+
+def _train_super_block(params, x, cfg: ModelConfig):
+    """One super-block from fresh states, each layer checkpointed; no
+    state is kept."""
+    mp, sp = params
+    for j in range(next(iter(mp.values())).shape[0]):
+        x = checkpoint(_mlstm_layer, layer(mp, j), x, cfg,
+                       use_reentrant=False)
+    return checkpoint(_slstm_layer, sp, x, cfg, use_reentrant=False)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, states=None, step=False,
             logits_slice=None, hidden_only=False):
     """tokens: [B, S] int. Returns (logits [B, S, V] float32 — or the
@@ -92,14 +126,26 @@ def forward(params, cfg: ModelConfig, tokens, *, states=None, step=False,
     updated IN PLACE and returned — the reference returns new ones.
     ``step`` runs each cell's one-token decode step (S = 1) instead of
     its sequence form. ``aux`` is a zero, for the reference's signature.
-    ``params`` may be the module or its nested dict."""
+    ``params`` may be the module or its nested dict.
+
+    With no ``states`` and grad enabled (training) every layer is
+    checkpointed and the returned states are None. The reference's
+    ``remat`` adds a super-block checkpoint on top of that; the per-layer
+    one already holds one layer's activations at a time, and nesting
+    would run each layer's forward a third time, so the port has no such
+    flag."""
     x = B.embed(params["embed"], tokens)
-    if states is None:
+    train = states is None and not step and torch.is_grad_enabled()
+    if states is None and not train:
         states = init_state(cfg, tokens.shape[0], x.device)
     n_super, _ = _layout(cfg)
     for s in range(n_super):
+        blocks = (layer(params["mlstm"], s), layer(params["slstm"], s))
+        if train:
+            x = _train_super_block(blocks, x, cfg)
+            continue
         x = _super_block(
-            (layer(params["mlstm"], s), layer(params["slstm"], s)), x, cfg,
+            blocks, x, cfg,
             (layer(states["mlstm"], s), layer(states["slstm"], s)), step)
     x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
     if logits_slice is not None:

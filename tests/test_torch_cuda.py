@@ -25,7 +25,10 @@ the flash backward and the wgmma mLSTM bitwise equal across runs (no
 atomics); the mLSTM kernels' (wgmma and SIMT) float32 h within 5e-5 of
 its largest magnitude (den = |n.q| can cancel and magnify the order of
 the sums) and their state within 1e-5, bf16 h one bf16 ulp there, and
-the two kernels within twice those of each other.
+the two kernels within twice those of each other; the mLSTM backward
+kernel's gradients within 1e-4 of each one's largest magnitude of the
+plain backward's on the same saved states, bitwise repeatable, and a
+checkpointed layer's gradients within 1e-4 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -894,6 +897,131 @@ def test_mlstm_wgmma_is_bitwise_repeatable(dev):
     torch.cuda.synchronize()
     for x, y in zip((a[0], *a[1]), (b[0], *b[1])):
         assert torch.equal(x, y)
+
+
+MLSTM_BWD_CASES = [(2, 4, 512, 512, False), (1, 4, 333, 512, True),
+                   (2, 2, 100, 64, True), (1, 2, 129, 40, True)]
+
+
+def _mlstm_bwd_inputs(dev, dtype, b, nh, s, dh, state, seed=5):
+    args, kw = _mlstm(dev, dtype, b, nh, s, dh, state)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dh_ = torch.randn((b, nh, s, dh), generator=g).to(dev, dtype)
+    return args, kw, dh_
+
+
+@pytest.mark.parametrize("b,nh,s,dh,state", MLSTM_BWD_CASES,
+                         ids=["path-width", "ragged-state", "dh64",
+                              "dh40-simt"])
+def test_mlstm_bwd_kernel_matches_plain(dev, b, nh, s, dh, state):
+    """The backward kernel against the plain backward on the same saved
+    states (the forward kernel's, chunks of 64), each gradient within
+    1e-4 of its largest magnitude (float32 both, in other summation
+    orders; den = max(|n.q|, e^-m) divides and can magnify them). The
+    forward with the state writes gives h and the final state bitwise
+    those without."""
+    args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, b, nh, s, dh,
+                                      state)
+    h0, fin0 = ops.mlstm_chunked(*args, **kw)
+    h, fin, states = ops.mlstm_chunked(*args, **kw, states=True)
+    assert torch.equal(h, h0) and all(torch.equal(x, y)
+                                      for x, y in zip(fin, fin0))
+    before = ops.launch_counts()["mlstm_chunked_bwd"]
+    got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states, chunk=64)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunked_bwd"] == before + 1
+    for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
+        assert x.dtype == torch.float32 and x.shape == y.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        peak = float(y.abs().max())
+        assert float((x - y).abs().max()) <= 1e-4 * peak, name
+
+
+def test_mlstm_bwd_kernel_takes_bf16_inputs(dev):
+    """bf16 q, k, v, h and dh (read as float32, the kernel's bf16
+    instantiation) against the plain backward on the same values, within
+    the float32 case's 1e-4 of each gradient's largest magnitude."""
+    args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.bfloat16, 1, 4, 200, 512,
+                                      True)
+    h, _, states = ops.mlstm_chunked(*args, **kw, states=True)
+    got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states, chunk=64)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
+        assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
+            name
+
+
+def test_mlstm_bwd_is_bitwise_repeatable(dev):
+    """No atomics: every sum of the backward runs in a fixed order."""
+    args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, 1, 4, 200, 512,
+                                      True)
+    h, _, states = ops.mlstm_chunked(*args, **kw, states=True)
+    a = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    b = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_mlstm_ad_cuda_never_takes_the_plain_path(dev, monkeypatch):
+    """CUDA tensors through the autograd Function launch the forward and
+    backward kernels: no plain version runs, either half."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("mlstm_chunkwise_ref", "mlstm_chunk_body", "_mlstm_chunk",
+                 "mlstm_chunkwise_bwd_ref", "_mlstm_chunk_bwd"):
+        monkeypatch.setattr(ref, name, boom)
+    args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, 1, 2, 77, 64,
+                                      False)
+    ins = [t.clone().requires_grad_() for t in args]
+    before = ops.launch_counts()
+    h, _ = ops.mlstm_chunked_ad(*ins)
+    grads = torch.autograd.grad(h, ins, dh_)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["mlstm_chunked"] == before["mlstm_chunked"] + 1
+    assert after["mlstm_chunked_bwd"] == before["mlstm_chunked_bwd"] + 1
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_mlstm_layer_grad_under_checkpoint_runs_both_kernels(dev):
+    """torch.autograd through apply_mlstm_seq under a checkpoint, as
+    training runs it: the forward kernel twice (the recompute), the
+    backward kernel once; the input's and every parameter's gradient
+    within 1e-4 of its largest magnitude of the same on the CPU (the
+    plain versions at the reference's chunk)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import recurrent
+    cfg = reduced(get_config("xlstm-350m"))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    p = recurrent.init_mlstm(g, cfg, torch.device("cpu"))
+    x = torch.randn((2, 150, cfg.d_model), generator=g)
+    w = torch.randn((2, 150, cfg.d_model), generator=g)
+
+    def grads(device):
+        lp = {k: v.to(device).requires_grad_() for k, v in p.items()}
+        xi = x.to(device).requires_grad_()
+        y = checkpoint(lambda a, b: recurrent.apply_mlstm_seq(a, b, cfg)[0],
+                       lp, xi, use_reentrant=False)
+        out = torch.autograd.grad((y * w.to(device)).sum(),
+                                  [xi, *lp.values()])
+        return [t.cpu() for t in out]
+
+    before = ops.launch_counts()
+    got = grads(dev)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["mlstm_chunked"] == before["mlstm_chunked"] + 2
+    assert after["mlstm_chunked_bwd"] == before["mlstm_chunked_bwd"] + 1
+    for a, b in zip(got, grads("cpu")):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 def _pools_int8(dev, lead, nb, bs, d, seed):

@@ -137,6 +137,7 @@ def test_new_wrappers_never_fall_back():
             torch.zeros((4, 8), device=m), torch.zeros((8, 6), device=m),
             torch.zeros((8, 2), device=m), torch.zeros((2, 6), device=m)),
         lambda: ops.mlstm_chunked(q, q, q, stats, stats),
+        lambda: ops.mlstm_chunked_bwd(q, q, q, stats, stats, q, q, (q,) * 5),
         lambda: ops.quantize_kv_append(
             *[torch.zeros((2, 3, 4, 32), dtype=torch.int8, device=m)
               for _ in "kv"],
@@ -153,7 +154,7 @@ def test_new_wrappers_never_fall_back():
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     assert ops.launch_counts() == before
-    assert len(ops.KERNELS) == 12
+    assert len(ops.KERNELS) == 13
 
 
 def test_wrappers_check_their_inputs():

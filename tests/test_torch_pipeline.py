@@ -267,8 +267,40 @@ def test_template_from_sequence_refuses_a_bad_cover(seq):
 
 def test_other_families_raise_by_name():
     cfg = reduced(get_config("xlstm-350m"))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="ssm FHDP adapter"):
         pl.get_adapter(cfg)
+
+
+def test_reference_ssm_fhdp_reorders_the_stack(mesh24):
+    """Why the port's ssm adapter waits (ROADMAP A6b, queue C): the
+    reference's adapter stacks every mlstm unit before every slstm unit,
+    so its FHDP step equals the flat model with one super-block and
+    computes another network with two (m0 m1 s0 s1 against m0 s0 m1
+    s1). Flat vs FHDP loss of reduced xlstm_350m on the (2, 4) mesh,
+    shape 64x8, key 0: equal (relative 1e-5) at num_layers 2, more than
+    1e-3 apart at 4."""
+    from repro.configs.common import concrete_batch as jax_batch
+    shape = JShape("t", 64, 8, "train")
+    losses = {}
+    for layers in (2, 4):
+        jcfg = jax_reduced(jax_config("xlstm_350m")).replace(
+            num_layers=layers)
+        model = jax_model(jcfg)
+        key = jax.random.PRNGKey(0)
+        params = model.init(key)
+        batch = jax_batch(jcfg, shape, key)
+        flat, _ = model.loss(params, batch, remat=False)
+        step, h = jpl.make_fhdp_train_step(jcfg, shape, mesh24)
+        pp = jpl.stage_params_from(params, jcfg, h["templates"])
+        opt = jpl.zero2_init(pp, mesh24.shape["data"])
+        _, _, metrics = jax.jit(step)(pp, opt, batch)
+        losses[layers] = (float(flat), float(metrics["loss"]),
+                          h["templates"])
+    print(f"flat vs FHDP loss by num_layers: {losses}")
+    for layers, (flat, fhdp, _) in losses.items():
+        rel = abs(fhdp - flat) / abs(flat)
+        assert (rel <= 1e-5) if layers == 2 else (rel > 1e-3), (layers,
+                                                                losses)
 
 
 @pytest.mark.parametrize("arch,template", [
