@@ -353,7 +353,16 @@ XT_ARGV = ["--arch", "xlstm-350m", "--full", "--strategy", "hier_fl",
 # both, other summation orders; den = max(|n.q|, e^-m) divides and can
 # magnify them)
 MLSTM_BWD_RTOL = 1e-4
-MLSTM_BWD_NAME = "mlstm_bwd"      # both kernels: sweep and chunk
+MLSTM_BWD_NAME = "mlstm_bwd"      # every kernel of both routes
+# the wgmma route's phase clocks (csrc/mlstm_chunked_bwd_tc.cu lists them)
+MLSTM_BWD_PHASES = {
+    "sweep": ("dn' store, loads issued", "gates", "A split",
+              "dC' stores, B split", "B barrier", "fetch, product issue",
+              "product wait, barrier", "dn"),
+    "chunk": ("gates", "X, Y, Z hand-over", "B split", "barrier",
+              "A split, fetch, product issue", "previous product wait",
+              "exchange", "P and dS", "dS k, dS^T q, P^T dnum",
+              "gate sums")}
 MLSTM_BWD_LIBRARY_NOTE = ("no PyTorch call computes the chunkwise mLSTM's "
                           "backward; the reference leaves it to XLA's "
                           "autodiff")
@@ -2005,6 +2014,24 @@ def tc_report():
           f"(one entry an instantiation: DH 64, 128, 256, 512 for float32 "
           f"and bf16); {smem} bytes of dynamic shared memory a CTA; "
           f"{serial} instantiations with serialized wgmma (ptxas C7514)")
+    stem = "mlstm_chunked_bwd_tc"
+    hgmma, regs, spills = _lib_report(stem)
+    check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
+    rep = build.build_report[stem]
+    lib = ctypes.CDLL(rep["path"])
+    smem = [lib.mlstm_chunked_bwd_tc_smem(0), lib.mlstm_chunked_bwd_tc_smem(1)]
+    serial = rep["log"].count("C7514")
+    out["mlstm_chunked_bwd"] = dict(hgmma=hgmma, registers=regs,
+                                    spill_bytes=spills,
+                                    dynamic_smem_bytes=smem,
+                                    serialized_instantiations=serial)
+    print(f"[build] mlstm_bwd_tc kernels ({stem}.cu): {hgmma} HGMMA "
+          f"instructions in its SASS; ptxas: registers {regs or 'not rebuilt'}"
+          f" a thread, spill stores + loads {spills or 'not rebuilt'} bytes "
+          f"(one entry a kernel and instantiation: gates, sweep and chunk at "
+          f"DH 64, 128, 256, 512, float32 and bf16); dynamic shared memory "
+          f"a CTA: sweep {smem[0]}, chunk {smem[1]} bytes; {serial} "
+          f"instantiations with serialized wgmma (ptxas C7514)")
     return out
 
 
@@ -4179,18 +4206,49 @@ def _mlstm_bwd_work(b, nh, s, dh):
     return nbytes, flops
 
 
+def _mlstm_bwd_phases(torch, ops, args, h, dh, states):
+    """{kernel: {phase: share of its CTA cycles}} of one wgmma-route
+    launch, from the sweep's and the chunk kernel's clock64() phase
+    counters (thread 0 of each CTA)."""
+    ns, nc = (len(MLSTM_BWD_PHASES[k]) + 1 for k in ("sweep", "chunk"))
+    prof = torch.zeros(ns + nc, dtype=torch.int64, device="cuda")
+    ops._mlstm_bwd_card(*args, h, dh, states, route="wgmma", prof=prof)
+    torch.cuda.synchronize()
+    p = prof.tolist()
+    out = {}
+    for kern, lo, n in (("sweep", 0, ns), ("chunk", ns, nc)):
+        part = p[lo:lo + n]
+        out[kern] = {name: x / part[-1]
+                     for name, x in zip(MLSTM_BWD_PHASES[kern], part)}
+    return out
+
+
 def mlstm_bwd_checks(torch, dev):
-    """The mLSTM backward kernel (csrc/mlstm_chunked_bwd.cu) against the
-    plain backward on the card, on the states the forward kernel saved:
-    at the training shape (B 4, NH 4, S 512, DH 512, float32, the fresh
-    state a training forward starts from) and at a ragged S with an
-    initial state. Each case: every gradient within MLSTM_BWD_RTOL of its
-    largest magnitude, two launches bitwise equal, the forward with the
-    state writes giving h and the final state bitwise those without; cold
-    L2 device times of the kernel pair, the plain backward and the wgmma
-    forward with and without the state writes, beside the bound. Returns
-    the kernel's JSON row (the training shape as the headline)."""
-    from repro_torch.kernels import ops, ref
+    """The mLSTM backward's two routes against the plain backward on the
+    card, on the states the forward kernel saved: the wgmma route
+    (csrc/mlstm_chunked_bwd_tc.cu, 3xTF32, what the path launches) and
+    the SIMT kernels it replaced (csrc/mlstm_chunked_bwd.cu), at the
+    training shape (B 4, NH 4, S 512, DH 512, float32, the fresh state a
+    training forward starts from) and at a ragged S with an initial
+    state. Each case: every gradient of both routes within MLSTM_BWD_RTOL
+    of its largest magnitude, two wgmma launches bitwise equal, the
+    forward with the state writes giving h and the final state bitwise
+    those without; cold L2 device times of the two routes in turns (new,
+    old, old, new), each route's kernels apart, the plain backward and the
+    wgmma forward with and without the state writes, beside the 3xTF32
+    and the CUDA-core bounds. The wgmma route must be faster than the
+    SIMT one at the training shape. Returns the kernel's JSON row (the
+    training shape as the headline)."""
+    from repro_torch.kernels import build, ops, ref
+    lib = ctypes.CDLL(build.build_report["mlstm_chunked_bwd_tc"]["path"])
+    clusters = lib.mlstm_chunked_bwd_tc_clusters(0, XT_B, 4, XT_S)
+    n_cl = XT_B * 4 * -(-XT_S // MLSTM_CHUNK)
+    print(f"[kernel] mlstm_chunked_bwd wgmma chunk kernel at DH 512 (B "
+          f"{XT_B}, NH 4, S {XT_S}: {n_cl} clusters of 8 CTAs, "
+          f"{lib.mlstm_chunked_bwd_tc_smem(1)} bytes of shared memory a "
+          f"CTA; the sweep {lib.mlstm_chunked_bwd_tc_smem(0)}): "
+          f"cudaOccupancyMaxActiveClusters {clusters}, so "
+          f"{-(-n_cl // max(1, clusters))} waves")
     cases = [("path", XT_B, 4, XT_S, 512, "fresh"),
              ("ragged S 333, initial state", 2, 4, 333, 512, "random")]
     rows, max_err = {}, 0.0
@@ -4204,67 +4262,122 @@ def mlstm_bwd_checks(torch, dev):
         h, fin, states = ops.mlstm_chunked(*args, **kw, states=True)
         torch.cuda.synchronize()
         check(ops.mlstm_route(torch.float32, dh) == "wgmma",
-              f"mlstm bwd {label}: the forward is not on the wgmma route")
+              f"mlstm bwd {label}: the forward and the backward are not on "
+              f"the wgmma route")
         check(torch.equal(h, h0) and all(torch.equal(x, y)
                                          for x, y in zip(fin, fin0)),
               f"mlstm {label}: the forward with state writes is not "
               f"bitwise the serving forward")
-        before = ops.mlstm_chunked_bwd.launches
+        before = dict(ops.route_counts()["mlstm_chunked_bwd"])
         got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
         again = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+        old = ops._mlstm_bwd_card(*args, h, dh_, states, route="simt")
         want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states,
                                            chunk=MLSTM_CHUNK)
         torch.cuda.synchronize()
-        check(ops.mlstm_chunked_bwd.launches == before + 2,
-              f"mlstm bwd {label}: launches not counted")
+        after = ops.route_counts()["mlstm_chunked_bwd"]
+        check(after == {"wgmma": before["wgmma"] + 2,
+                        "simt": before["simt"] + 1},
+              f"mlstm bwd {label}: launches by route {after} after "
+              f"{before}")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"mlstm bwd {label}: two launches differ")
-        errs = {}
-        for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
-            check(bool(torch.isfinite(x).all()),
-                  f"mlstm bwd {label} {name}: non-finite")
+              f"mlstm bwd {label}: two wgmma launches differ")
+        errs = {"wgmma": {}, "simt": {}}
+        for i, name in enumerate(("dq", "dk", "dv", "dig", "dlf")):
+            y = want[i]
             peak = float(y.abs().max())
-            err = _err(x, y)
-            errs[name] = err / peak
-            check(err <= MLSTM_BWD_RTOL * peak, f"mlstm bwd {label} {name}: "
-                  f"max err {err:.3e} > {MLSTM_BWD_RTOL * peak:.3e}")
-            max_err = max(max_err, err)
-        bwd_fn = (lambda: ops.mlstm_chunked_bwd(*args, h, dh_, states))
-        ms = device_ms(bwd_fn, MLSTM_BWD_NAME, iters=20)
+            for route, x in (("wgmma", got[i]), ("simt", old[i])):
+                check(bool(torch.isfinite(x).all()),
+                      f"mlstm bwd {label} {name} ({route}): non-finite")
+                err = _err(x, y)
+                errs[route][name] = err / peak
+                check(err <= MLSTM_BWD_RTOL * peak, f"mlstm bwd {label} "
+                      f"{name} ({route}): max err {err:.3e} > "
+                      f"{MLSTM_BWD_RTOL * peak:.3e}")
+                if route == "wgmma":
+                    max_err = max(max_err, err)
+        new_fn = (lambda: ops.mlstm_chunked_bwd(*args, h, dh_, states))
+        old_fn = (lambda: ops._mlstm_bwd_card(*args, h, dh_, states,
+                                              route="simt"))
+        turns = [("wgmma", new_fn), ("simt", old_fn), ("simt", old_fn),
+                 ("wgmma", new_fn)]
+        dev_ms = {"wgmma": [], "simt": []}
+        for route, fn in turns:
+            dev_ms[route].append(device_ms(fn, MLSTM_BWD_NAME, iters=20))
+        ms, old_ms = (sum(dev_ms[r]) / 2 for r in ("wgmma", "simt"))
+        split = {f"wgmma {part}": device_ms(new_fn, f"mlstm_bwd_tc_{part}",
+                                            iters=20)
+                 for part in ("gates", "sweep", "chunk")}
+        split.update({f"simt {part}": device_ms(old_fn, f"mlstm_bwd_{part}",
+                                                iters=20)
+                      for part in ("sweep", "chunk")})
         plain = device_ms(lambda: ref.mlstm_chunkwise_bwd_ref(
             *args, h, dh_, states, chunk=MLSTM_CHUNK), None, iters=5)
+        phases = _mlstm_bwd_phases(torch, ops, args, h, dh_, states)
+        print(f"[kernel] mlstm_chunked_bwd wgmma phase split, {label} (clock64"
+              f" between the points thread 0 of every CTA passes, summed): "
+              + "; ".join(f"{k}: " + ", ".join(
+                  f"{n} {100 * x:.1f}%" for n, x in ph.items())
+                  for k, ph in phases.items()))
         fwd = device_ms(lambda: ops._mlstm_card(*args, *st),
                         MLSTM_NAMES["wgmma"], iters=20)
         fwd_st = device_ms(lambda: ops._mlstm_card(*args, *st, states=True),
                            MLSTM_NAMES["wgmma"], iters=20)
         nbytes, flops = _mlstm_bwd_work(b, nh, s, dh)
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-        rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        b_ms, b_by = bound(nbytes, flops, TF32X3_FLOPS_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+        spread = max(abs(t[0] - t[1]) for t in dev_ms.values())
+        rows[label] = dict(ms=ms, simt_ms=old_ms, ms_turns=dev_ms["wgmma"],
+                           simt_ms_turns=dev_ms["simt"], split_ms=split,
+                           phases=phases,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           f32_bound_ms=f32_ms, f32_bound_by=f32_by,
                            fwd_ms=fwd, fwd_states_ms=fwd_st, rel_err=errs,
+                           faster=ms < old_ms, turns_spread_ms=spread,
                            gflop=flops / 1e9, mbytes=nbytes / 1e6)
         print(f"[kernel] mlstm_chunked_bwd {label} (B {b}, NH {nh}, S {s}, "
               f"DH {dh}, float32, initial state {state}): max|err| / largest"
-              f" |grad| vs the plain backward " + ", ".join(
-                  f"{n} {e:.2e}" for n, e in errs.items())
-              + f" (rtol {MLSTM_BWD_RTOL}); two launches bitwise; device "
-              f"{ms:.5f} ms (sweep + chunk kernels), plain {plain:.5f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at "
-              f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB),"
-              f" {flops / ms / 1e9:.1f} TFLOP/s of needed work; the wgmma "
-              f"forward {fwd:.5f} ms, with the state writes {fwd_st:.5f} ms; "
-              f"forward with state writes bitwise the serving forward")
-        del args, kw, h, fin, states, got, again, want, h0, fin0, dh_
+              f" |grad| vs the plain backward, wgmma " + ", ".join(
+                  f"{n} {e:.2e}" for n, e in errs["wgmma"].items())
+              + "; simt " + ", ".join(
+                  f"{n} {e:.2e}" for n, e in errs["simt"].items())
+              + f" (rtol {MLSTM_BWD_RTOL}); two wgmma launches bitwise; "
+              f"device (turns new, old, old, new): wgmma "
+              f"{dev_ms['wgmma'][0]:.5f}/{dev_ms['wgmma'][1]:.5f} ms, simt "
+              f"{dev_ms['simt'][0]:.5f}/{dev_ms['simt'][1]:.5f} ms (new/old "
+              f"{ms / old_ms:.3f}); apart: " + ", ".join(
+                  f"{k} {v:.5f} ms" for k, v in split.items())
+              + f"; plain {plain:.5f} ms; bounds 3xTF32 ("
+              f"{TF32X3_FLOPS_PER_S / 1e12:.0f} TFLOP/s) {b_ms:.5f} ms "
+              f"({b_by}), float32 CUDA cores {f32_ms:.5f} ms ({f32_by}); "
+              f"{flops / 1e9:.2f} GFLOP and {nbytes / 1e6:.1f} MB needed; "
+              f"wgmma {flops / ms / 1e9:.1f} TFLOP/s of needed work; the "
+              f"wgmma forward {fwd:.5f} ms, with the state writes "
+              f"{fwd_st:.5f} ms; forward with state writes bitwise the "
+              f"serving forward")
+        print(f"[kernel] mlstm_chunked_bwd {label}: wgmma "
+              f"{'faster' if ms < old_ms else 'NOT faster'} than simt "
+              f"({ms:.5f} against {old_ms:.5f} ms, turns' spread "
+              f"{spread:.5f} ms)")
+        if label == "path":
+            check(ms < old_ms, f"mlstm bwd {label}: the wgmma route "
+                  f"({ms:.5f} ms) is not faster than the simt kernels "
+                  f"({old_ms:.5f} ms)")
+        del args, kw, h, fin, states, got, again, old, want, h0, fin0, dh_
         torch.cuda.empty_cache()
     head = rows["path"]
-    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked_bwd.cu",
+    return dict(source="src/repro_torch/kernels/csrc/mlstm_chunked_bwd_tc.cu",
+                simt_source="src/repro_torch/kernels/csrc/mlstm_chunked_bwd.cu",
                 replaces="src/repro/models/recurrent.py:114 (no Pallas "
                 "kernel: XLA differentiates mlstm_chunk_body)",
                 max_abs_err=max_err, library_ms=None,
                 library_call=MLSTM_BWD_LIBRARY_NOTE,
                 headline=f"float32, B {XT_B}, NH 4, S {XT_S}, DH 512, fresh "
-                "state", **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "fwd_ms",
-                                                 "fwd_states_ms")},
+                "state", max_active_clusters=clusters,
+                **{k: head[k] for k in ("ms", "simt_ms", "split_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "f32_bound_ms", "fwd_ms",
+                                        "fwd_states_ms")},
                 cases=rows)
 
 
@@ -5261,6 +5374,11 @@ def main():
         print("chip_smoke --xlstm-train: the mLSTM backward's checks and the "
               "xLSTM training phases only; no result line")
         return 0
+    if "--mlstm-bwd" in sys.argv[1:]:
+        print(json.dumps({"mlstm_chunked_bwd": mlstm_bwd_checks(torch, dev)}))
+        print("chip_smoke --mlstm-bwd: the mLSTM backward's checks only; no "
+              "result line")
+        return 0
     if "--mlstm" in sys.argv[1:]:
         rows = {"mlstm_chunked": mlstm_checks(torch, dev),
                 "quantize_kv_append": append_checks(torch, cfg, dev)}
@@ -5413,6 +5531,7 @@ def main():
                 for r in xlstm_routes}, "build": tc[name]}
         if name == "mlstm_chunked_bwd":
             extra = {"launches_by_route": xt_routes[name],
+                     "build": tc[name],
                      "xlstm_train_phase": xt_summary,
                      "xlstm_step_vs_plain": xt_step,
                      "xlstm_step_profile": xt_profile}

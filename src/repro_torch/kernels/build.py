@@ -78,6 +78,8 @@ SIGNATURES = {
                               + [_P, _P]),
     "mlstm_chunked_bwd": ("mlstm_chunked_bwd",
                           [_I] + [_P] * 19 + [_I] * 4 + [_P]),
+    "mlstm_chunked_bwd_tc": ("mlstm_chunked_bwd_tc",
+                             [_I] + [_P] * 20 + [_I] * 4 + [_P, _P]),
     "kv_append_int8": ("kv_append_int8",
                        [_I] + [_P] * 9 + [_I] + [_L] * 4 + [_I] * 6 + [_P]),
 }

@@ -1053,7 +1053,9 @@ def mlstm_route(dtype, dh: int) -> str:
     of DH / 64 CTAs sharing S) for float32 or bf16 at head width DH in
     :data:`MLSTM_TC_DH`, else "simt" (``csrc/mlstm_chunked.cu``, float32
     on the CUDA cores, any DH up to :data:`MLSTM_MAX_DH`). Inputs whose
-    bases are not 16-byte aligned (TMA's rule) take "simt" too."""
+    bases are not 16-byte aligned (TMA's rule) take "simt" too. The
+    backward, :func:`mlstm_chunked_bwd`, takes the same route:
+    ``csrc/mlstm_chunked_bwd_tc.cu`` or ``csrc/mlstm_chunked_bwd.cu``."""
     return ("wgmma" if dtype in (torch.float32, torch.bfloat16)
             and dh in MLSTM_TC_DH else "simt")
 
@@ -1166,11 +1168,12 @@ def mlstm_chunked_bwd(q, k, v, ig, lf, h, dh, states, *, chunk: int = 64):
     on the same device; h and dh in q's dtype. No gradient reaches the
     initial or final state.
 
-    On the card it launches ``csrc/mlstm_chunked_bwd.cu`` (a reverse
-    sweep carrying dC and dn, then every chunk in parallel; float32 on
-    the CUDA cores), the states being those of the kernels' chunks;
-    ``mlstm_chunked_bwd.launches`` counts its calls (one a call, for its
-    two kernels). On the CPU it runs
+    On the card it launches the kernels of :func:`mlstm_route`'s
+    route (each a reverse sweep carrying dC and dn, then every chunk in
+    parallel), the states being those of the kernels' chunks;
+    ``mlstm_chunked_bwd.launches`` counts its calls (one a call, whatever
+    its kernels) and ``mlstm_chunked_bwd.routes`` the calls of each route.
+    On the CPU it runs
     :func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_ref` at ``chunk``,
     the chunk the states were made with."""
     _require(q.dim() == 4 and all(t.shape == q.shape
@@ -1202,19 +1205,50 @@ def mlstm_chunked_bwd(q, k, v, ig, lf, h, dh, states, *, chunk: int = 64):
     if not on_card:
         return ref.mlstm_chunkwise_bwd_ref(q, k, v, ig, lf, h, dh, states,
                                            chunk=chunk)
+    return _mlstm_bwd_card(q, k, v, ig, lf, h, dh, states)
+
+
+def _mlstm_bwd_card(q, k, v, ig, lf, h, dh, states, *, route=None,
+                    prof=None):
+    """The card launch of :func:`mlstm_chunked_bwd` (inputs already
+    checked) on ``route``: :func:`mlstm_route`'s choice by default,
+    "simt" to time the SIMT kernels on the same inputs. ``prof``: a CUDA
+    int64 tensor the wgmma route's kernels add their phase clocks to (9
+    for the sweep, then 11 for the chunk kernel; the source lists the
+    phases)."""
+    b, nh, s, d = q.shape
+    best = mlstm_route(q.dtype, d)
+    if any(t.data_ptr() % 16 for t in (q, k, v, h, dh)):
+        best = "simt"
+    route = route or best
+    _require(route in (best, "simt"), f"mlstm_chunked_bwd: route "
+             f"{route!r} cannot take these operands (it takes {best!r} or "
+             f"'simt')")
+    _require(prof is None or route == "wgmma", "mlstm_chunked_bwd: only "
+             "the wgmma route keeps phase clocks")
     kw = dict(dtype=torch.float32, device=q.device)
     grads = (torch.empty((b, nh, s, d), **kw), torch.empty((b, nh, s, d),
                                                            **kw),
              torch.empty((b, nh, s, d), **kw), torch.empty((b, nh, s), **kw),
              torch.empty((b, nh, s), **kw))
-    carried = (torch.empty(shapes[0], **kw), torch.empty(shapes[1], **kw))
-    err = build.load("mlstm_chunked_bwd")(
+    # the carried dC' and dn' (written by the sweep), and for the wgmma
+    # route its gates kernel's planes (cumsum, inter, w, 1 / den, dqn),
+    # each chunk's carry and its sweep CTAs' shares of <C, dC'>
+    scratch = [torch.empty(states[0].shape, **kw),
+               torch.empty(states[1].shape, **kw)]
+    extra = []
+    if route == "wgmma":
+        scratch.append(torch.empty(
+            5 * b * nh * s + states[2].numel() * (1 + d // 64), **kw))
+        extra = [_ptr(prof)]
+    err = build.load("mlstm_chunked_bwd_tc" if route == "wgmma"
+                     else "mlstm_chunked_bwd")(
         _DTYPE_CODES[q.dtype], *(_ptr(t) for t in (q, k, v, ig, lf, h, dh)),
         *(_ptr(t) for t in states), *(_ptr(t) for t in grads),
-        *(_ptr(t) for t in carried), b, nh, s, d, _stream(q))
-    _raise_on(err, "mlstm_chunked_bwd")
+        *(_ptr(t) for t in scratch), b, nh, s, d, *extra, _stream(q))
+    _raise_on(err, f"mlstm_chunked_bwd ({route})")
     mlstm_chunked_bwd.launches += 1
-    mlstm_chunked_bwd.routes["simt"] += 1
+    mlstm_chunked_bwd.routes[route] += 1
     return grads
 
 
@@ -1277,15 +1311,14 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
 #: the three flash kernels count their float32 3xTF32 kernel's launches
-#: as "tf32x3" beside them (:data:`TF32_ROUTED`); the mLSTM backward has
-#: one kernel, on the CUDA cores ("simt")
+#: as "tf32x3" beside them (:data:`TF32_ROUTED`)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
           paged_verify_attention: PAGED_ROUTES["prefill"],
           mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec",
-          mlstm_chunked_bwd: "simt"}
+          mlstm_chunked_bwd: "wgmma"}
 TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv,
                flash_attention_bwd_dq)
 

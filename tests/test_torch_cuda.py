@@ -25,10 +25,11 @@ the flash backward and the wgmma mLSTM bitwise equal across runs (no
 atomics); the mLSTM kernels' (wgmma and SIMT) float32 h within 5e-5 of
 its largest magnitude (den = |n.q| can cancel and magnify the order of
 the sums) and their state within 1e-5, bf16 h one bf16 ulp there, and
-the two kernels within twice those of each other; the mLSTM backward
-kernel's gradients within 1e-4 of each one's largest magnitude of the
-plain backward's on the same saved states, bitwise repeatable, and a
-checkpointed layer's gradients within 1e-4 of the CPU's.
+the two kernels within twice those of each other; the mLSTM backward's
+gradients, on both its routes (3xTF32 wgmma and SIMT), within 1e-4 of
+each one's largest magnitude of the plain backward's on the same saved
+states, bitwise repeatable, and a checkpointed layer's gradients within
+1e-4 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -901,6 +902,8 @@ def test_mlstm_wgmma_is_bitwise_repeatable(dev):
 
 MLSTM_BWD_CASES = [(2, 4, 512, 512, False), (1, 4, 333, 512, True),
                    (2, 2, 100, 64, True), (1, 2, 129, 40, True)]
+MLSTM_BWD_IDS = ["path-width", "ragged-state", "dh64", "dh40-simt"]
+MLSTM_BWD_GRADS = ("dq", "dk", "dv", "dig", "dlf")
 
 
 def _mlstm_bwd_inputs(dev, dtype, b, nh, s, dh, state, seed=5):
@@ -910,65 +913,115 @@ def _mlstm_bwd_inputs(dev, dtype, b, nh, s, dh, state, seed=5):
     return args, kw, dh_
 
 
+@pytest.mark.parametrize("route", ["routed", "simt"])
 @pytest.mark.parametrize("b,nh,s,dh,state", MLSTM_BWD_CASES,
-                         ids=["path-width", "ragged-state", "dh64",
-                              "dh40-simt"])
-def test_mlstm_bwd_kernel_matches_plain(dev, b, nh, s, dh, state):
-    """The backward kernel against the plain backward on the same saved
-    states (the forward kernel's, chunks of 64), each gradient within
-    1e-4 of its largest magnitude (float32 both, in other summation
-    orders; den = max(|n.q|, e^-m) divides and can magnify them). The
-    forward with the state writes gives h and the final state bitwise
-    those without."""
+                         ids=MLSTM_BWD_IDS)
+def test_mlstm_bwd_kernel_matches_plain(dev, b, nh, s, dh, state, route):
+    """Each route's backward kernels against the plain backward on the
+    same saved states (the forward kernel's, chunks of 64), each gradient
+    within 1e-4 of its largest magnitude (float32 both, in other
+    summation orders; den = max(|n.q|, e^-m) divides and can magnify
+    them). "routed" is the wrapper's own choice: wgmma at DH 64 and 512,
+    simt at DH 40; "simt" asks for the SIMT kernels by name. The forward
+    with the state writes gives h and the final state bitwise those
+    without."""
     args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, b, nh, s, dh,
                                       state)
     h0, fin0 = ops.mlstm_chunked(*args, **kw)
     h, fin, states = ops.mlstm_chunked(*args, **kw, states=True)
     assert torch.equal(h, h0) and all(torch.equal(x, y)
                                       for x, y in zip(fin, fin0))
-    before = ops.launch_counts()["mlstm_chunked_bwd"]
-    got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    want_route = ("simt" if route == "simt" or dh not in ops.MLSTM_TC_DH
+                  else "wgmma")
+    before = dict(ops.route_counts()["mlstm_chunked_bwd"])
+    if route == "simt":
+        got = ops._mlstm_bwd_card(*args, h, dh_, states, route="simt")
+    else:
+        got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
     want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states, chunk=64)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["mlstm_chunked_bwd"] == before + 1
-    for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
+    after = ops.route_counts()["mlstm_chunked_bwd"]
+    before[want_route] += 1
+    assert after == before
+    for name, x, y in zip(MLSTM_BWD_GRADS, got, want):
         assert x.dtype == torch.float32 and x.shape == y.shape, name
         assert bool(torch.isfinite(x).all()), name
         peak = float(y.abs().max())
         assert float((x - y).abs().max()) <= 1e-4 * peak, name
 
 
-def test_mlstm_bwd_kernel_takes_bf16_inputs(dev):
-    """bf16 q, k, v, h and dh (read as float32, the kernel's bf16
-    instantiation) against the plain backward on the same values, within
-    the float32 case's 1e-4 of each gradient's largest magnitude."""
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_mlstm_bwd_kernel_takes_bf16_inputs(dev, route):
+    """bf16 q, k, v, h and dh (the wgmma route drops the passes of their
+    exact tf32 parts; the SIMT kernel reads them as float32) against the
+    plain backward on the same values, within the float32 case's 1e-4 of
+    each gradient's largest magnitude."""
     args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.bfloat16, 1, 4, 200, 512,
                                       True)
     h, _, states = ops.mlstm_chunked(*args, **kw, states=True)
-    got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    before = ops.route_counts()["mlstm_chunked_bwd"][route]
+    got = ops._mlstm_bwd_card(*args, h, dh_, states, route=route)
     want = ref.mlstm_chunkwise_bwd_ref(*args, h, dh_, states, chunk=64)
     torch.cuda.synchronize()
-    for name, x, y in zip(("dq", "dk", "dv", "dig", "dlf"), got, want):
+    assert ops.route_counts()["mlstm_chunked_bwd"][route] == before + 1
+    for name, x, y in zip(MLSTM_BWD_GRADS, got, want):
         assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()), \
             name
 
 
-def test_mlstm_bwd_is_bitwise_repeatable(dev):
-    """No atomics: every sum of the backward runs in a fixed order."""
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_mlstm_bwd_is_bitwise_repeatable(dev, route):
+    """No atomics: every sum of either route's backward (the wgmma
+    cluster's sums in rank order) runs in a fixed order."""
     args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, 1, 4, 200, 512,
                                       True)
     h, _, states = ops.mlstm_chunked(*args, **kw, states=True)
-    a = ops.mlstm_chunked_bwd(*args, h, dh_, states)
-    b = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    a = ops._mlstm_bwd_card(*args, h, dh_, states, route=route)
+    b = ops._mlstm_bwd_card(*args, h, dh_, states, route=route)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["dh40", "misaligned"])
+def test_mlstm_bwd_route_selection(dev, case, monkeypatch):
+    """The wgmma route takes DH in MLSTM_TC_DH with 16-byte aligned
+    bases; DH 40 and a base 4 bytes in go to the SIMT kernels, and no
+    plain version runs. Asking the wgmma route for them raises."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("mlstm_chunkwise_bwd_ref", "_mlstm_chunk_bwd"):
+        monkeypatch.setattr(ref, name, boom)
+    dh = 40 if case == "dh40" else 64
+    args, kw, dh_ = _mlstm_bwd_inputs(dev, torch.float32, 1, 2, 77, dh,
+                                      False)
+    h, _, states = ops.mlstm_chunked(*args, **kw, states=True)
+    if case == "misaligned":
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            out = buf[1:].view(t.shape)
+            out.copy_(t)
+            return out
+        args = [shifted(args[0]), *args[1:]]
+        assert args[0].data_ptr() % 16
+    assert ops.mlstm_route(torch.float32, dh) == (
+        "simt" if case == "dh40" else "wgmma")
+    before = dict(ops.route_counts()["mlstm_chunked_bwd"])
+    got = ops.mlstm_chunked_bwd(*args, h, dh_, states)
+    torch.cuda.synchronize()
+    after = ops.route_counts()["mlstm_chunked_bwd"]
+    assert after == {"wgmma": before["wgmma"], "simt": before["simt"] + 1}
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    with pytest.raises(ValueError, match="route"):
+        ops._mlstm_bwd_card(*args, h, dh_, states, route="wgmma")
+
+
 def test_mlstm_ad_cuda_never_takes_the_plain_path(dev, monkeypatch):
     """CUDA tensors through the autograd Function launch the forward and
-    backward kernels: no plain version runs, either half."""
+    backward kernels, both on route wgmma at DH 64: no plain version
+    runs, either half."""
     def boom(*a, **k):
         raise AssertionError("a plain version ran on the card")
 
@@ -979,12 +1032,18 @@ def test_mlstm_ad_cuda_never_takes_the_plain_path(dev, monkeypatch):
                                       False)
     ins = [t.clone().requires_grad_() for t in args]
     before = ops.launch_counts()
+    routes = ops.route_counts()
     h, _ = ops.mlstm_chunked_ad(*ins)
     grads = torch.autograd.grad(h, ins, dh_)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["mlstm_chunked"] == before["mlstm_chunked"] + 1
     assert after["mlstm_chunked_bwd"] == before["mlstm_chunked_bwd"] + 1
+    now = ops.route_counts()
+    assert now["mlstm_chunked"]["wgmma"] == routes["mlstm_chunked"]["wgmma"] + 1
+    assert now["mlstm_chunked_bwd"] == {
+        "wgmma": routes["mlstm_chunked_bwd"]["wgmma"] + 1,
+        "simt": routes["mlstm_chunked_bwd"]["simt"]}
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
