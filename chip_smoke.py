@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-four hand-written kernel libraries from
+  2. builds the twenty-five hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
      prints the build time; checks that the nine tensor-core libraries'
      (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward, dK/dV
@@ -60,7 +60,13 @@ In order, it
      state) and at a ragged S with an initial state, against the plain
      backward on the states the forward kernel saved, bitwise over two
      launches, beside the forward with and without its state writes
-     (bitwise the same h and final state);
+     (bitwise the same h and final state); paged decode and prefill at
+     head_dim 128 (qwen3-14b's 40/8 heads, 4096 keys, bf16 and int8
+     pools) on their SIMT kernels beside the plain version and the
+     gather + SDPA composition; the flash forward, preprocess, dK/dV and
+     dQ at head_dim 128 (B 2, Hq 40, Hkv 8, S 1024: the SIMT kernels)
+     and at Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512, D 64: the
+     wgmma kernels) beside the plain versions and SDPA;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -168,8 +174,26 @@ In order, it
      kernels against the plain chunkwise mLSTM with autograd (loss,
      grads, updated params, the flad-adllm step's limits); profiles a
      warm bf16 local step;
- 10. prints one JSON line describing every ported kernel, the card's
-     name and power limit, and {"ok": true, "device": {...}} last.
+ 9c. serves qwen3-14b at full width and depth (40 layers, 14.77 B bf16
+     params from a seed) through the continuous scheduler over the
+     serving phase's trace with both caches, and qwen2.5-32b, qwen3-32b
+     and yi-34b at full width cut to 4 layers (32.8-34.4 B params do not
+     fit beside a KV pool) over the model-dtype cache, each held to the
+     contiguous oracle, every paged launch on its SIMT route (head_dim
+     128); trains qwen3-14b cut to 2 layers by the tensor strategy (the
+     flash kernels at head_dim 128, SIMT); serves Hymba-1.5b at full
+     width and depth with the legacy scheduler (no kernel), holds a
+     loss through the flash kernels to plain attention, trains it by
+     the tensor strategy (every flash launch on wgmma at Hq 25 / Hkv 5)
+     and profiles a step (the Mamba scan's share); runs xlstm-350m's
+     FHDP step at full width (the pipeline strategy on a (2, 4) mesh,
+     each stage's units in the flat model's order; 8 sequences of 256
+     tokens, cut from 512 for the script's time limit), its first loss
+     held to the flat Model.loss, every mLSTM launch on wgmma;
+ 10. prints one JSON line describing every ported kernel (with the new
+     shapes' times and launches as its head_dim_128 and hymba_group_5
+     entries), the card's name and power limit, and {"ok": true,
+     "device": {...}} last.
 
 With --paged it stops after the build and the paged kernels' checks
 (step 3's first part), with --mlstm after the build, the mLSTM kernels'
@@ -179,7 +203,12 @@ and step 4b,
 with --vision after the build, the flash kernels at the FHDP shape and
 step 8b, with --swift after the build and step 8c, with --async after
 the build and step 5b, with --xlstm-train after the build, the mLSTM
-backward's checks and step 9b; none prints a result line. The trace files go to
+backward's checks and step 9b, with --dense after the build, the
+head_dim-128 kernels' checks and the dense part of step 9c, with --hymba
+after the build, the group-5 flash checks and the Hymba part, with
+--xlstm-fhdp after the build and the FHDP part at 512 tokens with a
+profiled step (minutes: its trace holds about 2.9 million kernels);
+none prints a result line. The trace files go to
 chiprun_out/chip_smoke/ under the checkout.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -3869,7 +3898,8 @@ def mlstm_checks(torch, dev):
     float32 on the CUDA cores and 3xTF32 on the tensor cores (the one the
     wgmma kernel is held to; bf16 inputs need two passes). Cases: the
     prefill's shape with the fresh state it is given there, a ragged S, a
-    random initial state, bf16 inputs and the reduced config's DH 64.
+    random initial state, bf16 inputs, the reduced config's DH 64 and the
+    ssm FHDP step's one-sample microbatches (B 1 at XF_S_CUT and XF_S).
     Also the errors of both kernels and of the plain version against a
     float64 plain run, the launch's cudaOccupancyMaxActiveClusters, and
     each kernel's phase split at the prefill's shape. Returns the
@@ -3889,7 +3919,9 @@ def mlstm_checks(torch, dev):
              ("ragged S 333", 8, 4, 333, 512, torch.float32, None),
              ("initial state", 2, 4, XCTX, 512, torch.float32, "random"),
              ("bf16", 8, 4, XCTX, 512, torch.bfloat16, "fresh"),
-             ("DH 64", 8, 4, XCTX, 64, torch.float32, "random")]
+             ("DH 64", 8, 4, XCTX, 64, torch.float32, "random"),
+             *((f"FHDP microbatch S {s_}", 1, 4, s_, 512, torch.float32,
+                "fresh") for s_ in (XF_S_CUT, XF_S))]
     max_err, rows, phases = 0.0, {}, {}
     for label, b, nh, s, dh, dtype, state in cases:
         args, kw = _mlstm_inputs(torch, dev, b, nh, s, dh, dtype, 41, state)
@@ -4229,9 +4261,11 @@ def mlstm_bwd_checks(torch, dev):
     (csrc/mlstm_chunked_bwd_tc.cu, 3xTF32, what the path launches) and
     the SIMT kernels it replaced (csrc/mlstm_chunked_bwd.cu), at the
     training shape (B 4, NH 4, S 512, DH 512, float32, the fresh state a
-    training forward starts from) and at a ragged S with an initial
-    state. Each case: every gradient of both routes within MLSTM_BWD_RTOL
-    of its largest magnitude, two wgmma launches bitwise equal, the
+    training forward starts from), at a ragged S with an initial state
+    and at the ssm FHDP step's one-sample microbatches (B 1 at XF_S_CUT
+    and XF_S, fresh). Each case: every gradient of both routes within
+    MLSTM_BWD_RTOL of its largest magnitude, two wgmma launches bitwise
+    equal, the
     forward with the state writes giving h and the final state bitwise
     those without; cold L2 device times of the two routes in turns (new,
     old, old, new), each route's kernels apart, the plain backward and the
@@ -4250,7 +4284,9 @@ def mlstm_bwd_checks(torch, dev):
           f"cudaOccupancyMaxActiveClusters {clusters}, so "
           f"{-(-n_cl // max(1, clusters))} waves")
     cases = [("path", XT_B, 4, XT_S, 512, "fresh"),
-             ("ragged S 333, initial state", 2, 4, 333, 512, "random")]
+             ("ragged S 333, initial state", 2, 4, 333, 512, "random"),
+             *((f"FHDP microbatch S {s_}", 1, 4, s_, 512, "fresh")
+               for s_ in (XF_S_CUT, XF_S))]
     rows, max_err = {}, 0.0
     for label, b, nh, s, dh, state in cases:
         args, kw = _mlstm_inputs(torch, dev, b, nh, s, dh, torch.float32, 43,
@@ -5286,6 +5322,901 @@ def contiguous_oracle(torch, cfg, params, dev, streams, prompts):
     return drift, agree / total, total
 
 
+# ---------------------------------------- head_dim 128, Hymba, the ssm FHDP
+#: the dense configs at head_dim 128: qwen3-14b at full width and depth
+#: (40 layers, 14.77 B parameters, 29.5 GB of bf16 weights), the 32B
+#: class at full width cut to CUT_LAYERS layers (32.8-34.4 B parameters
+#: do not fit 80 GB beside a KV pool); each served through the serving
+#: phase's scheduler and trace, qwen3-14b over both caches
+DENSE_FULL = "qwen3-14b"
+DENSE_CUT = ("qwen2.5-32b", "qwen3-32b", "yi-34b")
+CUT_LAYERS = 4
+#: qwen3-14b cut to DT_LAYERS layers, trained by the tensor strategy at
+#: DT_S x DT_B tokens for DT_STEPS steps: the flash kernels at head_dim
+#: 128 (their SIMT route) on a main path. Two layers, since the port's
+#: Adam holds float32 grads, moments and their updates at once: 2.22 B
+#: parameters (the embedding and head are 1.56 B) peak near 60 GB. The
+#: steps run the strategy's own step on its own init: a Session keeps its
+#: initial state alive through a run, 22 GB more here, which does not fit
+DT_LAYERS, DT_B, DT_S, DT_STEPS = 2, 2, 1024, 2
+#: Hymba-1.5b at full width and depth: legacy serving (HY_REQUESTS
+#: batches of HY_BATCH x HY_CONTEXT-token prompts, HY_DECODE decode
+#: steps), then tensor-strategy steps of HY_TRAIN_B x HY_TRAIN_S tokens
+#: (the bf16 wgmma flash kernels at Hq 25 over Hkv 5)
+HY_BATCH, HY_CONTEXT, HY_DECODE, HY_REQUESTS = 8, 512, 32, 2
+HY_TRAIN_B, HY_TRAIN_S, HY_TRAIN_STEPS = 4, 512, 3
+#: bf16 loss of one batch through the flash kernels vs plain attention
+HY_LOSS_RTOL = 2.0 ** -7
+#: xlstm-350m's FHDP step at full width and depth: the pipeline strategy
+#: on a (2, 4) mesh (2 FL columns x 4 stages; 3 super-blocks, 6 units),
+#: XF_B sequences of XF_S tokens, XF_STEPS steps (``--xlstm-fhdp``). The
+#: whole script cuts the sequences to XF_S_CUT tokens: the sLSTM's loop
+#: over time steps runs for each of the 8 one-sample microbatches, and
+#: at 512 tokens a step took 39-62 s of host-bound wall
+XF_MESH, XF_B, XF_S, XF_STEPS, XF_S_CUT = "2,4", 8, 512, 2, 256
+#: bf16: the FHDP loss against the flat Model.loss on the same params
+#: and batch (readings 2.62e-5 at 512 tokens, 5.72e-5 at 256); the
+#: stack-after-stack order of the reference's adapter must miss it
+XF_LOSS_RTOL = 5e-4
+#: the flash kernels' shapes that the new paths reach: head_dim 128 at
+#: the dense training shape, Hymba's GQA group of 5 at its training shape
+FLASH_SHAPES = {"head_dim_128": (DT_B, 40, 8, DT_S, 128, "simt"),
+                "hymba_group_5": (HY_TRAIN_B, 25, 5, HY_TRAIN_S, 64,
+                                  "wgmma")}
+FLASH_FNS = ("flash_attention", PRE, "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+
+
+def d128_paged_checks(torch, dev):
+    """:func:`d128_layout_checks` at every (query heads, KV heads) that
+    the dense configs reach (40/8: qwen3-14b and qwen2.5-32b; 64/8:
+    qwen3-32b; 56/8: yi-34b), timed at :data:`DENSE_FULL`'s. Returns its
+    rows, every layout's largest error folded into ``max_abs_err`` and
+    the layouts checked under ``layouts``."""
+    from repro_torch.configs import get_config
+    out, seen = None, []
+    for arch in (DENSE_FULL,) + DENSE_CUT:
+        cfg = get_config(arch)
+        heads = f"{cfg.num_heads}/{cfg.num_kv_heads}"
+        if heads in seen:
+            continue
+        seen.append(heads)
+        rows = d128_layout_checks(torch, cfg, dev, timed=out is None)
+        if out is None:
+            out = rows
+            continue
+        for fn, row in rows.items():
+            out[fn]["max_abs_err"] = max(out[fn]["max_abs_err"],
+                                         row["max_abs_err"])
+    for row in out.values():
+        row["layouts"] = seen
+    return out
+
+
+def d128_layout_checks(torch, cfg, dev, timed=True):
+    """Paged decode and prefill at head_dim 128 (``cfg``'s heads, e.g.
+    qwen3-14b's 40 query over 8 KV heads), where ``ops.paged_route``
+    sends bf16 q to the SIMT kernels (``csrc/paged_decode.cu``,
+    ``csrc/paged_prefill.cu``): the serving shapes (8 lanes to ctx 300;
+    chunks at 0, 112 and 288), 8 lanes at 4096 keys and a ragged lane
+    list (ctx 0 to 4096), chunks at 4080 and a partial one at 4088, over
+    bf16 and int8 pools with a NaN-poisoned null block, each held to the
+    float32 plain version as :func:`paged_checks` holds the Hopper
+    kernels (two calls bitwise equal); the serving and 4096-key cases
+    timed with a cold L2 beside the plain version and the gather + SDPA
+    composition (with ``timed``). Returns {wrapper: {"bf16": times,
+    "int8": times, "serving bf16": ..., "serving int8": ...,
+    "max_abs_err": e}}."""
+    from repro_torch.kernels import ops, ref
+    hq, d = cfg.num_heads, cfg.hd
+    scale = d ** -0.5
+    rng = np.random.default_rng(31)
+    out = {fn: {"max_abs_err": 0.0} for fn in ("paged_decode_attention",
+                                               "paged_prefill_attention")}
+    dtypes = (("bf16", torch.bfloat16, 2), ("int8", torch.int8, 1))
+    q = torch.randn((SLOTS, hq, d), device=dev).to(torch.bfloat16)
+    tw = LONG_CTX // BLOCK
+    for case, ctx_list, timed_case in (
+            ("serving", DECODE_CTX, timed),
+            ("long", [LONG_CTX] * SLOTS, timed),
+            ("ragged", [0, 1, 16, 17, 1000, 2049, LONG_CTX - 1, LONG_CTX],
+             False)):
+        width = -(-max(ctx_list) // BLOCK) + 1 if case == "serving" else tw
+        tnp, n = block_tables(ctx_list, width, rng)
+        tables = torch.tensor(tnp, device=dev)
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+        for name, kv_dtype, esz in dtypes:
+            check(ops.paged_route("decode", q.dtype, kv_dtype, d, BLOCK)
+                  == "simt", "head_dim 128 decode is not on the SIMT route")
+            k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, 5, dev)
+            kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+            args = (q, k, v, tables, ctx)
+            fn = lambda: ops.paged_decode_attention(*args, **kw)
+            e, use = _paged_run(
+                torch, f"decode D{d} {case} {name}", fn, fn,
+                lambda: ref.paged_decode_attention_ref(q.float(), *args[1:],
+                                                       **kw),
+                PAGED_RTOL["decode"], "simt", ops, "paged_decode_attention",
+                zero_rows=ctx == 0)
+            row = out["paged_decode_attention"]
+            row["max_abs_err"] = max(row["max_abs_err"], e[0])
+            msg = (f"[kernel] paged_decode_attention D{d} Hq{hq} "
+                   f"Hkv{cfg.num_kv_heads} {case} {name} pools (ctx "
+                   f"{min(ctx_list)}..{max(ctx_list)}): max|err| {e[0]:.3e}, "
+                   f"worst row at {use[0]:.3f} of its bound; bitwise "
+                   "repeatable")
+            if timed_case:
+                r = dict(ms=device_ms(fn, "paged_decode_kernel"),
+                         plain_ms=device_ms(
+                             lambda: ref.paged_decode_attention_ref(*args,
+                                                                    **kw),
+                             None, iters=20),
+                         composition_ms=device_ms(
+                             lambda: _decode_composition(
+                                 torch, q, k, v, ks, vs, tables, ctx, scale),
+                             None, iters=20))
+                nbytes, flops = _decode_work(cfg, ctx_list, esz, SLOTS)
+                nbytes += tables.numel() * 4 + ctx.numel() * 4
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+                row[name if case == "long" else f"{case} {name}"] = r
+                msg += (f"; device: kernel {r['ms']:.5f} ms, plain "
+                        f"{r['plain_ms']:.5f} ms, composition (gather + "
+                        f"SDPA) {r['composition_ms']:.5f} ms; bound "
+                        f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+            print(msg)
+            del k, v, ks, vs
+    ctx_max = max(o + c for o, c in PREFILL_CHUNKS)
+    row = out["paged_prefill_attention"]
+    for case, chunks, keys in (("serving", PREFILL_CHUNKS, ctx_max),
+                               ("long", LONG_PREFILL_CHUNKS, LONG_CTX)):
+        tnp, n = block_tables([keys], -(-keys // BLOCK) + 1, rng)
+        table = torch.tensor(tnp[0], device=dev)
+        timed_chunk = (None if not timed else chunks[-1]
+                       if case == "serving" else chunks[0])
+        for name, kv_dtype, esz in dtypes:
+            k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, 6, dev)
+            kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+            for off, clen in chunks:
+                qc = torch.randn((hq, CHUNK, d), device=dev).to(
+                    torch.bfloat16)
+                args = (qc, k, v, table, off, off + clen)
+                fn = lambda: ops.paged_prefill_attention(*args, **kw)
+                e, use = _paged_run(
+                    torch, f"prefill D{d} {name} @{off}+{clen}", fn, fn,
+                    lambda: ref.paged_prefill_attention_ref(
+                        qc.float(), *args[1:], **kw),
+                    PAGED_RTOL["prefill"], "simt", ops,
+                    "paged_prefill_attention",
+                    rows=lambda x, c=clen: x[:, :c])
+                row["max_abs_err"] = max(row["max_abs_err"], e[0])
+                msg = (f"[kernel] paged_prefill_attention D{d} Hq{hq} "
+                       f"Hkv{cfg.num_kv_heads} {name} pools (chunk at "
+                       f"{off}, {clen} rows): max|err| {e[0]:.3e}, worst "
+                       f"row at {use[0]:.3f} of its bound; bitwise "
+                       "repeatable")
+                if (off, clen) == timed_chunk:
+                    r = dict(ms=device_ms(fn, "paged_prefill_kernel"),
+                             plain_ms=device_ms(
+                                 lambda: ref.paged_prefill_attention_ref(
+                                     *args, **kw), None, iters=20),
+                             composition_ms=device_ms(
+                                 lambda: _prefill_composition(
+                                     torch, qc, k, v, ks, vs, table, off,
+                                     off + clen, scale), None, iters=20))
+                    nbytes = (2 * hq * CHUNK * d * 2 + table.numel() * 4
+                              + 2 * (off + clen) * cfg.num_kv_heads
+                              * (d * esz + (4 if esz == 1 else 0)))
+                    flops = 4 * hq * d * sum(off + c + 1
+                                             for c in range(clen))
+                    r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                         BF16_FLOPS_PER_S)
+                    row[name if case == "long" else f"{case} {name}"] = r
+                    msg += (f"; device: kernel {r['ms']:.5f} ms, plain "
+                            f"{r['plain_ms']:.5f} ms, composition (gather "
+                            f"+ SDPA) {r['composition_ms']:.5f} ms; bound "
+                            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+                print(msg)
+            del k, v, ks, vs
+    return out
+
+
+def flash_shape_checks(torch, dev, label):
+    """The flash forward, preprocess, dK/dV and dQ at one of
+    :data:`FLASH_SHAPES` (bf16, causal): each against its plain version
+    (bf16 outputs within a bf16 ulp of the largest magnitude, lse and
+    delta within 1e-5 of theirs), the backward bitwise repeatable, each
+    launch on the shape's route (the preprocess on vec); timed with a
+    cold L2 beside the plain version and one PyTorch call (SDPA's forward;
+    SDPA's whole backward for dK/dV and dQ; for the preprocess one
+    torch.bmm with a float32 output, as :func:`preprocess_checks` times
+    it). Returns {wrapper: row}."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    b, hq, hkv, s, d, route = FLASH_SHAPES[label]
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rand(b, hq, s, d), rand(b, hkv, s, d), rand(b, hkv, s, d), \
+        rand(b, hq, s, d)
+    sc = d ** -0.5
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    grew = {fn: {r: n - before[fn][r] for r, n in c.items()}
+            for fn, c in ops.route_counts().items() if fn in FLASH_FNS}
+    for fn in FLASH_FNS:
+        want = dict.fromkeys(grew[fn], 0)
+        want["vec" if fn == PRE else route] = 1
+        check(grew[fn] == want, f"flash {label} {fn}: launches by route "
+              f"{grew[fn]} != {want}")
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))),
+          f"flash {label}: two backward runs differ")
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=sc)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale=sc)
+    errs = {}
+    for lab, fn, got, want in (
+            ("o", "flash_attention", o, ro),
+            ("lse", "flash_attention", lse, rlse),
+            ("delta", PRE, delta, rdelta),
+            ("dk", "flash_attention_bwd_dkv", dk, rdk),
+            ("dv", "flash_attention_bwd_dkv", dv, rdv),
+            ("dq", "flash_attention_bwd_dq", dq, rdq)):
+        check(bool(torch.isfinite(got).all()), f"flash {label} {lab}: "
+              "non-finite")
+        err = _err(got, want)
+        tol = (FLASH_ATOL_F32 * max(1.0, float(want.abs().max()))
+               if lab in ("lse", "delta")
+               else BF16_ULP * float(want.float().abs().max()))
+        check(err <= tol, f"flash {label} {lab}: max err {err:.3e} > "
+              f"{tol:.3e}")
+        errs[fn] = max(errs.get(fn, 0.0), err)
+    del ro, rlse, rdelta, rdk, rdv, rdq, again
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), None, iters=20)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True), None, iters=20)
+    nq, nkv, stat = b * hq * s * d, b * hkv * s * d, b * hq * s
+    pairs = b * hq * _pairs(s, s)
+    runs = {
+        "flash_attention": (
+            lambda: ops.flash_attention(q, k, v, return_lse=True),
+            lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
+            lib_fwd, ((2 * nq + 2 * nkv) * 2 + 4 * stat, 4 * d * pairs)),
+        PRE: (
+            lambda: ops.flash_attention_bwd_preprocess(o, do),
+            lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
+            device_ms(lambda: _bmm_delta(torch, o, do), None, iters=20),
+            (2 * nq * 2 + 4 * stat, 2 * nq)),
+        "flash_attention_bwd_dkv": (
+            lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    scale=sc),
+            lib_bwd, ((2 * nq + 4 * nkv) * 2 + 8 * stat, 8 * d * pairs)),
+        "flash_attention_bwd_dq": (
+            lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                   scale=sc),
+            lib_bwd, ((3 * nq + 2 * nkv) * 2 + 8 * stat, 6 * d * pairs))}
+    rows = {}
+    for fn, (kfn, pfn, lib, work) in runs.items():
+        match = (PRE_NAMES["vec"] if fn == PRE
+                 else TC_KERNELS[fn][3 if route == "wgmma" else 4])
+        ms = device_ms(kfn, match)
+        plain = device_ms(pfn, None, iters=20)
+        b_ms, b_by = bound(*work, BF16_FLOPS_PER_S)
+        rows[fn] = dict(shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal",
+                        route="vec" if fn == PRE else route, kernel=match,
+                        max_abs_err=errs[fn], ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                        f32_cuda_core_bound_ms=bound(
+                            work[0], work[1], F32_FLOPS_PER_S)[0])
+        print(f"[kernel] {fn} {label} ({rows[fn]['shape']}, {match}): "
+              f"max|err| {errs[fn]:.3e}; device: kernel {ms:.5f} ms, plain "
+              f"{plain:.5f} ms, library "
+              f"{'n/a' if lib is None else round(lib, 5)} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}; on the CUDA cores in float32 "
+              f"{rows[fn]['f32_cuda_core_bound_ms']:.5f} ms)")
+    del q, k, v, do, o, lse, delta, dk, dv, dq, ql, kl, vl, lo
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dense_serve(torch, cfg, params, dev, caches):
+    """The serving phase's fleet trace through serve_continuous (a cold
+    and a warm pass) with each cache mode in ``caches``: the exact
+    launches, every paged launch on the SIMT route (head_dim 128), every
+    int8 append one fused launch, finite in-range tokens. Returns (launch
+    totals, {cache: report})."""
+    from repro_torch.kernels import ops
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    reports, L = {}, cfg.num_layers
+    for cache in caches:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = _serve_trace(cfg, params, dev, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(rep["requests"] == TRACE["num_requests"]
+              and rep["unstarted_requests"] == 0,
+              f"{cfg.name} {cache}: not every request finished")
+        check(all(0 <= tok < cfg.vocab_size
+                  for s in rep["sequences"].values() for tok in s),
+              f"{cfg.name} {cache}: token id out of range")
+        want = dict.fromkeys(counts, 0)
+        want.update(
+            paged_decode_attention=2 * L * rep["decode_steps"],
+            paged_prefill_attention=2 * L * rep["prefill_chunks"],
+            quantize_kv_append=(2 * L * (rep["decode_steps"]
+                                         + rep["prefill_chunks"])
+                                if cache == "int8" else 0))
+        check(counts == want, f"{cfg.name} {cache}: launches {counts} != "
+              f"{want}")
+        routes = ops.route_counts()
+        for fn in ("paged_decode_attention", "paged_prefill_attention"):
+            check(routes[fn]["simt"] == counts[fn], f"{cfg.name} {cache}: "
+                  f"{fn} launches by route {routes[fn]}, want all simt")
+        print(f"[dense] {cfg.name} ({L} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}) "
+              f"cache={cache}: {rep['requests']} requests, "
+              f"{rep['total_new_tokens']} tokens, {rep['decode_steps']} "
+              f"decode steps, {rep['prefill_chunks']} prefill chunks; warm "
+              f"{rep['warm_tokens_per_s']:.1f} tok/s (cold "
+              f"{rep['tokens_per_s']:.1f}); two passes {wall:.1f} s of "
+              f"wall; launches {counts}, all paged ones on simt")
+        reports[cache] = dict(rep, wall_s=wall)
+        for name in totals:
+            totals[name] += counts[name]
+    return totals, reports
+
+
+def _oracle_requests(cfg, rep):
+    """The four longest requests of the serving trace and their served
+    streams in ``rep``."""
+    from repro_torch.serve import generate_fleet_requests
+    trace = generate_fleet_requests(
+        TRACE["fleet"], num_requests=TRACE["num_requests"],
+        max_prompt=TRACE["max_prompt"], seed=TRACE["seed"], deadline_s=4.0,
+        vocab_size=cfg.vocab_size)
+    reqs = sorted(trace, key=lambda r: -len(r.prompt))[:4]
+    return reqs, {r.rid: rep["sequences"][r.rid] for r in reqs}
+
+
+class _OpsWith:
+    """The kernels module as the serving engine sees it, with some of its
+    functions replaced (the module itself stays untouched: its wrappers
+    count their launches on their own function objects)."""
+
+    def __init__(self, ops, **replaced):
+        self._ops, self._replaced = ops, replaced
+
+    def __getattr__(self, name):
+        return self._replaced.get(name) or getattr(self._ops, name)
+
+
+def _shadowed_paged(ops, ref, worst):
+    """Give the serving engine paged decode and prefill that launch the
+    kernel and hold its output against the float32 plain version on the
+    same inputs: every row within PAGED_RTOL of its largest |plain value|
+    + PAGED_ROW_ATOL (as :func:`_paged_run`); the largest share of a
+    row's bound goes into ``worst`` [wrapper]. Returns the undo."""
+    from repro_torch.serve import engine
+
+    def shadow(fn, kind):
+        kernel, plain = getattr(ops, fn), getattr(ref, f"{fn}_ref")
+
+        def call(q, *args, **kw):
+            out = kernel(q, *args, **kw)
+            want = plain(q.float(), *args, **kw).float()
+            got = out.float()
+            if kind == "prefill":            # the chunk's live rows
+                rows = args[4] - args[3]
+                got, want = got[:, :rows], want[:, :rows]
+            tol = (PAGED_RTOL[kind] * want.abs().amax(-1, keepdim=True)
+                   + PAGED_ROW_ATOL)
+            check(bool(got.isfinite().all()), f"{fn}: non-finite output")
+            worst[fn] = max(worst.get(fn, 0.0),
+                            float(((got - want).abs() / tol).max()))
+            return out
+        return call
+
+    saved = engine.kops
+    engine.kops = _OpsWith(ops, **{fn: shadow(fn, fn.split("_")[1]) for fn in (
+        "paged_decode_attention", "paged_prefill_attention")})
+    return lambda: setattr(engine, "kops", saved)
+
+
+def _dense_oracle(torch, cfg, params, dev, reqs, streams):
+    """The served streams of ``reqs`` teacher-forced in the model's bf16:
+    the paged engine (the kernels) against lm.forward with a contiguous
+    cache (plain attention) within ORACLE_ATOL_BF16, as the serving phase
+    holds flad-adllm; then :func:`int8_cache_fidelity` (bf16 pools
+    against int8 pools, as that phase reports it) with every paged
+    launch of both engines held against its plain version on the same
+    inputs (:func:`_shadowed_paged`, row bounds PAGED_RTOL)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import int8_cache_fidelity
+    drift, agree, n = contiguous_oracle(
+        torch, cfg, params, dev, [streams[r.rid] for r in reqs],
+        [r.prompt for r in reqs])
+    print(f"[oracle] {cfg.name} bfloat16: paged (kernels) vs contiguous "
+          f"(plain) logits over {n} teacher-forced positions: max|diff| "
+          f"{drift:.3e} (atol {ORACLE_ATOL_BF16}), argmax agreement "
+          f"{agree:.3f}")
+    check(drift <= ORACLE_ATOL_BF16, f"{cfg.name} paged-vs-contiguous "
+          f"drift {drift}")
+    worst = {}
+    undo = _shadowed_paged(ops, ref, worst)
+    try:
+        fid = int8_cache_fidelity(cfg, params, reqs, streams,
+                                  block_size=BLOCK, max_context=128,
+                                  prefill="chunked", prefill_chunk=CHUNK,
+                                  device=dev)
+    finally:
+        undo()
+    check(np.isfinite(fid["max_logit_drift"]), f"{cfg.name}: non-finite "
+          "int8 cache logits")
+    check(worst and max(worst.values()) <= 1.0, f"{cfg.name} teacher-"
+          f"forced paged launches vs their plain versions: {worst} of "
+          "their row bounds")
+    print(f"[oracle] {cfg.name} int8 cache vs bf16 cache, teacher-forced: "
+          f"greedy disagreement {fid['disagreement']:.4f} over "
+          f"{fid['positions']} positions, max logit drift "
+          f"{fid['max_logit_drift']:.3e}; every paged launch of both "
+          f"engines vs its plain version on the same inputs: largest "
+          f"share of a row's bound " + ", ".join(
+              f"{k} {v:.3f}" for k, v in worst.items()))
+    return dict(drift=drift, argmax_agreement=agree, positions=n,
+                int8_disagreement=fid["disagreement"],
+                int8_max_logit_drift=fid["max_logit_drift"],
+                shadow_bound_share=worst)
+
+
+def _dense_oracle_f32(torch, cfg, dev, reqs, streams):
+    """``cfg`` in float32 (drawn from the same seed, on the card) with
+    the streams of ``reqs`` teacher-forced: the paged engine (the SIMT
+    kernels at float32 q) against lm.forward with a contiguous cache
+    within ORACLE_ATOL_F32, as the serving phase holds flad-adllm."""
+    from repro_torch.models import lm
+    c = cfg.replace(param_dtype="float32")
+    params = lm.init(c, seed=0, device=dev)
+    drift, agree, n = contiguous_oracle(
+        torch, c, params, dev, [streams[r.rid] for r in reqs],
+        [r.prompt for r in reqs])
+    print(f"[oracle] {cfg.name} float32: paged (kernels) vs contiguous "
+          f"(plain) logits over {n} teacher-forced positions: max|diff| "
+          f"{drift:.3e} (atol {ORACLE_ATOL_F32}), argmax agreement "
+          f"{agree:.3f}")
+    check(drift <= ORACLE_ATOL_F32, f"{cfg.name} float32 paged-vs-"
+          f"contiguous drift {drift}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(f32_drift=drift, f32_argmax_agreement=agree)
+
+
+def dense_main_path(torch, dev):
+    """qwen3-14b at full width and depth served over the model-dtype and
+    int8 caches, the 32B class at full width and CUT_LAYERS layers over
+    the model-dtype cache, each held to the oracles (:func:`_dense_oracle`
+    on the served weights, then :func:`_dense_oracle_f32`); then
+    qwen3-14b at DT_LAYERS layers trained by the tensor strategy (the
+    flash kernels at head_dim 128). Returns ({path: launch counts},
+    {path: route counts}, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    summary, serve = {}, None
+    for arch, layers, caches in (
+            ((DENSE_FULL, None, ("fp32", "int8")),)
+            + tuple((a, CUT_LAYERS, ("fp32",)) for a in DENSE_CUT)):
+        cfg = get_config(arch)
+        cfg = cfg.replace(num_layers=layers) if layers else cfg
+        t0 = time.perf_counter()
+        params = lm.init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"[dense] {cfg.name}: {cfg.num_layers} layers, "
+              f"{n_params / 1e9:.2f} B params in {cfg.param_dtype} "
+              f"({time.perf_counter() - t0:.1f} s to init on the card)")
+        counts, reports = _dense_serve(torch, cfg, params, dev, caches)
+        serve = counts if serve is None else {
+            k: serve[k] + counts[k] for k in serve}
+        reqs, streams = _oracle_requests(cfg, reports["fp32"])
+        oracle = _dense_oracle(torch, cfg, params, dev, reqs, streams)
+        del params
+        torch.cuda.empty_cache()
+        oracle.update(_dense_oracle_f32(torch, cfg, dev, reqs, streams))
+        summary[cfg.name] = dict(
+            params=n_params, layers=cfg.num_layers, oracle=oracle,
+            **{cache: {k: rep[k] for k in (
+                "warm_tokens_per_s", "tokens_per_s", "decode_steps",
+                "prefill_chunks", "wall_s")}
+               for cache, rep in reports.items()})
+    serve_routes = {fn: {"simt": serve[fn]} for fn in (
+        "paged_decode_attention", "paged_prefill_attention")}
+    train, train_routes, summary["train"] = dense_train_path(torch, dev)
+    return ({"dense_serve": serve, "dense_train": train},
+            {"dense_serve": serve_routes, "dense_train": train_routes},
+            summary)
+
+
+def dense_train_path(torch, dev):
+    """qwen3-14b at full width cut to DT_LAYERS layers, DT_STEPS steps of
+    the tensor strategy (its step and init, as a Session builds them) on
+    one batch: the exact flash
+    launches (the forward twice a layer and step, the checkpoint's
+    recompute included; the preprocess, dK/dV and dQ once), the forward,
+    dK/dV and dQ on the SIMT route, the preprocess on vec; finite losses,
+    moved weights."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(DENSE_FULL).replace(num_layers=DT_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ses = Session(cfg=cfg, strategy="tensor", shape=f"{DT_S}x{DT_B}",
+                  device=dev)
+    step = ses.strategy.make_step(cfg, ses.shape, ses.mesh)
+    params, opt = ses.strategy.init(cfg, ses.shape, ses.mesh, ses.seed)
+    g = torch.Generator(device=dev).manual_seed(23)
+    batch = {k: torch.randint(0, cfg.vocab_size, (DT_B, DT_S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    wq0 = params["blocks"]["attn"]["wq"].clone()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(DT_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    L, n = DT_LAYERS, DT_STEPS
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": 2 * L * n, PRE: L * n,
+                 "flash_attention_bwd_dkv": L * n,
+                 "flash_attention_bwd_dq": L * n})
+    check(counts == want, f"dense training launches {counts} != {want}")
+    routes = ops.route_counts()
+    for fn in FLASH_FNS:
+        check(routes[fn]["vec" if fn == PRE else "simt"] == counts[fn],
+              f"dense training: {fn} launches by route {routes[fn]}")
+    check(all(np.isfinite(losses)), f"dense training losses {losses}")
+    moved = float((params["blocks"]["attn"]["wq"].float()
+                   - wq0.float()).abs().max())
+    check(moved > 0, "dense training: wq did not move")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[dense-train] {cfg.name} at {L} layers (full width), tensor "
+          f"strategy, {n} steps of {DT_B}x{DT_S} tokens: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; wall {wall:.2f} s; peak {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }, the flash forward, "
+          f"dK/dV and dQ on simt (head_dim 128), the preprocess on vec")
+    del params, opt, ses, step, wq0
+    torch.cuda.empty_cache()
+    return counts, {fn: routes[fn] for fn in FLASH_FNS}, dict(
+        losses=losses, wall_s=wall, peak_gib=peak)
+
+
+def _profile_rows(torch, fn, steps=1):
+    """(wall ms a call, device rows (ms, launches, name) a call, device
+    busy ms a call) of ``fn`` under torch.profiler's CUDA trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    rows = sorted(((getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
+                   e.count // steps, e.key[:70])
+                  for e in prof.key_averages())[::-1]
+    return wall, rows, sum(r[0] for r in rows)
+
+
+def hymba_main_path(torch, dev):
+    """Hymba-1.5b at full width and depth (bf16, random weights from a
+    seed): legacy serving through Session.serve (no kernel: plain
+    attention over the contiguous cache, the plain Mamba); one batch's
+    loss through the flash kernels against plain attention; then
+    HY_TRAIN_STEPS tensor-strategy steps: the exact flash launches, all
+    on the wgmma route (the preprocess on vec), finite losses, moved
+    weights; a warm step profiled (wall, device busy, idle share) and an
+    estimate of the Mamba heads' device time a step (one layer profiled
+    apart, times the layers). Returns (launches, routes, summary)."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import hymba
+    from repro_torch.models import recurrent as R
+    from repro_torch.models.registry import build_model
+    cfg = get_config("hymba-1.5b")
+    t0 = time.perf_counter()
+    params = hymba.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[hymba] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.hd}, Mamba d_inner {cfg.ssm.expand * cfg.d_model} N "
+          f"{cfg.ssm.state_size}, {n_params / 1e9:.3f} B params "
+          f"({time.perf_counter() - t0:.1f} s to init)")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = Session(cfg=cfg, device=dev).serve(
+        scheduler="legacy", batch=HY_BATCH, context=HY_CONTEXT,
+        decode_steps=HY_DECODE, requests=HY_REQUESTS, params=params,
+        log_fn=None)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts = ops.launch_counts()
+    check(not any(serve_counts.values()), f"hymba legacy serving launched "
+          f"{serve_counts}")
+    check(bool(torch.isfinite(rep["last_logits"]).all()),
+          "hymba serving: non-finite logits")
+    for seqs in rep["sequences"]:
+        check(tuple(seqs.shape) == (HY_BATCH, HY_DECODE + 1)
+              and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size,
+              "hymba serving: bad token ids")
+    print(f"[hymba] legacy serving, {HY_REQUESTS} batches of {HY_BATCH} x "
+          f"{HY_CONTEXT}-token prompts, {HY_DECODE} decode steps: "
+          f"{rep['total_tokens']} tokens in {serve_wall:.1f} s, warm "
+          f"{rep['warm_tokens_per_s']:.1f} tok/s; no kernel (plain "
+          f"attention over the contiguous cache, the plain Mamba)")
+    # one batch's loss through the kernels and through plain attention
+    g = torch.Generator(device=dev).manual_seed(29)
+    batch = {k: torch.randint(0, cfg.vocab_size, (HY_TRAIN_B, HY_TRAIN_S),
+                              generator=g, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    model = build_model(cfg)
+    with torch.no_grad():
+        loss_k = float(model.loss(params, batch)[0])
+        saved = ops.flash_attention_ad
+        ops.flash_attention_ad = _plain_flash_ad(ref)
+        try:
+            loss_p = float(model.loss(params, batch)[0])
+        finally:
+            ops.flash_attention_ad = saved
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[hymba] bf16 loss of a {HY_TRAIN_B}x{HY_TRAIN_S} batch: flash "
+          f"kernels {loss_k:.6f}, plain attention {loss_p:.6f} (rel "
+          f"{rel:.2e}, rtol {HY_LOSS_RTOL})")
+    check(np.isfinite(loss_k) and rel <= HY_LOSS_RTOL,
+          f"hymba loss through the kernels {loss_k} vs plain {loss_p}")
+    del params, model
+    torch.cuda.empty_cache()
+    # training: the tensor strategy
+    torch.cuda.reset_peak_memory_stats()
+    ses = Session(cfg=cfg, strategy="tensor",
+                  shape=f"{HY_TRAIN_S}x{HY_TRAIN_B}", device=dev)
+    step, (p, o) = ses.build()
+    w0 = p["blocks"]["mamba"]["w_in"].clone()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(HY_TRAIN_STEPS):
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    L, n = cfg.num_layers, HY_TRAIN_STEPS
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": 2 * L * n, PRE: L * n,
+                 "flash_attention_bwd_dkv": L * n,
+                 "flash_attention_bwd_dq": L * n})
+    check(counts == want, f"hymba training launches {counts} != {want}")
+    routes = check_routes(ops, counts, "hymba training",
+                          ("flash_attention", "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dq", PRE))
+    check(all(np.isfinite(losses)), f"hymba training losses {losses}")
+    moved = float((p["blocks"]["mamba"]["w_in"].float() - w0.float())
+                  .abs().max())
+    check(moved > 0, "hymba training: the Mamba's w_in did not move")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = [p, o]
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    swall, rows, busy = _profile_rows(torch, one)
+    idle = max(0.0, 1 - busy / swall)
+    flash = sum(r[0] for r in rows if "flash" in r[2])
+    busy = max(busy, 1e-9)
+    # the Mamba heads alone: one layer's sequence form forward and
+    # backward at the step's shape, as the step runs it (forward, the
+    # checkpoint's recompute, backward), times the layers
+    lp = {k: v[0].detach().clone().requires_grad_()
+          for k, v in state[0]["blocks"]["mamba"].items()}
+    x = torch.randn((HY_TRAIN_B, HY_TRAIN_S, cfg.d_model), device=dev,
+                    dtype=cfg.dtype, requires_grad=True)
+
+    def mamba_layer():
+        y, _ = R.apply_mamba_seq(lp, x, cfg)
+        with torch.no_grad():
+            R.apply_mamba_seq(lp, x, cfg)
+        torch.autograd.grad(y.float().sum(), [x] + list(lp.values()))
+
+    _, _, mbusy = _profile_rows(torch, mamba_layer, steps=2)
+    mamba = mbusy * L
+    print(f"[hymba-train] tensor strategy, {n} steps of {HY_TRAIN_B}x"
+          f"{HY_TRAIN_S} tokens: losses " + ", ".join(f"{x_:.4f}"
+                                                    for x_ in losses)
+          + f"; wall {wall:.2f} s incl. the first step; peak {peak:.2f} GiB;"
+          f" launches {({k: v for k, v in counts.items() if v})}, all on "
+          f"wgmma (Hq 25 / Hkv 5), the preprocess on vec")
+    print(f"[profile] bf16 hymba train step, {HY_TRAIN_B}x{HY_TRAIN_S} "
+          f"tokens: wall {swall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"{100 * idle:.1f}%), {sum(r[1] for r in rows)} device ops; "
+          f"flash kernels {flash:.2f} ms; the Mamba heads, an estimate "
+          f"from one isolated layer profiled apart (its forward, recompute "
+          f"and backward, {mbusy:.2f} ms, x {L} layers; not read from the "
+          f"step's trace, whose elementwise kernels carry no layer): about "
+          f"{mamba:.1f} ms, {100 * mamba / busy:.1f}% of the step's device "
+          f"time")
+    for t, k_, name in rows[:10]:
+        print(f"[profile]   {t:.4f} ms/step in {k_:5d} x {name}")
+    summary = dict(params=n_params, serve_wall_s=serve_wall,
+                   serve_warm_tokens_per_s=rep["warm_tokens_per_s"],
+                   loss_kernels=loss_k, loss_plain=loss_p, losses=losses,
+                   train_wall_s=wall, peak_gib=peak, step_wall_ms=swall,
+                   step_busy_ms=busy, step_idle=idle, flash_ms=flash,
+                   mamba_ms_estimate=mamba, top=rows[:10])
+    del state, p, o, ses, step, lp, x, w0
+    torch.cuda.empty_cache()
+    return ({"hymba_serve": serve_counts, "hymba_train": counts},
+            {"hymba_train": {fn: routes[fn] for fn in FLASH_FNS}}, summary)
+
+
+def _stack_after_stack_loss(params, cfg, batch):
+    """The mean loss of the reference adapter's order on the flat
+    ``params``: every super-block's mLSTM unit, then every sLSTM unit
+    (m0 m1 .. s0 s1 ..), each unit the one the FHDP step runs, then the
+    head."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.models import xlstm
+    from repro_torch.models.lm import layer
+    p = params.to_dict() if hasattr(params, "to_dict") else params
+    x = pl._tok_embed(p, batch, cfg)
+    for name in ("mlstm", "slstm"):
+        for s in range(xlstm._layout(cfg)[0]):
+            x = pl._xlstm_block(name, layer(p[name], s), x, cfg, None, None,
+                                None)
+    lsum, n, _ = pl._head_ce_loss(p, x, batch, cfg)
+    return float(lsum) / n
+
+
+def xlstm_fhdp_main_path(torch, dev, seq=XF_S_CUT, profile_step=False):
+    """xlstm-350m's FHDP step at full width and depth through Session
+    (the pipeline strategy on a (2, 4) mesh, 3 super-blocks as 6 units
+    over 4 stages, in the flat model's order; XF_B sequences of ``seq``
+    tokens): the first loss against the
+    flat Model.loss on the same params and batch (XF_LOSS_RTOL, bf16),
+    which the reference adapter's stack-after-stack order on them
+    (:func:`_stack_after_stack_loss`) must miss,
+    XF_STEPS steps with the exact mLSTM launches (each kept microbatch's
+    21 layers: the forward twice, the checkpoint's recompute included,
+    the backward once), all on the wgmma route; finite losses, moved
+    stacks; with ``profile_step`` a third step under torch.profiler (at
+    full width its CUDA trace holds about 2.9 million kernels, and
+    reading it takes minutes: the ``--xlstm-fhdp`` flag only). Returns
+    (launches, routes, summary)."""
+    from repro_torch.api import Session
+    from repro_torch.configs.common import concrete_batch
+    from repro_torch.core import pipeline as pl
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ses = Session("xlstm-350m", full=True, strategy="pipeline",
+                  mesh=XF_MESH, shape=f"{seq}x{XF_B}", device=dev)
+    step, (pp, opt) = ses.build()
+    cfg, tmpl = ses.cfg, ses.strategy.templates
+    n_super, n_m = xlstm._layout(cfg)
+    print(f"[xlstm-fhdp] {cfg.name} pipeline on mesh {XF_MESH}: templates "
+          f"{tmpl}, stage plan {pl.stage_plan(cfg, tmpl)} "
+          f"({time.perf_counter() - t0:.1f} s to build)")
+    batch = concrete_batch(cfg, ses.shape,
+                           torch.Generator(device=dev).manual_seed(41))
+    with torch.no_grad():
+        merged = pl.merge_stage_params(pp, tmpl)
+        flat = float(build_model(cfg).loss(merged, batch)[0])
+        stacked = _stack_after_stack_loss(merged, cfg, batch)
+        del merged
+    wrong = abs(stacked - flat) / abs(flat)
+    print(f"[xlstm-fhdp] the stack-after-stack order's loss "
+          f"{stacked:.6f} against the flat {flat:.6f}: rel {wrong:.2e}, "
+          f"{'beyond' if wrong > XF_LOSS_RTOL else 'WITHIN'} rtol "
+          f"{XF_LOSS_RTOL}")
+    check(wrong > XF_LOSS_RTOL, f"xlstm FHDP: the stack-after-stack order "
+          f"({stacked}) is within rtol {XF_LOSS_RTOL} of the flat loss "
+          f"({flat}): the check cannot tell the orders apart")
+    w0 = pp["stacks"]["slstm"]["w"].clone()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(XF_STEPS):
+        t0 = time.perf_counter()
+        pp, opt, m = step(pp, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    # the microbatches whose loss the step keeps: each column's batch in
+    # one-sample microbatches (a microbatch a stage), all scored
+    columns, stages = 2, 4
+    mb = max(1, XF_B // columns // stages)
+    chains = columns * min(XF_B // columns // mb, stages)
+    want = dict.fromkeys(counts, 0)
+    want.update(mlstm_chunked=2 * XF_STEPS * chains * n_super * n_m,
+                mlstm_chunked_bwd=XF_STEPS * chains * n_super * n_m)
+    check(counts == want, f"xlstm FHDP launches {counts} != {want}")
+    routes = check_routes(ops, counts, "xlstm FHDP",
+                          ("mlstm_chunked", "mlstm_chunked_bwd"))
+    rel = abs(losses[0] - flat) / abs(flat)
+    check(all(np.isfinite(losses)), f"xlstm FHDP losses {losses}")
+    check(rel <= XF_LOSS_RTOL, f"xlstm FHDP loss {losses[0]} vs the flat "
+          f"model's {flat} (rel {rel:.2e})")
+    moved = float((pp["stacks"]["slstm"]["w"] - w0).abs().max())
+    check(moved > 0, "xlstm FHDP: the sLSTM's w did not move")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[xlstm-fhdp] {XF_STEPS} steps of {XF_B}x{seq} tokens: losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f", the flat Model.loss {flat:.6f} (rel {rel:.2e}, rtol "
+          f"{XF_LOSS_RTOL}); step walls " + ", ".join(f"{w:.1f}"
+                                                      for w in walls)
+          + f" s; peak {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} } by route "
+          + str({k: routes[k] for k in ("mlstm_chunked",
+                                         "mlstm_chunked_bwd")}))
+    summary = dict(seq=seq, losses=losses, flat_loss=flat, rel=rel,
+                   stack_after_stack_loss=stacked, stack_after_stack_rel=wrong,
+                   step_walls_s=walls, peak_gib=peak,
+                   templates={k: list(v) for k, v in tmpl.items()})
+    if profile_step:
+        state = [pp, opt]
+
+        def one():
+            state[0], state[1], _ = step(state[0], state[1], batch)
+
+        t0 = time.perf_counter()
+        swall, rows, busy = _profile_rows(torch, one)
+        idle = max(0.0, 1 - busy / swall)
+        fwd = sum(r[0] for r in rows if MLSTM_NAMES["wgmma"] in r[2])
+        bwd = sum(r[0] for r in rows if MLSTM_BWD_NAME in r[2])
+        print(f"[profile] bf16 xlstm FHDP step: wall {swall:.1f} ms, device "
+              f"busy {busy:.1f} ms (idle {100 * idle:.1f}%), "
+              f"{sum(r[1] for r in rows)} device ops; mLSTM forward "
+              f"{fwd:.2f} ms, backward {bwd:.2f} ms (the profile took "
+              f"{time.perf_counter() - t0:.1f} s)")
+        for t, k_, name in rows[:8]:
+            print(f"[profile]   {t:.4f} ms/step in {k_:5d} x {name}")
+        summary.update(step_wall_ms=swall, step_busy_ms=busy,
+                       step_idle=idle, mlstm_fwd_ms=fwd, mlstm_bwd_ms=bwd)
+        del state
+    del pp, opt, ses, step, w0
+    torch.cuda.empty_cache()
+    return ({"xlstm_fhdp": counts},
+            {"xlstm_fhdp": {k: routes[k] for k in ("mlstm_chunked",
+                                                   "mlstm_chunked_bwd")}},
+            summary)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5301,6 +6232,10 @@ def main():
     torch.manual_seed(0)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    start = time.perf_counter()
+
+    def phase(label):
+        print(f"[time] {label} done at {time.perf_counter() - start:.1f} s")
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5320,9 +6255,38 @@ def main():
             if "Used" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
     tc = tc_report()
+    phase("build")
 
     # 3. kernels against their plain versions
     cfg = get_config("flad-adllm")
+    if "--dense" in sys.argv[1:]:
+        rows = {"d128": d128_paged_checks(torch, dev),
+                "head_dim_128": flash_shape_checks(torch, dev,
+                                                   "head_dim_128")}
+        launches, routes, summary = dense_main_path(torch, dev)
+        print(json.dumps({"kernels": rows, "launches": launches,
+                          "by_route": routes, "dense": summary},
+                         default=str))
+        print("chip_smoke --dense: the head_dim-128 kernels and the dense "
+              "configs' phase only; no result line")
+        return 0
+    if "--hymba" in sys.argv[1:]:
+        rows = flash_shape_checks(torch, dev, "hymba_group_5")
+        launches, routes, summary = hymba_main_path(torch, dev)
+        print(json.dumps({"kernels": rows, "launches": launches,
+                          "by_route": routes, "hymba": summary},
+                         default=str))
+        print("chip_smoke --hymba: the group-5 flash kernels and the Hymba "
+              "phase only; no result line")
+        return 0
+    if "--xlstm-fhdp" in sys.argv[1:]:
+        launches, routes, summary = xlstm_fhdp_main_path(
+            torch, dev, seq=XF_S, profile_step=True)
+        print(json.dumps({"launches": launches, "by_route": routes,
+                          "xlstm_fhdp": summary}, default=str))
+        print("chip_smoke --xlstm-fhdp: the ssm FHDP phase only; no result "
+              "line")
+        return 0
     if "--paged" in sys.argv[1:]:
         rows = paged_checks(torch, cfg, dev, np.random.default_rng(0))
         print(json.dumps(rows))
@@ -5402,6 +6366,12 @@ def main():
     kernels["lora_matmul"] = lora_checks(torch, dev)
     kernels["mlstm_chunked"] = mlstm_checks(torch, dev)
     kernels["mlstm_chunked_bwd"] = mlstm_bwd_checks(torch, dev)
+    for name, extra in d128_paged_checks(torch, dev).items():
+        kernels[name]["head_dim_128"] = extra
+    for label in FLASH_SHAPES:
+        for name, extra in flash_shape_checks(torch, dev, label).items():
+            kernels[name][label] = extra
+    phase("kernel checks")
 
     # 4. the main path: serve flad-adllm at full width and depth
     t0 = time.perf_counter()
@@ -5444,9 +6414,13 @@ def main():
           f"disagreement {fid['disagreement']:.4f} over {fid['positions']} "
           f"positions, max logit drift {fid['max_logit_drift']:.3e}")
 
+    phase("serving")
+
     # 4c. speculative decoding and preemption on the serving path
     spec_launches, spec_routes, spec_summary = spec_main_path(
         torch, cfg, params, dev, reports)
+
+    phase("speculative serving")
 
     # 5. the training path: two hier_fl rounds at full width
     del params
@@ -5454,29 +6428,43 @@ def main():
     train_launches, _, train_routes, codec_by_leaf = train_main_path(
         torch, cfg, dev)
 
+    phase("hier_fl training")
+
     # 5b. event-driven async FL: sync equivalence, a clocked traced run
     async_launches, async_routes, async_summary = async_main_path(
         torch, cfg, dev)
+
+    phase("async FL")
 
     # 6. float32 step through kernels vs plain attention; a step's profile
     step_vs_plain(torch, cfg, dev)
     profile_local_step(torch, cfg, dev, kernels=kernels)
 
+    phase("train step checks")
+
     # 7. the distillation path: two distill_fl rounds at full width
     distill_launches, _, _, distill_routes = distill_main_path(torch, cfg,
                                                                dev)
+
+    phase("distillation")
 
     # 8. float32 distill step through kernels vs plain; a step's profile
     distill_step_vs_plain(torch, cfg, dev)
     profile_distill_step(torch, cfg, dev, kernels=kernels)
 
+    phase("distill step checks")
+
     # 8b. the FHDP path: flad-vision pipelined over a (2, 4) mesh
     vision_launches, vision_routes, vision_summary = vision_main_path(
         torch, dev)
 
+    phase("FHDP")
+
     # 8c. SWIFT-scheduled FHDP with a live template switch
     swift_launches, swift_routes, swift_summary = swift_main_path(torch,
                                                                   dev)
+
+    phase("SWIFT")
 
     # 9. the xLSTM serving path: xlstm-350m through the legacy scheduler
     xcfg = get_config("xlstm-350m")
@@ -5484,11 +6472,27 @@ def main():
     profile_xlstm(torch, xcfg, dev)
     xlstm_f32_vs_plain(torch, xcfg, dev)
 
+    phase("xLSTM serving")
+
     # 9b. the xLSTM training path: xlstm-350m by hier_fl
     xt_launches, xt_routes, xt_summary = xlstm_train_main_path(torch, xcfg,
                                                                dev)
     xt_step = xlstm_step_vs_plain(torch, xcfg, dev)
     xt_profile = profile_xlstm_step(torch, xcfg, dev)
+    phase("xLSTM training")
+
+    # 9c. the dense configs at head_dim 128, Hymba, the ssm FHDP step
+    new_launches, new_routes, new_summary = {}, {}, {}
+    for label, path in (("dense", dense_main_path),
+                        ("hymba", hymba_main_path),
+                        ("xlstm_fhdp", xlstm_fhdp_main_path)):
+        counts, routes, new_summary[label] = path(torch, dev)
+        new_launches.update(counts)
+        new_routes.update(routes)
+        phase(label)
+
+    def new_routes_of(name, r):
+        return sum(c.get(name, {}).get(r, 0) for c in new_routes.values())
 
     # 10. one line per ported kernel
     print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}; "
@@ -5505,8 +6509,16 @@ def main():
                    "xlstm_serve": xlstm_launches[name],
                    "xlstm_train": xt_launches[name],
                    "vision": vision_launches.get(name, 0),
-                   "swift": swift_launches.get(name, 0)}
+                   "swift": swift_launches.get(name, 0),
+                   **{p: c[name] for p, c in new_launches.items()}}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
+        for label, path in (("head_dim_128", "dense_serve"
+                             if name in PAGED_LIBS else "dense_train"),
+                            ("hymba_group_5", "hymba_train")):
+            if label in k:
+                k[label]["launches"] = new_launches[path][name]
+                check(k[label]["launches"] > 0, f"{name} at {label}: never "
+                      f"launched on {path}")
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "
                   f"{k['bound_ms']:.5f} ms: some input came from the L2")
@@ -5517,20 +6529,25 @@ def main():
                 + vision_routes.get(name, {}).get(r, 0)
                 + swift_routes.get(name, {}).get(r, 0)
                 + async_routes.get(name, {}).get(r, 0)
+                + new_routes_of(name, r)
                 for r in train_routes[name]}, "build": tc[name]}
         if name in TF32_KERNELS:
             extra["build_tf32x3"] = tc[f"{name}/tf32x3"]
         if name in PAGED_LIBS:
             extra = {"launches_by_route": {
                 r: serve_routes[name][r] + spec_routes[name][r]
+                + new_routes_of(name, r)
                 for r in serve_routes[name]}, "build": tc[name],
                 "traced_serving": traced_summary}
         if name == "mlstm_chunked":
             extra = {"launches_by_route": {
                 r: xlstm_routes[r] + xt_routes[name][r]
+                + new_routes_of(name, r)
                 for r in xlstm_routes}, "build": tc[name]}
         if name == "mlstm_chunked_bwd":
-            extra = {"launches_by_route": xt_routes[name],
+            extra = {"launches_by_route": {
+                r: n + new_routes_of(name, r)
+                for r, n in xt_routes[name].items()},
                      "build": tc[name],
                      "xlstm_train_phase": xt_summary,
                      "xlstm_step_vs_plain": xt_step,
@@ -5539,12 +6556,16 @@ def main():
             extra = {"launches_by_route": {
                 r: train_routes[name][r] + distill_routes[name][r]
                 + vision_routes[name][r] + swift_routes[name][r]
-                + async_routes[name][r]
+                + async_routes[name][r] + new_routes_of(name, r)
                 for r in train_routes[name]}}
         if name == "flash_attention":
             extra["fhdp_phase"] = vision_summary
             extra["swift_phase"] = swift_summary
             extra["async_phase"] = async_summary
+            extra["dense_phase"] = new_summary["dense"]
+            extra["hymba_phase"] = new_summary["hymba"]
+        if name == "mlstm_chunked_bwd":
+            extra["xlstm_fhdp_phase"] = new_summary["xlstm_fhdp"]
         if name == "quantize_int8":
             extra = {"train_launches_by_leaf": codec_by_leaf}
         if name == "paged_verify_attention":
@@ -5564,7 +6585,8 @@ def main():
                          "source", "replaces", "max_abs_err", "ms",
                          "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}})
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows}, default=str))
+    phase("the whole script")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """``Session`` — the port's way to stand up FLAD training (port of
 ``repro/api/session.py``).
 
-A Session composes a model config (``arch``, default ``flad-vision``;
+A Session composes a model config (``arch``, default ``flad-vision``,
+any of ``repro_torch.configs.ARCH_IDS``;
 the CPU-smoke reduced variant unless ``full=True``), an input shape, a
 :class:`~repro_torch.api.mesh.MeshSpec` (default data 2 x model 4), a
 registered :class:`~repro_torch.api.strategies.Strategy` (default

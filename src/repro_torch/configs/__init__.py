@@ -8,7 +8,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.configs.common import reduced  # noqa: F401
 
 #: architectures ported so far (the reference registers twelve)
-ARCH_IDS = ["flad_adllm", "flad_vision", "xlstm_350m"]
+ARCH_IDS = ["qwen2_5_32b", "qwen3_32b", "xlstm_350m", "yi_34b",
+            "hymba_1_5b", "qwen3_14b", "flad_vision", "flad_adllm"]
 
 
 def _canon(name: str) -> str:

@@ -1,6 +1,6 @@
 """Shared config helpers (port of ``repro.configs.common``): the reduced
 smoke variant, the effective attention window, and the input specs and
-random batches of the dense and vision families."""
+random batches of the dense, ssm, hybrid and vision families."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,23 +10,27 @@ import torch
 
 from repro_torch.config import LONG_CONTEXT_WINDOW, ModelConfig, ShapeConfig
 
+#: the families whose configs, input specs and batches the port covers
+FAMILIES = ("dense", "ssm", "hybrid", "vision")
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model 128, tiny
     vocab, float32 — the same shrink the reference applies (an xLSTM
-    keeps 4 KV heads and puts an sLSTM block every 2 layers; the vision
-    encoder takes 32-wide features and keeps its waypoints, light classes
-    and 128 tokens a modality)."""
-    if cfg.family not in ("dense", "ssm", "vision"):
-        raise NotImplementedError(
-            f"the port covers the dense, ssm and vision families so far, "
-            f"not {cfg.family!r}")
+    keeps 4 KV heads and puts an sLSTM block every 2 layers; Hymba's
+    Mamba state shrinks to 8; the vision encoder takes 32-wide features
+    and keeps its waypoints, light classes and 128 tokens a modality).
+    Fields it does not name (the QKV bias, the qk-norm, rope_theta) keep
+    the config's values, as the reference's ``cfg.replace`` does."""
+    _check_family(cfg)
     kw = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
               head_dim=32, d_ff=256, vocab_size=512, param_dtype="float32",
               q_chunk=64, kv_chunk=64)
     if cfg.family == "ssm":
         kw["num_kv_heads"] = 4
         kw["ssm"] = dataclasses.replace(cfg.ssm, slstm_every=2)
+    if cfg.family == "hybrid":
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_size=8)
     if cfg.family == "vision":
         kw["prefix_dim"] = 32
         kw["num_waypoints"] = cfg.num_waypoints
@@ -35,10 +39,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "vision"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port's input specs cover the dense, ssm and vision "
-            f"families so far, not {cfg.family!r}")
+            f"the port covers the families {FAMILIES} so far, not "
+            f"{cfg.family!r}")
 
 
 def effective_window(cfg: ModelConfig, shape: ShapeConfig):
@@ -52,9 +56,9 @@ def effective_window(cfg: ModelConfig, shape: ShapeConfig):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Batch leaves as {name: (shape, dtype)} for train/prefill steps of
-    the dense and ssm families (decode: one token per row) and the vision
-    encoder (rgb and lidar features, waypoint and light labels; ``seq_len``
-    does not apply)."""
+    the dense, ssm and hybrid families (decode: one token per row) and
+    the vision encoder (rgb and lidar features, waypoint and light labels;
+    ``seq_len`` does not apply)."""
     _check_family(cfg)
     b, s = shape.global_batch, shape.seq_len
     if cfg.family == "vision":

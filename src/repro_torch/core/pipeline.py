@@ -47,6 +47,18 @@ validity mask; :func:`rotate_stages` rolls stage ownership around the
 ring. Optimizer state is ZeRO-2: the flat Adam moments of each leaf are
 split over ``data`` when gradients are synchronized every step.
 
+**The ssm family runs in the flat model's order.** An xLSTM's units
+are its super-blocks' mLSTM layers (one unit a super-block) and its
+sLSTM layers; the reference's adapter lays them out stack after stack
+(every mLSTM unit, then every sLSTM unit), so with two super-blocks or
+more its FHDP step computes m0 m1 .. s0 s1 .. where ``xlstm.forward``
+computes m0 s0 m1 s1 ... The port keeps the reference's two stacks and
+unit counts, and SWIFT's flat per-stage count sequence, but lays the
+sequence out as the flat model runs it (:attr:`FamilyAdapter.unit_order`)
+and applies each stage's units in that order (:func:`stage_plan`), so
+the FHDP step trains the network the flat model serves. With one
+super-block both orders agree.
+
 Stage container (:func:`stage_params_from`): ``{"shared": params outside
 the stacks, "stacks": {name: [S, Lmax, ...]}, "masks": {name: [S,
 Lmax]}}``. With local steps (``fed_sgd=False``) the columns' params
@@ -127,6 +139,20 @@ class FamilyAdapter:
     embed: Callable      # (shared, batch, cfg) -> activation [b, s, d]
     block: Callable      # (stack, layer_params, x, cfg, window, pos, rot) -> x
     loss: Callable       # (shared, x, batch_mb, cfg) -> (loss_sum, n, metrics)
+    #: cfg -> the stack of every unit in the flat model's order (None:
+    #: the stacks one after another, in ``stack_order``)
+    unit_order: Optional[Callable] = None
+    #: the block checkpoints its own layers in training, so the step does
+    #: not wrap it in another checkpoint
+    remats_itself: bool = False
+
+    def units(self, cfg: ModelConfig) -> Tuple[str, ...]:
+        """The stack name of every unit, in the order the model runs
+        them."""
+        if self.unit_order is not None:
+            return tuple(self.unit_order(cfg))
+        counts = self.counts(cfg)
+        return tuple(n for n in self.stack_order for _ in range(counts[n]))
 
 
 def _lm_split(params):
@@ -136,11 +162,20 @@ def _lm_split(params):
 
 # The reference's activations carry the MoE auxiliary loss beside x; it is
 # zero for the families ported here, so the port carries x alone.
-# ---- decoder LM (dense) ----
-def _lm_embed(shared, batch, cfg):
+def _tok_embed(shared, batch, cfg):
     return B.embed(shared["embed"], batch["tokens"])
 
 
+def _head_ce_loss(shared, x, batch, cfg):
+    from repro_torch.train.losses import chunked_ce, head_weight
+    x = B.rms_norm(shared["ln_f"], x, cfg.norm_eps)
+    labels = batch["labels"]
+    loss, metrics = chunked_ce(x, head_weight(shared), labels, seq_chunk=512)
+    n = float(labels.numel())
+    return loss * n, n, metrics
+
+
+# ---- decoder LM (dense) ----
 def _lm_block(stack, lp, x, cfg, window, pos, rot):
     from repro_torch.models.lm import apply_block
     out, _ = apply_block(lp, x, cfg, positions=pos, rot=rot, window=window,
@@ -148,13 +183,28 @@ def _lm_block(stack, lp, x, cfg, window, pos, rot):
     return out
 
 
-def _lm_loss(shared, x, batch, cfg):
-    from repro_torch.train.losses import chunked_ce, head_weight
-    x = B.rms_norm(shared["ln_f"], x, cfg.norm_eps)
-    labels = batch["labels"]
-    loss, metrics = chunked_ce(x, head_weight(shared), labels, seq_chunk=512)
-    n = float(labels.numel())
-    return loss * n, n, metrics
+# ---- xLSTM (a unit: one super-block's mLSTM layers, or its sLSTM) ----
+def _xlstm_split(params):
+    return ({k: v for k, v in params.items() if k not in ("mlstm", "slstm")},
+            {"mlstm": params["mlstm"], "slstm": params["slstm"]})
+
+
+def _xlstm_block(stack, lp, x, cfg, window, pos, rot):
+    """One unit as :func:`repro_torch.models.xlstm.forward` trains it,
+    each layer checkpointed (one layer's saved chunk states alive at a
+    time, not a unit's)."""
+    from repro_torch.models import xlstm
+    unit = (xlstm.train_mlstm_unit if stack == "mlstm"
+            else xlstm.train_slstm_unit)
+    return unit(lp, x, cfg)
+
+
+# ---- Hymba hybrid ----
+def _hymba_block(stack, lp, x, cfg, window, pos, rot):
+    from repro_torch.models.hymba import apply_block
+    out, _, _ = apply_block(lp, x, cfg, positions=pos, rot=rot,
+                            window=window, positions_contiguous=True)
+    return out
 
 
 # ---- the paper's vision encoder ----
@@ -177,10 +227,7 @@ def _vision_loss(shared, x, batch, cfg):
 
 
 #: families of the reference whose pipeline adapters later slices bring
-_LATER_FAMILIES = {"ssm": "the ssm FHDP adapter (A6b: the reference's "
-                          "runs every mLSTM before every sLSTM)",
-                   "hybrid": "the Hymba family (A7)",
-                   "encdec": "the encoder-decoder family (A7)",
+_LATER_FAMILIES = {"encdec": "the encoder-decoder family (A7)",
                    "moe": "the moe family (A7)", "vlm": "the vlm config (A7)"}
 
 
@@ -189,7 +236,23 @@ def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
     if fam == "dense" and not cfg.moe.num_experts:
         return FamilyAdapter(("blocks",), _lm_split,
                              lambda c: {"blocks": c.num_layers},
-                             _lm_embed, _lm_block, _lm_loss)
+                             _tok_embed, _lm_block, _head_ce_loss)
+    if fam == "ssm":
+        from repro_torch.models.xlstm import _layout
+
+        def counts(c):
+            n_super, _ = _layout(c)
+            return {"mlstm": n_super, "slstm": n_super}
+
+        return FamilyAdapter(
+            ("mlstm", "slstm"), _xlstm_split, counts, _tok_embed,
+            _xlstm_block, _head_ce_loss,
+            unit_order=lambda c: ("mlstm", "slstm") * _layout(c)[0],
+            remats_itself=True)
+    if fam == "hybrid":
+        return FamilyAdapter(("blocks",), _lm_split,
+                             lambda c: {"blocks": c.num_layers},
+                             _tok_embed, _hymba_block, _head_ce_loss)
     if fam == "vision":
         return FamilyAdapter(("blocks",), _lm_split,
                              lambda c: {"blocks": c.num_layers},
@@ -197,7 +260,8 @@ def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
     if fam in _LATER_FAMILIES:
         raise NotImplementedError(
             f"the FHDP pipeline of the {fam} family comes with "
-            f"{_LATER_FAMILIES[fam]}; ported: dense and vision")
+            f"{_LATER_FAMILIES[fam]}; ported: dense, ssm, hybrid and "
+            f"vision")
     raise ValueError(fam)
 
 
@@ -206,40 +270,57 @@ def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
 # --------------------------------------------------------------------------
 def template_from_sequence(cfg: ModelConfig, seq: Sequence[int]
                            ) -> Dict[str, Tuple[int, ...]]:
-    """Split a flat per-stage layer-count template over the model's stacks.
+    """Split a flat per-stage unit-count template over the model's stacks.
 
-    ``seq[s]`` counts layers of the concatenated stack sequence (the
-    adapter's ``stack_order``) assigned to stage ``s``. Raises if the
-    sequence does not cover the model exactly: a template that drops or
-    invents layers must never reach the runtime."""
+    ``seq[s]`` counts units of the model's unit sequence (the adapter's
+    :meth:`FamilyAdapter.units`: the flat model's order, which for the
+    single-stack families is the reference's concatenation) assigned to
+    stage ``s``; a stack's template counts its units in each stage.
+    Raises if the sequence does not cover the model exactly: a template
+    that drops or invents layers must never reach the runtime."""
     adapter = get_adapter(cfg)
     counts = adapter.counts(cfg)
-    total = sum(counts.values())
+    units = adapter.units(cfg)
     seq = tuple(int(c) for c in seq)
-    if sum(seq) != total or min(seq, default=0) < 0:
+    if sum(seq) != len(units) or min(seq, default=0) < 0:
         raise ValueError(
             f"stage template {seq} covers {sum(seq)} layers but the model "
-            f"has {total} ({counts}); refusing to drop/invent layers")
+            f"has {len(units)} ({counts}); refusing to drop/invent layers")
     offs = template_offsets(seq)
-    out, start = {}, 0
-    for name in adapter.stack_order:
-        L = counts[name]
-        out[name] = tuple(
-            max(0, min(offs[s] + seq[s], start + L) - max(offs[s], start))
-            for s in range(len(seq)))
-        start += L
-    return out
+    return {name: tuple(units[o:o + n].count(name)
+                        for o, n in zip(offs, seq))
+            for name in adapter.stack_order}
+
+
+def stage_plan(cfg: ModelConfig, templates: Dict[str, Sequence[int]]
+               ) -> Tuple[Tuple[Tuple[str, int], ...], ...]:
+    """Each stage's units as (stack, slot) pairs, in the order the flat
+    model runs them (:meth:`FamilyAdapter.units`); slot ``i`` of a
+    stack's stage ``s`` holds that stack's unit ``sum(template[:s]) +
+    i``."""
+    where: Dict[str, list] = {}
+    for pos, name in enumerate(get_adapter(cfg).units(cfg)):
+        where.setdefault(name, []).append(pos)
+    stages = len(next(iter(templates.values())))
+    plan = []
+    for s in range(stages):
+        items = []
+        for name, tmpl in templates.items():
+            off = sum(tmpl[:s])
+            items += [(where[name][off + i], name, i)
+                      for i in range(tmpl[s])]
+        plan.append(tuple((name, i) for _, name, i in sorted(items)))
+    return tuple(plan)
 
 
 def make_templates(cfg: ModelConfig, stages: int,
                    template: Optional[Dict[str, Sequence[int]]] = None
                    ) -> Dict[str, Tuple[int, ...]]:
-    """Per-stack stage templates: the given ones, or the concatenated layer
-    sequence split evenly across ``stages``."""
+    """Per-stack stage templates: the given ones, or the unit sequence
+    (:meth:`FamilyAdapter.units`) split evenly across ``stages``."""
     if template is not None:
         return {k: tuple(v) for k, v in template.items()}
-    adapter = get_adapter(cfg)
-    total = sum(adapter.counts(cfg).values())
+    total = len(get_adapter(cfg).units(cfg))
     return template_from_sequence(cfg, balanced_template(total, stages))
 
 
@@ -414,6 +495,8 @@ def make_fhdp_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     # M < S; when M % S != 0 the last M - S * per are never scored
     K = min(M, S * per)
     templates = templates or make_templates(cfg, S)
+    plan = stage_plan(cfg, templates)
+    wrap = remat and not adapter.remats_itself
     lmax = {k: max(max(t), 1) for k, t in templates.items()}
     lr = learning_rate
     zero2 = fed_sgd and D > 1
@@ -430,14 +513,13 @@ def make_fhdp_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     scale = float(S * (D if zero2 else 1))
 
     def stage_fwd(s, layers, shared, x, pos, rot):
-        for name in adapter.stack_order:
-            for i in range(templates[name][s]):   # padded slots: skipped
-                lp = layers[name][s][i]
-                if remat and torch.is_grad_enabled():
-                    x = checkpoint(adapter.block, name, lp, x, cfg, window,
-                                   pos, rot, use_reentrant=False)
-                else:
-                    x = adapter.block(name, lp, x, cfg, window, pos, rot)
+        for name, i in plan[s]:          # the flat model's order
+            lp = layers[name][s][i]      # padded slots: never planned
+            if wrap and torch.is_grad_enabled():
+                x = checkpoint(adapter.block, name, lp, x, cfg, window,
+                               pos, rot, use_reentrant=False)
+            else:
+                x = adapter.block(name, lp, x, cfg, window, pos, rot)
         return x
 
     def column_loss(shared, layers, batch):

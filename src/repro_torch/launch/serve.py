@@ -18,13 +18,23 @@ and ``--trace PATH`` writes the final warm pass's sim-time trace
       --speculative --draft-k 4
   python -m repro_torch.launch.serve --device cpu --scheduler continuous \\
       --requests 3 --trace serve_trace.json
+  python -m repro_torch.launch.serve --arch qwen3-14b --full \\
+      --scheduler continuous --slots 8 --block-size 16 --cache int8
+  python -m repro_torch.launch.serve --arch hymba-1.5b --full \\
+      --batch 8 --context 512 --decode-steps 32
+
+``--arch`` takes every registered config (``repro_torch.configs
+.ARCH_IDS``); the continuous scheduler serves the dense ones (flad-adllm,
+qwen2.5-32b, qwen3-14b, qwen3-32b, yi-34b), the legacy one every decoder
+(xlstm-350m and hymba-1.5b too).
 """
 import argparse
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="flad-adllm")
+    ap.add_argument("--arch", default="flad-adllm",
+                    help="a registered config (repro_torch.configs.ARCH_IDS)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--context", type=int, default=64,
                     help="prompt tokens (legacy) / monolithic prefill "

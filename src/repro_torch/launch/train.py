@@ -35,18 +35,25 @@ set the engine's merge clock, mobility and compute jitter.
   python -m repro_torch.launch.train --arch xlstm-350m --full \\
       --strategy hier_fl --topology 2@nano,agx --codec int8 \\
       --local-steps 2 --steps 2 --shape 512x4
+  python -m repro_torch.launch.train --arch xlstm-350m --full \\
+      --strategy pipeline --mesh 2,4 --steps 2 --shape 512x8
+  python -m repro_torch.launch.train --arch hymba-1.5b --full \\
+      --strategy tensor --steps 3 --shape 512x4
 
-xlstm-350m trains with ``tensor``, ``fedavg``, ``hier_fl`` and
-``async_hier_fl`` (the mLSTM's forward and backward kernels);
-``distill_fl`` needs a dense AD-LLM config, and the FHDP strategies have
-no ssm adapter yet.
+``--arch`` takes every registered config (``repro_torch.configs
+.ARCH_IDS``): flad-vision, flad-adllm, xlstm-350m, hymba-1.5b and the
+dense qwen2.5-32b, qwen3-14b, qwen3-32b and yi-34b. xlstm-350m and
+hymba-1.5b train with every strategy but ``distill_fl``, which needs a
+dense AD-LLM config; the FHDP strategies run an xLSTM's units in the
+flat model's order (``repro_torch.core.pipeline``).
 """
 import argparse
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="flad-vision")
+    ap.add_argument("--arch", default="flad-vision",
+                    help="a registered config (repro_torch.configs.ARCH_IDS)")
     ap.add_argument("--shape", default=None, help="named shape or 'SEQxBATCH'")
     ap.add_argument("--strategy", default="pipeline",
                     choices=["tensor", "pipeline", "fedavg", "fl_pipeline",

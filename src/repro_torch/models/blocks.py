@@ -28,7 +28,7 @@ def _normal(gen, shape, std, dtype, device):
     if device.type == "meta":        # shapes only (lm.abstract_params)
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)    # in place: one float32 copy at a time
 
 
 # ---------------------------------------------------------------- norms ----

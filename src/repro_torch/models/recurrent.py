@@ -1,8 +1,7 @@
-"""Recurrent cells of the xLSTM (arXiv:2405.04517): mLSTM and sLSTM (port
-of the first two thirds of ``repro/models/recurrent.py``; its Mamba cell
-comes with the Hymba slice).
+"""Recurrent cells: the xLSTM's mLSTM and sLSTM (arXiv:2405.04517) and
+Hymba's Mamba heads (port of ``repro/models/recurrent.py``).
 
-Both cells expose, as in the reference:
+The cells expose, as in the reference:
   init_*(gen, cfg, device, lead)     -> params
   apply_*_seq(p, x, cfg, state)      -> (y, final_state)   # prefill
   apply_*_step(p, x_t, state, cfg)   -> (y_t, new_state)   # decode
@@ -16,7 +15,10 @@ hand-written backward kernel (the reference differentiates the chunk body
 with XLA). The sLSTM is a true nonlinear recurrence (h_{t-1} feeds the
 gates through a matmul), which the reference leaves to XLA: here it is
 plain PyTorch, a Python loop over time steps, and autograd takes its
-backward.
+backward. The Mamba's selective scan is XLA in the reference too: here
+plain PyTorch, a sequential carry across chunks and a doubling scan
+within one (log2 of the chunk's length steps over [B, c, d_inner, N]
+float32, never a loop over time steps).
 """
 from __future__ import annotations
 
@@ -264,3 +266,123 @@ def apply_slstm_step(p, x_t, state, cfg: ModelConfig):
     h, state = _slstm_step(p, xn[:, 0], state, cfg)
     y = _norm(h[:, None, :].to(x_t.dtype), p["gn"]) @ p["w_out"]
     return y, state
+
+
+# ================================================================ Mamba =====
+def mamba_dims(cfg: ModelConfig):
+    di = cfg.ssm.expand * cfg.d_model
+    return di, cfg.ssm.state_size
+
+
+def _softplus(x):
+    """JAX's softplus, logaddexp(x, 0) (torch's ``softplus`` turns into
+    the identity above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def init_mamba(gen, cfg: ModelConfig, device,
+               lead: Tuple[int, ...] = ()) -> dict:
+    """The reference's Mamba heads: ``b_dt``, ``A_log`` and ``D`` are
+    float32 beside leaves in the model dtype."""
+    d = cfg.d_model
+    di, n = mamba_dims(cfg)
+    r = max(16, d // 16)
+    dt, f32 = cfg.dtype, torch.float32
+    si = di ** -0.5
+    a_log = torch.log(torch.arange(1, n + 1, dtype=f32)).expand(di, n)
+    return {
+        "ln": torch.ones(lead + (d,), dtype=dt, device=device),
+        "w_in": _normal(gen, lead + (d, 2 * di), d ** -0.5, dt, device),
+        "conv": _normal(gen, lead + (cfg.ssm.conv_kernel, di), 0.1, dt,
+                        device),
+        "wB": _normal(gen, lead + (di, n), si, dt, device),
+        "wC": _normal(gen, lead + (di, n), si, dt, device),
+        "w_dt1": _normal(gen, lead + (di, r), si, dt, device),
+        "w_dt2": _normal(gen, lead + (r, di), r ** -0.5, dt, device),
+        "b_dt": torch.full(lead + (di,), -4.6, dtype=f32, device=device),
+        "A_log": a_log.to(device).expand(lead + (di, n)).clone(),
+        "D": torch.ones(lead + (di,), dtype=f32, device=device),
+        "w_out": _normal(gen, lead + (di, d), si, dt, device),
+    }
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    di, n = mamba_dims(cfg)
+    return {"h": torch.zeros((batch, di, n), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm.conv_kernel - 1, di),
+                                dtype=cfg.dtype, device=device)}
+
+
+def _mamba_proj(p, x, cfg: ModelConfig, conv_state):
+    """(xf, z, dt, B, C, A, new conv window): the input projection, the
+    causal conv from the cached window ``conv_state`` (both callers carry
+    one, zeros for a fresh state), and the selective scan's float32
+    inputs."""
+    di, _ = mamba_dims(cfg)
+    xz = _norm(x, p["ln"]) @ p["w_in"]
+    xi, z = xz.split(di, dim=-1)
+    xi_full = torch.cat([conv_state, xi], dim=1)
+    new_conv = xi_full[:, -(cfg.ssm.conv_kernel - 1):, :]
+    s, w = xi.shape[1], p["conv"]
+    xi = xi_full[:, 0:s] * w[0]
+    for i in range(1, w.shape[0]):
+        xi = xi + xi_full[:, i:i + s] * w[i]
+    xf = F.silu(xi).float()
+    dt = _softplus(xf @ p["w_dt1"].float() @ p["w_dt2"].float()
+                   + p["b_dt"])                                # [B, S, di]
+    Bm = xf @ p["wB"].float()                                  # [B, S, N]
+    Cm = xf @ p["wC"].float()
+    A = -torch.exp(p["A_log"])                                 # [di, N]
+    return xf, z, dt, Bm, Cm, A, new_conv
+
+
+def _doubling_scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1}
+    folded into b_0): log2(c) steps of the reference's ``combine``, each
+    step t taking (a_{t-d} a_t, a_t b_{t-d} + b_t) from the pair d back.
+    Returns every h_t."""
+    c, d = a.shape[1], 1
+    while d < c:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def apply_mamba_seq(p, x, cfg: ModelConfig, state=None, chunk: int = 256):
+    """x: [B, S, d] -> (y [B, S, d], final state). The reference's chunked
+    selective scan: a sequential carry across chunks (the largest divisor
+    of S up to ``chunk``) and, within a chunk, a doubling scan
+    (:func:`_doubling_scan`) over [B, c, d_inner, N] float32."""
+    b, s, _ = x.shape
+    if state is None:
+        state = init_mamba_state(cfg, b, x.device)
+    xf, z, dt, Bm, Cm, A, new_conv = _mamba_proj(p, x, cfg,
+                                                 conv_state=state["conv"])
+    c = _chunk(s, chunk)
+    h, ys = state["h"], []
+    for j in range(0, s, c):
+        dtc, Bc = dt[:, j:j + c], Bm[:, j:j + c]
+        dA = torch.exp(dtc[..., None] * A)                     # [B,c,di,N]
+        dBx = (dtc * xf[:, j:j + c])[..., None] * Bc[:, :, None, :]
+        dBx = torch.cat([dBx[:, :1] + dA[:, :1] * h[:, None], dBx[:, 1:]],
+                        dim=1)
+        hs = _doubling_scan(dA, dBx)
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cm[:, j:j + c]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1) + p["D"] * xf
+    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return out, {"h": h, "conv": new_conv}
+
+
+def apply_mamba_step(p, x_t, state, cfg: ModelConfig):
+    """x_t: [B, 1, d]."""
+    xf, z, dt, Bm, Cm, A, new_conv = _mamba_proj(p, x_t, cfg,
+                                                 conv_state=state["conv"])
+    dA = torch.exp(dt[:, 0, :, None] * A)                      # [B,di,N]
+    dBx = (dt[:, 0] * xf[:, 0])[..., None] * Bm[:, 0, None, :]
+    h = dA * state["h"] + dBx
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0]) + p["D"] * xf[:, 0]
+    out = (y[:, None, :].to(x_t.dtype) * F.silu(z)) @ p["w_out"]
+    return out, {"h": h, "conv": new_conv}

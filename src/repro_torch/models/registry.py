@@ -1,5 +1,5 @@
 """Uniform model interface (port of ``repro/models/registry.py``, dense,
-ssm and vision families): ``build_model(cfg)`` returns a :class:`Model`
+ssm, hybrid and vision families): ``build_model(cfg)`` returns a :class:`Model`
 whose members are plain functions, as the reference's.
 
 The dense ``loss`` is the reference's ``_build_lm`` loss — the decoder's
@@ -10,7 +10,11 @@ reference runs XLA there). The ssm family is the xLSTM: its ``loss`` is
 the same chunked cross-entropy over ``xlstm.forward``'s hidden states
 (the mLSTM's forward and backward kernels, every layer checkpointed),
 ``prefill`` runs the mLSTM's chunkwise kernel, ``decode_step`` the cells'
-one-token steps. The vision family is FLAD's vision
+one-token steps. The hybrid family is Hymba
+(:mod:`repro_torch.models.hymba`): the same chunked cross-entropy, its
+attention on the flash kernels in training and on plain attention over
+the contiguous cache in ``prefill``/``decode_step``, its Mamba heads
+plain PyTorch. The vision family is FLAD's vision
 encoder (:mod:`repro_torch.models.vision_encoder`): its ``loss`` trains
 it; it has no decode path, and ``prefill``/``decode_step`` raise, as the
 reference's.
@@ -23,7 +27,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import lm, vision_encoder, xlstm
+from repro_torch.models import hymba, lm, vision_encoder, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +108,37 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
     return Model(cfg, init, loss, init_state, prefill, decode_step)
 
 
+# ------------------------------------------------------------- hybrid ----
+def _build_hymba(cfg: ModelConfig) -> Model:
+    def init(seed: int = 0, device="cuda"):
+        return hymba.init(cfg, seed=seed, device=device)
+
+    def loss(params, batch, *, remat=True, window=None):
+        x, _, aux = hymba.forward(params, cfg, batch["tokens"],
+                                  window=window, hidden_only=True,
+                                  remat=remat)
+        return _hidden_ce(params, x, batch["labels"], aux)
+
+    def init_state(batch: int, cache_len: int, device="cuda"):
+        return hymba.init_state(cfg, batch, cache_len, device)
+
+    def prefill(params, batch, state, *, window=None):
+        logits, st, _ = hymba.forward(params, cfg, batch["tokens"],
+                                      states=state, window=window,
+                                      logits_slice=1)
+        return logits, st
+
+    def decode_step(params, tokens, state, pos, *, window=None):
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=tokens.device)
+        logits, st, _ = hymba.forward(params, cfg, tokens,
+                                      positions=positions, states=state,
+                                      window=window, step=True)
+        return logits, st
+
+    return Model(cfg, init, loss, init_state, prefill, decode_step)
+
+
 # ------------------------------------------------------------- vision ----
 def _build_vision(cfg: ModelConfig) -> Model:
     def init(seed: int = 0, device="cuda"):
@@ -120,14 +155,17 @@ def _build_vision(cfg: ModelConfig) -> Model:
 
 
 FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm,
-            "vision": _build_vision}
+            "hybrid": _build_hymba, "vision": _build_vision}
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
-    """The parameter tree of a dense or ssm config on the ``meta`` device
-    (shapes and dtypes only), as the reference's ``_abstract_init``."""
+    """The parameter tree of a dense, ssm or hybrid config on the ``meta``
+    device (shapes and dtypes only), as the reference's
+    ``_abstract_init``."""
     if cfg.family == "ssm":
         return xlstm.abstract_params(cfg)
+    if cfg.family == "hybrid":
+        return hymba.abstract_params(cfg)
     return lm.abstract_params(cfg)
 
 

@@ -107,13 +107,18 @@ def _slstm_layer(sp, x, cfg: ModelConfig):
     return x + R.apply_slstm_seq(sp, x, cfg)[0]
 
 
-def _train_super_block(params, x, cfg: ModelConfig):
-    """One super-block from fresh states, each layer checkpointed; no
-    state is kept."""
-    mp, sp = params
+def train_mlstm_unit(mp, x, cfg: ModelConfig):
+    """One super-block's mLSTM layers ([k, ...] stacked) from fresh
+    states, each layer checkpointed; no state is kept. The FHDP step's
+    ssm units are this and :func:`train_slstm_unit`."""
     for j in range(next(iter(mp.values())).shape[0]):
         x = checkpoint(_mlstm_layer, layer(mp, j), x, cfg,
                        use_reentrant=False)
+    return x
+
+
+def train_slstm_unit(sp, x, cfg: ModelConfig):
+    """One super-block's sLSTM layer from a fresh state, checkpointed."""
     return checkpoint(_slstm_layer, sp, x, cfg, use_reentrant=False)
 
 
@@ -142,7 +147,8 @@ def forward(params, cfg: ModelConfig, tokens, *, states=None, step=False,
     for s in range(n_super):
         blocks = (layer(params["mlstm"], s), layer(params["slstm"], s))
         if train:
-            x = _train_super_block(blocks, x, cfg)
+            x = train_slstm_unit(blocks[1],
+                                 train_mlstm_unit(blocks[0], x, cfg), cfg)
             continue
         x = _super_block(
             blocks, x, cfg,

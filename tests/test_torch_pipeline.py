@@ -266,8 +266,8 @@ def test_template_from_sequence_refuses_a_bad_cover(seq):
 
 
 def test_other_families_raise_by_name():
-    cfg = reduced(get_config("xlstm-350m"))
-    with pytest.raises(NotImplementedError, match="ssm FHDP adapter"):
+    cfg = reduced(get_config("flad-adllm")).replace(family="encdec")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
         pl.get_adapter(cfg)
 
 
