@@ -7,13 +7,15 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-five hand-written kernel libraries from
+  2. builds the twenty-seven hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the nine tensor-core libraries'
-     (flash forward, dK/dV, dQ; the float32 3xTF32 flash forward, dK/dV
-     and dQ; LoRA matmul; paged prefill; chunkwise mLSTM) SASS holds HGMMA
-     (wgmma) instructions and prints their registers, spills and shared
-     memory;
+     prints the build time; checks that the eleven tensor-core libraries'
+     (flash forward, dK/dV, dQ; the bf16 head_dim-128 flash forward and
+     dK/dV; the float32 3xTF32 flash forward, dK/dV and dQ; LoRA matmul;
+     paged prefill; chunkwise mLSTM) SASS holds HGMMA (wgmma)
+     instructions and prints their registers, spills and shared memory
+     (the head_dim-128 pair must report no spill, no serialized wgmma and
+     no ignored setmaxnreg);
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
@@ -64,9 +66,11 @@ In order, it
      head_dim 128 (qwen3-14b's 40/8 heads, 4096 keys, bf16 and int8
      pools) on their SIMT kernels beside the plain version and the
      gather + SDPA composition; the flash forward, preprocess, dK/dV and
-     dQ at head_dim 128 (B 2, Hq 40, Hkv 8, S 1024: the SIMT kernels)
-     and at Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512, D 64: the
-     wgmma kernels) beside the plain versions and SDPA;
+     dQ at head_dim 128 (B 2, Hq 40, Hkv 8, S 1024: the forward and dK/dV
+     on their head_dim-128 wgmma kernels, timed in turns with the SIMT
+     kernels on the same inputs, dQ on SIMT; checked again at 56/8 and
+     64/8 heads) and at Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512,
+     D 64: the wgmma kernels) beside the plain versions and SDPA;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -180,8 +184,10 @@ In order, it
      and yi-34b at full width cut to 4 layers (32.8-34.4 B params do not
      fit beside a KV pool) over the model-dtype cache, each held to the
      contiguous oracle, every paged launch on its SIMT route (head_dim
-     128); trains qwen3-14b cut to 2 layers by the tensor strategy (the
-     flash kernels at head_dim 128, SIMT); serves Hymba-1.5b at full
+     128); trains qwen3-14b cut to 2 layers by the tensor strategy (a
+     batch's loss through the flash kernels held to plain attention, then
+     the steps: the forward and dK/dV on wgmma128, dQ on SIMT); serves
+     Hymba-1.5b at full
      width and depth with the legacy scheduler (no kernel), holds a
      loss through the flash kernels to plain attention, trains it by
      the tensor strategy (every flash launch on wgmma at Hq 25 / Hkv 5)
@@ -192,7 +198,8 @@ In order, it
      held to the flat Model.loss, every mLSTM launch on wgmma;
  10. prints one JSON line describing every ported kernel (with the new
      shapes' times and launches as its head_dim_128 and hymba_group_5
-     entries), the card's name and power limit, and {"ok": true,
+     entries, and the head_dim-128 forward and dK/dV kernels as lines of
+     their own), the card's name and power limit, and {"ok": true,
      "device": {...}} last.
 
 With --paged it stops after the build and the paged kernels' checks
@@ -204,7 +211,10 @@ with --vision after the build, the flash kernels at the FHDP shape and
 step 8b, with --swift after the build and step 8c, with --async after
 the build and step 5b, with --xlstm-train after the build, the mLSTM
 backward's checks and step 9b, with --dense after the build, the
-head_dim-128 kernels' checks and the dense part of step 9c, with --hymba
+head_dim-128 kernels' checks and the dense part of step 9c, with
+--flash128 after the build, the head_dim-128 flash kernels' checks (at
+40/8, 56/8 and 64/8 heads, timed at 40/8) and the dense training phase,
+with --hymba
 after the build, the group-5 flash checks and the Hymba part, with
 --xlstm-fhdp after the build and the FHDP part at 512 tokens with a
 profiled step (minutes: its trace holds about 2.9 million kernels);
@@ -308,6 +318,16 @@ TF32_KERNELS = {
     "flash_attention_bwd_dq": ("flash_bwd_dq_tf32",
                                "flash_attention_bwd_dq_tf32_smem",
                                "flash_bwd_dq_tf32_kernel"),
+}
+# the forward's and dK/dV's bf16 route at head_dim 128 (route wgmma128;
+# dQ at 128 stays on its SIMT kernel): (library, its shared-memory query,
+# profiler name)
+D128_KERNELS = {
+    "flash_attention": ("flash_fwd_tc128", "flash_attention_fwd_tc128_smem",
+                        "flash_fwd_d128_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_tc128",
+                                "flash_attention_bwd_dkv_tc128_smem",
+                                "flash_bwd_dkv_d128_kernel"),
 }
 TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3   # three tf32 passes a product
@@ -717,12 +737,22 @@ def per_launch(rows, kernels):
     return out
 
 
+def flash_kernel(fn, route):
+    """The profiler name of flash wrapper ``fn``'s kernel on ``route``."""
+    if route == "wgmma128":
+        return D128_KERNELS[fn][2]
+    if route == "tf32x3":
+        return TF32_KERNELS[fn][2]
+    return TC_KERNELS[fn][3 if route == "wgmma" else 4]
+
+
 def flash_split(rows):
     """(total ms, {kernel: ms}) of the flash kernels in profile rows
     (ms, count, name), by profiler name."""
     names = [TC_KERNELS[n][3] for n in FLASH_NAMES if n in TC_KERNELS] + [
         f"{stem}_kernel" for stem in FLASH_NAMES.values()] + [
-        t[2] for t in TF32_KERNELS.values()] + [PRE_NAMES["vec"]]
+        t[2] for t in TF32_KERNELS.values()] + [
+        t[2] for t in D128_KERNELS.values()] + [PRE_NAMES["vec"]]
     split = {n: sum(r[0] for r in rows if n in r[2]) for n in names}
     split = {n: t for n, t in split.items() if t > 0}
     return sum(split.values()), split
@@ -2017,6 +2047,25 @@ def tc_report():
               f"spill stores + loads {spills or 'not rebuilt'} bytes; "
               f"{smem} bytes of dynamic shared memory a CTA; serialized "
               f"wgmma warnings {serial}")
+    for name, (stem, smem_fn, kname) in D128_KERNELS.items():
+        hgmma, regs, spills = _lib_report(stem)
+        rep = build.build_report[stem]
+        smem = getattr(ctypes.CDLL(rep["path"]), smem_fn)()
+        serial = rep["log"].count("serialized")       # ptxas C7512, C7514
+        ignored = rep["log"].count("C7508")
+        check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
+        check(not any(spills), f"{stem}: ptxas reports spills {spills}")
+        check(serial == 0 and ignored == 0, f"{stem}: ptxas serialized "
+              f"wgmma ({serial}) or ignored setmaxnreg ({ignored})")
+        out[f"{name}/wgmma128"] = dict(hgmma=hgmma, registers=regs,
+                                       spill_bytes=spills,
+                                       dynamic_smem_bytes=smem)
+        print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA instructions in "
+              f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread "
+              f"at launch (consumers 240 by setmaxnreg), spill stores + "
+              f"loads {spills or 'not rebuilt'} bytes, serialized wgmma "
+              f"{serial}, ignored setmaxnreg {ignored}; {smem} bytes of "
+              f"dynamic shared memory a CTA")
     for name, (stem, kname, wgmma) in PAGED_LIBS.items():
         if stem not in build.build_report:
             continue
@@ -5358,13 +5407,21 @@ XF_MESH, XF_B, XF_S, XF_STEPS, XF_S_CUT = "2,4", 8, 512, 2, 256
 #: and batch (readings 2.62e-5 at 512 tokens, 5.72e-5 at 256); the
 #: stack-after-stack order of the reference's adapter must miss it
 XF_LOSS_RTOL = 5e-4
-#: the flash kernels' shapes that the new paths reach: head_dim 128 at
-#: the dense training shape, Hymba's GQA group of 5 at its training shape
-FLASH_SHAPES = {"head_dim_128": (DT_B, 40, 8, DT_S, 128, "simt"),
-                "hymba_group_5": (HY_TRAIN_B, 25, 5, HY_TRAIN_S, 64,
-                                  "wgmma")}
 FLASH_FNS = ("flash_attention", PRE, "flash_attention_bwd_dkv",
              "flash_attention_bwd_dq")
+#: each flash wrapper's route at bf16 head_dim 128: the forward and dK/dV
+#: on their tensor-core kernels, dQ on the SIMT one (the preprocess on vec)
+D128_ROUTES = {"flash_attention": "wgmma128", PRE: "vec",
+               "flash_attention_bwd_dkv": "wgmma128",
+               "flash_attention_bwd_dq": "simt"}
+#: the flash kernels' shapes that the new paths reach, with each wrapper's
+#: route: head_dim 128 at the dense training shape (qwen3-14b's 40/8
+#: heads; also checked at 56/8 and 64/8, :func:`d128_flash_checks`),
+#: Hymba's GQA group of 5 at its training shape
+FLASH_SHAPES = {"head_dim_128": (DT_B, 40, 8, DT_S, 128, D128_ROUTES),
+                "hymba_group_5": (HY_TRAIN_B, 25, 5, HY_TRAIN_S, 64,
+                                  {**dict.fromkeys(FLASH_FNS, "wgmma"),
+                                   PRE: "vec"})}
 
 
 def d128_paged_checks(torch, dev):
@@ -5521,19 +5578,50 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
     return out
 
 
-def flash_shape_checks(torch, dev, label):
+def d128_flash_checks(torch, dev):
+    """:func:`flash_shape_checks` at head_dim 128 for every (query heads,
+    KV heads) that the dense configs reach (40/8: qwen3-14b and
+    qwen2.5-32b; 64/8: qwen3-32b; 56/8: yi-34b), timed at
+    :data:`DENSE_FULL`'s. Returns its rows, every layout's largest error
+    folded into ``max_abs_err`` and the layouts checked under
+    ``layouts``."""
+    from repro_torch.configs import get_config
+    out, seen = None, []
+    for arch in (DENSE_FULL,) + DENSE_CUT:
+        cfg = get_config(arch)
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        if heads in seen:
+            continue
+        seen.append(heads)
+        rows = flash_shape_checks(torch, dev, "head_dim_128", heads=heads,
+                                  timed=out is None)
+        if out is None:
+            out = rows
+            continue
+        for fn, row in rows.items():
+            out[fn]["max_abs_err"] = max(out[fn]["max_abs_err"],
+                                         row["max_abs_err"])
+    for row in out.values():
+        row["layouts"] = [f"{hq}/{hkv}" for hq, hkv in seen]
+    return out
+
+
+def flash_shape_checks(torch, dev, label, heads=None, timed=True):
     """The flash forward, preprocess, dK/dV and dQ at one of
-    :data:`FLASH_SHAPES` (bf16, causal): each against its plain version
-    (bf16 outputs within a bf16 ulp of the largest magnitude, lse and
-    delta within 1e-5 of theirs), the backward bitwise repeatable, each
-    launch on the shape's route (the preprocess on vec); timed with a
-    cold L2 beside the plain version and one PyTorch call (SDPA's forward;
-    SDPA's whole backward for dK/dV and dQ; for the preprocess one
-    torch.bmm with a float32 output, as :func:`preprocess_checks` times
-    it). Returns {wrapper: row}."""
+    :data:`FLASH_SHAPES` (bf16, causal; ``heads`` = (Hq, Hkv) in place of
+    the shape's): each against its plain version (bf16 outputs within a
+    bf16 ulp of the largest magnitude, lse and delta within 1e-5 of
+    theirs), the backward bitwise repeatable, each launch on the shape's
+    route for its wrapper; with ``timed``, timed with a cold L2 beside the
+    plain version and one PyTorch call (SDPA's forward; SDPA's whole
+    backward for dK/dV and dQ; for the preprocess one torch.bmm with a
+    float32 output, as :func:`preprocess_checks` times it), a kernel on
+    the wgmma128 route in turns with the SIMT kernel on the same inputs.
+    Returns {wrapper: row}."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
-    b, hq, hkv, s, d, route = FLASH_SHAPES[label]
+    b, hq, hkv, s, d, routes = FLASH_SHAPES[label]
+    hq, hkv = heads or (hq, hkv)
     g = torch.Generator(device=dev).manual_seed(17)
 
     def rand(*shape):
@@ -5551,13 +5639,13 @@ def flash_shape_checks(torch, dev, label):
             for fn, c in ops.route_counts().items() if fn in FLASH_FNS}
     for fn in FLASH_FNS:
         want = dict.fromkeys(grew[fn], 0)
-        want["vec" if fn == PRE else route] = 1
-        check(grew[fn] == want, f"flash {label} {fn}: launches by route "
-              f"{grew[fn]} != {want}")
+        want[routes[fn]] = 1
+        check(grew[fn] == want, f"flash {label} Hq{hq} Hkv{hkv} {fn}: "
+              f"launches by route {grew[fn]} != {want}")
     again = ops.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))),
-          f"flash {label}: two backward runs differ")
+          f"flash {label} Hq{hq} Hkv{hkv}: two backward runs differ")
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True)
     rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -5577,10 +5665,21 @@ def flash_shape_checks(torch, dev, label):
         tol = (FLASH_ATOL_F32 * max(1.0, float(want.abs().max()))
                if lab in ("lse", "delta")
                else BF16_ULP * float(want.float().abs().max()))
-        check(err <= tol, f"flash {label} {lab}: max err {err:.3e} > "
-              f"{tol:.3e}")
+        check(err <= tol, f"flash {label} Hq{hq} Hkv{hkv} {lab}: max err "
+              f"{err:.3e} > {tol:.3e}")
         errs[fn] = max(errs.get(fn, 0.0), err)
+    print(f"[kernel] flash {label} Hq{hq} Hkv{hkv}: routes "
+          + ", ".join(f"{fn} {routes[fn]}" for fn in FLASH_FNS)
+          + "; max|err| " + ", ".join(f"{fn} {e:.3e}"
+                                      for fn, e in errs.items())
+          + "; backward bitwise repeatable")
     del ro, rlse, rdelta, rdk, rdv, rdq, again
+    rows = {fn: dict(max_abs_err=errs[fn], route=routes[fn])
+            for fn in FLASH_FNS}
+    if not timed:
+        del q, k, v, do, o, lse, delta, dk, dv, dq
+        torch.cuda.empty_cache()
+        return rows
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
@@ -5590,42 +5689,55 @@ def flash_shape_checks(torch, dev, label):
         lo, (ql, kl, vl), do, retain_graph=True), None, iters=20)
     nq, nkv, stat = b * hq * s * d, b * hkv * s * d, b * hq * s
     pairs = b * hq * _pairs(s, s)
+    card = dict(scale=sc, causal=True, window=None, q_offset=0)
     runs = {
         "flash_attention": (
             lambda: ops.flash_attention(q, k, v, return_lse=True),
             lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
-            lib_fwd, ((2 * nq + 2 * nkv) * 2 + 4 * stat, 4 * d * pairs)),
+            lib_fwd, ((2 * nq + 2 * nkv) * 2 + 4 * stat, 4 * d * pairs),
+            lambda: ops._flash_fwd_card(q, k, v, return_lse=True,
+                                        route="simt", **card)),
         PRE: (
             lambda: ops.flash_attention_bwd_preprocess(o, do),
             lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
             device_ms(lambda: _bmm_delta(torch, o, do), None, iters=20),
-            (2 * nq * 2 + 4 * stat, 2 * nq)),
+            (2 * nq * 2 + 4 * stat, 2 * nq), None),
         "flash_attention_bwd_dkv": (
             lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
             lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                     scale=sc),
-            lib_bwd, ((2 * nq + 4 * nkv) * 2 + 8 * stat, 8 * d * pairs)),
+            lib_bwd, ((2 * nq + 4 * nkv) * 2 + 8 * stat, 8 * d * pairs),
+            lambda: ops._flash_dkv_card(q, k, v, do, lse, delta,
+                                        route="simt", **card)),
         "flash_attention_bwd_dq": (
             lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta),
             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
                                                    scale=sc),
-            lib_bwd, ((3 * nq + 2 * nkv) * 2 + 8 * stat, 6 * d * pairs))}
-    rows = {}
-    for fn, (kfn, pfn, lib, work) in runs.items():
-        match = (PRE_NAMES["vec"] if fn == PRE
-                 else TC_KERNELS[fn][3 if route == "wgmma" else 4])
-        ms = device_ms(kfn, match)
+            lib_bwd, ((3 * nq + 2 * nkv) * 2 + 8 * stat, 6 * d * pairs),
+            None)}
+    for fn, (kfn, pfn, lib, work, simt_fn) in runs.items():
+        route = routes[fn]
+        match = PRE_NAMES["vec"] if fn == PRE else flash_kernel(fn, route)
+        simt_ms = None
+        if route == "wgmma128":
+            ms, simt_ms = in_turns(kfn, simt_fn, match,
+                                   flash_kernel(fn, "simt"))
+        else:
+            ms = device_ms(kfn, match)
         plain = device_ms(pfn, None, iters=20)
         b_ms, b_by = bound(*work, BF16_FLOPS_PER_S)
-        rows[fn] = dict(shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal",
-                        route="vec" if fn == PRE else route, kernel=match,
-                        max_abs_err=errs[fn], ms=ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                        f32_cuda_core_bound_ms=bound(
-                            work[0], work[1], F32_FLOPS_PER_S)[0])
+        rows[fn].update(
+            shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal",
+            kernel=match, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, simt_ms=simt_ms,
+            f32_cuda_core_bound_ms=bound(work[0], work[1],
+                                         F32_FLOPS_PER_S)[0])
+        simt = ("" if simt_ms is None else
+                f" (in turns with the SIMT kernel on the same inputs: "
+                f"{simt_ms:.5f} ms)")
         print(f"[kernel] {fn} {label} ({rows[fn]['shape']}, {match}): "
-              f"max|err| {errs[fn]:.3e}; device: kernel {ms:.5f} ms, plain "
-              f"{plain:.5f} ms, library "
+              f"max|err| {errs[fn]:.3e}; device: kernel {ms:.5f} ms{simt}, "
+              f"plain {plain:.5f} ms, library "
               f"{'n/a' if lib is None else round(lib, 5)} ms; bound "
               f"{b_ms:.5f} ms ({b_by}; on the CUDA cores in float32 "
               f"{rows[fn]['f32_cuda_core_bound_ms']:.5f} ms)")
@@ -5853,27 +5965,54 @@ def dense_main_path(torch, dev):
 
 
 def dense_train_path(torch, dev):
-    """qwen3-14b at full width cut to DT_LAYERS layers, DT_STEPS steps of
-    the tensor strategy (its step and init, as a Session builds them) on
-    one batch: the exact flash
+    """qwen3-14b at full width cut to DT_LAYERS layers: one batch's bf16
+    loss through the flash kernels against plain attention (within
+    HY_LOSS_RTOL); then DT_STEPS steps of the tensor strategy (its step
+    and init, as a Session builds them) on that batch: the exact flash
     launches (the forward twice a layer and step, the checkpoint's
-    recompute included; the preprocess, dK/dV and dQ once), the forward,
-    dK/dV and dQ on the SIMT route, the preprocess on vec; finite losses,
-    moved weights."""
+    recompute included; the preprocess, dK/dV and dQ once), the forward
+    and dK/dV on the wgmma128 route, dQ on simt, the preprocess on vec
+    (:data:`D128_ROUTES`); finite losses, moved weights."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models.registry import build_model
     cfg = get_config(DENSE_FULL).replace(num_layers=DT_LAYERS)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(23)
+    batch = {k: torch.randint(0, cfg.vocab_size, (DT_B, DT_S), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    # one batch's loss through the kernels and through plain attention
+    params = lm.init(cfg, seed=0, device=dev)
+    model = build_model(cfg)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        loss_k = float(model.loss(params, batch)[0])
+        fwd = ops.route_counts()["flash_attention"]
+        saved = ops.flash_attention_ad
+        ops.flash_attention_ad = _plain_flash_ad(ref)
+        try:
+            loss_p = float(model.loss(params, batch)[0])
+        finally:
+            ops.flash_attention_ad = saved
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[dense-train] bf16 loss of a {DT_B}x{DT_S} batch at {DT_LAYERS} "
+          f"layers: flash kernels {loss_k:.6f} ({fwd['wgmma128']} forward "
+          f"launches on wgmma128), plain attention {loss_p:.6f} (rel "
+          f"{rel:.2e}, rtol {HY_LOSS_RTOL})")
+    check(fwd == {**dict.fromkeys(fwd, 0), "wgmma128": DT_LAYERS},
+          f"dense loss: forward launches by route {fwd}")
+    check(np.isfinite(loss_k) and rel <= HY_LOSS_RTOL,
+          f"dense loss through the kernels {loss_k} vs plain {loss_p}")
+    del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ses = Session(cfg=cfg, strategy="tensor", shape=f"{DT_S}x{DT_B}",
                   device=dev)
     step = ses.strategy.make_step(cfg, ses.shape, ses.mesh)
     params, opt = ses.strategy.init(cfg, ses.shape, ses.mesh, ses.seed)
-    g = torch.Generator(device=dev).manual_seed(23)
-    batch = {k: torch.randint(0, cfg.vocab_size, (DT_B, DT_S), generator=g,
-                              device=dev, dtype=torch.int32)
-             for k in ("tokens", "labels")}
     wq0 = params["blocks"]["attn"]["wq"].clone()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5892,8 +6031,9 @@ def dense_train_path(torch, dev):
     check(counts == want, f"dense training launches {counts} != {want}")
     routes = ops.route_counts()
     for fn in FLASH_FNS:
-        check(routes[fn]["vec" if fn == PRE else "simt"] == counts[fn],
-              f"dense training: {fn} launches by route {routes[fn]}")
+        want = {**dict.fromkeys(routes[fn], 0), D128_ROUTES[fn]: counts[fn]}
+        check(routes[fn] == want, f"dense training: {fn} launches by route "
+              f"{routes[fn]} != {want}")
     check(all(np.isfinite(losses)), f"dense training losses {losses}")
     moved = float((params["blocks"]["attn"]["wq"].float()
                    - wq0.float()).abs().max())
@@ -5903,12 +6043,14 @@ def dense_train_path(torch, dev):
           f"strategy, {n} steps of {DT_B}x{DT_S} tokens: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; wall {wall:.2f} s; peak {peak:.2f} GiB; launches "
-          f"{ {k: v for k, v in counts.items() if v} }, the flash forward, "
-          f"dK/dV and dQ on simt (head_dim 128), the preprocess on vec")
+          f"{ {k: v for k, v in counts.items() if v} }, the flash forward "
+          f"and dK/dV on wgmma128, dQ on simt (head_dim 128), the "
+          f"preprocess on vec")
     del params, opt, ses, step, wq0
     torch.cuda.empty_cache()
     return counts, {fn: routes[fn] for fn in FLASH_FNS}, dict(
-        losses=losses, wall_s=wall, peak_gib=peak)
+        losses=losses, wall_s=wall, peak_gib=peak, loss_kernels=loss_k,
+        loss_plain=loss_p, loss_rel=rel)
 
 
 def _profile_rows(torch, fn, steps=1):
@@ -6261,14 +6403,22 @@ def main():
     cfg = get_config("flad-adllm")
     if "--dense" in sys.argv[1:]:
         rows = {"d128": d128_paged_checks(torch, dev),
-                "head_dim_128": flash_shape_checks(torch, dev,
-                                                   "head_dim_128")}
+                "head_dim_128": d128_flash_checks(torch, dev)}
         launches, routes, summary = dense_main_path(torch, dev)
         print(json.dumps({"kernels": rows, "launches": launches,
                           "by_route": routes, "dense": summary},
                          default=str))
         print("chip_smoke --dense: the head_dim-128 kernels and the dense "
               "configs' phase only; no result line")
+        return 0
+    if "--flash128" in sys.argv[1:]:
+        rows = d128_flash_checks(torch, dev)
+        counts, routes, summary = dense_train_path(torch, dev)
+        print(json.dumps({"kernels": rows, "launches": counts,
+                          "by_route": routes, "dense_train": summary},
+                         default=str))
+        print("chip_smoke --flash128: the head_dim-128 flash kernels and "
+              "the dense training phase only; no result line")
         return 0
     if "--hymba" in sys.argv[1:]:
         rows = flash_shape_checks(torch, dev, "hymba_group_5")
@@ -6368,8 +6518,10 @@ def main():
     kernels["mlstm_chunked_bwd"] = mlstm_bwd_checks(torch, dev)
     for name, extra in d128_paged_checks(torch, dev).items():
         kernels[name]["head_dim_128"] = extra
-    for label in FLASH_SHAPES:
-        for name, extra in flash_shape_checks(torch, dev, label).items():
+    for label, rows in (("head_dim_128", d128_flash_checks(torch, dev)),
+                        ("hymba_group_5", flash_shape_checks(
+                            torch, dev, "hymba_group_5"))):
+        for name, extra in rows.items():
             kernels[name][label] = extra
     phase("kernel checks")
 
@@ -6585,6 +6737,25 @@ def main():
                          "source", "replaces", "max_abs_err", "ms",
                          "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}})
+    # the forward's and dK/dV's head_dim-128 kernels (route wgmma128), a
+    # line each: their launches on the main paths, their times at the
+    # dense training shape
+    for name, (stem, _, kname) in D128_KERNELS.items():
+        k = kernels[name]["head_dim_128"]
+        by_path = {p: c.get(name, {}).get("wgmma128", 0)
+                   for p, c in new_routes.items()}
+        check(sum(by_path.values()) > 0, f"{kname} was never launched")
+        rows.append({"name": f"{name}_d128", "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
+                     "replaces": kernels[name]["replaces"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path, "kernel": kname,
+                     "build": tc[f"{name}/wgmma128"],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"], "simt_ms": k["simt_ms"],
+                     "shape": k["shape"], "layouts": k["layouts"]})
     print(json.dumps({"kernels": rows}, default=str))
     phase("the whole script")
     print(card)

@@ -48,6 +48,8 @@ SIGNATURES = {
                   [_I] + [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_fwd_tc": ("flash_attention_fwd_tc",
                      [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_fwd_tc128": ("flash_attention_fwd_tc128",
+                        [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_fwd_tf32": ("flash_attention_fwd_tf32",
                        [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_preprocess": ("flash_attention_bwd_preprocess",
@@ -58,6 +60,8 @@ SIGNATURES = {
                       [_I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dkv_tc": ("flash_attention_bwd_dkv_tc",
                          [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_bwd_dkv_tc128": ("flash_attention_bwd_dkv_tc128",
+                            [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dkv_tf32": ("flash_attention_bwd_dkv_tf32",
                            [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq": ("flash_attention_bwd_dq",

@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu, flash_bwd_dq_tc.cu,
-// lora_matmul_tc.cu, mlstm_chunked_tc.cu, flash_fwd_tf32.cu,
-// flash_bwd_dkv_tf32.cu, flash_bwd_dq_tf32.cu): mbarriers, TMA tile
-// loads, cp.async copies, shared-memory matrix descriptors and warpgroup
-// MMAs (wgmma), as PTX; and the 3xTF32 float32 products (the section
-// "3xTF32" below states their own conventions).
+// flash_fwd_tc128.cu, flash_bwd_dkv_tc128.cu, lora_matmul_tc.cu,
+// mlstm_chunked_tc.cu, flash_fwd_tf32.cu, flash_bwd_dkv_tf32.cu,
+// flash_bwd_dq_tf32.cu): mbarriers, TMA tile loads, cp.async copies,
+// shared-memory matrix descriptors, warpgroup MMAs (wgmma) and register
+// hand-over between warpgroups (setmaxnreg), as PTX; and the 3xTF32
+// float32 products (the section "3xTF32" below states their own
+// conventions).
 //
 // Conventions, all for bf16 tiles of 64-element (128-byte) rows:
 //   * TMA writes a tile into shared memory with the 128-byte swizzle, so a
@@ -78,6 +80,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// As mbar_wait, for a warpgroup that raised its register budget
+// (reg_alloc): a trap in its code makes ptxas allocate that code within
+// the kernel's entry budget (spilling and serializing its wgmmas), so
+// after about ten seconds this wait returns instead and the warpgroup
+// goes on with whatever the buffer holds. The producer's waits still
+// trap: a launch whose barriers deadlock ends either way, with a fault or
+// with wrong values, and never hangs the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done && clock64() - t0 <= (1LL << 34));
+}
+
 // ------------------------------------------------------------------- TMA
 // Copy the box at coordinates (c0, c1, c2) (innermost first) of a 3-D
 // tensor map into shared memory; completion is counted on `bar`.
@@ -109,6 +132,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // threads, a multiple of 32: one warpgroup syncs without the others.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Hand registers between warpgroups: every thread of the calling
+// warpgroup lowers (dealloc) or raises (alloc) its register budget to N,
+// a multiple of 8 in [24, 256]. A producer warpgroup that needs few gives
+// them up and the consumer warpgroups take them; the kernel must branch
+// into the roles once, right after its set-up, and never reconverge, or
+// ptxas ignores the request (warning C7508).
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // Make this thread's ordinary shared-memory stores visible to the async
@@ -282,6 +320,38 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (bf16 pairs laid
+// out as an accumulator fragment), B MN-major (transposed) in shared
+// memory as two 64-column halves, LBO apart (desc_sw128_lbo).
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x 16] (+)= A[64 x 16] B[16 x 16], both K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_m64n16(float (&d)[8], uint64_t da,
                                                uint64_t db, int scale_d) {
@@ -332,12 +402,76 @@ __device__ __forceinline__ void mma_rs_k64(float (&d)[32],
     wgmma_rs_m64n64_tb(d, a[kk], desc_sw128(b + kk * 16 * 64));
 }
 
+// ------------------------------------------------ head_dim 128 products
+// A [64, 128] bf16 tile is two [64, 64] halves (columns 0-63, then 64-127)
+// of HALF128_BYTES each, one TMA box apiece (bf16_cols_map): the 128-byte
+// swizzle takes rows of 64 elements at most.
+constexpr int HALF128_BYTES = 64 * 64 * 2;
+
+// D = A B^T over a 128-deep reduction (eight 16-deep steps): A and B are
+// [64, 128] tiles as two halves each, read along their rows (K-major).
+__device__ __forceinline__ void mma_ss_k128(float (&d)[32], const void* a,
+                                            const void* b) {
+  const char* a1 = reinterpret_cast<const char*>(a) + HALF128_BYTES;
+  const char* b1 = reinterpret_cast<const char*>(b) + HALF128_BYTES;
+  mma_ss_k64(d, a, b);
+  const uint64_t da = desc_sw128(a1), db = desc_sw128(b1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_m64n64(d, da + 2 * kk, db + 2 * kk);
+}
+
+// D[64 x 128] += A B over a K-deep reduction (K / 16 steps): A the bf16
+// fragments of pack_frags, B K rows of a [64, 128] tile (two halves; `b`
+// at the first of those rows in the first half) read down its columns
+// (MN-major), 16 rows a step; one m64n128 wgmma a step, whose
+// descriptor's LBO steps from the first half to the second.
+template <int K, int HALF_BYTES = HALF128_BYTES>
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[K / 16][4],
+                                            const __nv_bfloat16* b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs_m64n128_tb(d, a[kk],
+                        desc_sw128_lbo(b + kk * 16 * 64, HALF_BYTES));
+}
+
+// D[64 x 128] = A B^T over a 128-deep reduction, 128 columns: A a [64, 128]
+// tile and B a [128, 128] one, each as two 64-column halves (A's
+// HALF128_BYTES apart, B's twice that), both K-major.
+__device__ __forceinline__ void mma_ss_k128_n128(float (&d)[64],
+                                                 const void* a,
+                                                 const void* b) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint64_t da = desc_sw128(reinterpret_cast<const char*>(a) +
+                                   h * HALF128_BYTES);
+    const uint64_t db = desc_sw128(reinterpret_cast<const char*>(b) +
+                                   2 * h * HALF128_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_m64n128<0>(d, da + 2 * kk, db + 2 * kk, h + kk > 0);
+  }
+}
+
 // A 64 x 64 float32 accumulator fragment as the bf16 A fragments of a
 // 64-deep product, one per 16-deep step.
 __device__ __forceinline__ void pack_frag(uint32_t (&a)[4][4],
                                           const float (&x)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// A 64 x 16K float32 accumulator fragment as the bf16 A fragments of a
+// 16K-deep product (pack_frag at K = 4).
+template <int K>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[K][4],
+                                           const float (&x)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
@@ -714,6 +848,30 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base,
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
   const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)rows * 64 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a contiguous bf16 tensor [planes, rows, cols] (cols a
+// multiple of 64), read in boxes of `box_rows` rows x 64 columns with the
+// 128-byte swizzle: a 64-column half of a row block is one box (its
+// coordinate c0 = 0 or 64 at cols 128). Rows past `rows` read as zeros.
+inline cudaError_t bf16_cols_map(CUtensorMap* map, const void* base,
+                                 int planes, int rows, int cols,
+                                 int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,

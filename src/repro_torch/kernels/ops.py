@@ -14,9 +14,11 @@ and carries a plain integer ``launches`` that counts its kernel launches
 (plain-version calls do not count). The flash forward, dK/dV and dQ
 wrappers choose their kernel by dtype and head width
 (:func:`flash_route`): bf16 at head_dim 64 goes to a tensor-core kernel
-(wgmma on TMA-fed tiles); float32 at head_dim 64 to a 3xTF32 wgmma
-kernel ("tf32x3": every product three tf32 passes, float32's own
-error); head_dims 32 and 128 to a SIMT kernel. The LoRA matmul sends
+(wgmma on TMA-fed tiles); bf16 at head_dim 128 sends the forward and
+dK/dV to their own tensor-core kernels ("wgmma128") and dQ to the SIMT
+one; float32 at head_dim 64 to a 3xTF32 wgmma kernel ("tf32x3": every
+product three tf32 passes, float32's own error); the rest (float32 at
+128, every dtype at 32) to a SIMT kernel. The LoRA matmul sends
 bf16 operands that TMA can describe to a wgmma kernel and the rest to
 its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
 and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
@@ -561,6 +563,10 @@ def dequantize_int8(q, scale):
 #: registers a thread (ptxas), and the SM's 64K registers hold 256 such
 SIMT_THREADS = 256
 TC_HEAD_DIM = 64              #: head_dim of the tensor-core flash kernels
+#: the flash kernels with a bf16 tensor-core route at head_dim 128
+#: (route "wgmma128": ``csrc/flash_fwd_tc128.cu``,
+#: ``csrc/flash_bwd_dkv_tc128.cu``); dQ at 128 stays on its SIMT kernel
+TC128_FLASH = ("fwd", "dkv")
 #: the flash kernels with a float32 3xTF32 wgmma route at head_dim 64
 TF32_FLASH = ("fwd", "dkv", "dq")
 
@@ -614,10 +620,14 @@ def flash_route(kind: str, dtype, head_dim: int) -> str:
     takes: at head_dim :data:`TC_HEAD_DIM`, bf16 the tensor-core kernel
     (``csrc/flash_*_tc.cu``, route "wgmma") and float32 the 3xTF32 wgmma
     kernel (``csrc/flash_{fwd,bwd_dkv,bwd_dq}_tf32.cu``, route "tf32x3");
-    head_dims 32 and 128 the SIMT kernel
+    at head_dim 128, bf16 "fwd" and "dkv" their tensor-core kernels
+    (``csrc/flash_{fwd,bwd_dkv}_tc128.cu``, route "wgmma128"); everything
+    else (bf16 "dq" and float32 at 128, every dtype at 32) the SIMT kernel
     (``csrc/flash_{fwd,bwd_dkv,bwd_dq}.cu``, route "simt")."""
     if head_dim == TC_HEAD_DIM and dtype == torch.bfloat16:
         return "wgmma"
+    if head_dim == 128 and dtype == torch.bfloat16 and kind in TC128_FLASH:
+        return "wgmma128"
     if head_dim == TC_HEAD_DIM and dtype == torch.float32 and (
             kind in TF32_FLASH):
         return "tf32x3"
@@ -650,11 +660,12 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
 
     On the card the kernel follows :func:`flash_route`: bf16 at head_dim
     64 launches ``csrc/flash_fwd_tc.cu`` (wgmma on TMA-fed tiles, its own
-    64 x 64 tiles, p rounded to bf16 for p.v); float32 at head_dim 64
-    ``csrc/flash_fwd_tf32.cu`` (3xTF32 wgmma, its own 64 x 64 tiles, the
-    softmax in float32); the other head_dims the SIMT kernel
-    (``csrc/flash_fwd.cu``, all float32), whose query and KV tiles
-    ``block_q``/``block_k`` set. ``flash_attention.routes`` counts the
+    64 x 64 tiles, p rounded to bf16 for p.v); bf16 at head_dim 128
+    ``csrc/flash_fwd_tc128.cu`` (the same arithmetic, two query tiles of
+    one head a CTA); float32 at head_dim 64 ``csrc/flash_fwd_tf32.cu``
+    (3xTF32 wgmma, its own 64 x 64 tiles, the softmax in float32); the
+    rest the SIMT kernel (``csrc/flash_fwd.cu``, all float32), whose
+    query and KV tiles ``block_q``/``block_k`` set. ``flash_attention.routes`` counts the
     launches of each."""
     b, hq, sq, d, hkv, skv = _check_qkv(q, k, v)
     scale, window, q_offset = _attn_args(
@@ -686,7 +697,8 @@ def _flash_fwd_card(q, k, v, *, scale, causal, window, q_offset,
     mask = (int(causal), window or 0, q_offset)
     if route != "simt":
         _aligned(q=q, k=k, v=v)       # 16-byte copies from the bases
-        stem = {"wgmma": "flash_fwd_tc", "tf32x3": "flash_fwd_tf32"}[route]
+        stem = {"wgmma": "flash_fwd_tc", "wgmma128": "flash_fwd_tc128",
+                "tf32x3": "flash_fwd_tf32"}[route]
         err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, hq, hkv, sq,
             skv, scale, *mask, _stream(q))
@@ -764,7 +776,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale=None,
     On the card the kernel follows :func:`flash_route`: bf16 at head_dim
     64 launches ``csrc/flash_bwd_dkv_tc.cu`` (all four products on wgmma
     in the transposed frame, p and dS rounded to bf16 for the dV and dK
-    products, its own tiles); float32 at head_dim 64
+    products, its own tiles); bf16 at head_dim 128
+    ``csrc/flash_bwd_dkv_tc128.cu`` (the same arithmetic, 64 keys a CTA,
+    its two warpgroups' partial sums added in a fixed order); float32 at
+    head_dim 64
     ``csrc/flash_bwd_dkv_tf32.cu`` (the same frame, every product 3xTF32,
     p and dS float32, its own tiles); the other head_dims the SIMT kernel
     (``csrc/flash_bwd_dkv.cu``, all float32, tiles from
@@ -798,6 +813,7 @@ def _flash_dkv_card(q, k, v, do, lse, delta, *, scale, causal, window,
     if route != "simt":
         _aligned(q=q, k=k, v=v, do=do)
         stem = {"wgmma": "flash_bwd_dkv_tc",
+                "wgmma128": "flash_bwd_dkv_tc128",
                 "tf32x3": "flash_bwd_dkv_tf32"}[route]
         err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
@@ -827,8 +843,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     and dQ on wgmma, dS rounded to bf16 for the dQ product, its own
     tiles); float32 at head_dim 64 ``csrc/flash_bwd_dq_tf32.cu`` (the same
     three products, every one 3xTF32, dS float32, its own tiles); the
-    other head_dims the SIMT kernel (``csrc/flash_bwd_dq.cu``, all
-    float32, tiles from ``block_q``/``block_k``).
+    rest, bf16 at head_dim 128 included, the SIMT kernel
+    (``csrc/flash_bwd_dq.cu``, all float32, tiles from
+    ``block_q``/``block_k``).
     ``flash_attention_bwd_dq.routes`` counts the launches of each."""
     b, hq, sq, d, hkv, skv = _check_bwd(q, k, v, do, lse, delta)
     scale, window, q_offset = _attn_args(
@@ -1311,7 +1328,8 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
 #: the three flash kernels count their float32 3xTF32 kernel's launches
-#: as "tf32x3" beside them (:data:`TF32_ROUTED`)
+#: as "tf32x3" beside them (:data:`TF32_ROUTED`), the forward and dK/dV
+#: their bf16 head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
@@ -1321,6 +1339,7 @@ ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           mlstm_chunked_bwd: "wgmma"}
 TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv,
                flash_attention_bwd_dq)
+TC128_ROUTED = (flash_attention, flash_attention_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
@@ -1330,6 +1349,8 @@ def reset_launch_counts() -> None:
         fn.routes = {fast: 0, "simt": 0}
     for fn in TF32_ROUTED:
         fn.routes["tf32x3"] = 0
+    for fn in TC128_ROUTED:
+        fn.routes["wgmma128"] = 0
 
 
 reset_launch_counts()
@@ -1341,5 +1362,6 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
-    (and "tf32x3": n for the flash forward, dK/dV and dQ)."""
+    (and "tf32x3": n for the flash forward, dK/dV and dQ, "wgmma128": n
+    for the forward and dK/dV)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -17,7 +17,8 @@ verify's bf16 rows within one bf16 ulp of the decode kernel's at the
 same positions; on the route ``ops.paged_route`` names, bitwise
 repeatable;
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
-it), on the tensor-core route (head_dim 64, wgmma) as on the SIMT one,
+it), on the tensor-core routes (head_dim 64, wgmma; the forward and dK/dV
+at head_dim 128, wgmma128) as on the SIMT one,
 and float32 at head_dim 64 on the 3xTF32 route (tf32x3) at the float32
 limits, whose route counts each test checks; the quantizer, the dequantizer and
 the fused int8 K/V append bitwise (the append outside the null block);
@@ -435,8 +436,10 @@ def test_flash_tensor_core_route_at_tile_edges(dev, case):
 
 @pytest.mark.parametrize("d", [32, 128])
 def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
-    """The tensor-core kernels take head_dim 64 only; bf16 at 32 and 128
-    launches the SIMT kernels, counted on their route."""
+    """bf16 away from head_dim 64: at 32 the forward, dK/dV and dQ launch
+    the SIMT kernels; at 128 the forward and dK/dV launch their own
+    tensor-core kernels (route wgmma128) and dQ the SIMT one; each counted
+    on its route."""
     q, k, v, do = _flash(dev, torch.bfloat16, 96, 96, seed=4, d=d)
     before = ops.route_counts()
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -445,10 +448,13 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     after = ops.route_counts()
-    for name in ("flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    for name, kind in (("flash_attention", "fwd"),
+                       ("flash_attention_bwd_dkv", "dkv"),
+                       ("flash_attention_bwd_dq", "dq")):
+        route = "wgmma128" if d == 128 and kind != "dq" else "simt"
+        assert ops.flash_route(kind, torch.bfloat16, d) == route
         assert after[name] == {**before[name],
-                               "simt": before[name]["simt"] + 1}
+                               route: before[name][route] + 1}, name
     ro = ref.flash_attention_ref(q, k, v)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                scale=d ** -0.5)
@@ -457,6 +463,83 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     for label, got, want in (("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv),
                              ("dq", dq, rdq)):
         _flash_close(label, got, want, torch.bfloat16)
+
+
+#: (Sq, Skv, mask options, Hq, Hkv): the head_dim-128 tensor-core
+#: kernels at GQA groups of 1, 5 (qwen3-14b's 40/8), 7 (yi-34b's 56/8) and
+#: 8 (qwen3-32b's 64/8) and at their tile edges: one query row, Sq and Skv
+#: no multiples of 64, an odd number of query tiles (a pair with one
+#: tile), Sq < Skv with an offset, a window, no causal mask, rows that see
+#: no key
+TC128_EDGES = {"g1-ragged": (200, 200, {}, 2, 2),
+               "g5-causal": (256, 256, {}, 5, 1),
+               "g5-sq1": (1, 77, {"q_offset": 76}, 5, 1),
+               "g5-ragged-offset": (100, 130, {"q_offset": 30}, 5, 1),
+               "g7-window": (300, 300, {"window": 40}, 7, 1),
+               "g8-full": (70, 90, {"causal": False}, 8, 1),
+               "g8-odd-pairs": (323, 323, {}, 16, 2),
+               "g5-no-key": (64, 64, {"window": 8, "q_offset": 60}, 5, 1)}
+
+
+@pytest.mark.parametrize("case", TC128_EDGES)
+def test_flash_d128_tensor_core_route_at_tile_edges(dev, case):
+    """bf16 at head_dim 128 launches the wgmma128 forward and dK/dV
+    kernels and the SIMT dQ (their route counts move, no other does),
+    within the bf16 limits of the plain versions; dK/dV bitwise
+    repeatable. Holds the forward's pairs of query tiles, the m64n128
+    P V whose descriptor steps from one column half to the other, and the
+    dK/dV's two partial sums at every edge of ``TC128_EDGES``."""
+    sq, skv, kw, hq, hkv = TC128_EDGES[case]
+    q, k, v, do = _flash(dev, torch.bfloat16, sq, skv, seed=12, b=1, hq=hq,
+                         hkv=hkv, d=128)
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name, route, n in (("flash_attention", "wgmma128", 1),
+                           ("flash_attention_bwd_dkv", "wgmma128", 2),
+                           ("flash_attention_bwd_dq", "simt", 1)):
+        assert after[name] == {**before[name],
+                               route: before[name][route] + n}, name
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    sc = 128 ** -0.5
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=sc, **kw)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale=sc,
+                                         **kw)
+    for label, got, want in (("o", o, ro), ("lse", lse, rlse),
+                             ("dk", dk, rdk), ("dv", dv, rdv),
+                             ("dq", dq, rdq)):
+        _flash_close(label, got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hq", [40, 56, 64])
+def test_flash_d128_dkv_is_bitwise_repeatable(dev, hq):
+    """The head_dim-128 dK/dV adds its two warpgroups' partial sums in a
+    fixed order with no atomics: two runs equal bit for bit at the dense
+    configs' head layouts (40, 56 or 64 query heads over 8), causal, and
+    within the bf16 limits of the plain version; the SIMT kernel on the
+    same inputs (``route="simt"``, as chip_smoke.py times it) too."""
+    q, k, v, do = _flash(dev, torch.bfloat16, 384, 384, seed=13, b=1, hq=hq,
+                         hkv=8, d=128)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    kw = dict(scale=128 ** -0.5, causal=True, window=None, q_offset=0)
+    first = ops._flash_dkv_card(q, k, v, do, lse, delta, **kw)
+    second = ops._flash_dkv_card(q, k, v, do, lse, delta, **kw)
+    simt = ops._flash_dkv_card(q, k, v, do, lse, delta, route="simt", **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               **kw)
+    for got in (first, simt):
+        _flash_close("dk", got[0], rdk, torch.bfloat16)
+        _flash_close("dv", got[1], rdv, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
