@@ -7,15 +7,16 @@ Run from the repository root on a machine with a CUDA device:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the twenty-seven hand-written kernel libraries from
+  2. builds the twenty-nine hand-written kernel libraries from
      src/repro_torch/kernels/csrc with nvcc for sm_90a, all at once, and
-     prints the build time; checks that the eleven tensor-core libraries'
-     (flash forward, dK/dV, dQ; the bf16 head_dim-128 flash forward and
-     dK/dV; the float32 3xTF32 flash forward, dK/dV and dQ; LoRA matmul;
-     paged prefill; chunkwise mLSTM) SASS holds HGMMA (wgmma)
+     prints the build time; checks that the twelve tensor-core libraries'
+     (flash forward, dK/dV, dQ; the bf16 head_dim-128 flash forward,
+     dK/dV and dQ; the float32 3xTF32 flash forward, dK/dV and dQ; LoRA
+     matmul; paged prefill; chunkwise mLSTM) SASS holds HGMMA (wgmma)
      instructions and prints their registers, spills and shared memory
-     (the head_dim-128 pair must report no spill, no serialized wgmma and
-     no ignored setmaxnreg);
+     (the head_dim-128 trio must report no spill, no serialized wgmma and
+     no ignored setmaxnreg), and the TMA-fed paged decode kernels' (head
+     dims 64 and 128) registers and spills;
   3. holds each kernel against its plain PyTorch version on the card and
      times both, and the PyTorch library call where one computes the same
      function: the serving kernels at flad-adllm's serving shapes (8
@@ -64,13 +65,15 @@ In order, it
      launches, beside the forward with and without its state writes
      (bitwise the same h and final state); paged decode and prefill at
      head_dim 128 (qwen3-14b's 40/8 heads, 4096 keys, bf16 and int8
-     pools) on their SIMT kernels beside the plain version and the
-     gather + SDPA composition; the flash forward, preprocess, dK/dV and
-     dQ at head_dim 128 (B 2, Hq 40, Hkv 8, S 1024: the forward and dK/dV
-     on their head_dim-128 wgmma kernels, timed in turns with the SIMT
-     kernels on the same inputs, dQ on SIMT; checked again at 56/8 and
-     64/8 heads) and at Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512,
-     D 64: the wgmma kernels) beside the plain versions and SDPA;
+     pools; checked again at 56/8 and 64/8 heads), decode on its TMA-fed
+     kernel timed in turns with the SIMT one on the same inputs, prefill
+     on its SIMT kernel, beside the plain version and the gather + SDPA
+     composition; the flash forward, preprocess, dK/dV and dQ at head_dim
+     128 (B 2, Hq 40, Hkv 8, S 1024: the forward, dK/dV and dQ on their
+     head_dim-128 wgmma kernels, timed in turns with the SIMT kernels on
+     the same inputs; checked again at 56/8 and 64/8 heads) and at
+     Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512, D 64: the wgmma
+     kernels) beside the plain versions and SDPA;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -183,10 +186,13 @@ In order, it
      serving phase's trace with both caches, and qwen2.5-32b, qwen3-32b
      and yi-34b at full width cut to 4 layers (32.8-34.4 B params do not
      fit beside a KV pool) over the model-dtype cache, each held to the
-     contiguous oracle, every paged launch on its SIMT route (head_dim
-     128); trains qwen3-14b cut to 2 layers by the tensor strategy (a
+     contiguous oracle, every decode launch on its TMA-fed route (tma128)
+     and every prefill launch on SIMT (head_dim 128), each launch of the
+     cold pass held to its plain version on the same inputs, the warm
+     pass's tokens/s beside the SIMT decode kernel's earlier reading;
+     trains qwen3-14b cut to 2 layers by the tensor strategy (a
      batch's loss through the flash kernels held to plain attention, then
-     the steps: the forward and dK/dV on wgmma128, dQ on SIMT); serves
+     the steps: the forward, dK/dV and dQ on wgmma128); serves
      Hymba-1.5b at full
      width and depth with the legacy scheduler (no kernel), holds a
      loss through the flash kernels to plain attention, trains it by
@@ -198,8 +204,8 @@ In order, it
      held to the flat Model.loss, every mLSTM launch on wgmma;
  10. prints one JSON line describing every ported kernel (with the new
      shapes' times and launches as its head_dim_128 and hymba_group_5
-     entries, and the head_dim-128 forward and dK/dV kernels as lines of
-     their own), the card's name and power limit, and {"ok": true,
+     entries, and the head_dim-128 forward, dK/dV, dQ and decode kernels
+     as lines of their own), the card's name and power limit, and {"ok": true,
      "device": {...}} last.
 
 With --paged it stops after the build and the paged kernels' checks
@@ -319,15 +325,17 @@ TF32_KERNELS = {
                                "flash_attention_bwd_dq_tf32_smem",
                                "flash_bwd_dq_tf32_kernel"),
 }
-# the forward's and dK/dV's bf16 route at head_dim 128 (route wgmma128;
-# dQ at 128 stays on its SIMT kernel): (library, its shared-memory query,
-# profiler name)
+# the flash kernels' bf16 route at head_dim 128 (route wgmma128): (library,
+# its shared-memory query, profiler name)
 D128_KERNELS = {
     "flash_attention": ("flash_fwd_tc128", "flash_attention_fwd_tc128_smem",
                         "flash_fwd_d128_kernel"),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_tc128",
                                 "flash_attention_bwd_dkv_tc128_smem",
                                 "flash_bwd_dkv_d128_kernel"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_tc128",
+                               "flash_attention_bwd_dq_tc128_smem",
+                               "flash_bwd_dq_d128_kernel"),
 }
 TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak
 TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3   # three tf32 passes a product
@@ -337,6 +345,14 @@ PAGED_LIBS = {"paged_decode_attention": ("paged_decode_tma",
               "paged_prefill_attention": ("paged_prefill_tc",
                                           "paged_prefill_wgmma_kernel",
                                           True)}
+# the paged wrappers' head_dim-128 Hopper kernels (decode's, route tma128;
+# prefill at 128 runs SIMT): (stem, profiler name, its route)
+PAGED128_LIBS = {"paged_decode_attention": ("paged_decode_tma128",
+                                            "paged_decode_tma128_kernel",
+                                            "tma128")}
+# the SIMT paged kernels' profiler names
+PAGED_SIMT_NAMES = {"paged_decode_attention": "paged_decode_kernel",
+                    "paged_prefill_attention": "paged_prefill_kernel"}
 FLASH_NAMES = {"flash_attention": "flash_fwd",
                "flash_attention_bwd_preprocess": "flash_bwd_preprocess",
                "flash_attention_bwd_dkv": "flash_bwd_dkv",
@@ -2077,6 +2093,13 @@ def tc_report():
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
               f"spill stores + loads {spills or 'not rebuilt'} bytes (one "
               "entry an instantiation)")
+    for name, (stem, kname, _) in PAGED128_LIBS.items():
+        hgmma, regs, spills = _lib_report(stem)
+        out[f"{name}/d128"] = dict(registers=regs, spill_bytes=spills)
+        print(f"[build] {kname} ({stem}.cu): ptxas: registers "
+              f"{regs or 'not rebuilt'} a thread, spill stores + loads "
+              f"{spills or 'not rebuilt'} bytes (one entry an "
+              "instantiation: bf16 and int8 pools, groups 1 to 8)")
     stem = "mlstm_chunked_tc"
     hgmma, regs, spills = _lib_report(stem)
     check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
@@ -5409,11 +5432,20 @@ XF_MESH, XF_B, XF_S, XF_STEPS, XF_S_CUT = "2,4", 8, 512, 2, 256
 XF_LOSS_RTOL = 5e-4
 FLASH_FNS = ("flash_attention", PRE, "flash_attention_bwd_dkv",
              "flash_attention_bwd_dq")
-#: each flash wrapper's route at bf16 head_dim 128: the forward and dK/dV
-#: on their tensor-core kernels, dQ on the SIMT one (the preprocess on vec)
+#: each flash wrapper's route at bf16 head_dim 128: the forward, dK/dV and
+#: dQ on their tensor-core kernels (the preprocess on vec)
 D128_ROUTES = {"flash_attention": "wgmma128", PRE: "vec",
                "flash_attention_bwd_dkv": "wgmma128",
-               "flash_attention_bwd_dq": "simt"}
+               "flash_attention_bwd_dq": "wgmma128"}
+#: each paged wrapper's route at bf16 head_dim 128 over bf16 or int8
+#: pools: decode on its TMA-fed kernel, prefill on the SIMT one
+D128_PAGED_ROUTES = {"paged_decode_attention": "tma128",
+                     "paged_prefill_attention": "simt"}
+#: qwen3-14b's warm tokens/s over the serving trace (bf16 cache "fp32",
+#: int8 cache) when its paged decode ran the SIMT kernel, on an H100
+#: 80GB HBM3 at a 700 W limit: the reading the dense phase prints its own
+#: beside
+SIMT_DECODE_WARM_TOKS = {"fp32": 12.4, "int8": 10.0}
 #: the flash kernels' shapes that the new paths reach, with each wrapper's
 #: route: head_dim 128 at the dense training shape (qwen3-14b's 40/8
 #: heads; also checked at 56/8 and 64/8, :func:`d128_flash_checks`),
@@ -5453,17 +5485,19 @@ def d128_paged_checks(torch, dev):
 def d128_layout_checks(torch, cfg, dev, timed=True):
     """Paged decode and prefill at head_dim 128 (``cfg``'s heads, e.g.
     qwen3-14b's 40 query over 8 KV heads), where ``ops.paged_route``
-    sends bf16 q to the SIMT kernels (``csrc/paged_decode.cu``,
-    ``csrc/paged_prefill.cu``): the serving shapes (8 lanes to ctx 300;
-    chunks at 0, 112 and 288), 8 lanes at 4096 keys and a ragged lane
-    list (ctx 0 to 4096), chunks at 4080 and a partial one at 4088, over
-    bf16 and int8 pools with a NaN-poisoned null block, each held to the
-    float32 plain version as :func:`paged_checks` holds the Hopper
-    kernels (two calls bitwise equal); the serving and 4096-key cases
-    timed with a cold L2 beside the plain version and the gather + SDPA
-    composition (with ``timed``). Returns {wrapper: {"bf16": times,
-    "int8": times, "serving bf16": ..., "serving int8": ...,
-    "max_abs_err": e}}."""
+    sends bf16 q to decode's TMA-fed kernel (``csrc/paged_decode_tma128.cu``,
+    route tma128) and to prefill's SIMT kernel (``csrc/paged_prefill.cu``):
+    the serving shapes (8 lanes to ctx 300; chunks at 0, 112 and 288), 8
+    lanes at 4096 keys and a ragged lane list (ctx 0 to 4096), chunks at
+    4080 and a partial one at 4088, over bf16 and int8 pools with a
+    NaN-poisoned null block, each held to the float32 plain version as
+    :func:`paged_checks` holds the Hopper kernels (two calls bitwise
+    equal; decode's SIMT kernel on the same inputs too); the serving and
+    4096-key cases timed with a cold L2 beside the plain version and the
+    gather + SDPA composition (with ``timed``), decode in turns with its
+    SIMT kernel (``simt_ms``). Returns {wrapper: {"bf16": times, "int8":
+    times, "serving bf16": ..., "serving int8": ..., "max_abs_err":
+    e}}."""
     from repro_torch.kernels import ops, ref
     hq, d = cfg.num_heads, cfg.hd
     scale = d ** -0.5
@@ -5483,27 +5517,33 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
         tables = torch.tensor(tnp, device=dev)
         ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
         for name, kv_dtype, esz in dtypes:
+            route = D128_PAGED_ROUTES["paged_decode_attention"]
             check(ops.paged_route("decode", q.dtype, kv_dtype, d, BLOCK)
-                  == "simt", "head_dim 128 decode is not on the SIMT route")
+                  == route, f"head_dim 128 decode is not on {route}")
             k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, 5, dev)
             kw = dict(scale=scale, k_scales=ks, v_scales=vs)
             args = (q, k, v, tables, ctx)
             fn = lambda: ops.paged_decode_attention(*args, **kw)
+            simt_fn = lambda: ops._paged_decode(*args, route="simt", **kw)
             e, use = _paged_run(
-                torch, f"decode D{d} {case} {name}", fn, fn,
+                torch, f"decode D{d} {case} {name}", fn, simt_fn,
                 lambda: ref.paged_decode_attention_ref(q.float(), *args[1:],
                                                        **kw),
-                PAGED_RTOL["decode"], "simt", ops, "paged_decode_attention",
+                PAGED_RTOL["decode"], route, ops, "paged_decode_attention",
                 zero_rows=ctx == 0)
             row = out["paged_decode_attention"]
             row["max_abs_err"] = max(row["max_abs_err"], e[0])
             msg = (f"[kernel] paged_decode_attention D{d} Hq{hq} "
                    f"Hkv{cfg.num_kv_heads} {case} {name} pools (ctx "
-                   f"{min(ctx_list)}..{max(ctx_list)}): max|err| {e[0]:.3e}, "
-                   f"worst row at {use[0]:.3f} of its bound; bitwise "
-                   "repeatable")
+                   f"{min(ctx_list)}..{max(ctx_list)}, {route}): max|err| "
+                   f"{e[0]:.3e} (SIMT {e[1]:.3e}), worst row at "
+                   f"{use[0]:.3f} of its bound (SIMT {use[1]:.3f}); "
+                   "bitwise repeatable")
             if timed_case:
-                r = dict(ms=device_ms(fn, "paged_decode_kernel"),
+                ms, simt_ms = in_turns(
+                    fn, simt_fn, PAGED128_LIBS["paged_decode_attention"][1],
+                    PAGED_SIMT_NAMES["paged_decode_attention"])
+                r = dict(ms=ms, simt_ms=simt_ms,
                          plain_ms=device_ms(
                              lambda: ref.paged_decode_attention_ref(*args,
                                                                     **kw),
@@ -5517,7 +5557,9 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
                 r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
                                                      BF16_FLOPS_PER_S)
                 row[name if case == "long" else f"{case} {name}"] = r
-                msg += (f"; device: kernel {r['ms']:.5f} ms, plain "
+                msg += (f"; device: kernel {r['ms']:.5f} ms (in turns "
+                        f"with the SIMT kernel on the same inputs: "
+                        f"{r['simt_ms']:.5f} ms), plain "
                         f"{r['plain_ms']:.5f} ms, composition (gather + "
                         f"SDPA) {r['composition_ms']:.5f} ms; bound "
                         f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -5543,7 +5585,8 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
                     torch, f"prefill D{d} {name} @{off}+{clen}", fn, fn,
                     lambda: ref.paged_prefill_attention_ref(
                         qc.float(), *args[1:], **kw),
-                    PAGED_RTOL["prefill"], "simt", ops,
+                    PAGED_RTOL["prefill"],
+                    D128_PAGED_ROUTES["paged_prefill_attention"], ops,
                     "paged_prefill_attention",
                     rows=lambda x, c=clen: x[:, :c])
                 row["max_abs_err"] = max(row["max_abs_err"], e[0])
@@ -5553,7 +5596,8 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
                        f"row at {use[0]:.3f} of its bound; bitwise "
                        "repeatable")
                 if (off, clen) == timed_chunk:
-                    r = dict(ms=device_ms(fn, "paged_prefill_kernel"),
+                    r = dict(ms=device_ms(
+                        fn, PAGED_SIMT_NAMES["paged_prefill_attention"]),
                              plain_ms=device_ms(
                                  lambda: ref.paged_prefill_attention_ref(
                                      *args, **kw), None, iters=20),
@@ -5714,7 +5758,8 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
                                                    scale=sc),
             lib_bwd, ((3 * nq + 2 * nkv) * 2 + 8 * stat, 6 * d * pairs),
-            None)}
+            lambda: ops._flash_dq_card(q, k, v, do, lse, delta,
+                                       route="simt", **card))}
     for fn, (kfn, pfn, lib, work, simt_fn) in runs.items():
         route = routes[fn]
         match = PRE_NAMES["vec"] if fn == PRE else flash_kernel(fn, route)
@@ -5746,20 +5791,55 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
     return rows
 
 
+def _cold_pass_shadowed(ops, ref, worst):
+    """:func:`_shadowed_paged` for the cold pass of the next
+    serve_continuous call alone: every paged launch of that pass is held
+    against its plain version on the same inputs (the bound shares go
+    into ``worst``), and the shadow comes off as the warm pass's scheduler
+    is made, so the warm pass runs bare and its wall is the kernels'.
+    The two passes serve the same requests. Returns the undo."""
+    from repro_torch import serve
+    undo_shadow = _shadowed_paged(ops, ref, worst)
+    made, orig = [0], serve.ContinuousScheduler
+
+    def counting(*args, **kw):
+        made[0] += 1
+        if made[0] == 2:
+            undo_shadow()
+        return orig(*args, **kw)
+
+    serve.ContinuousScheduler = counting
+
+    def undo():
+        serve.ContinuousScheduler = orig
+        if made[0] < 2:
+            undo_shadow()
+    return undo
+
+
 def _dense_serve(torch, cfg, params, dev, caches):
     """The serving phase's fleet trace through serve_continuous (a cold
     and a warm pass) with each cache mode in ``caches``: the exact
-    launches, every paged launch on the SIMT route (head_dim 128), every
-    int8 append one fused launch, finite in-range tokens. Returns (launch
-    totals, {cache: report})."""
-    from repro_torch.kernels import ops
+    launches, every decode launch on its TMA-fed route and every prefill
+    launch on the SIMT one (:data:`D128_PAGED_ROUTES`, head_dim 128), each
+    paged launch of the cold pass within its row bounds of the float32
+    plain version on the same inputs (:func:`_cold_pass_shadowed`), every
+    int8 append one fused launch, finite in-range tokens; the warm pass's
+    tokens/s beside :data:`SIMT_DECODE_WARM_TOKS` for qwen3-14b. Returns
+    (launch totals, {cache: report})."""
+    from repro_torch.kernels import ops, ref
     totals = dict.fromkeys(ops.launch_counts(), 0)
     reports, L = {}, cfg.num_layers
     for cache in caches:
         ops.reset_launch_counts()
+        worst = {}
+        undo = _cold_pass_shadowed(ops, ref, worst)
         t0 = time.perf_counter()
-        rep = _serve_trace(cfg, params, dev, cache)
-        torch.cuda.synchronize()
+        try:
+            rep = _serve_trace(cfg, params, dev, cache)
+            torch.cuda.synchronize()
+        finally:
+            undo()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         check(rep["requests"] == TRACE["num_requests"]
@@ -5778,18 +5858,30 @@ def _dense_serve(torch, cfg, params, dev, caches):
         check(counts == want, f"{cfg.name} {cache}: launches {counts} != "
               f"{want}")
         routes = ops.route_counts()
-        for fn in ("paged_decode_attention", "paged_prefill_attention"):
-            check(routes[fn]["simt"] == counts[fn], f"{cfg.name} {cache}: "
-                  f"{fn} launches by route {routes[fn]}, want all simt")
+        for fn, route in D128_PAGED_ROUTES.items():
+            check(routes[fn][route] == counts[fn], f"{cfg.name} {cache}: "
+                  f"{fn} launches by route {routes[fn]}, want all {route}")
+        # the cold pass is half the launches: every one of them checked
+        check(set(worst) == set(D128_PAGED_ROUTES)
+              and max(worst.values()) <= 1.0, f"{cfg.name} {cache}: the "
+              f"cold pass's paged launches vs their plain versions: "
+              f"{worst} of their row bounds")
+        was = (f" (its SIMT decode kernel: {SIMT_DECODE_WARM_TOKS[cache]}"
+               f" warm tok/s)" if cfg.name == DENSE_FULL else "")
         print(f"[dense] {cfg.name} ({L} layers, d_model {cfg.d_model}, "
               f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}) "
               f"cache={cache}: {rep['requests']} requests, "
               f"{rep['total_new_tokens']} tokens, {rep['decode_steps']} "
               f"decode steps, {rep['prefill_chunks']} prefill chunks; warm "
-              f"{rep['warm_tokens_per_s']:.1f} tok/s (cold "
+              f"{rep['warm_tokens_per_s']:.1f} tok/s{was} (cold, its "
+              f"launches each checked against the plain version: "
               f"{rep['tokens_per_s']:.1f}); two passes {wall:.1f} s of "
-              f"wall; launches {counts}, all paged ones on simt")
-        reports[cache] = dict(rep, wall_s=wall)
+              f"wall; launches {counts}, decode on "
+              f"{D128_PAGED_ROUTES['paged_decode_attention']}, prefill on "
+              f"{D128_PAGED_ROUTES['paged_prefill_attention']}; the cold "
+              f"pass's largest share of a row's bound " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in worst.items()))
+        reports[cache] = dict(rep, wall_s=wall, shadow_bound_share=worst)
         for name in totals:
             totals[name] += counts[name]
     return totals, reports
@@ -5954,10 +6046,10 @@ def dense_main_path(torch, dev):
             params=n_params, layers=cfg.num_layers, oracle=oracle,
             **{cache: {k: rep[k] for k in (
                 "warm_tokens_per_s", "tokens_per_s", "decode_steps",
-                "prefill_chunks", "wall_s")}
+                "prefill_chunks", "wall_s", "shadow_bound_share")}
                for cache, rep in reports.items()})
-    serve_routes = {fn: {"simt": serve[fn]} for fn in (
-        "paged_decode_attention", "paged_prefill_attention")}
+    serve_routes = {fn: {route: serve[fn]}
+                    for fn, route in D128_PAGED_ROUTES.items()}
     train, train_routes, summary["train"] = dense_train_path(torch, dev)
     return ({"dense_serve": serve, "dense_train": train},
             {"dense_serve": serve_routes, "dense_train": train_routes},
@@ -5970,8 +6062,8 @@ def dense_train_path(torch, dev):
     HY_LOSS_RTOL); then DT_STEPS steps of the tensor strategy (its step
     and init, as a Session builds them) on that batch: the exact flash
     launches (the forward twice a layer and step, the checkpoint's
-    recompute included; the preprocess, dK/dV and dQ once), the forward
-    and dK/dV on the wgmma128 route, dQ on simt, the preprocess on vec
+    recompute included; the preprocess, dK/dV and dQ once), the forward,
+    dK/dV and dQ on the wgmma128 route, the preprocess on vec
     (:data:`D128_ROUTES`); finite losses, moved weights."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
@@ -6043,9 +6135,9 @@ def dense_train_path(torch, dev):
           f"strategy, {n} steps of {DT_B}x{DT_S} tokens: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; wall {wall:.2f} s; peak {peak:.2f} GiB; launches "
-          f"{ {k: v for k, v in counts.items() if v} }, the flash forward "
-          f"and dK/dV on wgmma128, dQ on simt (head_dim 128), the "
-          f"preprocess on vec")
+          f"{ {k: v for k, v in counts.items() if v} }, the flash forward, "
+          f"dK/dV and dQ on wgmma128 (head_dim 128), the preprocess on "
+          f"vec")
     del params, opt, ses, step, wq0
     torch.cuda.empty_cache()
     return counts, {fn: routes[fn] for fn in FLASH_FNS}, dict(
@@ -6737,9 +6829,9 @@ def main():
                          "source", "replaces", "max_abs_err", "ms",
                          "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}})
-    # the forward's and dK/dV's head_dim-128 kernels (route wgmma128), a
-    # line each: their launches on the main paths, their times at the
-    # dense training shape
+    # the flash kernels' head_dim-128 kernels (route wgmma128), a line
+    # each: their launches on the main paths, their times at the dense
+    # training shape
     for name, (stem, _, kname) in D128_KERNELS.items():
         k = kernels[name]["head_dim_128"]
         by_path = {p: c.get(name, {}).get("wgmma128", 0)
@@ -6756,6 +6848,31 @@ def main():
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "simt_ms": k["simt_ms"],
                      "shape": k["shape"], "layouts": k["layouts"]})
+    # paged decode's head_dim-128 kernel (route tma128): its launches on
+    # the dense serving paths, its times at the serving shape (8 lanes to
+    # ctx 300, bf16 pools) and, beside them, over the int8 pools and at
+    # 4096 keys
+    for name, (stem, kname, route) in PAGED128_LIBS.items():
+        k = kernels[name]["head_dim_128"]
+        by_path = {p: c.get(name, {}).get(route, 0)
+                   for p, c in new_routes.items()}
+        check(sum(by_path.values()) > 0, f"{kname} was never launched")
+        main = k["serving bf16"]
+        rows.append({"name": f"{name}_d128", "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
+                     "replaces": kernels[name]["replaces"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path, "kernel": kname,
+                     "build": tc[f"{name}/d128"],
+                     "max_abs_err": k["max_abs_err"], "ms": main["ms"],
+                     "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"],
+                     "bound_by": main["bound_by"], "library_ms": None,
+                     "simt_ms": main["simt_ms"],
+                     "composition_ms": main["composition_ms"],
+                     "shape": "8 lanes to ctx 300, bf16 pools",
+                     **{c: k[c] for c in ("serving int8", "bf16", "int8")},
+                     "layouts": k["layouts"]})
     print(json.dumps({"kernels": rows}, default=str))
     phase("the whole script")
     print(card)

@@ -40,6 +40,8 @@ SIGNATURES = {
                       [_I, _I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "paged_decode_tma": ("paged_decode_attention_tma",
                          [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
+    "paged_decode_tma128": ("paged_decode_attention_tma128",
+                            [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
     "paged_prefill_tc": ("paged_prefill_attention_tc",
                          [_I] + [_P] * 11 + [_I] * 12 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
@@ -68,6 +70,8 @@ SIGNATURES = {
                      [_I] + [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq_tc": ("flash_attention_bwd_dq_tc",
                         [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "flash_bwd_dq_tc128": ("flash_attention_bwd_dq_tc128",
+                           [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "flash_bwd_dq_tf32": ("flash_attention_bwd_dq_tf32",
                           [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
     "lora_matmul": ("lora_matmul", [_I] + [_P] * 5 + [_I] * 10 + [_F, _P]),

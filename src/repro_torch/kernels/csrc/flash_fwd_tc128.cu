@@ -57,6 +57,7 @@
 //   * the element mask is applied only to tiles that cross the causal
 //     diagonal, the window's edge or Skv.
 #include "flash_attention.cuh"
+#include "flash_tc128.cuh"
 #include "hopper.cuh"
 
 namespace flash_tc128 {
@@ -87,61 +88,8 @@ struct Smem {
   uint64_t v_full[STAGES], v_empty[STAGES];
 };
 
-// The work: an item is a pair of query tiles (rows 128 pr .. 128 pr + 127
-// of one query plane; warpgroup g takes query tile 2 pr + g). Items are
-// numbered heaviest pair first (under a causal mask a later pair sees
-// more keys), planes fastest, so that the planes of one KV head run
-// together and share its tiles in the L2. The grid is persistent: CTA c
-// takes item c of the first round, G - 1 - c of the second, and so on
-// (a snake over the rounds, so that every CTA's sum of work is about the
-// same), G CTAs in all.
-struct Sched {
-  int Hq, Hkv, planes, npair, items, G;
-  // the item of CTA c in round r, or -1 past the last
-  __device__ __forceinline__ int item(int c, int r) const {
-    const int i = r * G + ((r & 1) ? G - 1 - c : c);
-    return i < items ? i : -1;
-  }
-  __device__ __forceinline__ int pair(int i) const {
-    return npair - 1 - i / planes;
-  }
-  __device__ __forceinline__ int qplane(int i) const { return i % planes; }
-  __device__ __forceinline__ int kvplane(int i) const {
-    const int p = i % planes;
-    return (p / Hq) * Hkv + (p % Hq) / (Hq / Hkv);
-  }
-};
-
-// The live 128-key tiles [kt0, kt0 + n) of the query tile at q_lo; none
-// when q_lo >= Sq.
-__device__ __forceinline__ void live_tiles(const flash::Mask& mask, int q_lo,
-                                           int Sq, int Skv, int* kt0,
-                                           int* n) {
-  *kt0 = 0;
-  *n = 0;
-  if (q_lo >= Sq) return;
-  int k_begin, k_end;
-  flash::live_keys(mask, q_lo, min(Sq, q_lo + BQ) - 1, Skv, &k_begin,
-                   &k_end);
-  if (k_end <= k_begin) return;
-  *kt0 = k_begin / BK;
-  *n = (k_end + BK - 1) / BK - *kt0;
-}
-
-// The K/V tiles [u0, u1) that the pair at rows 128 pr streams: the union
-// of its two query tiles' live tiles (under a plain causal mask both
-// warpgroups see the same tiles).
-__device__ __forceinline__ void pair_tiles(const flash::Mask& mask, int pr,
-                                           int Sq, int Skv, int* u0,
-                                           int* u1) {
-  int a0, n0, a1, n1;
-  live_tiles(mask, 2 * pr * BQ, Sq, Skv, &a0, &n0);
-  live_tiles(mask, (2 * pr + 1) * BQ, Sq, Skv, &a1, &n1);
-  if (n0 == 0) a0 = a1, n0 = n1;
-  if (n1 == 0) a1 = a0, n1 = n0;
-  *u0 = min(a0, a1);
-  *u1 = max(a0 + n0, a1 + n1);
-}
+// The work (Sched, live_tiles, pair_tiles) is flash_tc128.cuh's.
+static_assert(BQ == kPairRows, "flash_tc128.cuh's query tiles");
 
 // The producer: one thread loads each item's query tiles once, into the
 // item's parity's buffer when the consumers have released it, and keeps
@@ -166,7 +114,7 @@ __device__ __forceinline__ void produce(Smem& s, const CUtensorMap& tq,
                   q_lo + g * BQ, w.qplane(i));
     }
     int u0, u1;
-    pair_tiles(mask, w.pair(i), Sq, Skv, &u0, &u1);
+    pair_tiles<BK>(mask, w.pair(i), Sq, Skv, &u0, &u1);
     for (int j = u0; j < u1; ++j, ++it) {
       const int st = it % STAGES;
       const uint32_t ph = ((it / STAGES) & 1) ^ 1;
@@ -265,8 +213,8 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* o,
     const int q_lo = (2 * w.pair(i) + g) * BQ;
     const int row0 = q_lo + 16 * (warp % 4) + lane / 4;   // and row0 + 8
     int u0, u1, kt0, n;
-    pair_tiles(mask, w.pair(i), Sq, Skv, &u0, &u1);
-    live_tiles(mask, q_lo, Sq, Skv, &kt0, &n);
+    pair_tiles<BK>(mask, w.pair(i), Sq, Skv, &u0, &u1);
+    live_tiles<BK>(mask, q_lo, Sq, Skv, &kt0, &n);
     // a tile needs no element mask inside the diagonal, the window and Skv
     auto whole = [&](int j) {
       const int k0 = (kt0 + j) * BK;
@@ -423,13 +371,8 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  Sched w;
-  w.Hq = Hq;
-  w.Hkv = Hkv;
-  w.planes = B * Hq;
-  w.npair = ((Sq + BQ - 1) / BQ + 1) / 2;
-  w.items = w.planes * w.npair;
-  w.G = min(w.items, sms);                   // one CTA an SM (its smem)
+  // one CTA an SM (its shared memory)
+  const Sched w = make_sched(B, Hq, Hkv, Sq, sms);
   flash_fwd_d128_kernel<<<w.G, kThreads, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, w, Sq, Skv, scale * kLog2e, mask);
   return (int)cudaGetLastError();

@@ -1,26 +1,35 @@
 // Shared device and host code of the TMA-fed paged-attention kernels
-// (paged_decode_tma.cu on the CUDA cores, paged_prefill_tc.cu on wgmma):
-// a table-driven ring of whole K/V blocks loaded by TMA, key splits over
-// CTAs, and the merge of the splits' partial results.
+// (paged_decode_tma.cu on the CUDA cores, paged_prefill_tc.cu on wgmma, at
+// head_dim 64; paged_decode_tma128.cu at head_dim 128): a table-driven
+// ring of whole K/V blocks loaded by TMA, key splits over CTAs, and the
+// merge of the splits' partial results. The head_dim is a template
+// parameter (DD, D = 64 by default: the head_dim-64 kernels name none).
 //
-// Layout. A pool [Hkv, NB, bs, 64] holds each (KV head, physical block)
-// as bs * 64 contiguous elements, so it is viewed as [Hkv * NB, bs, 64]
-// and one TMA box (all of a block) lands a block at coordinate
-// (0, 0, h * NB + phys). bf16 rows are 128 bytes; int8 rows are 64, so an
-// int8 block is viewed as [bs / 2, 128] bytes (two keys a row). Either way
-// TMA writes with the 128-byte swizzle, and a block starts on a 1024-byte
-// boundary of its stage (bs * 128 bytes for bf16 with bs % 8 == 0, bs * 64
-// for int8 with bs % 16 == 0): byte `off` of the stage's linear layout
-// (key k, byte b: k * 64 * esz + b) sits at hopper::swizzle128(off). The
-// int8 scales [Hkv * NB, bs] float32 come as one box of bs floats a
-// block, into a slot of its stage's scale row: TMA writes shared memory
-// from 128-byte boundaries, so block j of a stage starts at float j *
-// scale_stride(bs), with scale_stride(bs) = max(bs, 32).
+// Layout. A pool [Hkv, NB, bs, DD] holds each (KV head, physical block)
+// as bs * DD contiguous elements, so it is viewed as [Hkv * NB, bs, DD]
+// and the TMA boxes of a block land it at coordinate (c0, 0, h * NB +
+// phys). TMA writes with the 128-byte swizzle, whose lines are 128 bytes:
+//   * bf16 at 64 (128-byte rows): one box a block, bs lines;
+//   * int8 at 64 (64-byte rows): one box, the block viewed as [bs / 2, 128]
+//     bytes (two keys a line);
+//   * int8 at 128 (128-byte rows): one box, bs lines;
+//   * bf16 at 128 (256-byte rows): two boxes a block, columns 0-63 and
+//     64-127 (c0 = 0, 64), into the two halves of the stage's tile, each
+//     a run of KT 128-byte lines (KT * 128 bytes apart).
+// A block starts on a 1024-byte boundary of its stage (one swizzle atom:
+// bs * 128 bytes of a run for bs % 8 == 0, bs * 64 for int8 at 64 with
+// bs % 16 == 0): byte b of key k's row sits at tile_off(k, b). The int8
+// scales [Hkv * NB, bs] float32 come as one box of bs floats a block,
+// into a slot of its stage's scale row: TMA writes shared memory from
+// 128-byte boundaries, so block j of a stage starts at float j *
+// scale_stride(bs), with scale_stride(bs) = max(bs, 32) (int8 takes bs 16
+// and up at either head_dim, so a stage's scales fit SCALE_FLOATS).
 //
 // The ring. A stage holds KT = 64 keys: 64 / bs blocks of K and of V. A
 // producer warp reads the CTA's slice of the block table, 32 entries at a
-// time (the only table lookups), and one of its threads keeps up to
-// STAGES stages of block loads in flight behind full/empty mbarriers.
+// time (the only table lookups), and one of its threads keeps up to NS
+// (STAGES at head_dim 64) stages of block loads in flight behind
+// full/empty mbarriers.
 // Blocks past the context are never loaded: the consumers read no key at
 // or past ctx, or zero such rows before a product reads them, so neither
 // a poisoned null block nor stale shared memory reaches an accumulator.
@@ -46,9 +55,9 @@ namespace paged_tma {
 
 using namespace hopper;
 
-constexpr int D = 64;          // head_dim of these kernels
+constexpr int D = 64;          // head_dim of the head_dim-64 kernels (DD)
 constexpr int KT = 64;         // keys of a ring stage
-constexpr int STAGES = 4;
+constexpr int STAGES = 4;      // ring stages at head_dim 64 (at most)
 // floats of a stage's int8 scale row: KT / bs blocks of max(bs, 32)
 // floats each (bs 16: 4 x 32; bs 32: 2 x 32; bs 64: 1 x 64)
 constexpr int SCALE_FLOATS = 128;
@@ -58,11 +67,23 @@ constexpr float kNegInf = paged::kNegInf;
 
 // One ring stage: KT keys of K and of V, in the pool's element type
 // (1024-byte aligned: each tile is whole swizzle atoms).
-template <typename KVT>
+template <typename KVT, int DD = D>
 struct alignas(1024) Stage {
-  unsigned char k[KT * D * sizeof(KVT)];
-  unsigned char v[KT * D * sizeof(KVT)];
+  unsigned char k[KT * DD * sizeof(KVT)];
+  unsigned char v[KT * DD * sizeof(KVT)];
 };
+
+// The byte of a stage tile that holds byte b of key `key`'s row (rows of
+// DD elements of KVT): rows of up to 128 bytes run on in one swizzled run,
+// 256-byte rows (bf16 at 128) are two halves of KT lines each.
+template <typename KVT, int DD>
+__device__ __forceinline__ uint32_t tile_off(int key, int b) {
+  constexpr int kRow = DD * (int)sizeof(KVT);
+  if constexpr (kRow <= 128)
+    return swizzle128(key * kRow + b);
+  else
+    return (b >> 7) * (KT * 128) + swizzle128(key * 128 + (b & 127));
+}
 
 // The int8 scales of the ring: one row of SCALE_FLOATS a stage.
 struct alignas(128) Scales {
@@ -83,7 +104,8 @@ static_assert(KT / 16 * scale_stride(16) <= SCALE_FLOATS &&
                   KT / 64 * scale_stride(64) <= SCALE_FLOATS,
               "a stage's scales fit its row at every int8 block size");
 
-// The barriers of the ring.
+// The barriers of the ring (a ring of NS < STAGES stages uses the first
+// NS).
 struct Ring {
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
@@ -123,12 +145,12 @@ __device__ __forceinline__ int first_ids(const Walk& w, int bs) {
 }
 
 // The producer warp: every live block of every tile of the walk, stage
-// by stage, lane 0 issuing. The table entries come 32 at a time, one a
-// lane, and reach lane 0 by shuffle: no load waits on a lookup but the
-// first of each 32 blocks. `plane0` is h * NB, the KV head's first plane;
-// `ids` is first_ids().
-template <typename KVT>
-__device__ __forceinline__ void produce(Stage<KVT>* ring, Scales* sc,
+// by stage (NS of them), lane 0 issuing. The table entries come 32 at a
+// time, one a lane, and reach lane 0 by shuffle: no load waits on a lookup
+// but the first of each 32 blocks. `plane0` is h * NB, the KV head's first
+// plane; `ids` is first_ids().
+template <typename KVT, int DD = D, int NS = STAGES>
+__device__ __forceinline__ void produce(Stage<KVT, DD>* ring, Scales* sc,
                                         Ring& r, const CUtensorMap& tk,
                                         const CUtensorMap& tv,
                                         const CUtensorMap& tks,
@@ -136,15 +158,18 @@ __device__ __forceinline__ void produce(Stage<KVT>* ring, Scales* sc,
                                         const Walk& w, int bs, int plane0,
                                         int ids) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
+  // a block's boxes: a 256-byte row is two 128-byte halves
+  constexpr int kBoxes = DD * sizeof(KVT) > 128 ? 2 : 1;
   const int lane = threadIdx.x & 31;
   const int nblk = w.kend > w.lo ? (w.kend - w.lo + bs - 1) / bs : 0;
-  const uint32_t blk_bytes = bs * D * sizeof(KVT);
+  const uint32_t blk_bytes = bs * DD * sizeof(KVT);
+  const uint32_t box_bytes = blk_bytes / kBoxes;
   const int per = KT / bs;
   for (int t = 0; t < w.tiles(); ++t) {
-    const int st = t % STAGES;
+    const int st = t % NS;
     const int first = t * per, n = min(per, nblk - first);
     if (lane == 0) {
-      mbar_wait(&r.empty[st], ((t / STAGES) & 1) ^ 1);
+      mbar_wait(&r.empty[st], ((t / NS) & 1) ^ 1);
       mbar_expect_tx(&r.full[st],
                      n * (2 * blk_bytes + (kInt8 ? 2 * bs * 4 : 0)));
     }
@@ -154,8 +179,13 @@ __device__ __forceinline__ void produce(Stage<KVT>* ring, Scales* sc,
         ids = i + lane < nblk ? w.table[w.lo / bs + i + lane] : 0;
       const int plane = plane0 + __shfl_sync(0xffffffffu, ids, i % 32);
       if (lane != 0) continue;
-      tma_load_3d(ring[st].k + j * blk_bytes, &tk, &r.full[st], 0, 0, plane);
-      tma_load_3d(ring[st].v + j * blk_bytes, &tv, &r.full[st], 0, 0, plane);
+#pragma unroll
+      for (int h = 0; h < kBoxes; ++h) {
+        tma_load_3d(ring[st].k + h * KT * 128 + j * box_bytes, &tk,
+                    &r.full[st], 64 * h, 0, plane);
+        tma_load_3d(ring[st].v + h * KT * 128 + j * box_bytes, &tv,
+                    &r.full[st], 64 * h, 0, plane);
+      }
       if constexpr (kInt8) {
         const int at = j * scale_stride(bs);
         tma_load_2d(sc->k[st] + at, &tks, &r.full[st], 0, plane);
@@ -184,14 +214,14 @@ __device__ __forceinline__ void chunk_floats(const uint4& c, float* f,
 }
 
 // Merge the `n` splits' partial results of `rows` query rows, split s at
-// base + s * stride floats: acc [rows][64], then m [rows] (log2 domain),
-// then l [rows]; write rows < live_rows of the output (bf16, 64 a row
+// base + s * stride floats: acc [rows][DD], then m [rows] (log2 domain),
+// then l [rows]; write rows < live_rows of the output (bf16, DD a row
 // from `out`). Each row's weights 2^(m_s - max m) go to `scratch` (n *
 // rows + rows floats of shared memory) first, so every acc load is
 // independent of the others. A split that saw no key has l = acc = 0; no
 // key at all gives 0 * (1 / 1e-30) = 0. Called by the NT consumer
 // threads of the CTA that arrived last.
-template <int NT = 128>
+template <int NT = 128, int DD = D>
 __device__ __forceinline__ void merge_partials(const float* base, int n,
                                                int stride, int rows,
                                                int live_rows, float* scratch,
@@ -199,7 +229,7 @@ __device__ __forceinline__ void merge_partials(const float* base, int n,
   float* wt = scratch;                       // [n][rows]
   float* inv = scratch + n * rows;           // [rows]
   for (int r = threadIdx.x; r < rows; r += NT) {
-    const float* m = base + rows * D + r;
+    const float* m = base + rows * DD + r;
     const float* l = m + rows;
     float mx = kNegInf;
 #pragma unroll 4
@@ -214,8 +244,8 @@ __device__ __forceinline__ void merge_partials(const float* base, int n,
     inv[r] = 1.f / fmaxf(lsum, 1e-30f);
   }
   consumers_sync<NT>();
-  for (int e = 4 * threadIdx.x; e < live_rows * D; e += 4 * NT) {
-    const int r = e / D;
+  for (int e = 4 * threadIdx.x; e < live_rows * DD; e += 4 * NT) {
+    const int r = e / DD;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int s = 0; s < n; ++s) {
@@ -237,8 +267,9 @@ __device__ __forceinline__ void merge_partials(const float* base, int n,
 
 // Floats of one split's partial of `rows` rows (acc, m, l), rounded up to
 // whole float4s so that every partial starts 16-byte aligned.
+template <int DD = D>
 __host__ __device__ __forceinline__ int partial_floats(int rows) {
-  return (rows * (D + 2) + 3) / 4 * 4;
+  return (rows * (DD + 2) + 3) / 4 * 4;
 }
 
 // Count this CTA's arrival at its (lane, head)'s counter once its partial
@@ -261,7 +292,7 @@ __device__ __forceinline__ bool arrive_last(int* counter, int n, int* flag) {
 enum MapKind { kBF16Blocks = 0, kI8Blocks = 1, kScaleRows = 2 };
 
 inline cudaError_t encode(CUtensorMap* map, MapKind kind, const void* base,
-                          int planes, int bs) {
+                          int planes, int bs, int d = D) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUresult res;
@@ -277,12 +308,18 @@ inline cudaError_t encode(CUtensorMap* map, MapKind kind, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   } else {
     const bool i8 = kind == kI8Blocks;
-    const int rows = i8 ? bs / 2 : bs;      // 128-byte rows of a block
-    const cuuint64_t dims[3] = {(cuuint64_t)(i8 ? 128 : 64),
-                                (cuuint64_t)rows, (cuuint64_t)planes};
-    const cuuint64_t strides[2] = {128, (cuuint64_t)rows * 128};
-    const cuuint32_t box[3] = {(cuuint32_t)(i8 ? 128 : 64),
-                               (cuuint32_t)rows, 1};
+    const int esz = i8 ? 1 : 2, row = d * esz;   // bytes of a key's row
+    // a block's rows as the map sees them: 128-byte lines (two 64-byte
+    // int8 rows a line at d 64), `pitch` bytes apart; a box is one line
+    // wide (64 bf16 or 128 int8: a 256-byte row takes two boxes)
+    const int rows = row < 128 ? bs * row / 128 : bs;
+    const int pitch = row < 128 ? 128 : row;
+    const cuuint64_t dims[3] = {(cuuint64_t)(pitch / esz), (cuuint64_t)rows,
+                                (cuuint64_t)planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)pitch,
+                                   (cuuint64_t)rows * pitch};
+    const cuuint32_t box[3] = {(cuuint32_t)(128 / esz), (cuuint32_t)rows,
+                               1};
     res = fn(map, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              3, p, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -299,14 +336,14 @@ struct Maps {
 };
 
 // The maps of a pool pair, encoded once and then taken from a cache keyed
-// by (k, v, ks, vs, planes, bs): the pools live as long as their engine,
-// so a decode step encodes nothing and takes one lock.
+// by (k, v, ks, vs, planes, bs, d): the pools live as long as their
+// engine, so a decode step encodes nothing and takes one lock.
 inline cudaError_t pool_maps(Maps* m, bool int8, const void* k,
                              const void* v, const float* ks, const float* vs,
-                             int planes, int bs) {
+                             int planes, int bs, int d = D) {
   struct Entry {
     const void *k, *v, *ks, *vs;
-    int planes, bs;
+    int planes, bs, d;
     Maps maps;
   };
   static std::mutex mu;
@@ -314,14 +351,14 @@ inline cudaError_t pool_maps(Maps* m, bool int8, const void* k,
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& e : cache)
     if (e.k == k && e.v == v && e.ks == ks && e.vs == vs &&
-        e.planes == planes && e.bs == bs) {
+        e.planes == planes && e.bs == bs && e.d == d) {
       *m = e.maps;
       return cudaSuccess;
     }
-  Entry e{k, v, ks, vs, planes, bs, {}};
+  Entry e{k, v, ks, vs, planes, bs, d, {}};
   const MapKind kind = int8 ? kI8Blocks : kBF16Blocks;
-  cudaError_t err = encode(&e.maps.k, kind, k, planes, bs);
-  if (err == cudaSuccess) err = encode(&e.maps.v, kind, v, planes, bs);
+  cudaError_t err = encode(&e.maps.k, kind, k, planes, bs, d);
+  if (err == cudaSuccess) err = encode(&e.maps.v, kind, v, planes, bs, d);
   if (err == cudaSuccess && int8)
     err = encode(&e.maps.ks, kScaleRows, ks, planes, bs);
   if (err == cudaSuccess && int8)

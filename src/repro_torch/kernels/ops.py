@@ -14,17 +14,17 @@ and carries a plain integer ``launches`` that counts its kernel launches
 (plain-version calls do not count). The flash forward, dK/dV and dQ
 wrappers choose their kernel by dtype and head width
 (:func:`flash_route`): bf16 at head_dim 64 goes to a tensor-core kernel
-(wgmma on TMA-fed tiles); bf16 at head_dim 128 sends the forward and
-dK/dV to their own tensor-core kernels ("wgmma128") and dQ to the SIMT
-one; float32 at head_dim 64 to a 3xTF32 wgmma kernel ("tf32x3": every
-product three tf32 passes, float32's own error); the rest (float32 at
-128, every dtype at 32) to a SIMT kernel. The LoRA matmul sends
-bf16 operands that TMA can describe to a wgmma kernel and the rest to
-its mma.sync / float32 kernel (:func:`lora_route`). The paged decode
-and prefill wrappers send bf16 q over bf16 or int8 pools at head_dim 64
-to TMA-fed kernels that split the keys over CTAs (decode on the CUDA
-cores, prefill on wgmma) and the rest to their SIMT kernels
-(:func:`paged_route`); the speculative decoder's batched verify
+(wgmma on TMA-fed tiles); bf16 at head_dim 128 to their own
+tensor-core kernels ("wgmma128"); float32 at head_dim 64 to a 3xTF32
+wgmma kernel ("tf32x3": every product three tf32 passes, float32's own
+error); the rest (float32 at 128, every dtype at 32) to a SIMT kernel.
+The LoRA matmul sends bf16 operands that TMA can describe to a wgmma
+kernel and the rest to its mma.sync / float32 kernel
+(:func:`lora_route`). The paged decode and prefill wrappers send bf16 q
+over bf16 or int8 pools at head_dim 64 to TMA-fed kernels that split the
+keys over CTAs (decode on the CUDA cores, prefill on wgmma), decode at
+head_dim 128 to its own TMA-fed kernel ("tma128"), and the rest to their
+SIMT kernels (:func:`paged_route`); the speculative decoder's batched verify
 (:func:`paged_verify_attention`) takes the prefill's route, one launch
 for all lanes. The chunkwise mLSTM sends float32 and bf16 at head widths
 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster shares S
@@ -98,31 +98,49 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 # ------------------------------------------------------- paged attention
-PAGED_HEAD_DIM = 64     #: head_dim of the TMA-fed paged kernels
 SPLIT_KEYS = 384        #: keys of a CTA's split, at least (whole 64s)
 MAX_SPLITS = 64         #: splits a (lane, KV head) merges, at most
 SPLIT_CTAS = 256        #: CTAs a call splits up to: about two an SM
-#: the route key of each paged wrapper's Hopper kernel: decode runs on the
-#: CUDA cores fed by TMA (``csrc/paged_decode_tma.cu``), prefill on wgmma
-#: (``csrc/paged_prefill_tc.cu``); both name the SIMT kernel "simt"
+#: the route key of each paged wrapper's Hopper kernel at head_dim 64:
+#: decode runs on the CUDA cores fed by TMA (``csrc/paged_decode_tma.cu``),
+#: prefill on wgmma (``csrc/paged_prefill_tc.cu``); both name the SIMT
+#: kernel "simt"
 PAGED_ROUTES = {"decode": "tma", "prefill": "wgmma"}
+#: every Hopper route of each paged kind: decode also has its head_dim-128
+#: kernel (``csrc/paged_decode_tma128.cu``, "tma128", the dense configs'
+#: serving); prefill at 128 stays on its SIMT kernel
+PAGED_HOPPER = {"decode": ("tma", "tma128"), "prefill": ("wgmma",)}
+#: the head_dim each Hopper paged route takes
+PAGED_HEAD_DIM = {"tma": 64, "wgmma": 64, "tma128": 128}
 
 
 @functools.lru_cache(maxsize=256)
 def paged_route(kind: str, q_dtype, kv_dtype, head_dim: int,
                 block_size: int) -> str:
     """The kernel a card launch of paged ``kind`` ("decode" or "prefill")
-    takes: the TMA-fed kernel (route :data:`PAGED_ROUTES` [kind]) for bf16
-    q over bf16 or int8 pools at head_dim :data:`PAGED_HEAD_DIM` whose
-    blocks TMA can land as whole 128-byte-swizzled atoms (bf16: block
-    size 8, 16, 32 or 64; int8: 16, 32 or 64, so a block's scales are a
-    row of 16-byte multiples too), else "simt" (``csrc/paged_decode.cu``,
-    ``csrc/paged_prefill.cu``: float32 q, other head dims and blocks)."""
+    takes: a TMA-fed kernel for bf16 q over bf16 or int8 pools whose
+    blocks TMA can land as whole 128-byte-swizzled atoms, else "simt"
+    (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``: float32 q, other
+    head dims and blocks); each Hopper route of :data:`PAGED_HOPPER`
+    [kind] takes the head_dim :data:`PAGED_HEAD_DIM` names. At head_dim
+    64 both kinds (route :data:`PAGED_ROUTES` [kind]): a bf16 block of bs
+    128-byte rows is one box, whole 1024-byte atoms at block size 8, 16,
+    32 or 64; an int8 block (64-byte rows, two a line) at 16, 32 or 64.
+    At head_dim 128 decode alone (route "tma128"): a bf16 row is 256
+    bytes, two boxes of bs 128-byte lines (whole atoms at bs % 8 == 0:
+    8, 16, 32, 64); an int8 row is 128 bytes, one box (whole at bs % 8
+    == 0 too), but int8 takes 16, 32 or 64 as at 64: each block's bs
+    float scales land in a 128-byte slot of the stage's scale row, and
+    64 / 8 blocks of eight would not fit it. The dense configs serve at
+    block 16. Block sizes must divide the 64-key stage."""
     sizes = (16, 32, 64) if kv_dtype == torch.int8 else (8, 16, 32, 64)
     fast = (q_dtype == torch.bfloat16
             and kv_dtype in (torch.bfloat16, torch.int8)
-            and head_dim == PAGED_HEAD_DIM and block_size in sizes)
-    return PAGED_ROUTES[kind] if fast else "simt"
+            and block_size in sizes)
+    for route in PAGED_HOPPER[kind] if fast else ():
+        if PAGED_HEAD_DIM[route] == head_dim:
+            return route
+    return "simt"
 
 
 @functools.lru_cache(maxsize=1024)
@@ -220,8 +238,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     On the card the kernel follows :func:`paged_route`: bf16 q over bf16
     or int8 pools at head_dim 64 launches ``csrc/paged_decode_tma.cu``
     (keys split over CTAs by :func:`paged_splits`, blocks loaded by TMA),
-    everything else the SIMT kernel; ``paged_decode_attention.routes``
-    counts the launches of each."""
+    at head_dim 128 ``csrc/paged_decode_tma128.cu`` (the same plan, a
+    256-byte bf16 row loaded as two boxes, four lanes a key), everything
+    else the SIMT kernel; ``paged_decode_attention.routes`` counts the
+    launches of each ("tma", "tma128", "simt")."""
     return _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens,
                          scale=scale, k_scales=k_scales, v_scales=v_scales)
 
@@ -270,10 +290,12 @@ def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
 
 def _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens, scale,
                        k_scales, v_scales, out, plan_lanes: int) -> int:
-    """One launch of ``csrc/paged_decode_tma.cu`` (inputs already
-    checked) over q's B lanes, its keys split by :func:`paged_splits` as
-    for ``plan_lanes`` lanes (a row's arithmetic depends on its lane's
-    keys and that plan only). Returns the kernel's error code."""
+    """One launch of the TMA-fed decode kernel of q's head_dim
+    (``csrc/paged_decode_tma.cu`` at 64, ``csrc/paged_decode_tma128.cu``
+    at 128; inputs already checked) over q's B lanes, its keys split by
+    :func:`paged_splits` as for ``plan_lanes`` lanes (a row's arithmetic
+    depends on its lane's keys and that plan only). Returns the kernel's
+    error code."""
     b, hq, d = q.shape
     hkv, nb, bs, _ = k_pages.shape
     t = block_tables.shape[1]
@@ -281,7 +303,8 @@ def _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens, scale,
     nsplit, per = paged_splits(t * bs, plan_lanes * hkv)
     ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,
                              _partial_floats(hq // hkv, d))
-    return build.load("paged_decode_tma")(
+    stem = {64: "paged_decode_tma", 128: "paged_decode_tma128"}[d]
+    return build.load(stem)(
         _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scales), _ptr(v_scales), _ptr(block_tables), _ptr(ctx_lens),
         _ptr(out), _ptr(ws), _ptr(ctr), b, hq, hkv, nb, bs, t, nsplit, per,
@@ -565,8 +588,8 @@ SIMT_THREADS = 256
 TC_HEAD_DIM = 64              #: head_dim of the tensor-core flash kernels
 #: the flash kernels with a bf16 tensor-core route at head_dim 128
 #: (route "wgmma128": ``csrc/flash_fwd_tc128.cu``,
-#: ``csrc/flash_bwd_dkv_tc128.cu``); dQ at 128 stays on its SIMT kernel
-TC128_FLASH = ("fwd", "dkv")
+#: ``csrc/flash_bwd_dkv_tc128.cu``, ``csrc/flash_bwd_dq_tc128.cu``)
+TC128_FLASH = ("fwd", "dkv", "dq")
 #: the flash kernels with a float32 3xTF32 wgmma route at head_dim 64
 TF32_FLASH = ("fwd", "dkv", "dq")
 
@@ -620,9 +643,9 @@ def flash_route(kind: str, dtype, head_dim: int) -> str:
     takes: at head_dim :data:`TC_HEAD_DIM`, bf16 the tensor-core kernel
     (``csrc/flash_*_tc.cu``, route "wgmma") and float32 the 3xTF32 wgmma
     kernel (``csrc/flash_{fwd,bwd_dkv,bwd_dq}_tf32.cu``, route "tf32x3");
-    at head_dim 128, bf16 "fwd" and "dkv" their tensor-core kernels
-    (``csrc/flash_{fwd,bwd_dkv}_tc128.cu``, route "wgmma128"); everything
-    else (bf16 "dq" and float32 at 128, every dtype at 32) the SIMT kernel
+    at head_dim 128, bf16 their tensor-core kernels
+    (``csrc/flash_{fwd,bwd_dkv,bwd_dq}_tc128.cu``, route "wgmma128");
+    everything else (float32 at 128, every dtype at 32) the SIMT kernel
     (``csrc/flash_{fwd,bwd_dkv,bwd_dq}.cu``, route "simt")."""
     if head_dim == TC_HEAD_DIM and dtype == torch.bfloat16:
         return "wgmma"
@@ -841,9 +864,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale=None,
     On the card the kernel follows :func:`flash_route`: bf16 at head_dim
     64 launches the tensor-core kernel (``csrc/flash_bwd_dq_tc.cu``: S, dP
     and dQ on wgmma, dS rounded to bf16 for the dQ product, its own
-    tiles); float32 at head_dim 64 ``csrc/flash_bwd_dq_tf32.cu`` (the same
-    three products, every one 3xTF32, dS float32, its own tiles); the
-    rest, bf16 at head_dim 128 included, the SIMT kernel
+    tiles); bf16 at head_dim 128 ``csrc/flash_bwd_dq_tc128.cu`` (the same
+    arithmetic, the forward's schedule: two query tiles of one head a
+    CTA, dealt heaviest first over a persistent grid); float32 at
+    head_dim 64 ``csrc/flash_bwd_dq_tf32.cu`` (the same three products,
+    every one 3xTF32, dS float32, its own tiles); the rest the SIMT kernel
     (``csrc/flash_bwd_dq.cu``, all float32, tiles from
     ``block_q``/``block_k``).
     ``flash_attention_bwd_dq.routes`` counts the launches of each."""
@@ -875,6 +900,7 @@ def _flash_dq_card(q, k, v, do, lse, delta, *, scale, causal, window,
     if route != "simt":
         _aligned(q=q, k=k, v=v, do=do)
         stem = {"wgmma": "flash_bwd_dq_tc",
+                "wgmma128": "flash_bwd_dq_tc128",
                 "tf32x3": "flash_bwd_dq_tf32"}[route]
         err = build.load(stem)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
@@ -1328,8 +1354,9 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: kernel; each launch is counted by route too: that key, or "simt" for
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
 #: the three flash kernels count their float32 3xTF32 kernel's launches
-#: as "tf32x3" beside them (:data:`TF32_ROUTED`), the forward and dK/dV
-#: their bf16 head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`)
+#: as "tf32x3" beside them (:data:`TF32_ROUTED`) and their bf16
+#: head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`); paged
+#: decode its head_dim-128 kernel's as "tma128"
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
@@ -1339,7 +1366,8 @@ ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           mlstm_chunked_bwd: "wgmma"}
 TF32_ROUTED = (flash_attention, flash_attention_bwd_dkv,
                flash_attention_bwd_dq)
-TC128_ROUTED = (flash_attention, flash_attention_bwd_dkv)
+TC128_ROUTED = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
 
 
 def reset_launch_counts() -> None:
@@ -1351,6 +1379,10 @@ def reset_launch_counts() -> None:
         fn.routes["tf32x3"] = 0
     for fn in TC128_ROUTED:
         fn.routes["wgmma128"] = 0
+    for fn, kind in ((paged_decode_attention, "decode"),
+                     (paged_prefill_attention, "prefill")):
+        for route in PAGED_HOPPER[kind]:
+            fn.routes[route] = 0
 
 
 reset_launch_counts()
@@ -1362,6 +1394,6 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
-    (and "tf32x3": n for the flash forward, dK/dV and dQ, "wgmma128": n
-    for the forward and dK/dV)."""
+    (and "tf32x3": n and "wgmma128": n for the flash forward, dK/dV and
+    dQ, "tma128": n for paged decode)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -17,8 +17,8 @@ verify's bf16 rows within one bf16 ulp of the decode kernel's at the
 same positions; on the route ``ops.paged_route`` names, bitwise
 repeatable;
 bfloat16 flash outputs one bfloat16 ulp at the largest magnitude (2^-7 of
-it), on the tensor-core routes (head_dim 64, wgmma; the forward and dK/dV
-at head_dim 128, wgmma128) as on the SIMT one,
+it), on the tensor-core routes (head_dim 64, wgmma; head_dim 128,
+wgmma128) as on the SIMT one,
 and float32 at head_dim 64 on the 3xTF32 route (tf32x3) at the float32
 limits, whose route counts each test checks; the quantizer, the dequantizer and
 the fused int8 K/V append bitwise (the append outside the null block);
@@ -162,9 +162,9 @@ def _long_ctx(lanes=8, hkv=8):
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_paged_decode_4096_keys(dev, kv, d):
     """bf16 q at 4096 keys on the route ``ops.paged_route`` names (head
-    dim 64: the TMA-fed kernel; 32 and 128: the SIMT one), each row
-    within PAGED_RTOL of the float32 plain version, ctx-0 lanes exactly
-    0, two calls bitwise equal."""
+    dim 64: the TMA-fed kernel, "tma"; 128: its own, "tma128"; 32: the
+    SIMT one), each row within PAGED_RTOL of the float32 plain version,
+    ctx-0 lanes exactly 0, two calls bitwise equal."""
     rng = np.random.default_rng(5)
     hq, hkv, bs = 16, 8, 16
     ctx_list = _long_ctx()
@@ -173,7 +173,7 @@ def test_paged_decode_4096_keys(dev, kv, d):
                      dtype=torch.bfloat16, device=dev)
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
     route = ops.paged_route("decode", q.dtype, KV[kv], d, bs)
-    assert route == ("tma" if d == 64 else "simt")
+    assert route == {64: "tma", 128: "tma128"}.get(d, "simt")
     routes = ops.route_counts()["paged_decode_attention"]
     kw = dict(k_scales=ks, v_scales=vs)
     got = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
@@ -258,6 +258,58 @@ def test_paged_tma_routes_at_other_groups_and_blocks(dev, kv, shape):
     _rows_within(got, want, PAGED_RTOL["decode"])
     assert torch.isfinite(pre).all()
     _rows_within(pre[:, :10], pwant[:, :10], PAGED_RTOL["prefill"])
+
+
+#: (Hq, Hkv, block size) of the head_dim-128 decode kernel: the dense
+#: configs' groups 5 (qwen3-14b's 40/8), 7 (yi-34b's 56/8) and 8
+#: (qwen3-32b's 64/8) at their block 16, a group of 1, and block sizes 8
+#: (bf16 only), 32 and 64
+D128_DECODE = {"g5": (40, 8, 16), "g7": (56, 8, 16), "g8": (64, 8, 16),
+               "g1": (4, 4, 16), "g5-bs8": (5, 1, 8), "g5-bs32": (5, 1, 32),
+               "g5-bs64": (10, 2, 64)}
+#: ctx 0, one key, a lane ending exactly on a split boundary of the
+#: 384-key plan, one key past it, two splits and a ragged third
+D128_DECODE_CTX = [0, 1, 16, 383, 384, 385, 768, 1000]
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("shape", D128_DECODE)
+def test_paged_decode_d128_at_split_edges(dev, kv, shape):
+    """bf16 q at head_dim 128 over bf16 or int8 pools with the null
+    block NaN-poisoned behind every dead table slot: on the route
+    ``ops.paged_route`` names ("tma128"; int8 at block 8 "simt"), the
+    keys split in 384-key runs, each row within PAGED_RTOL of the
+    float32 plain version, ctx-0 lanes exactly 0, two calls bitwise
+    equal; the SIMT kernel on the same inputs (``route="simt"``, as
+    chip_smoke.py times it) within the same bound."""
+    hq, hkv, bs = D128_DECODE[shape]
+    rng = np.random.default_rng(9)
+    ctx_list = D128_DECODE_CTX
+    tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, 128, ctx_list)
+    assert ops.paged_splits(tables.shape[1] * bs,
+                            len(ctx_list) * hkv)[1] == 384
+    q = torch.tensor(rng.standard_normal((len(ctx_list), hq, 128)),
+                     dtype=torch.bfloat16, device=dev)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    route = ops.paged_route("decode", q.dtype, KV[kv], 128, bs)
+    assert route == ("simt" if kv == "int8" and bs == 8 else "tma128")
+    kw = dict(k_scales=ks, v_scales=vs)
+    routes = ops.route_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    again = ops.paged_decode_attention(q, k, v, tables, ctx, **kw)
+    simt = ops._paged_decode(q, k, v, tables, ctx, scale=128 ** -0.5,
+                             route="simt", **kw)
+    want = ref.paged_decode_attention_ref(q.float(), k, v, tables, ctx, **kw)
+    torch.cuda.synchronize()
+    grew = {r: n - routes[r] for r, n in
+            ops.route_counts()["paged_decode_attention"].items()}
+    want_grew = {**dict.fromkeys(grew, 0), "simt": 1}
+    want_grew[route] += 2
+    assert grew == want_grew
+    assert torch.equal(got, again)
+    for out in (got, simt):
+        assert torch.isfinite(out).all() and not out[ctx == 0].any()
+        _rows_within(out, want, PAGED_RTOL["decode"])
 
 
 @pytest.mark.parametrize("kv", ["f32", "int8"])
@@ -437,9 +489,8 @@ def test_flash_tensor_core_route_at_tile_edges(dev, case):
 @pytest.mark.parametrize("d", [32, 128])
 def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     """bf16 away from head_dim 64: at 32 the forward, dK/dV and dQ launch
-    the SIMT kernels; at 128 the forward and dK/dV launch their own
-    tensor-core kernels (route wgmma128) and dQ the SIMT one; each counted
-    on its route."""
+    the SIMT kernels; at 128 their own tensor-core kernels (route
+    wgmma128); each counted on its route."""
     q, k, v, do = _flash(dev, torch.bfloat16, 96, 96, seed=4, d=d)
     before = ops.route_counts()
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -451,7 +502,7 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     for name, kind in (("flash_attention", "fwd"),
                        ("flash_attention_bwd_dkv", "dkv"),
                        ("flash_attention_bwd_dq", "dq")):
-        route = "wgmma128" if d == 128 and kind != "dq" else "simt"
+        route = "wgmma128" if d == 128 else "simt"
         assert ops.flash_route(kind, torch.bfloat16, d) == route
         assert after[name] == {**before[name],
                                route: before[name][route] + 1}, name
@@ -470,7 +521,9 @@ def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
 #: 8 (qwen3-32b's 64/8) and at their tile edges: one query row, Sq and Skv
 #: no multiples of 64, an odd number of query tiles (a pair with one
 #: tile), Sq < Skv with an offset, a window, no causal mask, rows that see
-#: no key
+#: no key; and dQ's: a window under an offset whose two query tiles walk
+#: different 64-key tiles (each passes some of the other's), Skv one past
+#: a 64-key tile, and more pairs than SMs (the persistent grid's rounds)
 TC128_EDGES = {"g1-ragged": (200, 200, {}, 2, 2),
                "g5-causal": (256, 256, {}, 5, 1),
                "g5-sq1": (1, 77, {"q_offset": 76}, 5, 1),
@@ -478,17 +531,21 @@ TC128_EDGES = {"g1-ragged": (200, 200, {}, 2, 2),
                "g7-window": (300, 300, {"window": 40}, 7, 1),
                "g8-full": (70, 90, {"causal": False}, 8, 1),
                "g8-odd-pairs": (323, 323, {}, 16, 2),
-               "g5-no-key": (64, 64, {"window": 8, "q_offset": 60}, 5, 1)}
+               "g5-no-key": (64, 64, {"window": 8, "q_offset": 60}, 5, 1),
+               "g5-window-offset": (130, 450, {"window": 100,
+                                               "q_offset": 320}, 5, 1),
+               "g5-skv-65": (65, 65, {}, 5, 1),
+               "g5-rounds": (1024, 1024, {}, 40, 8)}
 
 
 @pytest.mark.parametrize("case", TC128_EDGES)
 def test_flash_d128_tensor_core_route_at_tile_edges(dev, case):
-    """bf16 at head_dim 128 launches the wgmma128 forward and dK/dV
-    kernels and the SIMT dQ (their route counts move, no other does),
-    within the bf16 limits of the plain versions; dK/dV bitwise
-    repeatable. Holds the forward's pairs of query tiles, the m64n128
-    P V whose descriptor steps from one column half to the other, and the
-    dK/dV's two partial sums at every edge of ``TC128_EDGES``."""
+    """bf16 at head_dim 128 launches the wgmma128 forward, dK/dV and dQ
+    kernels (their route counts move, no other does), within the bf16
+    limits of the plain versions; dK/dV and dQ bitwise repeatable. Holds
+    the forward's and dQ's pairs of query tiles, the m64n128 P V and
+    dS K whose descriptors step from one column half to the other, and
+    the dK/dV's two partial sums at every edge of ``TC128_EDGES``."""
     sq, skv, kw, hq, hkv = TC128_EDGES[case]
     q, k, v, do = _flash(dev, torch.bfloat16, sq, skv, seed=12, b=1, hq=hq,
                          hkv=hkv, d=128)
@@ -498,14 +555,16 @@ def test_flash_d128_tensor_core_route_at_tile_edges(dev, case):
     dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     again = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq_again = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     after = ops.route_counts()
     for name, route, n in (("flash_attention", "wgmma128", 1),
                            ("flash_attention_bwd_dkv", "wgmma128", 2),
-                           ("flash_attention_bwd_dq", "simt", 1)):
+                           ("flash_attention_bwd_dq", "wgmma128", 2)):
         assert after[name] == {**before[name],
                                route: before[name][route] + n}, name
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    assert torch.equal(dq, dq_again)
     sc = 128 ** -0.5
     ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -540,6 +599,28 @@ def test_flash_d128_dkv_is_bitwise_repeatable(dev, hq):
     for got in (first, simt):
         _flash_close("dk", got[0], rdk, torch.bfloat16)
         _flash_close("dv", got[1], rdv, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hq", [40, 56, 64])
+def test_flash_d128_dq_is_bitwise_repeatable(dev, hq):
+    """The head_dim-128 dQ sums each warpgroup's key tiles in a fixed
+    order with no atomics: two runs equal bit for bit at the dense
+    configs' head layouts (40, 56 or 64 query heads over 8), causal, and
+    within the bf16 limits of the plain version; the SIMT kernel on the
+    same inputs (``route="simt"``, as chip_smoke.py times it) too."""
+    q, k, v, do = _flash(dev, torch.bfloat16, 384, 384, seed=14, b=1, hq=hq,
+                         hkv=8, d=128)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    kw = dict(scale=128 ** -0.5, causal=True, window=None, q_offset=0)
+    first = ops._flash_dq_card(q, k, v, do, lse, delta, **kw)
+    second = ops._flash_dq_card(q, k, v, do, lse, delta, **kw)
+    simt = ops._flash_dq_card(q, k, v, do, lse, delta, route="simt", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    for got in (first, simt):
+        _flash_close("dq", got, rdq, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

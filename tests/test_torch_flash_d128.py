@@ -7,13 +7,13 @@ as qwen3-14b's 40 over 8) and 1: o, lse, dq, dk, dv and delta at atol
 1e-5 (float32 math on both sides, in different orders) in the causal,
 windowed, offset (Sq < Skv), ragged and unmasked cases of
 ``tests/test_torch_flash.py``. Then ``ops.flash_route``'s table: bf16 at
-head_dim 128 sends the forward and dK/dV to their tensor-core kernels
-("wgmma128") and dQ to the SIMT one. Last, the work plans of
-``csrc/flash_fwd_tc128.cu`` and ``csrc/flash_bwd_dkv_tc128.cu``,
-repeated in Python: every visible (query, key) pair is computed by
-exactly one consumer warpgroup, and every tile a CTA streams is waited
-for and released by each of its consumers (no deadlock, no copy left in
-flight).
+head_dim 128 sends the forward, dK/dV and dQ to their tensor-core
+kernels ("wgmma128"). Last, the work plans of
+``csrc/flash_fwd_tc128.cu``, ``csrc/flash_bwd_dkv_tc128.cu`` and
+``csrc/flash_bwd_dq_tc128.cu``, repeated in Python: every visible
+(query, key) pair is computed by exactly one consumer warpgroup, and
+every tile a CTA streams is waited for and released by each of its
+consumers (no deadlock, no copy left in flight).
 """
 import itertools
 
@@ -89,11 +89,11 @@ def test_flash_d128_matches_pallas(case, group):
 
 
 def test_flash_route_table():
-    """bf16 at head_dim 128: the forward and dK/dV on "wgmma128", dQ on
-    "simt"; float32 at 128 and every dtype at 32 on "simt"; head_dim 64
+    """bf16 at head_dim 128: the forward, dK/dV and dQ on "wgmma128";
+    float32 at 128 and every dtype at 32 on "simt"; head_dim 64
     unchanged (bf16 "wgmma", float32 "tf32x3")."""
     bf16, f32 = torch.bfloat16, torch.float32
-    want = {(bf16, 128): ("wgmma128", "wgmma128", "simt"),
+    want = {(bf16, 128): ("wgmma128", "wgmma128", "wgmma128"),
             (f32, 128): ("simt", "simt", "simt"),
             (bf16, 32): ("simt", "simt", "simt"),
             (f32, 32): ("simt", "simt", "simt"),
@@ -106,13 +106,14 @@ def test_flash_route_table():
     counted = ops.route_counts()
     assert "wgmma128" in counted["flash_attention"]
     assert "wgmma128" in counted["flash_attention_bwd_dkv"]
-    assert "wgmma128" not in counted["flash_attention_bwd_dq"]
+    assert "wgmma128" in counted["flash_attention_bwd_dq"]
 
 
 # ----------------------------------------------- the kernels' work plans
-BQ = 64       # query rows of a warpgroup's tile (both kernels)
+BQ = 64       # query rows of a warpgroup's tile (all three kernels)
 FWD_BK = 128  # keys of the forward's K/V tiles
 DKV_BK = 64   # keys of a dK/dV CTA
+DQ_BK = 64    # keys of dQ's K/V tiles
 
 
 def _live_keys(q_lo, q_hi, skv, causal, window, q_offset):
@@ -141,27 +142,29 @@ def _sees(row, key, causal, window, q_offset):
     return (not causal or key <= qp) and (not window or key > qp - window)
 
 
-def _tiles(q_lo, sq, skv, mk):
-    """flash_fwd_tc128.cu live_tiles: (kt0, n) of the query tile at q_lo."""
+def _tiles(q_lo, sq, skv, mk, bk=FWD_BK):
+    """flash_tc128.cuh live_tiles<bk> (the forward's 128, dQ's 64): (kt0,
+    n) of the query tile at q_lo."""
     if q_lo >= sq:
         return 0, 0
     kb, ke = _live_keys(q_lo, min(sq, q_lo + BQ) - 1, skv, *mk)
     if ke <= kb:
         return 0, 0
-    return kb // FWD_BK, -(-ke // FWD_BK) - kb // FWD_BK
+    return kb // bk, -(-ke // bk) - kb // bk
 
 
 def _snake(c, r, g, items):
-    """flash_fwd_tc128.cu Sched::item: CTA c's item in round r, or -1."""
+    """flash_tc128.cuh Sched::item: CTA c's item in round r, or -1."""
     i = r * g + (g - 1 - c if r & 1 else c)
     return i if i < items else -1
 
 
-def _fwd_plan(sq, skv, mk, planes=3, g=4):
-    """Per (plane, query tile), the K/V tiles its warpgroup computes,
-    walking each CTA's items as the kernel does; asserts each item's ring
-    protocol (each consumer passes or uses every streamed tile, its own
-    tiles inside the stream)."""
+def _fwd_plan(sq, skv, mk, planes=3, g=4, bk=FWD_BK):
+    """Per (plane, query tile), the K/V tiles (of ``bk`` keys: the
+    forward's 128, dQ's 64) its warpgroup computes, walking each CTA's
+    items as the kernel does; asserts each item's ring protocol (each
+    consumer passes or uses every streamed tile, its own tiles inside
+    the stream)."""
     nqt = -(-sq // BQ)
     npair = (nqt + 1) // 2
     items = planes * npair
@@ -172,8 +175,8 @@ def _fwd_plan(sq, skv, mk, planes=3, g=4):
         while _snake(c, r, g, items) >= 0:
             i = _snake(c, r, g, items)
             pr, plane = npair - 1 - i // planes, i % planes
-            (a0, n0), (a1, n1) = (_tiles(2 * pr * BQ, sq, skv, mk),
-                                  _tiles((2 * pr + 1) * BQ, sq, skv, mk))
+            (a0, n0), (a1, n1) = (_tiles(2 * pr * BQ, sq, skv, mk, bk),
+                                  _tiles((2 * pr + 1) * BQ, sq, skv, mk, bk))
             if n0 == 0:
                 a0, n0 = a1, n1
             if n1 == 0:
@@ -181,7 +184,7 @@ def _fwd_plan(sq, skv, mk, planes=3, g=4):
             u0, u1 = min(a0, a1), max(a0 + n0, a1 + n1)
             for wg in range(2):
                 qt = 2 * pr + wg
-                kt0, n = _tiles(qt * BQ, sq, skv, mk)
+                kt0, n = _tiles(qt * BQ, sq, skv, mk, bk)
                 if n:
                     assert u0 <= kt0 and kt0 + n <= u1
                 if qt * BQ < sq:
@@ -266,3 +269,20 @@ def test_dkv_plan_covers_every_visible_pair(case):
                         seen[(head, row, key)] = wg
     want = sum(_sees(r, k, *mk) for r in range(sq) for k in range(skv))
     assert len(seen) == g * want
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_dq_plan_covers_every_visible_pair(case):
+    """dQ's schedule is the forward's with 64-key tiles: over the
+    persistent snake every (query tile, head) is dealt exactly once, each
+    warpgroup's live tiles lie inside its pair's stream (it passes the
+    rest), and every visible (query row, key) pair lies in a 64-key tile
+    that the row's warpgroup multiplies into its dQ."""
+    sq, skv, kw = PLAN_CASES[case]
+    mk = _mk(kw)
+    done = _fwd_plan(sq, skv, mk, bk=DQ_BK)
+    for row, key in itertools.product(range(sq), range(skv)):
+        if _sees(row, key, *mk):
+            assert key // DQ_BK in done[(0, row // BQ)], (row, key)
+    for (_, qt), tiles in done.items():       # no tile past the keys
+        assert all(0 <= j * DQ_BK < skv for j in tiles), (qt, tiles)

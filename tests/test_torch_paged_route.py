@@ -5,10 +5,12 @@ many CTAs it splits a lane's keys.
 size alone, before any launch: bf16 q over bf16 or int8 pools at head dim
 64 whose blocks TMA can land as whole 128-byte-swizzled atoms goes to the
 Hopper kernels (decode ``"tma"``: ``csrc/paged_decode_tma.cu``; prefill
-``"wgmma"``: ``csrc/paged_prefill_tc.cu``), everything else to the SIMT
-kernels (``"simt"``). The serving path's shapes (flad-adllm: head dim 64,
-block size 16, bf16 q over bf16 or int8 pools) must all take the Hopper
-kernels; float32 q must not. ``ops.paged_splits`` sizes the grid's split
+``"wgmma"``: ``csrc/paged_prefill_tc.cu``), decode at head dim 128 to its
+own (``"tma128"``: ``csrc/paged_decode_tma128.cu``, the same block
+sizes), everything else to the SIMT kernels (``"simt"``). The serving
+paths' shapes (flad-adllm: head dim 64; the dense configs: head dim 128
+decode; block size 16, bf16 q over bf16 or int8 pools) must all take the
+Hopper kernels; float32 q must not. ``ops.paged_splits`` sizes the grid's split
 axis from the keys a call can see: decode's table width, prefill's
 ctx_len. Runs on the CPU: no kernel is launched.
 """
@@ -21,7 +23,7 @@ from repro_torch.kernels import ops
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 
 #: (q dtype, pool dtype, head dim, block size) -> the route of decode
-#: and prefill ("fast": "tma" and "wgmma")
+#: and prefill ("fast": "tma" and "wgmma"; a pair: decode's, prefill's)
 ROUTES = {
     "serving bf16 cache": (BF16, BF16, 64, 16, "fast"),
     "serving int8 cache": (BF16, I8, 64, 16, "fast"),
@@ -36,10 +38,26 @@ ROUTES = {
     "bf16 bs 4": (BF16, BF16, 64, 4, "simt"),
     "bf16 bs 24": (BF16, BF16, 64, 24, "simt"),
     "bf16 bs 128": (BF16, BF16, 64, 128, "simt"),
-    # other head dims keep the SIMT kernels
+    # head dim 32 keeps the SIMT kernels; at 128 decode takes its TMA-fed
+    # kernel (two 128-byte boxes a bf16 block, one an int8 block) and
+    # prefill the SIMT one
     "bf16 d 32": (BF16, BF16, 32, 16, "simt"),
-    "bf16 d 128": (BF16, BF16, 128, 16, "simt"),
-    "int8 d 128": (BF16, I8, 128, 16, "simt"),
+    "bf16 d 128": (BF16, BF16, 128, 16, ("tma128", "simt")),
+    "int8 d 128": (BF16, I8, 128, 16, ("tma128", "simt")),
+    "bf16 d 128 bs 8": (BF16, BF16, 128, 8, ("tma128", "simt")),
+    "bf16 d 128 bs 32": (BF16, BF16, 128, 32, ("tma128", "simt")),
+    "bf16 d 128 bs 64": (BF16, BF16, 128, 64, ("tma128", "simt")),
+    "int8 d 128 bs 32": (BF16, I8, 128, 32, ("tma128", "simt")),
+    "int8 d 128 bs 64": (BF16, I8, 128, 64, ("tma128", "simt")),
+    # the 128-wide blocks the route refuses: no whole 8-line atom, no
+    # whole number of blocks a 64-key stage, int8 scales of eight keys (a
+    # stage's eight 128-byte scale slots would not fit its row)
+    "bf16 d 128 bs 4": (BF16, BF16, 128, 4, "simt"),
+    "bf16 d 128 bs 24": (BF16, BF16, 128, 24, "simt"),
+    "bf16 d 128 bs 128": (BF16, BF16, 128, 128, "simt"),
+    "int8 d 128 bs 8": (BF16, I8, 128, 8, "simt"),
+    "float32 d 128": (F32, F32, 128, 16, "simt"),
+    "float32 q, int8 pools d 128": (F32, I8, 128, 16, "simt"),
     # float32 q: the float32 oracle's route
     "float32": (F32, F32, 64, 16, "simt"),
     "float32 q, int8 pools": (F32, I8, 64, 16, "simt"),
@@ -50,7 +68,10 @@ ROUTES = {
 @pytest.mark.parametrize("case", ROUTES)
 def test_route_choice(case, kind):
     q_dtype, kv_dtype, d, bs, route = ROUTES[case]
-    want = ops.PAGED_ROUTES[kind] if route == "fast" else "simt"
+    if isinstance(route, tuple):
+        want = route[kind == "prefill"]
+    else:
+        want = ops.PAGED_ROUTES[kind] if route == "fast" else "simt"
     assert ops.paged_route(kind, q_dtype, kv_dtype, d, bs) == want
 
 
@@ -98,5 +119,5 @@ def test_cpu_calls_count_no_route():
     ops.paged_prefill_attention(q[0][:, None].expand(4, 4, 64).contiguous(),
                                 k, k, tables[0], 16, 20)
     assert ops.route_counts() == before
-    assert set(before["paged_decode_attention"]) == {"tma", "simt"}
+    assert set(before["paged_decode_attention"]) == {"tma", "tma128", "simt"}
     assert set(before["paged_prefill_attention"]) == {"wgmma", "simt"}

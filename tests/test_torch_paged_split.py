@@ -11,7 +11,10 @@ the splits' partial (m, l, acc) in split order, a split that saw no key
 carrying m = -1e30, l = 0, acc = 0. Decode runs on the CUDA cores in
 float32: each of four warps keeps its own statistics over keys 16w..16w+15
 of every tile, merged at the end; int8 K scales multiply the score and V
-scales fold into the probability. Prefill runs on wgmma: int8 blocks
+scales fold into the probability. At head_dim 128
+(``csrc/paged_decode_tma128.cu``) the plan and the merge are the same and
+eight warps take 8 keys each of a tile (four lanes a key, each owning
+four of the 128 output columns for P V). Prefill runs on wgmma: int8 blocks
 become bf16 (exact), K's scale multiplies S's columns, and P, with V's
 scale folded in, is rounded to bf16 before P V; the row sum takes the
 float32 P. The batched verify runs the prefill kernel with P split into
@@ -26,7 +29,8 @@ are bf16 values held in float32 (the kernels' operands, exactly), with
 lanes at ctx 0 and 1, lanes ending exactly on a split boundary (384, 768)
 and one key past one (385), a chunk whose early rows see no key in its
 second split, a NaN-poisoned null block behind every dead table slot, and
-GQA groups 1, 2 and 8 (prefill's group 8 spans two 64-row tiles).
+GQA groups 1, 2 and 8 (prefill's group 8 spans two 64-row tiles); decode
+also at head_dim 128 with the dense configs' groups 5 and 8.
 
 Tolerances: decode's emulation is float32 throughout and is held to 1e-5
 of the plain version and of the Pallas kernel (orders of summation and
@@ -47,6 +51,9 @@ LOG2E = 1.4426950408889634
 NEG = -1e30                  # the kernels' finite mask value
 KT = 64                      # keys of a ring tile
 D, BS = 64, 16               # the TMA route's head dim and a block size
+#: decode's consumer warps at each head dim: KT / warps keys a warp of
+#: every tile
+DECODE_WARPS = {64: 4, 128: 8}
 #: lanes at ctx 0 and 1, ending exactly on a split boundary (384, 768)
 #: and one key past one (385); the tables' 928 keys split in three
 DECODE_CTX = [0, 1, 384, 768, 385, 900]
@@ -56,6 +63,10 @@ DECODE_CTX = [0, 1, 384, 768, 385, 900]
 CHUNKS = [(0, 16), (376, 16), (752, 16), (890, 7)]
 C = 16
 GROUPS = {"g1": (2, 2), "g2": (4, 2), "g8": (8, 1)}    # (Hq, Hkv)
+#: decode's (Hq, Hkv, head dim): GROUPS at 64, the dense configs' groups
+#: of 5 (qwen3-14b's 40/8) and 8 (qwen3-32b's 64/8) at 128
+DECODE_GROUPS = {**{k: (*v, D) for k, v in GROUPS.items()},
+                 "g5-d128": (5, 1, 128), "g8-d128": (8, 1, 128)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,9 +82,10 @@ def _bf16(rng, shape):
     return x.to(torch.bfloat16).float()
 
 
-def _inputs(rng, hkv, ctx_list, int8):
-    """Pools with the null block 0 poisoned (values, or int8 scales) and
-    lane tables over shuffled blocks, dead slots on block 0."""
+def _inputs(rng, hkv, ctx_list, int8, d=D):
+    """Pools [hkv, NB, BS, d] with the null block 0 poisoned (values, or
+    int8 scales) and lane tables over shuffled blocks, dead slots on
+    block 0."""
     need = [-(-c // BS) for c in ctx_list]
     t = max(need) + 1
     nb = 2 + sum(need)
@@ -82,7 +94,7 @@ def _inputs(rng, hkv, ctx_list, int8):
     for lane, n in enumerate(need):
         tables[lane, :n] = phys[i:i + n]
         i += n
-    shape = (hkv, nb, BS, D)
+    shape = (hkv, nb, BS, d)
     if int8:
         k = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
         v = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
@@ -102,7 +114,8 @@ def _rows(pool, scales, table_row, h, lo, kend):
     slots only (as the producer loads them): (rows float32 [n, D], their
     scales [n], 1 for float pools)."""
     blocks = table_row[lo // BS:-(-kend // BS)].long()
-    x = pool[h, blocks].reshape(-1, D)[lo % BS:][:kend - lo].float()
+    x = pool[h, blocks].reshape(-1, pool.shape[-1])[lo % BS:][:kend - lo]
+    x = x.float()
     if scales is None:
         return x, torch.ones(kend - lo)
     s = scales[h, blocks].reshape(-1)[lo % BS:][:kend - lo]
@@ -132,15 +145,18 @@ def merge(parts):
 
 
 def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale, drop=0):
-    """paged_decode_tma.cu's arithmetic: [B, Hq, D] float32. ``drop``
-    keys are left out at the end of split 0 of a lane that splits (a
-    fault for the card checks to see)."""
-    b, hq, _ = q.shape
+    """paged_decode_tma.cu's arithmetic (paged_decode_tma128.cu's at
+    head_dim 128): [B, Hq, D] float32. ``drop`` keys are left out at the
+    end of split 0 of a lane that splits (a fault for the card checks to
+    see)."""
+    b, hq, d = q.shape
     hkv = k.shape[0]
     g = hq // hkv
+    nw = DECODE_WARPS[d]
+    kpw = KT // nw
     t = tables.shape[1]
     nsplit, per = ops.paged_splits(t * BS, b * hkv)
-    out = torch.zeros((b, hq, D))
+    out = torch.zeros((b, hq, d))
     for lane in range(b):
         ctx = min(int(ctx_lens[lane]), t * BS)
         nlive = max(1, -(-ctx // per))
@@ -153,11 +169,11 @@ def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale, drop=0):
                 kend = min(ctx, lo + per) - (drop if sp == 0 < nlive - 1
                                              else 0)
                 warps = [(torch.full((g,), NEG), torch.zeros(g),
-                          torch.zeros((g, D))) for _ in range(4)]
+                          torch.zeros((g, d))) for _ in range(nw)]
                 for t0 in range(lo, kend, KT):
-                    for w in range(4):       # keys 16w .. 16w + 15 of a tile
-                        k0 = t0 + 16 * w
-                        k1 = min(k0 + 16, kend)
+                    for w in range(nw):   # keys kpw w .. kpw w + kpw - 1
+                        k0 = t0 + kpw * w
+                        k1 = min(k0 + kpw, kend)
                         if k1 <= k0:
                             continue
                         kr, ksc = _rows(k, ks, tables[lane], h, k0, k1)
@@ -232,16 +248,16 @@ def _vmax(v, vs):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("group", DECODE_GROUPS)
 def test_decode_split_emulation(group, int8):
-    hq, hkv = GROUPS[group]
+    hq, hkv, d = DECODE_GROUPS[group]
     rng = np.random.default_rng(30 + hq + int8)
-    tables, k, v, ks, vs = _inputs(rng, hkv, DECODE_CTX, int8)
-    q = _bf16(rng, (len(DECODE_CTX), hq, D))
+    tables, k, v, ks, vs = _inputs(rng, hkv, DECODE_CTX, int8, d)
+    q = _bf16(rng, (len(DECODE_CTX), hq, d))
     ctx = torch.tensor(DECODE_CTX, dtype=torch.int32)
     assert ops.paged_splits(tables.shape[1] * BS,
                             len(DECODE_CTX) * hkv) == (3, 384)
-    got = decode_emulated(q, k, v, ks, vs, tables, ctx, D ** -0.5)
+    got = decode_emulated(q, k, v, ks, vs, tables, ctx, d ** -0.5)
     want = ref.paged_decode_attention_ref(q, k, v, tables, ctx,
                                           k_scales=ks, v_scales=vs)
     pallas = np.asarray(jops.paged_decode_attention(
