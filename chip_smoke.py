@@ -65,11 +65,12 @@ In order, it
      launches, beside the forward with and without its state writes
      (bitwise the same h and final state); paged decode and prefill at
      head_dim 128 (qwen3-14b's 40/8 heads, 4096 keys, bf16 and int8
-     pools; checked again at 56/8 and 64/8 heads), decode on its TMA-fed
-     kernel timed in turns with the SIMT one on the same inputs, prefill
-     on its SIMT kernel, beside the plain version and the gather + SDPA
-     composition; the flash forward, preprocess, dK/dV and dQ at head_dim
-     128 (B 2, Hq 40, Hkv 8, S 1024: the forward, dK/dV and dQ on their
+     pools; checked again at 56/8 and 64/8 heads; a batched verify of 8
+     lanes), decode on its TMA-fed kernel and prefill on its wgmma one,
+     each timed in turns with its SIMT kernel on the same inputs, beside
+     the plain version and the gather + SDPA composition; the flash
+     forward, preprocess, dK/dV and dQ at head_dim 128 (B 2, Hq 40, Hkv
+     8, S 1024: the forward, dK/dV and dQ on their
      head_dim-128 wgmma kernels, timed in turns with the SIMT kernels on
      the same inputs; checked again at 56/8 and 64/8 heads) and at
      Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512, D 64: the wgmma
@@ -187,7 +188,7 @@ In order, it
      and yi-34b at full width cut to 4 layers (32.8-34.4 B params do not
      fit beside a KV pool) over the model-dtype cache, each held to the
      contiguous oracle, every decode launch on its TMA-fed route (tma128)
-     and every prefill launch on SIMT (head_dim 128), each launch of the
+     and every prefill launch on wgmma128 (head_dim 128), each launch of the
      cold pass held to its plain version on the same inputs, the warm
      pass's tokens/s beside the SIMT decode kernel's earlier reading;
      trains qwen3-14b cut to 2 layers by the tensor strategy (a
@@ -345,11 +346,15 @@ PAGED_LIBS = {"paged_decode_attention": ("paged_decode_tma",
               "paged_prefill_attention": ("paged_prefill_tc",
                                           "paged_prefill_wgmma_kernel",
                                           True)}
-# the paged wrappers' head_dim-128 Hopper kernels (decode's, route tma128;
-# prefill at 128 runs SIMT): (stem, profiler name, its route)
+# the paged wrappers' head_dim-128 Hopper kernels (decode's on the CUDA
+# cores, route tma128; prefill's on wgmma, route wgmma128): (stem,
+# profiler name, its route)
 PAGED128_LIBS = {"paged_decode_attention": ("paged_decode_tma128",
                                             "paged_decode_tma128_kernel",
-                                            "tma128")}
+                                            "tma128"),
+                 "paged_prefill_attention": ("paged_prefill_tc128",
+                                             "paged_prefill_tc128_kernel",
+                                             "wgmma128")}
 # the SIMT paged kernels' profiler names
 PAGED_SIMT_NAMES = {"paged_decode_attention": "paged_decode_kernel",
                     "paged_prefill_attention": "paged_prefill_kernel"}
@@ -1054,9 +1059,10 @@ def paged_checks(torch, cfg, dev, rng):
                     "paged_prefill_attention",
                     rows=lambda x, c=clen: x[:, :c])
                 errs = [max(a, b) for a, b in zip(errs, e)]
-                nsplit = ops.paged_splits(
-                    min(off + clen, table.shape[0] * BLOCK),
-                    hkv * -(-hq // hkv * CHUNK // ops.PREFILL_TILE))[0]
+                nsplit = ops.prefill_splits(
+                    route, min(off + clen, table.shape[0] * BLOCK),
+                    hkv * -(-hq // hkv * CHUNK
+                            // ops.PREFILL_KERNELS[route].rows))[0]
                 print(f"[kernel] paged_prefill_attention {case} {name} pools "
                       f"(chunk at {off}, {clen} rows, ctx {off + clen}, "
                       f"{nsplit} splits): max|err| new {e[0]:.3e}, old "
@@ -2093,9 +2099,23 @@ def tc_report():
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
               f"spill stores + loads {spills or 'not rebuilt'} bytes (one "
               "entry an instantiation)")
-    for name, (stem, kname, _) in PAGED128_LIBS.items():
+    for name, (stem, kname, route) in PAGED128_LIBS.items():
         hgmma, regs, spills = _lib_report(stem)
         out[f"{name}/d128"] = dict(registers=regs, spill_bytes=spills)
+        if route == "wgmma128":
+            serial = build.build_report[stem]["log"].count("C7514")
+            check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in "
+                  "its SASS")
+            check(not any(spills) and serial == 0, f"{stem}: ptxas "
+                  f"reports spills {spills} or serialized wgmma ({serial})")
+            out[f"{name}/d128"].update(hgmma=hgmma, serialized_wgmma=serial)
+            print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA "
+                  f"instructions in its SASS; ptxas: registers "
+                  f"{regs or 'not rebuilt'} a thread, spill stores + loads "
+                  f"{spills or 'not rebuilt'} bytes, serialized wgmma "
+                  f"{serial} (one entry an instantiation: bf16 and int8 "
+                  "pools)")
+            continue
         print(f"[build] {kname} ({stem}.cu): ptxas: registers "
               f"{regs or 'not rebuilt'} a thread, spill stores + loads "
               f"{spills or 'not rebuilt'} bytes (one entry an "
@@ -5438,9 +5458,9 @@ D128_ROUTES = {"flash_attention": "wgmma128", PRE: "vec",
                "flash_attention_bwd_dkv": "wgmma128",
                "flash_attention_bwd_dq": "wgmma128"}
 #: each paged wrapper's route at bf16 head_dim 128 over bf16 or int8
-#: pools: decode on its TMA-fed kernel, prefill on the SIMT one
+#: pools: decode on its TMA-fed kernel, prefill on its wgmma one
 D128_PAGED_ROUTES = {"paged_decode_attention": "tma128",
-                     "paged_prefill_attention": "simt"}
+                     "paged_prefill_attention": "wgmma128"}
 #: qwen3-14b's warm tokens/s over the serving trace (bf16 cache "fp32",
 #: int8 cache) when its paged decode ran the SIMT kernel, on an H100
 #: 80GB HBM3 at a 700 W limit: the reading the dense phase prints its own
@@ -5486,18 +5506,20 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
     """Paged decode and prefill at head_dim 128 (``cfg``'s heads, e.g.
     qwen3-14b's 40 query over 8 KV heads), where ``ops.paged_route``
     sends bf16 q to decode's TMA-fed kernel (``csrc/paged_decode_tma128.cu``,
-    route tma128) and to prefill's SIMT kernel (``csrc/paged_prefill.cu``):
-    the serving shapes (8 lanes to ctx 300; chunks at 0, 112 and 288), 8
-    lanes at 4096 keys and a ragged lane list (ctx 0 to 4096), chunks at
-    4080 and a partial one at 4088, over bf16 and int8 pools with a
-    NaN-poisoned null block, each held to the float32 plain version as
-    :func:`paged_checks` holds the Hopper kernels (two calls bitwise
-    equal; decode's SIMT kernel on the same inputs too); the serving and
-    4096-key cases timed with a cold L2 beside the plain version and the
-    gather + SDPA composition (with ``timed``), decode in turns with its
-    SIMT kernel (``simt_ms``). Returns {wrapper: {"bf16": times, "int8":
-    times, "serving bf16": ..., "serving int8": ..., "max_abs_err":
-    e}}."""
+    route tma128) and to prefill's wgmma kernel
+    (``csrc/paged_prefill_tc128.cu``, route wgmma128): the serving shapes
+    (8 lanes to ctx 300; chunks at 0, 112 and 288), 8 lanes at 4096 keys
+    and a ragged lane list (ctx 0 to 4096), chunks at 4080 and a partial
+    one at 4088, over bf16 and int8 pools with a NaN-poisoned null block,
+    each held to the float32 plain version as :func:`paged_checks` holds
+    the Hopper kernels (two calls bitwise equal; the SIMT kernel on the
+    same inputs too); the serving and 4096-key cases timed with a cold L2
+    beside the plain version and the gather + SDPA composition (with
+    ``timed``), each kernel in turns with its SIMT kernel (``simt_ms``);
+    then the batched verify on prefill's route
+    (:func:`d128_verify_checks`). Returns {wrapper: {"bf16": times,
+    "int8": times, "serving bf16": ..., "serving int8": ..., (prefill)
+    "verify bf16": ..., "verify int8": ..., "max_abs_err": e}}."""
     from repro_torch.kernels import ops, ref
     hq, d = cfg.num_heads, cfg.hd
     scale = d ** -0.5
@@ -5567,6 +5589,9 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
             del k, v, ks, vs
     ctx_max = max(o + c for o, c in PREFILL_CHUNKS)
     row = out["paged_prefill_attention"]
+    route = D128_PAGED_ROUTES["paged_prefill_attention"]
+    names = (PAGED128_LIBS["paged_prefill_attention"][1],
+             PAGED_SIMT_NAMES["paged_prefill_attention"])
     for case, chunks, keys in (("serving", PREFILL_CHUNKS, ctx_max),
                                ("long", LONG_PREFILL_CHUNKS, LONG_CTX)):
         tnp, n = block_tables([keys], -(-keys // BLOCK) + 1, rng)
@@ -5574,6 +5599,9 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
         timed_chunk = (None if not timed else chunks[-1]
                        if case == "serving" else chunks[0])
         for name, kv_dtype, esz in dtypes:
+            check(ops.paged_route("prefill", torch.bfloat16, kv_dtype, d,
+                                  BLOCK) == route,
+                  f"head_dim 128 prefill is not on {route}")
             k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, n + 1, 6, dev)
             kw = dict(scale=scale, k_scales=ks, v_scales=vs)
             for off, clen in chunks:
@@ -5581,23 +5609,25 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
                     torch.bfloat16)
                 args = (qc, k, v, table, off, off + clen)
                 fn = lambda: ops.paged_prefill_attention(*args, **kw)
+                simt_fn = lambda: ops._paged_prefill(*args, route="simt",
+                                                     **kw)
                 e, use = _paged_run(
-                    torch, f"prefill D{d} {name} @{off}+{clen}", fn, fn,
-                    lambda: ref.paged_prefill_attention_ref(
+                    torch, f"prefill D{d} {name} @{off}+{clen}", fn,
+                    simt_fn, lambda: ref.paged_prefill_attention_ref(
                         qc.float(), *args[1:], **kw),
-                    PAGED_RTOL["prefill"],
-                    D128_PAGED_ROUTES["paged_prefill_attention"], ops,
+                    PAGED_RTOL["prefill"], route, ops,
                     "paged_prefill_attention",
                     rows=lambda x, c=clen: x[:, :c])
                 row["max_abs_err"] = max(row["max_abs_err"], e[0])
                 msg = (f"[kernel] paged_prefill_attention D{d} Hq{hq} "
                        f"Hkv{cfg.num_kv_heads} {name} pools (chunk at "
-                       f"{off}, {clen} rows): max|err| {e[0]:.3e}, worst "
-                       f"row at {use[0]:.3f} of its bound; bitwise "
-                       "repeatable")
+                       f"{off}, {clen} rows, {route}): max|err| "
+                       f"{e[0]:.3e} (SIMT {e[1]:.3e}), worst row at "
+                       f"{use[0]:.3f} of its bound (SIMT {use[1]:.3f}); "
+                       "bitwise repeatable")
                 if (off, clen) == timed_chunk:
-                    r = dict(ms=device_ms(
-                        fn, PAGED_SIMT_NAMES["paged_prefill_attention"]),
+                    ms, simt_ms = in_turns(fn, simt_fn, *names)
+                    r = dict(ms=ms, simt_ms=simt_ms,
                              plain_ms=device_ms(
                                  lambda: ref.paged_prefill_attention_ref(
                                      *args, **kw), None, iters=20),
@@ -5613,13 +5643,82 @@ def d128_layout_checks(torch, cfg, dev, timed=True):
                     r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
                                                          BF16_FLOPS_PER_S)
                     row[name if case == "long" else f"{case} {name}"] = r
-                    msg += (f"; device: kernel {r['ms']:.5f} ms, plain "
-                            f"{r['plain_ms']:.5f} ms, composition (gather "
-                            f"+ SDPA) {r['composition_ms']:.5f} ms; bound "
-                            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+                    msg += (f"; device: kernel {r['ms']:.5f} ms (in turns "
+                            f"with the SIMT kernel on the same inputs: "
+                            f"{r['simt_ms']:.5f} ms), plain "
+                            f"{r['plain_ms']:.5f} ms, composition "
+                            f"(gather + SDPA) {r['composition_ms']:.5f} ms;"
+                            f" bound {r['bound_ms']:.5f} ms "
+                            f"({r['bound_by']})")
                 print(msg)
             del k, v, ks, vs
+    d128_verify_checks(torch, cfg, dev, rng, row, timed)
     return out
+
+
+def d128_verify_checks(torch, cfg, dev, rng, row, timed):
+    """The batched verify (``ops.paged_verify_attention``, one launch for
+    all lanes) at head_dim 128 and ``cfg``'s heads, on the prefill's
+    route (wgmma128, P in two bf16 parts): 8 lanes with draft windows of
+    up to SPEC_K + 1 rows (:data:`VERIFY_CTX`, :data:`VERIFY_WIN`: a dead
+    lane, partial windows) over bf16 and int8 pools with a NaN-poisoned
+    null block, each window's rows within PAGED_RTOL["prefill"] of the
+    float32 plain version, the dead lane exactly 0, two calls bitwise
+    equal; with ``timed``, the launch timed with a cold L2 beside the
+    plain version and its bound. Adds its errors and times to ``row``
+    (the prefill's) under "verify <pools>"."""
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    scale = d ** -0.5
+    c = SPEC_K + 1
+    ctx_np, win_np = np.array(VERIFY_CTX), np.array(VERIFY_WIN)
+    t = -(-int((ctx_np + win_np).max()) // BLOCK) + 1
+    tables_np, nb = block_tables(list(ctx_np + win_np), t, rng)
+    tables = torch.tensor(tables_np, device=dev)
+    ctx = torch.tensor(ctx_np, dtype=torch.int32, device=dev)
+    win = torch.tensor(win_np, dtype=torch.int32, device=dev)
+    live = torch.arange(c, device=dev)[None] < win[:, None]    # [B, C]
+    keys = int((ctx_np + win_np)[win_np > 0].sum())
+    flops = 4 * hq * d * sum(cx + j + 1 for cx, w in
+                             zip(VERIFY_CTX, VERIFY_WIN) for j in range(w))
+    route = D128_PAGED_ROUTES["paged_prefill_attention"]
+    q = torch.randn((SLOTS, hq, c, d), device=dev).to(torch.bfloat16)
+    for name, kv_dtype, esz in (("bf16", torch.bfloat16, 2),
+                                ("int8", torch.int8, 1)):
+        k, v, ks, vs = paged_pools(torch, cfg, kv_dtype, nb + 1, 7, dev)
+        kw = dict(scale=scale, k_scales=ks, v_scales=vs)
+        args = (q, k, v, tables, ctx, win)
+        fn = lambda: ops.paged_verify_attention(*args, **kw)
+        e, use = _paged_run(
+            torch, f"verify D{d} {name}", fn, fn,
+            lambda: ref.paged_verify_attention_ref(q.float(), *args[1:],
+                                                   **kw),
+            PAGED_RTOL["prefill"], route, ops, "paged_verify_attention",
+            zero_rows=(ctx + win) == 0,
+            rows=lambda x: x.transpose(1, 2)[live])
+        row["max_abs_err"] = max(row["max_abs_err"], e[0])
+        msg = (f"[kernel] paged_verify_attention D{d} Hq{hq} Hkv{hkv} "
+               f"{name} pools ({SLOTS} lanes, windows {VERIFY_WIN} at ctx "
+               f"{VERIFY_CTX}, {route}): max|err| {e[0]:.3e}, worst row at "
+               f"{use[0]:.3f} of its bound; the dead lane exactly 0; "
+               "bitwise repeatable")
+        if timed:
+            r = dict(ms=device_ms(fn, PAGED128_LIBS[
+                "paged_prefill_attention"][1]),
+                     plain_ms=device_ms(
+                         lambda: ref.paged_verify_attention_ref(*args, **kw),
+                         None, iters=20))
+            nbytes = (2 * SLOTS * hq * c * d * 2 + tables.numel() * 4
+                      + 2 * SLOTS * 4
+                      + 2 * keys * hkv * (d * esz + (4 if esz == 1 else 0)))
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                 BF16_FLOPS_PER_S)
+            row[f"verify {name}"] = r
+            msg += (f"; device: kernel {r['ms']:.5f} ms (one launch), plain "
+                    f"{r['plain_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms "
+                    f"({r['bound_by']})")
+        print(msg)
+        del k, v, ks, vs
 
 
 def d128_flash_checks(torch, dev):
@@ -5821,7 +5920,7 @@ def _dense_serve(torch, cfg, params, dev, caches):
     """The serving phase's fleet trace through serve_continuous (a cold
     and a warm pass) with each cache mode in ``caches``: the exact
     launches, every decode launch on its TMA-fed route and every prefill
-    launch on the SIMT one (:data:`D128_PAGED_ROUTES`, head_dim 128), each
+    launch on its wgmma one (:data:`D128_PAGED_ROUTES`, head_dim 128), each
     paged launch of the cold pass within its row bounds of the float32
     plain version on the same inputs (:func:`_cold_pass_shadowed`), every
     int8 append one fused launch, finite in-range tokens; the warm pass's
@@ -6848,10 +6947,14 @@ def main():
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "simt_ms": k["simt_ms"],
                      "shape": k["shape"], "layouts": k["layouts"]})
-    # paged decode's head_dim-128 kernel (route tma128): its launches on
-    # the dense serving paths, its times at the serving shape (8 lanes to
-    # ctx 300, bf16 pools) and, beside them, over the int8 pools and at
-    # 4096 keys
+    # the paged head_dim-128 kernels (decode's route tma128, prefill's
+    # wgmma128): their launches on the dense serving paths, their times at
+    # the serving shape (decode: 8 lanes to ctx 300; prefill: the 7-row
+    # chunk at 288; bf16 pools) and, beside them, over the int8 pools, at
+    # 4096 keys and (prefill) the batched verify's
+    shapes = {"paged_decode_attention": "8 lanes to ctx 300, bf16 pools",
+              "paged_prefill_attention": "a 7-row chunk at 288, bf16 "
+                                         "pools"}
     for name, (stem, kname, route) in PAGED128_LIBS.items():
         k = kernels[name]["head_dim_128"]
         by_path = {p: c.get(name, {}).get(route, 0)
@@ -6870,8 +6973,9 @@ def main():
                      "bound_by": main["bound_by"], "library_ms": None,
                      "simt_ms": main["simt_ms"],
                      "composition_ms": main["composition_ms"],
-                     "shape": "8 lanes to ctx 300, bf16 pools",
-                     **{c: k[c] for c in ("serving int8", "bf16", "int8")},
+                     "shape": shapes[name],
+                     **{c: r for c, r in k.items() if isinstance(r, dict)
+                        and c != "serving bf16"},
                      "layouts": k["layouts"]})
     print(json.dumps({"kernels": rows}, default=str))
     phase("the whole script")

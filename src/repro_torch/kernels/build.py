@@ -44,6 +44,8 @@ SIGNATURES = {
                             [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
     "paged_prefill_tc": ("paged_prefill_attention_tc",
                          [_I] + [_P] * 11 + [_I] * 12 + [_F, _P]),
+    "paged_prefill_tc128": ("paged_prefill_attention_tc128",
+                            [_I] + [_P] * 11 + [_I] * 12 + [_F, _P]),
     "quantize": ("quantize_int8", [_P] * 4 + [_I, _P]),
     "dequantize": ("dequantize_int8", [_P] * 3 + [_I, _P]),
     "flash_fwd": ("flash_attention_fwd",

@@ -220,8 +220,11 @@ __device__ __forceinline__ void chunk_floats(const uint4& c, float* f,
 // rows + rows floats of shared memory) first, so every acc load is
 // independent of the others. A split that saw no key has l = acc = 0; no
 // key at all gives 0 * (1 / 1e-30) = 0. Called by the NT consumer
-// threads of the CTA that arrived last.
-template <int NT = 128, int DD = D>
+// threads of the CTA that arrived last. The splits are read UNROLL at a
+// time, all of a group's loads issued before the first is used (a loop of
+// n loads unrolled by UNROLL would run a remainder of up to UNROLL - 1 one
+// load at a time); the sums run in split order either way.
+template <int NT = 128, int DD = D, int UNROLL = 4>
 __device__ __forceinline__ void merge_partials(const float* base, int n,
                                                int stride, int rows,
                                                int live_rows, float* scratch,
@@ -232,14 +235,29 @@ __device__ __forceinline__ void merge_partials(const float* base, int n,
     const float* m = base + rows * DD + r;
     const float* l = m + rows;
     float mx = kNegInf;
-#pragma unroll 4
-    for (int s = 0; s < n; ++s) mx = fmaxf(mx, __ldcg(m + s * stride));
+    for (int s0 = 0; s0 < n; s0 += UNROLL) {
+      float ms[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j)
+        ms[j] = s0 + j < n ? __ldcg(m + (s0 + j) * stride) : kNegInf;
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) mx = fmaxf(mx, ms[j]);
+    }
     float lsum = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < n; ++s) {
-      const float f = ex2(__ldcg(m + s * stride) - mx);
-      wt[s * rows + r] = f;
-      lsum += __ldcg(l + s * stride) * f;
+    for (int s0 = 0; s0 < n; s0 += UNROLL) {
+      float ms[UNROLL], ls[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        ms[j] = s0 + j < n ? __ldcg(m + (s0 + j) * stride) : 0.f;
+        ls[j] = s0 + j < n ? __ldcg(l + (s0 + j) * stride) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        if (s0 + j >= n) break;
+        const float f = ex2(ms[j] - mx);
+        wt[(s0 + j) * rows + r] = f;
+        lsum += ls[j] * f;
+      }
     }
     inv[r] = 1.f / fmaxf(lsum, 1e-30f);
   }
@@ -247,15 +265,22 @@ __device__ __forceinline__ void merge_partials(const float* base, int n,
   for (int e = 4 * threadIdx.x; e < live_rows * DD; e += 4 * NT) {
     const int r = e / DD;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < n; ++s) {
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(
-          base + (size_t)s * stride + e));
-      const float f = wt[s * rows + r];
-      a.x = fmaf(x.x, f, a.x);
-      a.y = fmaf(x.y, f, a.y);
-      a.z = fmaf(x.z, f, a.z);
-      a.w = fmaf(x.w, f, a.w);
+    for (int s0 = 0; s0 < n; s0 += UNROLL) {
+      float4 x[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j)
+        x[j] = s0 + j < n ? __ldcg(reinterpret_cast<const float4*>(
+                                base + (size_t)(s0 + j) * stride + e))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        if (s0 + j >= n) break;
+        const float f = wt[(s0 + j) * rows + r];
+        a.x = fmaf(x[j].x, f, a.x);
+        a.y = fmaf(x[j].y, f, a.y);
+        a.z = fmaf(x[j].z, f, a.z);
+        a.w = fmaf(x[j].w, f, a.w);
+      }
     }
     const float c = inv[r];
     *reinterpret_cast<__nv_bfloat162*>(out + e) =

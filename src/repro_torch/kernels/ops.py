@@ -22,9 +22,10 @@ The LoRA matmul sends bf16 operands that TMA can describe to a wgmma
 kernel and the rest to its mma.sync / float32 kernel
 (:func:`lora_route`). The paged decode and prefill wrappers send bf16 q
 over bf16 or int8 pools at head_dim 64 to TMA-fed kernels that split the
-keys over CTAs (decode on the CUDA cores, prefill on wgmma), decode at
-head_dim 128 to its own TMA-fed kernel ("tma128"), and the rest to their
-SIMT kernels (:func:`paged_route`); the speculative decoder's batched verify
+keys over CTAs (decode on the CUDA cores, prefill on wgmma), at head_dim
+128 to their own TMA-fed kernels (decode "tma128", prefill "wgmma128", on
+wgmma with a 128-row tile), and the rest to their SIMT kernels
+(:func:`paged_route`); the speculative decoder's batched verify
 (:func:`paged_verify_attention`) takes the prefill's route, one launch
 for all lanes. The chunkwise mLSTM sends float32 and bf16 at head widths
 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster shares S
@@ -41,7 +42,7 @@ from __future__ import annotations
 
 import functools
 import operator
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,7 +53,6 @@ LANES = ref.LANES    #: fixed lane width of the quantization row layout
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)   #: head widths the attention kernels take
 MAX_GROUP = 8                #: kMaxRows: GQA group size a decode CTA serves
-PREFILL_TILE = 64            #: query rows of a wgmma paged-prefill CTA
 
 
 def _on_card(*tensors) -> bool:
@@ -106,12 +106,42 @@ SPLIT_CTAS = 256        #: CTAs a call splits up to: about two an SM
 #: prefill on wgmma (``csrc/paged_prefill_tc.cu``); both name the SIMT
 #: kernel "simt"
 PAGED_ROUTES = {"decode": "tma", "prefill": "wgmma"}
-#: every Hopper route of each paged kind: decode also has its head_dim-128
-#: kernel (``csrc/paged_decode_tma128.cu``, "tma128", the dense configs'
-#: serving); prefill at 128 stays on its SIMT kernel
-PAGED_HOPPER = {"decode": ("tma", "tma128"), "prefill": ("wgmma",)}
+#: every Hopper route of each paged kind: each also has its head_dim-128
+#: kernel (the dense configs' serving): decode ``csrc/paged_decode_tma128.cu``
+#: ("tma128"), prefill ``csrc/paged_prefill_tc128.cu`` ("wgmma128")
+PAGED_HOPPER = {"decode": ("tma", "tma128"), "prefill": ("wgmma", "wgmma128")}
 #: the head_dim each Hopper paged route takes
-PAGED_HEAD_DIM = {"tma": 64, "wgmma": 64, "tma128": 128}
+PAGED_HEAD_DIM = {"tma": 64, "wgmma": 64, "tma128": 128, "wgmma128": 128}
+
+
+class PrefillKernel(NamedTuple):
+    """A wgmma paged-prefill route's kernel and its work plan."""
+    stem: str          #: ``csrc/<stem>.cu``
+    rows: int          #: query rows of a CTA (a KV head's G*C rows in tiles)
+    whole_keys: int    #: keys one CTA takes without a split, at most
+    split_keys: int    #: keys of a CTA's split past them, at least
+    split_ctas: int    #: CTAs a call splits up to
+    split_p: bool      #: a prefill chunk's P enters P V as two bf16 parts
+                       #: (the verify's always does), else rounded once
+
+
+#: each wgmma paged-prefill route's kernel and plan (:func:`prefill_splits`).
+#: Head_dim 64: one warpgroup of 64 rows, the paged kernels' split plan.
+#: Head_dim 128: two warpgroups of 64 rows, so that the dense configs'
+#: groups of 5-8 at a 16-row chunk (80-128 rows) read each K/V block once;
+#: a CTA takes one SM (its Q tile and ring hold 164 KB) and its 128-row
+#: products bound it by the tensor cores, so past four tiles a call splits
+#: its keys down to one tile a CTA, up to one wave of the H100's 132 SMs
+#: (up to four tiles, a split and its merge cost about as much as they
+#: save). P is split there for a prefill chunk too: at head_dim 128 one
+#: bf16 rounding of P put a qwen3-14b int8-cache prefill row past the card
+#: checks' row bound (2^-7 of its largest |value|); the kernel has no
+#: rounded-once form
+PREFILL_KERNELS = {
+    "wgmma": PrefillKernel("paged_prefill_tc", 64, SPLIT_KEYS, SPLIT_KEYS,
+                           SPLIT_CTAS, False),
+    "wgmma128": PrefillKernel("paged_prefill_tc128", 128, 256, 64, 128,
+                              True)}
 
 
 @functools.lru_cache(maxsize=256)
@@ -126,13 +156,14 @@ def paged_route(kind: str, q_dtype, kv_dtype, head_dim: int,
     64 both kinds (route :data:`PAGED_ROUTES` [kind]): a bf16 block of bs
     128-byte rows is one box, whole 1024-byte atoms at block size 8, 16,
     32 or 64; an int8 block (64-byte rows, two a line) at 16, 32 or 64.
-    At head_dim 128 decode alone (route "tma128"): a bf16 row is 256
-    bytes, two boxes of bs 128-byte lines (whole atoms at bs % 8 == 0:
-    8, 16, 32, 64); an int8 row is 128 bytes, one box (whole at bs % 8
-    == 0 too), but int8 takes 16, 32 or 64 as at 64: each block's bs
-    float scales land in a 128-byte slot of the stage's scale row, and
-    64 / 8 blocks of eight would not fit it. The dense configs serve at
-    block 16. Block sizes must divide the 64-key stage."""
+    At head_dim 128 both kinds too (decode "tma128", prefill "wgmma128",
+    one ring of paged_tma.cuh at DD 128): a bf16 row is 256 bytes, two
+    boxes of bs 128-byte lines (whole atoms at bs % 8 == 0: 8, 16, 32,
+    64); an int8 row is 128 bytes, one box (whole at bs % 8 == 0 too),
+    but int8 takes 16, 32 or 64 as at 64: each block's bs float scales
+    land in a 128-byte slot of the stage's scale row, and 64 / 8 blocks
+    of eight would not fit it. The dense configs serve at block 16.
+    Block sizes must divide the 64-key stage."""
     sizes = (16, 32, 64) if kv_dtype == torch.int8 else (8, 16, 32, 64)
     fast = (q_dtype == torch.bfloat16
             and kv_dtype in (torch.bfloat16, torch.int8)
@@ -144,20 +175,33 @@ def paged_route(kind: str, q_dtype, kv_dtype, head_dim: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def paged_splits(keys: int, heads: int = 1):
+def paged_splits(keys: int, heads: int = 1, min_keys: int = SPLIT_KEYS,
+                 ctas: int = SPLIT_CTAS):
     """(CTAs, keys each) each of ``heads`` (lane, KV head) pairs (decode:
     B * Hkv; prefill: Hkv * row tiles) of the TMA-fed kernels splits
     ``keys`` over (decode: the table width T * bs, since ctx_lens lives
     on the device; prefill: min(ctx_len, T * bs)): enough CTAs that the
-    call has up to :data:`SPLIT_CTAS`, each at least :data:`SPLIT_KEYS`
-    keys, at most :data:`MAX_SPLITS`, and a whole number of 64-key
-    tiles. Above one CTA, the last of a pair to finish merges the splits'
-    (m, l, acc) in split order."""
+    call has up to ``ctas`` (:data:`SPLIT_CTAS`), each at least
+    ``min_keys`` (:data:`SPLIT_KEYS`) keys, at most :data:`MAX_SPLITS`,
+    and a whole number of 64-key tiles. Above one CTA, the last of a pair
+    to finish merges the splits' (m, l, acc) in split order."""
     keys = max(1, int(keys))
-    n = min(-(-keys // SPLIT_KEYS), max(1, -(-SPLIT_CTAS // int(heads))),
+    n = min(-(-keys // min_keys), max(1, -(-ctas // int(heads))),
             MAX_SPLITS)
-    per = max(SPLIT_KEYS, -(-(-(-keys // n)) // 64) * 64)
+    per = max(min_keys, -(-(-(-keys // n)) // 64) * 64)
     return -(-keys // per), per
+
+
+def prefill_splits(route: str, keys: int, heads: int):
+    """(CTAs, keys each) of a wgmma prefill launch on ``route``:
+    :func:`paged_splits` on the route's plan (:data:`PREFILL_KERNELS`),
+    ``heads`` = Hkv * row tiles (times lanes for the verify): one CTA up
+    to ``whole_keys`` keys, past them splits of ``split_keys`` keys at
+    least. On the head_dim-64 route both are :data:`SPLIT_KEYS`, the paged
+    kernels' plan."""
+    k = PREFILL_KERNELS[route]
+    least = k.whole_keys if keys <= k.whole_keys else k.split_keys
+    return paged_splits(keys, heads, least, k.split_ctas)
 
 
 def _partial_floats(rows: int, d: int) -> int:
@@ -324,9 +368,14 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
     On the card the kernel follows :func:`paged_route`: bf16 q over bf16
     or int8 pools at head_dim 64 launches ``csrc/paged_prefill_tc.cu``
     (a KV head's G*C query rows in 64-row tiles, S and P V on wgmma,
-    keys split over CTAs by :func:`paged_splits` of ctx_len), everything
-    else the SIMT kernel; ``paged_prefill_attention.routes`` counts the
-    launches of each."""
+    keys split over CTAs by :func:`paged_splits` of ctx_len), at head_dim
+    128 ``csrc/paged_prefill_tc128.cu`` (route "wgmma128": 128-row tiles,
+    two consumer warpgroups, a 256-byte bf16 row loaded as two boxes, keys
+    split down to one 64-key tile a CTA: :func:`prefill_splits`; P into P
+    V as two bf16 parts: :data:`PREFILL_KERNELS`),
+    everything else the SIMT kernel;
+    ``paged_prefill_attention.routes`` counts the launches of each
+    ("wgmma", "wgmma128", "simt")."""
     return _paged_prefill(q, k_pages, v_pages, block_table, q_offset,
                           ctx_len, scale=scale, k_scales=k_scales,
                           v_scales=v_scales)
@@ -356,7 +405,9 @@ def _paged_prefill(q, k_pages, v_pages, block_table, q_offset, ctx_len, *,
     route = _pick_route("prefill", route, q, k_pages, bs, d)
     out = _prefill_launch(route, q, k_pages, v_pages, block_table, None,
                           None, q_offset, ctx_len, scale, k_scales, v_scales,
-                          "paged_prefill_attention", split_p=False)
+                          "paged_prefill_attention",
+                          split_p=(route in PREFILL_KERNELS
+                                   and PREFILL_KERNELS[route].split_p))
     paged_prefill_attention.launches += 1
     paged_prefill_attention.routes[route] += 1
     return out
@@ -369,9 +420,11 @@ def _prefill_launch(route, q, k_pages, v_pages, tables, lane_ctx, lane_len,
     already checked): q [B, Hq, C, D] or one chunk's [Hq, C, D], tables
     [B, T] or [T]. Each lane's chunk is [lane_ctx[b], lane_ctx[b] +
     lane_len[b]) from the device, or [q_offset, ctx_len) when the lane
-    arrays are None. ``split_p`` (the wgmma route): P enters P V as two
-    bf16 parts (hi, lo), else rounded once to bf16. Raises on a failed
-    launch; returns the output."""
+    arrays are None. ``split_p`` (the wgmma routes): P enters P V as two
+    bf16 parts (hi, lo), else rounded once to bf16 ("wgmma" only: the
+    "wgmma128" kernel refuses it). The route's row tiles
+    and split plan are :data:`PREFILL_KERNELS` [route]. Raises on a
+    failed launch; returns the output."""
     _aligned(k_pages=k_pages, v_pages=v_pages)
     hkv, nb, bs, d = k_pages.shape
     hq, c = q.shape[-3:-1]
@@ -387,12 +440,13 @@ def _prefill_launch(route, q, k_pages, v_pages, tables, lane_ctx, lane_len,
             hq, hkv, nb, bs, d, t, c, q_offset, ctx_len, scale, stream)
     else:
         _aligned(q=q)
-        tiles = b * -(-(hq // hkv * c) // PREFILL_TILE)
+        kern = PREFILL_KERNELS[route]
+        tiles = b * -(-(hq // hkv * c) // kern.rows)
         keys = t * bs if lane_ctx is not None else min(ctx_len, t * bs)
-        nsplit, per = paged_splits(keys, hkv * tiles)
+        nsplit, per = prefill_splits(route, keys, hkv * tiles)
         ws, ctr = _split_scratch(q, stream, nsplit, hkv * tiles,
-                                 _partial_floats(PREFILL_TILE, d))
-        err = build.load("paged_prefill_tc")(
+                                 _partial_floats(kern.rows, d))
+        err = build.load(kern.stem)(
             _DTYPE_CODES[k_pages.dtype], *pools, _ptr(ws), _ptr(ctr), b, hq,
             hkv, nb, bs, t, c, q_offset, ctx_len, nsplit, per, int(split_p),
             scale, stream)
@@ -417,11 +471,12 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     this is ONE launch of the paged prefill kernel with the lane as a grid
     axis, reading each lane's window from device memory, routed as
     :func:`paged_prefill_attention`: bf16 q over bf16 or int8 pools at
-    head_dim 64 on ``csrc/paged_prefill_tc.cu`` (route "wgmma"; keys
-    split by :func:`paged_splits` of the table width, since the windows
+    head_dim 64 on ``csrc/paged_prefill_tc.cu`` (route "wgmma"), at 128
+    on ``csrc/paged_prefill_tc128.cu`` ("wgmma128"; keys
+    split by :func:`prefill_splits` of the table width, since the windows
     live on the device; P enters P V as two bf16 parts, so it keeps
     about 2^-16 of itself as the decode kernel's float32 P does, where a
-    prefill chunk rounds it once), everything else on
+    prefill chunk at head_dim 64 rounds it once), everything else on
     ``csrc/paged_prefill.cu`` ("simt"), where each float32 row is computed
     in the paged decode kernel's order (the speculative contract: streams
     bitwise equal to plain decode). ``paged_verify_attention.routes``
@@ -1355,8 +1410,9 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: the other kernel (for the LoRA matmul its mma.sync / float32 kernel);
 #: the three flash kernels count their float32 3xTF32 kernel's launches
 #: as "tf32x3" beside them (:data:`TF32_ROUTED`) and their bf16
-#: head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`); paged
-#: decode its head_dim-128 kernel's as "tma128"
+#: head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`); the paged
+#: wrappers their head_dim-128 kernel's as "tma128" (decode) and
+#: "wgmma128" (prefill and the verify)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
@@ -1380,7 +1436,8 @@ def reset_launch_counts() -> None:
     for fn in TC128_ROUTED:
         fn.routes["wgmma128"] = 0
     for fn, kind in ((paged_decode_attention, "decode"),
-                     (paged_prefill_attention, "prefill")):
+                     (paged_prefill_attention, "prefill"),
+                     (paged_verify_attention, "prefill")):
         for route in PAGED_HOPPER[kind]:
             fn.routes[route] = 0
 
@@ -1395,5 +1452,6 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
     (and "tf32x3": n and "wgmma128": n for the flash forward, dK/dV and
-    dQ, "tma128": n for paged decode)."""
+    dQ, "tma128": n for paged decode, "wgmma128": n for paged prefill and
+    the verify)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -12,7 +12,8 @@ at the TMA-fed kernels' other shapes, against the float32 plain version,
 each output row within 2^-8 of its largest magnitude + 1e-5 for decode
 (one bfloat16 rounding of a float32 result: half an ulp) and for the
 batched verify (which carries P in two bf16 parts), 2^-7 for prefill
-(whose wgmma route rounds P to bfloat16 once), and all within 2e-2; the
+(whose wgmma route at head_dim 64 rounds P to bfloat16 once; at 128 it
+splits P as the verify does), and all within 2e-2; the
 verify's bf16 rows within one bf16 ulp of the decode kernel's at the
 same positions; on the route ``ops.paged_route`` names, bitwise
 repeatable;
@@ -109,13 +110,22 @@ def test_paged_decode_kernel(dev, q_dtype, kv_dtype, atol, hq, hkv, d, bs):
     assert float((got.float() - want.float()).abs().max()) <= atol
 
 
+#: (Hq, Hkv, head dim) of the prefill card tests: flad-adllm's heads,
+#: and the dense configs' at head_dim 128: groups 5 (qwen3-14b's 40/8), 7
+#: (yi-34b's 56/8) and 8 (qwen3-32b's 64/8), 80-128 rows of a 16-row chunk
+#: a KV head, one 128-row tile of the wgmma128 route
+PREFILL_HEADS = {"flad-gqa2": (16, 8, 64), "g5-d128": (40, 8, 128),
+                 "g7-d128": (56, 8, 128), "g8-d128": (64, 8, 128)}
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype,atol", CASES, ids=IDS)
 @pytest.mark.parametrize("q_offset,chunk_len", [(0, 16), (48, 16), (96, 5)],
                          ids=["first", "middle", "partial-last"])
+@pytest.mark.parametrize("heads", PREFILL_HEADS)
 def test_paged_prefill_kernel(dev, q_dtype, kv_dtype, atol, q_offset,
-                              chunk_len):
+                              chunk_len, heads):
     rng = np.random.default_rng(1)
-    hq, hkv, d, bs, c = 16, 8, 64, 16, 16
+    (hq, hkv, d), bs, c = PREFILL_HEADS[heads], 16, 16
     tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, hkv, bs, d, [101])
     q = torch.tensor(rng.standard_normal((hq, c, d)), dtype=q_dtype,
                      device=dev)
@@ -188,16 +198,19 @@ def test_paged_decode_4096_keys(dev, kv, d):
 
 
 @pytest.mark.parametrize("kv", KV)
-@pytest.mark.parametrize("d", [32, 64, 128])
-def test_paged_prefill_4096_keys(dev, kv, d):
+@pytest.mark.parametrize("d,hq", [(32, 16), (64, 16), (128, 16), (128, 40),
+                                  (128, 56), (128, 64)])
+def test_paged_prefill_4096_keys(dev, kv, d, hq):
     """A 16-row chunk ending at 4096 keys and a partial one, bf16 q, on
-    the route ``ops.paged_route`` names, each row below chunk_len within
-    PAGED_RTOL of the float32 plain version, two calls bitwise equal."""
+    the route ``ops.paged_route`` names (head dim 64 "wgmma", 128
+    "wgmma128", also at the dense configs' groups 5, 7 and 8; 32 the SIMT
+    kernel), each row below chunk_len within PAGED_RTOL of the float32
+    plain version, two calls bitwise equal."""
     rng = np.random.default_rng(6)
-    hq, hkv, bs, c = 16, 8, 16, 16
+    hkv, bs, c = 8, 16, 16
     tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, d, [4096])
     route = ops.paged_route("prefill", torch.bfloat16, KV[kv], d, bs)
-    assert route == ("wgmma" if d == 64 else "simt")
+    assert route == {64: "wgmma", 128: "wgmma128"}.get(d, "simt")
     kw = dict(k_scales=ks, v_scales=vs)
     for q_offset, chunk_len in ((4080, 16), (4088, 5)):
         q = torch.tensor(rng.standard_normal((hq, c, d)),
@@ -310,6 +323,59 @@ def test_paged_decode_d128_at_split_edges(dev, kv, shape):
     for out in (got, simt):
         assert torch.isfinite(out).all() and not out[ctx == 0].any()
         _rows_within(out, want, PAGED_RTOL["decode"])
+
+
+#: (Hq, Hkv, block size) of the head_dim-128 prefill kernel: the dense
+#: configs' groups 5, 7 and 8 at block 16, and block sizes 8 (bf16 only),
+#: 32 and 64
+D128_PREFILL = {"g5": (40, 8, 16), "g7": (56, 8, 16), "g8": (64, 8, 16),
+                "g5-bs8": (5, 1, 8), "g5-bs32": (5, 1, 32),
+                "g5-bs64": (10, 2, 64)}
+#: (q_offset, chunk_len): chunks ending at the most keys one CTA takes
+#: (256) and one past them, exactly on a split boundary (384 keys), one key
+#: past it, and on another at 768
+D128_PREFILL_CHUNKS = [(240, 16), (241, 16), (368, 16), (369, 16), (760, 8)]
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("shape", D128_PREFILL)
+def test_paged_prefill_d128_at_split_edges(dev, kv, shape):
+    """bf16 q at head_dim 128 over bf16 or int8 pools with the null block
+    NaN-poisoned behind every dead table slot: chunks whose contexts end
+    at 256 keys (one CTA), 257, 384, 385 and 768 (split in 64-key tiles:
+    ``ops.prefill_splits``), on the route
+    ``ops.paged_route`` names ("wgmma128"; int8 at block 8 "simt"), each
+    live row within PAGED_RTOL of the float32 plain version, two calls
+    bitwise equal; the SIMT kernel on the same inputs (``route="simt"``,
+    as chip_smoke.py times it) within the same bound."""
+    hq, hkv, bs = D128_PREFILL[shape]
+    rng = np.random.default_rng(10)
+    tables, k, v, ks, vs = _paged(rng, dev, KV[kv], hkv, bs, 128, [768])
+    route = ops.paged_route("prefill", torch.bfloat16, KV[kv], 128, bs)
+    assert route == ("simt" if kv == "int8" and bs == 8 else "wgmma128")
+    kw = dict(k_scales=ks, v_scales=vs)
+    for q_offset, chunk_len in D128_PREFILL_CHUNKS:
+        ctx_len = q_offset + chunk_len
+        q = torch.tensor(rng.standard_normal((hq, 16, 128)),
+                         dtype=torch.bfloat16, device=dev)
+        args = (q, k, v, tables[0], q_offset, ctx_len)
+        routes = ops.route_counts()["paged_prefill_attention"]
+        got = ops.paged_prefill_attention(*args, **kw)
+        again = ops.paged_prefill_attention(*args, **kw)
+        simt = ops._paged_prefill(*args, scale=128 ** -0.5, route="simt",
+                                  **kw)
+        want = ref.paged_prefill_attention_ref(q.float(), *args[1:], **kw)
+        torch.cuda.synchronize()
+        grew = {r: n - routes[r] for r, n in
+                ops.route_counts()["paged_prefill_attention"].items()}
+        want_grew = {**dict.fromkeys(grew, 0), "simt": 1}
+        want_grew[route] += 2
+        assert grew == want_grew
+        assert torch.equal(got, again)
+        for out in (got, simt):
+            assert torch.isfinite(out).all()
+            _rows_within(out[:, :chunk_len], want[:, :chunk_len],
+                         PAGED_RTOL["prefill"])
 
 
 @pytest.mark.parametrize("kv", ["f32", "int8"])
@@ -1349,15 +1415,17 @@ VERIFY_WIN = [0, 5, 3, 5, 5]
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,atol", CASES, ids=IDS)
-def test_paged_verify_kernel(dev, q_dtype, kv_dtype, atol):
+@pytest.mark.parametrize("heads", ["flad-gqa2", "g5-d128"])
+def test_paged_verify_kernel(dev, q_dtype, kv_dtype, atol, heads):
     """One launch for all lanes on the route ``ops.paged_route`` names for
-    prefill: against the plain version (bf16 each row within 2^-8 of its
-    largest |value|, float32 within 1e-5), a dead lane zeros; float32
-    rows bitwise the paged decode kernel's at each position (the
-    speculative contract), bf16 elements within one bf16 ulp of them plus
-    the two kernels' derived float32 gap (ref.verify_decode_gap_bound)."""
+    prefill (head dim 64 "wgmma", 128 "wgmma128" for bf16 q): against the
+    plain version (bf16 each row within 2^-8 of its largest |value|,
+    float32 within 1e-5), a dead lane zeros; float32 rows bitwise the
+    paged decode kernel's at each position (the speculative contract),
+    bf16 elements within one bf16 ulp of them plus the two kernels'
+    derived float32 gap (ref.verify_decode_gap_bound)."""
     rng = np.random.default_rng(3)
-    hq, hkv, d, bs, c = 16, 8, 64, 16, 5
+    (hq, hkv, d), bs, c = PREFILL_HEADS[heads], 16, 5
     ctx = np.array(VERIFY_CTX, np.int32)
     win = np.array(VERIFY_WIN, np.int32)
     tables, k, v, ks, vs = _paged(rng, dev, kv_dtype, hkv, bs, d,

@@ -5,14 +5,16 @@ many CTAs it splits a lane's keys.
 size alone, before any launch: bf16 q over bf16 or int8 pools at head dim
 64 whose blocks TMA can land as whole 128-byte-swizzled atoms goes to the
 Hopper kernels (decode ``"tma"``: ``csrc/paged_decode_tma.cu``; prefill
-``"wgmma"``: ``csrc/paged_prefill_tc.cu``), decode at head dim 128 to its
-own (``"tma128"``: ``csrc/paged_decode_tma128.cu``, the same block
-sizes), everything else to the SIMT kernels (``"simt"``). The serving
-paths' shapes (flad-adllm: head dim 64; the dense configs: head dim 128
-decode; block size 16, bf16 q over bf16 or int8 pools) must all take the
-Hopper kernels; float32 q must not. ``ops.paged_splits`` sizes the grid's split
-axis from the keys a call can see: decode's table width, prefill's
-ctx_len. Runs on the CPU: no kernel is launched.
+``"wgmma"``: ``csrc/paged_prefill_tc.cu``), at head dim 128 to their
+own (decode ``"tma128"``: ``csrc/paged_decode_tma128.cu``; prefill
+``"wgmma128"``: ``csrc/paged_prefill_tc128.cu``; the same block sizes),
+everything else to the SIMT kernels (``"simt"``). The serving paths'
+shapes (flad-adllm: head dim 64; the dense configs: head dim 128; block
+size 16, bf16 q over bf16 or int8 pools) must all take the Hopper
+kernels; float32 q must not. The speculative verify takes the prefill's
+route. ``ops.paged_splits`` sizes the grid's split axis from the keys a
+call can see: decode's table width, prefill's ctx_len. Runs on the CPU:
+no kernel is launched.
 """
 import numpy as np
 import pytest
@@ -38,17 +40,17 @@ ROUTES = {
     "bf16 bs 4": (BF16, BF16, 64, 4, "simt"),
     "bf16 bs 24": (BF16, BF16, 64, 24, "simt"),
     "bf16 bs 128": (BF16, BF16, 64, 128, "simt"),
-    # head dim 32 keeps the SIMT kernels; at 128 decode takes its TMA-fed
-    # kernel (two 128-byte boxes a bf16 block, one an int8 block) and
-    # prefill the SIMT one
+    # head dim 32 keeps the SIMT kernels; at 128 both kinds take their
+    # TMA-fed kernels (two 128-byte boxes a bf16 block, one an int8 block):
+    # decode on the CUDA cores, prefill on wgmma
     "bf16 d 32": (BF16, BF16, 32, 16, "simt"),
-    "bf16 d 128": (BF16, BF16, 128, 16, ("tma128", "simt")),
-    "int8 d 128": (BF16, I8, 128, 16, ("tma128", "simt")),
-    "bf16 d 128 bs 8": (BF16, BF16, 128, 8, ("tma128", "simt")),
-    "bf16 d 128 bs 32": (BF16, BF16, 128, 32, ("tma128", "simt")),
-    "bf16 d 128 bs 64": (BF16, BF16, 128, 64, ("tma128", "simt")),
-    "int8 d 128 bs 32": (BF16, I8, 128, 32, ("tma128", "simt")),
-    "int8 d 128 bs 64": (BF16, I8, 128, 64, ("tma128", "simt")),
+    "bf16 d 128": (BF16, BF16, 128, 16, ("tma128", "wgmma128")),
+    "int8 d 128": (BF16, I8, 128, 16, ("tma128", "wgmma128")),
+    "bf16 d 128 bs 8": (BF16, BF16, 128, 8, ("tma128", "wgmma128")),
+    "bf16 d 128 bs 32": (BF16, BF16, 128, 32, ("tma128", "wgmma128")),
+    "bf16 d 128 bs 64": (BF16, BF16, 128, 64, ("tma128", "wgmma128")),
+    "int8 d 128 bs 32": (BF16, I8, 128, 32, ("tma128", "wgmma128")),
+    "int8 d 128 bs 64": (BF16, I8, 128, 64, ("tma128", "wgmma128")),
     # the 128-wide blocks the route refuses: no whole 8-line atom, no
     # whole number of blocks a 64-key stage, int8 scales of eight keys (a
     # stage's eight 128-byte scale slots would not fit its row)
@@ -100,6 +102,30 @@ def test_split_plan(keys, heads):
     assert (n - 1) * per < keys <= n * per      # no split is empty
 
 
+#: the head_dim-128 prefill's plan (``ops.prefill_splits("wgmma128",
+#: keys, Hkv * row tiles)``): one CTA up to 256 keys (four tiles), past
+#: them one 64-key tile a CTA at least, up to 128 CTAs a call: the serving
+#: chunks (ctx 16, 112, 256, 257, 295, 384, 385 over 8 KV heads), 4096
+#: keys, a verify of 8 lanes over 320-key tables, one KV head
+PREFILL128_SPLITS = {(16, 8): (1, 256), (112, 8): (1, 256),
+                     (256, 8): (1, 256), (257, 8): (5, 64),
+                     (295, 8): (5, 64), (384, 8): (6, 64),
+                     (385, 8): (7, 64), (4096, 8): (16, 256),
+                     (320, 64): (2, 192), (897, 1): (15, 64),
+                     (8192, 1): (64, 128)}
+
+
+@pytest.mark.parametrize("keys,heads", PREFILL128_SPLITS)
+def test_prefill128_split_plan(keys, heads):
+    n, per = ops.prefill_splits("wgmma128", keys, heads)
+    assert (n, per) == PREFILL128_SPLITS[keys, heads]
+    assert per % 64 == 0 and n <= ops.MAX_SPLITS
+    assert n == 1 or n * heads <= 128
+    assert (n - 1) * per < keys <= n * per
+    assert ops.prefill_splits("wgmma", keys, heads) == ops.paged_splits(
+        keys, heads)
+
+
 def test_serving_table_runs_one_split():
     """The serving path's tables (max_context 128, block 16: 8 slots)
     launch one CTA a (lane, KV head): nothing to merge."""
@@ -120,4 +146,57 @@ def test_cpu_calls_count_no_route():
                                 k, k, tables[0], 16, 20)
     assert ops.route_counts() == before
     assert set(before["paged_decode_attention"]) == {"tma", "tma128", "simt"}
-    assert set(before["paged_prefill_attention"]) == {"wgmma", "simt"}
+    assert set(before["paged_prefill_attention"]) == {"wgmma", "wgmma128",
+                                                      "simt"}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("d,want", [(64, "wgmma"), (128, "wgmma128"),
+                                    (32, "simt")])
+@pytest.mark.parametrize("wrapper", ["prefill", "verify"])
+def test_prefill_and_verify_launch_on_the_route(monkeypatch, wrapper, d,
+                                                want, kv):
+    """A card call of paged prefill and of the batched verify reaches the
+    launch on the prefill route ``ops.paged_route`` names for its head
+    dim (the dense configs' 128: "wgmma128"), with P split in two bf16
+    parts for the verify and for a chunk on a route whose
+    ``ops.PREFILL_KERNELS`` entry splits P (head dim 128), and counts it
+    under that route. The launch itself is replaced: it records its route
+    and returns q's shape."""
+    launched = []
+
+    def launch(route, q, *args, split_p):
+        launched.append((route, split_p))
+        return torch.empty_like(q)
+
+    fn = (ops.paged_prefill_attention if wrapper == "prefill"
+          else ops.paged_verify_attention)
+    monkeypatch.setattr(ops, "_on_card", lambda *tensors: True)
+    monkeypatch.setattr(ops, "_prefill_launch", launch)
+    monkeypatch.setattr(fn, "routes", dict(fn.routes))
+    monkeypatch.setattr(fn, "launches", fn.launches)
+    rng = np.random.default_rng(2)
+    hq, hkv, bs, c = 40, 8, 16, 5
+    shape = (hkv, 4, bs, d)
+    if kv == "int8":
+        k = torch.tensor(rng.integers(-127, 128, shape), dtype=I8)
+        kw = dict(k_scales=torch.ones(shape[:3] + (1,)),
+                  v_scales=torch.ones(shape[:3] + (1,)))
+    else:
+        k = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(BF16)
+        kw = {}
+    if wrapper == "prefill":
+        q = torch.zeros((hq, c, d), dtype=BF16)
+        out = fn(q, k, k, torch.tensor([1, 2], dtype=torch.int32), 20, 25,
+                 **kw)
+    else:
+        q = torch.zeros((2, hq, c, d), dtype=BF16)
+        tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+        out = fn(q, k, k, tables, torch.tensor([20, 5], dtype=torch.int32),
+                 torch.tensor([5, 3], dtype=torch.int32), **kw)
+    assert out.shape == q.shape
+    chunk_split = want != "simt" and ops.PREFILL_KERNELS[want].split_p
+    assert launched == [(want, wrapper == "verify" or chunk_split)]
+    assert chunk_split == (d == 128)
+    assert ops.route_counts()[fn.__name__][want] == 1

@@ -4,9 +4,9 @@ kernels in interpret mode.
 
 ``csrc/paged_decode_tma.cu`` and ``csrc/paged_prefill_tc.cu`` split a
 lane's keys over CTAs of at least :data:`ops.SPLIT_KEYS` keys (the plan
-is :func:`ops.paged_splits`, the function that sizes their grids), walk
-each
-split in 64-key tiles with an online softmax in the log2 domain, and merge
+is :func:`ops.paged_splits`, the function that sizes their grids;
+``csrc/paged_prefill_tc128.cu`` splits down to one 64-key tile a CTA,
+:func:`ops.prefill_splits`), walk each split in 64-key tiles with an online softmax in the log2 domain, and merge
 the splits' partial (m, l, acc) in split order, a split that saw no key
 carrying m = -1e30, l = 0, acc = 0. Decode runs on the CUDA cores in
 float32: each of four warps keeps its own statistics over keys 16w..16w+15
@@ -16,8 +16,11 @@ scales fold into the probability. At head_dim 128
 eight warps take 8 keys each of a tile (four lanes a key, each owning
 four of the 128 output columns for P V). Prefill runs on wgmma: int8 blocks
 become bf16 (exact), K's scale multiplies S's columns, and P, with V's
-scale folded in, is rounded to bf16 before P V; the row sum takes the
-float32 P. The batched verify runs the prefill kernel with P split into
+scale folded in, is rounded to bf16 before P V (at head_dim 128 split in
+two bf16 parts, as the verify's); the row sum takes the float32 P. A KV head's G*C query rows go in tiles of the route's rows
+(``ops.PREFILL_KERNELS``): 64 at head_dim 64, 128 at head_dim 128
+(``csrc/paged_prefill_tc128.cu``, two warpgroups of 64 rows), which
+also sizes the split plan. The batched verify runs the prefill kernel with P split into
 bf16 hi = bf16(p) and lo = bf16(p - hi), two products into one float32
 accumulator: here its rows land within one bf16 ulp of the decode
 emulation's at the same positions, where one rounding of P does not, and
@@ -30,7 +33,8 @@ lanes at ctx 0 and 1, lanes ending exactly on a split boundary (384, 768)
 and one key past one (385), a chunk whose early rows see no key in its
 second split, a NaN-poisoned null block behind every dead table slot, and
 GQA groups 1, 2 and 8 (prefill's group 8 spans two 64-row tiles); decode
-also at head_dim 128 with the dense configs' groups 5 and 8.
+also at head_dim 128 with the dense configs' groups 5 and 8, prefill with
+their groups 5, 7 and 8 (80, 112 and 128 rows: one 128-row tile).
 
 Tolerances: decode's emulation is float32 throughout and is held to 1e-5
 of the plain version and of the Pallas kernel (orders of summation and
@@ -67,6 +71,14 @@ GROUPS = {"g1": (2, 2), "g2": (4, 2), "g8": (8, 1)}    # (Hq, Hkv)
 #: of 5 (qwen3-14b's 40/8) and 8 (qwen3-32b's 64/8) at 128
 DECODE_GROUPS = {**{k: (*v, D) for k, v in GROUPS.items()},
                  "g5-d128": (5, 1, 128), "g8-d128": (8, 1, 128)}
+#: the CTAs a KV head's keys split over at each of CHUNKS (one row tile):
+#: at least 384 keys a split at head dim 64, one 64-key tile at 128
+PREFILL_SPLIT_COUNTS = {64: [1, 2, 2, 3], 128: [1, 7, 12, 15]}
+#: prefill's (Hq, Hkv, head dim): GROUPS at 64, the dense configs' groups
+#: of 5, 7 (yi-34b's 56/8) and 8 at 128, one KV head each
+PREFILL_GROUPS = {**{k: (*v, D) for k, v in GROUPS.items()},
+                  "g5-d128": (5, 1, 128), "g7-d128": (7, 1, 128),
+                  "g8-d128": (8, 1, 128)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -190,23 +202,40 @@ def decode_emulated(q, k, v, ks, vs, tables, ctx_lens, scale, drop=0):
     return out
 
 
+def prefill_route(d):
+    """The wgmma prefill route at head dim ``d`` (bf16 q over bf16 pools
+    at block size BS)."""
+    return ops.paged_route("prefill", torch.bfloat16, torch.bfloat16, d, BS)
+
+
+def prefill_tile(d):
+    """The query rows of a CTA of :func:`prefill_route` (``d``)."""
+    return ops.PREFILL_KERNELS[prefill_route(d)].rows
+
+
 def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
-                     drop=0, split_p=False):
-    """paged_prefill_tc.cu's arithmetic: [Hq, C, D] float32 (rows past
-    chunk_len included); ``drop`` as :func:`decode_emulated`;
-    ``split_p``: P V as the verify route takes it, two bf16 parts."""
-    hq, c, _ = q.shape
+                     drop=0, split_p=None):
+    """paged_prefill_tc.cu's arithmetic (paged_prefill_tc128.cu's at head
+    dim 128), in row tiles of :func:`prefill_tile` of q's head dim: [Hq,
+    C, D] float32 (rows past chunk_len included); ``drop`` as
+    :func:`decode_emulated`; ``split_p``: P V as the verify route takes
+    it, two bf16 parts (None: as a prefill chunk's launch takes it on
+    the head dim's route, ``ops.PREFILL_KERNELS``)."""
+    hq, c, d = q.shape
     hkv = k.shape[0]
     rows = hq // hkv * c
+    tile = prefill_tile(d)
+    if split_p is None:
+        split_p = ops.PREFILL_KERNELS[prefill_route(d)].split_p
     keys = min(ctx_len, table.shape[0] * BS)
-    tiles = -(-rows // ops.PREFILL_TILE)
-    nsplit, per = ops.paged_splits(keys, hkv * tiles)
+    tiles = -(-rows // tile)
+    nsplit, per = ops.prefill_splits(prefill_route(d), keys, hkv * tiles)
     scale_log2 = scale * LOG2E
-    qg = q.float().reshape(hkv, rows, D)
-    out = torch.zeros((hkv, rows, D))
+    qg = q.float().reshape(hkv, rows, d)
+    out = torch.zeros((hkv, rows, d))
     for h in range(hkv):
-        for r0 in range(0, rows, ops.PREFILL_TILE):
-            qt = qg[h, r0:r0 + ops.PREFILL_TILE]
+        for r0 in range(0, rows, tile):
+            qt = qg[h, r0:r0 + tile]
             pos = q_offset + (r0 + torch.arange(qt.shape[0])) % c
             parts = []
             for sp in range(nsplit):
@@ -215,7 +244,7 @@ def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
                                               else 0)
                 m = torch.full((qt.shape[0],), NEG)
                 l = torch.zeros(qt.shape[0])
-                acc = torch.zeros((qt.shape[0], D))
+                acc = torch.zeros((qt.shape[0], d))
                 for t0 in range(lo, kend, KT):
                     t1 = min(t0 + KT, kend)
                     kr, ksc = _rows(k, ks, table, h, t0, t1)
@@ -235,7 +264,7 @@ def prefill_emulated(q, k, v, ks, vs, table, q_offset, ctx_len, scale,
                     m = m_new
                 parts.append((m, l, acc))
             out[h, r0:r0 + qt.shape[0]] = merge(parts)
-    return out.reshape(hq, c, D)
+    return out.reshape(hq, c, d)
 
 
 def _t2j(x):
@@ -270,19 +299,19 @@ def test_decode_split_emulation(group, int8):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("group", PREFILL_GROUPS)
 def test_prefill_split_emulation(group, int8):
-    hq, hkv = GROUPS[group]
-    rng = np.random.default_rng(40 + hq + int8)
+    hq, hkv, d = PREFILL_GROUPS[group]
+    rng = np.random.default_rng(40 + hq + int8 + (d != D))
     ctx_max = max(o + n for o, n in CHUNKS)
-    tables, k, v, ks, vs = _inputs(rng, hkv, [ctx_max], int8)
+    tables, k, v, ks, vs = _inputs(rng, hkv, [ctx_max], int8, d)
     tol = 2.0 ** -8 * _vmax(v, vs) + 1e-5
     splits = []
     for q_offset, chunk_len in CHUNKS:
-        q = _bf16(rng, (hq, C, D))
+        q = _bf16(rng, (hq, C, d))
         args = (q, k, v, tables[0], q_offset, q_offset + chunk_len)
         got = prefill_emulated(q, k, v, ks, vs, tables[0], q_offset,
-                               q_offset + chunk_len, D ** -0.5)
+                               q_offset + chunk_len, d ** -0.5)
         want = ref.paged_prefill_attention_ref(*args, k_scales=ks,
                                                v_scales=vs)
         pallas = np.asarray(jops.paged_prefill_attention(
@@ -295,10 +324,10 @@ def test_prefill_split_emulation(group, int8):
                                    atol=tol)
         np.testing.assert_allclose(got[:, live].numpy(), pallas[:, live],
                                    rtol=0, atol=tol)
-        splits.append(ops.paged_splits(
-            min(q_offset + chunk_len, tables.shape[1] * BS),
-            hkv * -(-hq // hkv * C // ops.PREFILL_TILE))[0])
-    assert splits == [1, 2, 2, 3]
+        splits.append(ops.prefill_splits(
+            prefill_route(d), min(q_offset + chunk_len, tables.shape[1] * BS),
+            hkv * -(-hq // hkv * C // prefill_tile(d)))[0])
+    assert splits == PREFILL_SPLIT_COUNTS[d]
 
 
 def _ulps(a, b):
@@ -309,24 +338,33 @@ def _ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-def test_split_p_verify_rows_within_a_bf16_ulp_of_decode(int8):
-    """A verify window of 5 rows (flad-adllm's GQA group 2, 2 KV heads)
-    at the end of a 900-key context: with P split, every bf16 row is
-    within one ulp of the decode emulation's row at its position; with P
-    rounded once (the route before the split) some rows are not."""
-    hq, hkv, c, q_offset = 4, 2, 5, 895
-    rng = np.random.default_rng(50 + int8)
-    tables, k, v, ks, vs = _inputs(rng, hkv, [q_offset + c], int8)
-    q = _bf16(rng, (hq, c, D))
+#: the verify windows' (Hq, Hkv, head dim): flad-adllm's GQA group 2 at
+#: 64 and qwen3-14b's group 5 at 128, a KV head each
+VERIFY_HEADS = {64: (4, 2, D), 128: (5, 1, 128)}
+
+
+@pytest.mark.parametrize("int8,d", [(False, 64), (True, 64), (False, 128),
+                                    (True, 128)],
+                         ids=["bf16", "int8", "bf16-d128", "int8-d128"])
+def test_split_p_verify_rows_within_a_bf16_ulp_of_decode(int8, d):
+    """A verify window of 5 rows (flad-adllm's GQA group 2, 2 KV heads;
+    at head dim 128 qwen3-14b's group 5) at the end of a 900-key context:
+    with P split, every bf16 row is within one ulp of the decode
+    emulation's row at its position; with P rounded once (the route
+    before the split) some rows are not."""
+    hq, hkv, _ = VERIFY_HEADS[d]
+    c, q_offset = 5, 895
+    rng = np.random.default_rng(50 + int8 + (d != D))
+    tables, k, v, ks, vs = _inputs(rng, hkv, [q_offset + c], int8, d)
+    q = _bf16(rng, (hq, c, d))
     dec = decode_emulated(
         q.transpose(0, 1), k, v, ks, vs, tables.expand(c, -1),
-        torch.arange(q_offset + 1, q_offset + c + 1), D ** -0.5)
+        torch.arange(q_offset + 1, q_offset + c + 1), d ** -0.5)
     dec = dec.to(torch.bfloat16)
     worst = {}
     for split in (True, False):
         got = prefill_emulated(q, k, v, ks, vs, tables[0], q_offset,
-                               q_offset + c, D ** -0.5, split_p=split)
+                               q_offset + c, d ** -0.5, split_p=split)
         ulps = _ulps(got.transpose(0, 1).to(torch.bfloat16), dec)
         worst[split] = int(ulps.max())
     assert worst[True] <= 1, worst
