@@ -68,7 +68,13 @@ In order, it
      pools; checked again at 56/8 and 64/8 heads; a batched verify of 8
      lanes), decode on its TMA-fed kernel and prefill on its wgmma one,
      each timed in turns with its SIMT kernel on the same inputs, beside
-     the plain version and the gather + SDPA composition; the flash
+     the plain version and the gather + SDPA composition; the decode
+     step's fused append-and-decode (one launch of the TMA-fed decode
+     kernel that writes the lanes' K/V rows before it reads them) at head
+     dims 64 (16/8 heads) and 128 (40/8), 8 lanes to 300 keys and at 4096
+     keys, bf16 and int8 pools, pools and output bitwise the stand-alone
+     append followed by the decode kernel, timed in turns with that pair
+     and with the decode kernel alone; the flash
      forward, preprocess, dK/dV and dQ at head_dim 128 (B 2, Hq 40, Hkv
      8, S 1024: the forward, dK/dV and dQ on their
      head_dim-128 wgmma kernels, timed in turns with the SIMT kernels on
@@ -79,11 +85,14 @@ In order, it
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
      kernels' launch counts (every paged launch on its Hopper route,
-     every int8 append one fused launch, no quantize_int8); serves the
+     every decode step's layer one fused append-and-decode launch, every
+     int8 prefill chunk's append one launch of its own, no
+     quantize_int8); serves the
      trace again with its final warm pass traced (repro_torch.obs) into
      chiprun_out/chip_smoke/serve_trace.json: streams bitwise the
      untraced run's, the file valid; profiles a decode step with each
-     cache; and holds the paged path against the contiguous-cache
+     cache, fused and as it ran before the fold (device operations a
+     step both ways); and holds the paged path against the contiguous-cache
      forward (plain attention);
  4b. serves the same trace with speculative decoding (draft_k 4): float32
      params with fp32 and int8 caches, each with a self-draft and a random
@@ -187,8 +196,9 @@ In order, it
      serving phase's trace with both caches, and qwen2.5-32b, qwen3-32b
      and yi-34b at full width cut to 4 layers (32.8-34.4 B params do not
      fit beside a KV pool) over the model-dtype cache, each held to the
-     contiguous oracle, every decode launch on its TMA-fed route (tma128)
-     and every prefill launch on wgmma128 (head_dim 128), each launch of the
+     contiguous oracle, every decode step's layer one fused
+     append-and-decode launch on its TMA-fed route (tma128) and every
+     prefill launch on wgmma128 (head_dim 128), each launch of the
      cold pass held to its plain version on the same inputs, the warm
      pass's tokens/s beside the SIMT decode kernel's earlier reading;
      trains qwen3-14b cut to 2 layers by the tensor strategy (a
@@ -205,13 +215,17 @@ In order, it
      held to the flat Model.loss, every mLSTM launch on wgmma;
  10. prints one JSON line describing every ported kernel (with the new
      shapes' times and launches as its head_dim_128 and hymba_group_5
-     entries, and the head_dim-128 forward, dK/dV, dQ and decode kernels
-     as lines of their own), the card's name and power limit, and {"ok": true,
+     entries, the head_dim-128 forward, dK/dV, dQ and decode kernels
+     as lines of their own, and the decode step's fused append-and-decode
+     as a line of its own; the decode lines count their kernels' launches
+     through both wrappers), the card's name and power limit, and {"ok": true,
      "device": {...}} last.
 
 With --paged it stops after the build and the paged kernels' checks
-(step 3's first part), with --mlstm after the build, the mLSTM kernels'
-and the fused int8 append's checks, with --spec after the build, the
+(step 3's first part), with --decode-append after the build and the
+fused append-and-decode's checks, with --mlstm after the build, the
+mLSTM kernels' and the fused int8 append's checks, with --spec after
+the build, the
 verify's and the preprocess's checks, the serving path, its traced pass
 and step 4b,
 with --vision after the build, the flash kernels at the FHDP shape and
@@ -355,6 +369,14 @@ PAGED128_LIBS = {"paged_decode_attention": ("paged_decode_tma128",
                  "paged_prefill_attention": ("paged_prefill_tc128",
                                              "paged_prefill_tc128_kernel",
                                              "wgmma128")}
+# the decode step's layer in one call: the TMA-fed decode kernels' fused
+# entry point appends the lanes' K/V rows and attends over them (the same
+# kernels as PAGED_LIBS' and PAGED128_LIBS' decode)
+FUSED = "paged_decode_append_attention"
+# the paged wrappers a serving run launches through: decode's stand-alone
+# wrapper (the float32 route), the fused one (the bf16 main paths),
+# prefill's
+SERVE_PAGED = ("paged_decode_attention", FUSED, "paged_prefill_attention")
 # the SIMT paged kernels' profiler names
 PAGED_SIMT_NAMES = {"paged_decode_attention": "paged_decode_kernel",
                     "paged_prefill_attention": "paged_prefill_kernel"}
@@ -1672,6 +1694,215 @@ def append_checks(torch, cfg, dev):
                 **head, cases=rows)
 
 
+APPEND_DECODE_LIBRARY_NOTE = ("no single PyTorch call appends rows to paged "
+                              "pools and attends through a block table")
+#: its kernel phase's lanes, by keys after the append: the serving shape
+#: (lane 0 dead, 0 here: a null table, ctx 0, its row to (null block, 0),
+#: which it then reads as its one key; lane 1 at its first key) and every
+#: lane at 4096 keys (several splits)
+APPEND_DECODE_KEYS = {"serving": DECODE_CTX, "long": [LONG_CTX] * SLOTS}
+
+
+def _append_decode_case(torch, cfg, dev, kv_dtype, keys, t, seed, rng):
+    """Inputs of one fused append-and-decode case: ``keys`` [B] keys each
+    lane sees after the append (0: a dead lane, whose null table row and
+    ctx 0 put its row at (null block, 0) and its one key there), a
+    t-wide table, pools with a NaN-poisoned null block and every live
+    lane's target slot holding a sentinel (int8: codes 127 and scale 1e3;
+    bf16: 1e4), bf16 q and the rows as the engine hands them over ([Hkv,
+    B, D], a transposed view). Returns (q, rows, tables, ctx, phys, off,
+    pools)."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    tnp, n = block_tables(keys, t, rng)
+    pre = np.maximum(np.asarray(keys) - 1, 0)
+    phys_np = tnp[np.arange(len(keys)), pre // BLOCK].astype(np.int64)
+    pools = list(paged_pools(torch, cfg, kv_dtype, n + 1, seed, dev))
+    live = torch.tensor(phys_np[phys_np > 0], device=dev)
+    live_off = torch.tensor((pre % BLOCK)[phys_np > 0], device=dev)
+    for i, t_ in enumerate(pools):
+        if t_ is not None:
+            t_[:, live, live_off] = (1e4 if kv_dtype != torch.int8
+                                     else 127 if i < 2 else 1e3)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn((len(keys), hq, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    rows = [(torch.randn((len(keys), hkv, d), generator=g, device=dev)
+             * 3).to(torch.bfloat16).transpose(0, 1) for _ in range(2)]
+    rows[0][1, 2] = 0.0                         # an all-zero row
+    return (q, rows, torch.tensor(tnp, device=dev),
+            torch.tensor(pre, dtype=torch.int32, device=dev),
+            torch.tensor(phys_np, device=dev),
+            torch.tensor(pre % BLOCK, dtype=torch.int64, device=dev), pools)
+
+
+def _pair_append(ops, pools, rows, phys, off):
+    """The stand-alone append the fused launch replaces: the int8 cache's
+    quantize_kv_append, or the model-dtype cache's two scatters."""
+    if pools[2] is not None:
+        ops.quantize_kv_append(*pools, *rows, phys, off)
+    else:
+        pools[0][:, phys, off] = rows[0]
+        pools[1][:, phys, off] = rows[1]
+
+
+def decode_append_checks(torch, dev):
+    """The decode step's fused append-and-decode
+    (``ops.paged_decode_append_attention``: one launch of the TMA-fed
+    decode kernel's fused entry point) on flad-adllm's heads (16/8, head
+    dim 64, route tma) and qwen3-14b's (40/8, head dim 128, route tma128),
+    at the serving shape (8 lanes to 300 keys after the append, one of
+    them dead) and at 4096 keys (several splits), over bf16 and int8 pools
+    with a NaN-poisoned null block and a sentinel in every target slot:
+    pools bitwise the separate pair's (the stand-alone append, then the
+    decode kernel over ctx + 1) and the plain version's, the output
+    bitwise the pair's and within the decode row bound of the float32
+    plain version, two calls bitwise equal, one fused launch and no
+    stand-alone append a call. Timed with a cold L2 in turns (fused, pair,
+    decode alone, decode alone, pair, fused) beside the plain version,
+    with each one's host clock and device operations a call. Returns the
+    JSON row (the head_dim-64 serving case over bf16 pools as the
+    headline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(41)
+    out, errs = {}, [0.0]
+    for arch in ("flad-adllm", DENSE_FULL):
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        route = {64: "tma", 128: "tma128"}[d]
+        kname = (PAGED_LIBS if d == 64 else PAGED128_LIBS)[
+            "paged_decode_attention"][1]
+        scale = d ** -0.5
+        for case, keys in APPEND_DECODE_KEYS.items():
+            t = (-(-max(keys) // BLOCK) + 1 if case == "serving"
+                 else LONG_CTX // BLOCK)
+            for name, kv_dtype, esz in (("bf16", torch.bfloat16, 2),
+                                        ("int8", torch.int8, 1)):
+                check(ops.decode_fuses_append(torch.bfloat16, kv_dtype, d,
+                                              BLOCK), f"{FUSED} D{d} "
+                      f"{name}: the decode does not fuse the append")
+                q, rows, tables, ctx, phys, off, base = _append_decode_case(
+                    torch, cfg, dev, kv_dtype, keys, t, 7, rng)
+                seen = ctx + 1
+                fused, pair, plain = ([None if x is None else x.clone()
+                                       for x in base] for _ in range(3))
+
+                def fused_fn():
+                    return ops.paged_decode_append_attention(
+                        q, *rows, fused[0], fused[1], tables, ctx, phys, off,
+                        scale=scale, k_scales=fused[2], v_scales=fused[3])
+
+                def alone_fn():
+                    return ops.paged_decode_attention(
+                        q, pair[0], pair[1], tables, seen, scale=scale,
+                        k_scales=pair[2], v_scales=pair[3])
+
+                def pair_fn():
+                    _pair_append(ops, pair, rows, phys, off)
+                    return alone_fn()
+
+                def plain_fn():
+                    return ref.paged_decode_append_attention_ref(
+                        q, *rows, plain[0], plain[1], tables, ctx, phys, off,
+                        scale=scale, k_scales=plain[2], v_scales=plain[3])
+
+                label = f"{FUSED} D{d} Hq{hq} Hkv{hkv} {case} {name}"
+                counts = ops.launch_counts()
+                routes = ops.route_counts()[FUSED]
+                got = fused_fn()
+                torch.cuda.synchronize()
+                now = ops.launch_counts()
+                grew = {k: now[k] - counts[k] for k in now
+                        if now[k] != counts[k]}
+                check(grew == {FUSED: 1} and ops.route_counts()[FUSED][route]
+                      == routes[route] + 1, f"{label}: launches {grew}, "
+                      f"want one fused launch on {route}")
+                want = pair_fn()
+                plain_fn()
+                again = fused_fn()
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"{label}: two calls differ")
+                check(torch.equal(got.view(torch.int16),
+                                  want.view(torch.int16)),
+                      f"{label}: the output differs from the separate "
+                      f"append and decode's")
+                for i, (a, b_, c_) in enumerate(zip(fused, pair, plain)):
+                    if a is None:
+                        continue
+                    a, b_, c_ = (_bits(torch, x) for x in (a, b_, c_))
+                    check(torch.equal(a, b_) and torch.equal(a, c_),
+                          f"{label}: pool {i} differs from the separate "
+                          f"append's or the plain version's")
+                ref32 = ref.paged_decode_attention_ref(
+                    q.float(), fused[0], fused[1], tables, seen, scale=scale,
+                    k_scales=fused[2], v_scales=fused[3])
+                tol = (PAGED_RTOL["decode"]
+                       * ref32.abs().amax(-1, keepdim=True) + PAGED_ROW_ATOL)
+                diff = (got.float() - ref32).abs()
+                err, use = float(diff.max()), float((diff / tol).max())
+                check(bool(torch.isfinite(got).all()) and use <= 1.0,
+                      f"{label}: a row's error is {use:.3f} of its bound")
+                errs[0] = max(errs[0], err)
+                # cold L2, in turns: fused, pair, alone, alone, pair, fused
+                f1 = device_ms(fused_fn, kname)
+                p1 = device_ms(pair_fn, None)
+                a1 = device_ms(alone_fn, kname)
+                a2 = device_ms(alone_fn, kname)
+                p2 = device_ms(pair_fn, None)
+                f2 = device_ms(fused_fn, kname)
+                calls = [time_ms(f) for f in (fused_fn, pair_fn, pair_fn,
+                                              fused_fn)]
+                r = dict(ms=(f1 + f2) / 2, pair_ms=(p1 + p2) / 2,
+                         decode_ms=(a1 + a2) / 2,
+                         plain_ms=device_ms(plain_fn, None, iters=20),
+                         call_ms=(calls[0] + calls[3]) / 2,
+                         pair_call_ms=(calls[1] + calls[2]) / 2,
+                         ops=_ops_per_call(torch, fused_fn),
+                         pair_ops=_ops_per_call(torch, pair_fn),
+                         turns=[f1, p1, a1, a2, p2, f2])
+                nbytes, flops = _decode_work(cfg, [max(k, 1) for k in keys],
+                                             esz, SLOTS)
+                nbytes += (tables.numel() + ctx.numel()) * 4 + 2 * SLOTS * 8
+                nbytes += 2 * hkv * SLOTS * d * 2       # the rows read
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+                out[f"D{d} {case} {name}"] = r
+                print(f"[kernel] {label} ({SLOTS} lanes, {min(keys)}.."
+                      f"{max(keys)} keys after the append, {route}): pools "
+                      f"bitwise the separate append's and the plain "
+                      f"version's (every target slot a sentinel first), "
+                      f"output bitwise the separate pair's, max|err| "
+                      f"{err:.3e} vs float32 plain (worst row {use:.3f} of "
+                      f"its bound); device (cold L2, in turns): fused "
+                      f"{r['ms']:.5f} ms, pair (append + decode) "
+                      f"{r['pair_ms']:.5f} ms, decode alone "
+                      f"{r['decode_ms']:.5f} ms (fused - decode "
+                      f"{r['ms'] - r['decode_ms']:+.5f} ms), plain "
+                      f"{r['plain_ms']:.5f} ms; bound {r['bound_ms']:.7f} "
+                      f"ms ({r['bound_by']}); device operations a call: "
+                      f"fused {r['ops']:.0f}, pair {r['pair_ops']:.0f}; "
+                      f"host clock per call: fused {r['call_ms']:.5f} ms, "
+                      f"pair {r['pair_call_ms']:.5f} ms; turns "
+                      + ", ".join(f"{x:.5f}" for x in r["turns"]))
+                del q, rows, base, fused, pair, plain
+    head = out["D64 serving bf16"]
+    return dict(source="src/repro_torch/kernels/csrc/paged_decode_tma.cu",
+                source_d128="src/repro_torch/kernels/csrc/"
+                            "paged_decode_tma128.cu",
+                replaces="src/repro/kernels/flash_attention.py:304",
+                also_replaces="src/repro/kernels/quantize.py:70 (the int8 "
+                              "cache's append of a decode step)",
+                max_abs_err=errs[0], library_ms=None,
+                library_call=APPEND_DECODE_LIBRARY_NOTE,
+                headline="flad-adllm's decode step layer: 8 lanes to 300 "
+                         "keys, bf16 pools",
+                **{k: head[k] for k in ("ms", "pair_ms", "decode_ms",
+                                        "plain_ms", "call_ms",
+                                        "pair_call_ms", "ops", "pair_ops",
+                                        "bound_ms", "bound_by")},
+                cases=out)
+
+
 # ------------------------------------------------------- training kernels
 def _pairs(sq, skv, causal=True, window=None, q_offset=0):
     """Visible (query, key) pairs of one head: the work the data needs."""
@@ -2094,6 +2325,9 @@ def tc_report():
         hgmma, regs, spills = _lib_report(stem)
         check(hgmma > 0 or not wgmma, f"{stem}: no HGMMA (wgmma) "
               "instruction in its SASS")
+        # every decode instantiation also takes the fused append
+        check(wgmma or not any(spills), f"{stem}: ptxas reports spills "
+              f"{spills}")
         out[name] = dict(hgmma=hgmma, registers=regs, spill_bytes=spills)
         print(f"[build] {kname} ({stem}.cu): {hgmma} HGMMA instructions in "
               f"its SASS; ptxas: registers {regs or 'not rebuilt'} a thread, "
@@ -2116,10 +2350,12 @@ def tc_report():
                   f"{serial} (one entry an instantiation: bf16 and int8 "
                   "pools)")
             continue
+        check(not any(spills), f"{stem}: ptxas reports spills {spills}")
         print(f"[build] {kname} ({stem}.cu): ptxas: registers "
               f"{regs or 'not rebuilt'} a thread, spill stores + loads "
               f"{spills or 'not rebuilt'} bytes (one entry an "
-              "instantiation: bf16 and int8 pools, groups 1 to 8)")
+              "instantiation: bf16 and int8 pools, groups 1 to 8; each "
+              "also takes the fused append)")
     stem = "mlstm_chunked_tc"
     hgmma, regs, spills = _lib_report(stem)
     check(hgmma > 0, f"{stem}: no HGMMA (wgmma) instruction in its SASS")
@@ -2740,8 +2976,8 @@ def traced_serving(torch, cfg, params, dev, plain):
     counts = ops.launch_counts()
     L = cfg.num_layers
     want = dict.fromkeys(counts, 0)
-    want.update(paged_decode_attention=2 * L * rep["decode_steps"],
-                paged_prefill_attention=2 * L * rep["prefill_chunks"])
+    want.update({FUSED: 2 * L * rep["decode_steps"],
+                 "paged_prefill_attention": 2 * L * rep["prefill_chunks"]})
     check(counts == want, f"traced serving: launches {counts} != {want}")
     check(rep["sequences"] == plain["sequences"], "traced serving: the "
           "streams differ from the untraced run's")
@@ -4805,7 +5041,7 @@ def serve_main_path(torch, cfg, params, dev):
     from repro_torch.serve import serve_continuous
     totals = dict.fromkeys(ops.launch_counts(), 0)
     routes = {fn: dict.fromkeys(ops.route_counts()[fn], 0)
-              for fn in PAGED_LIBS}
+              for fn in SERVE_PAGED}
     reports = {}
     for cache in ("fp32", "int8"):
         ops.reset_launch_counts()
@@ -4823,17 +5059,18 @@ def serve_main_path(torch, cfg, params, dev):
               f"{cache}: token id out of range")
         want = dict.fromkeys(counts, 0)
         want.update({
-            "paged_decode_attention": passes * L * rep["decode_steps"],
+            # every decode step's layer one fused launch (the append inside
+            # the decode kernel), no stand-alone decode
+            FUSED: passes * L * rep["decode_steps"],
             "paged_prefill_attention": passes * L * rep["prefill_chunks"],
-            # one fused K/V append a layer and step in int8 mode; the
-            # quantizer serves the codec only
-            "quantize_kv_append": (passes * L * (rep["decode_steps"]
-                                                 + rep["prefill_chunks"])
+            # one K/V append launch a layer and prefill chunk in int8
+            # mode; the quantizer serves the codec only
+            "quantize_kv_append": (passes * L * rep["prefill_chunks"]
                                    if cache == "int8" else 0),
         })
         check(counts == want, f"{cache}: launches {counts} != {want}")
-        by_route = check_routes(ops, counts, cache, PAGED_LIBS)
-        for fn in PAGED_LIBS:      # bf16 q over bf16 or int8 pools
+        by_route = check_routes(ops, counts, cache, SERVE_PAGED)
+        for fn in SERVE_PAGED:     # bf16 q over bf16 or int8 pools
             for r, n in by_route[fn].items():
                 routes[fn][r] += n
         for name in totals:
@@ -4844,10 +5081,9 @@ def serve_main_path(torch, cfg, params, dev):
               f"{rep['warm_tokens_per_s']:.1f} tok/s (cold "
               f"{rep['tokens_per_s']:.1f}); launches {counts}; paged "
               f"launches by route " + ", ".join(
-                  f"{fn} {by_route[fn]}" for fn in PAGED_LIBS))
+                  f"{fn} {by_route[fn]}" for fn in SERVE_PAGED))
         reports[cache] = rep
-    for name in ("paged_decode_attention", "paged_prefill_attention",
-                 "quantize_kv_append"):
+    for name in (FUSED, "paged_prefill_attention", "quantize_kv_append"):
         check(totals[name] > 0, f"{name} was never launched serving")
     check(totals["quantize_int8"] == 0, "serving launched quantize_int8")
     return totals, reports, routes
@@ -4866,15 +5102,21 @@ def _serve_trace(cfg, params, dev, cache, **kw):
 def _spec_launches(cfg, rep, cache):
     """The launches a speculative run of the trace makes, two passes:
     each prefill chunk twice (the target's and the draft's mirror), each
-    speculative step SPEC_K + 1 draft decode forwards and one verify, one
-    fused int8 append a layer for every one of those forwards."""
+    speculative step SPEC_K + 1 draft decode forwards and one verify. A
+    bf16 run's draft decodes are fused launches (the append inside the
+    decode kernel) and its int8 cache appends with a launch of its own
+    for every prefill chunk and verify; a float32 run (the SIMT route)
+    appends first for every one of those forwards, draft decodes
+    included, and launches the stand-alone decode."""
     L, passes = cfg.num_layers, 2
     steps, chunks = rep["spec_steps"], rep["prefill_chunks"]
-    return {"paged_decode_attention": passes * L * (SPEC_K + 1) * steps,
+    fused = cfg.param_dtype == "bfloat16"
+    decodes = passes * L * (SPEC_K + 1) * steps
+    appends = 2 * chunks + (1 if fused else SPEC_K + 2) * steps
+    return {FUSED if fused else "paged_decode_attention": decodes,
             "paged_prefill_attention": passes * L * 2 * chunks,
             "paged_verify_attention": passes * L * steps,
-            "quantize_kv_append": (passes * L * (2 * chunks
-                                                 + (SPEC_K + 2) * steps)
+            "quantize_kv_append": (passes * L * appends
                                    if cache == "int8" else 0)}
 
 
@@ -4908,7 +5150,7 @@ def spec_main_path(torch, cfg, params, dev, plain):
     route summed likewise, the summary printed)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
-    paged = (*PAGED_LIBS, "paged_verify_attention")
+    paged = (*SERVE_PAGED, "paged_verify_attention")
     totals = dict.fromkeys(ops.launch_counts(), 0)
     spec_routes = {fn: dict.fromkeys(ops.route_counts()[fn], 0)
                    for fn in paged}
@@ -5123,7 +5365,6 @@ def spec_probe(torch, cfg, params, dev, first, variants):
     from repro_torch.models import blocks as B
     from repro_torch.serve import (PagedCacheSpec, PagedEngine,
                                    generate_fleet_requests)
-    from repro_torch.serve import kvcache as KC
     cache, rid, j, plain = first
     reqs = {r.rid: r for r in generate_fleet_requests(
         TRACE["fleet"], num_requests=TRACE["num_requests"],
@@ -5160,15 +5401,12 @@ def spec_probe(torch, cfg, params, dev, first, variants):
     def recorded(fn):
         rec = []
 
-        def layer(lp, lpools, x, rot, phys, off, attend):
+        def layer(lp, lpools, x, rot, attend):
             h = B.rms_norm(lp["ln1"], x, cfg.norm_eps)
             q, k, v = B.qkv(lp["attn"], h, cfg, rot)
             n_kv = cfg.num_kv_heads
-            KC.append_token(lpools, spec,
-                            k.transpose(0, 1).reshape(n_kv, -1, cfg.hd),
-                            v.transpose(0, 1).reshape(n_kv, -1, cfg.hd),
-                            phys, off)
-            o = attend(q, lpools)
+            o = attend(q, k.transpose(0, 1).reshape(n_kv, -1, cfg.hd),
+                       v.transpose(0, 1).reshape(n_kv, -1, cfg.hd), lpools)
             x1 = x + (o @ lp["attn"]["wo"]).to(x.dtype)
             hh = B.rms_norm(lp["ln2"], x1, cfg.norm_eps)
             m = B.mlp(lp["ffn"], hh)
@@ -5280,19 +5518,51 @@ def preemption_run(torch, cfg, params, dev):
                 equal=got == want)
 
 
+def _separate_decode(ops):
+    """The kernels module as the serving engine sees it, with the decode
+    step's layer as it ran before the fold: the stand-alone append (the
+    int8 cache's quantize_kv_append, the model-dtype cache's two
+    scatters), then paged_decode_attention over ctx + 1 keys, that sum
+    taken once a step as the engine took it. Used to count a step's
+    device operations and time it both ways in one run."""
+    seen = {}
+
+    def layer(q, k_rows, v_rows, k_pages, v_pages, tables, ctx_lens, phys,
+              off, *, scale, k_scales, v_scales):
+        if seen.get("ctx") is not ctx_lens:
+            seen.update(ctx=ctx_lens, keys=ctx_lens + 1)
+        _pair_append(ops, [k_pages, v_pages, k_scales, v_scales],
+                     (k_rows, v_rows), phys, off)
+        return ops.paged_decode_attention(
+            q, k_pages, v_pages, tables, seen["keys"], scale=scale,
+            k_scales=k_scales, v_scales=v_scales)
+    return _OpsWith(ops, **{FUSED: layer})
+
+
 def profile_decode(torch, cfg, params, dev, steps=10, kernels=None):
     """Warm decode steps with all lanes live, with the model-dtype KV
-    cache and with the int8 cache: wall time per step on the host clock,
-    and the device's busy time and operations per step from torch.profiler
-    (the summed kernel, copy and fill durations on the one stream); the
-    decode kernel's device time a launch in the step beside its
-    ``paged_checks`` time alone (cold L2, headline shape), and the int8
-    step's fused K/V append. Returns {cache: (wall, busy, ops)}."""
+    cache and with the int8 cache, each step run two ways on one
+    scheduler: the main path ("fused": the K/V append inside the decode
+    kernel's launch) and the step as it ran before the fold ("separate":
+    :func:`_separate_decode`). Wall time per step on the host clock in
+    turns (separate, fused, fused, separate), and for each way the
+    device's busy time and operations per step from torch.profiler (the
+    summed kernel, copy and fill durations on the one stream); the decode
+    kernel's device time a launch in the fused step beside its
+    ``decode_append_checks`` time alone (cold L2, headline shape); no
+    stand-alone append in a fused step, one a layer in an int8 separate
+    one. Returns {cache: {way: (wall, busy, ops, counts by kernel)}}."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousScheduler, PagedCacheSpec,
                                    PagedEngine, generate_fleet_requests)
+    from repro_torch.serve import engine
     out = {}
+    L = cfg.num_layers
+    ways = {"fused": engine.kops, "separate": _separate_decode(ops)}
     for cache in ("bf16", "int8"):
+        # the requests run out after 100 tokens: 10 warm steps, 40 timed
+        # and 20 profiled leave room
         spec = PagedCacheSpec.for_requests(SLOTS, 96 + 110, block_size=BLOCK,
                                            quantized=cache == "int8")
         eng = PagedEngine(cfg, spec, max_context=128, slots=SLOTS,
@@ -5307,60 +5577,78 @@ def profile_decode(torch, cfg, params, dev, steps=10, kernels=None):
         while not (sched.num_active == SLOTS and sched.prefill_done.all()):
             sched.step()
 
-        def run():
-            for _ in range(steps):
-                sched.step()
-            torch.cuda.synchronize()
+        def run(way):
+            engine.kops = ways[way]
+            try:
+                for _ in range(steps):
+                    sched.step()
+                torch.cuda.synchronize()
+            finally:
+                engine.kops = ways["fused"]
 
-        run()
-        t0 = time.perf_counter()
-        run()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-        rows = sorted(((getattr(e, "device_time_total", 0)
-                        or getattr(e, "cuda_time_total", 0)) / steps / 1e3,
-                       e.count // steps, e.key[:60])
-                      for e in prof.key_averages())[::-1]
-        busy = sum(r[0] for r in rows)
-        launches = sum(r[1] for r in rows)
-        print(f"[profile] warm decode step, {cache} KV cache, {SLOTS} live "
-              f"lanes: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
-              f"{100 * (1 - busy / wall):.1f}%), {launches} device ops/step, "
-              f"{SLOTS / wall * 1e3:.0f} tok/s")
-        for t, n, key in rows[:6]:
-            print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
-        name = PAGED_LIBS["paged_decode_attention"][1]
-        hits = [r for r in rows if name in r[2]]
-        n = sum(r[1] for r in hits)
-        check(n > 0, f"decode step ({cache}): no {name} launch in the "
-              f"profile")
-        alone = kernels["paged_decode_attention"]["ms"] if kernels else None
-        print(f"[profile]   decode attention {sum(r[0] for r in hits):.4f} "
-              f"ms/step: {name} {sum(r[0] for r in hits) / n:.5f} ms a "
-              f"launch x {n} in the step vs {alone} ms alone (paged_checks, "
-              f"cold L2)")
-        if cache == "int8":
-            app = [r for r in rows if "kv_append_kernel" in r[2]]
-            check(sum(r[1] for r in app) == cfg.num_layers,
-                  "int8 decode step: not one fused append a layer")
+        run("fused")
+        walls = {"fused": [], "separate": []}
+        for way in ("separate", "fused", "fused", "separate"):
+            t0 = time.perf_counter()
+            run(way)
+            walls[way].append((time.perf_counter() - t0) / steps * 1e3)
+        out[cache] = {}
+        for way in ("separate", "fused"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(way)
+            wall = sum(walls[way]) / 2
+            rows = sorted(((getattr(e, "device_time_total", 0)
+                            or getattr(e, "cuda_time_total", 0))
+                           / steps / 1e3, e.count // steps, e.key[:60])
+                          for e in prof.key_averages())[::-1]
+            busy = sum(r[0] for r in rows)
+            launches = sum(r[1] for r in rows)
+            print(f"[profile] warm decode step ({way}), {cache} KV cache, "
+                  f"{SLOTS} live lanes: wall {wall:.3f} ms (in turns: "
+                  + ", ".join(f"{w:.3f}" for w in walls[way])
+                  + f"), device busy {busy:.3f} ms (idle "
+                  f"{100 * (1 - busy / wall):.1f}%), {launches} device "
+                  f"ops/step, {SLOTS / wall * 1e3:.0f} tok/s")
+            for t, n, key in rows[:6]:
+                print(f"[profile]   {t:.4f} ms/step in {n:4d} x {key}")
+            name = PAGED_LIBS["paged_decode_attention"][1]
+            hits = [r for r in rows if name in r[2]]
+            n = sum(r[1] for r in hits)
+            check(n == L, f"decode step ({way}, {cache}): {n} {name} "
+                  f"launches in the profile, want {L}")
+            app = sum(r[1] for r in rows if "kv_append_kernel" in r[2])
+            want_app = L if (way, cache) == ("separate", "int8") else 0
+            check(app == want_app, f"decode step ({way}, {cache}): {app} "
+                  f"stand-alone appends, want {want_app}")
             check(not any("quantize_int8_kernel" in r[2] for r in rows),
-                  "int8 decode step launched quantize_int8")
-            print(f"[profile]   fused K/V append "
-                  f"{sum(r[0] for r in app):.4f} ms/step in "
-                  f"{sum(r[1] for r in app)} launches")
-        counts = {}                 # by full kernel name (rows cut it)
-        for e in prof.key_averages():
-            counts[e.key] = counts.get(e.key, 0) + e.count // steps
-        out[cache] = (wall, busy, launches, counts)
+                  f"decode step ({way}, {cache}) launched quantize_int8")
+            if way == "fused":
+                alone = kernels[FUSED]["ms"] if kernels else None
+                print(f"[profile]   decode attention with its append "
+                      f"{sum(r[0] for r in hits):.4f} ms/step: {name} "
+                      f"{sum(r[0] for r in hits) / n:.5f} ms a launch x {n} "
+                      f"in the step vs {alone} ms alone "
+                      f"(decode_append_checks, cold L2)")
+            counts = {}             # by full kernel name (rows cut it)
+            for e in prof.key_averages():
+                counts[e.key] = counts.get(e.key, 0) + e.count // steps
+            out[cache][way] = (wall, busy, launches, counts)
+        sep, fus = out[cache]["separate"], out[cache]["fused"]
+        diff = {k: fus[3].get(k, 0) - sep[3].get(k, 0)
+                for k in set(sep[3]) | set(fus[3])
+                if fus[3].get(k, 0) != sep[3].get(k, 0)}
+        print(f"[profile]   {cache} step, fused - separate: "
+              f"{fus[2] - sep[2]:+d} device ops ({sep[2]} -> {fus[2]}), "
+              f"wall {fus[0] - sep[0]:+.3f} ms; by kernel: " + "; ".join(
+                  f"{k[:90]}: {n:+d}" for k, n in sorted(diff.items())))
         del sched, eng
         torch.cuda.empty_cache()
-    a, b = out["bf16"][3], out["int8"][3]
+    a, b = out["bf16"]["fused"][3], out["int8"]["fused"][3]
     diff = {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)
             if b.get(k, 0) != a.get(k, 0)}
-    extra = out["int8"][2] - out["bf16"][2]
-    print(f"[profile]   int8 step - bf16 step: {extra} device ops; by "
-          f"kernel: " + "; ".join(
+    extra = out["int8"]["fused"][2] - out["bf16"]["fused"][2]
+    print(f"[profile]   int8 step - bf16 step (fused): {extra} device ops; "
+          f"by kernel: " + "; ".join(
               f"{k[:110]}: {n:+d}" for k, n in sorted(diff.items())))
     return out
 
@@ -5461,6 +5749,10 @@ D128_ROUTES = {"flash_attention": "wgmma128", PRE: "vec",
 #: pools: decode on its TMA-fed kernel, prefill on its wgmma one
 D128_PAGED_ROUTES = {"paged_decode_attention": "tma128",
                      "paged_prefill_attention": "wgmma128"}
+#: the route of each paged wrapper a dense serving run launches: every
+#: decode step's layer one fused launch of the tma128 kernel, prefill on
+#: wgmma128
+D128_SERVE_ROUTES = {FUSED: "tma128", "paged_prefill_attention": "wgmma128"}
 #: qwen3-14b's warm tokens/s over the serving trace (bf16 cache "fp32",
 #: int8 cache) when its paged decode ran the SIMT kernel, on an H100
 #: 80GB HBM3 at a 700 W limit: the reading the dense phase prints its own
@@ -5919,13 +6211,15 @@ def _cold_pass_shadowed(ops, ref, worst):
 def _dense_serve(torch, cfg, params, dev, caches):
     """The serving phase's fleet trace through serve_continuous (a cold
     and a warm pass) with each cache mode in ``caches``: the exact
-    launches, every decode launch on its TMA-fed route and every prefill
-    launch on its wgmma one (:data:`D128_PAGED_ROUTES`, head_dim 128), each
-    paged launch of the cold pass within its row bounds of the float32
-    plain version on the same inputs (:func:`_cold_pass_shadowed`), every
-    int8 append one fused launch, finite in-range tokens; the warm pass's
-    tokens/s beside :data:`SIMT_DECODE_WARM_TOKS` for qwen3-14b. Returns
-    (launch totals, {cache: report})."""
+    launches, every decode step's layer one fused launch on its TMA-fed
+    route and every prefill launch on its wgmma one
+    (:data:`D128_SERVE_ROUTES`, head_dim 128), each paged launch of the
+    cold pass within its row bounds of the float32 plain version on the
+    same inputs and every appended slot bitwise the plain append's
+    (:func:`_cold_pass_shadowed`), every int8 prefill chunk's append one
+    launch of its own, finite in-range tokens; the warm pass's tokens/s
+    beside :data:`SIMT_DECODE_WARM_TOKS` for qwen3-14b. Returns (launch
+    totals, {cache: report})."""
     from repro_torch.kernels import ops, ref
     totals = dict.fromkeys(ops.launch_counts(), 0)
     reports, L = {}, cfg.num_layers
@@ -5948,20 +6242,19 @@ def _dense_serve(torch, cfg, params, dev, caches):
                   for s in rep["sequences"].values() for tok in s),
               f"{cfg.name} {cache}: token id out of range")
         want = dict.fromkeys(counts, 0)
-        want.update(
-            paged_decode_attention=2 * L * rep["decode_steps"],
-            paged_prefill_attention=2 * L * rep["prefill_chunks"],
-            quantize_kv_append=(2 * L * (rep["decode_steps"]
-                                         + rep["prefill_chunks"])
-                                if cache == "int8" else 0))
+        want.update({
+            FUSED: 2 * L * rep["decode_steps"],
+            "paged_prefill_attention": 2 * L * rep["prefill_chunks"],
+            "quantize_kv_append": (2 * L * rep["prefill_chunks"]
+                                   if cache == "int8" else 0)})
         check(counts == want, f"{cfg.name} {cache}: launches {counts} != "
               f"{want}")
         routes = ops.route_counts()
-        for fn, route in D128_PAGED_ROUTES.items():
+        for fn, route in D128_SERVE_ROUTES.items():
             check(routes[fn][route] == counts[fn], f"{cfg.name} {cache}: "
                   f"{fn} launches by route {routes[fn]}, want all {route}")
         # the cold pass is half the launches: every one of them checked
-        check(set(worst) == set(D128_PAGED_ROUTES)
+        check(set(worst) == set(D128_SERVE_ROUTES)
               and max(worst.values()) <= 1.0, f"{cfg.name} {cache}: the "
               f"cold pass's paged launches vs their plain versions: "
               f"{worst} of their row bounds")
@@ -5975,9 +6268,9 @@ def _dense_serve(torch, cfg, params, dev, caches):
               f"{rep['warm_tokens_per_s']:.1f} tok/s{was} (cold, its "
               f"launches each checked against the plain version: "
               f"{rep['tokens_per_s']:.1f}); two passes {wall:.1f} s of "
-              f"wall; launches {counts}, decode on "
-              f"{D128_PAGED_ROUTES['paged_decode_attention']}, prefill on "
-              f"{D128_PAGED_ROUTES['paged_prefill_attention']}; the cold "
+              f"wall; launches {counts}, decode (with its append) on "
+              f"{D128_SERVE_ROUTES[FUSED]}, prefill on "
+              f"{D128_SERVE_ROUTES['paged_prefill_attention']}; the cold "
               f"pass's largest share of a row's bound " + ", ".join(
                   f"{k} {v:.3f}" for k, v in worst.items()))
         reports[cache] = dict(rep, wall_s=wall, shadow_bound_share=worst)
@@ -6011,15 +6304,42 @@ class _OpsWith:
 
 
 def _shadowed_paged(ops, ref, worst):
-    """Give the serving engine paged decode and prefill that launch the
-    kernel and hold its output against the float32 plain version on the
-    same inputs: every row within PAGED_RTOL of its largest |plain value|
-    + PAGED_ROW_ATOL (as :func:`_paged_run`); the largest share of a
-    row's bound goes into ``worst`` [wrapper]. Returns the undo."""
+    """Give the serving engine the decode step's fused append-and-decode
+    and paged prefill that launch the kernel and hold its output against
+    the float32 plain version on the same inputs: every row within
+    PAGED_RTOL of its largest |plain value| + PAGED_ROW_ATOL (as
+    :func:`_paged_run`; the decode over the pools the kernel appended
+    to, whose live lanes' new slots must hold the plain append's values
+    bitwise); the largest share of a row's bound goes into ``worst``
+    [wrapper]. Returns the undo."""
     from repro_torch.serve import engine
 
+    def decode_plain(q, k_rows, v_rows, k, v, tables, ctx, phys, off, *,
+                     scale, k_scales, v_scales):
+        """The plain decode over the appended pools, after checking the
+        live lanes' slots (a dead lane's, the null block's, is
+        garbage)."""
+        live = phys != 0
+        p, o = phys[live], off[live]
+        if k_scales is None:
+            want = [r[:, live].to(k.dtype) for r in (k_rows, v_rows)]
+            got = [k[:, p, o], v[:, p, o]]
+        else:
+            kq, ks = ref._quantize_rows_nearest(k_rows[:, live])
+            vq, vs = ref._quantize_rows_nearest(v_rows[:, live])
+            want = [kq, vq, ks, vs]
+            got = [k[:, p, o], v[:, p, o], k_scales[:, p, o],
+                   v_scales[:, p, o]]
+        check(all(torch_equal_bits(a, b) for a, b in zip(got, want)),
+              f"{FUSED}: an appended slot differs from the plain append")
+        return ref.paged_decode_attention_ref(
+            q, k, v, tables, ctx + 1, scale=scale, k_scales=k_scales,
+            v_scales=v_scales)
+
     def shadow(fn, kind):
-        kernel, plain = getattr(ops, fn), getattr(ref, f"{fn}_ref")
+        kernel = getattr(ops, fn)
+        plain = (decode_plain if fn == FUSED
+                 else getattr(ref, f"{fn}_ref"))
 
         def call(q, *args, **kw):
             out = kernel(q, *args, **kw)
@@ -6038,8 +6358,15 @@ def _shadowed_paged(ops, ref, worst):
 
     saved = engine.kops
     engine.kops = _OpsWith(ops, **{fn: shadow(fn, fn.split("_")[1]) for fn in (
-        "paged_decode_attention", "paged_prefill_attention")})
+        FUSED, "paged_prefill_attention")})
     return lambda: setattr(engine, "kops", saved)
+
+
+def torch_equal_bits(a, b):
+    """Two tensors of one dtype and shape bitwise equal (NaN included)."""
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        _bits(torch, a.contiguous()), _bits(torch, b.contiguous()))
 
 
 def _dense_oracle(torch, cfg, params, dev, reqs, streams):
@@ -6148,7 +6475,7 @@ def dense_main_path(torch, dev):
                 "prefill_chunks", "wall_s", "shadow_bound_share")}
                for cache, rep in reports.items()})
     serve_routes = {fn: {route: serve[fn]}
-                    for fn, route in D128_PAGED_ROUTES.items()}
+                    for fn, route in D128_SERVE_ROUTES.items()}
     train, train_routes, summary["train"] = dense_train_path(torch, dev)
     return ({"dense_serve": serve, "dense_train": train},
             {"dense_serve": serve_routes, "dense_train": train_routes},
@@ -6628,6 +6955,11 @@ def main():
         print("chip_smoke --xlstm-fhdp: the ssm FHDP phase only; no result "
               "line")
         return 0
+    if "--decode-append" in sys.argv[1:]:
+        print(json.dumps({FUSED: decode_append_checks(torch, dev)}))
+        print("chip_smoke --decode-append: the fused append-and-decode's "
+              "checks only; no result line")
+        return 0
     if "--paged" in sys.argv[1:]:
         rows = paged_checks(torch, cfg, dev, np.random.default_rng(0))
         print(json.dumps(rows))
@@ -6709,6 +7041,7 @@ def main():
     kernels["mlstm_chunked_bwd"] = mlstm_bwd_checks(torch, dev)
     for name, extra in d128_paged_checks(torch, dev).items():
         kernels[name]["head_dim_128"] = extra
+    kernels[FUSED] = decode_append_checks(torch, dev)
     for label, rows in (("head_dim_128", d128_flash_checks(torch, dev)),
                         ("hymba_group_5", flash_shape_checks(
                             torch, dev, "hymba_group_5"))):
@@ -6837,15 +7170,24 @@ def main():
     def new_routes_of(name, r):
         return sum(c.get(name, {}).get(r, 0) for c in new_routes.values())
 
+    def with_fused(name, counts):
+        """A paged decode kernel's launches through both its wrappers:
+        the stand-alone decode's and the fused append-and-decode's."""
+        return counts.get(name, 0) + (counts.get(FUSED, 0)
+                                      if name == "paged_decode_attention"
+                                      else 0)
+
     # 10. one line per ported kernel
     print(f"[kernels] serving kernels' library_ms is null: {LIBRARY_NOTE}; "
           f"mlstm_chunked's: {MLSTM_LIBRARY_NOTE}; mlstm_chunked_bwd's: "
           f"{MLSTM_BWD_LIBRARY_NOTE}")
     rows = []
     for name, k in kernels.items():
-        by_path = {"serve": launches[name],
-                   "serve_traced": traced_launches[name],
-                   "spec_serve": spec_launches[name],
+        # the paged decode kernels' launches through both wrappers (the
+        # fused append-and-decode's also on a row of its own)
+        by_path = {"serve": with_fused(name, launches),
+                   "serve_traced": with_fused(name, traced_launches),
+                   "spec_serve": with_fused(name, spec_launches),
                    "train": train_launches[name],
                    "async": async_launches[name],
                    "distill": distill_launches[name],
@@ -6853,13 +7195,14 @@ def main():
                    "xlstm_train": xt_launches[name],
                    "vision": vision_launches.get(name, 0),
                    "swift": swift_launches.get(name, 0),
-                   **{p: c[name] for p, c in new_launches.items()}}
+                   **{p: with_fused(name, c)
+                      for p, c in new_launches.items()}}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
         for label, path in (("head_dim_128", "dense_serve"
                              if name in PAGED_LIBS else "dense_train"),
                             ("hymba_group_5", "hymba_train")):
             if label in k:
-                k[label]["launches"] = new_launches[path][name]
+                k[label]["launches"] = with_fused(name, new_launches[path])
                 check(k[label]["launches"] > 0, f"{name} at {label}: never "
                       f"launched on {path}")
         if k["ms"] < k["bound_ms"]:
@@ -6876,12 +7219,26 @@ def main():
                 for r in train_routes[name]}, "build": tc[name]}
         if name in TF32_KERNELS:
             extra["build_tf32x3"] = tc[f"{name}/tf32x3"]
-        if name in PAGED_LIBS:
+        if name in PAGED_LIBS or name == FUSED:
             extra = {"launches_by_route": {
                 r: serve_routes[name][r] + spec_routes[name][r]
                 + new_routes_of(name, r)
-                for r in serve_routes[name]}, "build": tc[name],
-                "traced_serving": traced_summary}
+                for r in serve_routes[name]}, "build": tc[name]
+                if name != FUSED else {
+                    "tma": tc["paged_decode_attention"],
+                    "tma128": tc["paged_decode_attention/d128"]}}
+            if name != FUSED:
+                extra["traced_serving"] = traced_summary
+        if name == "paged_decode_attention":
+            # its launches above count the fused wrapper's too
+            extra["launches_by_wrapper"] = {
+                w: sum(c.get(w, 0) for c in (
+                    launches, traced_launches, spec_launches,
+                    *new_launches.values())) for w in (name, FUSED)}
+            for r in extra["launches_by_route"]:
+                extra["launches_by_route"][r] += (
+                    serve_routes[FUSED].get(r, 0)
+                    + spec_routes[FUSED].get(r, 0) + new_routes_of(FUSED, r))
         if name == "mlstm_chunked":
             extra = {"launches_by_route": {
                 r: xlstm_routes[r] + xt_routes[name][r]
@@ -6958,6 +7315,8 @@ def main():
     for name, (stem, kname, route) in PAGED128_LIBS.items():
         k = kernels[name]["head_dim_128"]
         by_path = {p: c.get(name, {}).get(route, 0)
+                   + (c.get(FUSED, {}).get(route, 0)
+                      if name == "paged_decode_attention" else 0)
                    for p, c in new_routes.items()}
         check(sum(by_path.values()) > 0, f"{kname} was never launched")
         main = k["serving bf16"]

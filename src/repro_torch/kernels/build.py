@@ -39,9 +39,11 @@ SIGNATURES = {
     "paged_prefill": ("paged_prefill_attention",
                       [_I, _I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "paged_decode_tma": ("paged_decode_attention_tma",
-                         [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
+                         [_I] + [_P] * 14 + [_I] + [_L] * 4 + [_I] * 8
+                         + [_F, _P]),
     "paged_decode_tma128": ("paged_decode_attention_tma128",
-                            [_I] + [_P] * 10 + [_I] * 8 + [_F, _P]),
+                            [_I] + [_P] * 14 + [_I] + [_L] * 4 + [_I] * 8
+                            + [_F, _P]),
     "paged_prefill_tc": ("paged_prefill_attention_tc",
                          [_I] + [_P] * 11 + [_I] * 12 + [_F, _P]),
     "paged_prefill_tc128": ("paged_prefill_attention_tc128",

@@ -37,7 +37,19 @@
 //     score, V's is folded into the probability (the row sum l takes the
 //     unscaled one);
 //   * the warps' (m, l, acc) merge through shared memory at the end; the
-//     splits' through the workspace, in split order (bitwise repeatable).
+//     splits' through the workspace, in split order (bitwise repeatable);
+//   * a serving decode step appends each lane's new K/V row before it
+//     attends over ctx + 1 keys, and the kernel does that write itself
+//     (the fused entry point; it folds kv_append_int8.cu's launch, or a
+//     bf16 cache's two scatters, into the decode's): the one CTA whose
+//     split holds key ctx of its (lane, KV head), the last live split,
+//     is that slot's only reader. Its producer warp writes the K and V
+//     rows, half a warp each (paged_tma.cuh :: append_rows: int8 pools
+//     quantized bitwise as kv_append_int8.cu does, bf16 pools copied), and
+//     fences them for the async proxy once the ring is full, before it
+//     loads the last tile, the one holding the slot: the tiles before it
+//     are in flight meanwhile and no consumer warp waits on the write.
+//     The other CTAs run as the plain decode does.
 #include "paged_tma.cuh"
 
 namespace paged_tma {
@@ -76,17 +88,20 @@ paged_decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
                         const int* __restrict__ tables,
                         const int* __restrict__ ctx_lens,
                         float* __restrict__ ws, int* __restrict__ counters,
-                        int Hq, int Hkv, int NB, int bs, int T, int nsplit,
-                        int split_keys, float scale_log2) {
+                        const __grid_constant__ Append ap, int Hq, int Hkv,
+                        int NB, int bs, int T, int nsplit, int split_keys,
+                        float scale_log2) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
   constexpr int ESZ = sizeof(KVT);
   extern __shared__ unsigned char smem_raw[];
   auto& s = *reinterpret_cast<DecodeSmem<KVT, G>*>(align1024(smem_raw));
   const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int g = Hq / Hkv;
-  const int ctx = max(0, min(ctx_lens[b], T * bs));
+  const bool append = ap.k != nullptr;     // key ctx_lens[b] is appended
+  const int ctx = max(0, min(ctx_lens[b] + (append ? 1 : 0), T * bs));
   const int nlive = max(1, (ctx + split_keys - 1) / split_keys);
   if (sp >= nlive) return;                 // the whole CTA: nothing to see
+  const bool writes = append && sp == nlive - 1;
   Walk w;
   w.table = tables + (size_t)b * T;
   w.lo = sp * split_keys;
@@ -106,7 +121,7 @@ paged_decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
 
   if (warp == kWarps) {                    // the producer warp
     produce<KVT>(s.ring, &s.scales, s.r, tk, tv, tks, tvs, w, bs, h * NB,
-                 ids);
+                 ids, writes ? &ap : nullptr, h, b, NB);
     return;
   }
 
@@ -279,9 +294,10 @@ paged_decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
 template <typename KVT, int G>
 static int launch(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* tables,
-                  const int* ctx, void* out, float* ws, int* counters, int B,
-                  int Hq, int Hkv, int NB, int bs, int T, int nsplit,
-                  int split_keys, float scale, cudaStream_t stream) {
+                  const int* ctx, void* out, float* ws, int* counters,
+                  const Append& ap, int B, int Hq, int Hkv, int NB, int bs,
+                  int T, int nsplit, int split_keys, float scale,
+                  cudaStream_t stream) {
   Maps m;
   cudaError_t err = pool_maps(&m, sizeof(KVT) == 1, k, v, ks, vs, Hkv * NB,
                               bs);
@@ -293,7 +309,7 @@ static int launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(Hkv, B, nsplit), kThreads, smem, stream>>>(
       m.k, m.v, m.ks, m.vs, (const __nv_bfloat16*)q, (__nv_bfloat16*)out,
-      tables, ctx, ws, counters, Hq, Hkv, NB, bs, T, nsplit, split_keys,
+      tables, ctx, ws, counters, ap, Hq, Hkv, NB, bs, T, nsplit, split_keys,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -302,13 +318,13 @@ template <typename KVT>
 static int launch_g(int g, const void* q, const void* k, const void* v,
                     const float* ks, const float* vs, const int* tables,
                     const int* ctx, void* out, float* ws, int* counters,
-                    int B, int Hq, int Hkv, int NB, int bs, int T,
-                    int nsplit, int split_keys, float scale,
+                    const Append& ap, int B, int Hq, int Hkv, int NB, int bs,
+                    int T, int nsplit, int split_keys, float scale,
                     cudaStream_t st) {
 #define PAGED_DECODE_LAUNCH(GG)                                            \
   return launch<KVT, GG>(q, k, v, ks, vs, tables, ctx, out, ws, counters, \
-                         B, Hq, Hkv, NB, bs, T, nsplit, split_keys, scale,  \
-                         st)
+                         ap, B, Hq, Hkv, NB, bs, T, nsplit, split_keys,     \
+                         scale, st)
   if (g <= 1) PAGED_DECODE_LAUNCH(1);
   if (g <= 2) PAGED_DECODE_LAUNCH(2);
   if (g <= 4) PAGED_DECODE_LAUNCH(4);
@@ -324,27 +340,41 @@ static int launch_g(int g, const void* q, const void* k, const void* v,
 // <= 8; bs in {8, 16, 32, 64} (int8: 16, 32, 64). nsplit (<= 64) CTAs a
 // (lane, KV head) over split_keys keys each (a multiple of 64); above one
 // split, ws holds B * Hkv * nsplit * partial_floats(g) floats and counters
-// B * Hkv int32 zeros (left zero). Returns cudaGetLastError() of the
-// launch.
+// B * Hkv int32 zeros (left zero). With krow non-null (the fused append),
+// lane b first writes its bf16 rows krow/vrow (element (h, b, e) at h ksp
+// + b ksn + e of K, V likewise; ksp, ksn, vsp, vsn multiples of 4 and
+// krow, vrow 8-byte aligned)
+// into slot (phys[b], off[b]) of each KV head's pools (and scales),
+// phys/off [B] int64 when idx64, else int32, and then attends over
+// ctx[b] + 1 keys.
+// Returns cudaGetLastError() of the launch.
 extern "C" int paged_decode_attention_tma(
     int kv_dtype, const void* q, const void* k, const void* v,
     const float* ks, const float* vs, const int* tables, const int* ctx,
-    void* out, float* ws, int* counters, int B, int Hq, int Hkv, int NB,
-    int bs, int T, int nsplit, int split_keys, float scale, void* stream) {
+    void* out, float* ws, int* counters, const void* krow,
+    const void* vrow, const void* phys, const void* off, int idx64,
+    long long ksp, long long ksn, long long vsp, long long vsn,
+    int B, int Hq, int Hkv, int NB, int bs, int T, int nsplit,
+    int split_keys, float scale, void* stream) {
   using namespace paged_tma;
   cudaStream_t st = (cudaStream_t)stream;
   const int g = Hq / Hkv;
   const bool ok_split = split_keys % KT == 0 && nsplit <= MAX_SPLITS &&
                         (nsplit == 1 || (ws != nullptr && counters));
-  if (g < 1 || g > 8 || KT % bs != 0 || !ok_split)
+  const bool ok_rows = krow == nullptr ||
+                       (vrow != nullptr && phys != nullptr && off != nullptr);
+  if (g < 1 || g > 8 || KT % bs != 0 || !ok_split || !ok_rows)
     return (int)cudaErrorInvalidValue;
+  const Append ap{krow, vrow, phys, off, const_cast<void*>(k),
+                  const_cast<void*>(v), const_cast<float*>(ks),
+                  const_cast<float*>(vs), ksp, ksn, vsp, vsn, idx64};
   if (kv_dtype == paged::kBF16 && bs % 8 == 0)
     return launch_g<__nv_bfloat16>(g, q, k, v, ks, vs, tables, ctx, out, ws,
-                                   counters, B, Hq, Hkv, NB, bs, T, nsplit,
-                                   split_keys, scale, st);
+                                   counters, ap, B, Hq, Hkv, NB, bs, T,
+                                   nsplit, split_keys, scale, st);
   if (kv_dtype == paged::kI8 && bs % 16 == 0)
     return launch_g<int8_t>(g, q, k, v, ks, vs, tables, ctx, out, ws,
-                            counters, B, Hq, Hkv, NB, bs, T, nsplit,
+                            counters, ap, B, Hq, Hkv, NB, bs, T, nsplit,
                             split_keys, scale, st);
   return (int)cudaErrorInvalidValue;
 }

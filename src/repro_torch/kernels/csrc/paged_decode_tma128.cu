@@ -49,7 +49,12 @@
 //     never reaches a score; a lane at ctx 0 loads nothing and writes
 //     exact zeros;
 //   * the warps' (m, l, acc) merge through shared memory at the end; the
-//     splits' through the workspace, in split order (bitwise repeatable).
+//     splits' through the workspace, in split order (bitwise repeatable);
+//   * the fused entry point writes each lane's new K/V row first, as
+//     paged_decode_tma.cu does: in the CTA of the last live split, the
+//     producer warp writes the K and V rows (half a warp each, eight
+//     elements a lane) once the ring is full, before it loads its last
+//     tile, the one holding that slot.
 #include "paged_tma.cuh"
 
 namespace paged_tma128 {
@@ -116,16 +121,19 @@ paged_decode_tma128_kernel(const __grid_constant__ CUtensorMap tk,
                            const int* __restrict__ tables,
                            const int* __restrict__ ctx_lens,
                            float* __restrict__ ws, int* __restrict__ counters,
-                           int Hq, int Hkv, int NB, int bs, int T,
-                           int nsplit, int split_keys, float scale_log2) {
+                           const __grid_constant__ Append ap, int Hq,
+                           int Hkv, int NB, int bs, int T, int nsplit,
+                           int split_keys, float scale_log2) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
   constexpr int ESZ = sizeof(KVT);
   extern __shared__ unsigned char smem_raw[];
   auto& s = *reinterpret_cast<DecodeSmem<KVT, G>*>(align1024(smem_raw));
   const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
-  const int ctx = max(0, min(ctx_lens[b], T * bs));
+  const bool append = ap.k != nullptr;     // key ctx_lens[b] is appended
+  const int ctx = max(0, min(ctx_lens[b] + (append ? 1 : 0), T * bs));
   const int nlive = max(1, (ctx + split_keys - 1) / split_keys);
   if (sp >= nlive) return;                 // the whole CTA: nothing to see
+  const bool writes = append && sp == nlive - 1;
   Walk w;
   w.table = tables + (size_t)b * T;
   w.lo = sp * split_keys;
@@ -143,7 +151,7 @@ paged_decode_tma128_kernel(const __grid_constant__ CUtensorMap tk,
 
   if (warp == kWarps) {                    // the producer warp
     produce<KVT, D, NS>(s.ring, &s.scales, s.r, tk, tv, tks, tvs, w, bs,
-                        h * NB, ids);
+                        h * NB, ids, writes ? &ap : nullptr, h, b, NB);
     return;
   }
 
@@ -311,9 +319,10 @@ paged_decode_tma128_kernel(const __grid_constant__ CUtensorMap tk,
 template <typename KVT, int G>
 static int launch(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* tables,
-                  const int* ctx, void* out, float* ws, int* counters, int B,
-                  int Hq, int Hkv, int NB, int bs, int T, int nsplit,
-                  int split_keys, float scale, cudaStream_t stream) {
+                  const int* ctx, void* out, float* ws, int* counters,
+                  const Append& ap, int B, int Hq, int Hkv, int NB, int bs,
+                  int T, int nsplit, int split_keys, float scale,
+                  cudaStream_t stream) {
   Maps m;
   cudaError_t err = pool_maps(&m, sizeof(KVT) == 1, k, v, ks, vs, Hkv * NB,
                               bs, D);
@@ -325,7 +334,7 @@ static int launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(Hkv, B, nsplit), kThreads, smem, stream>>>(
       m.k, m.v, m.ks, m.vs, (const __nv_bfloat16*)q, (__nv_bfloat16*)out,
-      tables, ctx, ws, counters, Hq, Hkv, NB, bs, T, nsplit, split_keys,
+      tables, ctx, ws, counters, ap, Hq, Hkv, NB, bs, T, nsplit, split_keys,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -334,13 +343,13 @@ template <typename KVT>
 static int launch_g(int g, const void* q, const void* k, const void* v,
                     const float* ks, const float* vs, const int* tables,
                     const int* ctx, void* out, float* ws, int* counters,
-                    int B, int Hq, int Hkv, int NB, int bs, int T,
-                    int nsplit, int split_keys, float scale,
+                    const Append& ap, int B, int Hq, int Hkv, int NB, int bs,
+                    int T, int nsplit, int split_keys, float scale,
                     cudaStream_t st) {
 #define PAGED_DECODE128_LAUNCH(GG)                                         \
   case GG:                                                                 \
     return launch<KVT, GG>(q, k, v, ks, vs, tables, ctx, out, ws,          \
-                           counters, B, Hq, Hkv, NB, bs, T, nsplit,        \
+                           counters, ap, B, Hq, Hkv, NB, bs, T, nsplit,    \
                            split_keys, scale, st)
   switch (g) {
     PAGED_DECODE128_LAUNCH(1);
@@ -364,27 +373,38 @@ static int launch_g(int g, const void* q, const void* k, const void* v,
 // <= 8; bs in {8, 16, 32, 64} (int8: 16, 32, 64). nsplit (<= 64) CTAs a
 // (lane, KV head) over split_keys keys each (a multiple of 64); above one
 // split, ws holds B * Hkv * nsplit * partial_floats<128>(g) floats and
-// counters B * Hkv int32 zeros (left zero). Returns cudaGetLastError() of
-// the launch.
+// counters B * Hkv int32 zeros (left zero). krow .. vsn: the fused
+// append, as paged_decode_attention_tma takes it (krow null: none; the
+// strides multiples of 8, krow and vrow 16-byte aligned).
+// Returns cudaGetLastError() of the launch.
 extern "C" int paged_decode_attention_tma128(
     int kv_dtype, const void* q, const void* k, const void* v,
     const float* ks, const float* vs, const int* tables, const int* ctx,
-    void* out, float* ws, int* counters, int B, int Hq, int Hkv, int NB,
-    int bs, int T, int nsplit, int split_keys, float scale, void* stream) {
+    void* out, float* ws, int* counters, const void* krow,
+    const void* vrow, const void* phys, const void* off, int idx64,
+    long long ksp, long long ksn, long long vsp, long long vsn,
+    int B, int Hq, int Hkv, int NB, int bs, int T, int nsplit,
+    int split_keys, float scale, void* stream) {
   using namespace paged_tma;
   cudaStream_t st = (cudaStream_t)stream;
   const int g = Hq / Hkv;
   const bool ok_split = split_keys % KT == 0 && nsplit <= MAX_SPLITS &&
                         (nsplit == 1 || (ws != nullptr && counters));
-  if (g < 1 || g > 8 || Hq % Hkv != 0 || KT % bs != 0 || !ok_split)
+  const bool ok_rows = krow == nullptr ||
+                       (vrow != nullptr && phys != nullptr && off != nullptr);
+  if (g < 1 || g > 8 || Hq % Hkv != 0 || KT % bs != 0 || !ok_split ||
+      !ok_rows)
     return (int)cudaErrorInvalidValue;
+  const Append ap{krow, vrow, phys, off, const_cast<void*>(k),
+                  const_cast<void*>(v), const_cast<float*>(ks),
+                  const_cast<float*>(vs), ksp, ksn, vsp, vsn, idx64};
   if (kv_dtype == paged::kBF16 && bs % 8 == 0)
     return paged_tma128::launch_g<__nv_bfloat16>(
-        g, q, k, v, ks, vs, tables, ctx, out, ws, counters, B, Hq, Hkv, NB,
-        bs, T, nsplit, split_keys, scale, st);
+        g, q, k, v, ks, vs, tables, ctx, out, ws, counters, ap, B, Hq, Hkv,
+        NB, bs, T, nsplit, split_keys, scale, st);
   if (kv_dtype == paged::kI8 && bs % 16 == 0)
     return paged_tma128::launch_g<int8_t>(
-        g, q, k, v, ks, vs, tables, ctx, out, ws, counters, B, Hq, Hkv, NB,
-        bs, T, nsplit, split_keys, scale, st);
+        g, q, k, v, ks, vs, tables, ctx, out, ws, counters, ap, B, Hq, Hkv,
+        NB, bs, T, nsplit, split_keys, scale, st);
   return (int)cudaErrorInvalidValue;
 }

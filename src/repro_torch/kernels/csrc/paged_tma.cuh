@@ -43,9 +43,17 @@
 // order and resets the counter to zero for the next launch. The merge
 // reads every partial back from the workspace, the merging CTA's own too,
 // so the output is bitwise the same whichever CTA merges.
+//
+// The decode's append. A serving decode step first writes each lane's new
+// K/V row at key ctx and then attends over ctx + 1 keys. The decode
+// kernels' fused entry points do both: in the CTA of the last live split,
+// the only one that reads slot ctx of its (lane, KV head), the producer
+// warp writes the rows (append_rows) and fences them for the async proxy
+// before it loads the last tile.
 #pragma once
 
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 #include "hopper.cuh"
@@ -144,11 +152,128 @@ __device__ __forceinline__ int first_ids(const Walk& w, int bs) {
   return lane < nblk ? w.table[w.lo / bs + lane] : 0;
 }
 
+// ------------------------------------------------- the decode's append
+// A decode step's new K/V rows, which the decode kernels write into the
+// pools themselves (the fused entry points): row (h, b) of K is at
+// k + h * ksp + b * ksn bf16 elements, V's at v + h * vsp + b * vsn;
+// both go to slot (phys[b], off[b]) of KV head h's
+// plane (int64 indices when idx64, else int32), into the pools kp / vp
+// [Hkv, NB, bs, DD] and, for int8 pools, the scales ks / vs [Hkv, NB, bs].
+// k null: no append (the plain decode).
+struct Append {
+  const void* k;
+  const void* v;
+  const void* phys;
+  const void* off;
+  void* kp;
+  void* vp;
+  float* ks;
+  float* vs;
+  long long ksp, ksn, vsp, vsn;
+  int idx64;
+};
+
+constexpr float kInvQmax = 0x1.020408p-7f;   // float32(1 / 127)
+
+// Order this thread's generic-proxy global stores before later
+// async-proxy (TMA) reads of the same bytes, once a barrier orders the
+// thread that issues them after this one.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ long long append_index(const void* p, int is64,
+                                                  int i) {
+  return is64 ? reinterpret_cast<const long long*>(p)[i]
+              : (long long)reinterpret_cast<const int*>(p)[i];
+}
+
+// One warp writes lane b's K and V rows of KV head h into their pool
+// slots, K by the warp's lanes 0-15 and V by 16-31 at once, each thread DD
+// / 16 adjacent elements by one vector load and store (the wrapper checks
+// the rows' alignment), then orders its stores before the TMA loads that
+// lane 0 issues after the warp's next __syncwarp. int8 pools take
+// kv_append_int8.cu's arithmetic, bitwise: scale = absmax *
+// float32(1/127) (__fmul_rn; the absmax a shuffle over the half-warp),
+// code = clip(floor(x / scale + 0.5)) (__fdiv_rn, __fadd_rn), an all-zero
+// row scale 0 and code 0. bf16 pools take the row's bits.
+template <typename KVT, int DD>
+__device__ __forceinline__ void append_rows(const Append& a, int h, int b,
+                                            int NB, int bs) {
+  constexpr int PER = DD / 16;               // 4 or 8 elements a lane
+  using Bf16s = typename std::conditional<PER == 8, uint4, uint2>::type;
+  using Codes = typename std::conditional<PER == 8, uint2, uint32_t>::type;
+  const int lane = threadIdx.x & 15;         // within its half-warp
+  const bool is_v = (threadIdx.x & 31) >= 16;
+  const long long blk = append_index(a.phys, a.idx64, b);
+  const long long o = append_index(a.off, a.idx64, b);
+  const long long src = (is_v ? a.vsp : a.ksp) * h +
+                        (is_v ? a.vsn : a.ksn) * b + lane * PER;
+  const long long slot = ((long long)h * NB + blk) * bs + o;
+  void* pool = is_v ? a.vp : a.kp;
+  const Bf16s w = *reinterpret_cast<const Bf16s*>(
+      static_cast<const __nv_bfloat16*>(is_v ? a.v : a.k) + src);
+  if constexpr (sizeof(KVT) == 1) {
+    float x[PER];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int u = 0; u < PER / 2; ++u) {
+      const float2 f = __bfloat1622float2(p[u]);
+      x[2 * u] = f.x;
+      x[2 * u + 1] = f.y;
+    }
+    float amax = 0.0f;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) amax = fmaxf(amax, fabsf(x[u]));
+#pragma unroll
+    for (int s = 8; s > 0; s >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, s));
+    const float sc = __fmul_rn(amax, kInvQmax);
+    const float safe = amax > 0.0f ? sc : 1.0f;
+    uint32_t words[PER / 4] = {};            // the codes, 4 a word
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const float c = floorf(__fadd_rn(__fdiv_rn(x[u], safe), 0.5f));
+      words[u / 4] |= (uint32_t)(uint8_t)(int8_t)fminf(fmaxf(c, -127.0f),
+                                                      127.0f)
+                      << (8 * (u % 4));
+    }
+    Codes packed;
+    if constexpr (PER == 8)
+      packed = make_uint2(words[0], words[1]);
+    else
+      packed = words[0];
+    reinterpret_cast<Codes*>(static_cast<int8_t*>(pool) + slot * DD)[lane] =
+        packed;
+    if (lane == 0) (is_v ? a.vs : a.ks)[slot] = amax > 0.0f ? sc : 0.0f;
+  } else {
+    reinterpret_cast<Bf16s*>(static_cast<__nv_bfloat16*>(pool) +
+                             slot * DD)[lane] = w;
+  }
+  fence_proxy_async_global();
+}
+
+// append_rows as a call of its own. Each decode kernel takes the form
+// with which ptxas spills nothing in any of its instantiations: int8
+// pools inline the writer (called, the head_dim-64 G-1 kernel spills 8
+// bytes), bf16 pools call it (inlined, their head_dim-64 G-1 kernel
+// spills 4); at head_dim 128 both forms spill nothing.
+template <typename KVT, int DD>
+__device__ __noinline__ void append_rows_call(const Append& a, int h,
+                                              int b, int NB, int bs) {
+  append_rows<KVT, DD>(a, h, b, NB, bs);
+}
+
 // The producer warp: every live block of every tile of the walk, stage
 // by stage (NS of them), lane 0 issuing. The table entries come 32 at a
 // time, one a lane, and reach lane 0 by shuffle: no load waits on a lookup
 // but the first of each 32 blocks. `plane0` is h * NB, the KV head's first
-// plane; `ids` is first_ids().
+// plane; `ids` is first_ids(). With `ap` (the CTA of a decode that appends
+// lane b's K/V rows of KV head h, append_rows), the warp writes the two
+// rows once the ring is full, where it would first wait for a consumer
+// (or before the last tile, the one holding the appended key, if that
+// comes first): the tiles before are in flight meanwhile, and no
+// consumer waits on the write.
 template <typename KVT, int DD = D, int NS = STAGES>
 __device__ __forceinline__ void produce(Stage<KVT, DD>* ring, Scales* sc,
                                         Ring& r, const CUtensorMap& tk,
@@ -156,7 +281,9 @@ __device__ __forceinline__ void produce(Stage<KVT, DD>* ring, Scales* sc,
                                         const CUtensorMap& tks,
                                         const CUtensorMap& tvs,
                                         const Walk& w, int bs, int plane0,
-                                        int ids) {
+                                        int ids,
+                                        const Append* ap = nullptr,
+                                        int h = 0, int b = 0, int NB = 0) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
   // a block's boxes: a 256-byte row is two 128-byte halves
   constexpr int kBoxes = DD * sizeof(KVT) > 128 ? 2 : 1;
@@ -168,6 +295,13 @@ __device__ __forceinline__ void produce(Stage<KVT, DD>* ring, Scales* sc,
   for (int t = 0; t < w.tiles(); ++t) {
     const int st = t % NS;
     const int first = t * per, n = min(per, nblk - first);
+    if (ap != nullptr && t == min(NS, w.tiles() - 1)) {
+      if constexpr (kInt8)
+        append_rows<KVT, DD>(*ap, h, b, NB, bs);
+      else
+        append_rows_call<KVT, DD>(*ap, h, b, NB, bs);
+      __syncwarp();           // every lane's stores and fence before lane 0
+    }
     if (lane == 0) {
       mbar_wait(&r.empty[st], ((t / NS) & 1) ^ 1);
       mbar_expect_tx(&r.full[st],

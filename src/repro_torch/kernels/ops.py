@@ -25,7 +25,10 @@ over bf16 or int8 pools at head_dim 64 to TMA-fed kernels that split the
 keys over CTAs (decode on the CUDA cores, prefill on wgmma), at head_dim
 128 to their own TMA-fed kernels (decode "tma128", prefill "wgmma128", on
 wgmma with a 128-row tile), and the rest to their SIMT kernels
-(:func:`paged_route`); the speculative decoder's batched verify
+(:func:`paged_route`); a serving decode step's layer
+(:func:`paged_decode_append_attention`) appends the lanes' new K/V rows
+inside the TMA-fed decode kernel's launch (its fused entry point), and
+on the SIMT route appends first; the speculative decoder's batched verify
 (:func:`paged_verify_attention`) takes the prefill's route, one launch
 for all lanes. The chunkwise mLSTM sends float32 and bf16 at head widths
 64, 128, 256 and 512 to a 3xTF32 wgmma kernel whose cluster shares S
@@ -35,7 +38,9 @@ the autograd Function of :func:`mlstm_chunked_ad`) is one SIMT kernel
 pair on the CUDA cores. The flash backward's preprocess launches its
 16-byte-load kernel on every call ("vec"); its one-warp-a-row kernel
 runs only when asked for ("simt"). Their ``routes`` dict counts the
-launches of each (:func:`route_counts`). The int8 KV cache's append is one fused launch
+launches of each (:func:`route_counts`). The int8 KV cache's append
+outside a TMA-route decode step (prefill chunks, the monolithic prefill,
+the verify, the SIMT route) is one launch of its own
 (:func:`quantize_kv_append`), the serving route of the quantizer.
 """
 from __future__ import annotations
@@ -290,11 +295,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                          scale=scale, k_scales=k_scales, v_scales=v_scales)
 
 
-def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
-                  k_scales, v_scales, route: Optional[str] = None):
-    """:func:`paged_decode_attention` on ``route`` (None: the one
-    :func:`paged_route` picks; "simt" also takes what the Hopper kernel
-    takes, so both can be compared on the same inputs)."""
+def _check_decode(q, k_pages, v_pages, block_tables, ctx_lens, k_scales,
+                  v_scales):
+    """The paged decode's input checks; returns (Hkv, bs, D)."""
     _require(q.dim() == 3, "q must be [B, Hq, D]")
     hkv, bs, d = _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     b, hq, _ = q.shape
@@ -307,6 +310,17 @@ def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
     _contiguous(block_tables=block_tables, ctx_lens=ctx_lens)
     _require(hq // hkv <= MAX_GROUP,
              f"GQA group {hq // hkv} > {MAX_GROUP} query heads per KV head")
+    return hkv, bs, d
+
+
+def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
+                  k_scales, v_scales, route: Optional[str] = None):
+    """:func:`paged_decode_attention` on ``route`` (None: the one
+    :func:`paged_route` picks; "simt" also takes what the Hopper kernel
+    takes, so both can be compared on the same inputs)."""
+    hkv, bs, d = _check_decode(q, k_pages, v_pages, block_tables, ctx_lens,
+                               k_scales, v_scales)
+    b, hq, _ = q.shape
     scale = float(scale) if scale is not None else d ** -0.5
     scales = () if k_scales is None else (k_scales, v_scales)
     if not _on_card(q, k_pages, v_pages, block_tables, ctx_lens, *scales):
@@ -333,13 +347,16 @@ def _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *, scale,
 
 
 def _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens, scale,
-                       k_scales, v_scales, out, plan_lanes: int) -> int:
+                       k_scales, v_scales, out, plan_lanes: int,
+                       rows=None) -> int:
     """One launch of the TMA-fed decode kernel of q's head_dim
     (``csrc/paged_decode_tma.cu`` at 64, ``csrc/paged_decode_tma128.cu``
     at 128; inputs already checked) over q's B lanes, its keys split by
     :func:`paged_splits` as for ``plan_lanes`` lanes (a row's arithmetic
-    depends on its lane's keys and that plan only). Returns the kernel's
-    error code."""
+    depends on its lane's keys and that plan only). With ``rows`` =
+    (k_rows, v_rows, phys, off) the launch first appends them and attends
+    over ctx_lens + 1 keys (:func:`paged_decode_append_attention`).
+    Returns the kernel's error code."""
     b, hq, d = q.shape
     hkv, nb, bs, _ = k_pages.shape
     t = block_tables.shape[1]
@@ -348,11 +365,106 @@ def _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens, scale,
     ws, ctr = _split_scratch(q, stream, nsplit, b * hkv,
                              _partial_floats(hq // hkv, d))
     stem = {64: "paged_decode_tma", 128: "paged_decode_tma128"}[d]
+    if rows is None:
+        append = (None, None, None, None, 0, 0, 0, 0, 0)
+    else:
+        kr, vr, phys, off = rows
+        append = (_ptr(kr), _ptr(vr), _ptr(phys), _ptr(off),
+                  int(phys.dtype == torch.int64), *kr.stride()[:2],
+                  *vr.stride()[:2])
     return build.load(stem)(
         _DTYPE_CODES[k_pages.dtype], _ptr(q), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scales), _ptr(v_scales), _ptr(block_tables), _ptr(ctx_lens),
-        _ptr(out), _ptr(ws), _ptr(ctr), b, hq, hkv, nb, bs, t, nsplit, per,
-        scale, stream)
+        _ptr(out), _ptr(ws), _ptr(ctr), *append, b, hq, hkv, nb, bs, t,
+        nsplit, per, scale, stream)
+
+
+def decode_fuses_append(q_dtype, kv_dtype, head_dim: int,
+                        block_size: int) -> bool:
+    """True when a card call of :func:`paged_decode_append_attention` is
+    one launch of a TMA-fed decode kernel that writes the rows itself
+    (:func:`paged_route` "tma" or "tma128"); False when the stand-alone
+    append goes first and the SIMT decode kernel after it."""
+    return (paged_route("decode", q_dtype, kv_dtype, head_dim, block_size)
+            in PAGED_HOPPER["decode"])
+
+
+def paged_decode_append_attention(q, k_rows, v_rows, k_pages, v_pages,
+                                  block_tables, ctx_lens, phys, off, *,
+                                  scale: Optional[float] = None,
+                                  k_scales=None, v_scales=None):
+    """A serving decode step's layer: append each lane's new K/V row to the
+    pools, in place, then attend over its ctx_lens + 1 keys.
+
+    q: [B, Hq, D]; k_rows/v_rows: [Hkv, B, D] in q's dtype, each row
+    contiguous (a transposed view of a projection's output is read in
+    place, through its strides); k_pages/v_pages, block_tables, scales as
+    :func:`paged_decode_attention`; ctx_lens: [B] int32, the keys before
+    the append (the new row's position); phys/off: [B] int32 or int64,
+    the slot (block, offset) lane b's row goes to (a dead lane points at
+    the null block, 0). Int8 pools take the rows as
+    :func:`quantize_kv_append` writes them, other pools a cast copy.
+    Returns [B, Hq, D] as ``paged_decode_attention`` over ctx_lens + 1.
+
+    On the card, bf16 q on a TMA-fed decode route (:func:`paged_route`:
+    "tma" at head_dim 64, "tma128" at 128) launches that kernel's fused
+    entry point once: the CTA holding key ctx of its (lane, KV head)
+    writes the rows before it loads them, pools bitwise the stand-alone
+    append's and output bitwise the separate append and decode's. Every
+    other route (float32 q, other head dims and blocks: "simt") appends
+    with :func:`quantize_kv_append` (int8) or two scatters, then launches
+    :func:`paged_decode_attention`, whose counts take those launches.
+    ``launches`` and ``routes`` ("tma", "tma128"; "simt" stays 0) count
+    the fused launches alone."""
+    hkv, bs, d = _check_decode(q, k_pages, v_pages, block_tables, ctx_lens,
+                               k_scales, v_scales)
+    b = q.shape[0]
+    _require(k_rows.dtype == q.dtype and v_rows.dtype == q.dtype,
+             f"k_rows/v_rows must be {q.dtype}, as q")
+    _require(tuple(k_rows.shape) == (hkv, b, d)
+             and v_rows.shape == k_rows.shape,
+             f"k_rows/v_rows must be [Hkv, B, D] = {(hkv, b, d)}")
+    _require(k_rows.stride(-1) == 1 and v_rows.stride(-1) == 1,
+             "k_rows/v_rows must have contiguous rows")
+    _require(phys.dim() == 1 and tuple(phys.shape) == (b,)
+             and off.shape == phys.shape and off.dtype == phys.dtype
+             and phys.dtype in (torch.int32, torch.int64),
+             "phys and off must be [B] int32 or int64 of one dtype")
+    _contiguous(phys=phys, off=off)
+    scale = float(scale) if scale is not None else d ** -0.5
+    scales = () if k_scales is None else (k_scales, v_scales)
+    if not _on_card(q, k_rows, v_rows, k_pages, v_pages, block_tables,
+                    ctx_lens, phys, off, *scales):
+        return ref.paged_decode_append_attention_ref(
+            q, k_rows, v_rows, k_pages, v_pages, block_tables, ctx_lens,
+            phys, off, scale=scale, k_scales=k_scales, v_scales=v_scales)
+    if not decode_fuses_append(q.dtype, k_pages.dtype, d, bs):
+        if k_scales is not None:
+            quantize_kv_append(k_pages, v_pages, k_scales, v_scales, k_rows,
+                               v_rows, phys, off)
+        else:
+            p, o = phys.long(), off.long()
+            k_pages[:, p, o] = k_rows.to(k_pages.dtype)
+            v_pages[:, p, o] = v_rows.to(v_pages.dtype)
+        return _paged_decode(q, k_pages, v_pages, block_tables, ctx_lens + 1,
+                             scale=scale, k_scales=k_scales,
+                             v_scales=v_scales)
+    _aligned(k_pages=k_pages, v_pages=v_pages)
+    per = d // 16               # elements a lane reads in one vector load
+    for name, r in (("k_rows", k_rows), ("v_rows", v_rows)):
+        _require(r.stride(0) % per == 0 and r.stride(1) % per == 0
+                 and r.data_ptr() % (per * r.element_size()) == 0,
+                 f"{name}: plane and row strides must be multiples of {per} "
+                 f"and the base {per * r.element_size()}-byte aligned")
+    route = paged_route("decode", q.dtype, k_pages.dtype, d, bs)
+    out = torch.empty_like(q)
+    err = _decode_tma_launch(q, k_pages, v_pages, block_tables, ctx_lens,
+                             scale, k_scales, v_scales, out, b,
+                             rows=(k_rows, v_rows, phys, off))
+    _raise_on(err, f"paged_decode_append_attention ({route})")
+    paged_decode_append_attention.launches += 1
+    paged_decode_append_attention.routes[route] += 1
+    return out
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, q_offset: int,
@@ -1399,8 +1511,8 @@ def mlstm_chunked_ad(q, k, v, ig, lf, *, chunk: int = 64, C0=None, n0=None,
     return h, (C, n, m)
 
 
-KERNELS = (paged_decode_attention, paged_prefill_attention,
-           paged_verify_attention, quantize_int8,
+KERNELS = (paged_decode_attention, paged_decode_append_attention,
+           paged_prefill_attention, paged_verify_attention, quantize_int8,
            quantize_kv_append, dequantize_int8, flash_attention,
            flash_attention_bwd_preprocess, flash_attention_bwd_dkv,
            flash_attention_bwd_dq, lora_matmul, mlstm_chunked,
@@ -1411,11 +1523,15 @@ KERNELS = (paged_decode_attention, paged_prefill_attention,
 #: the three flash kernels count their float32 3xTF32 kernel's launches
 #: as "tf32x3" beside them (:data:`TF32_ROUTED`) and their bf16
 #: head_dim-128 kernel's as "wgmma128" (:data:`TC128_ROUTED`); the paged
-#: wrappers their head_dim-128 kernel's as "tma128" (decode) and
-#: "wgmma128" (prefill and the verify)
+#: wrappers their head_dim-128 kernel's as "tma128" (decode and the fused
+#: append-and-decode) and "wgmma128" (prefill and the verify). The fused
+#: append-and-decode counts its fused launches only: its "simt" stays 0
+#: (on that route the stand-alone append and paged_decode_attention
+#: launch and count)
 ROUTED = {flash_attention: "wgmma", flash_attention_bwd_dkv: "wgmma",
           flash_attention_bwd_dq: "wgmma", lora_matmul: "wgmma",
           paged_decode_attention: PAGED_ROUTES["decode"],
+          paged_decode_append_attention: PAGED_ROUTES["decode"],
           paged_prefill_attention: PAGED_ROUTES["prefill"],
           paged_verify_attention: PAGED_ROUTES["prefill"],
           mlstm_chunked: "wgmma", flash_attention_bwd_preprocess: "vec",
@@ -1436,6 +1552,7 @@ def reset_launch_counts() -> None:
     for fn in TC128_ROUTED:
         fn.routes["wgmma128"] = 0
     for fn, kind in ((paged_decode_attention, "decode"),
+                     (paged_decode_append_attention, "decode"),
                      (paged_prefill_attention, "prefill"),
                      (paged_verify_attention, "prefill")):
         for route in PAGED_HOPPER[kind]:
@@ -1452,6 +1569,6 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     """{wrapper: {Hopper route: n, "simt": n}} of the routed wrappers
     (and "tf32x3": n and "wgmma128": n for the flash forward, dK/dV and
-    dQ, "tma128": n for paged decode, "wgmma128": n for paged prefill and
-    the verify)."""
+    dQ, "tma128": n for paged decode and the fused append-and-decode,
+    "wgmma128": n for paged prefill and the verify)."""
     return {fn.__name__: dict(fn.routes) for fn in ROUTED}

@@ -261,6 +261,26 @@ def quantize_kv_append_ref(k_pool, v_pool, k_scale, v_scale, k_rows, v_rows,
     v_scale[..., row, :, :] = vs
 
 
+def paged_decode_append_attention_ref(q, k_rows, v_rows, k_pages, v_pages,
+                                      block_tables, ctx_lens, phys, off, *,
+                                      scale: Optional[float] = None,
+                                      k_scales=None, v_scales=None):
+    """A decode step's layer as separate operations: row b of k_rows/
+    v_rows [Hkv, B, D] into slot (phys[b], off[b]) of the pools, in place
+    (:func:`quantize_kv_append_ref` for int8 pools, else a cast copy),
+    then :func:`paged_decode_attention_ref` over ctx_lens + 1 keys."""
+    if k_scales is not None:
+        quantize_kv_append_ref(k_pages, v_pages, k_scales, v_scales, k_rows,
+                               v_rows, phys, off)
+    else:
+        p, o = phys.long(), off.long()
+        k_pages[:, p, o] = k_rows.to(k_pages.dtype)
+        v_pages[:, p, o] = v_rows.to(v_pages.dtype)
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                      ctx_lens + 1, scale=scale,
+                                      k_scales=k_scales, v_scales=v_scales)
+
+
 def dequantize_int8_ref(q, scale, *, dtype=torch.float32):
     """Inverse of :func:`quantize_int8_ref`: ``q * scale`` — one float32
     multiply by the scale tensor (never by a Python scalar, which torch

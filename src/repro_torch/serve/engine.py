@@ -14,9 +14,11 @@ serving tier runs against the block pools of
     kernel (:func:`repro_torch.kernels.ops.paged_prefill_attention`);
   * **decode** runs one token per lane for all ``slots`` lanes — each
     layer appends the token's K/V into its physical block and attends
-    with the paged decode kernel
-    (:func:`repro_torch.kernels.ops.paged_decode_attention`). Dead lanes
-    point at the null block with ctx 0 and cost nothing in the kernel;
+    over it in one call
+    (:func:`repro_torch.kernels.ops.paged_decode_append_attention`: on
+    the TMA-fed routes one launch of the paged decode kernel, which
+    writes the rows itself). Dead lanes point at the null block with ctx
+    0 and cost nothing in the kernel;
   * **verify** scores a speculative draft window of k + 1 tokens per lane
     in one target forward: each layer appends the windows' K/V and
     attends with ONE launch of the batched verify kernel
@@ -130,9 +132,10 @@ class PagedEngine:
                                 _to_device(table_row, self.device))
 
     # ---- shared layer body -------------------------------------------
-    def _layer(self, lp, lpools, x, rot, phys, off, attend):
-        """One block: qkv + rope, K/V append into the pools, paged
-        attention through ``attend(q, lpools)``, wo, FFN."""
+    def _layer(self, lp, lpools, x, rot, attend):
+        """One block: qkv + rope, the K/V append into the pools and paged
+        attention through ``attend(q, k_rows, v_rows, lpools)``, wo,
+        FFN."""
         cfg = self.cfg
         h = B.rms_norm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = B.qkv(lp["attn"], h, cfg, rot)
@@ -140,8 +143,7 @@ class PagedEngine:
         n_kv = cfg.num_kv_heads
         k_rows = k.transpose(0, 1).reshape(n_kv, -1, cfg.hd)
         v_rows = v.transpose(0, 1).reshape(n_kv, -1, cfg.hd)
-        KC.append_token(lpools, self.spec, k_rows, v_rows, phys, off)
-        o = attend(q, lpools)
+        o = attend(q, k_rows, v_rows, lpools)
         x = x + (o @ lp["attn"]["wo"]).to(x.dtype)
         hh = B.rms_norm(lp["ln2"], x, cfg.norm_eps)
         return x + B.mlp(lp["ffn"], hh)
@@ -175,7 +177,8 @@ class PagedEngine:
         off = (pos % spec.block_size).long()
         rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
-        def attend(q, lp):
+        def attend(q, k_rows, v_rows, lp):
+            KC.append_token(lp, spec, k_rows, v_rows, phys, off)
             o = kops.paged_prefill_attention(
                 q[0], lp["k"], lp["v"], table, q_offset,
                 q_offset + chunk_len, scale=hd ** -0.5,
@@ -183,7 +186,7 @@ class PagedEngine:
             return o.transpose(0, 1).reshape(1, c, nq * hd)   # [1, C, Hq*D]
 
         for lp, lpools in zip(*self._layer_views(params, pools)):
-            x = self._layer(lp, lpools, x, rot, phys, off, attend)
+            x = self._layer(lp, lpools, x, rot, attend)
         h = B.rms_norm(params["ln_f"], x[:, chunk_len - 1], cfg.norm_eps)
         return lm.logits_of(params, cfg, h), pools
 
@@ -217,17 +220,17 @@ class PagedEngine:
             max=tables.shape[1] - 1)[:, None]
         phys = tables.gather(1, blk)[:, 0].long()          # [slots]
         off = (ctx_lens % spec.block_size).long()
-        seen = ctx_lens + 1
         rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
-        def attend(q, lp):
-            o = kops.paged_decode_attention(
-                q[:, :, 0], lp["k"], lp["v"], tables, seen, scale=hd ** -0.5,
+        def attend(q, k_rows, v_rows, lp):
+            o = kops.paged_decode_append_attention(
+                q[:, :, 0], k_rows, v_rows, lp["k"], lp["v"], tables,
+                ctx_lens, phys, off, scale=hd ** -0.5,
                 k_scales=lp.get("k_scale"), v_scales=lp.get("v_scale"))
             return o.reshape(slots, 1, nq * hd)
 
         for lp, lpools in zip(*self._layer_views(params, pools)):
-            x = self._layer(lp, lpools, x, rot, phys, off, attend)
+            x = self._layer(lp, lpools, x, rot, attend)
         x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return lm.logits_of(params, cfg, x)[:, 0], pools
 
@@ -268,7 +271,8 @@ class PagedEngine:
         phys, off = phys.long(), off.long()                # [slots * C]
         rot = B.rope_tables(positions, cfg.hd, cfg.rope_theta)
 
-        def attend(q, lp):
+        def attend(q, k_rows, v_rows, lp):
+            KC.append_token(lp, spec, k_rows, v_rows, phys, off)
             o = kops.paged_verify_attention(
                 q, lp["k"], lp["v"], tables, ctx_lens, chunk_lens,
                 scale=hd ** -0.5, k_scales=lp.get("k_scale"),
@@ -276,7 +280,7 @@ class PagedEngine:
             return o.transpose(1, 2).reshape(slots, c, nq * hd)
 
         for lp, lpools in zip(*self._layer_views(params, pools)):
-            x = self._layer(lp, lpools, x, rot, phys, off, attend)
+            x = self._layer(lp, lpools, x, rot, attend)
         x = B.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return lm.logits_of(params, cfg, x), pools
 

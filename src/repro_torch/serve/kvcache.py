@@ -19,7 +19,10 @@ Two cache modes share the layout:
     is deterministic round-to-nearest: a cache entry must read back
     identically every step. Each append (K and V of every row, codes and
     scales) is one launch of the fused kernel
-    :func:`repro_torch.kernels.ops.quantize_kv_append`.
+    :func:`repro_torch.kernels.ops.quantize_kv_append`, except a decode
+    step's on the TMA-fed routes: there the decode kernel writes the rows
+    itself, bitwise the same
+    (:func:`repro_torch.kernels.ops.paged_decode_append_attention`).
 
 Host-side allocation (:class:`BlockAllocator`, :class:`PrefixCache`) is
 plain Python, copied from the reference. Unlike the reference's pure

@@ -23,6 +23,8 @@ wgmma128) as on the SIMT one,
 and float32 at head_dim 64 on the 3xTF32 route (tf32x3) at the float32
 limits, whose route counts each test checks; the quantizer, the dequantizer and
 the fused int8 K/V append bitwise (the append outside the null block);
+the decode kernels' fused append-and-decode bitwise the separate append
+and decode, in pools and output;
 the flash backward and the wgmma mLSTM bitwise equal across runs (no
 atomics); the mLSTM kernels' (wgmma and SIMT) float32 h within 5e-5 of
 its largest magnitude (den = |n.q| can cancel and magnify the order of
@@ -1371,6 +1373,119 @@ def test_kv_append_kernel_bitwise(dev, dtype, mode):
                 a, b_ = a[live], b_[live]
                 bits = torch.uint8 if a.dtype == torch.int8 else torch.int32
                 assert torch.equal(a.view(bits), b_.view(bits))
+
+
+# --------------------------------------- the decode step's fused append
+#: (Hq, Hkv, head_dim) of the serving decodes that fuse the append:
+#: flad-adllm's 16/8 at 64 (route tma), the dense configs' 40/8, 56/8 and
+#: 64/8 at 128 (route tma128)
+APPEND_HEADS = [(16, 8, 64), (40, 8, 128), (56, 8, 128), (64, 8, 128)]
+
+
+def _append_case(rng, dev, kv_dtype, hkv, d, bs, ctx_list):
+    """Tables with room for each lane's appended key (a dead lane's table
+    all null, its slot (null, 0)), pools with a NaN-poisoned null block,
+    every live lane's target slot holding a sentinel (int8: codes 127,
+    scale 1e3; bf16: 1e4) so that a stale read of it cannot pass."""
+    need = [-(-(c + 1) // bs) if c else 0 for c in ctx_list]
+    nb = 2 + sum(need)
+    tables = np.zeros((len(ctx_list), max(need) + 1), np.int32)
+    perm, i = rng.permutation(np.arange(1, nb)), 0
+    for lane, n in enumerate(need):
+        tables[lane, :n] = perm[i:i + n]
+        i += n
+    ctx = np.asarray(ctx_list, np.int32)
+    lanes = np.arange(len(ctx_list))
+    phys = np.where(ctx > 0, tables[lanes, ctx // bs], 0)
+    off = np.where(ctx > 0, ctx % bs, 0)
+    shape = (hkv, nb, bs, d)
+    live = ctx > 0
+    if kv_dtype == torch.int8:
+        k = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        v = torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+        ks = torch.tensor(rng.uniform(1e-3, 2e-2, shape[:3] + (1,)),
+                          dtype=torch.float32)
+        vs = torch.tensor(rng.uniform(1e-3, 2e-2, shape[:3] + (1,)),
+                          dtype=torch.float32)
+        ks[:, 0] = vs[:, 0] = float("nan")
+        for t, sentinel in ((k, 127), (v, 127), (ks, 1e3), (vs, 1e3)):
+            t[:, phys[live], off[live]] = sentinel
+        pools = [k, v, ks, vs]
+    else:
+        k = torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16)
+        v = torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16)
+        k[:, 0] = v[:, 0] = float("nan")
+        for t in (k, v):
+            t[:, phys[live], off[live]] = 1e4
+        pools = [k, v, None, None]
+    return (torch.tensor(tables, device=dev),
+            torch.tensor(ctx, device=dev),
+            torch.tensor(phys, device=dev), torch.tensor(off, device=dev),
+            [None if t is None else t.to(dev) for t in pools])
+
+
+@pytest.mark.parametrize("ctx_max", [300, 4096])
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("heads", APPEND_HEADS,
+                         ids=[f"{h}/{k}-d{d}" for h, k, d in APPEND_HEADS])
+def test_decode_append_fused_matches_the_separate_pair(dev, heads, kv,
+                                                       ctx_max):
+    """``ops.paged_decode_append_attention`` (one launch of the TMA-fed
+    decode kernel's fused entry point) against the separate pair on the
+    same inputs (``ops.quantize_kv_append`` or two scatters, then
+    ``ops.paged_decode_attention`` over ctx + 1 keys): pools and output
+    bitwise, every target slot first holding a sentinel; 8 lanes with a
+    dead one, at the serving shape (to ctx 300, one split) and at 4096
+    keys (lanes ending on and past split boundaries, several splits);
+    rows as the engine hands them over (a transposed view); one fused
+    launch and no stand-alone append."""
+    hq, hkv, d = heads
+    bs = 16
+    rng = np.random.default_rng(hq + d + ctx_max)
+    if ctx_max == 300:
+        ctx_list = [0, 1, 15, 16, 47, 100, 256, 299]
+    else:
+        per = ops.paged_splits(4096 + bs, 8 * hkv)[1]
+        ctx_list = [0, 1, 16, 4095, per - 1, per, 2 * per - 1, 4000]
+    tables, ctx, phys, off, pools = _append_case(
+        rng, dev, KV[kv], hkv, d, bs, ctx_list)
+    b = len(ctx_list)
+    q = torch.tensor(rng.standard_normal((b, hq, d)), dtype=torch.bfloat16,
+                     device=dev)
+    rows = [torch.tensor(rng.standard_normal((b, hkv, d)) * 3,
+                         dtype=torch.bfloat16, device=dev).transpose(0, 1)
+            for _ in range(2)]
+    rows[0][2, 5] = 0.0                      # an all-zero row
+    route = {64: "tma", 128: "tma128"}[d]
+    assert ops.decode_fuses_append(q.dtype, KV[kv], d, bs)
+    fused = [None if t is None else t.clone() for t in pools]
+    pair = [None if t is None else t.clone() for t in pools]
+    counts = ops.launch_counts()
+    routes = ops.route_counts()["paged_decode_append_attention"]
+    got = ops.paged_decode_append_attention(
+        q, *rows, fused[0], fused[1], tables, ctx, phys, off,
+        k_scales=fused[2], v_scales=fused[3])
+    torch.cuda.synchronize()
+    now = ops.launch_counts()
+    assert {n: now[n] - counts[n] for n in now if now[n] != counts[n]} == {
+        "paged_decode_append_attention": 1}
+    assert ops.route_counts()["paged_decode_append_attention"] == {
+        **routes, route: routes[route] + 1}
+    if kv == "int8":
+        ops.quantize_kv_append(*pair, *rows, phys, off)
+    else:
+        pair[0][:, phys, off] = rows[0]
+        pair[1][:, phys, off] = rows[1]
+    want = ops.paged_decode_attention(q, pair[0], pair[1], tables, ctx + 1,
+                                      k_scales=pair[2], v_scales=pair[3])
+    torch.cuda.synchronize()
+    for a, b_ in zip(fused, pair):
+        if a is not None:
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                a.element_size()]
+            assert torch.equal(a.view(bits), b_.view(bits))
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.isfinite(got).all()
 
 
 # ------------------------------------------- the flash backward preprocess

@@ -148,13 +148,19 @@ def test_new_wrappers_never_fall_back():
             q, kv, kv, torch.zeros((1, 3), dtype=torch.int32,
                                    device=m),
             *[torch.zeros(1, dtype=torch.int32, device=m) for _ in "cl"]),
+        lambda: ops.paged_decode_append_attention(
+            torch.zeros((1, 2, 32), device=m),
+            *[torch.zeros((1, 1, 32), device=m) for _ in "kv"],
+            kv, kv, torch.zeros((1, 3), dtype=torch.int32, device=m),
+            torch.zeros(1, dtype=torch.int32, device=m),
+            *[torch.zeros(1, dtype=torch.int64, device=m) for _ in "po"]),
     ]
     before = ops.launch_counts()
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     assert ops.launch_counts() == before
-    assert len(ops.KERNELS) == 13
+    assert len(ops.KERNELS) == 14
 
 
 def test_wrappers_check_their_inputs():
