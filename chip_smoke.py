@@ -80,7 +80,11 @@ In order, it
      head_dim-128 wgmma kernels, timed in turns with the SIMT kernels on
      the same inputs; checked again at 56/8 and 64/8 heads) and at
      Hymba's GQA group of 5 (B 4, Hq 25, Hkv 5, S 512, D 64: the wgmma
-     kernels) beside the plain versions and SDPA;
+     kernels) and at the encoder-decoder's group of 1 (16/16 heads of
+     64: the serving prefill's encoder, B 8, S 512, non-causal, the
+     forward only; the training's encoder and decoder, B 4, S 512,
+     non-causal and causal) beside the plain versions and SDPA with the
+     same mask;
   4. serves flad-adllm at full width and depth (bf16, random weights from
      a seed) through the continuous scheduler with chunked prefill, with
      the model-dtype KV cache and with the int8 cache, checking the
@@ -212,10 +216,20 @@ In order, it
      FHDP step at full width (the pipeline strategy on a (2, 4) mesh,
      each stage's units in the flat model's order; 8 sequences of 256
      tokens, cut from 512 for the script's time limit), its first loss
-     held to the flat Model.loss, every mLSTM launch on wgmma;
+     held to the flat Model.loss, every mLSTM launch on wgmma; serves
+     seamless-m4t-large-v2 at full width and depth (12 + 12 layers,
+     16/16 heads of 64, vocab 256206, 1.28 B bf16 params from a seed)
+     with the legacy scheduler (2 batches of 8 requests of 512 frames
+     and 512 prompt tokens, 32 decode steps: each prefill's encoder 12
+     flash launches on wgmma, non-causal, nothing else), holds a
+     4 x (512 + 512) batch's loss through the flash kernels to plain
+     attention, trains it by the tensor strategy (3 steps, exact flash
+     launches on wgmma) and profiles a step, and runs its FHDP step on a
+     (2, 4) mesh (24 units over 4 stages; 8 sequences of 128 frames and
+     128 tokens), its first loss held to the flat Model.loss;
  10. prints one JSON line describing every ported kernel (with the new
-     shapes' times and launches as its head_dim_128 and hymba_group_5
-     entries, the head_dim-128 forward, dK/dV, dQ and decode kernels
+     shapes' times and launches as its head_dim_128, hymba_group_5 and
+     encdec_g1_* entries, the head_dim-128 forward, dK/dV, dQ and decode kernels
      as lines of their own, and the decode step's fused append-and-decode
      as a line of its own; the decode lines count their kernels' launches
      through both wrappers), the card's name and power limit, and {"ok": true,
@@ -237,6 +251,8 @@ head_dim-128 kernels' checks and the dense part of step 9c, with
 40/8, 56/8 and 64/8 heads, timed at 40/8) and the dense training phase,
 with --hymba
 after the build, the group-5 flash checks and the Hymba part, with
+--encdec after the build, the group-1 flash checks and the
+encoder-decoder part, with
 --xlstm-fhdp after the build and the FHDP part at 512 tokens with a
 profiled step (minutes: its trace holds about 2.9 million kernels);
 none prints a result line. The trace files go to
@@ -5758,14 +5774,57 @@ D128_SERVE_ROUTES = {FUSED: "tma128", "paged_prefill_attention": "wgmma128"}
 #: 80GB HBM3 at a 700 W limit: the reading the dense phase prints its own
 #: beside
 SIMT_DECODE_WARM_TOKS = {"fp32": 12.4, "int8": 10.0}
-#: the flash kernels' shapes that the new paths reach, with each wrapper's
-#: route: head_dim 128 at the dense training shape (qwen3-14b's 40/8
-#: heads; also checked at 56/8 and 64/8, :func:`d128_flash_checks`),
-#: Hymba's GQA group of 5 at its training shape
-FLASH_SHAPES = {"head_dim_128": (DT_B, 40, 8, DT_S, 128, D128_ROUTES),
-                "hymba_group_5": (HY_TRAIN_B, 25, 5, HY_TRAIN_S, 64,
-                                  {**dict.fromkeys(FLASH_FNS, "wgmma"),
-                                   PRE: "vec"})}
+#: each flash wrapper's route at bf16 head_dim 64
+D64_ROUTES = {**dict.fromkeys(FLASH_FNS, "wgmma"), PRE: "vec"}
+#: seamless-m4t-large-v2 at full width and depth: legacy serving
+#: (ED_REQUESTS batches of ED_BATCH requests of ED_CONTEXT frames and
+#: ED_CONTEXT prompt tokens, ED_DECODE decode steps), then
+#: ED_TRAIN_STEPS tensor-strategy steps of ED_TRAIN_B sequences of
+#: ED_TRAIN_S (half frames, half tokens), then the FHDP step on a
+#: ED_MESH mesh at ED_FHDP_B x ED_FHDP_S for ED_FHDP_STEPS steps (24
+#: units over 4 stages; the sequence cut to 256 to keep the script's
+#: time: 8 one-sample microbatches run every unit one at a time)
+ED_BATCH, ED_CONTEXT, ED_DECODE, ED_REQUESTS = 8, 512, 32, 2
+ED_TRAIN_B, ED_TRAIN_S, ED_TRAIN_STEPS = 4, 1024, 3
+ED_MESH, ED_FHDP_B, ED_FHDP_S, ED_FHDP_STEPS = "2,4", 8, 256, 2
+#: the FHDP step's microbatch: ED_FHDP_B over 2 FL columns x 4 microbatches
+ED_FHDP_MB = 1
+#: bf16: the FHDP loss against the flat Model.loss on the same params and
+#: batch (one-sample microbatches against a batch of 8: other GEMM
+#: shapes, other bf16 roundings), as XF_LOSS_RTOL holds the ssm one
+ED_FHDP_RTOL = 5e-4
+#: the flash kernels' shapes that the new paths reach, (B, Hq, Hkv, S, D,
+#: causal, each wrapper's route; the wrappers checked are its keys):
+#: head_dim 128 at the dense training shape (qwen3-14b's 40/8 heads; also
+#: checked at 56/8 and 64/8, :func:`d128_flash_checks`), Hymba's GQA group
+#: of 5 at its training shape, the encoder-decoder's group of 1 (16/16
+#: heads): its encoder's prefill in serving (non-causal, the forward
+#: only), its training's encoder (non-causal) and decoder (causal), in the
+#: tensor strategy and in the FHDP step's microbatches
+FLASH_SHAPES = {
+    "head_dim_128": (DT_B, 40, 8, DT_S, 128, True, D128_ROUTES),
+    "hymba_group_5": (HY_TRAIN_B, 25, 5, HY_TRAIN_S, 64, True, D64_ROUTES),
+    "encdec_g1_serve": (ED_BATCH, 16, 16, ED_CONTEXT, 64, False,
+                        {"flash_attention": "wgmma"}),
+    "encdec_g1_full": (ED_TRAIN_B, 16, 16, ED_TRAIN_S // 2, 64, False,
+                       D64_ROUTES),
+    "encdec_g1_causal": (ED_TRAIN_B, 16, 16, ED_TRAIN_S // 2, 64, True,
+                         D64_ROUTES),
+    "encdec_g1_fhdp_full": (ED_FHDP_MB, 16, 16, ED_FHDP_S // 2, 64, False,
+                            D64_ROUTES),
+    "encdec_g1_fhdp_causal": (ED_FHDP_MB, 16, 16, ED_FHDP_S // 2, 64, True,
+                              D64_ROUTES)}
+#: the main path whose launches each FLASH_SHAPES row reports, and the
+#: mask they are counted under (None: all of the path's launches)
+FLASH_SHAPE_PATHS = {"head_dim_128": ("dense_train", None),
+                     "hymba_group_5": ("hymba_train", None),
+                     "encdec_g1_serve": ("encdec_serve", None),
+                     "encdec_g1_full": ("encdec_train", "non-causal"),
+                     "encdec_g1_causal": ("encdec_train", "causal"),
+                     "encdec_g1_fhdp_full": ("encdec_fhdp", "non-causal"),
+                     "encdec_g1_fhdp_causal": ("encdec_fhdp", "causal")}
+ENCDEC_SHAPES = ("encdec_g1_serve", "encdec_g1_full", "encdec_g1_causal",
+                 "encdec_g1_fhdp_full", "encdec_g1_fhdp_causal")
 
 
 def d128_paged_checks(torch, dev):
@@ -6042,21 +6101,26 @@ def d128_flash_checks(torch, dev):
 
 
 def flash_shape_checks(torch, dev, label, heads=None, timed=True):
-    """The flash forward, preprocess, dK/dV and dQ at one of
-    :data:`FLASH_SHAPES` (bf16, causal; ``heads`` = (Hq, Hkv) in place of
-    the shape's): each against its plain version (bf16 outputs within a
-    bf16 ulp of the largest magnitude, lse and delta within 1e-5 of
+    """The flash wrappers of one of :data:`FLASH_SHAPES` (bf16, with the
+    shape's mask: the forward, and unless the shape checks the forward
+    only, the preprocess, dK/dV and dQ; ``heads`` = (Hq, Hkv) in place
+    of the shape's): each against its plain version (bf16 outputs within
+    a bf16 ulp of the largest magnitude, lse and delta within 1e-5 of
     theirs), the backward bitwise repeatable, each launch on the shape's
     route for its wrapper; with ``timed``, timed with a cold L2 beside the
-    plain version and one PyTorch call (SDPA's forward; SDPA's whole
-    backward for dK/dV and dQ; for the preprocess one torch.bmm with a
-    float32 output, as :func:`preprocess_checks` times it), a kernel on
-    the wgmma128 route in turns with the SIMT kernel on the same inputs.
-    Returns {wrapper: row}."""
+    plain version and one PyTorch call with the same ``is_causal``
+    (SDPA's forward; SDPA's whole backward for dK/dV and dQ; for the
+    preprocess one torch.bmm with a float32 output, as
+    :func:`preprocess_checks` times it), a kernel on the wgmma128 route in
+    turns with the SIMT kernel on the same inputs. Returns {wrapper:
+    row}."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
-    b, hq, hkv, s, d, routes = FLASH_SHAPES[label]
+    b, hq, hkv, s, d, causal, routes = FLASH_SHAPES[label]
     hq, hkv = heads or (hq, hkv)
+    fns = tuple(fn for fn in FLASH_FNS if fn in routes)
+    bwd = len(fns) > 1
+    mask = "causal" if causal else "non-causal"
     g = torch.Generator(device=dev).manual_seed(17)
 
     def rand(*shape):
@@ -6066,34 +6130,43 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
         rand(b, hq, s, d)
     sc = d ** -0.5
     before = ops.route_counts()
-    o, lse = ops.flash_attention(q, k, v, return_lse=True)
-    delta = ops.flash_attention_bwd_preprocess(o, do)
-    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, causal=causal)
+    if bwd:
+        delta = ops.flash_attention_bwd_preprocess(o, do)
+        dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             causal=causal)
+        dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                        causal=causal)
     grew = {fn: {r: n - before[fn][r] for r, n in c.items()}
             for fn, c in ops.route_counts().items() if fn in FLASH_FNS}
     for fn in FLASH_FNS:
         want = dict.fromkeys(grew[fn], 0)
-        want[routes[fn]] = 1
+        if fn in fns:
+            want[routes[fn]] = 1
         check(grew[fn] == want, f"flash {label} Hq{hq} Hkv{hkv} {fn}: "
               f"launches by route {grew[fn]} != {want}")
-    again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                       causal=causal)
+    cases = [("o", "flash_attention", o, ro),
+             ("lse", "flash_attention", lse, rlse)]
+    if bwd:
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))),
+              f"flash {label} Hq{hq} Hkv{hkv}: two backward runs differ")
+        del again
+        rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
+        rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   scale=sc, causal=causal)
+        rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                             scale=sc, causal=causal)
+        cases += [("delta", PRE, delta, rdelta),
+                  ("dk", "flash_attention_bwd_dkv", dk, rdk),
+                  ("dv", "flash_attention_bwd_dkv", dv, rdv),
+                  ("dq", "flash_attention_bwd_dq", dq, rdq)]
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b_) for a, b_ in zip(again, (dq, dk, dv))),
-          f"flash {label} Hq{hq} Hkv{hkv}: two backward runs differ")
-    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True)
-    rdelta = ref.flash_attention_bwd_preprocess_ref(o, do)
-    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                               scale=sc)
-    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale=sc)
     errs = {}
-    for lab, fn, got, want in (
-            ("o", "flash_attention", o, ro),
-            ("lse", "flash_attention", lse, rlse),
-            ("delta", PRE, delta, rdelta),
-            ("dk", "flash_attention_bwd_dkv", dk, rdk),
-            ("dv", "flash_attention_bwd_dkv", dv, rdv),
-            ("dq", "flash_attention_bwd_dq", dq, rdq)):
+    for lab, fn, got, want in cases:
         check(bool(torch.isfinite(got).all()), f"flash {label} {lab}: "
               "non-finite")
         err = _err(got, want)
@@ -6103,55 +6176,63 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
         check(err <= tol, f"flash {label} Hq{hq} Hkv{hkv} {lab}: max err "
               f"{err:.3e} > {tol:.3e}")
         errs[fn] = max(errs.get(fn, 0.0), err)
-    print(f"[kernel] flash {label} Hq{hq} Hkv{hkv}: routes "
-          + ", ".join(f"{fn} {routes[fn]}" for fn in FLASH_FNS)
+    print(f"[kernel] flash {label} Hq{hq} Hkv{hkv} {mask}: routes "
+          + ", ".join(f"{fn} {routes[fn]}" for fn in fns)
           + "; max|err| " + ", ".join(f"{fn} {e:.3e}"
                                       for fn, e in errs.items())
-          + "; backward bitwise repeatable")
-    del ro, rlse, rdelta, rdk, rdv, rdq, again
-    rows = {fn: dict(max_abs_err=errs[fn], route=routes[fn])
-            for fn in FLASH_FNS}
+          + ("; backward bitwise repeatable" if bwd else ""))
+    del cases
+    rows = {fn: dict(max_abs_err=errs[fn], route=routes[fn]) for fn in fns}
+    if not bwd:
+        delta = dk = dv = dq = None
     if not timed:
         del q, k, v, do, o, lse, delta, dk, dv, dq
         torch.cuda.empty_cache()
         return rows
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                         enable_gqa=True)
     lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), None, iters=20)
+        q, k, v, is_causal=causal, enable_gqa=True), None, iters=20)
     lib_bwd = device_ms(lambda: torch.autograd.grad(
-        lo, (ql, kl, vl), do, retain_graph=True), None, iters=20)
+        lo, (ql, kl, vl), do, retain_graph=True), None, iters=20) \
+        if bwd else None
+    lib_pre = device_ms(lambda: _bmm_delta(torch, o, do), None, iters=20) \
+        if PRE in fns else None
     nq, nkv, stat = b * hq * s * d, b * hkv * s * d, b * hq * s
-    pairs = b * hq * _pairs(s, s)
-    card = dict(scale=sc, causal=True, window=None, q_offset=0)
+    pairs = b * hq * _pairs(s, s, causal=causal)
+    card = dict(scale=sc, causal=causal, window=None, q_offset=0)
     runs = {
         "flash_attention": (
-            lambda: ops.flash_attention(q, k, v, return_lse=True),
-            lambda: ref.flash_attention_ref(q, k, v, return_lse=True),
+            lambda: ops.flash_attention(q, k, v, return_lse=True,
+                                        causal=causal),
+            lambda: ref.flash_attention_ref(q, k, v, return_lse=True,
+                                            causal=causal),
             lib_fwd, ((2 * nq + 2 * nkv) * 2 + 4 * stat, 4 * d * pairs),
             lambda: ops._flash_fwd_card(q, k, v, return_lse=True,
                                         route="simt", **card)),
         PRE: (
             lambda: ops.flash_attention_bwd_preprocess(o, do),
             lambda: ref.flash_attention_bwd_preprocess_ref(o, do),
-            device_ms(lambda: _bmm_delta(torch, o, do), None, iters=20),
-            (2 * nq * 2 + 4 * stat, 2 * nq), None),
+            lib_pre, (2 * nq * 2 + 4 * stat, 2 * nq), None),
         "flash_attention_bwd_dkv": (
-            lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal=causal),
             lambda: ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                                    scale=sc),
+                                                    scale=sc, causal=causal),
             lib_bwd, ((2 * nq + 4 * nkv) * 2 + 8 * stat, 8 * d * pairs),
             lambda: ops._flash_dkv_card(q, k, v, do, lse, delta,
                                         route="simt", **card)),
         "flash_attention_bwd_dq": (
-            lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               causal=causal),
             lambda: ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
-                                                   scale=sc),
+                                                   scale=sc, causal=causal),
             lib_bwd, ((3 * nq + 2 * nkv) * 2 + 8 * stat, 6 * d * pairs),
             lambda: ops._flash_dq_card(q, k, v, do, lse, delta,
                                        route="simt", **card))}
-    for fn, (kfn, pfn, lib, work, simt_fn) in runs.items():
+    for fn in fns:
+        kfn, pfn, lib, work, simt_fn = runs[fn]
         route = routes[fn]
         match = PRE_NAMES["vec"] if fn == PRE else flash_kernel(fn, route)
         simt_ms = None
@@ -6163,7 +6244,7 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
         plain = device_ms(pfn, None, iters=20)
         b_ms, b_by = bound(*work, BF16_FLOPS_PER_S)
         rows[fn].update(
-            shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 causal",
+            shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16 {mask}",
             kernel=match, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib, simt_ms=simt_ms,
             f32_cuda_core_bound_ms=bound(work[0], work[1],
@@ -6177,7 +6258,7 @@ def flash_shape_checks(torch, dev, label, heads=None, timed=True):
               f"{'n/a' if lib is None else round(lib, 5)} ms; bound "
               f"{b_ms:.5f} ms ({b_by}; on the CUDA cores in float32 "
               f"{rows[fn]['f32_cuda_core_bound_ms']:.5f} ms)")
-    del q, k, v, do, o, lse, delta, dk, dv, dq, ql, kl, vl, lo
+    del q, k, v, do, o, lse, delta, dk, dv, dq, ql, kl, vl, lo, runs
     torch.cuda.empty_cache()
     return rows
 
@@ -6742,6 +6823,291 @@ def hymba_main_path(torch, dev):
             {"hymba_train": {fn: routes[fn] for fn in FLASH_FNS}}, summary)
 
 
+def _tally_by_mask(ops):
+    """Counts the flash launches by mask until the returned undo: each
+    card launch of the forward, dK/dV and dQ under its ``causal``, and the
+    preprocess under the mask of the backward that runs it. Returns
+    ({"non-causal" | "causal": {wrapper: launches}}, undo)."""
+    tally = {m: dict.fromkeys(FLASH_FNS, 0) for m in ("non-causal", "causal")}
+    saved = {}
+
+    def counted(attr, fn):
+        orig = saved[attr] = getattr(ops, attr)
+
+        def run(*args, **kw):
+            out = orig(*args, **kw)
+            tally["causal" if kw["causal"] else "non-causal"][fn] += 1
+            return out
+        setattr(ops, attr, run)
+
+    for attr, fn in (("_flash_fwd_card", "flash_attention"),
+                     ("_flash_dkv_card", "flash_attention_bwd_dkv"),
+                     ("_flash_dq_card", "flash_attention_bwd_dq"),
+                     ("flash_attention_bwd", PRE)):
+        counted(attr, fn)
+
+    def undo():
+        for attr, orig in saved.items():
+            setattr(ops, attr, orig)
+    return tally, undo
+
+
+def _check_by_mask(tally, counts, per_unit, label):
+    """``tally`` (:func:`_tally_by_mask`) against the path's ``counts``
+    and the units of each mask (``per_unit``: {mask: units}; each unit one
+    checkpointed attention: its forward twice, each backward kernel
+    once)."""
+    for mask, units in per_unit.items():
+        want = {fn: (2 if fn == "flash_attention" else 1) * units
+                for fn in FLASH_FNS}
+        check(tally[mask] == want, f"{label} {mask} launches {tally[mask]} "
+              f"!= {want}")
+    check(all(sum(t[fn] for t in tally.values()) == counts[fn]
+              for fn in FLASH_FNS), f"{label}: launches by mask {tally} do "
+          f"not add up to {counts}")
+
+
+def encdec_main_path(torch, dev):
+    """seamless-m4t-large-v2 at full width and depth (12 + 12 layers,
+    16/16 heads of 64, vocab 256206, bf16, random weights from a seed):
+    (a) legacy serving through Session.serve (each prefill's encoder on
+    the flash forward, non-causal, ``enc_layers`` launches; the decoder
+    and cross-attention plain over the contiguous cache: no other
+    launch); (b) one batch's loss through the flash kernels against plain
+    attention (HY_LOSS_RTOL); (c) ED_TRAIN_STEPS tensor-strategy steps:
+    the exact flash launches (remat: every layer's forward twice, the
+    preprocess, dK/dV and dQ once), all on wgmma (the preprocess on
+    vec), finite losses, moved weights, a warm step profiled (wall,
+    device busy, idle share, the top operations); (d) the FHDP step on a
+    ED_MESH mesh: its first loss against the flat Model.loss on the
+    merged params (ED_FHDP_RTOL), the exact flash launches (each kept
+    microbatch's 24 units, each checkpointed), finite losses, moved
+    stacks. In (c) and (d) the launches are also counted by mask: the
+    encoder's non-causal, the decoder's causal (summary
+    ``launches_by_mask``). Returns (launches, routes, summary)."""
+    from repro_torch.api import Session
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import concrete_batch
+    from repro_torch.core import pipeline as pl
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_model
+    cfg = get_config("seamless-m4t-large-v2")
+    L = cfg.enc_layers + cfg.dec_layers
+    t0 = time.perf_counter()
+    params = encdec.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[encdec] {cfg.name}: {cfg.enc_layers} + {cfg.dec_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params in "
+          f"{cfg.param_dtype} ({time.perf_counter() - t0:.1f} s to init)")
+    # (a) legacy serving
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = Session(cfg=cfg, device=dev).serve(
+        scheduler="legacy", batch=ED_BATCH, context=ED_CONTEXT,
+        decode_steps=ED_DECODE, requests=ED_REQUESTS, params=params,
+        log_fn=None)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts = ops.launch_counts()
+    want = dict.fromkeys(serve_counts, 0)
+    want["flash_attention"] = cfg.enc_layers * ED_REQUESTS
+    check(serve_counts == want, f"encdec legacy serving launches "
+          f"{serve_counts} != {want}")
+    serve_routes = check_routes(ops, serve_counts, "encdec serving",
+                                ("flash_attention",))
+    check(bool(torch.isfinite(rep["last_logits"]).all()),
+          "encdec serving: non-finite logits")
+    for seqs in rep["sequences"]:
+        check(tuple(seqs.shape) == (ED_BATCH, ED_DECODE + 1)
+              and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size,
+              "encdec serving: bad token ids")
+    print(f"[encdec] legacy serving, {ED_REQUESTS} batches of {ED_BATCH} "
+          f"requests of {ED_CONTEXT} frames + {ED_CONTEXT} prompt tokens, "
+          f"{ED_DECODE} decode steps: {rep['total_tokens']} tokens in "
+          f"{serve_wall:.1f} s, warm {rep['warm_tokens_per_s']:.1f} tok/s; "
+          f"launches {({k: v for k, v in serve_counts.items() if v})} (the "
+          f"encoder's {cfg.enc_layers} layers a prefill, non-causal, on "
+          f"wgmma; the decoder and cross-attention plain)")
+    # (b) one batch's loss through the kernels and through plain attention
+    shape = ShapeConfig("encdec", ED_TRAIN_S, ED_TRAIN_B, "train")
+    batch = concrete_batch(cfg, shape,
+                           torch.Generator(device=dev).manual_seed(43))
+    model = build_model(cfg)
+    with torch.no_grad():
+        loss_k = float(model.loss(params, batch)[0])
+        saved = ops.flash_attention_ad
+        ops.flash_attention_ad = _plain_flash_ad(ref)
+        try:
+            loss_p = float(model.loss(params, batch)[0])
+        finally:
+            ops.flash_attention_ad = saved
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[encdec] bf16 loss of a {ED_TRAIN_B} x ({ED_TRAIN_S // 2} frames "
+          f"+ {ED_TRAIN_S // 2} tokens) batch: flash kernels {loss_k:.6f}, "
+          f"plain attention {loss_p:.6f} (rel {rel:.2e}, rtol "
+          f"{HY_LOSS_RTOL})")
+    check(np.isfinite(loss_k) and rel <= HY_LOSS_RTOL,
+          f"encdec loss through the kernels {loss_k} vs plain {loss_p}")
+    del params, model
+    torch.cuda.empty_cache()
+    # (c) training: the tensor strategy
+    torch.cuda.reset_peak_memory_stats()
+    ses = Session(cfg=cfg, strategy="tensor",
+                  shape=f"{ED_TRAIN_S}x{ED_TRAIN_B}", device=dev)
+    step, (p, o) = ses.build()
+    w0 = {"enc": p["enc_blocks"]["attn"]["wq"].clone(),
+          "xattn": p["dec_blocks"]["xattn"]["wk"].clone()}
+    ops.reset_launch_counts()
+    tally, undo = _tally_by_mask(ops)
+    t0 = time.perf_counter()
+    losses = []
+    try:
+        for _ in range(ED_TRAIN_STEPS):
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n = ED_TRAIN_STEPS
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": 2 * L * n, PRE: L * n,
+                 "flash_attention_bwd_dkv": L * n,
+                 "flash_attention_bwd_dq": L * n})
+    check(counts == want, f"encdec training launches {counts} != {want}")
+    _check_by_mask(tally, counts, {"non-causal": cfg.enc_layers * n,
+                                   "causal": cfg.dec_layers * n},
+                   "encdec training")
+    by_mask = {"encdec_train": tally}
+    routes = check_routes(ops, counts, "encdec training",
+                          ("flash_attention", "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_dq", PRE))
+    check(all(np.isfinite(losses)), f"encdec training losses {losses}")
+    moved = {k: float((p[a][b_][c].float() - w.float()).abs().max())
+             for (k, w), (a, b_, c) in zip(
+                 w0.items(), (("enc_blocks", "attn", "wq"),
+                              ("dec_blocks", "xattn", "wk")))}
+    check(all(v > 0 for v in moved.values()),
+          f"encdec training: weights did not move {moved}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = [p, o]
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    swall, rows, busy = _profile_rows(torch, one)
+    idle = max(0.0, 1 - busy / swall)
+    flash = sum(r[0] for r in rows if "flash" in r[2])
+    print(f"[encdec-train] tensor strategy, {n} steps of {ED_TRAIN_B} x "
+          f"({ED_TRAIN_S // 2} frames + {ED_TRAIN_S // 2} tokens): losses "
+          + ", ".join(f"{x_:.4f}" for x_ in losses)
+          + f"; wall {wall:.2f} s incl. the first step; peak {peak:.2f} GiB;"
+          f" launches {({k: v for k, v in counts.items() if v})}, all on "
+          f"wgmma (16/16 heads; the encoder's non-causal, the decoder's "
+          f"causal), the preprocess on vec")
+    print(f"[profile] bf16 encdec train step, {ED_TRAIN_B} x {ED_TRAIN_S} "
+          f"tokens: wall {swall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"{100 * idle:.1f}%), {sum(r[1] for r in rows)} device ops; "
+          f"flash kernels {flash:.2f} ms")
+    for t, k_, name in rows[:10]:
+        print(f"[profile]   {t:.4f} ms/step in {k_:5d} x {name}")
+    summary = dict(params=n_params, serve_wall_s=serve_wall,
+                   serve_warm_tokens_per_s=rep["warm_tokens_per_s"],
+                   serve_tokens=rep["total_tokens"], loss_kernels=loss_k,
+                   loss_plain=loss_p, losses=losses, train_wall_s=wall,
+                   peak_gib=peak, step_wall_ms=swall, step_busy_ms=busy,
+                   step_idle=idle, flash_ms=flash, top=rows[:10])
+    del state, p, o, ses, step, w0, rep
+    torch.cuda.empty_cache()
+    # (d) the FHDP step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ses = Session(cfg=cfg, strategy="pipeline", mesh=ED_MESH,
+                  shape=f"{ED_FHDP_S}x{ED_FHDP_B}", device=dev)
+    fstep, (pp, opt) = ses.build()
+    tmpl, h = ses.strategy.templates, ses.strategy.helpers
+    check(h["mb"] == ED_FHDP_MB, f"encdec FHDP microbatch {h['mb']} != "
+          f"{ED_FHDP_MB}, the shape its flash rows are checked at")
+    print(f"[encdec-fhdp] pipeline on mesh {ED_MESH}: templates {tmpl}, "
+          f"stage plan {pl.stage_plan(cfg, tmpl)} "
+          f"({time.perf_counter() - t0:.1f} s to build)")
+    fbatch = concrete_batch(cfg, ses.shape,
+                            torch.Generator(device=dev).manual_seed(47))
+    with torch.no_grad():
+        flat = float(build_model(cfg).loss(pl.merge_stage_params(pp, tmpl),
+                                           fbatch)[0])
+    w0 = {k: pp["stacks"][k]["attn"]["wq"].clone() for k in ("enc", "dec")}
+    ops.reset_launch_counts()
+    tally, undo = _tally_by_mask(ops)
+    flosses, walls = [], []
+    try:
+        for _ in range(ED_FHDP_STEPS):
+            t0 = time.perf_counter()
+            pp, opt, m = fstep(pp, opt, fbatch)
+            flosses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        undo()
+    fcounts = ops.launch_counts()
+    # each kept microbatch (one a stage here) runs every unit, each
+    # checkpointed: its forward twice
+    stages = int(ED_MESH.split(",")[-1])
+    chains = h["columns"] * min(h["microbatches"], stages)
+    units = ED_FHDP_STEPS * chains * L
+    want = dict.fromkeys(fcounts, 0)
+    want.update({"flash_attention": 2 * units, PRE: units,
+                 "flash_attention_bwd_dkv": units,
+                 "flash_attention_bwd_dq": units})
+    check(fcounts == want, f"encdec FHDP launches {fcounts} != {want}")
+    per = ED_FHDP_STEPS * chains
+    _check_by_mask(tally, fcounts, {"non-causal": cfg.enc_layers * per,
+                                    "causal": cfg.dec_layers * per},
+                   "encdec FHDP")
+    by_mask["encdec_fhdp"] = tally
+    froutes = check_routes(ops, fcounts, "encdec FHDP",
+                           ("flash_attention", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq", PRE))
+    frel = abs(flosses[0] - flat) / abs(flat)
+    check(all(np.isfinite(flosses)), f"encdec FHDP losses {flosses}")
+    check(frel <= ED_FHDP_RTOL, f"encdec FHDP loss {flosses[0]} vs the flat "
+          f"model's {flat} (rel {frel:.2e})")
+    fmoved = {k: float((pp["stacks"][k]["attn"]["wq"].float()
+                        - w.float()).abs().max()) for k, w in w0.items()}
+    check(all(v > 0 for v in fmoved.values()),
+          f"encdec FHDP: stacks did not move {fmoved}")
+    fpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[encdec-fhdp] {ED_FHDP_STEPS} steps of {ED_FHDP_B} x "
+          f"({ED_FHDP_S // 2} frames + {ED_FHDP_S // 2} tokens), "
+          f"{h['columns']} FL columns x {h['microbatches']} microbatches of "
+          f"{h['mb']}: losses " + ", ".join(f"{x:.6f}" for x in flosses)
+          + f", the flat Model.loss {flat:.6f} (rel {frel:.2e}, rtol "
+          f"{ED_FHDP_RTOL}); step walls " + ", ".join(f"{w:.1f}"
+                                                      for w in walls)
+          + f" s; peak {fpeak:.2f} GiB; launches "
+          f"{ {k: v for k, v in fcounts.items() if v} }, all on wgmma")
+    summary.update(fhdp_losses=flosses, fhdp_flat_loss=flat, fhdp_rel=frel,
+                   fhdp_step_walls_s=walls, fhdp_peak_gib=fpeak,
+                   fhdp_templates={k: list(v) for k, v in tmpl.items()},
+                   fhdp_seq=ED_FHDP_S, launches_by_mask=by_mask)
+    del pp, opt, ses, fstep, w0
+    torch.cuda.empty_cache()
+    pick = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq", PRE)
+    return ({"encdec_serve": serve_counts, "encdec_train": counts,
+             "encdec_fhdp": fcounts},
+            {"encdec_serve": {"flash_attention":
+                              serve_routes["flash_attention"]},
+             "encdec_train": {fn: routes[fn] for fn in pick},
+             "encdec_fhdp": {fn: froutes[fn] for fn in pick}}, summary)
+
+
 def _stack_after_stack_loss(params, cfg, batch):
     """The mean loss of the reference adapter's order on the flat
     ``params``: every super-block's mLSTM unit, then every sLSTM unit
@@ -6947,6 +7313,17 @@ def main():
         print("chip_smoke --hymba: the group-5 flash kernels and the Hymba "
               "phase only; no result line")
         return 0
+    if "--encdec" in sys.argv[1:]:
+        rows = {label: flash_shape_checks(torch, dev, label)
+                for label in ENCDEC_SHAPES}
+        launches, routes, summary = encdec_main_path(torch, dev)
+        phase("encdec")
+        print(json.dumps({"kernels": rows, "launches": launches,
+                          "by_route": routes, "encdec": summary},
+                         default=str))
+        print("chip_smoke --encdec: the group-1 flash kernels and the "
+              "encoder-decoder phase only; no result line")
+        return 0
     if "--xlstm-fhdp" in sys.argv[1:]:
         launches, routes, summary = xlstm_fhdp_main_path(
             torch, dev, seq=XF_S, profile_step=True)
@@ -7043,8 +7420,8 @@ def main():
         kernels[name]["head_dim_128"] = extra
     kernels[FUSED] = decode_append_checks(torch, dev)
     for label, rows in (("head_dim_128", d128_flash_checks(torch, dev)),
-                        ("hymba_group_5", flash_shape_checks(
-                            torch, dev, "hymba_group_5"))):
+                        *((lab, flash_shape_checks(torch, dev, lab))
+                          for lab in ("hymba_group_5",) + ENCDEC_SHAPES)):
         for name, extra in rows.items():
             kernels[name][label] = extra
     phase("kernel checks")
@@ -7157,11 +7534,13 @@ def main():
     xt_profile = profile_xlstm_step(torch, xcfg, dev)
     phase("xLSTM training")
 
-    # 9c. the dense configs at head_dim 128, Hymba, the ssm FHDP step
+    # 9c. the dense configs at head_dim 128, Hymba, the ssm FHDP step, the
+    # encoder-decoder
     new_launches, new_routes, new_summary = {}, {}, {}
     for label, path in (("dense", dense_main_path),
                         ("hymba", hymba_main_path),
-                        ("xlstm_fhdp", xlstm_fhdp_main_path)):
+                        ("xlstm_fhdp", xlstm_fhdp_main_path),
+                        ("encdec", encdec_main_path)):
         counts, routes, new_summary[label] = path(torch, dev)
         new_launches.update(counts)
         new_routes.update(routes)
@@ -7198,13 +7577,17 @@ def main():
                    **{p: with_fused(name, c)
                       for p, c in new_launches.items()}}
         check(sum(by_path.values()) > 0, f"{name} was never launched")
-        for label, path in (("head_dim_128", "dense_serve"
-                             if name in PAGED_LIBS else "dense_train"),
-                            ("hymba_group_5", "hymba_train")):
+        for label, (path, mask) in (
+                ("head_dim_128", ("dense_serve" if name in PAGED_LIBS
+                                  else "dense_train", None)),
+                *((lab, FLASH_SHAPE_PATHS[lab])
+                  for lab in ("hymba_group_5",) + ENCDEC_SHAPES)):
             if label in k:
-                k[label]["launches"] = with_fused(name, new_launches[path])
+                counts = (new_launches[path] if mask is None else
+                          new_summary["encdec"]["launches_by_mask"][path][mask])
+                k[label]["launches"] = with_fused(name, counts)
                 check(k[label]["launches"] > 0, f"{name} at {label}: never "
-                      f"launched on {path}")
+                      f"launched on {path}" + (f" {mask}" if mask else ""))
         if k["ms"] < k["bound_ms"]:
             print(f"[kernels] {name}: {k['ms']:.5f} ms is below its bound "
                   f"{k['bound_ms']:.5f} ms: some input came from the L2")
@@ -7264,6 +7647,7 @@ def main():
             extra["async_phase"] = async_summary
             extra["dense_phase"] = new_summary["dense"]
             extra["hymba_phase"] = new_summary["hymba"]
+            extra["encdec_phase"] = new_summary["encdec"]
         if name == "mlstm_chunked_bwd":
             extra["xlstm_fhdp_phase"] = new_summary["xlstm_fhdp"]
         if name == "quantize_int8":

@@ -2,8 +2,10 @@
 ``repro/api/serving.py``): the legacy scheduler behind
 ``Session.serve(scheduler="legacy")``.
 
-Each request batch draws ``batch`` prompts of ``context`` tokens, runs one
-prefill into a fresh decode state and ``decode_steps`` one-token steps.
+Each request batch draws ``batch`` prompts of ``context`` tokens (an
+encoder-decoder also ``context`` standard-normal frames of
+``prefix_dim`` features a prompt, after the tokens), runs one prefill
+into a fresh decode state and ``decode_steps`` one-token steps.
 Throughput is reported two ways: ``tokens_per_s`` spans every request
 batch (the first one pays the kernels' build and first launches), while
 ``warm_tokens_per_s`` is timed from the second batch onward; with a single
@@ -85,8 +87,13 @@ def serve_requests(cfg: ModelConfig, *, batch: int = 8, context: int = 64,
             ctx = torch.randint(0, cfg.vocab_size, (batch, context),
                                 generator=prompt_gen, device=device,
                                 dtype=torch.int32)
+            req = {"tokens": ctx}
+            if cfg.family == "encdec":
+                req["frames"] = torch.randn(
+                    (batch, context, cfg.prefix_dim), generator=prompt_gen,
+                    device=device)
             state = model.init_state(batch, shape.seq_len, device)
-            logits, state = prefill(params, {"tokens": ctx}, state)
+            logits, state = prefill(params, req, state)
             tok = sample(logits[:, -1:], sample_gen)
             out = [tok]
             for i in range(decode_steps):

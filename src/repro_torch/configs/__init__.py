@@ -9,7 +9,8 @@ from repro_torch.configs.common import reduced  # noqa: F401
 
 #: architectures ported so far (the reference registers twelve)
 ARCH_IDS = ["qwen2_5_32b", "qwen3_32b", "xlstm_350m", "yi_34b",
-            "hymba_1_5b", "qwen3_14b", "flad_vision", "flad_adllm"]
+            "hymba_1_5b", "qwen3_14b", "flad_vision", "flad_adllm",
+            "seamless_m4t_large_v2"]
 
 
 def _canon(name: str) -> str:

@@ -1,6 +1,6 @@
 """Shared config helpers (port of ``repro.configs.common``): the reduced
 smoke variant, the effective attention window, and the input specs and
-random batches of the dense, ssm, hybrid and vision families."""
+random batches of the dense, ssm, hybrid, encdec and vision families."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,15 +11,21 @@ import torch
 from repro_torch.config import LONG_CONTEXT_WINDOW, ModelConfig, ShapeConfig
 
 #: the families whose configs, input specs and batches the port covers
-FAMILIES = ("dense", "ssm", "hybrid", "vision")
+FAMILIES = ("dense", "ssm", "hybrid", "encdec", "vision")
+
+#: frames of encoder memory during enc-dec decode (the cross K/V of a
+#: decode state made without a prefill)
+ENC_MEMORY_DECODE = 4096
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model 128, tiny
     vocab, float32 — the same shrink the reference applies (an xLSTM
     keeps 4 KV heads and puts an sLSTM block every 2 layers; Hymba's
-    Mamba state shrinks to 8; the vision encoder takes 32-wide features
-    and keeps its waypoints, light classes and 128 tokens a modality).
+    Mamba state shrinks to 8; an encoder-decoder keeps one encoder and
+    one decoder layer, 4 KV heads and 64-wide frames; the vision encoder
+    takes 32-wide features and keeps its waypoints, light classes and
+    128 tokens a modality).
     Fields it does not name (the QKV bias, the qk-norm, rope_theta) keep
     the config's values, as the reference's ``cfg.replace`` does."""
     _check_family(cfg)
@@ -31,6 +37,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(cfg.ssm, slstm_every=2)
     if cfg.family == "hybrid":
         kw["ssm"] = dataclasses.replace(cfg.ssm, state_size=8)
+    if cfg.family == "encdec":
+        kw["enc_layers"] = 1
+        kw["dec_layers"] = 1
+        kw["num_kv_heads"] = 4
+        kw["prefix_dim"] = 64
     if cfg.family == "vision":
         kw["prefix_dim"] = 32
         kw["num_waypoints"] = cfg.num_waypoints
@@ -56,9 +67,11 @@ def effective_window(cfg: ModelConfig, shape: ShapeConfig):
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Batch leaves as {name: (shape, dtype)} for train/prefill steps of
-    the dense, ssm and hybrid families (decode: one token per row) and
-    the vision encoder (rgb and lidar features, waypoint and light labels;
-    ``seq_len`` does not apply)."""
+    the dense, ssm and hybrid families (decode: one token per row), the
+    encoder-decoder (``seq_len / 2`` float32 frames of ``prefix_dim``
+    features and ``seq_len / 2`` tokens and labels; decode: one token)
+    and the vision encoder (rgb and lidar features, waypoint and light
+    labels; ``seq_len`` does not apply)."""
     _check_family(cfg)
     b, s = shape.global_batch, shape.seq_len
     if cfg.family == "vision":
@@ -67,6 +80,11 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 "lidar": ((b, p, cfg.prefix_dim), torch.float32),
                 "waypoints": ((b, cfg.num_waypoints, 2), torch.float32),
                 "light": ((b,), torch.int32)}
+    if cfg.family == "encdec" and not shape.is_decode:
+        half = s // 2
+        return {"frames": ((b, half, cfg.prefix_dim), torch.float32),
+                "tokens": ((b, half), torch.int32),
+                "labels": ((b, half), torch.int32)}
     if shape.is_decode:
         return {"tokens": ((b, 1), torch.int32)}
     return {"tokens": ((b, s), torch.int32), "labels": ((b, s), torch.int32)}

@@ -59,6 +59,16 @@ and applies each stage's units in that order (:func:`stage_plan`), so
 the FHDP step trains the network the flat model serves. With one
 super-block both orders agree.
 
+**The carried activation.** Between stages the step carries what the
+family's ``embed`` makes: one tensor [b, s, d] for the decoder, xLSTM,
+Hymba and vision families; for the encoder-decoder a dict of the encoder
+stream ``enc`` and the decoder stream ``dec`` (the reference's dict,
+without its zero ``mem`` and ``enc_done`` flag: the first decoder unit
+freezes ``enc_ln(enc)`` as ``mem`` and drops ``enc``, and later units
+find ``mem`` in the dict). The rows of a microbatch and the ranks' cat
+act on every leaf; each stream takes its own positions and rope tables;
+a block gets the shared params too.
+
 Stage container (:func:`stage_params_from`): ``{"shared": params outside
 the stacks, "stacks": {name: [S, Lmax, ...]}, "masks": {name: [S,
 Lmax]}}``. With local steps (``fed_sgd=False``) the columns' params
@@ -136,9 +146,11 @@ class FamilyAdapter:
     stack_order: Tuple[str, ...]
     split: Callable      # params -> (shared, {name: [L, ...]})
     counts: Callable     # cfg -> {name: L}
-    embed: Callable      # (shared, batch, cfg) -> activation [b, s, d]
-    block: Callable      # (stack, layer_params, x, cfg, window, pos, rot) -> x
-    loss: Callable       # (shared, x, batch_mb, cfg) -> (loss_sum, n, metrics)
+    #: (shared, batch, cfg) -> activation: [b, s, d], or a dict of them
+    embed: Callable
+    #: (stack, layer_params, act, cfg, window, pos, rot, shared) -> act
+    block: Callable
+    loss: Callable       # (shared, act, batch_mb, cfg) -> (loss_sum, n, metrics)
     #: cfg -> the stack of every unit in the flat model's order (None:
     #: the stacks one after another, in ``stack_order``)
     unit_order: Optional[Callable] = None
@@ -161,7 +173,7 @@ def _lm_split(params):
 
 
 # The reference's activations carry the MoE auxiliary loss beside x; it is
-# zero for the families ported here, so the port carries x alone.
+# zero for the families ported here, so the port leaves it out.
 def _tok_embed(shared, batch, cfg):
     return B.embed(shared["embed"], batch["tokens"])
 
@@ -175,8 +187,15 @@ def _head_ce_loss(shared, x, batch, cfg):
     return loss * n, n, metrics
 
 
+def _seq_positions(x, cfg):
+    """Positions 0 .. s - 1 of an activation [b, s, d] and their rope
+    tables."""
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return pos, B.rope_tables(pos, cfg.hd, cfg.rope_theta)
+
+
 # ---- decoder LM (dense) ----
-def _lm_block(stack, lp, x, cfg, window, pos, rot):
+def _lm_block(stack, lp, x, cfg, window, pos, rot, shared=None):
     from repro_torch.models.lm import apply_block
     out, _ = apply_block(lp, x, cfg, positions=pos, rot=rot, window=window,
                          positions_contiguous=True)
@@ -189,7 +208,7 @@ def _xlstm_split(params):
             {"mlstm": params["mlstm"], "slstm": params["slstm"]})
 
 
-def _xlstm_block(stack, lp, x, cfg, window, pos, rot):
+def _xlstm_block(stack, lp, x, cfg, window, pos, rot, shared=None):
     """One unit as :func:`repro_torch.models.xlstm.forward` trains it,
     each layer checkpointed (one layer's saved chunk states alive at a
     time, not a unit's)."""
@@ -200,11 +219,47 @@ def _xlstm_block(stack, lp, x, cfg, window, pos, rot):
 
 
 # ---- Hymba hybrid ----
-def _hymba_block(stack, lp, x, cfg, window, pos, rot):
+def _hymba_block(stack, lp, x, cfg, window, pos, rot, shared=None):
     from repro_torch.models.hymba import apply_block
     out, _, _ = apply_block(lp, x, cfg, positions=pos, rot=rot,
                             window=window, positions_contiguous=True)
     return out
+
+
+# ---- encoder-decoder: enc stack then dec stack, memory frozen in-band ----
+def _encdec_split(params):
+    return ({k: v for k, v in params.items()
+             if k not in ("enc_blocks", "dec_blocks")},
+            {"enc": params["enc_blocks"], "dec": params["dec_blocks"]})
+
+
+def _encdec_embed(shared, batch, cfg):
+    return {"enc": B.linear(shared["frontend"],
+                            batch["frames"].to(cfg.dtype)),
+            "dec": B.embed(shared["embed"], batch["tokens"])}
+
+
+def _encdec_block(stack, lp, act, cfg, window, pos, rot, shared=None):
+    """An encoder unit updates ``enc``; the first decoder unit freezes
+    ``enc_ln(enc)`` as the memory ``mem`` (the flat model's
+    :func:`repro_torch.models.encdec.encode` output) and every decoder
+    unit attends over its own layer's cross K/V of it."""
+    from repro_torch.models import encdec
+    if stack == "enc":
+        return dict(act, enc=encdec.enc_block(lp, act["enc"], cfg,
+                                              pos["enc"], rot["enc"],
+                                              window))
+    mem = act.get("mem")
+    if mem is None:
+        mem = B.rms_norm(shared["enc_ln"], act["enc"], cfg.norm_eps)
+    ck, cv = encdec.cross_kv_of(lp["xattn"], mem, cfg)
+    dec = encdec.dec_block(lp, act["dec"], ck, cv, cfg, pos["dec"],
+                           rot["dec"], window=window, contiguous=True)
+    return {"dec": dec, "mem": mem}
+
+
+def _encdec_loss(shared, act, batch, cfg):
+    return _head_ce_loss(shared, act["dec"], batch, cfg)
 
 
 # ---- the paper's vision encoder ----
@@ -213,7 +268,7 @@ def _vision_embed(shared, batch, cfg):
     return embed(shared, cfg, batch)
 
 
-def _vision_block(stack, lp, x, cfg, window, pos, rot):
+def _vision_block(stack, lp, x, cfg, window, pos, rot, shared=None):
     from repro_torch.models.vision_encoder import enc_block
     return enc_block(lp, x, cfg, pos, rot)
 
@@ -227,8 +282,7 @@ def _vision_loss(shared, x, batch, cfg):
 
 
 #: families of the reference whose pipeline adapters later slices bring
-_LATER_FAMILIES = {"encdec": "the encoder-decoder family (A7)",
-                   "moe": "the moe family (A7)", "vlm": "the vlm config (A7)"}
+_LATER_FAMILIES = {"moe": "the moe family (A7)", "vlm": "the vlm config (A7)"}
 
 
 def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
@@ -253,6 +307,11 @@ def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
         return FamilyAdapter(("blocks",), _lm_split,
                              lambda c: {"blocks": c.num_layers},
                              _tok_embed, _hymba_block, _head_ce_loss)
+    if fam == "encdec":
+        return FamilyAdapter(("enc", "dec"), _encdec_split,
+                             lambda c: {"enc": c.enc_layers,
+                                        "dec": c.dec_layers},
+                             _encdec_embed, _encdec_block, _encdec_loss)
     if fam == "vision":
         return FamilyAdapter(("blocks",), _lm_split,
                              lambda c: {"blocks": c.num_layers},
@@ -260,8 +319,8 @@ def get_adapter(cfg: ModelConfig) -> FamilyAdapter:
     if fam in _LATER_FAMILIES:
         raise NotImplementedError(
             f"the FHDP pipeline of the {fam} family comes with "
-            f"{_LATER_FAMILIES[fam]}; ported: dense, ssm, hybrid and "
-            f"vision")
+            f"{_LATER_FAMILIES[fam]}; ported: dense, ssm, hybrid, encdec "
+            f"and vision")
     raise ValueError(fam)
 
 
@@ -342,6 +401,10 @@ def stage_params_from(params, cfg: ModelConfig,
             "stacks": out_stacks, "masks": masks}
 
 
+#: the flat params' name of each stack
+_STACK_TO_PARAM = {"enc": "enc_blocks", "dec": "dec_blocks"}
+
+
 def merge_stage_params(pp, templates: Dict[str, Sequence[int]]):
     """Inverse of :func:`stage_params_from` (bitwise)."""
     merged = dict(pp["shared"])
@@ -353,7 +416,7 @@ def merge_stage_params(pp, templates: Dict[str, Sequence[int]]):
                 return torch.cat([x[s, :n] for s, n in enumerate(tmpl)
                                   if n])
 
-        merged[name] = tree_map(unstack, st)
+        merged[_STACK_TO_PARAM.get(name, name)] = tree_map(unstack, st)
     return merged
 
 
@@ -517,9 +580,10 @@ def make_fhdp_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             lp = layers[name][s][i]      # padded slots: never planned
             if wrap and torch.is_grad_enabled():
                 x = checkpoint(adapter.block, name, lp, x, cfg, window,
-                               pos, rot, use_reentrant=False)
+                               pos, rot, shared, use_reentrant=False)
             else:
-                x = adapter.block(name, lp, x, cfg, window, pos, rot)
+                x = adapter.block(name, lp, x, cfg, window, pos, rot,
+                                  shared)
         return x
 
     def column_loss(shared, layers, batch):
@@ -527,15 +591,18 @@ def make_fhdp_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         through every stage (the GPipe schedule's work, bubbles skipped)."""
         # every rank embeds its own share of the column batch; only the
         # embeddings reach the pipeline head (the all_gather: a cat)
-        act_all = torch.cat([
-            adapter.embed(shared, _rows(batch, min(r * share, B_col - share),
-                                        share), cfg) for r in range(S)])
-        seq = act_all.shape[1]
-        pos = torch.arange(seq, dtype=torch.int32, device=act_all.device)
-        rot = B.rope_tables(pos, cfg.hd, cfg.rope_theta)
+        embeds = [adapter.embed(shared, _rows(
+            batch, min(r * share, B_col - share), share), cfg)
+            for r in range(S)]
+        act_all = tree_map(lambda *xs: torch.cat(xs), *embeds)
+        if isinstance(act_all, dict):    # each stream its own positions
+            pr = {k: _seq_positions(t, cfg) for k, t in act_all.items()}
+            pos, rot = ({k: v[i] for k, v in pr.items()} for i in (0, 1))
+        else:
+            pos, rot = _seq_positions(act_all, cfg)
         loss, cnt = 0.0, 0.0
         for m in range(K):
-            x = act_all[m * mb:(m + 1) * mb]
+            x = tree_map(lambda t: t[m * mb:(m + 1) * mb], act_all)
             for s in range(S):           # the stage ring's ppermute
                 x = stage_fwd(s, layers, shared, x, pos, rot)
             lsum, n, _ = adapter.loss(shared, x, _rows(batch, m * mb, mb),

@@ -22,11 +22,15 @@ and ``--trace PATH`` writes the final warm pass's sim-time trace
       --scheduler continuous --slots 8 --block-size 16 --cache int8
   python -m repro_torch.launch.serve --arch hymba-1.5b --full \\
       --batch 8 --context 512 --decode-steps 32
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --full --batch 8 --context 512 --decode-steps 32
 
 ``--arch`` takes every registered config (``repro_torch.configs
 .ARCH_IDS``); the continuous scheduler serves the dense ones (flad-adllm,
 qwen2.5-32b, qwen3-14b, qwen3-32b, yi-34b), the legacy one every decoder
-(xlstm-350m and hymba-1.5b too).
+(xlstm-350m and hymba-1.5b too) and the encoder-decoder
+(seamless-m4t-large-v2: each request ``--context`` frames beside its
+``--context`` prompt tokens).
 """
 import argparse
 

@@ -39,13 +39,17 @@ set the engine's merge clock, mobility and compute jitter.
       --strategy pipeline --mesh 2,4 --steps 2 --shape 512x8
   python -m repro_torch.launch.train --arch hymba-1.5b --full \\
       --strategy tensor --steps 3 --shape 512x4
+  python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \\
+      --full --strategy pipeline --mesh 2,4 --steps 2 --shape 256x8
 
 ``--arch`` takes every registered config (``repro_torch.configs
-.ARCH_IDS``): flad-vision, flad-adllm, xlstm-350m, hymba-1.5b and the
-dense qwen2.5-32b, qwen3-14b, qwen3-32b and yi-34b. xlstm-350m and
-hymba-1.5b train with every strategy but ``distill_fl``, which needs a
-dense AD-LLM config; the FHDP strategies run an xLSTM's units in the
-flat model's order (``repro_torch.core.pipeline``).
+.ARCH_IDS``): flad-vision, flad-adllm, xlstm-350m, hymba-1.5b,
+seamless-m4t-large-v2 and the dense qwen2.5-32b, qwen3-14b, qwen3-32b
+and yi-34b. xlstm-350m, hymba-1.5b and seamless-m4t-large-v2 train
+with every strategy but ``distill_fl``, which needs a dense AD-LLM
+config; the FHDP strategies run an xLSTM's units in the flat model's
+order, and an encoder-decoder's encoder units before its decoder units
+(``repro_torch.core.pipeline``).
 """
 import argparse
 

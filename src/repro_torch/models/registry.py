@@ -1,5 +1,5 @@
 """Uniform model interface (port of ``repro/models/registry.py``, dense,
-ssm, hybrid and vision families): ``build_model(cfg)`` returns a :class:`Model`
+ssm, hybrid, encdec and vision families): ``build_model(cfg)`` returns a :class:`Model`
 whose members are plain functions, as the reference's.
 
 The dense ``loss`` is the reference's ``_build_lm`` loss — the decoder's
@@ -14,7 +14,13 @@ one-token steps. The hybrid family is Hymba
 (:mod:`repro_torch.models.hymba`): the same chunked cross-entropy, its
 attention on the flash kernels in training and on plain attention over
 the contiguous cache in ``prefill``/``decode_step``, its Mamba heads
-plain PyTorch. The vision family is FLAD's vision
+plain PyTorch. The encdec family is the encoder-decoder
+(:mod:`repro_torch.models.encdec`): its ``loss`` encodes the frames
+(the flash kernels without a causal mask), makes the cross K/V and runs
+the decoder (the flash kernels, causal) into the same chunked
+cross-entropy; ``prefill`` encodes, replaces the state's cross K/V and
+fills the decoder's contiguous cache, ``decode_step`` attends over both
+with plain attention, as the reference. The vision family is FLAD's vision
 encoder (:mod:`repro_torch.models.vision_encoder`): its ``loss`` trains
 it; it has no decode path, and ``prefill``/``decode_step`` raise, as the
 reference's.
@@ -27,7 +33,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import hymba, lm, vision_encoder, xlstm
+from repro_torch.models import encdec, hymba, lm, vision_encoder, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +145,51 @@ def _build_hymba(cfg: ModelConfig) -> Model:
     return Model(cfg, init, loss, init_state, prefill, decode_step)
 
 
+# ------------------------------------------------------------- encdec ----
+def _build_encdec(cfg: ModelConfig) -> Model:
+    def init(seed: int = 0, device="cuda"):
+        return encdec.init(cfg, seed=seed, device=device)
+
+    def loss(params, batch, *, remat=True, window=None):
+        memory = encdec.encode(params, cfg, batch["frames"], window=window,
+                               remat=remat)
+        cross = encdec.make_cross_kv(params, cfg, memory)
+        x, _ = encdec.decode(params, cfg, batch["tokens"], cross,
+                             window=window, hidden_only=True, remat=remat)
+        return _hidden_ce(params, x, batch["labels"],
+                          torch.zeros((), dtype=torch.float32,
+                                      device=x.device))
+
+    def init_state(batch: int, cache_len: int, device="cuda"):
+        # cross_kv is replaced by prefill; its zeros (one buffer for K and
+        # V, as the reference's) let a decode without a prefill run
+        from repro_torch.configs.common import ENC_MEMORY_DECODE
+        ck = torch.zeros((cfg.dec_layers, batch, cfg.num_kv_heads,
+                          ENC_MEMORY_DECODE, cfg.hd), dtype=cfg.dtype,
+                         device=device)
+        return {"caches": encdec.init_cache(cfg, batch, cache_len, device),
+                "cross_kv": (ck, ck)}
+
+    def prefill(params, batch, state, *, window=None):
+        memory = encdec.encode(params, cfg, batch["frames"], window=window)
+        cross = encdec.make_cross_kv(params, cfg, memory)
+        logits, caches = encdec.decode(params, cfg, batch["tokens"], cross,
+                                       caches=state["caches"], window=window,
+                                       logits_slice=1)
+        return logits, {"caches": caches, "cross_kv": cross}
+
+    def decode_step(params, tokens, state, pos, *, window=None):
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=tokens.device)
+        logits, caches = encdec.decode(params, cfg, tokens,
+                                       state["cross_kv"],
+                                       positions=positions,
+                                       caches=state["caches"], window=window)
+        return logits, {"caches": caches, "cross_kv": state["cross_kv"]}
+
+    return Model(cfg, init, loss, init_state, prefill, decode_step)
+
+
 # ------------------------------------------------------------- vision ----
 def _build_vision(cfg: ModelConfig) -> Model:
     def init(seed: int = 0, device="cuda"):
@@ -155,17 +206,20 @@ def _build_vision(cfg: ModelConfig) -> Model:
 
 
 FAMILIES = {"dense": _build_lm, "ssm": _build_xlstm,
-            "hybrid": _build_hymba, "vision": _build_vision}
+            "hybrid": _build_hymba, "encdec": _build_encdec,
+            "vision": _build_vision}
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
-    """The parameter tree of a dense, ssm or hybrid config on the ``meta``
-    device (shapes and dtypes only), as the reference's
+    """The parameter tree of a dense, ssm, hybrid or encdec config on the
+    ``meta`` device (shapes and dtypes only), as the reference's
     ``_abstract_init``."""
     if cfg.family == "ssm":
         return xlstm.abstract_params(cfg)
     if cfg.family == "hybrid":
         return hymba.abstract_params(cfg)
+    if cfg.family == "encdec":
+        return encdec.abstract_params(cfg)
     return lm.abstract_params(cfg)
 
 

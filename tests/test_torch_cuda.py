@@ -554,6 +554,79 @@ def test_flash_tensor_core_route_at_tile_edges(dev, case):
         _flash_close(label, got, want, torch.bfloat16)
 
 
+#: the encoder-decoder's flash layout (seamless-m4t-large-v2: a GQA
+#: group of 1, 16/16 heads of 64): B 4 at its training length and a
+#: ragged frame count, without and with a causal mask
+ENCDEC_S = [512, 500]
+
+
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["non-causal", "causal"])
+@pytest.mark.parametrize("s", ENCDEC_S)
+def test_flash_group_1_matches_plain(dev, s, causal):
+    """bf16 at the group of 1: the forward, preprocess, dK/dV and dQ on
+    their routes (wgmma; the preprocess on vec), within the bf16 limits
+    of the plain versions, the backward bitwise repeatable."""
+    q, k, v, do = _flash(dev, torch.bfloat16, s, s, seed=21, b=4, hq=16,
+                         hkv=16)
+    kw = {"causal": causal}
+    before = ops.route_counts()
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = ops.flash_attention_bwd_preprocess(o, do)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name, route, n in (("flash_attention", "wgmma", 1),
+                           ("flash_attention_bwd_preprocess", "vec", 2),
+                           ("flash_attention_bwd_dkv", "wgmma", 2),
+                           ("flash_attention_bwd_dq", "wgmma", 2)):
+        assert after[name] == {**before[name],
+                               route: before[name][route] + n}, name
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+    sc = 64 ** -0.5
+    ro, rlse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    rdk, rdv = ref.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale=sc, **kw)
+    rdq = ref.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale=sc,
+                                         **kw)
+    for label, got, want in (
+            ("o", o, ro), ("lse", lse, rlse),
+            ("delta", delta, ref.flash_attention_bwd_preprocess_ref(o, do)),
+            ("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq)):
+        _flash_close(label, got, want, torch.bfloat16)
+
+
+def test_encdec_serving_launches_the_flash_forward_only(dev):
+    """An encoder-decoder (bf16, 2 + 2 layers, 4/4 heads of 64) served by
+    the legacy scheduler: each prefill's encoder one flash forward a
+    layer on wgmma, non-causal; the decoder's self- and cross-attention
+    plain over the contiguous cache, so no other kernel launches; finite
+    logits and token ids within the vocabulary."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config("seamless-m4t-large-v2")).replace(
+        enc_layers=2, dec_layers=2, num_layers=4, num_heads=4,
+        num_kv_heads=4, head_dim=64, d_model=256, param_dtype="bfloat16")
+    ops.reset_launch_counts()
+    rep = Session(cfg=cfg, device=dev, seed=5).serve(
+        scheduler="legacy", batch=2, context=64, decode_steps=4,
+        requests=2, log_fn=None)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = cfg.enc_layers * 2
+    assert counts == want
+    routes = ops.route_counts()["flash_attention"]
+    assert routes == {**dict.fromkeys(routes, 0),
+                      "wgmma": want["flash_attention"]}
+    assert torch.isfinite(rep["last_logits"]).all()
+    for seqs in rep["sequences"]:
+        assert seqs.shape == (2, 5)
+        assert 0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size
+
+
 @pytest.mark.parametrize("d", [32, 128])
 def test_flash_bf16_at_other_head_dims_takes_the_simt_route(dev, d):
     """bf16 away from head_dim 64: at 32 the forward, dK/dV and dQ launch

@@ -92,8 +92,9 @@ def test_training_entry_points_default_to_the_card():
     from repro_torch.api import Session
     from repro_torch.comm.codecs import GeneratorBits
     from repro_torch.launch.train import build_parser
-    from repro_torch.models import lm
-    for fn in (Session.__init__, lm.init, GeneratorBits.__init__):
+    from repro_torch.models import encdec, lm
+    for fn in (Session.__init__, lm.init, GeneratorBits.__init__,
+               encdec.init, encdec.init_cache):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
     args = build_parser().parse_args([])

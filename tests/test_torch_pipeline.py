@@ -266,8 +266,8 @@ def test_template_from_sequence_refuses_a_bad_cover(seq):
 
 
 def test_other_families_raise_by_name():
-    cfg = reduced(get_config("flad-adllm")).replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    cfg = reduced(get_config("flad-adllm")).replace(family="moe")
+    with pytest.raises(NotImplementedError, match="moe family"):
         pl.get_adapter(cfg)
 
 
